@@ -1,0 +1,81 @@
+"""Protocol/kernel-wide integer constants.
+
+Mirrors the semantics of the reference's sentinel sequence numbers
+(``packages/dds/merge-tree/src/constants.ts``) in int32-friendly form: the
+kernel stores every per-segment stamp as int32, so the reference's
+``Number.MAX_SAFE_INTEGER`` normalization constants become large int32 values.
+"""
+
+# Sentinel sequence numbers (reference constants.ts).
+UNASSIGNED_SEQ = -1  # local, un-acked op (UnassignedSequenceNumber)
+TREE_MAINT_SEQ = -2  # internal maintenance ops (TreeMaintenanceSequenceNumber)
+UNIVERSAL_SEQ = 0  # baseline/loaded segments visible to everyone
+
+# "Not removed" sentinel for the removedSeq lane (reference uses undefined).
+# Must compare greater than any real sequence number and any refSeq.
+RSEQ_NONE = 2**30
+
+# Tie-break normalization (reference mergeTree.ts breakTie): a new local op
+# normalizes to the highest comparable seq, an existing local segment to the
+# second highest. Real seqs are < RSEQ_NONE, so these dominate.
+NORM_NEW_LOCAL = 2**30 + 2
+NORM_EXISTING_LOCAL = 2**30 + 1
+
+# Segment kinds.
+KIND_FREE = 0  # hole / unused row
+KIND_TEXT = 1  # content-bearing segment
+KIND_MARKER = 2  # zero-length marker (reserved; not yet produced)
+
+# Op types consumed by the merge kernel (ops.merge_kernel).
+OP_NOOP = 0
+OP_INSERT = 1
+OP_REMOVE = 2
+OP_ANNOTATE = 3
+OP_ACK_INSERT = 4
+OP_ACK_REMOVE = 5
+OP_ACK_ANNOTATE = 6
+
+# Op-vector field indices (the kernel consumes int32 op rows of width OP_WIDTH).
+F_TYPE = 0  # one of OP_*
+F_POS1 = 1  # insert position / remove-annotate range start
+F_POS2 = 2  # remove/annotate range end (exclusive)
+F_SEQ = 3  # server-assigned sequence number (UNASSIGNED_SEQ for local ops)
+F_REF = 4  # referenceSequenceNumber of the issuing client
+F_CLIENT = 5  # per-document client slot (0..MAX_WRITERS-1)
+F_LSEQ = 6  # local sequence number (local ops and acks)
+F_ARG = 7  # insert: content id (orig); annotate: interned value
+F_LEN = 8  # insert length
+F_MSN = 9  # minimum sequence number rider (advances the collab window)
+OP_WIDTH = 10
+
+# Cap on concurrent writers per document: remover sets are stored as
+# THREE int32 bitmask lanes (rbits: slots 0-30, rbits2: 31-61, rbits3:
+# 62-92; 31 usable bits per lane keeps the sign bit out of the
+# arithmetic). The reference stores removedClientIds as a list
+# (mergeTreeNodes.ts) with a 1M-client config cap; 93 *concurrent*
+# writers per document with slot recycling (service/sequencer.py) covers
+# the same sessions over time.
+#
+# SCALING STORY (the formal contract for this ceiling): the cap counts
+# SIMULTANEOUS write connections to ONE document, not sessions — slots
+# recycle on leave (sequencer.py:96-137), writer 94 gets a clean
+# ERR_CLIENT + nack rather than corruption, and read connections are
+# unlimited. Widening is mechanical and O(lanes): each extra int32 lane
+# (rbits4, ...) adds 31 slots at a cost of one [D, S] lane (~4 bytes/row)
+# through segment_state/merge_kernel/pallas_kernel's removed_by_slot and
+# the summary lane lists — the same pattern the rbits2 (r2) and rbits3
+# (r3) widenings followed. Append new lanes at the END of SEGMENT_LANES:
+# every packed index derives from that order. The cap is a per-build
+# constant rather than a runtime knob because lane count fixes compiled
+# kernel shapes; deployments needing more concurrent writers per doc
+# rebuild with more lanes, trading HBM per row.
+MAX_WRITERS = 93
+
+# Error flag bits in SegmentState.err.
+ERR_CAPACITY = 1  # segment table full; op dropped
+ERR_RANGE = 2  # op position/range beyond visible length; clamped/partial
+ERR_CLIENT = 4  # client slot outside the 0..MAX_WRITERS-1 bitmask range
+
+# "No client" perspective used by the server-side kernel: never equal to any
+# real client slot, so the self/local fast path is never taken.
+NO_CLIENT = -3

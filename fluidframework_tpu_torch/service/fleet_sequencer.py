@@ -1,0 +1,100 @@
+"""Struct-of-arrays deli state for whole fleets + the native ticket loop.
+
+Counterpart of ``fluidframework_tpu/service/fleet_sequencer.py``: the deli
+state of every document as flat int32 arrays — one row per document, one
+client table per row — ticketed for the entire fleet per call through
+``native/ticket_loop.cpp``. Anything off the steady-state path (a gap, a
+stale ref, an unknown client) flags the document for replay through a slow
+path that owns nacks. The pure-Python fallback keeps the same contract
+where the native library cannot be built.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+from fluidframework_tpu_torch.protocol.constants import MAX_WRITERS
+from fluidframework_tpu_torch.utils.native import NativeTicketLoop
+
+
+class FleetSequencer:
+    """Deli ticketing for ``n_docs`` documents in one native call."""
+
+    def __init__(self, n_docs: int, max_writers: int = MAX_WRITERS):
+        self.n_docs = n_docs
+        self.max_writers = max_writers
+        # [d]: {seq, min_seq}
+        self.doc_state = np.zeros((n_docs, 2), np.int32)
+        # [d, w]: {active, client_seq, ref_seq}
+        self.clients = np.zeros((n_docs, max_writers, 3), np.int32)
+        self._native = NativeTicketLoop()
+
+    @property
+    def native_available(self) -> bool:
+        return self._native.available
+
+    def join_all(self, slot: int = 0) -> np.ndarray:
+        """Admit writer ``slot`` on every document (the ClientJoin op
+        consumes a sequence number; the client's collab floor is its join).
+        Returns the join seqs [n_docs]."""
+        if not 0 <= slot < self.max_writers:
+            raise ValueError(f"writer slot {slot} out of range")
+        if self.clients[:, slot, 0].any():
+            raise ValueError(f"writer slot {slot} already active")
+        self.doc_state[:, 0] += 1
+        joins = self.doc_state[:, 0].copy()
+        self.clients[:, slot, 0] = 1
+        self.clients[:, slot, 1] = 0
+        self.clients[:, slot, 2] = joins
+        return joins
+
+    def ticket_batch(self, ops: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """ops[int32 n_docs, k, 3] = {client, cseq, ref} per op. Returns
+        (out[n_docs, k, 2] = {seq (0 = duplicate-dropped), msn},
+        err[n_docs] — nonzero docs must replay via the slow path)."""
+        n_docs, k, _ = ops.shape
+        if n_docs != self.n_docs:
+            raise ValueError(f"expected {self.n_docs} docs, got {n_docs}")
+        out = np.zeros((n_docs, k, 2), np.int32)
+        err = np.zeros(n_docs, np.int32)
+        ops = np.ascontiguousarray(ops, np.int32)
+        if self._native.available:
+            self._native.ticket_batch(
+                self.doc_state, self.clients, ops, out, err
+            )
+        else:  # pure-Python fallback, same contract
+            self._python_ticket(ops, out, err)
+        return out, err
+
+    def _python_ticket(self, ops, out, err) -> None:
+        for d in range(self.n_docs):
+            seq, floor = self.doc_state[d]
+            cl = self.clients[d]
+            active = cl[:, 0] != 0
+            msn = int(cl[active, 2].min()) if active.any() else int(seq)
+            msn = max(msn, int(floor))
+            for i in range(ops.shape[1]):
+                client, cseq, ref = (int(x) for x in ops[d, i])
+                if not (0 <= client < self.max_writers) or not cl[client, 0]:
+                    err[d] = 3
+                    break
+                if cseq <= cl[client, 1]:
+                    out[d, i] = (0, msn)
+                    continue
+                if cseq != cl[client, 1] + 1:
+                    err[d] = 1
+                    break
+                if ref < msn:
+                    err[d] = 2
+                    break
+                old_ref = int(cl[client, 2])
+                cl[client, 1] = cseq
+                cl[client, 2] = ref
+                seq += 1
+                if old_ref == msn and ref > msn:
+                    act = cl[:, 0] != 0
+                    msn = int(cl[act, 2].min())
+                out[d, i] = (seq, msn)
+            self.doc_state[d] = (seq, msn)

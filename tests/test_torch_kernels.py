@@ -1,0 +1,261 @@
+"""Parity: the port's plain PyTorch versions of the merge kernels (K1 apply,
+K2 compact, K3 apply+compact) against the JAX reference.
+
+Ground truth is the reference's Pallas kernels in interpret mode
+(``apply_ops_packed``, ``compact_packed``, ``apply_compact_packed``) and the
+XLA ``merge_kernel`` (``batched_apply_ops``, ``batched_compact``). Every
+value is int32 and must match exactly: all 15 lanes, all 8 scalar columns,
+every sticky err bit. The port runs on the CPU, where each wrapper takes its
+plain version.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from fluidframework_tpu.ops import encode as E
+from fluidframework_tpu.ops.merge_kernel import (
+    batched_apply_ops,
+    batched_compact,
+)
+from fluidframework_tpu.ops.pallas_compact import (
+    apply_compact_packed as ref_apply_compact,
+    compact_packed as ref_compact,
+)
+from fluidframework_tpu.ops.pallas_kernel import (
+    apply_ops_packed as ref_apply,
+    pack_state as ref_pack,
+)
+from fluidframework_tpu.ops.segment_state import (
+    make_batched_state as ref_make_batched_state,
+)
+from fluidframework_tpu.protocol.constants import (
+    ERR_CAPACITY,
+    ERR_CLIENT,
+    ERR_RANGE,
+    NO_CLIENT,
+)
+from fluidframework_tpu.testing.fuzz import random_acked_stream
+from fluidframework_tpu.testing.oracle import OracleDoc
+from fluidframework_tpu_torch.ops import apply_kernel as K1
+from fluidframework_tpu_torch.ops import compact_kernel as K2
+from fluidframework_tpu_torch.ops.segment_state import (
+    make_batched_state,
+    materialize,
+)
+
+
+def _broadcast(rows, n_docs):
+    ops = np.stack(rows)
+    return np.broadcast_to(ops, (n_docs,) + ops.shape).astype(np.int32).copy()
+
+
+def _random_docs(seed, n_docs, n_ops, msn_lag=None, advance=False):
+    streams, payloads = [], {}
+    for d in range(n_docs):
+        rng = np.random.default_rng(seed * 100 + d)
+        ops = random_acked_stream(
+            rng, n_ops, payloads, OracleDoc(NO_CLIENT), msn_lag=msn_lag
+        )
+        if advance:
+            # Advance the collab window so acked tombstones are reclaimable.
+            ops.append(E.noop(seq=n_ops + 1, msn=n_ops))
+        streams.append(np.stack(ops))
+    return np.stack(streams).astype(np.int32), payloads
+
+
+# case -> (batch [D, K, OP_WIDTH], capacity, self_client, err bit expected)
+def _case(name, cap):
+    if name == "distinct_docs":
+        return _random_docs(1, 8, 32)[0], cap, NO_CLIENT, 0
+    if name == "msn_lag_stream":
+        return _random_docs(2, 4, 40, msn_lag=12)[0], cap, NO_CLIENT, 0
+    if name == "msn_advance":
+        return _random_docs(3, 4, 40, advance=True)[0], cap, NO_CLIENT, 0
+    if name == "local_and_acks":
+        me = 2
+        rows = [
+            E.insert(0, 1, 5, seq=1, ref=0, client=0),
+            E.insert(2, 2, 3, client=me, lseq=1),
+            E.remove(1, 4, client=me, lseq=2),
+            E.annotate(0, 2, 7, client=me, lseq=3),
+            E.insert(1, 3, 2, seq=2, ref=1, client=4),
+            E.ack("insert", lseq=1, seq=3),
+            E.ack("remove", lseq=2, seq=4),
+            E.ack("annotate", lseq=3, seq=5),
+        ]
+        return _broadcast(rows, 2), cap, me, 0
+    if name == "pending_survives_compact":
+        me = 1
+        rows = [
+            E.insert(0, 1, 4, seq=1, ref=0, client=0),
+            E.insert(2, 2, 3, client=me, lseq=1),
+            E.remove(0, 1, seq=2, ref=1, client=0, msn=2),
+        ]
+        return _broadcast(rows, 2), cap, me, 0
+    if name == "capacity_overflow":
+        rows = [E.insert(0, i + 1, 1, seq=i + 1, ref=i, client=0)
+                for i in range(12)]
+        return _broadcast(rows, 2), cap, NO_CLIENT, ERR_CAPACITY
+    if name == "out_of_range":
+        rows = [
+            E.insert(0, 1, 4, seq=1, ref=0, client=0),
+            E.insert(99, 2, 2, seq=2, ref=1, client=1),
+            E.remove(2, 50, seq=3, ref=2, client=0),
+        ]
+        return _broadcast(rows, 2), cap, NO_CLIENT, ERR_RANGE
+    if name == "collab_window":
+        rows = [
+            E.insert(0, 1, 6, seq=1, ref=0, client=0),
+            E.remove(1, 3, seq=2, ref=1, client=1),
+            E.noop(seq=3, msn=2),
+            E.insert(1, 2, 2, seq=4, ref=1, client=2, msn=3),
+            E.annotate(0, 4, 9, seq=5, ref=4, client=0, msn=4),
+        ]
+        return _broadcast(rows, 4), cap, NO_CLIENT, 0
+    if name == "writer_past_cap":
+        rows = [
+            E.insert(0, 1, 3, seq=1, ref=0, client=0),
+            E.remove(0, 2, seq=2, ref=1, client=95),
+        ]
+        return _broadcast(rows, 2), cap, NO_CLIENT, ERR_CLIENT
+    raise KeyError(name)
+
+
+# Random streams run at every capacity (at S=8 they also overflow); the
+# hand-written cases at the capacity they were written for.
+CASES = [
+    (name, cap)
+    for name in ("distinct_docs", "msn_lag_stream", "msn_advance")
+    for cap in (8, 64, 128)
+] + [
+    ("local_and_acks", 128), ("pending_survives_compact", 128),
+    ("capacity_overflow", 8), ("out_of_range", 64), ("collab_window", 64),
+    ("writer_past_cap", 64),
+]
+
+
+def _ref_state(n_docs, cap, self_client):
+    t, s = ref_pack(ref_make_batched_state(n_docs, cap, self_client))
+    return np.asarray(t), np.asarray(s)
+
+
+def _port_state(n_docs, cap, self_client):
+    return K1.pack_state(
+        make_batched_state(n_docs, cap, self_client, device="cpu")
+    )
+
+
+def _assert_packed_equal(want, got):
+    wt, ws = (np.asarray(x) for x in want)
+    gt, gs = (x.numpy() if isinstance(x, torch.Tensor) else x for x in got)
+    for i in range(wt.shape[0]):
+        np.testing.assert_array_equal(wt[i], gt[i], err_msg=f"lane {i}")
+    np.testing.assert_array_equal(ws, gs, err_msg="scalars")
+
+
+def _xla_packed(state):
+    t, s = ref_pack(state)
+    return np.asarray(t), np.asarray(s)
+
+
+@pytest.mark.parametrize("case,cap", CASES)
+def test_k1_k2_k3_match_reference(case, cap):
+    batch, cap, me, err_bit = _case(case, cap)
+    n_docs = batch.shape[0]
+    blk = 2 if n_docs % 2 == 0 else 1
+
+    # K1: Pallas (interpret) and XLA agree with the port's plain version.
+    import jax.numpy as jnp
+
+    rt, rs = _ref_state(n_docs, cap, me)
+    p_t, p_s = ref_apply(jnp.asarray(rt), jnp.asarray(rs), jnp.asarray(batch),
+                         block_docs=blk, interpret=True)
+    pallas_k1 = (np.asarray(p_t), np.asarray(p_s))
+    xla_k1 = _xla_packed(
+        batched_apply_ops(ref_make_batched_state(n_docs, cap, me), batch)
+    )
+    tt, ts = _port_state(n_docs, cap, me)
+    got = K1.apply_ops_packed(tt, ts, torch.from_numpy(batch))
+    assert got[0] is tt and got[1] is ts  # in place, as the TPU donation
+    _assert_packed_equal(pallas_k1, (tt, ts))
+    _assert_packed_equal(xla_k1, (tt, ts))
+    if err_bit:
+        assert (ts[:, K1.SC_ERR] & err_bit != 0).all()
+
+    # K2 on K1's output: Pallas compact and XLA compact.
+    c_t, c_s = ref_compact(jnp.asarray(pallas_k1[0]),
+                           jnp.asarray(pallas_k1[1]), interpret=True)
+    xla_k2 = _xla_packed(batched_compact(
+        ref_make_batched_state(n_docs, cap, me)._make(
+            [jnp.asarray(x) for x in _unpack_np(*pallas_k1)]
+        )
+    ))
+    K2.compact_packed(tt, ts)
+    _assert_packed_equal((np.asarray(c_t), np.asarray(c_s)), (tt, ts))
+    _assert_packed_equal(xla_k2, (tt, ts))
+
+    # K3 in one call == the fused Pallas kernel.
+    f_t, f_s = ref_apply_compact(jnp.asarray(rt), jnp.asarray(rs),
+                                 jnp.asarray(batch), block_docs=8,
+                                 interpret=True)
+    t3, s3 = _port_state(n_docs, cap, me)
+    K2.apply_compact_packed(t3, s3, torch.from_numpy(batch))
+    _assert_packed_equal((np.asarray(f_t), np.asarray(f_s)), (t3, s3))
+
+
+def _unpack_np(tables, scalars):
+    return [tables[i] for i in range(tables.shape[0])] + [
+        scalars[:, i] for i in range(5)
+    ]
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_k3_equals_k1_then_k2_with_16_docs(seed):
+    """16 docs with the reference's two 8-doc blocks: the fused port call
+    equals apply then compact, and both equal the fused Pallas kernel."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed + 40)
+    ops = np.stack(random_acked_stream(
+        rng, 40, {}, OracleDoc(NO_CLIENT), msn_lag=12
+    ))
+    batch = np.broadcast_to(ops, (16,) + ops.shape).astype(np.int32).copy()
+    rt, rs = _ref_state(16, 128, NO_CLIENT)
+    f_t, f_s = ref_apply_compact(jnp.asarray(rt), jnp.asarray(rs),
+                                 jnp.asarray(batch), block_docs=8,
+                                 interpret=True)
+    t1, s1 = _port_state(16, 128, NO_CLIENT)
+    K1.apply_ops_packed(t1, s1, torch.from_numpy(batch))
+    K2.compact_packed(t1, s1)
+    t2, s2 = _port_state(16, 128, NO_CLIENT)
+    K2.apply_compact_packed(t2, s2, torch.from_numpy(batch))
+    # K2 alone keeps scalar columns 5-7 and K3 writes them as 0: here both
+    # are 0, so the whole scalar block matches.
+    _assert_packed_equal((t1.numpy(), s1.numpy()), (t2, s2))
+    _assert_packed_equal((np.asarray(f_t), np.asarray(f_s)), (t2, s2))
+
+
+def test_port_text_matches_oracle():
+    """One doc of a distinct-docs batch materializes to the oracle's text."""
+    batch, payloads = _random_docs(5, 4, 32)
+    tt, ts = _port_state(4, 128, NO_CLIENT)
+    K1.apply_ops_packed(tt, ts, torch.from_numpy(batch))
+    doc = OracleDoc(NO_CLIENT)
+    for row in batch[3]:
+        doc.apply(row)
+    one = K1.unpack_state(tt[:, 3], ts[3])
+    assert materialize(one, payloads) == doc.text(payloads)
+
+
+def test_out_buffers_leave_inputs_untouched():
+    """With ``out=``, the wrappers write a second buffer pair and leave the
+    input state as it was (the copy-on-write path of the service)."""
+    batch, _ = _random_docs(6, 2, 16)
+    tt, ts = _port_state(2, 64, NO_CLIENT)
+    before = (tt.clone(), ts.clone())
+    ot, os_ = torch.empty_like(tt), torch.empty_like(ts)
+    K2.apply_compact_packed(tt, ts, torch.from_numpy(batch), out=(ot, os_))
+    assert torch.equal(tt, before[0]) and torch.equal(ts, before[1])
+    want = K2.apply_compact_plain(tt, ts, torch.from_numpy(batch))
+    assert torch.equal(ot, want[0]) and torch.equal(os_, want[1])
