@@ -11,18 +11,32 @@ and the native ticket loop (``g++``), then:
    and op streams that include capacity overflow, out-of-range positions,
    unknown writers, and local ops with acks; times each (median of
    CUDA-event timings) beside its byte-floor bound;
-2. main path — drives ``TpuFleetService`` at 100,000 docs x capacity 128 x
-   16 ops/doc/round: a warm-up round plus 3 timed rounds at
+1b. global tier — the same at S = 4,096 (D=256), 16,384 (D=64) and
+   65,536 (D=16) rows, where the table lives in global memory, with the
+   shared tier at S = 2,048 (D=256) beside it;
+2. fleet service — drives ``TpuFleetService`` at 100,000 docs x capacity
+   128 x 16 ops/doc/round: a warm-up round plus 3 timed rounds at
    compact_every=1 (a scribe sweep of n_docs/3 docs in each), then 2 rounds
    at compact_every=2 with a standalone compaction between them, so K1 and
-   K2 launch too; asserts zero ticket errors, a
-   clean device err lane, and final tables/scalars bit-equal to a replay
-   through the plain versions from a copy of the start state; then times
-   each kernel against its plain version at the main path's shapes.
+   K2 launch too; asserts zero ticket errors, a clean device err lane, and
+   final tables/scalars bit-equal to a replay through the plain versions
+   from a copy of the start state; then times each kernel against its plain
+   version at the main path's shapes;
+3a. DocFleet, config 6 — 10,240 docs x K=32 grown from the 256-row tier to
+   >= 320 live rows each through apply + compact + check_and_migrate,
+   warmed to promotion quiescence, then 3 timed rounds (big_doc_ops_per_sec)
+   with apply_sparse rounds on a 10% busy subset between them;
+3b. DocFleet, deep tiers — 256 docs grown to >= 4,263 rows each (through
+   the global tiers 4,096 and 8,192), then remove-heavy rounds with
+   check_and_demote until a doc steps down from 4,096 to 2,048.
+   Each phase-3 run is replayed op for op through a ``kernel="plain"``
+   DocFleet on the card and must match it bit for bit.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
-last ``{"ok": true, "device": {...}}``. Any failure exits non-zero. A
-longer record goes to ``chiprun_out/chip_smoke.json``.
+Launch counts are reset before each main path (2, then 3a+3b) and read
+after it. Prints each phase's wall time, the card's name and power limit,
+a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
+Any failure exits non-zero. A longer record goes to ``chip_smoke.json``
+in the output directory (``OUT_DIR``).
 """
 
 from __future__ import annotations
@@ -40,6 +54,7 @@ import torch
 from fluidframework_tpu_torch.ops import _cuda
 from fluidframework_tpu_torch.ops import apply_kernel as K1
 from fluidframework_tpu_torch.ops import compact_kernel as K2
+from fluidframework_tpu_torch.ops import encode as E
 from fluidframework_tpu_torch.protocol.constants import (
     ERR_CAPACITY,
     ERR_CLIENT,
@@ -62,7 +77,9 @@ from fluidframework_tpu_torch.protocol.constants import (
     UNASSIGNED_SEQ,
 )
 from fluidframework_tpu_torch.ops.segment_state import SEGMENT_LANES
+from fluidframework_tpu_torch.parallel.fleet import DocFleet, _Pool
 from fluidframework_tpu_torch.service.fleet_service import TpuFleetService
+from fluidframework_tpu_torch.utils import pow2_at_least
 from fluidframework_tpu_torch.utils.native import _load_ticket
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
@@ -127,6 +144,71 @@ class RoundGen:
                 rows[:, i, F_LEN] = np.where(rem, 0, 3)
                 self.lengths[:] += np.where(rem, -2, 3)
         return intents, rows
+
+
+class Config6Gen:
+    """Config 6's traffic (``config6_big_docs`` in bench_configs.py): 16 op
+    scripts tiled across the fleet, K = 32 ops per doc per round, numpy
+    seed 0; 4-char inserts at random positions and 4-char removes (5% of
+    ops while growing, else 50%), 8 writer slots, the collab window 64 seqs
+    behind. Two extra round kinds drive the lifecycle's other paths:
+    ``remove_p``/``span`` give remove-heavy rounds of wider removes (the
+    shrink that leads to demotion), and :meth:`annotate_round` gives rows
+    for a busy subset only (annotates change no text length, so the
+    docs that sit out a round stay in step with their script)."""
+
+    def __init__(self, n_docs: int, k: int = 32, seed: int = 0):
+        self.rng = np.random.default_rng(seed)
+        self.n, self.k = n_docs, k
+        self.scripts = min(16, n_docs)
+        self.seqs = [0] * self.scripts
+        self.lens = [0] * self.scripts
+
+    def _tile(self, ops):
+        ops[self.scripts:] = ops[np.arange(self.scripts, self.n)
+                                 % self.scripts]
+        return ops
+
+    def round(self, grow: bool, remove_p=None, span: int = 4):
+        p = remove_p if remove_p is not None else (0.05 if grow else 0.5)
+        rng, seqs, lens = self.rng, self.seqs, self.lens
+        ops = np.zeros((self.n, self.k, OP_WIDTH), np.int32)
+        for d in range(self.scripts):
+            for i in range(self.k):
+                seqs[d] += 1
+                msn = max(0, seqs[d] - 64)
+                if lens[d] > 8 and rng.random() < p:
+                    w = min(span, lens[d] - 4)
+                    a = int(rng.integers(0, lens[d] - w))
+                    ops[d, i] = E.remove(
+                        a, a + w, seq=seqs[d], ref=seqs[d] - 1,
+                        client=int(rng.integers(0, 8)), msn=msn,
+                    )
+                    lens[d] -= w
+                else:
+                    ops[d, i] = E.insert(
+                        int(rng.integers(0, lens[d] + 1)), 10 + seqs[d], 4,
+                        seq=seqs[d], ref=seqs[d] - 1,
+                        client=int(rng.integers(0, 8)), msn=msn,
+                    )
+                    lens[d] += 4
+        return self._tile(ops)
+
+    def annotate_round(self, docs):
+        """[len(docs), K, OP_WIDTH] rows for ``docs`` only: 8-char
+        annotates at random positions. Idle docs skip these seqs."""
+        rng, seqs, lens = self.rng, self.seqs, self.lens
+        per = np.zeros((self.scripts, self.k, OP_WIDTH), np.int32)
+        for d in range(self.scripts):
+            for i in range(self.k):
+                seqs[d] += 1
+                a = int(rng.integers(0, max(lens[d] - 8, 1)))
+                per[d, i] = E.annotate(
+                    a, a + 8, int(rng.integers(1, 9)), seq=seqs[d],
+                    ref=seqs[d] - 1, client=int(rng.integers(0, 8)),
+                    msn=max(0, seqs[d] - 64),
+                )
+        return per[np.asarray(docs) % self.scripts]
 
 
 def random_case(rng, n_docs: int, cap: int, k: int, device):
@@ -211,6 +293,20 @@ def _median_ms(fn, reset, reps: int) -> float:
     return float(np.median(times))
 
 
+def reset_counts() -> None:
+    _cuda.reset_counts(*(spec["wrapper"] for spec in KERNELS.values()))
+
+
+def read_counts() -> dict:
+    """Each kernel's launches since the last reset: in all and by tier."""
+    out = {}
+    for name, spec in KERNELS.items():
+        w = spec["wrapper"]
+        out[name] = {"all": w.launches, "smem": w.launches_smem,
+                     "global": w.launches_global}
+    return out
+
+
 def bound_bytes(name: str, d: int, s: int, k: int) -> int:
     """Bytes the function must move: the tables and scalars read once and
     written once, the ops read once."""
@@ -247,21 +343,26 @@ def hold_kernel(name: str, t0, s0, ops, kernel_reps=10, plain_reps=3):
     return err, ms, plain_ms
 
 
-def phase_kernels(device, report):
+def phase_kernels(device, report, key, shapes, seed_offset=0):
+    """Hold K1/K2/K3 bit for bit against their plain versions at each
+    (S rows, D docs) of ``shapes`` with K = 16, on :func:`random_case`
+    states; time each beside its byte-floor bound. Returns the rows."""
     rows = []
-    for cap in (128, 512, 2048):
-        rng = np.random.default_rng(cap)
-        t0, s0, ops = random_case(rng, 4096, cap, 16, device)
+    for cap, d in shapes:
+        rng = np.random.default_rng(cap + seed_offset)
+        t0, s0, ops = random_case(rng, d, cap, 16, device)
         for name in KERNELS:
             err, ms, plain_ms = hold_kernel(name, t0, s0, ops)
-            b = bound_bytes(name, 4096, cap, 16)
-            rows.append(dict(kernel=name, docs=4096, cap=cap, k=16,
-                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            b = bound_bytes(name, d, cap, 16)
+            rows.append(dict(kernel=name, tier=_cuda.tier(cap), docs=d,
+                             cap=cap, k=16, max_abs_err=err, ms=ms,
+                             plain_ms=plain_ms,
                              bound_ms=b / HBM_BYTES_PER_S * 1e3,
-                             bound_bytes=b))
-            print(f"kernels S={cap} {name}: exact, {ms:.4f} ms "
-                  f"(plain {plain_ms:.3f} ms, bound "
-                  f"{rows[-1]['bound_ms']:.4f} ms)", flush=True)
+                             bound_bytes=b, library_ms=None))
+            print(f"kernels S={cap} D={d} ({rows[-1]['tier']}) {name}: "
+                  f"exact, {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+                  f"{rows[-1]['bound_ms']:.4f} ms, library_ms null)",
+                  flush=True)
         t, s = t0.clone(), s0.clone()
         K1.apply_ops_packed(t, s, ops)
         errs = s[:, K1.SC_ERR]
@@ -273,7 +374,20 @@ def phase_kernels(device, report):
         rows[-1]["err_coverage"] = cov
         del t0, s0, ops, t, s
         torch.cuda.empty_cache()
-    report["phase_kernels"] = rows
+    report[key] = rows
+    return rows
+
+
+def print_tier_step(rows) -> None:
+    """The step from the shared tier (2,048 rows) to the global tier
+    (4,096 rows) at 256 docs, per kernel."""
+    for name in KERNELS:
+        smem, glob = (next(r["ms"] for r in rows
+                           if r["kernel"] == name and r["cap"] == cap)
+                      for cap in (2048, 4096))
+        print(f"tier step {name} at D=256: shared S=2048 {smem:.4f} ms -> "
+              f"global S=4096 {glob:.4f} ms ({glob / smem:.2f}x)",
+              flush=True)
 
 
 def phase_main_path(device, report, n_docs=100_000, cap=128, k=16):
@@ -305,8 +419,7 @@ def phase_main_path(device, report, n_docs=100_000, cap=128, k=16):
         done = pend.finish()
         return stamped, nxt, done
 
-    for spec in KERNELS.values():
-        spec["wrapper"].launches = 0
+    reset_counts()
     # Warm-up round (config 5: a full round, then scribe sweeps).
     t_w = time.perf_counter()
     tok = svc.stage_round(*gen(svc))
@@ -367,8 +480,7 @@ def phase_main_path(device, report, n_docs=100_000, cap=128, k=16):
     pre = (svc.tables.clone(), svc.scalars.clone())
     stamped = commit(tok)
     torch.cuda.synchronize()
-    launches = {name: spec["wrapper"].launches
-                for name, spec in KERNELS.items()}
+    launches = read_counts()
     errs = int(svc.device_errors().sum())
     if errs != 0:
         raise AssertionError(f"device err lane sum {errs} != 0")
@@ -410,9 +522,305 @@ def phase_main_path(device, report, n_docs=100_000, cap=128, k=16):
           "replay exact", flush=True)
     print(f"main path launches: {launches}", flush=True)
     for name, n in launches.items():
-        if n <= 0:
+        if n["all"] <= 0:
             raise AssertionError(f"{name} never launched on the main path")
     return pre, replay[-1][1], launches
+
+
+class TierTimer:
+    """CUDA-event times of every DocFleet pool step (K1, or the plain
+    version on a plain fleet) and compaction (K2), grouped by tier. Used as
+    a context around a fleet's run; the events do not synchronize."""
+
+    def __enter__(self):
+        self.events = []
+        self._step, self._compact = _Pool._step, _Pool._compact
+        timer = self
+
+        def step(pool, ops):
+            timer._timed("K1", pool, ops.shape[1],
+                         lambda: timer._step(pool, ops))
+
+        def compact(pool):
+            timer._timed("K2", pool, 0, lambda: timer._compact(pool))
+
+        _Pool._step, _Pool._compact = step, compact
+        return self
+
+    def __exit__(self, *exc):
+        _Pool._step, _Pool._compact = self._step, self._compact
+
+    def _timed(self, name, pool, k, fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        kernel = "K1_merge_apply" if name == "K1" else "K2_zamboni_compact"
+        bound = bound_bytes(kernel, pool.n_slots, pool.capacity, k)
+        self.events.append((name, pool.capacity, pool.n_slots, bound, a, b))
+
+    def summary(self, since: int = 0) -> dict:
+        """{"K1@4096": {calls, max_slots, median_ms, total_ms,
+        median_bound_ms}, ...} over the events from index ``since`` on
+        (the bound is each call's byte floor at its pool's shape)."""
+        torch.cuda.synchronize()
+        by = {}
+        for name, cap, slots, bound, a, b in self.events[since:]:
+            ent = by.setdefault((name, cap), {"slots": 0, "ms": [], "b": []})
+            ent["slots"] = max(ent["slots"], slots)
+            ent["ms"].append(a.elapsed_time(b))
+            ent["b"].append(bound / HBM_BYTES_PER_S * 1e3)
+        return {f"{name}@{cap}": dict(calls=len(e["ms"]), max_slots=e["slots"],
+                                      median_ms=float(np.median(e["ms"])),
+                                      total_ms=float(np.sum(e["ms"])),
+                                      median_bound_ms=float(np.median(e["b"])))
+                for (name, cap), e in sorted(by.items())}
+
+
+class Recorded:
+    """A DocFleet whose calls are logged with their results, so the run can
+    be replayed op for op through a second fleet. A call is a method name
+    or a function of (fleet, *args)."""
+
+    def __init__(self, fleet):
+        self.fleet = fleet
+        self.log = []
+
+    def __call__(self, fn, *args):
+        out = _invoke(self.fleet, fn, args)
+        self.log.append((fn, args, out))
+        return out
+
+
+def _invoke(fleet, fn, args):
+    return (getattr(fleet, fn) if isinstance(fn, str) else
+            lambda *a: fn(fleet, *a))(*args)
+
+
+def _same(a, b) -> bool:
+    """Deep equality of call results (dicts, lists, tuples, SegmentStates,
+    numpy arrays and scalars)."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and list(a) == list(b)
+                and all(_same(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_same(x, y) for x, y in zip(a, b)))
+    if isinstance(a, (np.ndarray, np.generic)):
+        return np.asarray(a).dtype == np.asarray(b).dtype and \
+            np.array_equal(a, b)
+    return a == b
+
+
+def scan(fleet):
+    """One begin_scan / finish_scan round trip (the serving path's
+    asynchronous health readback)."""
+    return fleet.finish_scan(fleet.begin_scan())
+
+
+def replay_and_compare(rec: Recorded, make_plain, sample):
+    """Replay ``rec``'s log through a fresh ``kernel="plain"`` fleet on the
+    card; every call's result, every pool's tables and scalars, the slot
+    bookkeeping, placement and counters, and ``doc_states`` of ``sample``
+    must match bit for bit."""
+    fleet, plain = rec.fleet, make_plain()
+    for fn, args, want in rec.log:
+        got = _invoke(plain, fn, args)
+        if not _same(want, got):
+            raise AssertionError(f"plain replay: {fn} gave {got!r}, the "
+                                 f"kernels gave {want!r}")
+    if list(fleet.pools) != list(plain.pools):
+        raise AssertionError("plain replay: pool tiers differ")
+    for cap, pool in fleet.pools.items():
+        other = plain.pools[cap]
+        if not (torch.equal(pool.tables, other.tables)
+                and torch.equal(pool.scalars, other.scalars)
+                and np.array_equal(pool.doc_of_slot, other.doc_of_slot)
+                and np.array_equal(pool.slot_gen, other.slot_gen)):
+            raise AssertionError(f"plain replay: pool {cap} differs")
+    if (fleet.placement != plain.placement
+            or fleet.migrations != plain.migrations
+            or fleet.demotions != plain.demotions):
+        raise AssertionError("plain replay: placement or counters differ")
+    if not _same(fleet.doc_states(sample), plain.doc_states(sample)):
+        raise AssertionError(f"plain replay: doc_states({sample}) differ")
+    del plain
+    torch.cuda.empty_cache()
+
+
+def _sample_docs(n_docs: int) -> list:
+    return sorted({d for d in (0, 1, 17, n_docs // 3, n_docs // 2,
+                               n_docs - 1) if d < n_docs})
+
+
+def phase_docfleet_config6(device, report, n_docs=10_240, target=320):
+    """Phase 3a: config 6 through DocFleet's entry points at its full shape
+    (10,240 docs grown from the 256-row tier to >= 320 live rows each),
+    then 3 timed apply + compact + check_and_migrate rounds with
+    apply_sparse rounds on a 10% busy subset between them."""
+    gen = Config6Gen(n_docs)
+    kw = dict(n_docs=n_docs, capacity=256, high_water=0.7, device=device)
+    rec = Recorded(DocFleet(**kw))
+    t_grow = time.perf_counter()
+    with TierTimer() as timer:
+        rounds = 0
+        while True:
+            rec("apply", gen.round(grow=True))
+            rec("compact")
+            rec("check_and_migrate")
+            rounds += 1
+            counts = rec("doc_counts", list(range(gen.scripts)))
+            if int(counts.min()) >= target:
+                break
+        stats = rec("stats")
+        if stats["docs_with_errors"] != 0:
+            raise AssertionError(f"config 6 growth: {stats}")
+        for _ in range(12):  # warm up to promotion quiescence
+            rec("apply", gen.round(grow=False))
+            rec("compact")
+            rounds += 1
+            if not rec("check_and_migrate"):
+                break
+        grow_s = time.perf_counter() - t_grow
+        busy = list(range(0, n_docs, 10))
+        iters, dt, routing, gen_s, sparse = 3, 0.0, 0.0, 0.0, 0
+        timed_events = []
+        for it in range(iters):
+            i0 = len(timer.events)
+            tg = time.perf_counter()
+            ops = gen.round(grow=False)
+            gen_s += time.perf_counter() - tg
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec("apply", ops)
+            routing += rec.fleet.last_routing_s
+            rec("compact")
+            rec("check_and_migrate")
+            torch.cuda.synchronize()
+            dt += time.perf_counter() - t0
+            timed_events += timer.events[i0:]
+            if it < iters - 1:
+                for _ in range(2):
+                    rec("apply_sparse", busy, gen.annotate_round(busy))
+                    sparse += 1
+        stats = rec("stats")
+        if stats["docs_with_errors"] != 0:
+            raise AssertionError(f"config 6 timed rounds: {stats}")
+        tiers = timer.summary()
+        kernel_ms = sum(ev[-2].elapsed_time(ev[-1]) for ev in timed_events)
+    serving_tail(rec, gen, busy, device)
+    k = gen.k
+    out = dict(
+        n_docs=n_docs, k=k, target_rows=target, rounds_untimed=rounds,
+        big_doc_ops_per_sec=n_docs * k * iters / dt,
+        timed_s=dt, ms_per_round=dt / iters * 1e3,
+        live_rows_per_doc=stats["rows_in_use"] // n_docs,
+        capacity_tiers=stats["pools"], migrations=stats["migrations"],
+        docs_with_errors=stats["docs_with_errors"],
+        routing_s=routing, routing_share=routing / dt, gen_s=gen_s,
+        sparse_rounds=sparse, busy_docs=len(busy), grow_s=grow_s,
+        kernel_ms_timed=kernel_ms,
+        kernel_share_of_timed=kernel_ms / (dt * 1e3), tiers=tiers,
+    )
+    print(f"docfleet config6: {out['big_doc_ops_per_sec']:.0f} merge ops/s "
+          f"({n_docs} docs x {k} ops x {iters} rounds in {dt:.3f} s), "
+          f"{out['live_rows_per_doc']} rows/doc, tiers {stats['pools']}, "
+          f"migrations {stats['migrations']}, host routing share "
+          f"{out['routing_share']:.4f}, K1+K2 {kernel_ms:.3f} ms of the "
+          f"timed rounds (share {out['kernel_share_of_timed']:.4f}), "
+          f"{sparse} apply_sparse rounds over {len(busy)} busy docs, "
+          f"growth {grow_s:.1f} s", flush=True)
+    print(f"docfleet config6 kernel times by tier: {tiers}", flush=True)
+    replay_and_compare(rec, lambda: DocFleet(kernel="plain", **kw),
+                       _sample_docs(n_docs))
+    out["replay_exact"] = True
+    print("docfleet config6: plain replay exact", flush=True)
+    report["docfleet_config6"] = out
+    return out
+
+
+def serving_tail(rec: Recorded, gen: Config6Gen, busy, device) -> None:
+    """The entry points the serving path calls between rounds, once each
+    on the card (untimed; part of the replay): a boxcar staged on the
+    device through dispatch_staged, the asynchronous scan feeding
+    check_and_migrate, compact_aot, the telemetry scrape, eviction and
+    restore of a few docs, the overflow scan, and add_doc."""
+    docs = busy[:100]
+    rows = np.zeros((pow2_at_least(len(docs)), gen.k, OP_WIDTH), np.int32)
+    rows[: len(docs)] = gen.annotate_round(docs)
+    rec("dispatch_staged", docs, torch.from_numpy(rows).to(device))
+    counts = rec(scan)
+    rec("check_and_migrate", {c: a[0] for c, a in counts.items()})
+    rec("compact_aot")
+    rec("telemetry_slice")
+    gone = rec("evict_docs", busy[100:104])
+    one = rec("evict_doc", busy[104])
+    for d, st in sorted(gone.items()):
+        rec("restore_doc", d, st)
+    rec("restore_doc", busy[104], one)
+    rec("overflowing_docs")
+    rec("add_doc")
+    rec("doc_state", busy[101])
+
+
+def phase_docfleet_deep(device, report, n_docs=256, target=4263):
+    """Phase 3b: 256 docs grown to >= 4,263 live rows each, through the
+    shared tiers into the global tiers 4,096 and 8,192; then remove-heavy
+    rounds with check_and_demote until a doc steps down from 4,096 to
+    2,048 (compacting a global-tier pool first)."""
+    gen = Config6Gen(n_docs)
+    kw = dict(n_docs=n_docs, capacity=256, high_water=0.7, device=device)
+    rec = Recorded(DocFleet(**kw))
+    t0 = time.perf_counter()
+    with TierTimer() as timer:
+        grow_rounds = 0
+        while True:
+            rec("apply", gen.round(grow=True))
+            rec("compact")
+            rec("check_and_migrate")
+            grow_rounds += 1
+            if int(rec("doc_counts", list(range(gen.scripts))).min()) \
+                    >= target:
+                break
+        grown = rec("stats")
+        if grown["docs_with_errors"] != 0:
+            raise AssertionError(f"deep growth: {grown}")
+        shrink_rounds = 0
+        # Every doc sits at 4,096 rows or above now and demotion steps one
+        # tier at a time, so a doc at 2,048 or below has crossed from the
+        # global tier into the shared one (one pass may step it twice).
+        while not any(p is not None and p[0] <= 2048
+                      for p in rec.fleet.placement):
+            if shrink_rounds >= 60:
+                raise AssertionError("no doc stepped down to 2048 rows")
+            rec("apply", gen.round(grow=False, remove_p=0.9, span=64))
+            rec("compact")
+            rec("check_and_demote")
+            shrink_rounds += 1
+        stats = rec("stats")
+        if stats["docs_with_errors"] != 0:
+            raise AssertionError(f"deep shrink: {stats}")
+        tiers = timer.summary()
+    wall = time.perf_counter() - t0
+    caps = sorted({p[0] for p in rec.fleet.placement if p is not None})
+    out = dict(n_docs=n_docs, target_rows=target, grow_rounds=grow_rounds,
+               shrink_rounds=shrink_rounds, tiers_reached=grown["pools"],
+               rows_grown=grown["rows_in_use"] // n_docs,
+               migrations=stats["migrations"], demotions=stats["demotions"],
+               doc_tiers_now=caps, wall_s=wall, tiers=tiers)
+    print(f"docfleet deep: {grow_rounds} growth rounds to "
+          f"{out['rows_grown']} rows/doc, tiers {grown['pools']}, "
+          f"{shrink_rounds} shrink rounds, migrations {stats['migrations']}, "
+          f"demotions {stats['demotions']}, docs now in tiers {caps}",
+          flush=True)
+    print(f"docfleet deep kernel times by tier: {tiers}", flush=True)
+    replay_and_compare(rec, lambda: DocFleet(kernel="plain", **kw),
+                       _sample_docs(n_docs))
+    out["replay_exact"] = True
+    print("docfleet deep: plain replay exact", flush=True)
+    report["docfleet_deep"] = out
+    return out
 
 
 def main() -> int:
@@ -441,37 +849,89 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("ptxas:", line.strip(), flush=True)
 
-    phase_kernels(device, report)
-    (t0, s0), ops, launches = phase_main_path(device, report)
+    wall = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        wall[name] = time.perf_counter() - t
+        print(f"phase {name}: {wall[name]:.1f} s", flush=True)
+        return out
+
+    # Phase 1: the shared tier at 4,096 docs. Phase 1b: the global tier at
+    # the widths DocFleet's deep tiers reach, with the shared tier at the
+    # same 256 docs beside it.
+    timed("1_kernels", phase_kernels, device, report, "phase_kernels",
+          ((128, 4096), (512, 4096), (2048, 4096)))
+    glob = timed("1b_global_kernels", phase_kernels, device, report,
+                 "phase_global_kernels",
+                 ((2048, 256), (4096, 256), (16384, 64), (65536, 16)), 1)
+    print_tier_step(glob)
+    # Each main path runs with every launch count set to 0 just before it
+    # and read just after.
+    (t0, s0), ops, launches2 = timed("2_fleet_service", phase_main_path,
+                                     device, report)
     torch.cuda.empty_cache()
 
     # Each kernel against its plain version at the main path's shapes.
     d, cap = t0.shape[1], t0.shape[2]
     k = ops.shape[1]
+    main_shape = {}
+    for name in KERNELS:
+        err, ms, plain_ms = hold_kernel(name, t0, s0, ops)
+        main_shape[name] = (err, ms, plain_ms, bound_bytes(name, d, cap, k))
+        print(f"main-path shape {name}: {ms:.4f} ms (plain {plain_ms:.2f} "
+              f"ms, bound {main_shape[name][3] / HBM_BYTES_PER_S * 1e3:.4f} "
+              "ms)", flush=True)
+    del t0, s0, ops
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    timed("3a_docfleet_config6", phase_docfleet_config6, device, report)
+    timed("3b_docfleet_deep", phase_docfleet_deep, device, report)
+    launches3 = read_counts()
+    print(f"docfleet launches: {launches3}", flush=True)
+    for name in ("K1_merge_apply", "K2_zamboni_compact"):
+        if launches3[name]["global"] <= 0:
+            raise AssertionError(f"{name}: no global-tier launch on the "
+                                 "DocFleet path")
+    report["wall_s"] = wall
+
     kernels = []
     for name, spec in KERNELS.items():
-        err, ms, plain_ms = hold_kernel(name, t0, s0, ops)
-        b = bound_bytes(name, d, cap, k)
+        err, ms, plain_ms, b = main_shape[name]
+        g = next(r for r in glob if r["kernel"] == name and r["cap"] == 4096)
+        by_path = {"fleet_service": launches2[name],
+                   "docfleet": launches3[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "fluidframework_tpu_torch/csrc/merge_kernels.cu",
-            "replaces": spec["replaces"], "launches": launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "replaces": spec["replaces"],
+            "launches": sum(p["all"] for p in by_path.values()),
+            "launches_smem": sum(p["smem"] for p in by_path.values()),
+            "launches_global": sum(p["global"] for p in by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(err, max(r["max_abs_err"] for r in glob
+                                        if r["kernel"] == name)),
+            "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": None,
+            "global_tier": {key: g[key] for key in
+                            ("docs", "cap", "k", "ms", "plain_ms",
+                             "bound_ms")},
         })
-        print(f"main-path shape {name}: {ms:.4f} ms (plain {plain_ms:.2f} "
-              f"ms, bound {kernels[-1]['bound_ms']:.4f} ms)", flush=True)
     report["kernels"] = kernels
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 
+    print(f"phase wall s: { {n: round(v, 1) for n, v in wall.items()} }")
     print(smi)
     print(json.dumps({"kernels": kernels}))
+    # One card drives every phase: the count of devices used.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

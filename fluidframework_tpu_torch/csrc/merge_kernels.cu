@@ -9,22 +9,35 @@
 // Layout (all int32, C-contiguous; identical to the reference's packed
 // layout): tables [N_LANES, D, S], scalars [D, N_SCALARS], ops [D, K, 10].
 //
-// Design. One CTA per document. The doc's 15 lanes x S rows, three S-row
-// scratch arrays and an S-byte flag array live in dynamic shared memory
-// for the whole K-op loop (S=128: 9.3 KB; S=2048: 146 KB, above the 48 KB
-// default, so the launcher raises the limit with cudaFuncSetAttribute).
+// Design. One CTA per document, in one of two tiers that run the same
+// device code (every device function is templated over the Doc type):
+//   - shared tier (S <= 2,048): the doc's 15 lanes x S rows, three S-row
+//     scratch arrays and an S-byte flag array live in dynamic shared
+//     memory for the whole K-op loop (S=128: 9.3 KB; S=2048: 146 KB, above
+//     the 48 KB default, so the launcher raises the limit with
+//     cudaFuncSetAttribute); 256 threads.
+//   - global tier (2,048 < S <= 65,536): a table of 15 x S x 4 B (240 KB
+//     at 4,096 rows, 3.75 MB at 65,536) does not fit the 227 KB one CTA may
+//     use, so the lanes stay in tables_out (lane stride D*S, copied from
+//     tables_in first when the two differ) and the scratch arrays (plus a
+//     fourth one that stages a lane during a squeeze) sit in a per-doc slice
+//     of a device workspace the wrapper allocates; 512 threads. Barriers
+//     order global writes within the block, so the in-place row shifts stay
+//     correct. Rows are not staged in registers (a thread owns up to 128
+//     rows). Accesses stride by the chunk length and are not coalesced.
 // Each thread owns a contiguous chunk of R = ceil(S / threads) rows.
 //   - Prefix sums: a per-thread serial sum over its chunk, a warp-shuffle
 //     scan of the chunk totals, and one shared array of warp totals.
 //   - first_true: a block min-reduce over per-thread first hits.
-//   - value_at: one read of a shared row.
+//   - value_at: one read of a scratch row.
 //   - Row shifts (B-tree row inserts) run in place: each thread saves the
 //     one row it reads from its left neighbour's chunk, a barrier, then it
 //     shifts its own chunk from the top down.
-//   - K2 is a stream compaction: a scan of `keep`, a direct scatter in
-//     shared memory, then a second scan and scatter over the merge heads.
+//   - K2 is a stream compaction: a scan of `keep`, a direct scatter, then a
+//     second scan and scatter over the merge heads.
 //   - K3 calls K1's and K2's device functions back to back, so the table
-//     never leaves shared memory between them.
+//     never leaves the CTA (shared tier) or is not re-copied (global tier)
+//     between them.
 // The TPU-side workarounds (Hillis-Steele shift ladders, the f32
 // permutation matmul, the 256-row compact cap) are not carried over.
 //
@@ -32,7 +45,8 @@
 // block-scan steps (each op is a chain of barriers over a small table), not
 // bandwidth-bound. Their byte floor is 2 x 15 x S x 4 B x D of table traffic
 // plus D x K x 40 B of ops: about 1.55 GB per round at 100,000 docs x 128
-// rows x 16 ops, about 0.46 ms at 3.35 TB/s.
+// rows x 16 ops, about 0.46 ms at 3.35 TB/s. The global tier also re-reads
+// the table from L2 on every op pass, which the byte floor does not count.
 //
 // Ops with an unknown type (outside 0..6) change nothing but the cur_seq /
 // min_seq bookkeeping and the ERR_CLIENT bit, as in the Pallas K1.
@@ -45,9 +59,11 @@ namespace {
 constexpr int N_LANES = 15;
 constexpr int OP_WIDTH = 10;
 constexpr int N_SCALARS = 8;
-constexpr int MAX_CAP = 2048;
-constexpr int MAX_THREADS = 256;
-constexpr int MAX_ROWS_PER_THREAD = MAX_CAP / MAX_THREADS;
+constexpr int SMEM_MAX_CAP = 2048;   // largest shared-tier table
+constexpr int MAX_CAP = 65536;       // largest global-tier table
+constexpr int MAX_THREADS = 256;     // shared tier
+constexpr int GLOBAL_THREADS = 512;  // global tier
+constexpr int MAX_ROWS_PER_THREAD = SMEM_MAX_CAP / MAX_THREADS;
 constexpr unsigned FULL = 0xffffffffu;
 
 enum Lane {
@@ -75,14 +91,27 @@ constexpr int ERR_CAPACITY = 1, ERR_RANGE = 2, ERR_CLIENT = 4;
 constexpr int WS_SCAN1 = 0, WS_MIN = 32, WS_SCAN2 = 128, WS_KEEP = 160,
               WS_HEAD = 192, WS_VLEN = 224, WS_SIZE = 256;
 
-struct Doc {
-  int *L;            // [N_LANES][S] lanes
+// One document's table as the block sees it. G = false: the lanes are a
+// private [N_LANES][S] copy in shared memory. G = true: they are the doc's
+// rows of the packed [N_LANES, D, S] tables in global memory (lane stride
+// ls = D*S), and E stages one lane during a squeeze.
+template <bool G>
+struct DocT {
+  static constexpr bool GLOBAL = G;
+  int *L;            // lane 0, row 0 of this doc
+  size_t ls;         // lane stride (global tier)
   int *A, *B, *C;    // [S] scratch
+  int *E;            // [S] squeeze staging (global tier only)
   unsigned char *F;  // [S] flags
   int S;
   int r0, r1;        // this thread's rows [r0, r1)
   int *ws;           // [WS_SIZE] warp totals
-  __device__ int &at(int lane, int r) const { return L[lane * S + r]; }
+  __device__ int &at(int lane, int r) const {
+    if constexpr (G)
+      return L[(size_t)lane * ls + r];
+    else
+      return L[lane * S + r];
+  }
 };
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
@@ -162,6 +191,7 @@ struct Op {
 
 // Visible length of row r from the op's perspective (reference
 // mergeTree.ts:916-1004); `part` = the row takes part in the walk.
+template <class Doc>
 __device__ __forceinline__ int perspective(const Doc &d, int r, const Op &o,
                                            int min_seq, bool &part) {
   const int kind = d.at(L_KIND, r), seq = d.at(L_SEQ, r);
@@ -185,6 +215,7 @@ __device__ __forceinline__ int perspective(const Doc &d, int r, const Op &o,
 
 // Rows r > q take row r-1's lanes; then row q gets length `split` and
 // row q+1 (the old row q) is advanced by `split` — a boundary split.
+template <class Doc>
 __device__ void shift_split(const Doc &d, int q, int split) {
   int bnd[N_LANES];
   const int a = d.r0;
@@ -213,6 +244,7 @@ __device__ void shift_split(const Doc &d, int q, int split) {
 }
 
 // Rows r >= q take row r-1's lanes, then row q becomes `row`.
+template <class Doc>
 __device__ void shift_insert(const Doc &d, int q, const int (&row)[N_LANES]) {
   int bnd[N_LANES];
   const int a = d.r0;
@@ -240,11 +272,12 @@ struct Scalars {
   int count, min_seq, cur_seq, self_client, err;
 };
 
-// K1's op loop on a shared-memory table: the unified insert / remove /
-// annotate / ack pipeline of the reference's _apply_values, one op at a
-// time, every scalar uniform across the block.
-__device__ void apply_ops_smem(const Doc &d, const int *ops_doc, int K,
-                               Scalars &sc) {
+// K1's op loop (both tiers): the unified insert / remove / annotate / ack
+// pipeline of the reference's _apply_values, one op at a time, every scalar
+// uniform across the block.
+template <class Doc>
+__device__ void apply_ops_doc(const Doc &d, const int *ops_doc, int K,
+                              Scalars &sc) {
   const int S = d.S;
   for (int k = 0; k < K; ++k) {
     const int *p = ops_doc + (size_t)k * OP_WIDTH;
@@ -423,33 +456,51 @@ __device__ void apply_ops_smem(const Doc &d, const int *ops_doc, int K,
 // Scatter the rows flagged in F to row dst[r] (all lanes); rows at or past
 // `n` that nobody fills take their lane's free value. Row `len_lane`, if
 // set, takes `len_of(r)` instead of its own length. Two barriers per lane.
-template <typename LenFn>
+// A row's destination may lie in another thread's chunk, so every flagged
+// row of a lane is read before any is written: staged in registers on the
+// shared tier, in the E scratch array on the global tier.
+template <class Doc, typename LenFn>
 __device__ void squeeze(const Doc &d, const int *dst, int n, bool merge_len,
                         LenFn len_of) {
-  for (int l = 0; l < N_LANES; ++l) {
-    int v[MAX_ROWS_PER_THREAD];
-#pragma unroll
-    for (int j = 0; j < MAX_ROWS_PER_THREAD; ++j) {
-      const int r = d.r0 + j;
-      if (r < d.r1 && d.F[r]) v[j] = d.at(l, r);
+  if constexpr (Doc::GLOBAL) {
+    for (int l = 0; l < N_LANES; ++l) {
+      for (int r = d.r0; r < d.r1; ++r)
+        if (d.F[r]) d.E[r] = d.at(l, r);
+      __syncthreads();
+      for (int r = d.r0; r < d.r1; ++r) {
+        if (r >= n) d.at(l, r) = lane_fill(l);
+        if (d.F[r])
+          d.at(l, dst[r]) = (merge_len && l == L_LEN) ? len_of(r) : d.E[r];
+      }
+      __syncthreads();
     }
-    __syncthreads();
+  } else {
+    for (int l = 0; l < N_LANES; ++l) {
+      int v[MAX_ROWS_PER_THREAD];
 #pragma unroll
-    for (int j = 0; j < MAX_ROWS_PER_THREAD; ++j) {
-      const int r = d.r0 + j;
-      if (r >= d.r1) continue;
-      if (r >= n) d.at(l, r) = lane_fill(l);
-      if (d.F[r])
-        d.at(l, dst[r]) = (merge_len && l == L_LEN) ? len_of(r) : v[j];
+      for (int j = 0; j < MAX_ROWS_PER_THREAD; ++j) {
+        const int r = d.r0 + j;
+        if (r < d.r1 && d.F[r]) v[j] = d.at(l, r);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < MAX_ROWS_PER_THREAD; ++j) {
+        const int r = d.r0 + j;
+        if (r >= d.r1) continue;
+        if (r >= n) d.at(l, r) = lane_fill(l);
+        if (d.F[r])
+          d.at(l, dst[r]) = (merge_len && l == L_LEN) ? len_of(r) : v[j];
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
 }
 
-// K2 on a shared-memory table (reference compact_values): reclaim acked
-// tombstones at or below min_seq with no pending stamp, squeeze live rows
-// down, then re-merge adjacent splits of one insert. Returns n_heads.
-__device__ int compact_smem(const Doc &d, int min_seq) {
+// K2 (both tiers; reference compact_values): reclaim acked tombstones at
+// or below min_seq with no pending stamp, squeeze live rows down, then
+// re-merge adjacent splits of one insert. Returns n_heads.
+template <class Doc>
+__device__ int compact_doc(const Doc &d, int min_seq) {
   __syncthreads();
   int loc = 0;
   for (int r = d.r0; r < d.r1; ++r) {
@@ -516,31 +567,56 @@ __device__ int compact_smem(const Doc &d, int min_seq) {
 
 extern __shared__ int smem_raw[];
 
+// Ints of global-tier workspace per document: scratch A, B, C, E and the
+// flag bytes F.
+__host__ __device__ size_t work_ints(int S) {
+  return (size_t)4 * S + (S + 3) / 4;
+}
+
 // MODE 0: K1 apply. MODE 1: K2 compact. MODE 2: K3 apply then compact.
-template <int MODE>
-__global__ void __launch_bounds__(MAX_THREADS)
+// G: the global tier (lanes in tables_out, scratch in `work`).
+template <int MODE, bool G>
+__global__ void __launch_bounds__(G ? GLOBAL_THREADS : MAX_THREADS)
 merge_kernel(const int *__restrict__ ops, const int *tables_in,
              const int *scalars_in, int *tables_out, int *scalars_out,
-             int n_docs, int S, int K) {
+             int *work, int n_docs, int S, int K) {
   __shared__ int ws[WS_SIZE];
   const int doc = blockIdx.x;
-  Doc d;
+  const size_t plane = (size_t)n_docs * S;
+  const size_t base = (size_t)doc * S;
+  DocT<G> d;
   d.S = S;
-  d.L = smem_raw;
-  d.A = d.L + N_LANES * S;
+  d.ws = ws;
+  if constexpr (G) {
+    d.L = tables_out + base;
+    d.ls = plane;
+    d.A = work + (size_t)doc * work_ints(S);
+    d.E = d.A + 3 * (size_t)S;
+  } else {
+    d.L = smem_raw;
+    d.ls = S;
+    d.A = d.L + N_LANES * S;
+    d.E = nullptr;
+  }
   d.B = d.A + S;
   d.C = d.B + S;
-  d.F = reinterpret_cast<unsigned char *>(d.C + S);
-  d.ws = ws;
+  d.F = reinterpret_cast<unsigned char *>(d.A + (G ? 4 : 3) * (size_t)S);
   const int R = (S + blockDim.x - 1) / blockDim.x;
   d.r0 = min((int)threadIdx.x * R, S);
   d.r1 = min(d.r0 + R, S);
 
-  const size_t plane = (size_t)n_docs * S;
-  const size_t base = (size_t)doc * S;
-  for (int l = 0; l < N_LANES; ++l)
-    for (int r = threadIdx.x; r < S; r += blockDim.x)
-      d.at(l, r) = tables_in[l * plane + base + r];
+  // Shared tier: load the private copy. Global tier: the table is updated
+  // where it lies in tables_out, so copy tables_in there when they differ.
+  if (!G || tables_in != tables_out) {
+    for (int l = 0; l < N_LANES; ++l)
+      for (int r = threadIdx.x; r < S; r += blockDim.x) {
+        const int v = tables_in[l * plane + base + r];
+        if constexpr (G)
+          tables_out[l * plane + base + r] = v;
+        else
+          d.at(l, r) = v;
+      }
+  }
   int sc_in[N_SCALARS];
 #pragma unroll
   for (int i = 0; i < N_SCALARS; ++i)
@@ -549,14 +625,16 @@ merge_kernel(const int *__restrict__ ops, const int *tables_in,
              sc_in[SC_SELF], sc_in[SC_ERR]};
   __syncthreads();
 
-  if (MODE != 1) apply_ops_smem(d, ops + (size_t)doc * K * OP_WIDTH, K, sc);
+  if (MODE != 1) apply_ops_doc(d, ops + (size_t)doc * K * OP_WIDTH, K, sc);
   int n_heads = 0;
-  if (MODE != 0) n_heads = compact_smem(d, sc.min_seq);
+  if (MODE != 0) n_heads = compact_doc(d, sc.min_seq);
   __syncthreads();
 
-  for (int l = 0; l < N_LANES; ++l)
-    for (int r = threadIdx.x; r < S; r += blockDim.x)
-      tables_out[l * plane + base + r] = d.at(l, r);
+  if constexpr (!G) {
+    for (int l = 0; l < N_LANES; ++l)
+      for (int r = threadIdx.x; r < S; r += blockDim.x)
+        tables_out[l * plane + base + r] = d.at(l, r);
+  }
   if (threadIdx.x == 0) {
     int out[N_SCALARS] = {MODE == 0 ? sc.count : n_heads, sc.min_seq,
                           sc.cur_seq, sc.self_client, sc.err, 0, 0, 0};
@@ -573,21 +651,32 @@ size_t smem_bytes(int S) {
   return (size_t)(N_LANES + 3) * S * sizeof(int) + ((S + 15) / 16) * 16;
 }
 
+// work == nullptr: the shared tier (S <= SMEM_MAX_CAP). Otherwise the
+// global tier (S <= MAX_CAP), with n_docs * work_ints(S) ints at `work`.
 template <int MODE>
 int launch(const int *ops, const int *tables_in, const int *scalars_in,
-           int *tables_out, int *scalars_out, int n_docs, int S, int K,
-           void *stream) {
-  if (n_docs < 1 || S < 1 || S > MAX_CAP || K < 0)
-    return (int)cudaErrorInvalidValue;
+           int *tables_out, int *scalars_out, int *work, int n_docs, int S,
+           int K, void *stream) {
+  if (n_docs < 1 || S < 1 || K < 0) return (int)cudaErrorInvalidValue;
   int threads = (S + 31) / 32 * 32;
-  if (threads > MAX_THREADS) threads = MAX_THREADS;
-  const size_t smem = smem_bytes(S);
-  cudaError_t e = cudaFuncSetAttribute(
-      merge_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  merge_kernel<MODE><<<n_docs, threads, smem, (cudaStream_t)stream>>>(
-      ops, tables_in, scalars_in, tables_out, scalars_out, n_docs, S, K);
+  if (work == nullptr) {
+    if (S > SMEM_MAX_CAP) return (int)cudaErrorInvalidValue;
+    if (threads > MAX_THREADS) threads = MAX_THREADS;
+    const size_t smem = smem_bytes(S);
+    cudaError_t e = cudaFuncSetAttribute(
+        merge_kernel<MODE, false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    merge_kernel<MODE, false><<<n_docs, threads, smem, (cudaStream_t)stream>>>(
+        ops, tables_in, scalars_in, tables_out, scalars_out, nullptr, n_docs,
+        S, K);
+  } else {
+    if (S > MAX_CAP) return (int)cudaErrorInvalidValue;
+    if (threads > GLOBAL_THREADS) threads = GLOBAL_THREADS;
+    merge_kernel<MODE, true><<<n_docs, threads, 0, (cudaStream_t)stream>>>(
+        ops, tables_in, scalars_in, tables_out, scalars_out, work, n_docs, S,
+        K);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -597,30 +686,36 @@ extern "C" {
 
 // Each entry launches on `stream` and returns cudaGetLastError() (0 = ok).
 // tables_out/scalars_out may alias tables_in/scalars_in (in-place update).
+// `work` selects the tier: NULL for the shared tier, else a device buffer
+// of n_docs * merge_work_ints(S) int32 for the global tier.
 
 int merge_apply(const int *ops, const int *tables_in, const int *scalars_in,
-                int *tables_out, int *scalars_out, int n_docs, int S, int K,
-                void *stream) {
-  return launch<0>(ops, tables_in, scalars_in, tables_out, scalars_out,
+                int *tables_out, int *scalars_out, int *work, int n_docs,
+                int S, int K, void *stream) {
+  return launch<0>(ops, tables_in, scalars_in, tables_out, scalars_out, work,
                    n_docs, S, K, stream);
 }
 
 int merge_compact(const int *tables_in, const int *scalars_in,
-                  int *tables_out, int *scalars_out, int n_docs, int S,
-                  void *stream) {
+                  int *tables_out, int *scalars_out, int *work, int n_docs,
+                  int S, void *stream) {
   return launch<1>(nullptr, tables_in, scalars_in, tables_out, scalars_out,
-                   n_docs, S, 0, stream);
+                   work, n_docs, S, 0, stream);
 }
 
 int merge_apply_compact(const int *ops, const int *tables_in,
                         const int *scalars_in, int *tables_out,
-                        int *scalars_out, int n_docs, int S, int K,
+                        int *scalars_out, int *work, int n_docs, int S, int K,
                         void *stream) {
-  return launch<2>(ops, tables_in, scalars_in, tables_out, scalars_out,
+  return launch<2>(ops, tables_in, scalars_in, tables_out, scalars_out, work,
                    n_docs, S, K, stream);
 }
 
+int merge_smem_max_capacity(void) { return SMEM_MAX_CAP; }
+
 int merge_max_capacity(void) { return MAX_CAP; }
+
+long long merge_work_ints(int S) { return (long long)work_ints(S); }
 
 const char *merge_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);

@@ -25,8 +25,11 @@ SOURCE = os.path.join(_PKG, "csrc", "merge_kernels.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 ARCH = "arch=compute_90a,code=sm_90a"
 # Largest table (rows per document) whose lanes fit one CTA's shared
-# memory; must equal MAX_CAP in merge_kernels.cu.
-MAX_CAPACITY = 2048
+# memory (the shared tier); must equal SMEM_MAX_CAP in merge_kernels.cu.
+SMEM_MAX_CAPACITY = 2048
+# Largest table the kernels take at all (the global tier above the shared
+# one; the reference fleet's max_capacity); must equal MAX_CAP there.
+MAX_CAPACITY = 65536
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""  # ptxas report of the last build (registers, smem, spills)
@@ -76,21 +79,46 @@ def lib() -> ctypes.CDLL:
         cdll = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
         for name, args in (
-            ("merge_apply", [p, p, p, p, p, i, i, i, p]),
-            ("merge_compact", [p, p, p, p, i, i, p]),
-            ("merge_apply_compact", [p, p, p, p, p, i, i, i, p]),
+            ("merge_apply", [p, p, p, p, p, p, i, i, i, p]),
+            ("merge_compact", [p, p, p, p, p, i, i, p]),
+            ("merge_apply_compact", [p, p, p, p, p, p, i, i, i, p]),
         ):
             fn = getattr(cdll, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
-        cdll.merge_max_capacity.argtypes = []
-        cdll.merge_max_capacity.restype = ctypes.c_int
+        for name in ("merge_smem_max_capacity", "merge_max_capacity"):
+            getattr(cdll, name).argtypes = []
+            getattr(cdll, name).restype = ctypes.c_int
+        cdll.merge_work_ints.argtypes = [ctypes.c_int]
+        cdll.merge_work_ints.restype = ctypes.c_longlong
         cdll.merge_error_string.argtypes = [ctypes.c_int]
         cdll.merge_error_string.restype = ctypes.c_char_p
-        if cdll.merge_max_capacity() != MAX_CAPACITY:
-            raise RuntimeError("merge_kernels.cu MAX_CAP != MAX_CAPACITY")
+        if (cdll.merge_smem_max_capacity() != SMEM_MAX_CAPACITY
+                or cdll.merge_max_capacity() != MAX_CAPACITY):
+            raise RuntimeError("merge_kernels.cu tier limits != _cuda.py's")
+        if cdll.merge_work_ints(MAX_CAPACITY) != work_ints(MAX_CAPACITY):
+            raise RuntimeError("merge_kernels.cu work_ints != _cuda.py's")
         _lib = cdll
     return _lib
+
+
+def tier(s: int) -> str:
+    """The kernel tier for tables of ``s`` rows per document: ``"smem"``
+    (the table in one CTA's shared memory) up to
+    :data:`SMEM_MAX_CAPACITY`, ``"global"`` (the table in global memory)
+    up to :data:`MAX_CAPACITY`; larger tables raise ``ValueError``."""
+    if s > MAX_CAPACITY:
+        raise ValueError(
+            f"capacity tier {s} exceeds the largest kernel tier "
+            f"(<= {MAX_CAPACITY} rows per document)"
+        )
+    return "smem" if s <= SMEM_MAX_CAPACITY else "global"
+
+
+def work_ints(s: int) -> int:
+    """int32 words of global-tier workspace per document: four S-row
+    scratch arrays and S flag bytes (``work_ints`` in merge_kernels.cu)."""
+    return 4 * s + (s + 3) // 4
 
 
 def check_packed(tables, scalars, ops=None) -> None:
@@ -115,21 +143,48 @@ def check_packed(tables, scalars, ops=None) -> None:
     if ops is not None and (ops.dim() != 3 or ops.shape[0] != d
                             or ops.shape[2] != OP_WIDTH):
         raise ValueError(f"ops must be [{d}, K, {OP_WIDTH}]")
-    if s > MAX_CAPACITY:
-        raise ValueError(
-            f"capacity tier {s} exceeds the shared-memory tier "
-            f"(<= {MAX_CAPACITY} rows per document); the global-memory "
-            "tiers are not ported yet"
-        )
+    tier(s)
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Call one C entry on PyTorch's current stream of ``device``; raise on
-    a CUDA error (a refused launch never runs, and a later synchronize
-    would not say so)."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+def launch(name: str, tables, scalars, ops, out) -> str:
+    """Launch one C entry (``merge_apply``, ``merge_compact`` or
+    ``merge_apply_compact``) on PyTorch's current stream of the tables'
+    device, reading ``tables``/``scalars`` (and ``ops``) and writing the
+    ``out`` pair; returns the tier it ran on. The global tier gets a fresh
+    workspace from the caching allocator. Raises on a CUDA error (a
+    refused launch never runs, and a later synchronize would not say so)."""
+    check_packed(tables, scalars, ops)
+    ot, os_ = out
+    check_packed(ot, os_)
+    d, s = tables.shape[1], tables.shape[2]
+    t = tier(s)
+    work = None
+    if t == "global":
+        work = torch.empty((d, work_ints(s)), dtype=torch.int32,
+                           device=tables.device)
+    args = [tables.data_ptr(), scalars.data_ptr(), ot.data_ptr(),
+            os_.data_ptr(), work.data_ptr() if work is not None else None,
+            d, s]
+    if ops is not None:
+        args = [ops.data_ptr()] + args + [ops.shape[1]]
+    with torch.cuda.device(tables.device):
+        stream = torch.cuda.current_stream(tables.device).cuda_stream
         err = getattr(lib(), name)(*args, stream)
     if err != 0:
         msg = lib().merge_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+    return t
+
+
+def count_launch(wrapper, t: str) -> None:
+    """Add one launch to a wrapper's counters: ``launches`` (every tier)
+    and ``launches_smem`` or ``launches_global``."""
+    wrapper.launches += 1
+    key = f"launches_{t}"
+    setattr(wrapper, key, getattr(wrapper, key) + 1)
+
+
+def reset_counts(*wrappers) -> None:
+    """Zero every launch counter of the given wrappers."""
+    for w in wrappers:
+        w.launches = w.launches_smem = w.launches_global = 0

@@ -3,7 +3,9 @@
 Replaces the Pallas TPU kernel ``fluidframework_tpu/ops/pallas_kernel.py``
 (``_apply_values``, reached through ``apply_ops_packed``). The CUDA kernel
 is ``csrc/merge_kernels.cu`` (``merge_apply``): one CTA per document, its
-table resident in shared memory for the whole op loop. It is latency-bound
+table resident in shared memory for the whole op loop up to 2,048 rows,
+and read and written in place in global memory above that (the global
+tier, up to 65,536 rows). It is latency-bound
 on the K sequential block-scan steps, not bandwidth-bound; its byte floor
 is 2 x 15 x S x 4 B x D of table traffic plus D x K x 40 B of ops.
 
@@ -325,22 +327,18 @@ def apply_ops_packed(tables, scalars, ops, *, out=None):
     """Apply ops [D, K, OP_WIDTH] to a packed state. Writes into ``out``
     (a (tables, scalars) pair) or, by default, into the inputs in place;
     returns the written pair. CPU tensors take :func:`apply_plain`; CUDA
-    tensors launch ``merge_apply`` or raise."""
+    tensors launch ``merge_apply`` on the tier S calls for (shared memory up
+    to 2,048 rows, global memory up to 65,536) or raise."""
     ot, os_ = _destination(tables, scalars, out)
     if tables.device.type == "cpu":
         nt, ns = apply_plain(tables, scalars, ops)
         ot.copy_(nt)
         os_.copy_(ns)
         return ot, os_
-    _cuda.check_packed(tables, scalars, ops)
-    _cuda.check_packed(ot, os_)
-    _cuda.launch(
-        "merge_apply", tables.device, ops.data_ptr(), tables.data_ptr(),
-        scalars.data_ptr(), ot.data_ptr(), os_.data_ptr(), tables.shape[1],
-        tables.shape[2], ops.shape[1],
-    )
-    apply_ops_packed.launches += 1
+    tier = _cuda.launch("merge_apply", tables, scalars, ops, (ot, os_))
+    _cuda.count_launch(apply_ops_packed, tier)
     return ot, os_
 
 
-apply_ops_packed.launches = 0  # CUDA launches (the CPU path never counts)
+# CUDA launches, in all and by tier (the CPU path never counts).
+_cuda.reset_counts(apply_ops_packed)

@@ -3,10 +3,13 @@
 Replace the Pallas TPU kernels of ``fluidframework_tpu/ops/pallas_compact.py``
 (``compact_values`` behind ``compact_packed``; ``_fused_kernel`` behind
 ``apply_compact_packed``). The CUDA kernels are ``merge_compact`` and
-``merge_apply_compact`` in ``csrc/merge_kernels.cu``: a stream compaction in
-shared memory (a scan of ``keep``, a direct scatter, then a second scan and
-scatter over the merge heads), with K3 running K1's op loop and K2 back to
-back so the table never leaves shared memory. Like K1 they are latency-bound
+``merge_apply_compact`` in ``csrc/merge_kernels.cu``: a stream compaction (a
+scan of ``keep``, a direct scatter, then a second scan and scatter over the
+merge heads), with K3 running K1's op loop and K2 back to back so the table
+never leaves the CTA between them. As K1, they keep the table in shared
+memory up to 2,048 rows and in global memory above that, up to 65,536 rows;
+so K2 replaces both the reference's Pallas compact and the XLA compact it
+falls back to above 256 rows. Like K1 they are latency-bound
 on block-scan steps; their byte floor is 2 x 15 x S x 4 B x D of table
 traffic (plus D x K x 40 B of ops for K3).
 
@@ -149,20 +152,16 @@ def apply_compact_plain(tables, scalars, ops):
 
 def compact_packed(tables, scalars, *, out=None):
     """Compact a packed state, in place unless ``out`` is given; returns
-    the written pair. CPU: :func:`compact_plain`; CUDA: ``merge_compact``."""
+    the written pair. CPU: :func:`compact_plain`; CUDA: ``merge_compact`` on
+    the tier S calls for (every S up to 65,536 rows)."""
     ot, os_ = _destination(tables, scalars, out)
     if tables.device.type == "cpu":
         nt, ns = compact_plain(tables, scalars)
         ot.copy_(nt)
         os_.copy_(ns)
         return ot, os_
-    _cuda.check_packed(tables, scalars)
-    _cuda.check_packed(ot, os_)
-    _cuda.launch(
-        "merge_compact", tables.device, tables.data_ptr(), scalars.data_ptr(),
-        ot.data_ptr(), os_.data_ptr(), tables.shape[1], tables.shape[2],
-    )
-    compact_packed.launches += 1
+    tier = _cuda.launch("merge_compact", tables, scalars, None, (ot, os_))
+    _cuda.count_launch(compact_packed, tier)
     return ot, os_
 
 
@@ -175,16 +174,11 @@ def apply_compact_packed(tables, scalars, ops, *, out=None):
         ot.copy_(nt)
         os_.copy_(ns)
         return ot, os_
-    _cuda.check_packed(tables, scalars, ops)
-    _cuda.check_packed(ot, os_)
-    _cuda.launch(
-        "merge_apply_compact", tables.device, ops.data_ptr(),
-        tables.data_ptr(), scalars.data_ptr(), ot.data_ptr(), os_.data_ptr(),
-        tables.shape[1], tables.shape[2], ops.shape[1],
-    )
-    apply_compact_packed.launches += 1
+    tier = _cuda.launch("merge_apply_compact", tables, scalars, ops,
+                        (ot, os_))
+    _cuda.count_launch(apply_compact_packed, tier)
     return ot, os_
 
 
-compact_packed.launches = 0  # CUDA launches (the CPU path never counts)
-apply_compact_packed.launches = 0
+# CUDA launches, in all and by tier (the CPU path never counts).
+_cuda.reset_counts(compact_packed, apply_compact_packed)

@@ -54,6 +54,8 @@ def test_port_modules_and_chip_smoke_load_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "fluidframework_tpu_torch.service.fleet_service" in mods
+    assert "fluidframework_tpu_torch.parallel.fleet" in mods
+    assert "fluidframework_tpu_torch.ops.encode" in mods
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -83,6 +85,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         make_batched_state,
         make_state,
     )
+    from fluidframework_tpu_torch.parallel.fleet import DocFleet
     from fluidframework_tpu_torch.service.fleet_service import (
         TpuFleetService,
     )
@@ -90,6 +93,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         TpuFleetService(4, capacity=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DocFleet(4, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DocFleet(4, 8, kernel="plain")
     with pytest.raises(RuntimeError, match="CUDA"):
         make_batched_state(2, 8, -3)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -106,6 +113,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     # Asked for by name, the CPU path runs.
     assert TpuFleetService(4, capacity=8, device="cpu").tables.device.type \
         == "cpu"
+    assert DocFleet(4, 8, device="cpu").pools[8].tables.device.type == "cpu"
 
 
 def test_wrappers_never_fall_back_off_the_cpu():

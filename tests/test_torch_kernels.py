@@ -9,6 +9,7 @@ every sticky err bit. The port runs on the CPU, where each wrapper takes its
 plain version.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -259,3 +260,64 @@ def test_out_buffers_leave_inputs_untouched():
     assert torch.equal(tt, before[0]) and torch.equal(ts, before[1])
     want = K2.apply_compact_plain(tt, ts, torch.from_numpy(batch))
     assert torch.equal(ot, want[0]) and torch.equal(os_, want[1])
+
+
+# -- tiers past the Pallas compact's 256 rows and the shared-memory tier -----
+
+
+def _xla_state_after(batch, cap):
+    """The reference XLA state of ``batch`` applied to empty docs of
+    ``cap`` rows, as packed numpy arrays."""
+    n_docs = batch.shape[0]
+    return _xla_packed(batched_apply_ops(
+        ref_make_batched_state(n_docs, cap, NO_CLIENT), batch))
+
+
+@pytest.mark.parametrize("cap", [512, 4096])
+def test_plain_compact_matches_xla_compact_past_256_rows(cap):
+    """Above 256 rows the reference fleet compacts with the XLA
+    ``batched_compact``; the port's one K2 matches it there too."""
+    batch, _ = _random_docs(8, 2, 48, msn_lag=6, advance=True)
+    rt, rs = _xla_state_after(batch, cap)
+    want = _xla_packed(batched_compact(
+        ref_make_batched_state(2, cap, NO_CLIENT)._make(
+            [jnp.asarray(x) for x in _unpack_np(rt, rs)]
+        )
+    ))
+    got = K2.compact_plain(torch.tensor(rt), torch.tensor(rs))
+    _assert_packed_equal(want, got)
+    assert int(got[1][:, K1.SC_COUNT].max()) > 0
+
+
+def test_plain_apply_matches_xla_at_4096_rows():
+    """K1's plain version at the first global-memory tier (D=2, K=8)."""
+    batch, _ = _random_docs(9, 2, 8)
+    cap = 4096
+    want = _xla_state_after(batch, cap)
+    tt, ts = _port_state(2, cap, NO_CLIENT)
+    K1.apply_ops_packed(tt, ts, torch.from_numpy(batch))
+    _assert_packed_equal(want, (tt, ts))
+
+
+@pytest.mark.parametrize("cap,tier", [(8, "smem"), (2048, "smem"),
+                                      (2049, "global"), (4096, "global"),
+                                      (65536, "global")])
+def test_wrappers_route_by_tier(cap, tier):
+    """S up to 2,048 takes the shared-memory entry, larger S up to 65,536
+    the global-memory one; the choice launches nothing."""
+    from fluidframework_tpu_torch.ops import _cuda
+
+    assert _cuda.tier(cap) == tier
+    assert _cuda.work_ints(cap) == 4 * cap + (cap + 3) // 4
+
+
+def test_wrappers_refuse_past_the_largest_tier():
+    from fluidframework_tpu_torch.ops import _cuda
+
+    with pytest.raises(ValueError, match="65536"):
+        _cuda.tier(_cuda.MAX_CAPACITY + 1)
+    t = torch.zeros((15, 1, 2 * _cuda.MAX_CAPACITY), dtype=torch.int32,
+                    device="meta")
+    s = torch.zeros((1, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        K2.compact_packed(t, s)
