@@ -19,12 +19,11 @@
 //   - global tier (2,048 < S <= 65,536): a table of 15 x S x 4 B (240 KB
 //     at 4,096 rows, 3.75 MB at 65,536) does not fit the 227 KB one CTA may
 //     use, so the lanes stay in tables_out (lane stride D*S, copied from
-//     tables_in first when the two differ) and the scratch arrays (plus a
-//     fourth one that stages a lane during a squeeze) sit in a per-doc slice
-//     of a device workspace the wrapper allocates; 512 threads. Barriers
-//     order global writes within the block, so the in-place row shifts stay
-//     correct. Rows are not staged in registers (a thread owns up to 128
-//     rows). Accesses stride by the chunk length and are not coalesced.
+//     tables_in first when the two differ) and the scratch arrays sit in a
+//     per-doc slice of a device workspace the wrapper allocates; 512
+//     threads. Barriers order global writes within the block, so the
+//     in-place row shifts stay correct. Accesses stride by the chunk length
+//     and are not coalesced.
 // Each thread owns a contiguous chunk of R = ceil(S / threads) rows.
 //   - Prefix sums: a per-thread serial sum over its chunk, a warp-shuffle
 //     scan of the chunk totals, and one shared array of warp totals.
@@ -63,7 +62,6 @@ constexpr int SMEM_MAX_CAP = 2048;   // largest shared-tier table
 constexpr int MAX_CAP = 65536;       // largest global-tier table
 constexpr int MAX_THREADS = 256;     // shared tier
 constexpr int GLOBAL_THREADS = 512;  // global tier
-constexpr int MAX_ROWS_PER_THREAD = SMEM_MAX_CAP / MAX_THREADS;
 constexpr unsigned FULL = 0xffffffffu;
 
 enum Lane {
@@ -94,14 +92,12 @@ constexpr int WS_SCAN1 = 0, WS_MIN = 32, WS_SCAN2 = 128, WS_KEEP = 160,
 // One document's table as the block sees it. G = false: the lanes are a
 // private [N_LANES][S] copy in shared memory. G = true: they are the doc's
 // rows of the packed [N_LANES, D, S] tables in global memory (lane stride
-// ls = D*S), and E stages one lane during a squeeze.
+// ls = D*S).
 template <bool G>
 struct DocT {
-  static constexpr bool GLOBAL = G;
   int *L;            // lane 0, row 0 of this doc
   size_t ls;         // lane stride (global tier)
   int *A, *B, *C;    // [S] scratch
-  int *E;            // [S] squeeze staging (global tier only)
   unsigned char *F;  // [S] flags
   int S;
   int r0, r1;        // this thread's rows [r0, r1)
@@ -457,42 +453,21 @@ __device__ void apply_ops_doc(const Doc &d, const int *ops_doc, int K,
 // `n` that nobody fills take their lane's free value. Row `len_lane`, if
 // set, takes `len_of(r)` instead of its own length. Two barriers per lane.
 // A row's destination may lie in another thread's chunk, so every flagged
-// row of a lane is read before any is written: staged in registers on the
-// shared tier, in the E scratch array on the global tier.
+// row of a lane is staged in `stage`, a scratch array the caller has free,
+// before any is written.
 template <class Doc, typename LenFn>
-__device__ void squeeze(const Doc &d, const int *dst, int n, bool merge_len,
-                        LenFn len_of) {
-  if constexpr (Doc::GLOBAL) {
-    for (int l = 0; l < N_LANES; ++l) {
-      for (int r = d.r0; r < d.r1; ++r)
-        if (d.F[r]) d.E[r] = d.at(l, r);
-      __syncthreads();
-      for (int r = d.r0; r < d.r1; ++r) {
-        if (r >= n) d.at(l, r) = lane_fill(l);
-        if (d.F[r])
-          d.at(l, dst[r]) = (merge_len && l == L_LEN) ? len_of(r) : d.E[r];
-      }
-      __syncthreads();
+__device__ void squeeze(const Doc &d, const int *dst, int *stage, int n,
+                        bool merge_len, LenFn len_of) {
+  for (int l = 0; l < N_LANES; ++l) {
+    for (int r = d.r0; r < d.r1; ++r)
+      if (d.F[r]) stage[r] = d.at(l, r);
+    __syncthreads();
+    for (int r = d.r0; r < d.r1; ++r) {
+      if (r >= n) d.at(l, r) = lane_fill(l);
+      if (d.F[r])
+        d.at(l, dst[r]) = (merge_len && l == L_LEN) ? len_of(r) : stage[r];
     }
-  } else {
-    for (int l = 0; l < N_LANES; ++l) {
-      int v[MAX_ROWS_PER_THREAD];
-#pragma unroll
-      for (int j = 0; j < MAX_ROWS_PER_THREAD; ++j) {
-        const int r = d.r0 + j;
-        if (r < d.r1 && d.F[r]) v[j] = d.at(l, r);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < MAX_ROWS_PER_THREAD; ++j) {
-        const int r = d.r0 + j;
-        if (r >= d.r1) continue;
-        if (r >= n) d.at(l, r) = lane_fill(l);
-        if (d.F[r])
-          d.at(l, dst[r]) = (merge_len && l == L_LEN) ? len_of(r) : v[j];
-      }
-      __syncthreads();
-    }
+    __syncthreads();
   }
 }
 
@@ -520,7 +495,7 @@ __device__ int compact_doc(const Doc &d, int min_seq) {
     d.A[r] = run;
     run += d.F[r];
   }
-  squeeze(d, d.A, n, false, [](int) { return 0; });
+  squeeze(d, d.A, d.B, n, false, [](int) { return 0; });
 
   // -- sibling re-merge (packParent subset) --------------------------------
   int loc_h = 0, loc_v = 0;
@@ -558,7 +533,7 @@ __device__ int compact_doc(const Doc &d, int min_seq) {
   __syncthreads();
   // Merged length of head t = (next head's prefix length, or total) - own.
   const int *B = d.B, *C = d.C;
-  squeeze(d, d.B, n_heads, true, [=](int r) {
+  squeeze(d, d.B, d.A, n_heads, true, [=](int r) {
     const int t = B[r];
     return (t + 1 < n_heads ? C[t + 1] : total) - C[t];
   });
@@ -567,10 +542,10 @@ __device__ int compact_doc(const Doc &d, int min_seq) {
 
 extern __shared__ int smem_raw[];
 
-// Ints of global-tier workspace per document: scratch A, B, C, E and the
-// flag bytes F.
+// Ints of global-tier workspace per document: scratch A, B, C and the flag
+// bytes F.
 __host__ __device__ size_t work_ints(int S) {
-  return (size_t)4 * S + (S + 3) / 4;
+  return (size_t)3 * S + (S + 3) / 4;
 }
 
 // MODE 0: K1 apply. MODE 1: K2 compact. MODE 2: K3 apply then compact.
@@ -591,16 +566,14 @@ merge_kernel(const int *__restrict__ ops, const int *tables_in,
     d.L = tables_out + base;
     d.ls = plane;
     d.A = work + (size_t)doc * work_ints(S);
-    d.E = d.A + 3 * (size_t)S;
   } else {
     d.L = smem_raw;
     d.ls = S;
     d.A = d.L + N_LANES * S;
-    d.E = nullptr;
   }
   d.B = d.A + S;
   d.C = d.B + S;
-  d.F = reinterpret_cast<unsigned char *>(d.A + (G ? 4 : 3) * (size_t)S);
+  d.F = reinterpret_cast<unsigned char *>(d.C + S);
   const int R = (S + blockDim.x - 1) / blockDim.x;
   d.r0 = min((int)threadIdx.x * R, S);
   d.r1 = min(d.r0 + R, S);

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from fluidframework_tpu_torch.ops.apply_kernel import N_LANES, N_SCALARS
-from fluidframework_tpu_torch.parallel.fleet import DocFleet, _Pool
+from fluidframework_tpu_torch.parallel.fleet import DocFleet
 from fluidframework_tpu_torch.service.fleet_service import TpuFleetService
 from fluidframework_tpu_torch.utils import resolve_device
 
@@ -88,46 +88,29 @@ def fleet_from_reference(
     max_capacity: int = 1 << 16,
     migrations: int = 0,
     demotions: int = 0,
-    kernel: str = "auto",
     device="cuda",
 ) -> DocFleet:
     """A port ``DocFleet`` in the state of a reference ``DocFleet``.
 
-    ``pools`` maps each capacity to ``(state, doc_of_slot, slot_gen)`` or
-    ``(state, doc_of_slot, slot_gen, free)``, in the reference's pool
-    order: ``state`` is the pool's SegmentState as numpy arrays (15 lanes
-    [n_slots, S], then count, min_seq, cur_seq, self_client, err [n_slots]),
-    ``free`` the pool's slot free-list. Without ``free`` the free-list is
-    rebuilt lowest slot first, which hands out slots in another order than
-    a reference whose slots were released out of order. ``placement`` is
-    the reference's per-doc ``(cap, slot)`` or ``None`` (evicted)."""
-    fleet = DocFleet(
-        0, base_capacity, high_water=high_water, max_capacity=max_capacity,
-        kernel=kernel, low_water=low_water, device=device,
-    )
-    fleet.pools = {}
-    for cap, entry in pools.items():
-        state, doc_of_slot, slot_gen = entry[:3]
+    ``pools`` maps each capacity, in the reference's pool order, to
+    ``(state, doc_of_slot, slot_gen, free)`` read off the reference pool:
+    ``state`` is its SegmentState as numpy arrays (15 lanes [n_slots, S],
+    then count, min_seq, cur_seq, self_client, err [n_slots]) and ``free``
+    its slot free-list (``pool._free``), so slots are handed out in the
+    reference's order. ``placement`` is the reference's per-doc
+    ``(cap, slot)`` or ``None`` (evicted)."""
+
+    def packed(state):
         arrays = [np.asarray(x, np.int32) for x in state]
-        n = arrays[0].shape[0]
-        scalars = np.zeros((n, N_SCALARS), np.int32)
+        scalars = np.zeros((arrays[0].shape[0], N_SCALARS), np.int32)
         scalars[:, : len(arrays) - N_LANES] = np.stack(arrays[N_LANES:], 1)
-        pool = _Pool(int(cap), n, fleet.kernel, fleet.device)
-        pool.tables, pool.scalars = state_from_numpy(
-            np.stack(arrays[:N_LANES]), scalars, fleet.device
-        )
-        pool.doc_of_slot = np.array(doc_of_slot, np.int32)
-        pool.slot_gen = np.array(slot_gen, np.int64)
-        if len(entry) > 3:
-            pool._free = [int(s) for s in entry[3]]
-        else:
-            pool._free = [int(s) for s in
-                          np.flatnonzero(pool.doc_of_slot < 0)[::-1]]
-        fleet.pools[int(cap)] = pool
-    fleet.placement = [None if p is None else (int(p[0]), int(p[1]))
-                       for p in placement]
-    fleet.n_docs = len(fleet.placement)
-    fleet._place_dirty = True
-    fleet.migrations = migrations
-    fleet.demotions = demotions
-    return fleet
+        return (torch.from_numpy(np.stack(arrays[:N_LANES])),
+                torch.from_numpy(scalars))
+
+    return DocFleet.from_pools(
+        {cap: (*packed(state), doc_of_slot, slot_gen, free)
+         for cap, (state, doc_of_slot, slot_gen, free) in pools.items()},
+        placement, base_capacity=base_capacity, high_water=high_water,
+        low_water=low_water, max_capacity=max_capacity,
+        migrations=migrations, demotions=demotions, device=device,
+    )

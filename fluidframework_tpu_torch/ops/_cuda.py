@@ -96,8 +96,6 @@ def lib() -> ctypes.CDLL:
         if (cdll.merge_smem_max_capacity() != SMEM_MAX_CAPACITY
                 or cdll.merge_max_capacity() != MAX_CAPACITY):
             raise RuntimeError("merge_kernels.cu tier limits != _cuda.py's")
-        if cdll.merge_work_ints(MAX_CAPACITY) != work_ints(MAX_CAPACITY):
-            raise RuntimeError("merge_kernels.cu work_ints != _cuda.py's")
         _lib = cdll
     return _lib
 
@@ -113,12 +111,6 @@ def tier(s: int) -> str:
             f"(<= {MAX_CAPACITY} rows per document)"
         )
     return "smem" if s <= SMEM_MAX_CAPACITY else "global"
-
-
-def work_ints(s: int) -> int:
-    """int32 words of global-tier workspace per document: four S-row
-    scratch arrays and S flag bytes (``work_ints`` in merge_kernels.cu)."""
-    return 4 * s + (s + 3) // 4
 
 
 def check_packed(tables, scalars, ops=None) -> None:
@@ -151,8 +143,9 @@ def launch(name: str, tables, scalars, ops, out) -> str:
     ``merge_apply_compact``) on PyTorch's current stream of the tables'
     device, reading ``tables``/``scalars`` (and ``ops``) and writing the
     ``out`` pair; returns the tier it ran on. The global tier gets a fresh
-    workspace from the caching allocator. Raises on a CUDA error (a
-    refused launch never runs, and a later synchronize would not say so)."""
+    workspace from the caching allocator, sized by the kernel library
+    (``merge_work_ints``). Raises on a CUDA error (a refused launch never
+    runs, and a later synchronize would not say so)."""
     check_packed(tables, scalars, ops)
     ot, os_ = out
     check_packed(ot, os_)
@@ -160,7 +153,7 @@ def launch(name: str, tables, scalars, ops, out) -> str:
     t = tier(s)
     work = None
     if t == "global":
-        work = torch.empty((d, work_ints(s)), dtype=torch.int32,
+        work = torch.empty((d, lib().merge_work_ints(s)), dtype=torch.int32,
                            device=tables.device)
     args = [tables.data_ptr(), scalars.data_ptr(), ot.data_ptr(),
             os_.data_ptr(), work.data_ptr() if work is not None else None,

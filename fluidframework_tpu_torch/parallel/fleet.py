@@ -406,6 +406,47 @@ class DocFleet:
         self.demotions = 0
         self.last_routing_s = 0.0
 
+    @classmethod
+    def from_pools(
+        cls,
+        pools: Dict[int, tuple],
+        placement,
+        *,
+        base_capacity: int,
+        high_water: float = 0.75,
+        low_water: float = 0.2,
+        max_capacity: int = 1 << 16,
+        migrations: int = 0,
+        demotions: int = 0,
+        device=None,
+    ) -> "DocFleet":
+        """A fleet in a given state. ``pools`` maps each capacity, in pool
+        order, to ``(tables, scalars, doc_of_slot, slot_gen, free)``: the
+        packed state ``[N_LANES, n_slots, S]`` / ``[n_slots, N_SCALARS]``
+        (copied to the fleet's device), each slot's doc (-1 = free), the
+        slot generations and the slot free-list (popped from its end).
+        ``placement`` is each doc's ``(cap, slot)``, or ``None`` when
+        evicted."""
+        fleet = cls(0, base_capacity, high_water=high_water,
+                    max_capacity=max_capacity, low_water=low_water,
+                    device=device)
+        fleet.pools = {}
+        for cap, (tables, scalars, doc_of_slot, slot_gen, free) in \
+                pools.items():
+            pool = fleet._new_pool(int(cap), int(tables.shape[1]))
+            pool.tables.copy_(tables)
+            pool.scalars.copy_(scalars)
+            pool.doc_of_slot = np.array(doc_of_slot, np.int32)
+            pool.slot_gen = np.array(slot_gen, np.int64)
+            pool._free = [int(s) for s in free]
+            fleet.pools[int(cap)] = pool
+        fleet.placement = [None if p is None else (int(p[0]), int(p[1]))
+                           for p in placement]
+        fleet.n_docs = len(fleet.placement)
+        fleet.migrations = migrations
+        fleet.demotions = demotions
+        return fleet
+
     def _new_pool(self, capacity: int, n_slots: int) -> _Pool:
         return _Pool(capacity, n_slots, self.kernel, self.device)
 
