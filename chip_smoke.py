@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch + CUDA port on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab PARENT_DIR [NAME=VALUE,... ...]
 
 Builds the hand-written kernels (``nvcc``, into the package's ``_build/``)
 and the native ticket loop (``g++``), then:
@@ -11,9 +12,10 @@ and the native ticket loop (``g++``), then:
    and op streams that include capacity overflow, out-of-range positions,
    unknown writers, and local ops with acks; times each (median of
    CUDA-event timings) beside its byte-floor bound;
-1b. global tier — the same at S = 4,096 (D=256), 16,384 (D=64) and
-   65,536 (D=16) rows, where the table lives in global memory, with the
-   shared tier at S = 2,048 (D=256) beside it;
+1b. the tiers above — the same at S = 4,096 and 8,192 (D=256), 16,384
+   (D=64) and 65,536 (D=16) rows: K1 splits tables of up to 16,384 rows
+   across a thread-block cluster, K2/K3 (and K1 above 16,384) keep the
+   table in global memory; the shared tier at S = 2,048 (D=256) beside it;
 2. fleet service — drives ``TpuFleetService`` at 100,000 docs x capacity
    128 x 16 ops/doc/round: a warm-up round plus 3 timed rounds at
    compact_every=1 (a scribe sweep of n_docs/3 docs in each), then 2 rounds
@@ -32,17 +34,24 @@ and the native ticket loop (``g++``), then:
    Each phase-3 run is replayed op for op through a ``kernel="plain"``
    DocFleet on the card and must match it bit for bit.
 
-Launch counts are reset before each main path (2, then 3a+3b) and read
-after it. Prints each phase's wall time, the card's name and power limit,
-a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
-Any failure exits non-zero. A longer record goes to ``chip_smoke.json``
-in the output directory (``OUT_DIR``).
+Launch counts (in all, and by tier: smem / cluster / global) are reset
+before each main path (2, then 3a+3b) and read after it; the DocFleet
+path must launch K1 on the cluster tier and K2 on the global tier. Prints
+the ptxas report of every kernel entry, each phase's wall time, the card's
+name and power limit, a ``{"kernels": [...]}`` line, and last
+``{"ok": true, "device": {...}}``. Any failure exits non-zero. A longer
+record goes to ``chip_smoke.json`` in the output directory (``OUT_DIR``).
+
+With ``--ab PARENT_DIR``, it times phases 1, 1b and 3b instead for the
+tree unpacked at PARENT_DIR and for this one, in turns on one card
+(parent, change, change, parent; see :func:`ab`), and writes ``ab.json``.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -83,21 +92,28 @@ from fluidframework_tpu_torch.utils import pow2_at_least
 from fluidframework_tpu_torch.utils.native import _load_ticket
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
+# (rows S, docs D) of phase 1 (the shared tier) and 1b (every tier above it
+# at the widths DocFleet's deep tiers reach, the shared tier beside them).
+PHASE1_SHAPES = ((128, 4096), (512, 4096), (2048, 4096))
+PHASE1B_SHAPES = ((2048, 256), (4096, 256), (8192, 256), (16384, 64),
+                  (65536, 16))
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chiprun_out")
 
 KERNELS = {
     "K1_merge_apply": dict(
         wrapper=K1.apply_ops_packed, plain=K1.apply_plain, takes_ops=True,
+        entry="merge_apply",
         replaces="fluidframework_tpu/ops/pallas_kernel.py:389",
     ),
     "K2_zamboni_compact": dict(
         wrapper=K2.compact_packed, plain=K2.compact_plain, takes_ops=False,
+        entry="merge_compact",
         replaces="fluidframework_tpu/ops/pallas_compact.py:186",
     ),
     "K3_fused_apply_compact": dict(
         wrapper=K2.apply_compact_packed, plain=K2.apply_compact_plain,
-        takes_ops=True,
+        takes_ops=True, entry="merge_apply_compact",
         replaces="fluidframework_tpu/ops/pallas_compact.py:273",
     ),
 }
@@ -277,6 +293,62 @@ def random_case(rng, n_docs: int, cap: int, k: int, device):
     return as_t(tables), as_t(scalars), as_t(ops)
 
 
+def edge_case(cap: int, device, k: int = 4):
+    """A packed state and op batch whose moves land exactly on the edges
+    the kernels cut a table at: each doc holds ``cap - 10`` live 4-char
+    rows (row r starts at visible position 4r), and its first op splits
+    row e (an insert at 4e+2), places a row at e (an insert at 4e), splits
+    row e twice (a remove of 4e+1..4e+3), splits rows e and e+1 (a remove
+    or annotate of 4e+1..4e+5), or inserts at the very end (the new row at
+    ``count``), for e at row 0, the 32-row tile edges, the edges of the
+    cluster tier's first slices (SL rows each, as merge_kernels.cu cuts a
+    table into slices of at most 1,024 rows), the middle and the last rows.
+    The next ``k - 1`` ops hit the rows next to e."""
+    count = cap - 10
+    n_slices = -(-cap // 1024)
+    sl = (-(-cap // n_slices) + 31) // 32 * 32
+    edges = sorted({e for e in (0, 1, 30, 31, 32, 33, 63, 64, sl - 1, sl,
+                                sl + 1, 2 * sl - 1, 2 * sl, 2 * sl + 1,
+                                cap // 2, count - 2, count - 1)
+                    if 0 <= e < count})
+    firsts = []
+    for e in edges:
+        p = 4 * e
+        firsts += [E.insert(p + 2, 7, 3, seq=101, ref=100, client=1),
+                   E.insert(p, 7, 3, seq=101, ref=100, client=1),
+                   E.remove(p + 1, p + 3, seq=101, ref=100, client=1),
+                   E.remove(p + 1, p + 5, seq=101, ref=100, client=1),
+                   E.annotate(p + 1, p + 5, 5, seq=101, ref=100, client=1),
+                   E.insert(4 * count, 7, 3, seq=101, ref=100, client=1)]
+    d = len(firsts)
+    ops = np.zeros((d, k, OP_WIDTH), np.int32)
+    for i, row in enumerate(firsts):
+        ops[i, 0] = row
+        p = int(row[F_POS1])
+        for j in range(1, k):
+            q = max(p + (j % 3) - 1, 0)
+            ops[i, j] = (E.insert(q, 8 + j, 2, seq=101 + j, ref=100 + j,
+                                  client=2) if j % 2 else
+                         E.remove(q, q + 3, seq=101 + j, ref=100 + j,
+                                  client=2))
+    live = np.arange(cap)[None, :] < count
+    lanes = {n: np.zeros((d, cap), np.int64) for n in SEGMENT_LANES}
+    lanes["kind"][:] = 1
+    lanes["orig"][:] = 1 + np.arange(cap) % 7
+    lanes["length"][:] = 4
+    lanes["seq"][:] = 1 + np.arange(cap) % 50
+    lanes["rseq"][:] = RSEQ_NONE
+    fills = {"kind": 0, "rseq": RSEQ_NONE}
+    tables = np.stack([np.where(live, lanes[n], fills.get(n, 0))
+                       for n in SEGMENT_LANES]).astype(np.int32)
+    scalars = np.zeros((d, K1.N_SCALARS), np.int32)
+    scalars[:, K1.SC_COUNT] = count
+    scalars[:, K1.SC_CUR_SEQ] = 100
+    scalars[:, K1.SC_SELF] = NO_CLIENT
+    as_t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return as_t(tables), as_t(scalars), as_t(ops)
+
+
 def _median_ms(fn, reset, reps: int) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` launches, each on a
     freshly reset input (the reset runs outside the timed window)."""
@@ -303,6 +375,7 @@ def read_counts() -> dict:
     for name, spec in KERNELS.items():
         w = spec["wrapper"]
         out[name] = {"all": w.launches, "smem": w.launches_smem,
+                     "cluster": w.launches_cluster,
                      "global": w.launches_global}
     return out
 
@@ -318,7 +391,8 @@ def bound_bytes(name: str, d: int, s: int, k: int) -> int:
 
 def hold_kernel(name: str, t0, s0, ops, kernel_reps=10, plain_reps=3):
     """Run one kernel wrapper and its plain version on the same input on
-    the card; assert bit equality; return (max_abs_err, ms, plain_ms)."""
+    the card; assert bit equality; return (max_abs_err, ms, plain_ms), the
+    times None with ``kernel_reps=0``."""
     spec = KERNELS[name]
     args = (ops,) if spec["takes_ops"] else ()
     want = spec["plain"](t0, s0, *args)
@@ -337,6 +411,8 @@ def hold_kernel(name: str, t0, s0, ops, kernel_reps=10, plain_reps=3):
         t.copy_(t0)
         s.copy_(s0)
 
+    if kernel_reps == 0:
+        return err, None, None
     ms = _median_ms(lambda: spec["wrapper"](t, s, *args), reset, kernel_reps)
     plain_ms = _median_ms(lambda: spec["plain"](t0, s0, *args), lambda: None,
                           plain_reps)
@@ -354,7 +430,8 @@ def phase_kernels(device, report, key, shapes, seed_offset=0):
         for name in KERNELS:
             err, ms, plain_ms = hold_kernel(name, t0, s0, ops)
             b = bound_bytes(name, d, cap, 16)
-            rows.append(dict(kernel=name, tier=_cuda.tier(cap), docs=d,
+            tier = _cuda.tier(cap, KERNELS[name]["entry"])
+            rows.append(dict(kernel=name, tier=tier, docs=d,
                              cap=cap, k=16, max_abs_err=err, ms=ms,
                              plain_ms=plain_ms,
                              bound_ms=b / HBM_BYTES_PER_S * 1e3,
@@ -363,6 +440,11 @@ def phase_kernels(device, report, key, shapes, seed_offset=0):
                   f"exact, {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
                   f"{rows[-1]['bound_ms']:.4f} ms, library_ms null)",
                   flush=True)
+        # The same kernels on moves at the tile and slice edges, untimed.
+        edges = edge_case(cap, device)
+        for name in KERNELS:
+            hold_kernel(name, *edges, kernel_reps=0, plain_reps=0)
+        del edges
         t, s = t0.clone(), s0.clone()
         K1.apply_ops_packed(t, s, ops)
         errs = s[:, K1.SC_ERR]
@@ -379,15 +461,15 @@ def phase_kernels(device, report, key, shapes, seed_offset=0):
 
 
 def print_tier_step(rows) -> None:
-    """The step from the shared tier (2,048 rows) to the global tier
-    (4,096 rows) at 256 docs, per kernel."""
+    """The step from the shared tier (2,048 rows) to the next tier up
+    (4,096 rows: K1's cluster tier, K2/K3's global tier) at 256 docs."""
     for name in KERNELS:
-        smem, glob = (next(r["ms"] for r in rows
-                           if r["kernel"] == name and r["cap"] == cap)
-                      for cap in (2048, 4096))
-        print(f"tier step {name} at D=256: shared S=2048 {smem:.4f} ms -> "
-              f"global S=4096 {glob:.4f} ms ({glob / smem:.2f}x)",
-              flush=True)
+        smem, up = (next(r for r in rows
+                         if r["kernel"] == name and r["cap"] == cap)
+                    for cap in (2048, 4096))
+        print(f"tier step {name} at D=256: shared S=2048 {smem['ms']:.4f} "
+              f"ms -> {up['tier']} S=4096 {up['ms']:.4f} ms "
+              f"({up['ms'] / smem['ms']:.2f}x)", flush=True)
 
 
 def phase_main_path(device, report, n_docs=100_000, cap=128, k=16):
@@ -823,6 +905,105 @@ def phase_docfleet_deep(device, report, n_docs=256, target=4263):
     return out
 
 
+_AB_RUN = """
+import json, torch
+import chip_smoke as c
+{patch}
+dev = torch.device("cuda", 0)
+rep = {{}}
+rows = c.phase_kernels(dev, rep, "k", {p1})
+rows += c.phase_kernels(dev, rep, "g", {p1b}, 1)
+deep = c.phase_docfleet_deep(dev, rep)
+ptxas = [x.strip() for x in c._cuda.build_log.splitlines()
+         if "registers" in x or "spill" in x or "Compiling" in x]
+print("AB_JSON " + json.dumps(dict(rows=rows, deep=deep["tiers"],
+                                   ptxas=ptxas)))
+"""
+
+
+def _variant_source(spec: str, tag: str) -> str:
+    """A copy of this tree's kernel source with the ``constexpr int``
+    constants of ``spec`` ("NAME=VALUE,NAME=VALUE") changed, written under
+    ``OUT_DIR``; returns its path."""
+    with open(_cuda.SOURCE) as f:
+        src = f.read()
+    for item in spec.split(","):
+        name, value = item.split("=")
+        pat = re.compile(rf"constexpr int {name} = -?\d+;")
+        if len(pat.findall(src)) != 1:
+            raise AssertionError(f"kernel source has no one {name} constant")
+        src = pat.sub(f"constexpr int {name} = {int(value)};", src)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, f"merge_kernels_{tag}.cu")
+    with open(path, "w") as f:
+        f.write(src)
+    return path
+
+
+def ab(parent: str, variants=()) -> int:
+    """Phase 1 and 1b kernel times and phase 3b's per-tier medians of the
+    tree at ``parent`` (an unpacked earlier commit) and of this tree, each
+    run in its own process on this card in turns: parent, change, then
+    each variant twice, then change, parent. A variant is this tree with
+    the kernel constants of one spec of ``variants`` ("NAME=VALUE,...")
+    changed; a variant that fails is reported and skipped. Prints the
+    times of each tree and their ratios to the parent's means, and writes
+    every run (with its ptxas report) to ``ab.json`` in the output
+    directory."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = {"parent": (os.path.abspath(parent), ""), "change": (here, "")}
+    order = ["parent", "change"]
+    for i, spec in enumerate(variants):
+        label = f"v{i + 1}"
+        trees[label] = (here, "import fluidframework_tpu_torch.ops._cuda "
+                        "as cu; cu.SOURCE = "
+                        f"{_variant_source(spec, label)!r}")
+        order += [label, label]
+        print(f"ab: {label} = {spec}", flush=True)
+    order += ["change", "parent"]
+    runs = []
+    for label in order:
+        tree, patch = trees[label]
+        code = _AB_RUN.format(patch=patch, p1=PHASE1_SHAPES,
+                              p1b=PHASE1B_SHAPES)
+        t = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", code], cwd=tree,
+                             env=dict(os.environ, PYTHONPATH=tree),
+                             capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
+            if label.startswith("v"):  # a trial; the parent/change pair stands
+                print(f"ab: {label} failed", flush=True)
+                continue
+            raise AssertionError(f"A/B run of {label} failed")
+        line = next(x for x in res.stdout.splitlines()
+                    if x.startswith("AB_JSON "))
+        runs.append(dict(label=label, wall_s=time.perf_counter() - t,
+                         **json.loads(line[len("AB_JSON "):])))
+        print(f"ab: {label} run in {runs[-1]['wall_s']:.1f} s", flush=True)
+    means = {}
+    for run in runs:
+        for r in run["rows"]:
+            key = (r["kernel"], r["cap"], r["docs"])
+            means.setdefault(key, {}).setdefault(run["label"], []).append(
+                r["ms"])
+        for key, v in run["deep"].items():
+            means.setdefault(("deep " + key, 0, 0), {}).setdefault(
+                run["label"], []).append(v["median_ms"])
+    for (name, cap, docs), by in means.items():
+        m = {label: float(np.mean(v)) for label, v in by.items()}
+        ratios = ", ".join(f"{label} {m[label] / m['parent']:.3f}"
+                           for label in m if label != "parent"
+                           and "parent" in m)
+        print(f"ab {name} S={cap} D={docs}: " + ", ".join(
+            f"{label} {v}" for label, v in by.items())
+            + f" (/parent: {ratios})", flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "ab.json"), "w") as f:
+        json.dump(runs, f, indent=1)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -858,14 +1039,14 @@ def main() -> int:
         print(f"phase {name}: {wall[name]:.1f} s", flush=True)
         return out
 
-    # Phase 1: the shared tier at 4,096 docs. Phase 1b: the global tier at
-    # the widths DocFleet's deep tiers reach, with the shared tier at the
-    # same 256 docs beside it.
+    # Phase 1: the shared tier at 4,096 docs. Phase 1b: the tiers above it
+    # (K1's cluster tier up to 16,384 rows, the global tier) at the widths
+    # DocFleet's deep tiers reach, with the shared tier at the same 256
+    # docs beside them.
     timed("1_kernels", phase_kernels, device, report, "phase_kernels",
-          ((128, 4096), (512, 4096), (2048, 4096)))
+          PHASE1_SHAPES)
     glob = timed("1b_global_kernels", phase_kernels, device, report,
-                 "phase_global_kernels",
-                 ((2048, 256), (4096, 256), (16384, 64), (65536, 16)), 1)
+                 "phase_global_kernels", PHASE1B_SHAPES, 1)
     print_tier_step(glob)
     # Each main path runs with every launch count set to 0 just before it
     # and read just after.
@@ -891,16 +1072,16 @@ def main() -> int:
     timed("3b_docfleet_deep", phase_docfleet_deep, device, report)
     launches3 = read_counts()
     print(f"docfleet launches: {launches3}", flush=True)
-    for name in ("K1_merge_apply", "K2_zamboni_compact"):
-        if launches3[name]["global"] <= 0:
-            raise AssertionError(f"{name}: no global-tier launch on the "
+    for name, tier in (("K1_merge_apply", "cluster"),
+                       ("K2_zamboni_compact", "global")):
+        if launches3[name][tier] <= 0:
+            raise AssertionError(f"{name}: no {tier}-tier launch on the "
                                  "DocFleet path")
     report["wall_s"] = wall
 
     kernels = []
     for name, spec in KERNELS.items():
         err, ms, plain_ms, b = main_shape[name]
-        g = next(r for r in glob if r["kernel"] == name and r["cap"] == 4096)
         by_path = {"fleet_service": launches2[name],
                    "docfleet": launches3[name]}
         kernels.append({
@@ -909,6 +1090,7 @@ def main() -> int:
             "replaces": spec["replaces"],
             "launches": sum(p["all"] for p in by_path.values()),
             "launches_smem": sum(p["smem"] for p in by_path.values()),
+            "launches_cluster": sum(p["cluster"] for p in by_path.values()),
             "launches_global": sum(p["global"] for p in by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(err, max(r["max_abs_err"] for r in glob
@@ -916,9 +1098,10 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": None,
-            "global_tier": {key: g[key] for key in
-                            ("docs", "cap", "k", "ms", "plain_ms",
-                             "bound_ms")},
+            "by_tier": [{key: r[key] for key in
+                         ("tier", "docs", "cap", "k", "ms", "plain_ms",
+                          "bound_ms")}
+                        for r in glob if r["kernel"] == name],
         })
     report["kernels"] = kernels
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -928,12 +1111,15 @@ def main() -> int:
     print(f"phase wall s: { {n: round(v, 1) for n, v in wall.items()} }")
     print(smi)
     print(json.dumps({"kernels": kernels}))
-    # One card drives every phase: the count of devices used.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
     return 0
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "--ab":
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device; nothing was run")
+        sys.exit(ab(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

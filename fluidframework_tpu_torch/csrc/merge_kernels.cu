@@ -9,60 +9,100 @@
 // Layout (all int32, C-contiguous; identical to the reference's packed
 // layout): tables [N_LANES, D, S], scalars [D, N_SCALARS], ops [D, K, 10].
 //
-// Design. One CTA per document, in one of two tiers that run the same
-// device code (every device function is templated over the Doc type):
-//   - shared tier (S <= 2,048): the doc's 15 lanes x S rows, three S-row
-//     scratch arrays and an S-byte flag array live in dynamic shared
-//     memory for the whole K-op loop (S=128: 9.3 KB; S=2048: 146 KB, above
-//     the 48 KB default, so the launcher raises the limit with
-//     cudaFuncSetAttribute); 256 threads.
-//   - global tier (2,048 < S <= 65,536): a table of 15 x S x 4 B (240 KB
-//     at 4,096 rows, 3.75 MB at 65,536) does not fit the 227 KB one CTA may
-//     use, so the lanes stay in tables_out (lane stride D*S, copied from
-//     tables_in first when the two differ) and the scratch arrays sit in a
-//     per-doc slice of a device workspace the wrapper allocates; 512
-//     threads. Barriers order global writes within the block, so the
-//     in-place row shifts stay correct. Accesses stride by the chunk length
-//     and are not coalesced.
-// Each thread owns a contiguous chunk of R = ceil(S / threads) rows.
-//   - Prefix sums: a per-thread serial sum over its chunk, a warp-shuffle
-//     scan of the chunk totals, and one shared array of warp totals.
-//   - first_true: a block min-reduce over per-thread first hits.
-//   - value_at: one read of a scratch row.
-//   - Row shifts (B-tree row inserts) run in place: each thread saves the
-//     one row it reads from its left neighbour's chunk, a barrier, then it
-//     shifts its own chunk from the top down.
-//   - K2 is a stream compaction: a scan of `keep`, a direct scatter, then a
-//     second scan and scatter over the merge heads.
-//   - K3 calls K1's and K2's device functions back to back, so the table
-//     never leaves the CTA (shared tier) or is not re-copied (global tier)
-//     between them.
+// Tiers. Every device function is templated over the table accessor DocT,
+// so the three tiers run one body of code; the caller names the tier.
+//   - shared (S <= 2,048; K1, K2, K3): one CTA per document, up to 256
+//     threads. The doc's 15 lanes x S rows, three S-row scratch arrays and
+//     an S-byte flag array live in dynamic shared memory for the whole op
+//     loop (146 KB at S = 2,048, so one CTA per SM there; 9.3 KB at 128).
+//   - cluster (2,048 < S <= 16,384; K1 only): one thread-block cluster of
+//     C = ceil(S / 1,024) CTAs per document (3-16; above 8 a non-portable
+//     size), 256 threads each. CTA c holds rows [c*SL, c*SL + n) of all
+//     15 lanes plus its scratch in its own shared memory, in the shared
+//     tier's layout (SL = S/C rounded up to 32 rows, at most 1,024: 74 KB,
+//     3 CTAs per SM; the last slice may be shorter). Every reduction of the
+//     op loop reads the other CTAs' warp totals through distributed shared
+//     memory after a cluster barrier, so every scalar stays uniform across
+//     the cluster. The table is loaded once and stored once, coalesced.
+//     Slices of 2,048 rows (512 threads, 1 CTA per SM, C <= 8) ran 13-46%
+//     slower at 4,096-16,384 rows on an H100, so the slices are 1,024 rows.
+//     A cluster that cannot be scheduled fails the launch.
+//   - global (every S up to 65,536 for K2/K3, 16,384 < S for K1): one CTA
+//     of 512 threads per document; the lanes stay in tables_out (lane
+//     stride D*S) and the scratch arrays in a per-doc slice of a device
+//     workspace the wrapper allocates. Barriers order the global writes.
+//
+// K1's op loop (apply_ops_doc) gives each warp a contiguous block of rows
+// and walks it in 32-row tiles, lane i on row tile + i, so one lane access
+// of a warp is one 128-byte line (global) or 32 distinct banks (shared).
+//   - Prefix of visible lengths: a warp shuffle scan per tile with a carry
+//     in a register, then one scan of the warp totals over the block or
+//     cluster (one barrier).
+//   - First hits: __ballot_sync + __ffs per tile, then a min over the warps
+//     of the block or cluster (one barrier).
+//   - One row move per op. The splits and the insert of an op compose into
+//     one displacement of at most 2 rows (final row r takes old row y =
+//     r - d(r), then the split-length edits): move_rows reads the previous
+//     warp's top tile (through DSMEM when it lies in the previous CTA),
+//     one barrier, then each warp walks its tiles from the top down taking
+//     its sources by __shfl_sync from the tile and the one below it.
+//   Each op costs 3 barriers (insert) or 4 (remove/annotate), against 5-8
+//   with per-thread chunks and one shift per split.
+// K2 (compact_doc, also K3's second half) keeps a contiguous chunk of
+// R = ceil(S / threads) rows per thread: a scan of `keep`, a scatter staged
+// in a free scratch array, then a second scan and scatter over the merge
+// heads. K3 runs K1's loop and K2 back to back in one CTA.
 // The TPU-side workarounds (Hillis-Steele shift ladders, the f32
 // permutation matmul, the 256-row compact cap) are not carried over.
 //
-// Bound on this card: K1 and K2 are latency-bound on the K sequential
-// block-scan steps (each op is a chain of barriers over a small table), not
-// bandwidth-bound. Their byte floor is 2 x 15 x S x 4 B x D of table traffic
-// plus D x K x 40 B of ops: about 1.55 GB per round at 100,000 docs x 128
-// rows x 16 ops, about 0.46 ms at 3.35 TB/s. The global tier also re-reads
-// the table from L2 on every op pass, which the byte floor does not count.
+// Bounds on this card. Each op is a chain of barriers over a small table,
+// so all three kernels are latency-bound, not bandwidth-bound: their byte
+// floor is 2 x 15 x S x 4 B x D of table traffic plus D x K x 40 B of ops
+// (1.55 GB per round at 100,000 docs x 128 rows x 16 ops, 0.46 ms at
+// 3.35 TB/s). Shared tier: K x (3-4 barriers + 2-4 passes of S/threads
+// rows). Cluster tier: the same with cluster barriers (each a round trip
+// over the SMs of the cluster) and passes over 1,024-row slices; 256 docs
+// at 8,192 rows are 2,048 CTAs, about 5 waves at 3 CTAs per SM. Global
+// tier: the passes go to L2/HBM (coalesced), with one CTA per doc, so
+// D < 132 leaves SMs idle.
 //
 // Ops with an unknown type (outside 0..6) change nothing but the cur_seq /
 // min_seq bookkeeping and the ERR_CLIENT bit, as in the Pallas K1.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int N_LANES = 15;
 constexpr int OP_WIDTH = 10;
 constexpr int N_SCALARS = 8;
-constexpr int SMEM_MAX_CAP = 2048;   // largest shared-tier table
-constexpr int MAX_CAP = 65536;       // largest global-tier table
-constexpr int MAX_THREADS = 256;     // shared tier
-constexpr int GLOBAL_THREADS = 512;  // global tier
+constexpr int SMEM_MAX_CAP = 2048;      // largest shared-tier table
+constexpr int CLUSTER_MAX_CAP = 16384;  // largest cluster-tier table (K1)
+constexpr int MAX_CAP = 65536;          // largest global-tier table
+constexpr int MAX_THREADS = 256;        // shared tier
+constexpr int CLUSTER_ROWS = 1024;      // rows per CTA of a cluster, at most
+constexpr int CLUSTER_THREADS = 256;    // cluster tier
+constexpr int GLOBAL_THREADS = 512;     // global tier
+// CTAs per SM that each entry's register budget aims at (the second
+// argument of __launch_bounds__; see ctas_per_sm). K1/K3 on the shared
+// tier: 4 (64 registers a thread) up to SMEM_NARROW_CAP rows, where more
+// CTAs fit an SM and the kernels are bound by how many do; 3 (85) above
+// it, where shared memory holds at most 3 CTAs (at 1,024 rows; 1 at
+// 2,048). On an H100 either budget was 2-14% slower on the other side of
+// the cap. K2 on the shared tier 8 (32), the cluster tier 3 (85).
+constexpr int SMEM_NARROW_CAP = 512;
+constexpr int SMEM_CTAS_PER_SM = 4;
+constexpr int SMEM_WIDE_CTAS_PER_SM = 3;
+constexpr int CLUSTER_CTAS_PER_SM = 3;
+constexpr int COMPACT_CTAS_PER_SM = 8;
 constexpr unsigned FULL = 0xffffffffu;
+
+enum Tier { T_SMEM = 0, T_CLUSTER = 1, T_GLOBAL = 2 };
 
 enum Lane {
   L_KIND, L_ORIG, L_OFF, L_LEN, L_SEQ, L_CLIENT, L_LSEQ, L_RSEQ, L_RLSEQ,
@@ -84,29 +124,49 @@ constexpr int OP_INSERT = 1, OP_REMOVE = 2, OP_ANNOTATE = 3,
 constexpr int MAX_WRITERS = 93;
 constexpr int ERR_CAPACITY = 1, ERR_RANGE = 2, ERR_CLIENT = 4;
 
-// Warp-total scratch: one 32-entry array per block-wide reduction site, so
-// a site never overwrites totals another thread may still be reading.
+// Warp-total scratch: one array per block- or cluster-wide reduction site,
+// so a site never overwrites totals another thread (or CTA) may still be
+// reading.
 constexpr int WS_SCAN1 = 0, WS_MIN = 32, WS_SCAN2 = 128, WS_KEEP = 160,
               WS_HEAD = 192, WS_VLEN = 224, WS_SIZE = 256;
 
-// One document's table as the block sees it. G = false: the lanes are a
-// private [N_LANES][S] copy in shared memory. G = true: they are the doc's
-// rows of the packed [N_LANES, D, S] tables in global memory (lane stride
-// ls = D*S).
-template <bool G>
+// One document's table (or, on the cluster tier, this CTA's slice of it)
+// as the block sees it. Rows are addressed by their local index lr; the
+// row's index in the whole table is base + lr.
+template <int TIER>
 struct DocT {
-  int *L;            // lane 0, row 0 of this doc
-  size_t ls;         // lane stride (global tier)
-  int *A, *B, *C;    // [S] scratch
-  unsigned char *F;  // [S] flags
-  int S;
-  int r0, r1;        // this thread's rows [r0, r1)
+  static constexpr int kTier = TIER;
+  int *L;            // lane 0, local row 0
+  size_t ls;         // lane stride: D*S (global), S (shared), SL (cluster)
+  int *A, *B, *C;    // [n] scratch
+  unsigned char *F;  // [n] flags
+  int S;             // rows of the whole table
+  int base, n;       // this CTA's rows [base, base + n)
+  int SL;            // rows per slice (cluster tier; S otherwise)
+  int rank, nranks;  // this CTA in the cluster (0 and 1 otherwise)
+  int wlo, whi;      // this warp's local rows [wlo, whi) (K1's op loop)
+  int r0, r1;        // this thread's chunk [r0, r1) (compact_doc)
   int *ws;           // [WS_SIZE] warp totals
-  __device__ int &at(int lane, int r) const {
-    if constexpr (G)
-      return L[(size_t)lane * ls + r];
+  __device__ int &at(int lane, int lr) const {
+    if constexpr (TIER == T_GLOBAL)
+      return L[(size_t)lane * ls + lr];
     else
-      return L[lane * S + r];
+      return L[lane * (int)ls + lr];
+  }
+  // The same shared address in CTA `rk` of the cluster (itself otherwise).
+  template <class T>
+  __device__ T *remote(T *p, int rk) const {
+    if constexpr (TIER == T_CLUSTER)
+      return cg::this_cluster().map_shared_rank(p, rk);
+    else
+      return p;
+  }
+  // A barrier over every thread that shares the table (release/acquire).
+  __device__ void sync() const {
+    if constexpr (TIER == T_CLUSTER)
+      cg::this_cluster().sync();
+    else
+      __syncthreads();
   }
 };
 
@@ -142,8 +202,14 @@ __device__ __forceinline__ int warp_min(int v) {
   return v;
 }
 
-// Exclusive scan of per-thread chunk totals over the block: returns this
-// thread's offset and writes the block total. One barrier.
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+// Exclusive scan of per-thread chunk totals over the block (compact_doc):
+// returns this thread's offset and writes the block total. One barrier.
 __device__ int block_excl_scan(int x, int *ws, int &total) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
@@ -160,23 +226,61 @@ __device__ int block_excl_scan(int x, int *ws, int &total) {
   return off + inc - x;
 }
 
-// Block-wide min of three values (ws holds 96 ints). One barrier.
-__device__ void block_min3(int &a, int &b, int &c, int *ws) {
+// Exclusive scan of warp totals (`wtot`, uniform in the warp) over the
+// block or cluster, in warp order (CTA rank, then warp): returns this
+// warp's offset and writes the total. One barrier.
+template <class Doc>
+__device__ int doc_excl_scan(const Doc &d, int wtot, int *ws, int &total) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
-  a = warp_min(a);
-  b = warp_min(b);
-  c = warp_min(c);
+  if (lane == 0) ws[w] = wtot;
+  d.sync();
+  const int g = d.rank * nw + w;
+  int off = 0, tot = 0;
+  for (int i = lane; i < d.nranks * nw; i += 32) {
+    const int rk = Doc::kTier == T_CLUSTER ? i / nw : 0;
+    const int v = d.remote(ws, rk)[i - rk * nw];
+    tot += v;
+    if (i < g) off += v;
+  }
+  total = warp_sum(tot);
+  return warp_sum(off);
+}
+
+// Min of three warp-uniform values over the block or cluster (ws holds 96
+// ints). One barrier.
+template <class Doc>
+__device__ void doc_min3(const Doc &d, int &a, int &b, int &c, int *ws) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
   if (lane == 0) {
     ws[w] = a;
     ws[32 + w] = b;
     ws[64 + w] = c;
   }
-  __syncthreads();
-  for (int i = 0; i < nw; ++i) {
-    a = min(a, ws[i]);
-    b = min(b, ws[32 + i]);
-    c = min(c, ws[64 + i]);
+  d.sync();
+  for (int i = lane; i < d.nranks * nw; i += 32) {
+    const int rk = Doc::kTier == T_CLUSTER ? i / nw : 0;
+    const int *p = d.remote(ws, rk);
+    const int j = i - rk * nw;
+    a = min(a, p[j]);
+    b = min(b, p[32 + j]);
+    c = min(c, p[64 + j]);
+  }
+  a = warp_min(a);
+  b = warp_min(b);
+  c = warp_min(c);
+}
+
+// Scratch row r (an index into the whole table) of array p, wherever in
+// the cluster it lies.
+template <class Doc>
+__device__ int row_value(const Doc &d, int *p, int r) {
+  if constexpr (Doc::kTier == T_CLUSTER) {
+    const int rk = r / d.SL;
+    return d.remote(p, rk)[r - rk * d.SL];
+  } else {
+    return p[r];
   }
 }
 
@@ -185,21 +289,21 @@ struct Op {
   bool is_ins, is_rem, is_ann, is_range, local_op, is_local;
 };
 
-// Visible length of row r from the op's perspective (reference
+// Visible length of local row lr from the op's perspective (reference
 // mergeTree.ts:916-1004); `part` = the row takes part in the walk.
 template <class Doc>
-__device__ __forceinline__ int perspective(const Doc &d, int r, const Op &o,
+__device__ __forceinline__ int perspective(const Doc &d, int lr, const Op &o,
                                            int min_seq, bool &part) {
-  const int kind = d.at(L_KIND, r), seq = d.at(L_SEQ, r);
-  const int client = d.at(L_CLIENT, r), length = d.at(L_LEN, r);
-  const int rseq = d.at(L_RSEQ, r);
+  const int kind = d.at(L_KIND, lr), seq = d.at(L_SEQ, lr);
+  const int client = d.at(L_CLIENT, lr), length = d.at(L_LEN, lr);
+  const int rseq = d.at(L_RSEQ, lr);
   const bool live = kind != KIND_FREE;
   const bool removed = rseq != RSEQ_NONE;
   const bool r_acked = removed && rseq != UNASSIGNED_SEQ;
   const bool skip = r_acked && rseq <= min_seq;
   const int rseq_eff = rseq == UNASSIGNED_SEQ ? RSEQ_NONE : rseq;
   const bool by_client = removed_by_slot(
-      d.at(L_RBITS, r), d.at(L_RBITS2, r), d.at(L_RBITS3, r), o.clientn);
+      d.at(L_RBITS, lr), d.at(L_RBITS2, lr), d.at(L_RBITS3, lr), o.clientn);
   const bool hidden = removed && (rseq_eff <= o.refn || by_client);
   const int seq_eff = seq == UNASSIGNED_SEQ ? NORM_EXISTING_LOCAL : seq;
   const bool ins_vis = client == o.clientn || seq_eff <= o.refn;
@@ -209,72 +313,134 @@ __device__ __forceinline__ int perspective(const Doc &d, int r, const Op &o,
   return part ? (o.is_local ? vis_local : vis_remote) : 0;
 }
 
-// Rows r > q take row r-1's lanes; then row q gets length `split` and
-// row q+1 (the old row q) is advanced by `split` — a boundary split.
+// Perspective pass over this warp's rows: A = visible length, F = takes
+// part, C = the warp-local exclusive prefix. Returns the warp's total.
+// Only the row's own thread reads A, F and C.
 template <class Doc>
-__device__ void shift_split(const Doc &d, int q, int split) {
-  int bnd[N_LANES];
-  const int a = d.r0;
-  const bool need_bnd = a < d.r1 && a > q;  // a > q >= 0, so a >= 1
-  if (need_bnd) {
-#pragma unroll
-    for (int l = 0; l < N_LANES; ++l) bnd[l] = d.at(l, a - 1);
-  }
-  __syncthreads();
-  for (int r = d.r1 - 1; r >= d.r0; --r) {
-    if (r > q) {
-#pragma unroll
-      for (int l = 0; l < N_LANES; ++l) {
-        int v = (r == a) ? bnd[l] : d.at(l, r - 1);
-        if (r == q + 1) {
-          if (l == L_OFF) v += split;
-          if (l == L_LEN) v -= split;
-        }
-        d.at(l, r) = v;
-      }
-    } else if (r == q) {
-      d.at(L_LEN, r) = split;
+__device__ int perspective_pass(const Doc &d, const Op &o, int min_seq) {
+  const int lane = threadIdx.x & 31;
+  int carry = 0;
+  for (int t0 = d.wlo; t0 < d.whi; t0 += 32) {
+    const int lr = t0 + lane;
+    int v = 0;
+    if (lr < d.whi) {
+      bool part;
+      v = perspective(d, lr, o, min_seq, part);
+      d.A[lr] = v;
+      d.F[lr] = part;
     }
+    const int inc = warp_incl_scan(v);
+    if (lr < d.whi) d.C[lr] = carry + inc - v;
+    carry += __shfl_sync(FULL, inc, 31);
   }
-  __syncthreads();
+  return carry;
 }
 
-// Rows r >= q take row r-1's lanes, then row q becomes `row`.
+// An op's row move: up to two stages composed into one displacement.
+// Stage 1 is a boundary split at q1 (row q1 keeps length l1, the copy at
+// q1+1 starts l1 further in); stage 2 is a split at q2 (in post-stage-1
+// rows) or an insert of the op's new row at qi. Each stage moves the rows
+// past its edge up by one (from qi on for the insert).
+struct Move {
+  bool e1, e2, ei;
+  int q1, l1, q2, l2, qi;
+};
+
+// The two rows below local row t0 (the only ones a displacement of at most
+// 2 reaches), packed one value per lane: lane i < 15 holds lane-of-table i
+// of row t0 - 1, lane 15 + i lane-of-table i of row t0 - 2 (lanes 30-31
+// hold nothing). A row below 0 reads as zeros; on the cluster tier a row
+// below the slice is read from the previous CTA through DSMEM.
 template <class Doc>
-__device__ void shift_insert(const Doc &d, int q, const int (&row)[N_LANES]) {
-  int bnd[N_LANES];
-  const int a = d.r0;
-  const bool need_bnd = a < d.r1 && a > q && a >= 1;
-  if (need_bnd) {
+__device__ __forceinline__ int rows_below(const Doc &d, int t0) {
+  const int lane = threadIdx.x & 31;
+  if (lane >= 2 * N_LANES) return 0;
+  const int l = lane < N_LANES ? lane : lane - N_LANES;
+  const int lr = t0 - (lane < N_LANES ? 1 : 2);
+  if (lr >= 0) return d.at(l, lr);
+  if (d.rank == 0) return 0;
+  return d.remote(d.L, d.rank - 1)[l * d.SL + d.SL + lr];
+}
+
+// One pass that applies a Move in place: final row r takes old row
+// y = r - d(r), d in {0, 1, 2} and non-decreasing in r, then the split
+// edits. Rows below the lowest edge do not change. Each warp whose bottom
+// tile moves first reads the two rows below its block (the previous
+// warp's, or the previous CTA's through DSMEM); then one barrier; then it
+// walks its tiles from the top down: it loads the tile and the two rows
+// below it (still unwritten) and takes each row's source by __shfl_sync.
+// Every row is written by the thread that reads it in the op loop's
+// passes, so no barrier is needed after the pass.
+template <class Doc>
+__device__ void move_rows(const Doc &d, const Move &mv, const Op &o) {
+  const int lane = threadIdx.x & 31;
+  int low = INT_MAX;
+  if (mv.e1) low = min(low, mv.q1);
+  if (mv.e2) low = min(low, mv.q2);
+  if (mv.ei) low = min(low, mv.qi);
+  const int lo_l = low - d.base;  // local; may lie outside [0, n)
+  const int t_bot =
+      lo_l <= d.wlo ? d.wlo : d.wlo + ((lo_l - d.wlo) >> 5) * 32;
+  const bool active = t_bot < d.whi;
+  const int bnd = active && t_bot == d.wlo ? rows_below(d, d.wlo) : 0;
+  d.sync();
+  if (!active) return;
+  const int t_top = d.wlo + ((d.whi - 1 - d.wlo) >> 5) * 32;
+  for (int t0 = t_top; t0 >= t_bot; t0 -= 32) {
+    const int lr = t0 + lane, r = d.base + lr;
+    int cur[N_LANES];
 #pragma unroll
-    for (int l = 0; l < N_LANES; ++l) bnd[l] = d.at(l, a - 1);
-  }
-  __syncthreads();
-  for (int r = d.r1 - 1; r >= d.r0; --r) {
-    if (r > q) {
-      // Row 0 shifts in zeros (only reachable with q < 0).
+    for (int l = 0; l < N_LANES; ++l) cur[l] = lr < d.whi ? d.at(l, lr) : 0;
+    const int below = t0 == d.wlo ? bnd : rows_below(d, t0);
+    bool is_new = false;
+    int x = r;
+    if (mv.ei) {
+      is_new = r == mv.qi;
+      if (r > mv.qi) x = r - 1;
+    }
+    if (mv.e2 && r > mv.q2) x = r - 1;
+    const int y = (mv.e1 && x > mv.q1) ? x - 1 : x;
+    const int j = lane - (r - y);  // source lane; -1, -2: the rows below
+    const int jb = j == -2 ? N_LANES : 0;
+    const bool write = lr < d.whi && r >= low;
 #pragma unroll
-      for (int l = 0; l < N_LANES; ++l)
-        d.at(l, r) = r == 0 ? 0 : ((r == a) ? bnd[l] : d.at(l, r - 1));
-    } else if (r == q) {
-#pragma unroll
-      for (int l = 0; l < N_LANES; ++l) d.at(l, r) = row[l];
+    for (int l = 0; l < N_LANES; ++l) {
+      const int a = __shfl_sync(FULL, cur[l], j & 31);
+      const int b = __shfl_sync(FULL, below, l + jb);
+      int v = j >= 0 ? a : b;
+      if (is_new) {
+        v = 0;
+        if (l == L_KIND) v = KIND_TEXT;
+        if (l == L_ORIG) v = o.arg;
+        if (l == L_LEN) v = o.ilen;
+        if (l == L_SEQ) v = o.seqn;
+        if (l == L_CLIENT) v = o.clientn;
+        if (l == L_LSEQ) v = o.local_op ? o.lseqn : 0;
+        if (l == L_RSEQ) v = RSEQ_NONE;
+      } else if (l == L_OFF || l == L_LEN) {
+        if (mv.e1 && x == mv.q1 && l == L_LEN) v = mv.l1;
+        if (mv.e1 && x == mv.q1 + 1) v += l == L_OFF ? mv.l1 : -mv.l1;
+        if (mv.e2 && r == mv.q2 && l == L_LEN) v = mv.l2;
+        if (mv.e2 && r == mv.q2 + 1) v += l == L_OFF ? mv.l2 : -mv.l2;
+      }
+      if (write) d.at(l, lr) = v;
     }
   }
-  __syncthreads();
 }
 
 struct Scalars {
   int count, min_seq, cur_seq, self_client, err;
 };
 
-// K1's op loop (both tiers): the unified insert / remove / annotate / ack
-// pipeline of the reference's _apply_values, one op at a time, every scalar
-// uniform across the block.
+// K1's op loop (every tier): the unified insert / remove / annotate / ack
+// pipeline of the reference's _apply_values, one op at a time, every
+// scalar uniform across the block or cluster. The caller synchronizes
+// before anyone reads rows another thread wrote here.
 template <class Doc>
 __device__ void apply_ops_doc(const Doc &d, const int *ops_doc, int K,
                               Scalars &sc) {
   const int S = d.S;
+  const int lane = threadIdx.x & 31;
   for (int k = 0; k < K; ++k) {
     const int *p = ops_doc + (size_t)k * OP_WIDTH;
     Op o;
@@ -298,40 +464,45 @@ __device__ void apply_ops_doc(const Doc &d, const int *ops_doc, int K,
 
     if (o.is_ins || o.is_range) {
       // -- perspective + exclusive prefix of visible lengths ------------
-      int loc = 0;
-      for (int r = d.r0; r < d.r1; ++r) {
-        bool part;
-        const int v = perspective(d, r, o, sc.min_seq, part);
-        d.A[r] = v;
-        d.F[r] = part;
-        loc += v;
-      }
       int total;
-      int run = block_excl_scan(loc, d.ws + WS_SCAN1, total);
+      const int off = doc_excl_scan(d, perspective_pass(d, o, sc.min_seq),
+                                    d.ws + WS_SCAN1, total);
+      // -- first hits; B = the whole-table prefix, which other threads
+      //    (and CTAs) read at idx1/idx2 and which is written only here,
+      //    after the scan's barrier ---------------------------------------
       const int op_norm = o.local_op ? NORM_NEW_LOCAL : o.seqn;
       int m1 = S, m2 = S, mp = S;
-      for (int r = d.r0; r < d.r1; ++r) {
-        const int v = d.A[r];
-        const bool part = d.F[r];
-        d.B[r] = run;
-        const int rem1 = o.pos1 - run, rem2 = o.pos2 - run;
-        if (m1 == S && part && v > 0 && rem1 > 0 && rem1 < v) m1 = r;
-        if (m2 == S && part && v > 0 && rem2 > 0 && rem2 < v) m2 = r;
-        const int seq = d.at(L_SEQ, r);
-        const int seg_norm = seq == UNASSIGNED_SEQ ? NORM_EXISTING_LOCAL : seq;
-        const bool place =
-            part && ((v > 0 && rem1 >= 0 && rem1 < v) ||
-                     (v == 0 && rem1 == 0 && op_norm > seg_norm));
-        if (mp == S && place) mp = r;
-        run += v;
+      for (int t0 = d.wlo; t0 < d.whi; t0 += 32) {
+        const int lr = t0 + lane;
+        bool h1 = false, h2 = false, hp = false;
+        if (lr < d.whi) {
+          const int v = d.A[lr];
+          const bool part = d.F[lr];
+          const int run = d.C[lr] + off;
+          d.B[lr] = run;
+          const int rem1 = o.pos1 - run, rem2 = o.pos2 - run;
+          h1 = part && v > 0 && rem1 > 0 && rem1 < v;
+          h2 = part && v > 0 && rem2 > 0 && rem2 < v;
+          const int seq = d.at(L_SEQ, lr);
+          const int seg_norm =
+              seq == UNASSIGNED_SEQ ? NORM_EXISTING_LOCAL : seq;
+          hp = part && ((v > 0 && rem1 >= 0 && rem1 < v) ||
+                        (v == 0 && rem1 == 0 && op_norm > seg_norm));
+        }
+        const unsigned b1 = __ballot_sync(FULL, h1);
+        const unsigned b2 = __ballot_sync(FULL, h2);
+        const unsigned bp = __ballot_sync(FULL, hp);
+        const int r0 = d.base + t0 - 1;
+        if (m1 == S && b1) m1 = r0 + __ffs(b1);
+        if (m2 == S && b2) m2 = r0 + __ffs(b2);
+        if (mp == S && bp) mp = r0 + __ffs(bp);
       }
-      block_min3(m1, m2, mp, d.ws + WS_MIN);
+      doc_min3(d, m1, m2, mp, d.ws + WS_MIN);
       const bool has1 = m1 < S, has2 = m2 < S, hasp = mp < S;
       const int idx1 = m1, idx2 = m2;
-      const int split1 = has1 ? o.pos1 - d.B[idx1] : 0;
-      const int split2 = has2 ? o.pos2 - d.B[idx2] : 0;
+      const int split1 = has1 ? o.pos1 - row_value(d, d.B, idx1) : 0;
+      const int split2 = has2 ? o.pos2 - row_value(d, d.B, idx2) : 0;
       const int idxp = hasp ? mp : sc.count;
-      __syncthreads();  // B is rewritten below; every split is read
 
       // -- capacity / do flags (sequential checks) ---------------------
       const int count = sc.count;
@@ -347,28 +518,18 @@ __device__ void apply_ops_doc(const Doc &d, const int *ops_doc, int K,
       if (o.is_ins && !hasp && o.pos1 > total) sc.err |= ERR_RANGE;
       if (o.is_range && o.pos2 > total) sc.err |= ERR_RANGE;
 
-      // -- split A at pos1, split B at pos2 (post-A space), insert --------
-      const bool do_a = do_a_rng || (do_ins && has1);
-      if (do_a) shift_split(d, idx1, split1);
-      if (do_b_rng) {
-        const bool same_row = do_a_rng && idx1 == idx2;
-        const int q_b = idx2 + (do_a_rng ? 1 : 0);
-        shift_split(d, q_b, same_row ? split2 - split1 : split2);
-      }
-      if (do_ins) {
-        const int q_i = has1 ? idx1 + 1 : idxp;
-        int row[N_LANES];
-#pragma unroll
-        for (int l = 0; l < N_LANES; ++l) row[l] = 0;
-        row[L_KIND] = KIND_TEXT;
-        row[L_ORIG] = o.arg;
-        row[L_LEN] = o.ilen;
-        row[L_SEQ] = o.seqn;
-        row[L_CLIENT] = o.clientn;
-        row[L_LSEQ] = o.local_op ? o.lseqn : 0;
-        row[L_RSEQ] = RSEQ_NONE;
-        shift_insert(d, q_i, row);
-      }
+      // -- split A at pos1, then split B at pos2 (post-A rows) or the
+      //    insert, as one row move ---------------------------------------
+      Move mv;
+      mv.e1 = do_a_rng || (do_ins && has1);
+      mv.q1 = idx1;
+      mv.l1 = split1;
+      mv.e2 = do_b_rng;
+      mv.q2 = idx2 + (do_a_rng ? 1 : 0);
+      mv.l2 = (do_a_rng && idx1 == idx2) ? split2 - split1 : split2;
+      mv.ei = do_ins;
+      mv.qi = has1 ? idx1 + 1 : idxp;
+      if (mv.e1 || mv.e2 || mv.ei) move_rows(d, mv, o);
       sc.count = o.is_range ? count_a + (do_b_rng ? 1 : 0)
                             : (do_ins ? count + sh : count);
     }
@@ -376,57 +537,49 @@ __device__ void apply_ops_doc(const Doc &d, const int *ops_doc, int K,
     const bool is_ack = o.ty == OP_ACK_INSERT || o.ty == OP_ACK_REMOVE ||
                         o.ty == OP_ACK_ANNOTATE;
     if (o.is_range || is_ack) {
-      int run = 0;
+      int off2 = 0;
       if (o.is_range) {
-        // -- covered rows: post-split perspective -----------------------
-        int loc = 0;
-        for (int r = d.r0; r < d.r1; ++r) {
-          bool part;
-          const int v = perspective(d, r, o, sc.min_seq, part);
-          d.A[r] = v;
-          d.F[r] = part;
-          loc += v;
-        }
+        // -- covered rows: post-split perspective ------------------------
         int total2;
-        run = block_excl_scan(loc, d.ws + WS_SCAN2, total2);
+        off2 = doc_excl_scan(d, perspective_pass(d, o, sc.min_seq),
+                             d.ws + WS_SCAN2, total2);
       }
-      int lo, mid, hi;
-      lo = o.clientn < 31 ? (1 << clampi(o.clientn, 0, 30)) : 0;
-      mid = (o.clientn >= 31 && o.clientn < 62)
-                ? (1 << clampi(o.clientn - 31, 0, 30)) : 0;
-      hi = o.clientn >= 62 ? (1 << clampi(o.clientn - 62, 0, 30)) : 0;
-      for (int r = d.r0; r < d.r1; ++r) {
+      const int lo = o.clientn < 31 ? (1 << clampi(o.clientn, 0, 30)) : 0;
+      const int mid = (o.clientn >= 31 && o.clientn < 62)
+                          ? (1 << clampi(o.clientn - 31, 0, 30)) : 0;
+      const int hi = o.clientn >= 62 ? (1 << clampi(o.clientn - 62, 0, 30))
+                                     : 0;
+      for (int lr = d.wlo + lane; lr < d.whi; lr += 32) {
         bool cov = false;
         if (o.is_range) {
-          const int v = d.A[r];
-          cov = d.F[r] && v > 0 && run >= o.pos1 && run + v <= o.pos2;
-          run += v;
+          const int v = d.A[lr];
+          const int run = d.C[lr] + off2;
+          cov = d.F[lr] && v > 0 && run >= o.pos1 && run + v <= o.pos2;
         }
-        int rseq = d.at(L_RSEQ, r), rlseq = d.at(L_RLSEQ, r);
-        int aseq = d.at(L_ASEQ, r), alseq = d.at(L_ALSEQ, r);
+        int rseq = d.at(L_RSEQ, lr), rlseq = d.at(L_RLSEQ, lr);
+        int aseq = d.at(L_ASEQ, lr), alseq = d.at(L_ALSEQ, lr);
         // remove marks (markRangeRemoved)
-        const bool m_rem = cov && o.is_rem;
-        if (m_rem) {
+        if (cov && o.is_rem) {
           const bool not_removed = rseq == RSEQ_NONE;
           const bool was_local = rseq == UNASSIGNED_SEQ;
           if (not_removed && o.local_op) rlseq = o.lseqn;
           if (not_removed || was_local) rseq = o.seqn;
-          d.at(L_RBITS, r) |= lo;
-          d.at(L_RBITS2, r) |= mid;
-          d.at(L_RBITS3, r) |= hi;
+          d.at(L_RBITS, lr) |= lo;
+          d.at(L_RBITS2, lr) |= mid;
+          d.at(L_RBITS3, lr) |= hi;
         }
         // annotate marks (single-lane LWW)
         if (cov && o.is_ann && (o.local_op || alseq == 0)) {
-          d.at(L_AVAL, r) = o.arg;
+          d.at(L_AVAL, lr) = o.arg;
           aseq = o.seqn;
           alseq = o.local_op ? o.lseqn : 0;
         }
         // acks of own ops (ackPendingSegment)
-        const bool live = d.at(L_KIND, r) != KIND_FREE;
+        const bool live = d.at(L_KIND, lr) != KIND_FREE;
         if (o.ty == OP_ACK_INSERT && live &&
-            d.at(L_SEQ, r) == UNASSIGNED_SEQ && d.at(L_LSEQ, r) == o.lseqn) {
-          d.at(L_SEQ, r) = o.seqn;
-          d.at(L_LSEQ, r) = 0;
+            d.at(L_SEQ, lr) == UNASSIGNED_SEQ && d.at(L_LSEQ, lr) == o.lseqn) {
+          d.at(L_SEQ, lr) = o.seqn;
+          d.at(L_LSEQ, lr) = 0;
         }
         if (o.ty == OP_ACK_REMOVE && live && rlseq == o.lseqn) {
           if (rseq == UNASSIGNED_SEQ) rseq = o.seqn;
@@ -436,16 +589,15 @@ __device__ void apply_ops_doc(const Doc &d, const int *ops_doc, int K,
           aseq = o.seqn;
           alseq = 0;
         }
-        d.at(L_RSEQ, r) = rseq;
-        d.at(L_RLSEQ, r) = rlseq;
-        d.at(L_ASEQ, r) = aseq;
-        d.at(L_ALSEQ, r) = alseq;
+        d.at(L_RSEQ, lr) = rseq;
+        d.at(L_RLSEQ, lr) = rlseq;
+        d.at(L_ASEQ, lr) = aseq;
+        d.at(L_ALSEQ, lr) = alseq;
       }
     }
     // -- bookkeeping (collab window floor / current seq) ----------------
     sc.cur_seq = max(sc.cur_seq, o.seqn);
     sc.min_seq = max(sc.min_seq, o.msn);
-    __syncthreads();
   }
 }
 
@@ -471,9 +623,9 @@ __device__ void squeeze(const Doc &d, const int *dst, int *stage, int n,
   }
 }
 
-// K2 (both tiers; reference compact_values): reclaim acked tombstones at
-// or below min_seq with no pending stamp, squeeze live rows down, then
-// re-merge adjacent splits of one insert. Returns n_heads.
+// K2 (shared and global tiers; reference compact_values): reclaim acked
+// tombstones at or below min_seq with no pending stamp, squeeze live rows
+// down, then re-merge adjacent splits of one insert. Returns n_heads.
 template <class Doc>
 __device__ int compact_doc(const Doc &d, int min_seq) {
   __syncthreads();
@@ -548,44 +700,78 @@ __host__ __device__ size_t work_ints(int S) {
   return (size_t)3 * S + (S + 3) / 4;
 }
 
-// MODE 0: K1 apply. MODE 1: K2 compact. MODE 2: K3 apply then compact.
-// G: the global tier (lanes in tables_out, scratch in `work`).
-template <int MODE, bool G>
-__global__ void __launch_bounds__(G ? GLOBAL_THREADS : MAX_THREADS)
+__host__ __device__ constexpr int ctas_per_sm(int mode, int tier,
+                                                bool wide) {
+  return tier == T_CLUSTER ? CLUSTER_CTAS_PER_SM
+         : tier == T_GLOBAL ? 1
+         : mode == 1        ? COMPACT_CTAS_PER_SM
+         : wide             ? SMEM_WIDE_CTAS_PER_SM
+                            : SMEM_CTAS_PER_SM;
+}
+
+// MODE 0: K1 apply. MODE 1: K2 compact. MODE 2: K3 apply then compact
+// (modes 1 and 2 on the shared and global tiers only). WIDE: a shared-tier
+// K1/K3 entry for tables past SMEM_NARROW_CAP rows. SL: rows per CTA (the
+// cluster tier; S otherwise). `work`: the global tier's workspace.
+template <int MODE, int TIER, bool WIDE = false>
+__global__ void __launch_bounds__(
+    TIER == T_SMEM ? MAX_THREADS
+                   : (TIER == T_CLUSTER ? CLUSTER_THREADS : GLOBAL_THREADS),
+    ctas_per_sm(MODE, TIER, WIDE))
 merge_kernel(const int *__restrict__ ops, const int *tables_in,
              const int *scalars_in, int *tables_out, int *scalars_out,
-             int *work, int n_docs, int S, int K) {
+             int *work, int n_docs, int S, int K, int SL) {
   __shared__ int ws[WS_SIZE];
-  const int doc = blockIdx.x;
+  DocT<TIER> d;
+  int doc = blockIdx.x;
+  d.rank = 0;
+  d.nranks = 1;
+  if constexpr (TIER == T_CLUSTER) {
+    const cg::cluster_group cl = cg::this_cluster();
+    d.rank = (int)cl.block_rank();
+    d.nranks = (int)cl.num_blocks();
+    doc = blockIdx.x / d.nranks;
+  }
   const size_t plane = (size_t)n_docs * S;
   const size_t base = (size_t)doc * S;
-  DocT<G> d;
   d.S = S;
+  d.SL = SL;
+  d.base = d.rank * SL;
+  d.n = min(SL, S - d.base);
   d.ws = ws;
-  if constexpr (G) {
+  if constexpr (TIER == T_GLOBAL) {
     d.L = tables_out + base;
     d.ls = plane;
     d.A = work + (size_t)doc * work_ints(S);
   } else {
     d.L = smem_raw;
-    d.ls = S;
-    d.A = d.L + N_LANES * S;
+    d.ls = SL;
+    d.A = d.L + N_LANES * SL;
   }
-  d.B = d.A + S;
-  d.C = d.B + S;
-  d.F = reinterpret_cast<unsigned char *>(d.C + S);
+  d.B = d.A + SL;
+  d.C = d.B + SL;
+  d.F = reinterpret_cast<unsigned char *>(d.C + SL);
+  // K1: warp w owns local rows [w*RW, (w+1)*RW), RW a whole number of
+  // 32-row tiles, the same on every CTA of a cluster.
+  const int nw = blockDim.x >> 5, w = threadIdx.x >> 5;
+  const int RW = ((SL + 31) / 32 + nw - 1) / nw * 32;
+  d.wlo = min(w * RW, d.n);
+  d.whi = min(d.wlo + RW, d.n);
+  // K2: thread t owns the chunk [t*R, (t+1)*R).
   const int R = (S + blockDim.x - 1) / blockDim.x;
   d.r0 = min((int)threadIdx.x * R, S);
   d.r1 = min(d.r0 + R, S);
 
-  // Shared tier: load the private copy. Global tier: the table is updated
-  // where it lies in tables_out, so copy tables_in there when they differ.
-  if (!G || tables_in != tables_out) {
+  // Shared and cluster tiers: load this CTA's rows. Global tier: the table
+  // is updated where it lies in tables_out, so copy tables_in there when
+  // they differ.
+  const size_t row0 = base + d.base;
+  if (TIER != T_GLOBAL || tables_in != tables_out) {
     for (int l = 0; l < N_LANES; ++l)
-      for (int r = threadIdx.x; r < S; r += blockDim.x) {
-        const int v = tables_in[l * plane + base + r];
-        if constexpr (G)
-          tables_out[l * plane + base + r] = v;
+      for (int r = threadIdx.x; r < d.n; r += blockDim.x) {
+        const int v = tables_in[l * plane + row0 + r];
+        if constexpr (TIER == T_GLOBAL)
+          tables_out[l * plane + row0 + r] = v;
         else
           d.at(l, r) = v;
       }
@@ -596,19 +782,23 @@ merge_kernel(const int *__restrict__ ops, const int *tables_in,
     sc_in[i] = scalars_in[(size_t)doc * N_SCALARS + i];
   Scalars sc{sc_in[SC_COUNT], sc_in[SC_MIN_SEQ], sc_in[SC_CUR_SEQ],
              sc_in[SC_SELF], sc_in[SC_ERR]};
-  __syncthreads();
+  // Every CTA of a cluster has started (and loaded) before any DSMEM read.
+  d.sync();
 
-  if (MODE != 1) apply_ops_doc(d, ops + (size_t)doc * K * OP_WIDTH, K, sc);
+  if constexpr (MODE != 1)
+    apply_ops_doc(d, ops + (size_t)doc * K * OP_WIDTH, K, sc);
   int n_heads = 0;
-  if (MODE != 0) n_heads = compact_doc(d, sc.min_seq);
-  __syncthreads();
+  if constexpr (MODE != 0 && TIER != T_CLUSTER)
+    n_heads = compact_doc(d, sc.min_seq);
+  // No CTA exits (or stores) while another may still read its rows.
+  d.sync();
 
-  if constexpr (!G) {
+  if constexpr (TIER != T_GLOBAL) {
     for (int l = 0; l < N_LANES; ++l)
-      for (int r = threadIdx.x; r < S; r += blockDim.x)
-        tables_out[l * plane + base + r] = d.at(l, r);
+      for (int r = threadIdx.x; r < d.n; r += blockDim.x)
+        tables_out[l * plane + row0 + r] = d.at(l, r);
   }
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == 0 && d.rank == 0) {
     int out[N_SCALARS] = {MODE == 0 ? sc.count : n_heads, sc.min_seq,
                           sc.cur_seq, sc.self_client, sc.err, 0, 0, 0};
     if (MODE == 1) {
@@ -620,35 +810,99 @@ merge_kernel(const int *__restrict__ ops, const int *tables_in,
   }
 }
 
-size_t smem_bytes(int S) {
-  return (size_t)(N_LANES + 3) * S * sizeof(int) + ((S + 15) / 16) * 16;
+size_t smem_bytes(int rows) {
+  return (size_t)(N_LANES + 3) * rows * sizeof(int) + ((rows + 15) / 16) * 16;
 }
 
-// work == nullptr: the shared tier (S <= SMEM_MAX_CAP). Otherwise the
-// global tier (S <= MAX_CAP), with n_docs * work_ints(S) ints at `work`.
+template <class Kern>
+cudaError_t allow_smem(Kern kern, size_t smem) {
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+// The cluster tier: a cluster of C = ceil(S / CLUSTER_ROWS) CTAs per doc.
+// Returns an error when such a cluster cannot be scheduled; it never falls
+// back to another tier.
+int launch_cluster(const int *ops, const int *tables_in, const int *scalars_in,
+                   int *tables_out, int *scalars_out, int n_docs, int S,
+                   int K, cudaStream_t stream) {
+  const int C = (S + CLUSTER_ROWS - 1) / CLUSTER_ROWS;
+  const int SL = ((S + C - 1) / C + 31) / 32 * 32;
+  const size_t smem = smem_bytes(SL);
+  auto kern = merge_kernel<0, T_CLUSTER>;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (C > 8) {
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)n_docs * C, 1, 1);
+  cfg.blockDim = dim3(CLUSTER_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, (void *)kern, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+  return (int)cudaLaunchKernelEx(&cfg, kern, ops, tables_in, scalars_in,
+                                 tables_out, scalars_out, (int *)nullptr,
+                                 n_docs, S, K, SL);
+}
+
+// The shared tier: one CTA of up to MAX_THREADS threads per doc.
+template <int MODE, bool WIDE>
+int launch_smem(const int *ops, const int *tables_in, const int *scalars_in,
+                int *tables_out, int *scalars_out, int n_docs, int S, int K,
+                cudaStream_t stream) {
+  const int threads = min((S + 31) / 32 * 32, MAX_THREADS);
+  const size_t smem = smem_bytes(S);
+  const cudaError_t e = allow_smem(merge_kernel<MODE, T_SMEM, WIDE>, smem);
+  if (e != cudaSuccess) return (int)e;
+  merge_kernel<MODE, T_SMEM, WIDE><<<n_docs, threads, smem, stream>>>(
+      ops, tables_in, scalars_in, tables_out, scalars_out, nullptr, n_docs, S,
+      K, S);
+  return 0;
+}
+
+// tier T_SMEM: S <= SMEM_MAX_CAP. T_CLUSTER (K1 only): S <= CLUSTER_MAX_CAP.
+// T_GLOBAL: S <= MAX_CAP, with n_docs * work_ints(S) ints at `work`.
 template <int MODE>
 int launch(const int *ops, const int *tables_in, const int *scalars_in,
            int *tables_out, int *scalars_out, int *work, int n_docs, int S,
-           int K, void *stream) {
+           int K, int tier, void *stream) {
   if (n_docs < 1 || S < 1 || K < 0) return (int)cudaErrorInvalidValue;
-  int threads = (S + 31) / 32 * 32;
-  if (work == nullptr) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (tier == T_SMEM) {
     if (S > SMEM_MAX_CAP) return (int)cudaErrorInvalidValue;
-    if (threads > MAX_THREADS) threads = MAX_THREADS;
-    const size_t smem = smem_bytes(S);
-    cudaError_t e = cudaFuncSetAttribute(
-        merge_kernel<MODE, false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    merge_kernel<MODE, false><<<n_docs, threads, smem, (cudaStream_t)stream>>>(
-        ops, tables_in, scalars_in, tables_out, scalars_out, nullptr, n_docs,
-        S, K);
-  } else {
-    if (S > MAX_CAP) return (int)cudaErrorInvalidValue;
-    if (threads > GLOBAL_THREADS) threads = GLOBAL_THREADS;
-    merge_kernel<MODE, true><<<n_docs, threads, 0, (cudaStream_t)stream>>>(
+    int e;
+    if (MODE != 1 && S > SMEM_NARROW_CAP)  // K2 keeps one entry
+      e = launch_smem<MODE, MODE != 1>(ops, tables_in, scalars_in, tables_out,
+                                       scalars_out, n_docs, S, K, st);
+    else
+      e = launch_smem<MODE, false>(ops, tables_in, scalars_in, tables_out,
+                                   scalars_out, n_docs, S, K, st);
+    if (e != 0) return e;
+  } else if (tier == T_CLUSTER) {
+    if (MODE != 0 || S > CLUSTER_MAX_CAP) return (int)cudaErrorInvalidValue;
+    const int e = launch_cluster(ops, tables_in, scalars_in, tables_out,
+                                 scalars_out, n_docs, S, K, st);
+    if (e != 0) return e;
+  } else if (tier == T_GLOBAL) {
+    if (S > MAX_CAP || work == nullptr) return (int)cudaErrorInvalidValue;
+    merge_kernel<MODE, T_GLOBAL><<<n_docs, GLOBAL_THREADS, 0, st>>>(
         ops, tables_in, scalars_in, tables_out, scalars_out, work, n_docs, S,
-        K);
+        K, S);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
@@ -659,32 +913,35 @@ extern "C" {
 
 // Each entry launches on `stream` and returns cudaGetLastError() (0 = ok).
 // tables_out/scalars_out may alias tables_in/scalars_in (in-place update).
-// `work` selects the tier: NULL for the shared tier, else a device buffer
-// of n_docs * merge_work_ints(S) int32 for the global tier.
+// `tier`: 0 shared, 1 cluster (merge_apply only), 2 global; the global
+// tier takes a device buffer of n_docs * merge_work_ints(S) int32 at
+// `work` (NULL otherwise).
 
 int merge_apply(const int *ops, const int *tables_in, const int *scalars_in,
                 int *tables_out, int *scalars_out, int *work, int n_docs,
-                int S, int K, void *stream) {
+                int S, int K, int tier, void *stream) {
   return launch<0>(ops, tables_in, scalars_in, tables_out, scalars_out, work,
-                   n_docs, S, K, stream);
+                   n_docs, S, K, tier, stream);
 }
 
 int merge_compact(const int *tables_in, const int *scalars_in,
                   int *tables_out, int *scalars_out, int *work, int n_docs,
-                  int S, void *stream) {
+                  int S, int tier, void *stream) {
   return launch<1>(nullptr, tables_in, scalars_in, tables_out, scalars_out,
-                   work, n_docs, S, 0, stream);
+                   work, n_docs, S, 0, tier, stream);
 }
 
 int merge_apply_compact(const int *ops, const int *tables_in,
                         const int *scalars_in, int *tables_out,
                         int *scalars_out, int *work, int n_docs, int S, int K,
-                        void *stream) {
+                        int tier, void *stream) {
   return launch<2>(ops, tables_in, scalars_in, tables_out, scalars_out, work,
-                   n_docs, S, K, stream);
+                   n_docs, S, K, tier, stream);
 }
 
 int merge_smem_max_capacity(void) { return SMEM_MAX_CAP; }
+
+int merge_cluster_max_capacity(void) { return CLUSTER_MAX_CAP; }
 
 int merge_max_capacity(void) { return MAX_CAP; }
 

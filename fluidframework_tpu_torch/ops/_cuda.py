@@ -27,9 +27,15 @@ ARCH = "arch=compute_90a,code=sm_90a"
 # Largest table (rows per document) whose lanes fit one CTA's shared
 # memory (the shared tier); must equal SMEM_MAX_CAP in merge_kernels.cu.
 SMEM_MAX_CAPACITY = 2048
-# Largest table the kernels take at all (the global tier above the shared
-# one; the reference fleet's max_capacity); must equal MAX_CAP there.
+# Largest table K1 splits across a thread-block cluster's shared memory
+# (the cluster tier, at most 16 CTAs of 1,024 rows); CLUSTER_MAX_CAP there.
+CLUSTER_MAX_CAPACITY = 16384
+# Largest table the kernels take at all (the global tier above the others;
+# the reference fleet's max_capacity); must equal MAX_CAP there.
 MAX_CAPACITY = 65536
+# The C entries' tier argument.
+TIER_CODES = {"smem": 0, "cluster": 1, "global": 2}
+ENTRIES = ("merge_apply", "merge_compact", "merge_apply_compact")
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""  # ptxas report of the last build (registers, smem, spills)
@@ -48,13 +54,18 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile the kernels if no build of this source exists; return the
-    library path. Concurrent builds each write a private temp file and
-    rename it into place."""
+    library path. Concurrent builds each write private temp files and
+    rename them into place. The ptxas report is kept beside the library,
+    so :data:`build_log` holds it after a reused build too."""
     global build_log
     with open(SOURCE, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
     so = os.path.join(BUILD_DIR, f"libmerge_kernels-{digest}.so")
+    log = os.path.join(BUILD_DIR, f"libmerge_kernels-{digest}.ptxas")
     if os.path.exists(so):
+        if os.path.exists(log):
+            with open(log) as f:
+                build_log = f.read()
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
@@ -68,6 +79,9 @@ def build() -> str:
             f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
         )
     build_log = res.stderr
+    with open(f"{log}.{os.getpid()}.tmp", "w") as f:
+        f.write(build_log)
+    os.replace(f"{log}.{os.getpid()}.tmp", log)
     os.replace(tmp, so)
     return so
 
@@ -79,14 +93,15 @@ def lib() -> ctypes.CDLL:
         cdll = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
         for name, args in (
-            ("merge_apply", [p, p, p, p, p, p, i, i, i, p]),
-            ("merge_compact", [p, p, p, p, p, i, i, p]),
-            ("merge_apply_compact", [p, p, p, p, p, p, i, i, i, p]),
+            ("merge_apply", [p, p, p, p, p, p, i, i, i, i, p]),
+            ("merge_compact", [p, p, p, p, p, i, i, i, p]),
+            ("merge_apply_compact", [p, p, p, p, p, p, i, i, i, i, p]),
         ):
             fn = getattr(cdll, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
-        for name in ("merge_smem_max_capacity", "merge_max_capacity"):
+        for name in ("merge_smem_max_capacity", "merge_cluster_max_capacity",
+                     "merge_max_capacity"):
             getattr(cdll, name).argtypes = []
             getattr(cdll, name).restype = ctypes.c_int
         cdll.merge_work_ints.argtypes = [ctypes.c_int]
@@ -94,23 +109,33 @@ def lib() -> ctypes.CDLL:
         cdll.merge_error_string.argtypes = [ctypes.c_int]
         cdll.merge_error_string.restype = ctypes.c_char_p
         if (cdll.merge_smem_max_capacity() != SMEM_MAX_CAPACITY
+                or cdll.merge_cluster_max_capacity() != CLUSTER_MAX_CAPACITY
                 or cdll.merge_max_capacity() != MAX_CAPACITY):
             raise RuntimeError("merge_kernels.cu tier limits != _cuda.py's")
         _lib = cdll
     return _lib
 
 
-def tier(s: int) -> str:
-    """The kernel tier for tables of ``s`` rows per document: ``"smem"``
-    (the table in one CTA's shared memory) up to
-    :data:`SMEM_MAX_CAPACITY`, ``"global"`` (the table in global memory)
-    up to :data:`MAX_CAPACITY`; larger tables raise ``ValueError``."""
+def tier(s: int, entry: str) -> str:
+    """The tier C entry ``entry`` runs tables of ``s`` rows per document
+    on: ``"smem"`` (the table in one CTA's shared memory) up to
+    :data:`SMEM_MAX_CAPACITY`; for ``merge_apply`` (K1) ``"cluster"`` (the
+    table split across a thread-block cluster's shared memory) up to
+    :data:`CLUSTER_MAX_CAPACITY`; ``"global"`` (the table in global
+    memory) up to :data:`MAX_CAPACITY`. Larger tables raise
+    ``ValueError``."""
+    if entry not in ENTRIES:
+        raise ValueError(f"unknown kernel entry {entry!r}")
     if s > MAX_CAPACITY:
         raise ValueError(
             f"capacity tier {s} exceeds the largest kernel tier "
             f"(<= {MAX_CAPACITY} rows per document)"
         )
-    return "smem" if s <= SMEM_MAX_CAPACITY else "global"
+    if s <= SMEM_MAX_CAPACITY:
+        return "smem"
+    if entry == "merge_apply" and s <= CLUSTER_MAX_CAPACITY:
+        return "cluster"
+    return "global"
 
 
 def check_packed(tables, scalars, ops=None) -> None:
@@ -129,28 +154,28 @@ def check_packed(tables, scalars, ops=None) -> None:
     if tables.dim() != 3 or tables.shape[0] != N_LANES:
         raise ValueError(f"tables must be [{N_LANES}, D, S], got "
                          f"{tuple(tables.shape)}")
-    d, s = tables.shape[1], tables.shape[2]
+    d = tables.shape[1]
     if tuple(scalars.shape) != (d, N_SCALARS):
         raise ValueError(f"scalars must be [{d}, {N_SCALARS}]")
     if ops is not None and (ops.dim() != 3 or ops.shape[0] != d
                             or ops.shape[2] != OP_WIDTH):
         raise ValueError(f"ops must be [{d}, K, {OP_WIDTH}]")
-    tier(s)
 
 
 def launch(name: str, tables, scalars, ops, out) -> str:
     """Launch one C entry (``merge_apply``, ``merge_compact`` or
     ``merge_apply_compact``) on PyTorch's current stream of the tables'
     device, reading ``tables``/``scalars`` (and ``ops``) and writing the
-    ``out`` pair; returns the tier it ran on. The global tier gets a fresh
-    workspace from the caching allocator, sized by the kernel library
-    (``merge_work_ints``). Raises on a CUDA error (a refused launch never
-    runs, and a later synchronize would not say so)."""
+    ``out`` pair; returns the tier it ran on (:func:`tier`). The global
+    tier gets a fresh workspace from the caching allocator, sized by the
+    kernel library (``merge_work_ints``). Raises on a CUDA error (a refused
+    launch never runs, and a later synchronize would not say so; a cluster
+    that cannot be scheduled is refused)."""
     check_packed(tables, scalars, ops)
     ot, os_ = out
     check_packed(ot, os_)
     d, s = tables.shape[1], tables.shape[2]
-    t = tier(s)
+    t = tier(s, name)
     work = None
     if t == "global":
         work = torch.empty((d, lib().merge_work_ints(s)), dtype=torch.int32,
@@ -160,6 +185,7 @@ def launch(name: str, tables, scalars, ops, out) -> str:
             d, s]
     if ops is not None:
         args = [ops.data_ptr()] + args + [ops.shape[1]]
+    args.append(TIER_CODES[t])
     with torch.cuda.device(tables.device):
         stream = torch.cuda.current_stream(tables.device).cuda_stream
         err = getattr(lib(), name)(*args, stream)
@@ -171,7 +197,7 @@ def launch(name: str, tables, scalars, ops, out) -> str:
 
 def count_launch(wrapper, t: str) -> None:
     """Add one launch to a wrapper's counters: ``launches`` (every tier)
-    and ``launches_smem`` or ``launches_global``."""
+    and ``launches_smem``, ``launches_cluster`` or ``launches_global``."""
     wrapper.launches += 1
     key = f"launches_{t}"
     setattr(wrapper, key, getattr(wrapper, key) + 1)
@@ -180,4 +206,6 @@ def count_launch(wrapper, t: str) -> None:
 def reset_counts(*wrappers) -> None:
     """Zero every launch counter of the given wrappers."""
     for w in wrappers:
-        w.launches = w.launches_smem = w.launches_global = 0
+        w.launches = 0
+        for t in TIER_CODES:
+            setattr(w, f"launches_{t}", 0)

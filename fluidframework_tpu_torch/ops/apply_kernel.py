@@ -2,12 +2,15 @@
 
 Replaces the Pallas TPU kernel ``fluidframework_tpu/ops/pallas_kernel.py``
 (``_apply_values``, reached through ``apply_ops_packed``). The CUDA kernel
-is ``csrc/merge_kernels.cu`` (``merge_apply``): one CTA per document, its
-table resident in shared memory for the whole op loop up to 2,048 rows,
-and read and written in place in global memory above that (the global
-tier, up to 65,536 rows). It is latency-bound
-on the K sequential block-scan steps, not bandwidth-bound; its byte floor
-is 2 x 15 x S x 4 B x D of table traffic plus D x K x 40 B of ops.
+is ``csrc/merge_kernels.cu`` (``merge_apply``), in three tiers: one CTA per
+document with its table resident in shared memory up to 2,048 rows; a
+thread-block cluster of 3-16 CTAs per document, the table split across
+their shared memory, up to 16,384 rows; and one CTA per document reading
+and writing the table in place in global memory up to 65,536 rows. Each
+warp walks its own block of rows in 32-row tiles, and each op moves the
+rows once. It is latency-bound on the K sequential ops' barriers, not
+bandwidth-bound; its byte floor is 2 x 15 x S x 4 B x D of table traffic
+plus D x K x 40 B of ops.
 
 :func:`apply_plain` is the plain PyTorch version of the same function: a
 batched, branch-free transcription of the reference's unified pipeline —
@@ -328,7 +331,8 @@ def apply_ops_packed(tables, scalars, ops, *, out=None):
     (a (tables, scalars) pair) or, by default, into the inputs in place;
     returns the written pair. CPU tensors take :func:`apply_plain`; CUDA
     tensors launch ``merge_apply`` on the tier S calls for (shared memory up
-    to 2,048 rows, global memory up to 65,536) or raise."""
+    to 2,048 rows, a cluster up to 16,384, global memory up to 65,536) or
+    raise."""
     ot, os_ = _destination(tables, scalars, out)
     if tables.device.type == "cpu":
         nt, ns = apply_plain(tables, scalars, ops)

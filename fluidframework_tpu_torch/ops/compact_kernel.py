@@ -6,8 +6,9 @@ Replace the Pallas TPU kernels of ``fluidframework_tpu/ops/pallas_compact.py``
 ``merge_apply_compact`` in ``csrc/merge_kernels.cu``: a stream compaction (a
 scan of ``keep``, a direct scatter, then a second scan and scatter over the
 merge heads), with K3 running K1's op loop and K2 back to back so the table
-never leaves the CTA between them. As K1, they keep the table in shared
-memory up to 2,048 rows and in global memory above that, up to 65,536 rows;
+never leaves the CTA between them. They keep the table in shared memory
+up to 2,048 rows and in global memory above that, up to 65,536 rows (K1
+alone has a cluster tier between the two);
 so K2 replaces both the reference's Pallas compact and the XLA compact it
 falls back to above 256 rows. Like K1 they are latency-bound
 on block-scan steps; their byte floor is 2 x 15 x S x 4 B x D of table

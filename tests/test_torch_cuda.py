@@ -15,6 +15,7 @@ from chip_smoke import (
     KERNELS,
     Config6Gen,
     Recorded,
+    edge_case,
     hold_kernel,
     random_case,
     replay_and_compare,
@@ -42,22 +43,35 @@ def test_kernels_match_plain_on_the_card(cap):
         assert spec["wrapper"].launches == before + 2  # check + one timing
 
 
+def _tier_counts(w):
+    return {t: getattr(w, f"launches_{t}") for t in _cuda.TIER_CODES}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("cap,n_docs", [(2050, 33), (4096, 16), (65536, 3)])
+@pytest.mark.parametrize("cap,n_docs", [(2050, 33), (4096, 16), (8192, 8),
+                                        (12000, 5), (16384, 4), (65536, 3)])
 def test_global_tier_matches_plain_on_the_card(cap, n_docs):
-    """Tables wider than one CTA's shared memory run on the global-memory
-    tier, bit for bit with the plain versions; each launch counts there."""
+    """Tables wider than one CTA's shared memory run, bit for bit with the
+    plain versions, on K1's cluster tier up to 16,384 rows (ragged slices
+    at 2,050 and 12,000) and on the global-memory tier above it and for
+    K2/K3; each launch counts on its tier. Random states, then moves that
+    land on the 32-row tile and the cluster slice edges."""
     _need_card()
     dev = torch.device("cuda", 0)
-    t0, s0, ops = random_case(np.random.default_rng(cap), n_docs, cap, 16,
-                              dev)
-    for name, spec in KERNELS.items():
-        w = spec["wrapper"]
-        before = (w.launches, w.launches_smem, w.launches_global)
-        err, _ms, _plain_ms = hold_kernel(name, t0, s0, ops, 1, 1)
-        assert err == 0
-        assert (w.launches, w.launches_smem, w.launches_global) == (
-            before[0] + 2, before[1], before[2] + 2)
+    cases = [random_case(np.random.default_rng(cap), n_docs, cap, 16, dev),
+             edge_case(cap, dev)]
+    for t0, s0, ops in cases:
+        for name, spec in KERNELS.items():
+            w = spec["wrapper"]
+            tier = _cuda.tier(cap, spec["entry"])
+            assert tier == ("cluster" if name == "K1_merge_apply"
+                            and cap <= 16384 else "global")
+            before = _tier_counts(w)
+            err, _ms, _plain_ms = hold_kernel(name, t0, s0, ops, 1, 1)
+            assert err == 0
+            want = dict(before)
+            want[tier] += 2  # check + one timing
+            assert _tier_counts(w) == want
 
 
 @pytest.mark.cuda
@@ -77,14 +91,15 @@ def test_capacity_past_the_largest_tier_raises():
 def test_docfleet_lifecycle_crosses_into_the_global_tier():
     """Four docs grow from the 1,024-row tier through 2,048 into 4,096 on
     the kernels; a kernel="plain" replay on the card matches bit for
-    bit, and K1 and K2 ran on both tiers."""
+    bit. K1 ran on the shared and cluster tiers, K2 on the shared and
+    global tiers."""
     _need_card()
     kw = dict(n_docs=4, capacity=1024, high_water=0.7, device="cuda")
     gen = Config6Gen(4)
     rec = Recorded(DocFleet(**kw))
-    before = {w: (w.launches_smem, w.launches_global)
-              for w in (K1.apply_ops_packed, KERNELS["K2_zamboni_compact"][
-                  "wrapper"])}
+    up = {K1.apply_ops_packed: "cluster",
+          KERNELS["K2_zamboni_compact"]["wrapper"]: "global"}
+    before = {w: _tier_counts(w) for w in up}
     extra = 3
     while extra:
         rec("apply", gen.round(grow=True))
@@ -93,7 +108,9 @@ def test_docfleet_lifecycle_crosses_into_the_global_tier():
         if 4096 in rec.fleet.pools:
             extra -= 1
     assert rec("stats")["docs_with_errors"] == 0
-    for w, (smem, glob) in before.items():
-        assert w.launches_smem > smem and w.launches_global > glob
+    for w, tier in up.items():
+        now = _tier_counts(w)
+        assert now["smem"] > before[w]["smem"]
+        assert now[tier] > before[w][tier]
     replay_and_compare(rec, lambda: DocFleet(kernel="plain", **kw),
                        [0, 1, 2, 3])

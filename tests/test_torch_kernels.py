@@ -299,24 +299,151 @@ def test_plain_apply_matches_xla_at_4096_rows():
     _assert_packed_equal(want, (tt, ts))
 
 
-@pytest.mark.parametrize("cap,tier", [(8, "smem"), (2048, "smem"),
-                                      (2049, "global"), (4096, "global"),
-                                      (65536, "global")])
-def test_wrappers_route_by_tier(cap, tier):
-    """S up to 2,048 takes the shared-memory entry, larger S up to 65,536
-    the global-memory one; the choice launches nothing."""
+_K1_TIERS = {8: "smem", 2048: "smem", 2049: "cluster", 2050: "cluster",
+             4096: "cluster", 8192: "cluster", 16384: "cluster",
+             16385: "global", 65536: "global"}
+
+
+@pytest.mark.parametrize("entry", ["merge_apply", "merge_compact",
+                                   "merge_apply_compact"])
+@pytest.mark.parametrize("cap", sorted(_K1_TIERS))
+def test_wrappers_route_by_tier(entry, cap):
+    """S up to 2,048 takes the shared-memory tier. Above it K1
+    (``merge_apply``) splits the table across a thread-block cluster up to
+    16,384 rows and keeps it in global memory up to 65,536; K2 and K3 keep
+    it in global memory from 2,049 rows on. The choice launches nothing."""
     from fluidframework_tpu_torch.ops import _cuda
 
-    assert _cuda.tier(cap) == tier
+    want = _K1_TIERS[cap] if entry == "merge_apply" else (
+        "smem" if cap <= 2048 else "global")
+    assert _cuda.tier(cap, entry) == want
 
 
 def test_wrappers_refuse_past_the_largest_tier():
     from fluidframework_tpu_torch.ops import _cuda
 
-    with pytest.raises(ValueError, match="65536"):
-        _cuda.tier(_cuda.MAX_CAPACITY + 1)
+    for entry in _cuda.ENTRIES:
+        with pytest.raises(ValueError, match="65536"):
+            _cuda.tier(_cuda.MAX_CAPACITY + 1, entry)
     t = torch.zeros((15, 1, 2 * _cuda.MAX_CAPACITY), dtype=torch.int32,
                     device="meta")
     s = torch.zeros((1, 8), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         K2.compact_packed(t, s)
+
+
+# -- K1's one row move per op (move_rows in csrc/merge_kernels.cu) ----------
+
+
+def _one_move(L, e1, q1, l1, e2, q2, l2, ei, qi, new_row):
+    """The kernel's move as one pass: final row r takes old row
+    y = r - d(r) (zeros below row 0), then stage 1's and stage 2's split
+    edits; the insert's row lands at qi. L is [N_LANES, S]."""
+    s = L.shape[1]
+    r = torch.arange(s)
+    x = torch.where(ei & (r > qi), r - 1, r)
+    x = torch.where(e2 & (r > q2), r - 1, x)
+    y = torch.where(e1 & (x > q1), x - 1, x)
+    out = torch.where(y >= 0, L[:, y.clamp(min=0)], torch.zeros_like(L))
+    off, ln = out[K1.L_OFF], out[K1.L_LEN]
+    ln = torch.where(e1 & (x == q1), l1, ln)
+    off = torch.where(e1 & (x == q1 + 1), off + l1, off)
+    ln = torch.where(e1 & (x == q1 + 1), ln - l1, ln)
+    ln = torch.where(e2 & (r == q2), l2, ln)
+    off = torch.where(e2 & (r == q2 + 1), off + l2, off)
+    ln = torch.where(e2 & (r == q2 + 1), ln - l2, ln)
+    out[K1.L_OFF], out[K1.L_LEN] = off, ln
+    return torch.where((ei & (r == qi))[None], new_row[:, None], out)
+
+
+def _sequential_moves(L, e1, q1, l1, e2, q2, l2, ei, qi, new_row):
+    """The same op as apply_plain moves rows: split A, then split B or the
+    insert, each a ``torch.where(col > edge, shift_right1(x), x)``."""
+    col = torch.arange(L.shape[1])
+
+    def shift1(L, do, edge):
+        return torch.where(do & (col > edge), K1.shift_right1(L), L)
+
+    def split(L, do, q, length):
+        L = shift1(L, do, q).clone()
+        L[K1.L_LEN] = torch.where(do & (col == q), length, L[K1.L_LEN])
+        m = do & (col == q + 1)
+        L[K1.L_OFF] = torch.where(m, L[K1.L_OFF] + length, L[K1.L_OFF])
+        L[K1.L_LEN] = torch.where(m, L[K1.L_LEN] - length, L[K1.L_LEN])
+        return L
+
+    L = split(L, e1, q1, l1)
+    L = split(L, e2, q2, l2)
+    L = shift1(L, ei, qi - 1)
+    return torch.where((ei & (col == qi))[None], new_row[:, None], L)
+
+
+def _random_move(rng):
+    """A random table of S <= 64 rows and the (stage 1, stage 2) move one
+    op asks for, as apply_plain derives it from idx1/idx2/idxp and the
+    capacity checks."""
+    s = int(rng.integers(2, 65))
+    count = int(rng.integers(0, s))
+    L = torch.from_numpy(rng.integers(-50, 50, (K1.N_LANES, s)).astype(
+        np.int32))
+    kind = rng.choice(["insert", "range", "none"], p=[.45, .45, .1])
+    has1 = bool(rng.random() < 0.7)
+    idx1 = int(rng.integers(0, s))
+    idx2 = idx1 if rng.random() < 0.3 else int(rng.integers(0, s))
+    has2 = bool(rng.random() < 0.7)
+    l1, l2 = (int(v) for v in rng.integers(-3, 9, 2))
+    f = dict(e1=False, q1=idx1, l1=l1, e2=False, q2=0, l2=l2, ei=False,
+             qi=0)
+    if kind == "insert":
+        sh = 2 if has1 else 1
+        do_ins = count + sh <= s
+        idxp = count if rng.random() < 0.3 else int(rng.integers(0, count
+                                                                  + 1))
+        f.update(e1=do_ins and has1, ei=do_ins,
+                 qi=idx1 + 1 if has1 else idxp)
+    elif kind == "range":
+        do_a = has1 and count + 1 <= s
+        do_b = has2 and count + do_a + 1 <= s
+        f.update(e1=do_a, e2=do_b, q2=idx2 + int(do_a),
+                 l2=l2 - l1 if do_a and idx1 == idx2 else l2)
+    new_row = torch.from_numpy(rng.integers(-9, 9, K1.N_LANES).astype(
+        np.int32))
+    args = {k: torch.tensor(v) for k, v in f.items()}
+    return L, args, new_row
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_one_move_equals_the_sequential_shifts(seed):
+    """K1's kernel composes an op's splits and insert into one row move
+    (move_rows): rows take the row d(r) in {0, 1, 2} below, then the split
+    edits. Held against apply_plain's sequential shifts on random tables
+    of up to 64 rows, edges anywhere (idx1 == idx2, the insert at count,
+    no split, edges at the last row)."""
+    rng = np.random.default_rng(seed)
+    for _ in range(60):
+        L, f, new_row = _random_move(rng)
+        want = _sequential_moves(L, **f, new_row=new_row)
+        got = _one_move(L, **f, new_row=new_row)
+        assert torch.equal(got, want), {k: int(v) for k, v in f.items()}
+        r = torch.arange(L.shape[1])
+        x = torch.where(f["ei"] & (r > f["qi"]), r - 1, r)
+        x = torch.where(f["e2"] & (r > f["q2"]), r - 1, x)
+        d = r - torch.where(f["e1"] & (x > f["q1"]), x - 1, x)
+        assert int(d.min()) >= 0 and int(d.max()) <= 2
+        assert bool((d[1:] >= d[:-1]).all())  # top-down in place is safe
+
+
+@pytest.mark.parametrize("cap", [72, 130])
+def test_plain_apply_matches_xla_on_edge_moves(cap):
+    """chip_smoke's edge_case (the moves the card tests use to hit tile and
+    slice edges) through K1's plain version and the reference XLA
+    kernel, from the same start state."""
+    from chip_smoke import edge_case
+
+    t0, s0, ops = edge_case(cap, "cpu")
+    n_docs = t0.shape[1]
+    state = ref_make_batched_state(n_docs, cap, NO_CLIENT)._make(
+        [jnp.asarray(x) for x in _unpack_np(t0.numpy(), s0.numpy())])
+    want = _xla_packed(batched_apply_ops(state, ops.numpy()))
+    _assert_packed_equal(want, K1.apply_plain(t0, s0, ops))
+    assert (want[1][:, K1.SC_COUNT] != s0[:, K1.SC_COUNT].numpy()).all()
