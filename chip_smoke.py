@@ -13,9 +13,12 @@ and the native ticket loop (``g++``), then:
    unknown writers, and local ops with acks; times each (median of
    CUDA-event timings) beside its byte-floor bound;
 1b. the tiers above — the same at S = 4,096 and 8,192 (D=256), 16,384
-   (D=64) and 65,536 (D=16) rows: K1 splits tables of up to 16,384 rows
-   across a thread-block cluster, K2/K3 (and K1 above 16,384) keep the
-   table in global memory; the shared tier at S = 2,048 (D=256) beside it;
+   (D=64) and 65,536 (D=16) rows: all three kernels split tables of up to
+   16,384 rows across a thread-block cluster and keep larger ones in
+   global memory; the shared tier at S = 2,048 (D=256) beside it. At
+   every shape of 1 and 1b K2 and K3 are also held, untimed, on
+   :func:`compact_edge_case` (merge runs across tile and slice edges, all
+   rows reclaimed, none reclaimed);
 2. fleet service — drives ``TpuFleetService`` at 100,000 docs x capacity
    128 x 16 ops/doc/round: a warm-up round plus 3 timed rounds at
    compact_every=1 (a scribe sweep of n_docs/3 docs in each), then 2 rounds
@@ -29,22 +32,24 @@ and the native ticket loop (``g++``), then:
    warmed to promotion quiescence, then 3 timed rounds (big_doc_ops_per_sec)
    with apply_sparse rounds on a 10% busy subset between them;
 3b. DocFleet, deep tiers — 256 docs grown to >= 4,263 rows each (through
-   the global tiers 4,096 and 8,192), then remove-heavy rounds with
+   the cluster tiers 4,096 and 8,192), then remove-heavy rounds with
    check_and_demote until a doc steps down from 4,096 to 2,048.
    Each phase-3 run is replayed op for op through a ``kernel="plain"``
    DocFleet on the card and must match it bit for bit.
 
 Launch counts (in all, and by tier: smem / cluster / global) are reset
 before each main path (2, then 3a+3b) and read after it; the DocFleet
-path must launch K1 on the cluster tier and K2 on the global tier. Prints
-the ptxas report of every kernel entry, each phase's wall time, the card's
-name and power limit, a ``{"kernels": [...]}`` line, and last
-``{"ok": true, "device": {...}}``. Any failure exits non-zero. A longer
-record goes to ``chip_smoke.json`` in the output directory (``OUT_DIR``).
+path must launch K1 and K2 on the cluster tier. Prints the ptxas report
+of every kernel entry, each phase's wall time, the card's name and power
+limit, a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
+{...}}``. Any failure exits non-zero. A longer record goes to
+``chip_smoke.json`` in the output directory (``OUT_DIR``).
 
-With ``--ab PARENT_DIR``, it times phases 1, 1b and 3b instead for the
-tree unpacked at PARENT_DIR and for this one, in turns on one card
-(parent, change, change, parent; see :func:`ab`), and writes ``ab.json``.
+With ``--ab PARENT_DIR``, it times instead phases 1 and 1b (and the
+kernels at the DocFleet cells' other widths), the kernels at phase 2's
+main shape and phases 3a and 3b's per-tier medians, for the tree unpacked
+at PARENT_DIR and for this one, in turns on one card (parent, change,
+change, parent; see :func:`ab`), and writes ``ab.json``.
 """
 
 from __future__ import annotations
@@ -97,6 +102,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
 PHASE1_SHAPES = ((128, 4096), (512, 4096), (2048, 4096))
 PHASE1B_SHAPES = ((2048, 256), (4096, 256), (8192, 256), (16384, 64),
                   (65536, 16))
+# The other widths the DocFleet cells compact at (config 6's pools of
+# 16,384 slots, the deep cell's of 256), timed by --ab alone: the cells'
+# per-tier medians mix calls on full and (in the parent) empty pools.
+AB_WIDTH_SHAPES = ((256, 16384), (512, 16384), (1024, 16384), (256, 256),
+                   (512, 256), (1024, 256))
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chiprun_out")
 
@@ -349,6 +359,82 @@ def edge_case(cap: int, device, k: int = 4):
     return as_t(tables), as_t(scalars), as_t(ops)
 
 
+def compact_edge_case(cap: int, device):
+    """A packed state whose compaction meets every seam the kernels cut a
+    table at (32-row tiles, cluster slices of SL rows): each doc holds
+    ``cap - 3`` live rows, min_seq 10, and one of nine patterns. Rows are
+    splits of one insert (contiguous offsets) unless a pattern breaks the
+    run; reclaimed rows are acked removals at seq 6. Patterns: none
+    reclaimed (one merge run over the whole table); all reclaimed; runs
+    that break one row before each tile edge; every other row reclaimed
+    (no merges); zero-length reclaimed rows at the tile and slice edges (the
+    run merges across them); the first slice reclaimed; only the edge rows
+    kept, the rest zero-length and reclaimed (a warp's first kept row
+    merges into a row many warps or CTAs back); the same with reclaimed
+    rows of length 1 (nothing merges); pending stamps, local removes and
+    UNASSIGNED seqs on rows that would otherwise go. Returns (tables,
+    scalars, ops), ops all no-ops (K=1), for K3."""
+    count = cap - 3
+    n_slices = -(-cap // 1024)
+    sl = (-(-cap // n_slices) + 31) // 32 * 32
+    r = np.arange(cap)
+    edge = np.zeros(cap, bool)
+    edge[[e for e in (0, 1, 31, 32, 33, 63, 64, sl - 1, sl, sl + 1,
+                      2 * sl - 1, 2 * sl, count - 1) if 0 <= e < count]] = True
+    tile_edge = (r % 32 == 0) | (r % 32 == 31) | (r % sl == 0) | \
+        (r % sl == sl - 1)
+    pats = []
+    for p in range(9):
+        rec = np.zeros(cap, bool)
+        length = np.full(cap, 2)
+        orig = np.full(cap, 3)
+        if p == 1:
+            rec[:] = True
+        elif p == 2:
+            orig = 3 + (r + 1) // 32
+        elif p == 3:
+            rec = r % 2 == 1
+        elif p == 4:
+            rec = tile_edge & (r > 0)
+            length[rec] = 0
+        elif p == 5:
+            rec = r <= sl
+        elif p in (6, 7):
+            rec = ~edge
+            length[rec] = 0 if p == 6 else 1
+        pats.append((rec, length, orig))
+    d = len(pats)
+    lanes = {n: np.zeros((d, cap), np.int64) for n in SEGMENT_LANES}
+    for i, (rec, length, orig) in enumerate(pats):
+        lanes["kind"][i] = 1
+        lanes["orig"][i] = orig
+        lanes["length"][i] = length
+        lanes["off"][i] = np.concatenate([[0], np.cumsum(length)[:-1]])
+        lanes["seq"][i] = 5
+        lanes["client"][i] = 1
+        lanes["rseq"][i] = np.where(rec, 6, RSEQ_NONE)
+    # The last pattern: every row acked-removed at seq 6, but some carry a
+    # pending stamp or are local removes, and some seqs are unassigned.
+    last = d - 1
+    lanes["rseq"][last] = np.where(r % 13 == 0, UNASSIGNED_SEQ, 6)
+    lanes["rlseq"][last] = np.where((r % 7 == 0) | (r % 13 == 0), 1, 0)
+    lanes["lseq"][last] = np.where(r % 11 == 0, 2, 0)
+    lanes["seq"][last] = np.where(r % 11 == 0, UNASSIGNED_SEQ, 5)
+    lanes["alseq"][last] = np.where(r % 17 == 0, 3, 0)
+    live = r[None, :] < count
+    fills = {"kind": 0, "rseq": RSEQ_NONE}
+    tables = np.stack([np.where(live, lanes[n], fills.get(n, 0))
+                       for n in SEGMENT_LANES]).astype(np.int32)
+    scalars = np.zeros((d, K1.N_SCALARS), np.int32)
+    scalars[:, K1.SC_COUNT] = count
+    scalars[:, K1.SC_MIN_SEQ] = 10
+    scalars[:, K1.SC_CUR_SEQ] = 100
+    scalars[:, K1.SC_SELF] = NO_CLIENT
+    ops = np.zeros((d, 1, OP_WIDTH), np.int32)
+    as_t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return as_t(tables), as_t(scalars), as_t(ops)
+
+
 def _median_ms(fn, reset, reps: int) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` launches, each on a
     freshly reset input (the reset runs outside the timed window)."""
@@ -444,6 +530,10 @@ def phase_kernels(device, report, key, shapes, seed_offset=0):
         edges = edge_case(cap, device)
         for name in KERNELS:
             hold_kernel(name, *edges, kernel_reps=0, plain_reps=0)
+        # K2 and K3 on compactions that meet the tile and slice edges.
+        edges = compact_edge_case(cap, device)
+        for name in ("K2_zamboni_compact", "K3_fused_apply_compact"):
+            hold_kernel(name, *edges, kernel_reps=0, plain_reps=0)
         del edges
         t, s = t0.clone(), s0.clone()
         K1.apply_ops_packed(t, s, ops)
@@ -462,7 +552,7 @@ def phase_kernels(device, report, key, shapes, seed_offset=0):
 
 def print_tier_step(rows) -> None:
     """The step from the shared tier (2,048 rows) to the next tier up
-    (4,096 rows: K1's cluster tier, K2/K3's global tier) at 256 docs."""
+    (4,096 rows, the cluster tier) at 256 docs."""
     for name in KERNELS:
         smem, up = (next(r for r in rows
                          if r["kernel"] == name and r["cap"] == cap)
@@ -913,11 +1003,19 @@ dev = torch.device("cuda", 0)
 rep = {{}}
 rows = c.phase_kernels(dev, rep, "k", {p1})
 rows += c.phase_kernels(dev, rep, "g", {p1b}, 1)
+rows += c.phase_kernels(dev, rep, "w", {pw}, 2)
+(t0, s0), ops, _ = c.phase_main_path(dev, rep)
+for name in c.KERNELS:
+    err, ms, plain_ms = c.hold_kernel(name, t0, s0, ops)
+    rows.append(dict(kernel=name, cap=t0.shape[2], docs=t0.shape[1], ms=ms))
+del t0, s0, ops
+torch.cuda.empty_cache()
+cfg6 = c.phase_docfleet_config6(dev, rep)
 deep = c.phase_docfleet_deep(dev, rep)
 ptxas = [x.strip() for x in c._cuda.build_log.splitlines()
          if "registers" in x or "spill" in x or "Compiling" in x]
-print("AB_JSON " + json.dumps(dict(rows=rows, deep=deep["tiers"],
-                                   ptxas=ptxas)))
+print("AB_JSON " + json.dumps(dict(rows=rows, config6=cfg6["tiers"],
+                                   deep=deep["tiers"], ptxas=ptxas)))
 """
 
 
@@ -941,8 +1039,10 @@ def _variant_source(spec: str, tag: str) -> str:
 
 
 def ab(parent: str, variants=()) -> int:
-    """Phase 1 and 1b kernel times and phase 3b's per-tier medians of the
-    tree at ``parent`` (an unpacked earlier commit) and of this tree, each
+    """Phase 1 and 1b kernel times, the same at :data:`AB_WIDTH_SHAPES`,
+    the kernels' times at phase 2's main shape and phases 3a and 3b's
+    per-tier medians (and calls) of the tree
+    at ``parent`` (an unpacked earlier commit) and of this tree, each
     run in its own process on this card in turns: parent, change, then
     each variant twice, then change, parent. A variant is this tree with
     the kernel constants of one spec of ``variants`` ("NAME=VALUE,...")
@@ -965,7 +1065,7 @@ def ab(parent: str, variants=()) -> int:
     for label in order:
         tree, patch = trees[label]
         code = _AB_RUN.format(patch=patch, p1=PHASE1_SHAPES,
-                              p1b=PHASE1B_SHAPES)
+                              p1b=PHASE1B_SHAPES, pw=AB_WIDTH_SHAPES)
         t = time.perf_counter()
         res = subprocess.run([sys.executable, "-c", code], cwd=tree,
                              env=dict(os.environ, PYTHONPATH=tree),
@@ -981,15 +1081,18 @@ def ab(parent: str, variants=()) -> int:
         runs.append(dict(label=label, wall_s=time.perf_counter() - t,
                          **json.loads(line[len("AB_JSON "):])))
         print(f"ab: {label} run in {runs[-1]['wall_s']:.1f} s", flush=True)
-    means = {}
+    means, calls = {}, {}
     for run in runs:
         for r in run["rows"]:
             key = (r["kernel"], r["cap"], r["docs"])
             means.setdefault(key, {}).setdefault(run["label"], []).append(
                 r["ms"])
-        for key, v in run["deep"].items():
-            means.setdefault(("deep " + key, 0, 0), {}).setdefault(
-                run["label"], []).append(v["median_ms"])
+        for cell in ("config6", "deep"):
+            for key, v in run[cell].items():
+                means.setdefault((f"{cell} {key}", 0, 0), {}).setdefault(
+                    run["label"], []).append(v["median_ms"])
+                calls.setdefault(f"{cell} {key}", {}).setdefault(
+                    run["label"], []).append(v["calls"])
     for (name, cap, docs), by in means.items():
         m = {label: float(np.mean(v)) for label, v in by.items()}
         ratios = ", ".join(f"{label} {m[label] / m['parent']:.3f}"
@@ -998,6 +1101,9 @@ def ab(parent: str, variants=()) -> int:
         print(f"ab {name} S={cap} D={docs}: " + ", ".join(
             f"{label} {v}" for label, v in by.items())
             + f" (/parent: {ratios})", flush=True)
+    for key, by in calls.items():
+        print(f"ab calls {key}: " + ", ".join(
+            f"{label} {v}" for label, v in by.items()), flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "ab.json"), "w") as f:
         json.dump(runs, f, indent=1)
@@ -1040,7 +1146,7 @@ def main() -> int:
         return out
 
     # Phase 1: the shared tier at 4,096 docs. Phase 1b: the tiers above it
-    # (K1's cluster tier up to 16,384 rows, the global tier) at the widths
+    # (the cluster tier up to 16,384 rows, the global tier) at the widths
     # DocFleet's deep tiers reach, with the shared tier at the same 256
     # docs beside them.
     timed("1_kernels", phase_kernels, device, report, "phase_kernels",
@@ -1073,7 +1179,7 @@ def main() -> int:
     launches3 = read_counts()
     print(f"docfleet launches: {launches3}", flush=True)
     for name, tier in (("K1_merge_apply", "cluster"),
-                       ("K2_zamboni_compact", "global")):
+                       ("K2_zamboni_compact", "cluster")):
         if launches3[name][tier] <= 0:
             raise AssertionError(f"{name}: no {tier}-tier launch on the "
                                  "DocFleet path")

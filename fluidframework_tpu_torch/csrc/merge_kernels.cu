@@ -15,7 +15,7 @@
 //     threads. The doc's 15 lanes x S rows, three S-row scratch arrays and
 //     an S-byte flag array live in dynamic shared memory for the whole op
 //     loop (146 KB at S = 2,048, so one CTA per SM there; 9.3 KB at 128).
-//   - cluster (2,048 < S <= 16,384; K1 only): one thread-block cluster of
+//   - cluster (2,048 < S <= 16,384; K1, K2, K3): one thread-block cluster of
 //     C = ceil(S / 1,024) CTAs per document (3-16; above 8 a non-portable
 //     size), 256 threads each. CTA c holds rows [c*SL, c*SL + n) of all
 //     15 lanes plus its scratch in its own shared memory, in the shared
@@ -27,10 +27,15 @@
 //     Slices of 2,048 rows (512 threads, 1 CTA per SM, C <= 8) ran 13-46%
 //     slower at 4,096-16,384 rows on an H100, so the slices are 1,024 rows.
 //     A cluster that cannot be scheduled fails the launch.
-//   - global (every S up to 65,536 for K2/K3, 16,384 < S for K1): one CTA
-//     of 512 threads per document; the lanes stay in tables_out (lane
-//     stride D*S) and the scratch arrays in a per-doc slice of a device
-//     workspace the wrapper allocates. Barriers order the global writes.
+//   - global (16,384 < S <= 65,536): one CTA of 512 threads per document;
+//     the lanes stay in tables_out (lane stride D*S) and the scratch
+//     arrays in a per-doc slice of a device workspace the wrapper
+//     allocates. Barriers order the global writes. K2 runs there on the
+//     split tier: the same, but each document split over a cluster of C
+//     CTAs (C = ceil(SMs / D), at most 8), slices of SL rows as on the
+//     cluster tier, so a few large documents still cover every SM; the
+//     warp totals meet through DSMEM and cluster barriers order the
+//     global writes.
 //
 // K1's op loop (apply_ops_doc) gives each warp a contiguous block of rows
 // and walks it in 32-row tiles, lane i on row tile + i, so one lane access
@@ -48,10 +53,25 @@
 //     its sources by __shfl_sync from the tile and the one below it.
 //   Each op costs 3 barriers (insert) or 4 (remove/annotate), against 5-8
 //   with per-thread chunks and one shift per split.
-// K2 (compact_doc, also K3's second half) keeps a contiguous chunk of
-// R = ceil(S / threads) rows per thread: a scan of `keep`, a scatter staged
-// in a free scratch array, then a second scan and scatter over the merge
-// heads. K3 runs K1's loop and K2 back to back in one CTA.
+// K2 (compact_doc, also K3's second half) is one gather, computed on the
+// original rows in the same warp tiles. Row r is kept unless it is a
+// reclaimable tombstone; p(r) is the previous kept row (a ballot of keep
+// per tile, __clz of the mask below the lane, the last kept row of the
+// earlier tiles in registers); r is a merge head if it is kept and does
+// not merge into p(r). Output row h takes the h-th head, with LEN =
+// plen(next head) - plen(head) (plen: the exclusive prefix of LEN over kept
+// rows; total for the last head); rows past n_heads take their lane's
+// fill. Int32 sums wrap alike in any order, so this equals the reference's
+// squeeze-then-merge bit for bit. Per document: one pass over the rows, one
+// block (or cluster) step that combines the warps' head counts, length
+// sums and first/last kept rows (a warp's first kept row may merge into an
+// earlier warp's last one), one pass that writes each head's source row and
+// prefix length at its output index, one barrier, and the store: on the
+// shared and cluster tiers it goes straight from shared memory to
+// tables_out by warp tiles (the table crosses memory once in, once out);
+// on the global tier each lane is gathered into the workspace, one
+// barrier, and written back in place. K3 runs K1's loop and K2 back to
+// back in one CTA (or cluster).
 // The TPU-side workarounds (Hillis-Steele shift ladders, the f32
 // permutation matmul, the 256-row compact cap) are not carried over.
 //
@@ -64,7 +84,10 @@
 // over the SMs of the cluster) and passes over 1,024-row slices; 256 docs
 // at 8,192 rows are 2,048 CTAs, about 5 waves at 3 CTAs per SM. Global
 // tier: the passes go to L2/HBM (coalesced), with one CTA per doc, so
-// D < 132 leaves SMs idle.
+// D < 132 leaves SMs idle (K2 splits the doc instead). K2 itself is one
+// pass over the rows and one store per document, with 3 barriers (14 more
+// on the global tier), so it is bound by its bytes once enough CTAs are in
+// flight: each thread loads all 15 lanes of a row before it stores any.
 //
 // Ops with an unknown type (outside 0..6) change nothing but the cur_seq /
 // min_seq bookkeeping and the ERR_CLIENT bit, as in the Pallas K1.
@@ -82,27 +105,30 @@ constexpr int N_LANES = 15;
 constexpr int OP_WIDTH = 10;
 constexpr int N_SCALARS = 8;
 constexpr int SMEM_MAX_CAP = 2048;      // largest shared-tier table
-constexpr int CLUSTER_MAX_CAP = 16384;  // largest cluster-tier table (K1)
+constexpr int CLUSTER_MAX_CAP = 16384;  // largest cluster-tier table
 constexpr int MAX_CAP = 65536;          // largest global-tier table
 constexpr int MAX_THREADS = 256;        // shared tier
 constexpr int CLUSTER_ROWS = 1024;      // rows per CTA of a cluster, at most
 constexpr int CLUSTER_THREADS = 256;    // cluster tier
-constexpr int GLOBAL_THREADS = 512;     // global tier
+constexpr int GLOBAL_THREADS = 512;     // global and split tiers
+constexpr int SPLIT_MAX_CTAS = 8;       // CTAs per doc on the split tier
 // CTAs per SM that each entry's register budget aims at (the second
-// argument of __launch_bounds__; see ctas_per_sm). K1/K3 on the shared
-// tier: 4 (64 registers a thread) up to SMEM_NARROW_CAP rows, where more
-// CTAs fit an SM and the kernels are bound by how many do; 3 (85) above
-// it, where shared memory holds at most 3 CTAs (at 1,024 rows; 1 at
-// 2,048). On an H100 either budget was 2-14% slower on the other side of
-// the cap. K2 on the shared tier 8 (32), the cluster tier 3 (85).
+// argument of __launch_bounds__; see ctas_per_sm). The shared tier: 4 (64
+// registers a thread) up to SMEM_NARROW_CAP rows, where more CTAs fit an
+// SM and the kernels are bound by how many do; 3 (85) above it for K1/K3,
+// where shared memory holds at most 3 CTAs (at 1,024 rows; 1 at 2,048).
+// On an H100 either budget was 2-14% slower on the other side of the cap;
+// K2 keeps 4 at every width (2 and 8 were no faster). Every entry on the
+// cluster tier 3 (85).
 constexpr int SMEM_NARROW_CAP = 512;
 constexpr int SMEM_CTAS_PER_SM = 4;
 constexpr int SMEM_WIDE_CTAS_PER_SM = 3;
 constexpr int CLUSTER_CTAS_PER_SM = 3;
-constexpr int COMPACT_CTAS_PER_SM = 8;
 constexpr unsigned FULL = 0xffffffffu;
 
-enum Tier { T_SMEM = 0, T_CLUSTER = 1, T_GLOBAL = 2 };
+// T_SPLIT is K2's form of the global tier: the table in global memory, a
+// cluster of CTAs per document (internal; the C entries' tier 2 selects it).
+enum Tier { T_SMEM = 0, T_CLUSTER = 1, T_GLOBAL = 2, T_SPLIT = 3 };
 
 enum Lane {
   L_KIND, L_ORIG, L_OFF, L_LEN, L_SEQ, L_CLIENT, L_LSEQ, L_RSEQ, L_RLSEQ,
@@ -127,43 +153,45 @@ constexpr int ERR_CAPACITY = 1, ERR_RANGE = 2, ERR_CLIENT = 4;
 // Warp-total scratch: one array per block- or cluster-wide reduction site,
 // so a site never overwrites totals another thread (or CTA) may still be
 // reading.
-constexpr int WS_SCAN1 = 0, WS_MIN = 32, WS_SCAN2 = 128, WS_KEEP = 160,
-              WS_HEAD = 192, WS_VLEN = 224, WS_SIZE = 256;
+constexpr int WS_SCAN1 = 0, WS_MIN = 32, WS_SCAN2 = 128, WS_CMP = 160,
+              WS_SIZE = 288;
 
-// One document's table (or, on the cluster tier, this CTA's slice of it)
-// as the block sees it. Rows are addressed by their local index lr; the
-// row's index in the whole table is base + lr.
+// One document's table (or, on the cluster and split tiers, this CTA's
+// slice of it) as the block sees it. Rows are addressed by their local
+// index lr; the row's index in the whole table is base + lr.
 template <int TIER>
 struct DocT {
   static constexpr int kTier = TIER;
+  // Cluster barriers and DSMEM warp totals; the table in global memory.
+  static constexpr bool kCluster = TIER == T_CLUSTER || TIER == T_SPLIT;
+  static constexpr bool kGlobal = TIER == T_GLOBAL || TIER == T_SPLIT;
   int *L;            // lane 0, local row 0
   size_t ls;         // lane stride: D*S (global), S (shared), SL (cluster)
-  int *A, *B, *C;    // [n] scratch
+  int *A, *B, *C;    // [n] scratch (global and split: slices of [S])
   unsigned char *F;  // [n] flags
   int S;             // rows of the whole table
   int base, n;       // this CTA's rows [base, base + n)
-  int SL;            // rows per slice (cluster tier; S otherwise)
+  int SL;            // rows per slice (cluster, split; S otherwise)
   int rank, nranks;  // this CTA in the cluster (0 and 1 otherwise)
-  int wlo, whi;      // this warp's local rows [wlo, whi) (K1's op loop)
-  int r0, r1;        // this thread's chunk [r0, r1) (compact_doc)
+  int wlo, whi;      // this warp's local rows [wlo, whi)
   int *ws;           // [WS_SIZE] warp totals
   __device__ int &at(int lane, int lr) const {
-    if constexpr (TIER == T_GLOBAL)
-      return L[(size_t)lane * ls + lr];
+    if constexpr (kGlobal)  // lr < 0 reaches an earlier slice (split)
+      return L[(ptrdiff_t)lane * (ptrdiff_t)ls + lr];
     else
       return L[lane * (int)ls + lr];
   }
   // The same shared address in CTA `rk` of the cluster (itself otherwise).
   template <class T>
   __device__ T *remote(T *p, int rk) const {
-    if constexpr (TIER == T_CLUSTER)
+    if constexpr (kCluster)
       return cg::this_cluster().map_shared_rank(p, rk);
     else
       return p;
   }
   // A barrier over every thread that shares the table (release/acquire).
   __device__ void sync() const {
-    if constexpr (TIER == T_CLUSTER)
+    if constexpr (kCluster)
       cg::this_cluster().sync();
     else
       __syncthreads();
@@ -208,24 +236,6 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
-// Exclusive scan of per-thread chunk totals over the block (compact_doc):
-// returns this thread's offset and writes the block total. One barrier.
-__device__ int block_excl_scan(int x, int *ws, int &total) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  const int inc = warp_incl_scan(x);
-  if (lane == 31) ws[w] = inc;
-  __syncthreads();
-  int off = 0, tot = 0;
-  for (int i = 0; i < nw; ++i) {
-    const int v = ws[i];
-    if (i < w) off += v;
-    tot += v;
-  }
-  total = tot;
-  return off + inc - x;
-}
-
 // Exclusive scan of warp totals (`wtot`, uniform in the warp) over the
 // block or cluster, in warp order (CTA rank, then warp): returns this
 // warp's offset and writes the total. One barrier.
@@ -238,7 +248,7 @@ __device__ int doc_excl_scan(const Doc &d, int wtot, int *ws, int &total) {
   const int g = d.rank * nw + w;
   int off = 0, tot = 0;
   for (int i = lane; i < d.nranks * nw; i += 32) {
-    const int rk = Doc::kTier == T_CLUSTER ? i / nw : 0;
+    const int rk = Doc::kCluster ? i / nw : 0;
     const int v = d.remote(ws, rk)[i - rk * nw];
     tot += v;
     if (i < g) off += v;
@@ -260,7 +270,7 @@ __device__ void doc_min3(const Doc &d, int &a, int &b, int &c, int *ws) {
   }
   d.sync();
   for (int i = lane; i < d.nranks * nw; i += 32) {
-    const int rk = Doc::kTier == T_CLUSTER ? i / nw : 0;
+    const int rk = Doc::kCluster ? i / nw : 0;
     const int *p = d.remote(ws, rk);
     const int j = i - rk * nw;
     a = min(a, p[j]);
@@ -280,7 +290,30 @@ __device__ int row_value(const Doc &d, int *p, int r) {
     const int rk = r / d.SL;
     return d.remote(p, rk)[r - rk * d.SL];
   } else {
-    return p[r];
+    return p[r - d.base];
+  }
+}
+
+// Write scratch row r (an index into the whole table) of array p.
+template <class Doc>
+__device__ void put_row(const Doc &d, int *p, int r, int v) {
+  if constexpr (Doc::kTier == T_CLUSTER) {
+    const int rk = r / d.SL;
+    d.remote(p, rk)[r - rk * d.SL] = v;
+  } else {
+    p[r - d.base] = v;
+  }
+}
+
+// Lane l of table row r (an index into the whole table), wherever in the
+// cluster it lies.
+template <class Doc>
+__device__ int lane_at(const Doc &d, int l, int r) {
+  if constexpr (Doc::kTier == T_CLUSTER) {
+    const int rk = r / d.SL;
+    return d.remote(d.L, rk)[l * d.SL + r - rk * d.SL];
+  } else {
+    return d.at(l, r - d.base);
   }
 }
 
@@ -601,123 +634,256 @@ __device__ void apply_ops_doc(const Doc &d, const int *ops_doc, int K,
   }
 }
 
-// Scatter the rows flagged in F to row dst[r] (all lanes); rows at or past
-// `n` that nobody fills take their lane's free value. Row `len_lane`, if
-// set, takes `len_of(r)` instead of its own length. Two barriers per lane.
-// A row's destination may lie in another thread's chunk, so every flagged
-// row of a lane is staged in `stage`, a scratch array the caller has free,
-// before any is written.
-template <class Doc, typename LenFn>
-__device__ void squeeze(const Doc &d, const int *dst, int *stage, int n,
-                        bool merge_len, LenFn len_of) {
-  for (int l = 0; l < N_LANES; ++l) {
-    for (int r = d.r0; r < d.r1; ++r)
-      if (d.F[r]) stage[r] = d.at(l, r);
-    __syncthreads();
-    for (int r = d.r0; r < d.r1; ++r) {
-      if (r >= n) d.at(l, r) = lane_fill(l);
-      if (d.F[r])
-        d.at(l, dst[r]) = (merge_len && l == L_LEN) ? len_of(r) : stage[r];
-    }
-    __syncthreads();
-  }
+// A row as the sibling re-merge (reference packParent subset) sees it:
+// row q takes the next kept row r in when both are acked, unremoved text
+// rows with no pending stamp, of one insert (orig, seq, client) and one
+// annotation, and r starts where q ends.
+struct MRow {
+  int orig, seq, client, aseq, aval, off, end;  // end = off + len
+  int ok;    // text, not removed, no pending stamp (may take r in)
+  int join;  // ok and seq assigned (may join q)
+};
+
+template <class Get>
+__device__ __forceinline__ MRow merge_row(Get get) {
+  MRow m;
+  m.orig = get(L_ORIG);
+  m.seq = get(L_SEQ);
+  m.client = get(L_CLIENT);
+  m.aseq = get(L_ASEQ);
+  m.aval = get(L_AVAL);
+  m.off = get(L_OFF);
+  m.end = (int)((unsigned)m.off + (unsigned)get(L_LEN));
+  m.ok = get(L_KIND) == KIND_TEXT && get(L_RSEQ) == RSEQ_NONE &&
+         get(L_ALSEQ) == 0 && get(L_LSEQ) == 0;
+  m.join = m.ok && m.seq != UNASSIGNED_SEQ;
+  return m;
 }
 
-// K2 (shared and global tiers; reference compact_values): reclaim acked
-// tombstones at or below min_seq with no pending stamp, squeeze live rows
-// down, then re-merge adjacent splits of one insert. Returns n_heads.
-template <class Doc>
-__device__ int compact_doc(const Doc &d, int min_seq) {
-  __syncthreads();
-  int loc = 0;
-  for (int r = d.r0; r < d.r1; ++r) {
-    const int rseq = d.at(L_RSEQ, r);
-    const bool live = d.at(L_KIND, r) != KIND_FREE;
-    const bool pending = d.at(L_LSEQ, r) != 0 || d.at(L_RLSEQ, r) != 0 ||
-                         d.at(L_ALSEQ, r) != 0;
-    const bool reclaim = live && !pending && rseq != RSEQ_NONE &&
-                         rseq != UNASSIGNED_SEQ && rseq <= min_seq;
-    const bool keep = live && !reclaim;
-    d.F[r] = keep;
-    loc += keep;
-  }
-  int n;
-  int run = block_excl_scan(loc, d.ws + WS_KEEP, n);
-  for (int r = d.r0; r < d.r1; ++r) {
-    d.A[r] = run;
-    run += d.F[r];
-  }
-  squeeze(d, d.A, d.B, n, false, [](int) { return 0; });
+__device__ __forceinline__ bool merges(const MRow &q, const MRow &r) {
+  return q.ok && r.join && r.orig == q.orig && r.off == q.end &&
+         r.seq == q.seq && r.client == q.client && r.aseq == q.aseq &&
+         r.aval == q.aval;
+}
 
-  // -- sibling re-merge (packParent subset) --------------------------------
-  int loc_h = 0, loc_v = 0;
-  for (int r = d.r0; r < d.r1; ++r) {
-    const bool valid = r < n;
-    bool mergeable = false;
-    if (valid && r > 0) {
-      const int q = r - 1;
-      mergeable = d.at(L_KIND, r) == KIND_TEXT && d.at(L_KIND, q) == KIND_TEXT &&
-                  d.at(L_ORIG, r) == d.at(L_ORIG, q) &&
-                  d.at(L_OFF, r) == d.at(L_OFF, q) + d.at(L_LEN, q) &&
-                  d.at(L_SEQ, r) == d.at(L_SEQ, q) &&
-                  d.at(L_CLIENT, r) == d.at(L_CLIENT, q) &&
-                  d.at(L_SEQ, r) != UNASSIGNED_SEQ &&
-                  d.at(L_RSEQ, r) == RSEQ_NONE && d.at(L_RSEQ, q) == RSEQ_NONE &&
-                  d.at(L_ASEQ, r) == d.at(L_ASEQ, q) &&
-                  d.at(L_AVAL, r) == d.at(L_AVAL, q) &&
-                  d.at(L_ALSEQ, r) == 0 && d.at(L_ALSEQ, q) == 0 &&
-                  d.at(L_LSEQ, r) == 0 && d.at(L_LSEQ, q) == 0;
+// The fields of `m` the next row compares, from lane `src` of the warp.
+__device__ __forceinline__ MRow shfl_row(const MRow &m, int src) {
+  MRow q;
+  q.orig = __shfl_sync(FULL, m.orig, src);
+  q.seq = __shfl_sync(FULL, m.seq, src);
+  q.client = __shfl_sync(FULL, m.client, src);
+  q.aseq = __shfl_sync(FULL, m.aseq, src);
+  q.aval = __shfl_sync(FULL, m.aval, src);
+  q.end = __shfl_sync(FULL, m.end, src);
+  q.ok = __shfl_sync(FULL, m.ok, src);
+  q.off = 0;
+  q.join = 0;
+  return q;
+}
+
+struct CompactSums {
+  int off_h, n_heads;  // heads in earlier warps; in the table
+  int off_len, total;  // LEN over kept rows of earlier warps; of the table
+  bool merged;         // this warp's first kept row joins an earlier row
+};
+
+// The block (or cluster) step of the compaction. Each warp gives its
+// count of heads (its first kept row counted as one), its kept rows' LEN
+// sum and its first and last kept rows; after one barrier every warp reads
+// all of them (through DSMEM on the cluster tier), finds for each warp the
+// last kept row before it (an exclusive max scan) and whether that warp's
+// first kept row merges into it, and takes its own offsets and the totals.
+template <class Doc>
+__device__ CompactSums compact_sums(const Doc &d, int tent, int lsum, int fk,
+                                    int lk, int *ws) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  if (lane == 0) {
+    ws[w] = tent;
+    ws[32 + w] = lsum;
+    ws[64 + w] = fk;
+    ws[96 + w] = lk;
+  }
+  d.sync();
+  const int g = d.rank * nw + w, nt = d.nranks * nw;
+  CompactSums t{0, 0, 0, 0, false};
+  int carry = -1;  // last kept row of the warps before this chunk
+  for (int i0 = 0; i0 < nt; i0 += 32) {
+    const int i = i0 + lane;
+    int th = 0, tl = 0, f = -1, k = -1;
+    if (i < nt) {
+      const int rk = Doc::kCluster ? i / nw : 0;
+      const int *p = d.remote(ws, rk);
+      const int j = i - rk * nw;
+      th = p[j];
+      tl = p[32 + j];
+      f = p[64 + j];
+      k = p[96 + j];
     }
-    const bool head = valid && !mergeable;
-    d.F[r] = head;
-    loc_h += head;
-    loc_v += valid ? d.at(L_LEN, r) : 0;
+    int inc = k;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int n = __shfl_up_sync(FULL, inc, o);
+      if (lane >= o) inc = max(inc, n);
+    }
+    int prev = __shfl_up_sync(FULL, inc, 1);
+    prev = max(lane == 0 ? -1 : prev, carry);
+    carry = max(carry, __shfl_sync(FULL, inc, 31));
+    bool m = false;
+    if (f >= 0 && prev >= 0)
+      m = merges(merge_row([&](int l) { return lane_at(d, l, prev); }),
+                 merge_row([&](int l) { return lane_at(d, l, f); }));
+    th -= m;
+    if (i < g) {
+      t.off_h += th;
+      t.off_len += tl;
+    }
+    t.n_heads += th;
+    t.total += tl;
+    if (i == g) t.merged = m;
   }
-  int n_heads, total;
-  int run_h = block_excl_scan(loc_h, d.ws + WS_HEAD, n_heads);
-  int run_v = block_excl_scan(loc_v, d.ws + WS_VLEN, total);
-  for (int r = d.r0; r < d.r1; ++r) {
-    d.B[r] = run_h;       // head destination
-    if (d.F[r]) d.C[run_h] = run_v;  // prefix length of each head, by dest
-    run_h += d.F[r];
-    run_v += r < n ? d.at(L_LEN, r) : 0;
+  t.off_h = warp_sum(t.off_h);
+  t.n_heads = warp_sum(t.n_heads);
+  t.off_len = warp_sum(t.off_len);
+  t.total = warp_sum(t.total);
+  t.merged = __any_sync(FULL, t.merged);
+  return t;
+}
+
+// K2 (every tier; reference compact_values): reclaim acked tombstones at
+// or below min_seq with no pending stamp, squeeze the kept rows down and
+// re-merge adjacent splits of one insert, as one gather (see the top of
+// the file). Shared and cluster tiers: the result goes to `out` (this
+// CTA's rows of lane 0 of tables_out, lane stride `plane`). Global tier:
+// in place. Returns n_heads. The caller synchronizes before the call.
+template <class Doc>
+__device__ int compact_doc(const Doc &d, int min_seq, int *out,
+                           size_t plane) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lt = (1u << lane) - 1u;
+  // -- keep, p(r), tentative heads; A = warp-local prefix of kept LEN ----
+  MRow cq{};          // the last kept row of this warp's earlier tiles
+  bool has_q = false;
+  int tent = 0, lsum = 0, fk = -1, lk = -1;
+  for (int t0 = d.wlo; t0 < d.whi; t0 += 32) {
+    const int lr = t0 + lane;
+    const bool valid = lr < d.whi;
+    bool keep = false;
+    int len = 0;
+    MRow m{};
+    if (valid) {
+      const int rseq = d.at(L_RSEQ, lr);
+      const bool live = d.at(L_KIND, lr) != KIND_FREE;
+      const bool pending = d.at(L_LSEQ, lr) != 0 || d.at(L_RLSEQ, lr) != 0 ||
+                           d.at(L_ALSEQ, lr) != 0;
+      const bool reclaim = !pending && rseq != RSEQ_NONE &&
+                           rseq != UNASSIGNED_SEQ && rseq <= min_seq;
+      keep = live && !reclaim;
+      m = merge_row([&](int l) { return d.at(l, lr); });
+      len = keep ? d.at(L_LEN, lr) : 0;
+    }
+    const unsigned km = __ballot_sync(FULL, keep);
+    const unsigned below = km & lt;
+    MRow q = shfl_row(m, below ? 31 - __clz(below) : lane);
+    if (!below) q = cq;
+    const bool head = keep && !((below || has_q) && merges(q, m));
+    if (valid) d.F[lr] = head;
+    tent += __popc(__ballot_sync(FULL, head));
+    const int inc = warp_incl_scan(len);
+    if (valid) d.A[lr] = lsum + inc - len;
+    lsum += __shfl_sync(FULL, inc, 31);
+    if (km) {
+      const int last = 31 - __clz(km);
+      cq = shfl_row(m, last);
+      has_q = true;
+      lk = d.base + t0 + last;
+      if (fk < 0) fk = d.base + t0 + __ffs(km) - 1;
+    }
   }
-  __syncthreads();
-  // Merged length of head t = (next head's prefix length, or total) - own.
-  const int *B = d.B, *C = d.C;
-  squeeze(d, d.B, d.A, n_heads, true, [=](int r) {
-    const int t = B[r];
-    return (t + 1 < n_heads ? C[t + 1] : total) - C[t];
-  });
-  return n_heads;
+  const CompactSums t = compact_sums(d, tent, lsum, fk, lk, d.ws + WS_CMP);
+  // -- each head's source row (C) and prefix length (B), at its output
+  //    index, in the CTA that owns that output row --------------------------
+  int run = t.off_h;
+  for (int t0 = d.wlo; t0 < d.whi; t0 += 32) {
+    const int lr = t0 + lane;
+    bool head = false;
+    if (lr < d.whi)
+      head = d.F[lr] && !(t.merged && d.base + lr == fk);
+    const unsigned hb = __ballot_sync(FULL, head);
+    if (head) {
+      const int h = run + __popc(hb & lt);
+      put_row(d, d.C, h, d.base + lr);
+      put_row(d, d.B, h, t.off_len + d.A[lr]);
+    }
+    run += __popc(hb);
+  }
+  d.sync();
+  // -- the store ------------------------------------------------------------
+  const int nh = t.n_heads;
+  if constexpr (Doc::kGlobal) {
+    // In place: each lane is gathered into A, one barrier over the table,
+    // then written back; a thread reads and writes only A[hl] of its own
+    // output rows, so the next lane needs no second barrier.
+    for (int l = 0; l < N_LANES; ++l) {
+      if (l == L_LEN) {
+        for (int hl = threadIdx.x; hl < d.n; hl += blockDim.x) {
+          const int h = d.base + hl;
+          d.at(l, hl) =
+              h < nh ? (h + 1 < nh ? row_value(d, d.B, h + 1) : t.total) -
+                           d.B[hl]
+                     : 0;
+        }
+        continue;
+      }
+      for (int hl = threadIdx.x; hl < d.n; hl += blockDim.x)
+        d.A[hl] = d.base + hl < nh ? lane_at(d, l, d.C[hl]) : lane_fill(l);
+      d.sync();
+      for (int hl = threadIdx.x; hl < d.n; hl += blockDim.x)
+        d.at(l, hl) = d.A[hl];
+    }
+  } else {
+    for (int hl = threadIdx.x; hl < d.n; hl += blockDim.x) {
+      const int h = d.base + hl;
+      const bool is_head = h < nh;
+      int s = 0, len = 0;
+      if (is_head) {
+        s = d.C[hl];
+        len = (h + 1 < nh ? row_value(d, d.B, h + 1) : t.total) - d.B[hl];
+      }
+#pragma unroll
+      for (int l = 0; l < N_LANES; ++l)
+        out[l * plane + hl] = !is_head       ? lane_fill(l)
+                              : l == L_LEN ? len
+                                           : lane_at(d, l, s);
+    }
+  }
+  return nh;
 }
 
 extern __shared__ int smem_raw[];
 
 // Ints of global-tier workspace per document: scratch A, B, C and the flag
-// bytes F.
+// bytes F (each S rows long, in that order).
 __host__ __device__ size_t work_ints(int S) {
   return (size_t)3 * S + (S + 3) / 4;
 }
 
-__host__ __device__ constexpr int ctas_per_sm(int mode, int tier,
-                                                bool wide) {
+__host__ __device__ constexpr int ctas_per_sm(int tier, bool wide) {
   return tier == T_CLUSTER ? CLUSTER_CTAS_PER_SM
-         : tier == T_GLOBAL ? 1
-         : mode == 1        ? COMPACT_CTAS_PER_SM
+         : tier >= T_GLOBAL ? 1
          : wide             ? SMEM_WIDE_CTAS_PER_SM
                             : SMEM_CTAS_PER_SM;
 }
 
 // MODE 0: K1 apply. MODE 1: K2 compact. MODE 2: K3 apply then compact
-// (modes 1 and 2 on the shared and global tiers only). WIDE: a shared-tier
-// K1/K3 entry for tables past SMEM_NARROW_CAP rows. SL: rows per CTA (the
-// cluster tier; S otherwise). `work`: the global tier's workspace.
+// (T_SPLIT: K2 only). WIDE: a shared-tier K1/K3 entry for tables past
+// SMEM_NARROW_CAP rows. SL: rows per CTA (the cluster and split tiers; S
+// otherwise). `work`: the global and split tiers' workspace.
 template <int MODE, int TIER, bool WIDE = false>
 __global__ void __launch_bounds__(
     TIER == T_SMEM ? MAX_THREADS
                    : (TIER == T_CLUSTER ? CLUSTER_THREADS : GLOBAL_THREADS),
-    ctas_per_sm(MODE, TIER, WIDE))
+    ctas_per_sm(TIER, WIDE))
 merge_kernel(const int *__restrict__ ops, const int *tables_in,
              const int *scalars_in, int *tables_out, int *scalars_out,
              int *work, int n_docs, int S, int K, int SL) {
@@ -726,7 +892,7 @@ merge_kernel(const int *__restrict__ ops, const int *tables_in,
   int doc = blockIdx.x;
   d.rank = 0;
   d.nranks = 1;
-  if constexpr (TIER == T_CLUSTER) {
+  if constexpr (DocT<TIER>::kCluster) {
     const cg::cluster_group cl = cg::this_cluster();
     d.rank = (int)cl.block_rank();
     d.nranks = (int)cl.num_blocks();
@@ -737,44 +903,50 @@ merge_kernel(const int *__restrict__ ops, const int *tables_in,
   d.S = S;
   d.SL = SL;
   d.base = d.rank * SL;
-  d.n = min(SL, S - d.base);
+  d.n = max(0, min(SL, S - d.base));
   d.ws = ws;
-  if constexpr (TIER == T_GLOBAL) {
-    d.L = tables_out + base;
+  const size_t row0 = base + d.base;
+  if constexpr (DocT<TIER>::kGlobal) {
+    d.L = tables_out + row0;
     d.ls = plane;
-    d.A = work + (size_t)doc * work_ints(S);
+    int *wk = work + (size_t)doc * work_ints(S);
+    d.A = wk + d.base;
+    d.B = wk + S + d.base;
+    d.C = wk + 2 * S + d.base;
+    d.F = reinterpret_cast<unsigned char *>(wk + 3 * S) + d.base;
   } else {
     d.L = smem_raw;
     d.ls = SL;
     d.A = d.L + N_LANES * SL;
+    d.B = d.A + SL;
+    d.C = d.B + SL;
+    d.F = reinterpret_cast<unsigned char *>(d.C + SL);
   }
-  d.B = d.A + SL;
-  d.C = d.B + SL;
-  d.F = reinterpret_cast<unsigned char *>(d.C + SL);
-  // K1: warp w owns local rows [w*RW, (w+1)*RW), RW a whole number of
-  // 32-row tiles, the same on every CTA of a cluster.
+  // Warp w owns local rows [w*RW, (w+1)*RW), RW a whole number of 32-row
+  // tiles, the same on every CTA of a cluster.
   const int nw = blockDim.x >> 5, w = threadIdx.x >> 5;
   const int RW = ((SL + 31) / 32 + nw - 1) / nw * 32;
   d.wlo = min(w * RW, d.n);
   d.whi = min(d.wlo + RW, d.n);
-  // K2: thread t owns the chunk [t*R, (t+1)*R).
-  const int R = (S + blockDim.x - 1) / blockDim.x;
-  d.r0 = min((int)threadIdx.x * R, S);
-  d.r1 = min(d.r0 + R, S);
 
-  // Shared and cluster tiers: load this CTA's rows. Global tier: the table
-  // is updated where it lies in tables_out, so copy tables_in there when
-  // they differ.
-  const size_t row0 = base + d.base;
-  if (TIER != T_GLOBAL || tables_in != tables_out) {
-    for (int l = 0; l < N_LANES; ++l)
-      for (int r = threadIdx.x; r < d.n; r += blockDim.x) {
-        const int v = tables_in[l * plane + row0 + r];
-        if constexpr (TIER == T_GLOBAL)
-          tables_out[l * plane + row0 + r] = v;
+  // Shared and cluster tiers: load this CTA's rows. Global and split
+  // tiers: the table is updated where it lies in tables_out, so copy
+  // tables_in there when they differ.
+  // All 15 lanes of a row are loaded before any is stored, so a thread
+  // has 15 loads in flight rather than one.
+  if (!DocT<TIER>::kGlobal || tables_in != tables_out) {
+    for (int r = threadIdx.x; r < d.n; r += blockDim.x) {
+      int v[N_LANES];
+#pragma unroll
+      for (int l = 0; l < N_LANES; ++l) v[l] = tables_in[l * plane + row0 + r];
+#pragma unroll
+      for (int l = 0; l < N_LANES; ++l) {
+        if constexpr (DocT<TIER>::kGlobal)
+          tables_out[l * plane + row0 + r] = v[l];
         else
-          d.at(l, r) = v;
+          d.at(l, r) = v[l];
       }
+    }
   }
   int sc_in[N_SCALARS];
 #pragma unroll
@@ -788,12 +960,14 @@ merge_kernel(const int *__restrict__ ops, const int *tables_in,
   if constexpr (MODE != 1)
     apply_ops_doc(d, ops + (size_t)doc * K * OP_WIDTH, K, sc);
   int n_heads = 0;
-  if constexpr (MODE != 0 && TIER != T_CLUSTER)
-    n_heads = compact_doc(d, sc.min_seq);
+  if constexpr (MODE != 0) {
+    if constexpr (MODE == 2) d.sync();  // the op loop's rows, table-wide
+    n_heads = compact_doc(d, sc.min_seq, tables_out + row0, plane);
+  }
   // No CTA exits (or stores) while another may still read its rows.
   d.sync();
 
-  if constexpr (TIER != T_GLOBAL) {
+  if constexpr (MODE == 0 && !DocT<TIER>::kGlobal) {
     for (int l = 0; l < N_LANES; ++l)
       for (int r = threadIdx.x; r < d.n; r += blockDim.x)
         tables_out[l * plane + row0 + r] = d.at(l, r);
@@ -820,16 +994,18 @@ cudaError_t allow_smem(Kern kern, size_t smem) {
                               (int)smem);
 }
 
-// The cluster tier: a cluster of C = ceil(S / CLUSTER_ROWS) CTAs per doc.
-// Returns an error when such a cluster cannot be scheduled; it never falls
-// back to another tier.
+// A launch of clusters of C CTAs (`threads` each, `smem` bytes of dynamic
+// shared memory, SL rows) per doc: the cluster tier (C = ceil(S /
+// CLUSTER_ROWS), the slices in shared memory) and K2's split tier (the
+// table in global memory). Returns an error when such a cluster cannot be
+// scheduled; it never falls back to another tier.
+template <int MODE, int TIER>
 int launch_cluster(const int *ops, const int *tables_in, const int *scalars_in,
-                   int *tables_out, int *scalars_out, int n_docs, int S,
-                   int K, cudaStream_t stream) {
-  const int C = (S + CLUSTER_ROWS - 1) / CLUSTER_ROWS;
+                   int *tables_out, int *scalars_out, int *work, int n_docs,
+                   int S, int K, int C, int threads, size_t smem,
+                   cudaStream_t stream) {
   const int SL = ((S + C - 1) / C + 31) / 32 * 32;
-  const size_t smem = smem_bytes(SL);
-  auto kern = merge_kernel<0, T_CLUSTER>;
+  auto kern = merge_kernel<MODE, TIER>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   if (C > 8) {
@@ -839,7 +1015,7 @@ int launch_cluster(const int *ops, const int *tables_in, const int *scalars_in,
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)n_docs * C, 1, 1);
-  cfg.blockDim = dim3(CLUSTER_THREADS, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -854,8 +1030,8 @@ int launch_cluster(const int *ops, const int *tables_in, const int *scalars_in,
   if (e != cudaSuccess) return (int)e;
   if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
   return (int)cudaLaunchKernelEx(&cfg, kern, ops, tables_in, scalars_in,
-                                 tables_out, scalars_out, (int *)nullptr,
-                                 n_docs, S, K, SL);
+                                 tables_out, scalars_out, work, n_docs, S, K,
+                                 SL);
 }
 
 // The shared tier: one CTA of up to MAX_THREADS threads per doc.
@@ -873,8 +1049,9 @@ int launch_smem(const int *ops, const int *tables_in, const int *scalars_in,
   return 0;
 }
 
-// tier T_SMEM: S <= SMEM_MAX_CAP. T_CLUSTER (K1 only): S <= CLUSTER_MAX_CAP.
-// T_GLOBAL: S <= MAX_CAP, with n_docs * work_ints(S) ints at `work`.
+// tier T_SMEM: S <= SMEM_MAX_CAP. T_CLUSTER: S <= CLUSTER_MAX_CAP.
+// T_GLOBAL: S <= MAX_CAP, with n_docs * work_ints(S) ints at `work` (K2
+// there runs on T_SPLIT).
 template <int MODE>
 int launch(const int *ops, const int *tables_in, const int *scalars_in,
            int *tables_out, int *scalars_out, int *work, int n_docs, int S,
@@ -892,15 +1069,33 @@ int launch(const int *ops, const int *tables_in, const int *scalars_in,
                                    scalars_out, n_docs, S, K, st);
     if (e != 0) return e;
   } else if (tier == T_CLUSTER) {
-    if (MODE != 0 || S > CLUSTER_MAX_CAP) return (int)cudaErrorInvalidValue;
-    const int e = launch_cluster(ops, tables_in, scalars_in, tables_out,
-                                 scalars_out, n_docs, S, K, st);
+    if (S > CLUSTER_MAX_CAP) return (int)cudaErrorInvalidValue;
+    const int C = (S + CLUSTER_ROWS - 1) / CLUSTER_ROWS;
+    const int e = launch_cluster<MODE, T_CLUSTER>(
+        ops, tables_in, scalars_in, tables_out, scalars_out, nullptr, n_docs,
+        S, K, C, CLUSTER_THREADS, smem_bytes(((S + C - 1) / C + 31) / 32 * 32),
+        st);
     if (e != 0) return e;
   } else if (tier == T_GLOBAL) {
     if (S > MAX_CAP || work == nullptr) return (int)cudaErrorInvalidValue;
-    merge_kernel<MODE, T_GLOBAL><<<n_docs, GLOBAL_THREADS, 0, st>>>(
-        ops, tables_in, scalars_in, tables_out, scalars_out, work, n_docs, S,
-        K, S);
+    if constexpr (MODE == 1) {
+      // K2 splits each doc over enough CTAs (at most SPLIT_MAX_CTAS, a
+      // portable cluster) that the launch covers every SM.
+      int dev = 0, sms = 0;
+      cudaError_t ce = cudaGetDevice(&dev);
+      if (ce == cudaSuccess)
+        ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (ce != cudaSuccess) return (int)ce;
+      const int C = max(1, min(SPLIT_MAX_CTAS, (sms + n_docs - 1) / n_docs));
+      const int e = launch_cluster<MODE, T_SPLIT>(
+          ops, tables_in, scalars_in, tables_out, scalars_out, work, n_docs,
+          S, K, C, GLOBAL_THREADS, 0, st);
+      if (e != 0) return e;
+    } else {
+      merge_kernel<MODE, T_GLOBAL><<<n_docs, GLOBAL_THREADS, 0, st>>>(
+          ops, tables_in, scalars_in, tables_out, scalars_out, work, n_docs,
+          S, K, S);
+    }
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -913,7 +1108,7 @@ extern "C" {
 
 // Each entry launches on `stream` and returns cudaGetLastError() (0 = ok).
 // tables_out/scalars_out may alias tables_in/scalars_in (in-place update).
-// `tier`: 0 shared, 1 cluster (merge_apply only), 2 global; the global
+// `tier`: 0 shared, 1 cluster, 2 global; the global
 // tier takes a device buffer of n_docs * merge_work_ints(S) int32 at
 // `work` (NULL otherwise).
 

@@ -27,8 +27,9 @@ ARCH = "arch=compute_90a,code=sm_90a"
 # Largest table (rows per document) whose lanes fit one CTA's shared
 # memory (the shared tier); must equal SMEM_MAX_CAP in merge_kernels.cu.
 SMEM_MAX_CAPACITY = 2048
-# Largest table K1 splits across a thread-block cluster's shared memory
-# (the cluster tier, at most 16 CTAs of 1,024 rows); CLUSTER_MAX_CAP there.
+# Largest table the kernels split across a thread-block cluster's shared
+# memory (the cluster tier, at most 16 CTAs of 1,024 rows); CLUSTER_MAX_CAP
+# there.
 CLUSTER_MAX_CAPACITY = 16384
 # Largest table the kernels take at all (the global tier above the others;
 # the reference fleet's max_capacity); must equal MAX_CAP there.
@@ -118,8 +119,8 @@ def lib() -> ctypes.CDLL:
 
 def tier(s: int, entry: str) -> str:
     """The tier C entry ``entry`` runs tables of ``s`` rows per document
-    on: ``"smem"`` (the table in one CTA's shared memory) up to
-    :data:`SMEM_MAX_CAPACITY`; for ``merge_apply`` (K1) ``"cluster"`` (the
+    on (the same for every entry): ``"smem"`` (the table in one CTA's
+    shared memory) up to :data:`SMEM_MAX_CAPACITY`; ``"cluster"`` (the
     table split across a thread-block cluster's shared memory) up to
     :data:`CLUSTER_MAX_CAPACITY`; ``"global"`` (the table in global
     memory) up to :data:`MAX_CAPACITY`. Larger tables raise
@@ -133,7 +134,7 @@ def tier(s: int, entry: str) -> str:
         )
     if s <= SMEM_MAX_CAPACITY:
         return "smem"
-    if entry == "merge_apply" and s <= CLUSTER_MAX_CAPACITY:
+    if s <= CLUSTER_MAX_CAPACITY:
         return "cluster"
     return "global"
 

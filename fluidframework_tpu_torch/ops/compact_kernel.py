@@ -3,16 +3,17 @@
 Replace the Pallas TPU kernels of ``fluidframework_tpu/ops/pallas_compact.py``
 (``compact_values`` behind ``compact_packed``; ``_fused_kernel`` behind
 ``apply_compact_packed``). The CUDA kernels are ``merge_compact`` and
-``merge_apply_compact`` in ``csrc/merge_kernels.cu``: a stream compaction (a
-scan of ``keep``, a direct scatter, then a second scan and scatter over the
-merge heads), with K3 running K1's op loop and K2 back to back so the table
-never leaves the CTA between them. They keep the table in shared memory
-up to 2,048 rows and in global memory above that, up to 65,536 rows (K1
-alone has a cluster tier between the two);
-so K2 replaces both the reference's Pallas compact and the XLA compact it
-falls back to above 256 rows. Like K1 they are latency-bound
-on block-scan steps; their byte floor is 2 x 15 x S x 4 B x D of table
-traffic (plus D x K x 40 B of ops for K3).
+``merge_apply_compact`` in ``csrc/merge_kernels.cu``: one gather per
+compaction, computed on the original rows (each kept row's previous kept
+row decides whether it heads a merge run; output row h takes the h-th
+head, its length a difference of prefix lengths), with K3 running K1's op
+loop and K2 back to back so the table never leaves the CTA between them.
+They keep the table in one CTA's shared memory up to 2,048 rows, split
+across a thread-block cluster's shared memory up to 16,384 and in global
+memory above that, up to 65,536 rows (the tiers of K1); so K2 replaces
+both the reference's Pallas compact and the XLA compact it falls back to
+above 256 rows. Their byte floor is 2 x 15 x S x 4 B x D of table traffic
+(plus D x K x 40 B of ops for K3).
 
 :func:`compact_plain` is the plain PyTorch version: reclaim rows that are
 removed, acked, at or below min_seq and carry no pending stamp; squeeze the

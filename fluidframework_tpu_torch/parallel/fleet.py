@@ -579,9 +579,16 @@ class DocFleet:
         self.last_routing_s = routing
 
     def compact_aot(self) -> None:
-        """Compact every pool (the serving path's cadence compaction)."""
-        for pool in self.pools.values():
+        """Compact every pool that holds a document (the serving path's
+        cadence compaction; see :meth:`compact`)."""
+        for pool in self._occupied_pools():
             pool.compact_aot()
+
+    def _occupied_pools(self) -> List[_Pool]:
+        """The pools with at least one document. Every free slot is blank
+        (never used, or blanked when vacated), and compacting a blank slot
+        leaves it as it is, so a pool without documents needs no K2."""
+        return [p for p in self.pools.values() if (p.doc_of_slot >= 0).any()]
 
     def begin_scan(self) -> Dict[int, tuple]:
         """Start an asynchronous (count, err) readback of every pool;
@@ -628,7 +635,8 @@ class DocFleet:
         return out
 
     def compact(self) -> None:
-        for pool in self.pools.values():
+        """Compact every pool that holds a document (K2 at its tier)."""
+        for pool in self._occupied_pools():
             pool._compact()
 
     def _telemetry_device(self):

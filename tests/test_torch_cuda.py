@@ -15,6 +15,7 @@ from chip_smoke import (
     KERNELS,
     Config6Gen,
     Recorded,
+    compact_edge_case,
     edge_case,
     hold_kernel,
     random_case,
@@ -49,23 +50,26 @@ def _tier_counts(w):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cap,n_docs", [(2050, 33), (4096, 16), (8192, 8),
-                                        (12000, 5), (16384, 4), (65536, 3)])
+                                        (12000, 5), (16384, 4), (16385, 3),
+                                        (65536, 3)])
 def test_global_tier_matches_plain_on_the_card(cap, n_docs):
     """Tables wider than one CTA's shared memory run, bit for bit with the
-    plain versions, on K1's cluster tier up to 16,384 rows (ragged slices
-    at 2,050 and 12,000) and on the global-memory tier above it and for
-    K2/K3; each launch counts on its tier. Random states, then moves that
-    land on the 32-row tile and the cluster slice edges."""
+    plain versions, on the cluster tier up to 16,384 rows (ragged slices
+    at 2,050 and 12,000) and on the global-memory tier above it, for K1, K2
+    and K3; each launch counts on its tier. Random states, moves that land
+    on the 32-row tile and the cluster slice edges, and compactions that
+    meet them (K2 and K3)."""
     _need_card()
     dev = torch.device("cuda", 0)
     cases = [random_case(np.random.default_rng(cap), n_docs, cap, 16, dev),
-             edge_case(cap, dev)]
-    for t0, s0, ops in cases:
+             edge_case(cap, dev), compact_edge_case(cap, dev)]
+    for i, (t0, s0, ops) in enumerate(cases):
         for name, spec in KERNELS.items():
+            if i == 2 and name == "K1_merge_apply":
+                continue
             w = spec["wrapper"]
             tier = _cuda.tier(cap, spec["entry"])
-            assert tier == ("cluster" if name == "K1_merge_apply"
-                            and cap <= 16384 else "global")
+            assert tier == ("cluster" if cap <= 16384 else "global")
             before = _tier_counts(w)
             err, _ms, _plain_ms = hold_kernel(name, t0, s0, ops, 1, 1)
             assert err == 0
@@ -91,14 +95,13 @@ def test_capacity_past_the_largest_tier_raises():
 def test_docfleet_lifecycle_crosses_into_the_global_tier():
     """Four docs grow from the 1,024-row tier through 2,048 into 4,096 on
     the kernels; a kernel="plain" replay on the card matches bit for
-    bit. K1 ran on the shared and cluster tiers, K2 on the shared and
-    global tiers."""
+    bit. K1 and K2 ran on the shared and cluster tiers."""
     _need_card()
     kw = dict(n_docs=4, capacity=1024, high_water=0.7, device="cuda")
     gen = Config6Gen(4)
     rec = Recorded(DocFleet(**kw))
     up = {K1.apply_ops_packed: "cluster",
-          KERNELS["K2_zamboni_compact"]["wrapper"]: "global"}
+          KERNELS["K2_zamboni_compact"]["wrapper"]: "cluster"}
     before = {w: _tier_counts(w) for w in up}
     extra = 3
     while extra:

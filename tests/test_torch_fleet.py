@@ -19,7 +19,7 @@ from fluidframework_tpu.parallel.fleet import DocFleet as RefFleet
 from fluidframework_tpu_torch.interop import fleet_from_reference
 from fluidframework_tpu_torch.ops import encode as E
 from fluidframework_tpu_torch.ops.segment_state import SEGMENT_LANES
-from fluidframework_tpu_torch.parallel.fleet import _SCALARS, DocFleet
+from fluidframework_tpu_torch.parallel.fleet import _SCALARS, DocFleet, _Pool
 from fluidframework_tpu_torch.protocol.constants import (
     ERR_CAPACITY,
     ERR_CLIENT,
@@ -430,10 +430,51 @@ def handover(kernel):
     p.same("apply", tr.round(2))
 
 
+def empty_pools_skip_compaction(kernel):
+    """compact() and compact_aot() launch no K2 on a pool without
+    documents: one emptied through promotion, then one emptied through
+    evict_docs. The reference compacts every pool; both stay equal."""
+    p = Pair(4, 16, high_water=0.7, kernel=kernel)
+    tr = Traffic(4, seed=41, insert_bias=0.9, msn_lag=3)
+    while min(c for c, _s in p.port.placement) == 16:
+        p.same("apply", tr.round(3))
+        p.call("compact")
+        p.same("check_and_migrate")
+    seen = []
+    step = _Pool._compact
+
+    def counting(pool):
+        seen.append(pool.capacity)
+        step(pool)
+
+    def compacted_pools():
+        for name in ("compact", "compact_aot"):
+            seen.clear()
+            p.call(name)
+            occupied = sorted({c for c, _s in filter(None, p.port.placement)})
+            assert sorted(seen) == occupied, (name, seen, occupied)
+        return occupied
+
+    _Pool._compact = counting
+    try:
+        assert 16 in p.port.pools
+        assert 16 not in compacted_pools()
+        top = max(c for c, _s in p.port.placement)
+        gone = [d for d, (c, _s) in enumerate(p.port.placement) if c == top]
+        p.call("evict_docs", gone)
+        assert top not in compacted_pools()
+        p.same("apply", tr.round(2, docs=[d for d in range(4)
+                                          if d not in gone]))
+        compacted_pools()
+    finally:
+        _Pool._compact = step
+
+
 SCENARIOS = [growth, promotion_keeps_pending, no_migration_trips_capacity,
              compaction_per_pool, sparse_equals_dense, padding_drops,
              stale_scan, demotion, evict_restore, add_doc_grows_slots,
-             overflowing, staged_and_aot, handover]
+             overflowing, staged_and_aot, handover,
+             empty_pools_skip_compaction]
 
 
 @pytest.mark.parametrize("scenario", SCENARIOS, ids=lambda f: f.__name__)

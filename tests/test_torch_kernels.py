@@ -34,7 +34,11 @@ from fluidframework_tpu.protocol.constants import (
     ERR_CAPACITY,
     ERR_CLIENT,
     ERR_RANGE,
+    KIND_FREE,
+    KIND_TEXT,
     NO_CLIENT,
+    RSEQ_NONE,
+    UNASSIGNED_SEQ,
 )
 from fluidframework_tpu.testing.fuzz import random_acked_stream
 from fluidframework_tpu.testing.oracle import OracleDoc
@@ -299,24 +303,22 @@ def test_plain_apply_matches_xla_at_4096_rows():
     _assert_packed_equal(want, (tt, ts))
 
 
-_K1_TIERS = {8: "smem", 2048: "smem", 2049: "cluster", 2050: "cluster",
+_TIERS = {8: "smem", 2048: "smem", 2049: "cluster", 2050: "cluster",
              4096: "cluster", 8192: "cluster", 16384: "cluster",
              16385: "global", 65536: "global"}
 
 
 @pytest.mark.parametrize("entry", ["merge_apply", "merge_compact",
                                    "merge_apply_compact"])
-@pytest.mark.parametrize("cap", sorted(_K1_TIERS))
+@pytest.mark.parametrize("cap", sorted(_TIERS))
 def test_wrappers_route_by_tier(entry, cap):
-    """S up to 2,048 takes the shared-memory tier. Above it K1
-    (``merge_apply``) splits the table across a thread-block cluster up to
-    16,384 rows and keeps it in global memory up to 65,536; K2 and K3 keep
-    it in global memory from 2,049 rows on. The choice launches nothing."""
+    """S up to 2,048 takes the shared-memory tier. Above it every entry
+    (K1, K2 and K3) splits the table across a thread-block cluster up to
+    16,384 rows and keeps it in global memory up to 65,536. The choice
+    launches nothing."""
     from fluidframework_tpu_torch.ops import _cuda
 
-    want = _K1_TIERS[cap] if entry == "merge_apply" else (
-        "smem" if cap <= 2048 else "global")
-    assert _cuda.tier(cap, entry) == want
+    assert _cuda.tier(cap, entry) == _TIERS[cap]
 
 
 def test_wrappers_refuse_past_the_largest_tier():
@@ -447,3 +449,180 @@ def test_plain_apply_matches_xla_on_edge_moves(cap):
     want = _xla_packed(batched_apply_ops(state, ops.numpy()))
     _assert_packed_equal(want, K1.apply_plain(t0, s0, ops))
     assert (want[1][:, K1.SC_COUNT] != s0[:, K1.SC_COUNT].numpy()).all()
+
+
+# -- K2's one gather (compact_doc in csrc/merge_kernels.cu) -------------------
+
+
+def _mergeable(q, r):
+    """The sibling re-merge test (reference packParent subset): row q (the
+    previous kept row) takes row r in. q, r: [N_LANES, n] lane values."""
+    ok_q = ((q[K1.L_KIND] == KIND_TEXT) & (q[K1.L_RSEQ] == RSEQ_NONE)
+            & (q[K1.L_ALSEQ] == 0) & (q[K1.L_LSEQ] == 0))
+    ok_r = ((r[K1.L_KIND] == KIND_TEXT) & (r[K1.L_RSEQ] == RSEQ_NONE)
+            & (r[K1.L_ALSEQ] == 0) & (r[K1.L_LSEQ] == 0)
+            & (r[K1.L_SEQ] != UNASSIGNED_SEQ))
+    same = torch.ones_like(ok_q)
+    for lane in (K1.L_ORIG, K1.L_SEQ, K1.L_CLIENT, K1.L_ASEQ, K1.L_AVAL):
+        same &= r[lane] == q[lane]
+    end = (q[K1.L_OFF] + q[K1.L_LEN]).to(torch.int32)
+    return ok_q & ok_r & same & (r[K1.L_OFF] == end)
+
+
+def _one_gather(L, min_seq, block):
+    """K2 as the kernel computes it, on one document's rows L
+    [N_LANES, S]: warps of ``block`` rows each find every kept row's
+    previous kept row within the warp and count heads with the warp's first
+    kept row as one; one combine step finds, per warp, the last kept row
+    before it and whether the warp's first kept row merges into it; output
+    row h takes the h-th head's row, with LEN = plen(next head) -
+    plen(head) (total for the last head). Returns (lanes, n_heads)."""
+    s = L.shape[1]
+    idx = torch.arange(s)
+    kind, rseq = L[K1.L_KIND], L[K1.L_RSEQ]
+    pending = (L[K1.L_LSEQ] != 0) | (L[K1.L_RLSEQ] != 0) | (L[K1.L_ALSEQ] != 0)
+    reclaim = (~pending & (rseq != RSEQ_NONE) & (rseq != UNASSIGNED_SEQ)
+               & (rseq <= min_seq))
+    keep = (kind != KIND_FREE) & ~reclaim
+    head = torch.zeros(s, dtype=torch.bool)
+    firsts, lasts = [], []
+    for w0 in range(0, s, block):
+        rows = idx[w0:w0 + block]
+        kept = rows[keep[rows]]
+        firsts.append(int(kept[0]) if len(kept) else -1)
+        lasts.append(int(kept[-1]) if len(kept) else -1)
+        if len(kept):
+            head[kept[0]] = True  # tentative
+            head[kept[1:]] = ~_mergeable(L[:, kept[:-1]], L[:, kept[1:]])
+    before = -1  # the last kept row of the earlier warps (exclusive max)
+    for f, k in zip(firsts, lasts):
+        if f >= 0 and before >= 0:
+            head[f] = ~_mergeable(L[:, before:before + 1], L[:, f:f + 1])[0]
+        before = max(before, k)
+    src = idx[head]
+    plen = K1.excl_cumsum(torch.where(keep, L[K1.L_LEN], 0))
+    total = torch.where(keep, L[K1.L_LEN], 0).sum().to(torch.int32)
+    p = plen[src]
+    out = torch.zeros_like(L)
+    out[K1.L_KIND] = KIND_FREE
+    out[K1.L_RSEQ] = RSEQ_NONE
+    nh = len(src)
+    out[:, :nh] = L[:, src]
+    out[K1.L_LEN, :nh] = (torch.cat([p[1:], total[None]]) - p).to(torch.int32)
+    return out, nh
+
+
+def _run_table(rng, s):
+    """A table of ``s`` rows built as splits of a few inserts (runs of one
+    orig, seq and client with contiguous offsets), with reclaimable and
+    unreclaimable tombstones (some inside runs), pending stamps, UNASSIGNED
+    seqs, free rows in the middle and at the end, and other row kinds.
+    min_seq is 10: acked removals at seq 1-10 are reclaimed."""
+    n_live = int(rng.integers(0, s + 1))
+    rows = np.zeros((K1.N_LANES, s), np.int64)
+    rows[K1.L_RSEQ] = RSEQ_NONE
+    prev = None
+    for r in range(n_live):
+        if prev is not None and rng.random() < 0.6:
+            v = prev.copy()
+            v[K1.L_OFF] = prev[K1.L_OFF] + prev[K1.L_LEN]
+        else:
+            v = np.zeros(K1.N_LANES, np.int64)
+            v[K1.L_ORIG] = rng.integers(1, 4)
+            v[K1.L_OFF] = rng.integers(0, 4)
+            v[K1.L_SEQ] = rng.integers(1, 4)
+            v[K1.L_CLIENT] = rng.integers(0, 2)
+            v[K1.L_ASEQ] = rng.integers(0, 2)
+            v[K1.L_AVAL] = v[K1.L_ASEQ] * rng.integers(1, 3)
+        v[K1.L_KIND] = KIND_TEXT if rng.random() < 0.95 else 2
+        v[K1.L_LEN] = rng.integers(0, 5)
+        v[K1.L_RSEQ] = rng.choice([RSEQ_NONE, int(rng.integers(1, 21)),
+                                   UNASSIGNED_SEQ], p=[.55, .35, .1])
+        v[K1.L_RLSEQ] = rng.integers(1, 5) if rng.random() < 0.05 else 0
+        v[K1.L_LSEQ] = rng.integers(1, 5) if rng.random() < 0.05 else 0
+        v[K1.L_ALSEQ] = rng.integers(1, 5) if rng.random() < 0.05 else 0
+        if rng.random() < 0.05:
+            v[K1.L_SEQ] = UNASSIGNED_SEQ
+        if rng.random() < 0.03:  # a free row among the live ones
+            v = np.zeros(K1.N_LANES, np.int64)
+            v[K1.L_RSEQ] = RSEQ_NONE
+        rows[:, r] = v
+        prev = v
+    return torch.from_numpy(rows.astype(np.int32))
+
+
+def _edge_tables():
+    """Tables the formula has to get right at its seams (min_seq 10): every
+    row reclaimed; none reclaimed; a run whose middle row is reclaimed
+    (the run breaks there); a run broken only by a reclaimed zero-length
+    row (it merges across it); the first kept row after a reclaimed run;
+    an UNASSIGNED seq and pending stamps inside a run."""
+    def run(n, **lanes):
+        t = torch.zeros((K1.N_LANES, n), dtype=torch.int32)
+        t[K1.L_KIND] = KIND_TEXT
+        t[K1.L_ORIG] = 3
+        t[K1.L_LEN] = 2
+        t[K1.L_OFF] = 2 * torch.arange(n, dtype=torch.int32)
+        t[K1.L_SEQ] = 5
+        t[K1.L_RSEQ] = RSEQ_NONE
+        for lane, (r, v) in lanes.items():
+            t[getattr(K1, lane), r] = v
+        return t
+
+    every = run(40)
+    every[K1.L_RSEQ] = 7
+    none = run(40)
+    zero = run(8)
+    zero[K1.L_LEN, 4] = 0
+    zero[K1.L_RSEQ, 4] = 9
+    zero[K1.L_OFF, 5:] -= 2
+    after = run(70)
+    after[K1.L_RSEQ, :33] = 3
+    return [every, none, run(40, L_RSEQ=(20, 8)), zero, after,
+            run(40, L_SEQ=(31, UNASSIGNED_SEQ)), run(40, L_LSEQ=(32, 1)),
+            run(40, L_RLSEQ=(33, 2), L_RSEQ=(33, 4)),
+            run(40, L_ALSEQ=(30, 1))]
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_one_gather_equals_squeeze_then_merge(seed):
+    """K2's kernel composes the reclaim squeeze and the merge squeeze into
+    one gather on the original rows (compact_doc). Held bit for bit
+    against _compact_values on random tables of 1-70 rows and on the edge
+    tables, with warps of 8 and 32 rows (so a warp's first kept row merges
+    into a row several warps back, or into none)."""
+    rng = np.random.default_rng(seed)
+    tables = [_run_table(rng, int(rng.integers(1, 71))) for _ in range(50)]
+    if seed == 0:
+        tables += _edge_tables()
+    min_seq = torch.tensor([[10]], dtype=torch.int32)
+    for L in tables:
+        want, n_heads = K2._compact_values(L[:, None, :], min_seq)
+        for block in (8, 32):
+            got, nh = _one_gather(L, 10, block)
+            assert nh == int(n_heads), block
+            assert torch.equal(got, want[:, 0]), block
+
+
+@pytest.mark.parametrize("cap", [72, 130])
+def test_plain_compact_matches_xla_on_compaction_edges(cap):
+    """chip_smoke's compact_edge_case (the compactions the card holds K2
+    and K3 on at every tier) through K2's plain version, the reference XLA
+    compact and the one-gather formula, from the same start state: one
+    merge run over the whole table, none, and the rest in between."""
+    from chip_smoke import compact_edge_case
+
+    t0, s0, _ops = compact_edge_case(cap, "cpu")
+    n_docs = t0.shape[1]
+    state = ref_make_batched_state(n_docs, cap, NO_CLIENT)._make(
+        [jnp.asarray(x) for x in _unpack_np(t0.numpy(), s0.numpy())])
+    want = _xla_packed(batched_compact(state))
+    got = K2.compact_plain(t0, s0)
+    _assert_packed_equal(want, got)
+    heads = got[1][:, K1.SC_COUNT].tolist()
+    assert heads[0] == 1 and heads[1] == 0 and heads[4] == 1
+    assert heads[6] == 1 and heads[7] >= 4
+    for d in range(n_docs):
+        lanes, nh = _one_gather(t0[:, d], 10, 32)
+        assert nh == heads[d]
+        assert torch.equal(lanes, got[0][:, d])
