@@ -35,10 +35,24 @@ and the native ticket loop (``g++``), then:
    the cluster tiers 4,096 and 8,192), then remove-heavy rounds with
    check_and_demote until a doc steps down from 4,096 to 2,048.
    Each phase-3 run is replayed op for op through a ``kernel="plain"``
-   DocFleet on the card and must match it bit for bit.
+   DocFleet on the card and must match it bit for bit;
+4. serving stage — config 7 (``config7_pipeline_serving``): a
+   ``DeviceFleetBackend`` (capacity 128, boxcars up to 131,072 rows,
+   compaction every 8th flush, the pump with a ring of 2) fed through
+   12,288 ``TpuDeliLambda``s 16 rounds of one 8-op ``SeqFrame`` per
+   document (inserts at position 0, removes on every 4th document from
+   round 12; every document promotes from 128 to 256 rows), a redelivered
+   round, a JSON-wire round for 64 documents, one batched read of 4,096
+   channels, texts and summaries of 64, a telemetry scrape; then a
+   residency sub-run (512 channels, 128 hibernated, parked and woken,
+   against a twin that never hibernated). Both runs are replayed call for
+   call through a ``kernel="plain"`` backend on the card, bit for bit.
+   Prints merge ops/s and ms per round over rounds 2-16, the flush split
+   (staging / dispatch / routing), the device idle share ``1 -
+   pump_busy_s / wall``, K1/K2 CUDA-event times per call and launches.
 
 Launch counts (in all, and by tier: smem / cluster / global) are reset
-before each main path (2, then 3a+3b) and read after it; the DocFleet
+before each main path (2, then 3a+3b, then 4) and read after it; the DocFleet
 path must launch K1 and K2 on the cluster tier. Prints the ptxas report
 of every kernel entry, each phase's wall time, the card's name and power
 limit, a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
@@ -92,6 +106,14 @@ from fluidframework_tpu_torch.protocol.constants import (
 )
 from fluidframework_tpu_torch.ops.segment_state import SEGMENT_LANES
 from fluidframework_tpu_torch.parallel.fleet import DocFleet, _Pool
+from fluidframework_tpu_torch.protocol.opframe import SeqFrame
+from fluidframework_tpu_torch.protocol.types import (
+    MessageType,
+    SequencedDocumentMessage,
+)
+from fluidframework_tpu_torch.runtime.op_lifecycle import pack_batch
+from fluidframework_tpu_torch.service.device_backend import DeviceFleetBackend
+from fluidframework_tpu_torch.service.device_lambda import TpuDeliLambda
 from fluidframework_tpu_torch.service.fleet_service import TpuFleetService
 from fluidframework_tpu_torch.utils import pow2_at_least
 from fluidframework_tpu_torch.utils.native import _load_ticket
@@ -995,6 +1017,396 @@ def phase_docfleet_deep(device, report, n_docs=256, target=4263):
     return out
 
 
+ALPHABET = "abcdefghijklmnopqrstuvwxyz"
+
+
+class ServingTraffic:
+    """Config 7's traffic (``_config7_measure`` in bench_configs.py) as
+    deli hands it to the device stage: per round, one ``SeqFrame`` of ``k``
+    single-character inserts at position 0 per document on channel
+    ``"s"``; seqs, refs and the collab window advance per document, the
+    content id (``orig``) is the seq and the text its letter. From round
+    ``remove_from`` on, every 4th document's last two ops are removes (so
+    compaction reclaims rows). :meth:`json_round` gives a few ops per
+    document on the per-op JSON wire, compressed for every other
+    document. :meth:`expected` is a document's text."""
+
+    def __init__(self, n_docs: int, k: int = 8, remove_from: int = 12,
+                 prefix: str = "d"):
+        self.n, self.k, self.remove_from = n_docs, k, remove_from
+        self.docs = [f"{prefix}{i}" for i in range(n_docs)]
+        self.heads = np.zeros(n_docs, np.int64)
+        self.rounds = 0
+        self.texts = [[] for _ in range(n_docs)]  # expected text per doc
+
+    def frames(self):
+        """One round: [(doc, SeqFrame)] for every document."""
+        n, k = self.n, self.k
+        ar = np.arange(k, dtype=np.int64)
+        seqs = self.heads[:, None] + 1 + ar[None, :]
+        rows = np.zeros((n, k, OP_WIDTH), np.int32)
+        rows[:, :, F_TYPE] = OP_INSERT
+        rows[:, :, F_LEN] = 1
+        rows[:, :, F_SEQ] = seqs
+        rows[:, :, F_REF] = self.heads[:, None]
+        rows[:, :, F_MSN] = self.heads[:, None]
+        rows[:, :, F_ARG] = seqs
+        rem = (self.rounds >= self.remove_from) & (np.arange(n) % 4 == 0)
+        for j in (k - 2, k - 1):
+            rows[rem, j, F_TYPE] = OP_REMOVE
+            rows[rem, j, F_POS1] = 2
+            rows[rem, j, F_POS2] = 3
+            rows[rem, j, F_LEN] = 0
+            rows[rem, j, F_ARG] = 0
+        cache = {}
+        out = []
+        for i, doc in enumerate(self.docs):
+            h, r = int(self.heads[i]), bool(rem[i])
+            texts = cache.get((h, r))
+            if texts is None:
+                texts = cache[(h, r)] = tuple(
+                    ALPHABET[(h + 1 + j) % 26] for j in range(k - 2 * r))
+            t = self.texts[i]
+            t[0:0] = texts[::-1]
+            if r:
+                del t[2:4]
+            out.append((doc, SeqFrame("s", 0, h + 1, rows[i], texts, 0.0)))
+        self.heads += k
+        self.rounds += 1
+        return out
+
+    def json_round(self, docs, n_ops: int = 5):
+        """[(doc, wire message)]: ``n_ops`` inserts at position 0 for each
+        doc index of ``docs``, as sequenced per-op JSON wire messages,
+        packed compressed (one head and placeholders) for every other
+        doc."""
+        out = []
+        for j, i in enumerate(docs):
+            h = int(self.heads[i])
+            envs = [{"address": "s", "contents": {
+                "k": "ins", "pos": 0, "orig": h + 1 + o,
+                "text": ALPHABET[(h + 1 + o) % 26]}} for o in range(n_ops)]
+            wire = pack_batch(envs,
+                              compression_threshold=64 if j % 2 else None)
+            for o, w in enumerate(wire):
+                out.append((self.docs[i], SequencedDocumentMessage(
+                    client_id=0, sequence_number=h + 1 + o,
+                    client_sequence_number=o + 1,
+                    reference_sequence_number=h, minimum_sequence_number=h,
+                    type=MessageType.OPERATION, contents=w.contents,
+                    metadata=w.metadata)))
+            self.texts[i][0:0] = [e["contents"]["text"] for e in envs][::-1]
+            self.heads[i] += len(wire)
+        return out
+
+    def expected(self, i: int) -> str:
+        return "".join(self.texts[i])
+
+
+class ServingRun:
+    """A ``DeviceFleetBackend`` behind one ``TpuDeliLambda`` per document,
+    whose calls are logged with their results, so the run can be replayed
+    call for call through a second backend (:func:`replay_serving`)."""
+
+    def __init__(self, backend):
+        self.be = backend
+        self.lams = {}
+        self.log = []
+
+    def handle(self, doc, value):
+        lam = self.lams.get(doc)
+        if lam is None:
+            lam = self.lams[doc] = TpuDeliLambda(doc, self.be)
+        out = lam.handler(doc, value)
+        self.log.append(("handle", (doc, value), out))
+        return out
+
+    def __call__(self, name, *args):
+        out = getattr(self.be, name)(*args)
+        self.log.append((name, args, out))
+        return out
+
+
+# Calls whose results depend on the wall clock, not on the state: the
+# feed deadline decides how a round's work splits between pump_feed and
+# the next flush, and stats carry the trigger counts.
+_CLOCKED = ("pump_feed", "stats")
+
+
+def replay_serving(run: ServingRun, make_plain, sample_keys) -> None:
+    """Replay ``run``'s log through a fresh ``kernel="plain"`` backend on
+    the card: every result (but :data:`_CLOCKED`'s), every pool's tables,
+    scalars and slot bookkeeping, placement, the watermarks, the payloads,
+    and the texts and summaries of ``sample_keys`` must match bit for
+    bit."""
+    plain = ServingRun(make_plain())
+    for name, args, want in run.log:
+        got = plain.handle(*args) if name == "handle" else plain(name, *args)
+        if name not in _CLOCKED and not _same(want, got):
+            raise AssertionError(f"serving replay: {name} gave {got!r}, "
+                                 f"the kernels gave {want!r}")
+    a, b = run.be, plain.be
+    if list(a.fleet.pools) != list(b.fleet.pools):
+        raise AssertionError("serving replay: pool tiers differ")
+    for cap, pool in a.fleet.pools.items():
+        other = b.fleet.pools[cap]
+        if not (torch.equal(pool.tables, other.tables)
+                and torch.equal(pool.scalars, other.scalars)
+                and np.array_equal(pool.doc_of_slot, other.doc_of_slot)
+                and np.array_equal(pool.slot_gen, other.slot_gen)):
+            raise AssertionError(f"serving replay: pool {cap} differs")
+    if a.fleet.placement != b.fleet.placement:
+        raise AssertionError("serving replay: placement differs")
+    for name in ("_applied_a", "_buffseq_a", "_since_a"):
+        if not np.array_equal(getattr(a, name), getattr(b, name)):
+            raise AssertionError(f"serving replay: {name} differs")
+    if a.payloads != b.payloads or a._keys != b._keys:
+        raise AssertionError("serving replay: channels or payloads differ")
+    for doc, addr in sample_keys:
+        if a.text(doc, addr) != b.text(doc, addr):
+            raise AssertionError(f"serving replay: text of {doc} differs")
+        if not _same(a.channel_summary(doc, addr),
+                     b.channel_summary(doc, addr)):
+            raise AssertionError(f"serving replay: summary of {doc} "
+                                 "differs")
+    del plain, b
+    torch.cuda.empty_cache()
+
+
+def _serving_round(run: ServingRun, frames) -> tuple:
+    """One round as the service runs it: every frame through its lambda,
+    the continuous-feed tick, the quiescence flush, the nack drain.
+    Returns the host wall of (lambdas, pump_feed, flush + drain)."""
+    clock = time.perf_counter
+    t0 = clock()
+    for doc, frame in frames:
+        run.handle(doc, {"t": "seqframe", "frame": frame})
+    t1 = clock()
+    run("pump_feed")
+    t2 = clock()
+    run("flush")
+    run("take_errors")
+    return t1 - t0, t2 - t1, clock() - t2
+
+
+# Config 7's backend (bench_configs.py:893-896 and the pipeline's
+# defaults): capacity 128, boxcars of up to max(2^17, docs x ops) rows,
+# compaction every 8th flush, the pump with a ring of 2.
+SERVING_KW = dict(capacity=128, max_batch=131_072, compact_every=8,
+                  pump_mode=True, ring_depth=2)
+
+
+def phase_serving(device, report, n_docs=12_288, rounds=16, k=8,
+                  n_json=64, n_reads=4096, res_docs=512):
+    """Phase 4: the device-apply serving stage at config 7's shape
+    (``bench_configs.py:861-912,1276-1285``): a ``DeviceFleetBackend`` of
+    :data:`SERVING_KW` fed through ``n_docs`` ``TpuDeliLambda``s ``rounds``
+    rounds of ``k``-op frames (each doc grows to 128 rows and promotes to
+    the 256-row tier; removes on every 4th doc from round 12), the last
+    round redelivered, a JSON-wire round for ``n_json`` docs, one batched
+    read of ``n_reads`` channels, texts and summaries of 64, and a
+    telemetry scrape; then the residency sub-run
+    (:func:`serving_residency`). Every round's frames (the client and
+    deli side, not the stage) are built before the first; rounds 2 on are
+    timed. The launch counts are set to 0 just before the main run and
+    read just after its telemetry scrape. Both runs are replayed through
+    a ``kernel="plain"`` backend on the card and must match bit for
+    bit."""
+    traffic = ServingTraffic(n_docs, k)
+    run = ServingRun(DeviceFleetBackend(device=device, **SERVING_KW))
+    be = run.be
+    split = ("staging_s", "dispatch_s", "routing_s")
+    t0 = time.perf_counter()
+    all_frames = [traffic.frames() for _ in range(rounds)]
+    gen_s = time.perf_counter() - t0
+    per_round = []
+    # Host wall of the timed rounds: lambdas = the TpuDeliLambda handler
+    # calls (enqueue_frame), pump_feed = the feed tick (its stage and
+    # dispatch), flush = the quiescence flush and the nack drain.
+    host = dict(lambdas=0.0, pump_feed=0.0, flush=0.0)
+    reset_counts()
+    with TierTimer() as timer:
+        for r, frames in enumerate(all_frames):
+            if r == 1:
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+                busy0, tot0 = be.pump_busy_s, dict(be.flush_totals)
+            t0 = time.perf_counter()
+            parts = _serving_round(run, frames)
+            per_round.append(time.perf_counter() - t0)
+            if r >= 1:
+                for key, v in zip(("lambdas", "pump_feed", "flush"), parts):
+                    host[key] += v
+        run("collect_now")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        busy = be.pump_busy_s - busy0
+        totals = {key: be.flush_totals[key] - tot0[key] for key in split}
+        timed = rounds - 1
+        applied = be.ops_applied
+        # The last round again: every row sits at or below its watermark.
+        _serving_round(run, frames)
+        if be.ops_applied != applied or be.needs_flush():
+            raise AssertionError("serving: redelivered frames applied")
+        json_docs = list(range(2, n_docs, 4))[:n_json]
+        for doc, msg in traffic.json_round(json_docs):
+            run.handle(doc, {"t": "seq", "msg": msg})
+        run("pump_feed")
+        run("flush")
+        run("collect_now")
+        kernel_tiers = timer.summary()
+    stats = run("stats")
+    if stats["docs_with_errors"] != 0 or run("take_errors"):
+        raise AssertionError(f"serving: docs with errors: {stats}")
+    want_ops = n_docs * k * rounds + len(json_docs) * 5
+    if be.ops_applied != want_ops:
+        raise AssertionError(f"serving: {be.ops_applied} ops applied, "
+                             f"{want_ops} sent")
+    caps = {p[0] for p in be.fleet.placement}
+    if be.fleet.migrations < n_docs or caps != {256}:
+        raise AssertionError(f"serving: not every doc promoted once "
+                             f"({be.fleet.migrations} migrations, tiers "
+                             f"{sorted(caps)})")
+    keys = [(traffic.docs[i], "s") for i in range(n_reads)]
+    g0, s0 = be.read_gathers, be.reads_served
+    t0 = time.perf_counter()
+    run("doc_states", keys)
+    read_s = time.perf_counter() - t0
+    per_gather = (be.reads_served - s0) / (be.read_gathers - g0)
+    if per_gather < n_reads:
+        raise AssertionError(f"serving: {per_gather} reads per gather")
+    sample = list(range(0, n_docs, 193))[:64]
+    for i in sample:
+        doc = traffic.docs[i]
+        if run("text", doc, "s") != traffic.expected(i):
+            raise AssertionError(f"serving: text of {doc} is wrong")
+        if run("channel_summary", doc, "s")["count"] < len(traffic.texts[i]):
+            raise AssertionError(f"serving: summary of {doc} is short")
+    tele = run("telemetry")
+    launches = read_counts()
+    reset_counts()
+    residency = serving_residency(device, res_docs, k)
+    residency["launches"] = read_counts()
+    # The replay runs the plain versions at the same shapes: their
+    # CUDA-event times per call are the plain column of the kernel table.
+    with TierTimer() as plain_timer:
+        replay_serving(run, lambda: DeviceFleetBackend(
+            device=device, kernel="plain", **SERVING_KW),
+            [(traffic.docs[i], "s") for i in sample])
+        plain_tiers = plain_timer.summary()
+    print(f"serving: plain replay exact; plain versions by tier (CUDA "
+          f"events): {plain_tiers}", flush=True)
+    del run, be
+    torch.cuda.empty_cache()
+    out = dict(
+        n_docs=n_docs, k=k, rounds=rounds, rounds_timed=timed,
+        ops_per_s=n_docs * k * timed / wall, ms_per_round=wall / timed * 1e3,
+        timed_s=wall, first_round_ms=per_round[0] * 1e3,
+        round_ms=[x * 1e3 for x in per_round[1:]],
+        flush_ms_per_round={key: v / timed * 1e3 for key, v in totals.items()},
+        host_ms_per_round={key: v / timed * 1e3 for key, v in host.items()},
+        gen_ms_per_round=gen_s / rounds * 1e3,
+        pump_busy_s=busy, device_idle_share=1 - busy / wall,
+        migrations=stats["migrations"], demotions=stats["demotions"],
+        docs_with_errors=stats["docs_with_errors"], pools=stats["pools"],
+        rows_in_use=stats["rows_in_use"],
+        feed_triggers={"size": stats["feed_size_triggers"],
+                       "deadline": stats["feed_deadline_triggers"]},
+        pump_dispatches=stats["pump_dispatches"],
+        pump_backpressure=stats["pump_backpressure"],
+        json_docs=len(json_docs), read_batch=n_reads,
+        reads_per_device_dispatch=per_gather, read_batch_ms=read_s * 1e3,
+        telemetry_rows_in_use=int(sum(a[:, 1].sum()
+                                      for a in tele["shards"].values())),
+        kernel_tiers=kernel_tiers, plain_tiers=plain_tiers,
+        launches=launches, residency=residency, replay_exact=True,
+    )
+    report["serving"] = out
+    print(f"serving: {out['ops_per_s']:.0f} merge ops/s through "
+          f"DeviceFleetBackend ({n_docs} channels x {k} ops x {timed} timed "
+          f"rounds in {wall:.3f} s, {out['ms_per_round']:.2f} ms/round; "
+          f"first round {out['first_round_ms']:.1f} ms)", flush=True)
+    print("serving host ms/round: "
+          f"{ {key: round(v, 3) for key, v in out['host_ms_per_round'].items()} }"
+          f"; frame generation (outside the window) "
+          f"{out['gen_ms_per_round']:.3f} ms/round", flush=True)
+    print("serving flush split ms/round: "
+          f"{ {key: round(v, 3) for key, v in out['flush_ms_per_round'].items()} }"
+          f", device idle share {out['device_idle_share']:.4f} (pump_busy "
+          f"{busy:.4f} s of {wall:.4f} s)", flush=True)
+    print(f"serving: migrations {stats['migrations']}, demotions "
+          f"{stats['demotions']}, pools {stats['pools']}, docs_with_errors "
+          f"{stats['docs_with_errors']}, feed_triggers "
+          f"{out['feed_triggers']}, pump_dispatches "
+          f"{stats['pump_dispatches']}, pump_backpressure "
+          f"{stats['pump_backpressure']}; one read of {n_reads} channels: "
+          f"{per_gather:.0f} reads/gather in {read_s * 1e3:.2f} ms",
+          flush=True)
+    print(f"serving kernel times by tier (CUDA events): {kernel_tiers}",
+          flush=True)
+    print(f"serving launches (main run): {launches}", flush=True)
+    print(f"serving launches (residency run): {residency['launches']}",
+          flush=True)
+    for name in ("K1_merge_apply", "K2_zamboni_compact"):
+        if launches[name]["all"] <= 0:
+            raise AssertionError(f"{name} never launched on the serving "
+                                 "path")
+    return out
+
+
+def serving_residency(device, n_docs=512, k=8, rounds=6, hibernate=128):
+    """The residency sub-run: a backend whose ``max_resident`` is below
+    its channel count hibernates ``hibernate`` idle documents after 4
+    rounds; the next round's frame for each parks and wakes it. Every
+    channel's state must equal a ``kernel="plain"`` twin that never
+    hibernated (so only this run launches kernels), and the run is
+    replayed through a ``kernel="plain"`` backend."""
+    kw = dict(SERVING_KW, max_batch=4096)
+    traffic = ServingTraffic(n_docs, k, remove_from=2, prefix="r")
+    run = ServingRun(DeviceFleetBackend(
+        device=device, max_resident=n_docs - hibernate, **kw))
+    twin = ServingRun(DeviceFleetBackend(device=device, kernel="plain",
+                                         **kw))
+    cold = traffic.docs[:hibernate]
+    for r in range(rounds):
+        frames = traffic.frames()
+        _serving_round(run, frames)
+        _serving_round(twin, frames)
+        if r == 3:
+            run("collect_now")
+            for doc in cold:
+                if not run("hibernate_doc", doc):
+                    raise AssertionError(f"residency: {doc} stayed")
+            keys = [(d, "s") for d in cold[:8]]
+            if not _same(run("doc_states", keys), twin("doc_states", keys)):
+                raise AssertionError("residency: cold reads differ")
+    run("pump_drain")
+    twin("pump_drain")
+    be = run.be
+    wakes = be.residency.wakes["ok"]
+    if be.hibernations != hibernate or wakes != hibernate or be._cold:
+        raise AssertionError(f"residency: {be.hibernations} hibernations, "
+                             f"{wakes} wakes, {len(be._cold)} still cold")
+    keys = [(d, "s") for d in traffic.docs]
+    if not _same(run("doc_states", keys), twin("doc_states", keys)):
+        raise AssertionError("residency: states differ from the twin that "
+                             "never hibernated")
+    for i in range(0, n_docs, 37):
+        if run("text", traffic.docs[i], "s") != traffic.expected(i):
+            raise AssertionError(f"residency: text of {traffic.docs[i]}")
+    out = dict(n_docs=n_docs, max_resident=n_docs - hibernate,
+               hibernations=be.hibernations, wakes=wakes)
+    del twin
+    replay_serving(run, lambda: DeviceFleetBackend(
+        device=device, kernel="plain", max_resident=n_docs - hibernate,
+        **kw), keys[::37])
+    print(f"serving residency: {n_docs} channels, max_resident "
+          f"{n_docs - hibernate}: {be.hibernations} hibernated and woke on "
+          "a parked frame; states equal the twin that never hibernated; "
+          "plain replay exact", flush=True)
+    return out
+
+
 _AB_RUN = """
 import json, torch
 import chip_smoke as c
@@ -1183,13 +1595,16 @@ def main() -> int:
         if launches3[name][tier] <= 0:
             raise AssertionError(f"{name}: no {tier}-tier launch on the "
                                  "DocFleet path")
+
+    # Phase 4: the device-apply serving stage at config 7's shape.
+    launches4 = timed("4_serving", phase_serving, device, report)["launches"]
     report["wall_s"] = wall
 
     kernels = []
     for name, spec in KERNELS.items():
         err, ms, plain_ms, b = main_shape[name]
         by_path = {"fleet_service": launches2[name],
-                   "docfleet": launches3[name]}
+                   "docfleet": launches3[name], "serving": launches4[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "fluidframework_tpu_torch/csrc/merge_kernels.cu",

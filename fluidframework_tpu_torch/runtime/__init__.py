@@ -1,0 +1,1 @@
+"""Runtime pieces the serving stage shares with clients."""

@@ -15,15 +15,21 @@ from chip_smoke import (
     KERNELS,
     Config6Gen,
     Recorded,
+    ServingRun,
+    ServingTraffic,
     compact_edge_case,
     edge_case,
     hold_kernel,
     random_case,
     replay_and_compare,
+    replay_serving,
 )
 from fluidframework_tpu_torch.ops import _cuda
 from fluidframework_tpu_torch.ops import apply_kernel as K1
 from fluidframework_tpu_torch.parallel.fleet import DocFleet
+from fluidframework_tpu_torch.service.device_backend import (
+    DeviceFleetBackend,
+)
 
 
 def _need_card():
@@ -117,3 +123,95 @@ def test_docfleet_lifecycle_crosses_into_the_global_tier():
         assert now[tier] > before[w][tier]
     replay_and_compare(rec, lambda: DocFleet(kernel="plain", **kw),
                        [0, 1, 2, 3])
+
+
+def _feed(run, traffic):
+    for doc, frame in traffic.frames():
+        run.handle(doc, {"t": "seqframe", "frame": frame})
+
+
+@pytest.mark.cuda
+def test_serving_upload_is_pinned_and_async():
+    """A staged boxcar owns a pinned host buffer (its rows are a numpy
+    view of it) and its device rows come from a non-blocking copy; the run
+    (growth from 64 through 128 rows, compactions) matches a
+    kernel="plain" replay on the card bit for bit."""
+    _need_card()
+    kw = dict(capacity=64, max_batch=4096, compact_every=2, device="cuda")
+    traffic = ServingTraffic(24, k=8, remove_from=4, prefix="p")
+    run = ServingRun(DeviceFleetBackend(**kw))
+    before = K1.apply_ops_packed.launches
+    for _ in range(9):
+        _feed(run, traffic)
+        assert run("pump_stage")
+        slot = run.be._ring.staged[-1]
+        assert slot.host_rows.base.is_pinned()
+        assert slot.dev_rows.is_cuda
+        run("pump_dispatch")
+        run("flush")
+    run("pump_drain")
+    assert K1.apply_ops_packed.launches > before
+    assert 128 in run.be.fleet.pools
+    for i in range(0, 24, 5):
+        assert run("text", traffic.docs[i], "s") == traffic.expected(i)
+    replay_serving(run, lambda: DeviceFleetBackend(kernel="plain", **kw),
+                   [(d, "s") for d in traffic.docs[::5]])
+
+
+@pytest.mark.cuda
+def test_serving_scan_token_prefetch():
+    """The scan token holds a pinned buffer and a CUDA event per pool;
+    prefetch_scan / scan_transfer / scan_prefetched move the one-boxcar-
+    stale readback off the dispatch, and the next dispatch consumes the
+    prefetched copy. Matches a kernel="plain" replay."""
+    _need_card()
+    kw = dict(capacity=64, max_batch=4096, device="cuda")
+    traffic = ServingTraffic(16, k=8, prefix="s")
+    run = ServingRun(DeviceFleetBackend(**kw))
+    be = run.be
+    for _ in range(8):
+        _feed(run, traffic)
+        run("flush")
+        # The prefetch only moves the transfer; it is not replayed.
+        token = be.prefetch_scan()
+        assert token is not None
+        for buf, event, _gen in token.values():
+            assert buf.is_pinned() and isinstance(event, torch.cuda.Event)
+        host = DeviceFleetBackend.scan_transfer(token)
+        be.scan_prefetched(token, host)
+        assert be.prefetch_scan() is None
+        assert be._scan_prefetch is not None
+    _feed(run, traffic)
+    run("flush")
+    assert be._scan_prefetch is None
+    run("collect_now")
+    assert be.fleet.migrations == 16
+    replay_serving(run, lambda: DeviceFleetBackend(kernel="plain", **kw),
+                   [(d, "s") for d in traffic.docs[::3]])
+
+
+@pytest.mark.cuda
+def test_serving_launch_error_is_not_swallowed():
+    """A table past the largest kernel tier makes K1's wrapper raise at
+    the first dispatch: flush re-raises it (no fallback, no requeue), and
+    no kernel launched; the plain version of the same backend applies the
+    rows."""
+    _need_card()
+    cap = _cuda.MAX_CAPACITY * 2
+    traffic = ServingTraffic(2, k=8, prefix="e")
+    be = DeviceFleetBackend(capacity=cap, max_capacity=cap, device="cuda")
+    run = ServingRun(be)
+    frames = traffic.frames()
+    for doc, frame in frames:
+        run.handle(doc, {"t": "seqframe", "frame": frame})
+    before = K1.apply_ops_packed.launches
+    with pytest.raises(ValueError, match="largest kernel tier"):
+        be.flush()
+    assert K1.apply_ops_packed.launches == before
+    assert len(be._ring) == 0 and be.pump_dispatches == 0
+    plain = ServingRun(DeviceFleetBackend(capacity=cap, max_capacity=cap,
+                                          kernel="plain", device="cuda"))
+    for doc, frame in frames:
+        plain.handle(doc, {"t": "seqframe", "frame": frame})
+    plain("flush")
+    assert plain("text", "e0", "s") == traffic.expected(0)
