@@ -49,14 +49,24 @@ and the native ticket loop (``g++``), then:
    call through a ``kernel="plain"`` backend on the card, bit for bit.
    Prints merge ops/s and ms per round over rounds 2-16, the flush split
    (staging / dispatch / routing), the device idle share ``1 -
-   pump_busy_s / wall``, K1/K2 CUDA-event times per call and launches.
+   pump_busy_s / wall``, K1/K2 CUDA-event times per call and launches;
+5. ordering pipeline — config 7 through ``PipelineFluidService``
+   (``config7_pipeline_serving``): 8 partitions, 12,288 writers joined
+   through deli, a warm-up round and 8 timed rounds of one 8-op
+   ``OpFrame`` per document through the bulk front door, deli, the
+   deltas log, scribe, scriptorium, broadcaster, signals, foreman and the
+   device stage (each stage's wall timed), ``flush_device`` per round;
+   texts and summaries of 64 documents, every durable log contiguous, the
+   run's deltas replayed through a ``kernel="plain"`` backend (every
+   channel bit for bit), and the JSON wire at 1,024 documents on a second
+   service.
 
 Launch counts (in all, and by tier: smem / cluster / global) are reset
-before each main path (2, then 3a+3b, then 4) and read after it; the DocFleet
-path must launch K1 and K2 on the cluster tier. Prints the ptxas report
-of every kernel entry, each phase's wall time, the card's name and power
-limit, a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
-{...}}``. Any failure exits non-zero. A longer record goes to
+before each main path (2, then 3a+3b, then 4, then 5) and read after it;
+the DocFleet path must launch K1 and K2 on the cluster tier. Prints the
+ptxas report of every kernel entry, each phase's wall time, the card's
+name and power limit, a ``{"kernels": [...]}`` line, and last ``{"ok":
+true, "device": {...}}``. Any failure exits non-zero. A longer record goes to
 ``chip_smoke.json`` in the output directory (``OUT_DIR``).
 
 With ``--ab PARENT_DIR``, it times instead phases 1 and 1b (and the
@@ -106,8 +116,9 @@ from fluidframework_tpu_torch.protocol.constants import (
 )
 from fluidframework_tpu_torch.ops.segment_state import SEGMENT_LANES
 from fluidframework_tpu_torch.parallel.fleet import DocFleet, _Pool
-from fluidframework_tpu_torch.protocol.opframe import SeqFrame
+from fluidframework_tpu_torch.protocol.opframe import OpFrame, SeqFrame
 from fluidframework_tpu_torch.protocol.types import (
+    DocumentMessage,
     MessageType,
     SequencedDocumentMessage,
 )
@@ -115,6 +126,17 @@ from fluidframework_tpu_torch.runtime.op_lifecycle import pack_batch
 from fluidframework_tpu_torch.service.device_backend import DeviceFleetBackend
 from fluidframework_tpu_torch.service.device_lambda import TpuDeliLambda
 from fluidframework_tpu_torch.service.fleet_service import TpuFleetService
+from fluidframework_tpu_torch.service.lambdas import (
+    DELTAS_TOPIC,
+    RAW_TOPIC,
+    CheckpointStore,
+    DocumentLambda,
+    PartitionRunner,
+)
+from fluidframework_tpu_torch.service.pipeline import (
+    PipelineConnection,
+    PipelineFluidService,
+)
 from fluidframework_tpu_torch.utils import pow2_at_least
 from fluidframework_tpu_torch.utils.native import _load_ticket
 
@@ -1407,6 +1429,379 @@ def serving_residency(device, n_docs=512, k=8, rounds=6, hibernate=128):
     return out
 
 
+# -- phase 5: the ordering pipeline at config 7 -------------------------------
+
+
+def bulk_connect(svc, doc_ids, prefix="c"):
+    """One writer connection per document through the service's join path
+    (a sequenced ClientJoin through deli), batched as config 7 connects
+    (``_bulk_connect`` in bench_configs.py): every join record lands on
+    rawdeltas first, one pump sequences them all, then each connection
+    takes its ``client_id``, ``join_seq`` and ``conn_no`` from its own
+    sequenced join."""
+    conns = {}
+    for i, d in enumerate(doc_ids):
+        token = f"{prefix}-{i}"
+        conn = PipelineConnection(svc, d, token)
+        svc.rooms.setdefault(d, []).append(conn)
+        svc.log.send(RAW_TOPIC, d, {"t": "join", "mode": "write",
+                                    "token": token})
+        conns[d] = conn
+    svc.pump()
+    for d, conn in conns.items():
+        for msg in conn.take_inbox():
+            if (msg.type == MessageType.CLIENT_JOIN
+                    and msg.contents.get("token") == conn.token):
+                conn.client_id = msg.contents["clientId"]
+                conn.join_seq = msg.sequence_number
+                conn.conn_no = msg.contents.get("connNo", 0)
+        if conn.client_id < 0:
+            raise AssertionError(f"pipeline: {d} never joined")
+    return conns
+
+
+def pipeline_stages(svc):
+    """The runners ``_config7_measure`` times, in its order."""
+    return [("deli", svc._deli), ("scribe", svc._scribe),
+            ("scriptorium", svc._scriptorium),
+            ("broadcaster", svc._broadcaster), ("signals", svc._signals),
+            ("device_decode", svc._device_runner),
+            ("foreman", svc._foreman)]
+
+
+def pipeline_round(svc, conns, send, stage_s) -> float:
+    """One config-7 round: ``send()`` onto rawdeltas, every stage pumped
+    in turn until the pipeline is quiescent (each stage's wall added to
+    ``stage_s``), then ``flush_device``; the inboxes are dropped, as a
+    room's sockets would drain them. Returns the wall of ``send``."""
+    clock = time.perf_counter
+    t0 = clock()
+    send()
+    submit = clock() - t0
+    stages = [(n, r) for n, r in pipeline_stages(svc) if r is not None]
+    while True:
+        n = 0
+        for name, runner in stages:
+            ts = clock()
+            n += runner.pump()
+            stage_s[name] += clock() - ts
+        if n == 0:
+            break
+    svc.flush_device()
+    for c in conns.values():
+        c.inbox.clear()
+    return submit
+
+
+def pipeline_frames(doc_ids, conns, k: int, n_rounds: int):
+    """Every round's front-door items, built before the first round (the
+    client side, not the service): per round and document one ``OpFrame``
+    of ``k`` single-letter inserts at position 0 whose content ids scope
+    to the connection, refSeq at the document's head (config 7's
+    ``send_frames``)."""
+    n = len(doc_ids)
+    mint = 1 << 14
+    clients = [conns[d].client_id for d in doc_ids]
+    heads = np.array([conns[d].join_seq for d in doc_ids], np.int64)
+    connno = np.array([conns[d].conn_no for d in doc_ids], np.int64)
+    ar = np.arange(k, dtype=np.int64)
+    out = []
+    for r in range(n_rounds):
+        o0 = r * k
+        texts = tuple(ALPHABET[(o0 + 1 + i) % 26] for i in range(k))
+        rows = np.zeros((n, k, OP_WIDTH), np.int32)
+        rows[:, :, F_TYPE] = OP_INSERT
+        rows[:, :, F_LEN] = 1
+        rows[:, :, F_SEQ] = o0 + 1 + ar[None, :]
+        rows[:, :, F_REF] = heads[:, None]
+        rows[:, :, F_ARG] = connno[:, None] * mint + o0 + 1 + ar[None, :]
+        out.append([(d, clients[i], OpFrame("s", rows[i], texts))
+                    for i, d in enumerate(doc_ids)])
+        heads += k
+    return out
+
+
+class _LogPrefix:
+    """A read-only view of a ``PartitionedLog`` that ends, per partition,
+    at ``upto``: a runner over it consumes exactly the records a run had
+    consumed at some point, and no more."""
+
+    def __init__(self, log):
+        self.log = log
+        self.n_partitions = log.n_partitions
+        self.upto = {p: 0 for p in range(log.n_partitions)}
+
+    def read(self, topic, partition, from_offset, limit=None):
+        end = self.upto[partition]
+        recs = self.log.read(topic, partition, from_offset)
+        recs = recs[: max(0, end - from_offset)]
+        return recs if limit is None else recs[:limit]
+
+
+def replay_pipeline(svc, make_plain, offsets) -> None:
+    """Feed the deltas records of ``svc``'s run, read back from its log
+    partition by partition, through the port's own device-stage runner
+    (``DocumentLambda`` of ``TpuDeliLambda``s) into a ``kernel="plain"``
+    backend: up to ``offsets[0]`` (the joins), then up to each later
+    snapshot followed by ``flush`` and ``collect_now``, as the run
+    flushed after each round (so the boxcars, and with them the
+    compaction cadence, are the run's). Every channel's lanes and scalars,
+    looked up by channel key, its applied watermark and its payloads must
+    match bit for bit."""
+    plain = make_plain()
+    view = _LogPrefix(svc.log)
+    runner = PartitionRunner(
+        view, DELTAS_TOPIC, "tpu-deli-replay",
+        lambda p, s: DocumentLambda(
+            lambda doc_id, _s: TpuDeliLambda(doc_id, plain),
+            wants=frozenset({"seq", "seqframe"})),
+        CheckpointStore(), checkpoint_every=1 << 30)
+    for i, offs in enumerate(offsets):
+        view.upto = dict(offs)
+        runner.pump()
+        if i:
+            plain.flush()
+            plain.collect_now()
+    be = svc.device
+    keys = be.channels()
+    if sorted(keys) != sorted(plain.channels()):
+        raise AssertionError("pipeline replay: channels differ")
+    for lo in range(0, len(keys), 4096):
+        chunk = keys[lo: lo + 4096]
+        got, want = be.doc_states(chunk), plain.doc_states(chunk)
+        for key in chunk:
+            for f, x, y in zip(got[key]._fields, got[key], want[key]):
+                if not np.array_equal(np.asarray(x), np.asarray(y)):
+                    raise AssertionError(f"pipeline replay: {key} {f} "
+                                         "differs from the plain versions")
+    for key in keys:
+        if (be._applied_a[be._index[key]]
+                != plain._applied_a[plain._index[key]]
+                or be.payloads[key] != plain.payloads[key]):
+            raise AssertionError(f"pipeline replay: {key} watermark or "
+                                 "payloads differ")
+    del plain, runner
+    torch.cuda.empty_cache()
+
+
+def phase_pipeline(device, report, n_docs=12_288, rounds=8, k=8,
+                   json_docs=1024, n_sample=64):
+    """Phase 5: config 7 through the port's ordering pipeline
+    (``config7_pipeline_serving`` and ``_config7_measure``,
+    bench_configs.py:861-1093): ``PipelineFluidService(n_partitions=8,
+    device_max_batch=max(2^17, n_docs x k), checkpoint_every=500)`` on the
+    card, ``n_docs`` writers connected through their sequenced joins, an
+    untimed warm-up round and ``rounds`` timed rounds of one ``k``-op
+    ``OpFrame`` per document through ``submit_frames_bulk(pump=False)``,
+    every stage pumped to quiescence and ``flush_device`` (each stage's
+    wall timed). ``rounds`` = 8 makes nine boxcars, so the compaction
+    (every 8th) runs once. Every round's frames are built before the
+    first. The launch counts are set to 0 just before the warm-up round
+    and read just after the last timed round. Then: texts and summaries
+    of ``n_sample`` documents, every document's durable log contiguous
+    from its join, the run's deltas replayed through a ``kernel="plain"``
+    backend (bit for bit), and the JSON wire at ``json_docs`` documents
+    on a second service (``device_max_batch=4096``, ``rounds - 1`` timed
+    rounds)."""
+    svc = PipelineFluidService(
+        n_partitions=8, device_max_batch=max(1 << 17, n_docs * k),
+        checkpoint_every=500, device_torch=device)
+    doc_ids = [f"d{i}" for i in range(n_docs)]
+    t0 = time.perf_counter()
+    conns = bulk_connect(svc, doc_ids)
+    connect_s = time.perf_counter() - t0
+    offsets = [dict(svc._device_runner._offsets)]
+    t0 = time.perf_counter()
+    all_items = pipeline_frames(doc_ids, conns, k, rounds + 1)
+    gen_s = time.perf_counter() - t0
+    be = svc.device
+    stage_s = {name: 0.0 for name, _r in pipeline_stages(svc)}
+    warm_s = dict(stage_s)
+    split = ("staging_s", "dispatch_s", "routing_s")
+    submit_s = 0.0
+    reset_counts()
+    with TierTimer() as timer:
+        for r, items in enumerate(all_items):
+            if r == 1:
+                torch.cuda.synchronize()
+                since = len(timer.events)
+                warm_s = dict(stage_s)
+                stage_s = {name: 0.0 for name in stage_s}
+                busy0, tot0 = be.pump_busy_s, dict(be.flush_totals)
+                t_start = time.perf_counter()
+            s = pipeline_round(
+                svc, conns,
+                lambda: svc.submit_frames_bulk(items, pump=False), stage_s)
+            offsets.append(dict(svc._device_runner._offsets))
+            if r >= 1:
+                submit_s += s
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        busy = be.pump_busy_s - busy0
+        totals = {key: be.flush_totals[key] - tot0[key] for key in split}
+        kernel_tiers = timer.summary(since)
+    launches = read_counts()
+    stats = be.stats()
+    if stats["docs_with_errors"] != 0:
+        raise AssertionError(f"pipeline: docs with errors: {stats}")
+    want_ops = n_docs * k * (rounds + 1)
+    if be.ops_applied != want_ops:
+        raise AssertionError(f"pipeline: {be.ops_applied} ops applied, "
+                             f"{want_ops} sent")
+    for d in doc_ids:
+        log, join = svc.ops_store[d], conns[d].join_seq
+        want = join + 1
+        for f in log.frames:
+            if f.first_seq != want:
+                raise AssertionError(f"pipeline: {d}'s log jumps to "
+                                     f"{f.first_seq} at {want}")
+            want = f.last_seq + 1
+        if list(log.ops) != [join] or log.head != join + k * (rounds + 1):
+            raise AssertionError(f"pipeline: {d}'s log is not its join and "
+                                 f"{rounds + 1} frames")
+    text = "".join(ALPHABET[o % 26] for o in range((rounds + 1) * k, 0, -1))
+    sample = doc_ids[:: max(1, n_docs // n_sample)][:n_sample]
+    t0 = time.perf_counter()
+    for d in sample:
+        if svc.device_text(d, "s") != text:
+            raise AssertionError(f"pipeline: text of {d} is wrong")
+    t_text = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for d in sample:
+        if not svc.device_summary(d, "s")["count"]:
+            raise AssertionError(f"pipeline: summary of {d} is empty")
+    t_summary = time.perf_counter() - t0
+    with TierTimer() as plain_timer:
+        replay_pipeline(svc, lambda: DeviceFleetBackend(
+            device=device, kernel="plain", capacity=128,
+            max_batch=be.max_batch, compact_every=be.compact_every,
+            pump_mode=be.pump_mode, ring_depth=2), offsets)
+        plain_tiers = plain_timer.summary()
+    print(f"pipeline: plain replay exact ({len(be.channels())} channels by "
+          f"key); plain versions by tier (CUDA events): {plain_tiers}",
+          flush=True)
+    del svc, conns, all_items, be
+    torch.cuda.empty_cache()
+    json_out = pipeline_json_wire(device, min(json_docs, n_docs),
+                                  max(1, rounds - 1), k)
+    kernel_ms = sum(v["total_ms"] for v in kernel_tiers.values())
+    out = dict(
+        n_docs=n_docs, k=k, rounds_timed=rounds, n_partitions=8,
+        ops_per_s=n_docs * k * rounds / wall,
+        ms_per_round=wall / rounds * 1e3, timed_s=wall,
+        connect_s=connect_s, gen_ms_per_round=gen_s / (rounds + 1) * 1e3,
+        submit_s=submit_s, stage_s=stage_s, warmup_stage_s=warm_s,
+        stage_share={name: v / wall for name, v in stage_s.items()},
+        submit_share=submit_s / wall,
+        flush_ms_per_round={key: v / rounds * 1e3
+                            for key, v in totals.items()},
+        pump_busy_s=busy, device_idle_share=1 - busy / wall,
+        kernel_ms=kernel_ms, kernel_share=kernel_ms / 1e3 / wall,
+        kernel_tiers=kernel_tiers, plain_tiers=plain_tiers,
+        launches=launches, docs_with_errors=stats["docs_with_errors"],
+        ops_applied=stats["ops_applied"], flushes=stats["flushes"],
+        read_text_ms_per_doc=t_text / len(sample) * 1e3,
+        read_summary_ms_per_doc=t_summary / len(sample) * 1e3,
+        replay_exact=True, json_wire=json_out,
+    )
+    report["pipeline"] = out
+    print(f"pipeline: {out['ops_per_s']:.0f} merge ops/s through "
+          f"PipelineFluidService ({n_docs} channels x {k} ops x {rounds} "
+          f"timed rounds in {wall:.3f} s, {out['ms_per_round']:.2f} "
+          f"ms/round; connect {connect_s:.2f} s)", flush=True)
+    print(f"pipeline submit_s {submit_s:.4f} ({out['submit_share']:.4f} of "
+          f"the window); stage wall s: "
+          f"{ {n: round(v, 4) for n, v in stage_s.items()} }; shares: "
+          f"{ {n: round(v, 4) for n, v in out['stage_share'].items()} }; "
+          f"frame generation (outside the window) "
+          f"{out['gen_ms_per_round']:.3f} ms/round", flush=True)
+    split_ms = {key: round(v, 3)
+                for key, v in out["flush_ms_per_round"].items()}
+    print(f"pipeline flush split ms/round: {split_ms}"
+          f", device idle share {out['device_idle_share']:.4f} (pump_busy "
+          f"{busy:.4f} s of {wall:.4f} s)", flush=True)
+    print(f"pipeline K1 + K2 (CUDA events) {kernel_ms:.3f} ms of the timed "
+          f"window, share {out['kernel_share']:.5f}; by tier: {kernel_tiers}",
+          flush=True)
+    print(f"pipeline launches (main run): {launches}", flush=True)
+    print(f"pipeline reads: text {out['read_text_ms_per_doc']:.3f} ms/doc, "
+          f"summary {out['read_summary_ms_per_doc']:.3f} ms/doc "
+          f"({len(sample)} docs); docs_with_errors "
+          f"{stats['docs_with_errors']}, ops_applied {stats['ops_applied']}",
+          flush=True)
+    print(f"pipeline_serving_json_wire_ops_per_sec "
+          f"{json_out['ops_per_s']:.0f} ({json_out['n_docs']} docs x {k} ops "
+          f"x {json_out['rounds_timed']} timed rounds, "
+          f"{json_out['ms_per_round']:.2f} ms/round)", flush=True)
+    for name in ("K1_merge_apply", "K2_zamboni_compact"):
+        if launches[name]["all"] <= 0:
+            raise AssertionError(f"{name} never launched on the pipeline "
+                                 "path")
+    return out
+
+
+def pipeline_json_wire(device, n_docs=1024, rounds=7, k=8) -> dict:
+    """The compat wire of config 7 (``wire="json"``): ``n_docs`` writers
+    on a second service (``device_max_batch=4096``) send ``k`` per-op JSON
+    inserts each per round straight onto rawdeltas, one record per op, an
+    untimed warm-up round and ``rounds`` timed ones; the messages are
+    built before the first round."""
+    svc = PipelineFluidService(n_partitions=8, device_max_batch=4096,
+                               device_torch=device)
+    doc_ids = [f"j{i}" for i in range(n_docs)]
+    conns = bulk_connect(svc, doc_ids, prefix="j")
+    mint = 1 << 14
+    heads = {d: conns[d].join_seq for d in doc_ids}
+    texts = {d: [] for d in doc_ids}
+    all_recs = []
+    for r in range(rounds + 1):
+        recs = []
+        for d in doc_ids:
+            c = conns[d]
+            for i in range(k):
+                o = r * k + i + 1
+                letter = ALPHABET[o % 26]
+                recs.append((d, {"t": "op", "client": c.client_id,
+                                 "msg": DocumentMessage(
+                                     client_sequence_number=o,
+                                     reference_sequence_number=heads[d],
+                                     type=MessageType.OPERATION,
+                                     contents={"address": "s", "contents": {
+                                         "k": "ins", "pos": 0,
+                                         "text": letter,
+                                         "orig": c.conn_no * mint + o}})}))
+                texts[d].insert(0, letter)
+            heads[d] += k
+        all_recs.append(recs)
+    stage_s = {name: 0.0 for name, _r in pipeline_stages(svc)}
+
+    def sender(recs):
+        def send():
+            for d, rec in recs:
+                svc.log.send(RAW_TOPIC, d, rec)
+        return send
+
+    for r, recs in enumerate(all_recs):
+        if r == 1:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        pipeline_round(svc, conns, sender(recs), stage_s)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    stats = svc.device.stats()
+    if stats["docs_with_errors"] or \
+            svc.device.ops_applied != n_docs * k * (rounds + 1):
+        raise AssertionError(f"pipeline json wire: {stats}")
+    for d in doc_ids[:: max(1, n_docs // 16)]:
+        if svc.device_text(d, "s") != "".join(texts[d]):
+            raise AssertionError(f"pipeline json wire: text of {d}")
+    del svc
+    torch.cuda.empty_cache()
+    return dict(n_docs=n_docs, rounds_timed=rounds,
+                ops_per_s=n_docs * k * rounds / wall,
+                ms_per_round=wall / rounds * 1e3, timed_s=wall)
+
+
 _AB_RUN = """
 import json, torch
 import chip_smoke as c
@@ -1598,13 +1993,17 @@ def main() -> int:
 
     # Phase 4: the device-apply serving stage at config 7's shape.
     launches4 = timed("4_serving", phase_serving, device, report)["launches"]
+    # Phase 5: config 7 through the ordering pipeline.
+    launches5 = timed("5_pipeline", phase_pipeline, device,
+                      report)["launches"]
     report["wall_s"] = wall
 
     kernels = []
     for name, spec in KERNELS.items():
         err, ms, plain_ms, b = main_shape[name]
         by_path = {"fleet_service": launches2[name],
-                   "docfleet": launches3[name], "serving": launches4[name]}
+                   "docfleet": launches3[name], "serving": launches4[name],
+                   "pipeline": launches5[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "fluidframework_tpu_torch/csrc/merge_kernels.cu",

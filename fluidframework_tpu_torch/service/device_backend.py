@@ -963,7 +963,7 @@ class DeviceFleetBackend:
                 raise
             except faults.InjectedFault:
                 self._dispatch_fallback(slot, in_fleet)
-            except BaseException:
+            except Exception:
                 # A real dispatch failure (a CUDA launch or build error)
                 # may have applied a prefix of the slot's pools, so
                 # neither a fallback nor a requeue is safe: it is counted

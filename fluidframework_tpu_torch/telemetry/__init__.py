@@ -1,17 +1,32 @@
-"""Telemetry of the serving stage: op tracing, the metrics registry, the
-flight-recorder journal and the timeline profiler.
+"""Telemetry, config/feature gates, and op tracing.
 
 Counterpart of ``fluidframework_tpu/telemetry/__init__.py``, re-exporting
-only what the device-apply stage uses (the config gates, the client logger
-and Lumberjack are not ported).
+the same names: the Fluid Framework's two telemetry stacks,
+``packages/utils/telemetry-utils`` (client: ChildLogger, PerformanceEvent,
+MonitoringContext + feature gates) and
+``server/routerlicious/packages/services-telemetry`` (server: Lumberjack
+structured metrics), plus the wire-level ``ITrace`` op stamps of
+``protocol-definitions/src/protocol.ts:173``.
 """
 
-from fluidframework_tpu_torch.telemetry import (
-    journal,
-    metrics,
-    profiler,
-    tracing,
+from fluidframework_tpu_torch.telemetry.config import (
+    ConfigProvider,
+    LayeredConfig,
+    MonitoringContext,
 )
+from fluidframework_tpu_torch.telemetry.logger import (
+    ChildLogger,
+    CollectingLogger,
+    PerformanceEvent,
+    TelemetryLogger,
+)
+from fluidframework_tpu_torch.telemetry.lumberjack import (
+    CollectingEngine,
+    Lumber,
+    LumberEventName,
+    Lumberjack,
+)
+from fluidframework_tpu_torch.telemetry import journal, metrics, profiler, tracing
 from fluidframework_tpu_torch.telemetry.metrics import (
     Counter,
     Gauge,
@@ -26,8 +41,19 @@ __all__ = [
     "Histogram",
     "MetricsRegistry",
     "REGISTRY",
-    "journal",
     "metrics",
+    "ChildLogger",
+    "CollectingEngine",
+    "CollectingLogger",
+    "ConfigProvider",
+    "LayeredConfig",
+    "Lumber",
+    "LumberEventName",
+    "Lumberjack",
+    "MonitoringContext",
+    "PerformanceEvent",
+    "TelemetryLogger",
+    "journal",
     "profiler",
     "tracing",
 ]

@@ -19,7 +19,11 @@ from chip_smoke import (
     ServingTraffic,
     compact_edge_case,
     edge_case,
+    bulk_connect,
     hold_kernel,
+    pipeline_frames,
+    pipeline_round,
+    pipeline_stages,
     random_case,
     replay_and_compare,
     replay_serving,
@@ -30,6 +34,7 @@ from fluidframework_tpu_torch.parallel.fleet import DocFleet
 from fluidframework_tpu_torch.service.device_backend import (
     DeviceFleetBackend,
 )
+from fluidframework_tpu_torch.service.pipeline import PipelineFluidService
 
 
 def _need_card():
@@ -215,3 +220,40 @@ def test_serving_launch_error_is_not_swallowed():
         plain.handle(doc, {"t": "seqframe", "frame": frame})
     plain("flush")
     assert plain("text", "e0", "s") == traffic.expected(0)
+
+
+def _pipeline_states(kernel, n_docs=256, rounds=9, k=8):
+    """Config 7's rounds through ``PipelineFluidService`` on the card at
+    ``n_docs`` documents; every channel's state by key, and the stats."""
+    svc = PipelineFluidService(n_partitions=8, device_max_batch=4096,
+                               checkpoint_every=500, device_kernel=kernel,
+                               device_torch=torch.device("cuda", 0))
+    docs = [f"d{i}" for i in range(n_docs)]
+    conns = bulk_connect(svc, docs)
+    stage_s = {name: 0.0 for name, _r in pipeline_stages(svc)}
+    for items in pipeline_frames(docs, conns, k, rounds):
+        pipeline_round(svc, conns,
+                       lambda: svc.submit_frames_bulk(items, pump=False),
+                       stage_s)
+    keys = svc.device.channels()
+    return svc.device.doc_states(keys), svc.device.stats()
+
+
+@pytest.mark.cuda
+def test_pipeline_on_the_card_matches_the_plain_versions():
+    """256 documents through the ordering pipeline with the kernels, and
+    again with ``device_kernel="plain"``: every channel's lanes and
+    scalars match by key, K1 and K2 launched, and no document errs."""
+    _need_card()
+    _cuda.reset_counts(*(spec["wrapper"] for spec in KERNELS.values()))
+    got, stats = _pipeline_states("cuda")
+    assert KERNELS["K1_merge_apply"]["wrapper"].launches > 0
+    assert KERNELS["K2_zamboni_compact"]["wrapper"].launches > 0
+    want, plain_stats = _pipeline_states("plain")
+    assert stats["docs_with_errors"] == plain_stats["docs_with_errors"] == 0
+    assert stats["ops_applied"] == plain_stats["ops_applied"] == 256 * 8 * 9
+    assert list(got) == list(want)
+    for key in got:
+        for f, x, y in zip(got[key]._fields, got[key], want[key]):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y),
+                                          err_msg=f"{key} {f}")

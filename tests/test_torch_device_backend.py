@@ -583,3 +583,46 @@ def test_a_real_dispatch_failure_propagates(monkeypatch):
     assert fatal.value(site="pump.dispatch", outcome="fatal") == before + 1
     assert len(be._ring) == 0 and be.pump_dispatches == 0
     assert int(be.fleet.pools[64].scalars[:, 0].sum()) == 0
+
+
+@pytest.mark.parametrize("exc", [KeyboardInterrupt, SystemExit,
+                                 GeneratorExit])
+def test_a_non_exception_dispatch_failure_is_not_counted(exc):
+    """A ``BaseException`` that is not an ``Exception`` (an interrupt, an
+    exit) raised from the device dispatch propagates on both backends and
+    is not counted: the ``pump.dispatch`` fatal counter and the journal
+    stay as they were, as the reference's ``except Exception`` has it."""
+    from fluidframework_tpu.service import retry as ref_retry
+    from fluidframework_tpu.telemetry import journal as ref_journal
+    from fluidframework_tpu_torch.service import retry as port_retry
+    from fluidframework_tpu_torch.telemetry import journal as port_journal
+
+    sides = {"ref": (RefBackend(kernel="xla", capacity=64), ref_retry,
+                     ref_journal),
+             "port": (PortBackend(capacity=64, device="cpu"), port_retry,
+                      port_journal)}
+    marks = {"ref": ref_journal.JOURNAL._next,
+             "port": port_journal.JOURNAL._next}
+    recs = {}
+    ops = Ops(seed=10)
+    lo, hi = ops.advance("k", 4)
+    rows, texts = ops.rows("k", lo, hi)
+    for side, (be, retry_mod, journal_mod) in sides.items():
+        SIDES[side]["lam"]("k", be).handler("k", {
+            "t": "seqframe", "frame": SIDES[side]["opframe"].SeqFrame(
+                "s", 0, lo, rows.copy(), texts, 0.0)})
+
+        def interrupt(*_a):
+            raise exc()
+
+        be._dispatch_device = interrupt
+        fatal = retry_mod.retry_counter()
+        before = fatal.value(site="pump.dispatch", outcome="fatal")
+        with pytest.raises(exc):
+            be.flush()
+        assert fatal.value(site="pump.dispatch", outcome="fatal") == before, \
+            side
+        recs[side] = [e.kind for e in journal_mod.JOURNAL._ring
+                      if e.eid >= marks[side]]
+    assert recs["ref"] == recs["port"]
+    assert "retry.outcome" not in recs["port"]

@@ -121,6 +121,15 @@ def test_vocabularies_equal_the_reference():
     assert port_metrics.FAMILIES == ref_metrics.FAMILIES
     assert port_residency.STATES == ref_residency.STATES
     assert port_residency.WAKE_OUTCOMES == ref_residency.WAKE_OUTCOMES
+    from fluidframework_tpu.service import lambdas as ref_lambdas
+    from fluidframework_tpu.service import summary_store as ref_store
+    from fluidframework_tpu_torch.service import lambdas as port_lambdas
+    from fluidframework_tpu_torch.service import summary_store as port_store
+
+    for name in ("RAW_TOPIC", "DELTAS_TOPIC", "SIGNALS_TOPIC"):
+        assert getattr(port_lambdas, name) == getattr(ref_lambdas, name)
+    assert port_store.SUMMARY_HANDLE_KEY == ref_store.SUMMARY_HANDLE_KEY
+    assert port_store.summary_handle("h") == ref_store.summary_handle("h")
     assert list(vars(PortPressure())) == list(vars(RefPressure()))
     sig = dict(ring_frac=0.5, queue_frac=0.25, feed_lag_ms=9.0)
     assert PortPressure(**sig).score(3.0) == RefPressure(**sig).score(3.0)
