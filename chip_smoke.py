@@ -4,7 +4,7 @@
     python3 chip_smoke.py --ab PARENT_DIR [NAME=VALUE,... ...]
 
 Builds the hand-written kernels (``nvcc``, into the package's ``_build/``)
-and the native ticket loop (``g++``), then:
+and the native ticket loop, blob store and partition log (``g++``), then:
 
 1. kernels — holds K1 (merge apply), K2 (compact) and K3 (apply+compact)
    bit-exactly against their plain PyTorch versions on the card, at
@@ -59,10 +59,24 @@ and the native ticket loop (``g++``), then:
    texts and summaries of 64 documents, every durable log contiguous, the
    run's deltas replayed through a ``kernel="plain"`` backend (every
    channel bit for bit), and the JSON wire at 1,024 documents on a second
-   service.
+   service;
+6. socket front door — the ``docker-compose.yml`` deployment at config
+   7's scale: a store node subprocess (``service/store_server.py`` on the
+   native disk log and blob store), the front door built by
+   ``server_main`` from ``config/config.json`` over it, 12,288 channels
+   loaded before it starts, then a client subprocess (``--socket-client``:
+   the port's network driver on the CPU) with 96 websocket writers (a
+   warm-up and 4 timed bursts of one 8-op frame each) and 1,024
+   concurrent REST channel reads; the served state replayed from the
+   store node's deltas log through a ``kernel="plain"`` backend and
+   restored by a replacement front door (both bit for bit by key), and
+   ``python3 -m fluidframework_tpu_torch.service.server_main`` run as a
+   subprocess (listening line, one acked frame, ``/metrics``, exit 0 on
+   SIGTERM).
 
 Launch counts (in all, and by tier: smem / cluster / global) are reset
-before each main path (2, then 3a+3b, then 4, then 5) and read after it;
+before each main path (2, then 3a+3b, then 4, then 5, then 6's client
+run) and read after it;
 the DocFleet path must launch K1 and K2 on the cluster tier. Prints the
 ptxas report of every kernel entry, each phase's wall time, the card's
 name and power limit, a ``{"kernels": [...]}`` line, and last ``{"ok":
@@ -81,6 +95,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -138,7 +153,11 @@ from fluidframework_tpu_torch.service.pipeline import (
     PipelineFluidService,
 )
 from fluidframework_tpu_torch.utils import pow2_at_least
-from fluidframework_tpu_torch.utils.native import _load_ticket
+from fluidframework_tpu_torch.utils.native import (
+    _load_ticket,
+    native_plog_available,
+    native_store_available,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
 # (rows S, docs D) of phase 1 (the shared tier) and 1b (every tier above it
@@ -1449,7 +1468,9 @@ def bulk_connect(svc, doc_ids, prefix="c"):
         conns[d] = conn
     svc.pump()
     for d, conn in conns.items():
-        for msg in conn.take_inbox():
+        # The one pump above sequenced every join: no pump per connection
+        # (over a store node each sweep is ~28 round trips).
+        for msg in conn.take_inbox(pump=False):
             if (msg.type == MessageType.CLIENT_JOIN
                     and msg.contents.get("token") == conn.token):
                 conn.client_id = msg.contents["clientId"]
@@ -1538,7 +1559,7 @@ class _LogPrefix:
         return recs if limit is None else recs[:limit]
 
 
-def replay_pipeline(svc, make_plain, offsets) -> None:
+def replay_pipeline(svc, make_plain, offsets, text_keys=()) -> dict:
     """Feed the deltas records of ``svc``'s run, read back from its log
     partition by partition, through the port's own device-stage runner
     (``DocumentLambda`` of ``TpuDeliLambda``s) into a ``kernel="plain"``
@@ -1547,7 +1568,8 @@ def replay_pipeline(svc, make_plain, offsets) -> None:
     flushed after each round (so the boxcars, and with them the
     compaction cadence, are the run's). Every channel's lanes and scalars,
     looked up by channel key, its applied watermark and its payloads must
-    match bit for bit."""
+    match bit for bit. Returns the plain backend's text of each channel
+    key in ``text_keys``."""
     plain = make_plain()
     view = _LogPrefix(svc.log)
     runner = PartitionRunner(
@@ -1580,8 +1602,10 @@ def replay_pipeline(svc, make_plain, offsets) -> None:
                 or be.payloads[key] != plain.payloads[key]):
             raise AssertionError(f"pipeline replay: {key} watermark or "
                                  "payloads differ")
+    texts = {key: plain.text(*key) for key in text_keys}
     del plain, runner
     torch.cuda.empty_cache()
+    return texts
 
 
 def phase_pipeline(device, report, n_docs=12_288, rounds=8, k=8,
@@ -1802,6 +1826,460 @@ def pipeline_json_wire(device, n_docs=1024, rounds=7, k=8) -> dict:
                 ms_per_round=wall / rounds * 1e3, timed_s=wall)
 
 
+# -- phase 6: config 7 through the socket front door ---------------------------
+
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+CONFIG_PATH = os.path.join(REPO_DIR, "config", "config.json")
+
+
+def raise_nofile() -> tuple:
+    """Raise this process's open-file limit to its hard limit; returns
+    (soft, hard) after. Phase 6 holds two sockets per socket writer, the
+    read threads' sockets and the store node's connections."""
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft != hard:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    return resource.getrlimit(resource.RLIMIT_NOFILE)
+
+
+def _pct(xs, q) -> float:
+    return float(np.percentile(np.asarray(xs, np.float64), q)) if xs else 0.0
+
+
+def socket_client(argv) -> int:
+    """The client process of phase 6 (``python3 chip_smoke.py
+    --socket-client HOST PORT N_WRITERS K BURSTS READ_DOCS THREADS OUT``):
+    the port's network driver only, on the CPU (it touches no tensor and
+    no device). ``N_WRITERS`` writers (``push=True``), one per new
+    document ``s<i>``, each send one ``K``-op frame of inserts at position
+    0 per burst, refSeq at the highest sequence number the writer has
+    seen, on the binary frame wire: a warm-up burst and ``BURSTS`` timed
+    ones. A burst has converged when every writer has seen each of its
+    own ops come back sequenced; a frame's ack latency runs from its
+    submit until its last op comes back. Then ``THREADS`` threads issue
+    one concurrent REST channel read for each document of ``READ_DOCS``
+    (comma-separated). Writes its record to ``OUT``."""
+    from concurrent.futures import ThreadPoolExecutor as Pool
+
+    from fluidframework_tpu_torch.drivers.network_driver import (
+        NetworkFluidService,
+    )
+
+    host, port, n, k, bursts = (argv[0], int(argv[1]), int(argv[2]),
+                                int(argv[3]), int(argv[4]))
+    read_docs = [d for d in argv[5].split(",") if d]
+    threads, out_path = int(argv[6]), argv[7]
+    nofile = raise_nofile()
+    cli = NetworkFluidService(host, port, push=True)
+    t0 = time.perf_counter()
+    conns = [cli.connect(f"s{i}") for i in range(n)]
+    connect_s = time.perf_counter() - t0
+    acked = [dict() for _ in conns]  # csn -> arrival time of own op
+
+    def tap(c, seen):
+        ingest = c._ingest
+
+        def _ingest(m):
+            if (m.client_id == c.client_id
+                    and m.client_sequence_number not in seen):
+                seen[m.client_sequence_number] = time.perf_counter()
+            ingest(m)
+        return _ingest
+
+    for c, seen in zip(conns, acked):
+        c._ingest = tap(c, seen)
+    from fluidframework_tpu_torch.protocol.opframe import OpFrame
+
+    lat_ms, walls = [], []
+    for b in range(bursts + 1):
+        csn0 = b * k + 1
+        frames = []
+        for c in conns:
+            origs = [c.conn_no * (1 << 14) + csn0 + j for j in range(k)]
+            frames.append(OpFrame.build(
+                "s", ["ins"] * k, [0] * k, origs,
+                [ALPHABET[(csn0 + j) % 26] for j in range(k)], csn0=csn0,
+                ref=c._seq_watermark))
+        last = csn0 + k - 1
+        sent = []
+        t_b = time.perf_counter()
+        for c, f in zip(conns, frames):
+            sent.append(time.perf_counter())
+            c.submit_frame(f)
+        deadline = time.perf_counter() + 120
+        while not all(last in seen for seen in acked):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"socket burst {b} did not converge")
+            time.sleep(0.0005)
+        t_e = max(seen[last] for seen in acked)
+        if b:
+            walls.append(t_e - t_b)
+            lat_ms.extend((seen[last] - ts) * 1e3
+                          for seen, ts in zip(acked, sent))
+    converge_s = float(sum(walls))
+
+    def read(d):
+        t = time.perf_counter()
+        text = cli.get_channel_text(d, "s")
+        return d, text, (time.perf_counter() - t) * 1e3
+
+    t0 = time.perf_counter()
+    with Pool(threads) as pool:
+        reads = list(pool.map(read, read_docs))
+    reads_s = time.perf_counter() - t0
+    for c in conns:
+        c.disconnect()
+    rec = dict(
+        n_writers=n, k=k, bursts=bursts, nofile=list(nofile),
+        connect_s=connect_s, converge_s=converge_s, burst_s=walls,
+        socket_ingest_ops_per_sec=n * k * bursts / converge_s,
+        ack_p50_ms=_pct(lat_ms, 50), ack_p99_ms=_pct(lat_ms, 99),
+        n_reads=len(reads), read_threads=threads, reads_s=reads_s,
+        read_p50_ms=_pct([r[2] for r in reads], 50),
+        read_p99_ms=_pct([r[2] for r in reads], 99),
+        read_texts={d: t for d, t, _ms in reads},
+    )
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _on_loop(srv, fn, timeout=600):
+    """Run ``fn()`` on the started server's loop thread (the one thread
+    that may drive its service) and return its result."""
+    import asyncio
+
+    async def call():
+        return fn()
+
+    return asyncio.run_coroutine_threadsafe(call(), srv._loop).result(timeout)
+
+
+def _snapshot(svc) -> dict:
+    """Every channel's state (host copies, by key), its applied watermark
+    and payloads, after the pipeline is pumped and flushed."""
+    svc.pump()
+    svc.flush_device()
+    be = svc.device
+    be.collect_now()
+    keys = be.channels()
+    out = {}
+    for lo in range(0, len(keys), 4096):
+        out.update(be.doc_states(keys[lo: lo + 4096]))
+    return {key: (tuple(np.asarray(x).copy() for x in out[key]),
+                  int(be._applied_a[be._index[key]]),
+                  dict(be.payloads[key])) for key in keys}
+
+
+def _same_states(a: dict, b: dict, what: str) -> None:
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"{what}: channels differ ({len(a)} vs "
+                             f"{len(b)})")
+    for key, (lanes, applied, payloads) in a.items():
+        lanes2, applied2, payloads2 = b[key]
+        for i, (x, y) in enumerate(zip(lanes, lanes2)):
+            if not np.array_equal(x, y):
+                raise AssertionError(f"{what}: {key} field {i} differs")
+        if applied != applied2 or payloads != payloads2:
+            raise AssertionError(f"{what}: {key} watermark or payloads "
+                                 "differ")
+
+
+def _start_store_node(d: str, env: dict):
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fluidframework_tpu_torch.service.store_server",
+         "--host", "127.0.0.1", "--port", "0", "--dir", d,
+         "--partitions", "4"],
+        stdout=subprocess.PIPE, text=True, cwd=REPO_DIR, env=env)
+    line = proc.stdout.readline()
+    if not line.startswith("store node on "):
+        proc.kill()
+        raise AssertionError(f"store node did not start: {line!r}")
+    return proc, int(line.rsplit(":", 1)[1])
+
+
+def _stop(proc, timeout=30) -> int:
+    """SIGTERM ``proc`` and wait for it (killed past ``timeout``)."""
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        return proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=timeout)
+        raise
+
+
+def _timed_runners(svc, stage_s: dict) -> None:
+    """Time each stage runner's pump (the stages ``_config7_measure``
+    times) wherever the server calls it: each runner's ``pump`` is wrapped
+    on the instance, adding its wall to ``stage_s``."""
+    for name, runner in pipeline_stages(svc):
+        if runner is None:
+            continue
+
+        def timed(pump=runner.pump, name=name):
+            t = time.perf_counter()
+            try:
+                return pump()
+            finally:
+                stage_s[name] += time.perf_counter() - t
+
+        runner.pump = timed
+
+
+def entry_point_check(device) -> dict:
+    """``python3 -m fluidframework_tpu_torch.service.server_main --config
+    config/config.json --port 0 --host 127.0.0.1`` as users run it: it
+    must print its ``listening`` line, sequence one writer's frame, answer
+    ``/metrics`` and exit 0 on SIGTERM."""
+    from urllib.request import urlopen
+
+    from fluidframework_tpu_torch.drivers.network_driver import (
+        NetworkFluidService,
+    )
+
+    cmd = [sys.executable, "-m", "fluidframework_tpu_torch.service.server_main",
+           "--config", CONFIG_PATH, "--port", "0", "--host", "127.0.0.1"]
+    if device.type != "cuda":
+        cmd += ["--device", device.type]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True,
+                            cwd=REPO_DIR,
+                            env=dict(os.environ, PYTHONPATH=REPO_DIR))
+    try:
+        info = json.loads(proc.stdout.readline())
+        if info.get("event") != "listening" or info.get("port", 0) <= 0:
+            raise AssertionError(f"server_main: no listening line: {info}")
+        listen_s = time.perf_counter() - t0
+        c = NetworkFluidService("127.0.0.1", info["port"]).connect("ep")
+        frame = OpFrame.build("s", ["ins"] * 4, [0] * 4,
+                              [c.conn_no * (1 << 14) + 1 + j
+                               for j in range(4)], list("abcd"), csn0=1,
+                              ref=c.join_seq)
+        c.submit_frame(frame)
+        if not c.wait_for(lambda cc: any(
+                m.client_id == cc.client_id and m.client_sequence_number == 4
+                for m in cc.inbox), 120):
+            raise AssertionError("server_main: the frame was not acked")
+        c.disconnect()
+        with urlopen(f"http://127.0.0.1:{info['port']}/metrics",
+                     timeout=120) as r:
+            if r.status != 200 or b"# TYPE" not in r.read():
+                raise AssertionError("server_main: /metrics failed")
+    finally:
+        rc = _stop(proc)
+    if rc != 0:
+        raise AssertionError(f"server_main exited {rc} on SIGTERM")
+    return dict(listening_s=listen_s, exit_code=rc)
+
+
+def phase_server(device, report, n_docs=12_288, socket_docs=96, k=8,
+                 bursts=4, n_reads=1024, read_threads=16):
+    """Phase 6: config 7 through the socket front door, deployed as
+    ``docker-compose.yml`` deploys it. A store node subprocess (``python3
+    -m fluidframework_tpu_torch.service.store_server --dir``: the native
+    disk log and blob store, 4 partitions); the front door in this
+    process from ``config/config.json`` (``server_main.load_config`` +
+    ``build_server(cfg, device_torch=...)``: 4 partitions,
+    checkpoint_every 10, device_capacity 128, device_flush_min_rows 64)
+    over that store node. Before ``start()``, ``n_docs`` channels are
+    loaded through the server's own service (``bulk_connect``, one
+    ``k``-op ``OpFrame`` each through ``submit_frames_bulk``, a flush).
+    Then a client subprocess (:func:`socket_client`, the port's network
+    driver on the CPU) runs ``socket_docs`` writers over websockets (a
+    warm-up and ``bursts`` timed bursts) and ``n_reads`` concurrent REST
+    channel reads of loaded channels from ``read_threads`` threads. The
+    launch counts are set to 0 just before the client starts and read
+    just after it ends. Then every channel is read (on the server's loop),
+    the deltas log is replayed from the store node through a
+    ``kernel="plain"`` backend on the same device (every channel bit for
+    bit), the front door is stopped and replaced by a new one over the
+    same store node (it replays the log from offset 0; every channel bit
+    for bit again), and ``server_main`` runs as a subprocess."""
+    import shutil
+    import tempfile
+    from urllib.request import urlopen
+
+    from fluidframework_tpu_torch.service import server_main
+
+    if not (native_store_available() and native_plog_available()):
+        raise AssertionError("server: the native store or log did not build")
+    nofile = raise_nofile()
+    print(f"server: RLIMIT_NOFILE {nofile}", flush=True)
+    need_fds = 2 * socket_docs + read_threads + 64
+    if nofile[0] < need_fds:
+        raise AssertionError(f"server: RLIMIT_NOFILE {nofile[0]} below the "
+                             f"{need_fds} descriptors the phase needs")
+    env = dict(os.environ, PYTHONPATH=REPO_DIR)
+    tmp = tempfile.mkdtemp(prefix="fluid-store-")
+    store, store_port = _start_store_node(os.path.join(tmp, "node"), env)
+    srv = srv2 = None
+    try:
+        cfg = server_main.load_config(CONFIG_PATH, overrides={
+            "host": "127.0.0.1", "port": 0, "store_host": "127.0.0.1",
+            "store_port": store_port})
+        srv = server_main.build_server(cfg, device_torch=device)
+        svc = srv.service
+        be = svc.device
+        doc_ids = [f"d{i}" for i in range(n_docs)]
+        t0 = time.perf_counter()
+        conns = bulk_connect(svc, doc_ids)
+        offsets = [dict(svc._device_runner._offsets)]
+        svc.submit_frames_bulk(pipeline_frames(doc_ids, conns, k, 1)[0])
+        svc.flush_device()
+        for c in conns.values():
+            c.inbox.clear()
+        load_s = time.perf_counter() - t0
+        print(f"server: loaded {n_docs} channels through the store node in "
+              f"{load_s:.2f} s", flush=True)
+        stage_s = {name: 0.0 for name, _r in pipeline_stages(svc)}
+        _timed_runners(svc, stage_s)
+        srv.start()
+        step = max(1, n_docs // n_reads)
+        read_docs = doc_ids[::step][:n_reads]
+        writers = [f"s{i}" for i in range(socket_docs)]
+        out_path = os.path.join(tmp, "client.json")
+        reads0 = srv.read_batches
+        reset_counts()
+        busy0 = be.pump_busy_s
+        with TierTimer() as timer:
+            t_c = time.perf_counter()
+            client = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--socket-client",
+                 "127.0.0.1", str(srv.port), str(socket_docs), str(k),
+                 str(bursts), ",".join(read_docs), str(read_threads),
+                 out_path],
+                capture_output=True, text=True, timeout=600, cwd=REPO_DIR,
+                env=dict(env, CUDA_VISIBLE_DEVICES=""))
+            client_s = time.perf_counter() - t_c
+            launches = read_counts()
+            busy = be.pump_busy_s - busy0
+            kernel_tiers = timer.summary()
+        if client.returncode != 0:
+            raise AssertionError("server: socket client failed: "
+                                 + client.stderr[-3000:])
+        with open(out_path) as f:
+            rec = json.load(f)
+        read_batches = srv.read_batches - reads0
+        stalls, frames, ticks = (srv.stalls_seen, srv.frames_received,
+                                 srv.pump_ticks)
+        kernel_ms = sum(v["total_ms"] for v in kernel_tiers.values())
+        states = _on_loop(srv, lambda: _snapshot(svc))
+        offsets.append(dict(svc._device_runner._offsets))
+        srv.stop()
+        if srv._thread.is_alive():
+            raise AssertionError("server: the front door did not stop")
+        if len(states) != n_docs + socket_docs:
+            raise AssertionError(f"server: {len(states)} channels served")
+        stats = be.stats()
+        if stats["docs_with_errors"]:
+            raise AssertionError(f"server: docs with errors: {stats}")
+
+        # Plain replay of the store node's deltas log, channel by channel.
+        t0 = time.perf_counter()
+        with TierTimer() as plain_timer:
+            plain_texts = replay_pipeline(svc, lambda: DeviceFleetBackend(
+                device=device, kernel="plain",
+                capacity=cfg["device_capacity"], max_batch=be.max_batch,
+                compact_every=be.compact_every, pump_mode=be.pump_mode,
+                ring_depth=2), offsets,
+                text_keys=[(d, "s") for d in read_docs + writers])
+            plain_tiers = plain_timer.summary()
+        replay_s = time.perf_counter() - t0
+        bad = [d for d, t in rec["read_texts"].items()
+               if t != plain_texts[(d, "s")]]
+        # Each writer inserted its ops at position 0, in csn order.
+        want = "".join(ALPHABET[o % 26] for o in range((bursts + 1) * k, 0,
+                                                       -1))
+        bad += [d for d in writers if plain_texts[(d, "s")] != want]
+        if bad:
+            raise AssertionError(f"server: texts differ from the plain "
+                                 f"replay or the writers' ops: {bad[:4]}")
+        print(f"server: plain replay of the store node's deltas log exact "
+              f"({len(states)} channels by key, {replay_s:.2f} s); "
+              f"{len(rec['read_texts'])} REST texts equal the replay's; "
+              f"plain versions by tier (CUDA events): {plain_tiers}",
+              flush=True)
+        svc = be = conns = srv = None
+        torch.cuda.empty_cache()
+
+        # The replacement front door over the same store node.
+        t0 = time.perf_counter()
+        srv2 = server_main.build_server(cfg, device_torch=device)
+        srv2.start()
+        # Its first read replays the whole log from the store node on the
+        # loop before it is served: wait past the network driver's 10 s.
+        with urlopen(f"http://127.0.0.1:{srv2.port}/documents/"
+                     f"{doc_ids[0]}/channels/s", timeout=900) as r:
+            first = json.loads(r.read())["text"]
+        first_read_s = time.perf_counter() - t0
+        states2 = _on_loop(srv2, lambda: _snapshot(srv2.service))
+        srv2.stop()
+        _same_states(states, states2, "server replacement")
+        if first != plain_texts[(doc_ids[0], "s")]:
+            raise AssertionError("server: the replacement's first read")
+        print(f"server: replacement front door replayed the store node and "
+              f"served its first read in {first_read_s:.2f} s; all "
+              f"{len(states2)} channels equal bit for bit", flush=True)
+        srv2 = states2 = None
+        torch.cuda.empty_cache()
+    finally:
+        for s in (srv, srv2):
+            if s is not None and s._loop is not None and \
+                    not s._loop.is_closed():
+                s.stop()
+        store_rc = _stop(store)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if store_rc not in (0, -signal.SIGTERM):  # it has no SIGTERM handler
+        raise AssertionError(f"server: the store node exited {store_rc}")
+    entry = entry_point_check(device)
+    print(f"server: server_main printed its listening line after "
+          f"{entry['listening_s']:.2f} s, acked a frame, served /metrics and "
+          f"exited {entry['exit_code']} on SIGTERM", flush=True)
+    client = {key: v for key, v in rec.items() if key != "read_texts"}
+    out = dict(
+        n_docs=n_docs, socket_docs=socket_docs, k=k, bursts=bursts,
+        load_s=load_s, client_s=client_s, nofile=list(nofile),
+        client=client, frames_received=frames, pump_ticks=ticks,
+        read_batches=read_batches,
+        reads_per_batch=client["n_reads"] / max(1, read_batches),
+        stalls_seen=stalls, stage_s=stage_s,
+        pump_busy_s=busy, device_idle_share=1 - busy / client_s,
+        kernel_ms=kernel_ms, kernel_tiers=kernel_tiers, launches=launches,
+        plain_tiers=plain_tiers, replay_s=replay_s, replay_exact=True,
+        replacement_first_read_s=first_read_s, replacement_exact=True,
+        channels=len(states), store_exit_code=store_rc, entry_point=entry,
+    )
+    report["server"] = out
+    print(f"socket_ingest_ops_per_sec {client['socket_ingest_ops_per_sec']:.0f}"
+          f" ({socket_docs} writers x {k} ops x {bursts} timed bursts over "
+          f"websockets; connect_s {client['connect_s']:.3f}, converge_s "
+          f"{client['converge_s']:.4f}, bursts s "
+          f"{[round(b, 4) for b in client['burst_s']]}; ack latency p50 "
+          f"{client['ack_p50_ms']:.2f} ms p99 {client['ack_p99_ms']:.2f} ms;"
+          f" client RLIMIT_NOFILE {client['nofile']})", flush=True)
+    print(f"server: frames_received {frames}, pump_ticks {ticks}, "
+          f"stalls_seen {stalls}, device idle share "
+          f"{out['device_idle_share']:.4f} (pump_busy {busy:.4f} s of the "
+          f"client's {client_s:.3f} s), K1 + K2 (CUDA events) "
+          f"{kernel_ms:.3f} ms; by tier: {kernel_tiers}", flush=True)
+    print(f"server stage wall s (client run): "
+          f"{ {n: round(v, 4) for n, v in stage_s.items()} }", flush=True)
+    print(f"server reads: {client['n_reads']} REST channel reads from "
+          f"{read_threads} threads in {read_batches} batches "
+          f"({out['reads_per_batch']:.1f} reads/batch), p50 "
+          f"{client['read_p50_ms']:.2f} ms p99 {client['read_p99_ms']:.2f} "
+          f"ms, {client['reads_s']:.3f} s in all", flush=True)
+    print(f"server launches (client run): {launches}", flush=True)
+    for name in ("K1_merge_apply", "K2_zamboni_compact"):
+        if device.type == "cuda" and launches[name]["all"] <= 0:
+            raise AssertionError(f"{name} never launched on the server path")
+    return out
+
+
 _AB_RUN = """
 import json, torch
 import chip_smoke as c
@@ -1932,11 +2410,12 @@ def main() -> int:
     report["card"] = smi
 
     t_b = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        so = pool.submit(_cuda.build)
-        ticket = pool.submit(_load_ticket)
-        so.result()
-        ticket.result()
+    with ThreadPoolExecutor(4) as pool:
+        builds = [pool.submit(fn) for fn in (
+            _cuda.build, _load_ticket, native_store_available,
+            native_plog_available)]
+        for b in builds:
+            b.result()
     report["build_s"] = time.perf_counter() - t_b
     print(f"build: {report['build_s']:.1f} s", flush=True)
     for line in _cuda.build_log.splitlines():
@@ -1996,6 +2475,8 @@ def main() -> int:
     # Phase 5: config 7 through the ordering pipeline.
     launches5 = timed("5_pipeline", phase_pipeline, device,
                       report)["launches"]
+    # Phase 6: config 7 through the socket front door over a store node.
+    launches6 = timed("6_server", phase_server, device, report)["launches"]
     report["wall_s"] = wall
 
     kernels = []
@@ -2003,7 +2484,7 @@ def main() -> int:
         err, ms, plain_ms, b = main_shape[name]
         by_path = {"fleet_service": launches2[name],
                    "docfleet": launches3[name], "serving": launches4[name],
-                   "pipeline": launches5[name]}
+                   "pipeline": launches5[name], "server": launches6[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "fluidframework_tpu_torch/csrc/merge_kernels.cu",
@@ -2038,6 +2519,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--socket-client":
+        sys.exit(socket_client(sys.argv[2:]))
     if len(sys.argv) > 2 and sys.argv[1] == "--ab":
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device; nothing was run")

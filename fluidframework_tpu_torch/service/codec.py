@@ -6,14 +6,23 @@ cross-process transport) carries bytes. This codec round-trips the
 protocol dataclasses (DocumentMessage, SequencedDocumentMessage,
 NackMessage) nested anywhere inside the record values the pipeline
 produces, mirroring how the reference serializes ops onto Kafka.
+
+Counterpart of ``fluidframework_tpu/service/codec.py``, with one addition:
+the binary op frames the pipeline puts on its topics (``OpFrame`` on
+rawdeltas, ``SeqFrame`` on deltas) ride as their own wire bytes, base64 in
+a tagged object. The reference's codec has no case for them, so there a
+frame on a remote or native log raises ``TypeError``; every other value
+encodes to the same bytes in both packages.
 """
 
 from __future__ import annotations
 
+import base64
 import dataclasses
 import json
 from typing import Any
 
+from fluidframework_tpu_torch.protocol.opframe import OpFrame, SeqFrame
 from fluidframework_tpu_torch.protocol.types import (
     DocumentMessage,
     MessageType,
@@ -29,9 +38,14 @@ _TYPES = {
     "NackMessage": NackMessage,
 }
 _ENUM_FIELDS = {"type": MessageType, "error_type": NackErrorType}
+_FRAME_TAG = "__frame__"
+_FRAMES = {"OpFrame": OpFrame, "SeqFrame": SeqFrame}
 
 
 def _to_jsonable(v: Any) -> Any:
+    if isinstance(v, (OpFrame, SeqFrame)):
+        return {_FRAME_TAG: type(v).__name__,
+                "b64": base64.b64encode(v.encode()).decode()}
     if dataclasses.is_dataclass(v) and type(v).__name__ in _TYPES:
         d = {
             f.name: _to_jsonable(getattr(v, f.name))
@@ -50,6 +64,8 @@ def _to_jsonable(v: Any) -> Any:
 
 
 def _from_jsonable(v: Any) -> Any:
+    if isinstance(v, dict) and _FRAME_TAG in v:
+        return _FRAMES[v[_FRAME_TAG]].decode(base64.b64decode(v["b64"]))
     if isinstance(v, dict):
         tag = v.pop(_TAG, None)
         out = {k: _from_jsonable(x) for k, x in v.items()}

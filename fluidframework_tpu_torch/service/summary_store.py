@@ -4,11 +4,11 @@ Reference: summaries are git trees written through historian/gitrest
 (``server/gitrest``, libgit2-backed; ``scribe/summaryWriter.ts``). Here the
 same content-addressed model: blobs keyed by digest, trees mapping names to
 child handles, incremental reuse for free (unchanged subtrees hash to the
-same handle). The Python interface is backed by an in-memory dict or by
-any backend object with ``put_blob`` / ``get_blob`` / ``has``.
+same handle). The Python interface is backed either by an in-memory dict or
+by the native C++ store (``native/``), selected at construction, or by any
+backend object with ``put_blob`` / ``get_blob`` / ``has``.
 
-Counterpart of ``fluidframework_tpu/service/summary_store.py``. Its native
-C++ backend (``native=True``) is not ported yet and raises.
+Counterpart of ``fluidframework_tpu/service/summary_store.py``.
 """
 
 from __future__ import annotations
@@ -67,9 +67,11 @@ def is_summary_handle(node) -> bool:
 
 
 class SummaryStore:
-    """Content-addressed store over a pluggable blob backend, by default
-    an in-memory dict (the TestHistorian analog). Blobs are keyed by
-    SHA-256, so handles are the same in both packages."""
+    """Content-addressed store over a pluggable blob backend: the native
+    C++ store (``native/ca_store.cpp``, optionally disk-persistent) when
+    asked for, else an in-memory dict (the TestHistorian analog). Both key
+    blobs by SHA-256, so handles are interchangeable, and the same in both
+    packages."""
 
     def __init__(
         self,
@@ -79,11 +81,9 @@ class SummaryStore:
         chunk_bytes: int = 256 * 1024,
     ):
         if backend is None and native:
-            raise NotImplementedError(
-                "the native C++ blob store (NativeBlobStore) is not ported "
-                "yet (the out-of-process store is a later slice of the "
-                "port; see ROADMAP.md)"
-            )
+            from fluidframework_tpu_torch.utils.native import NativeBlobStore
+
+            backend = NativeBlobStore(directory)
         self._backend = backend or _DictBackend()
         # Channel blobs larger than this split into chunk blobs (reference
         # merge-tree snapshotChunks.ts): bounded blob sizes for transport.

@@ -14,6 +14,9 @@ import torch
 from chip_smoke import (
     KERNELS,
     Config6Gen,
+    _on_loop,
+    _same_states,
+    _snapshot,
     Recorded,
     ServingRun,
     ServingTraffic,
@@ -26,6 +29,7 @@ from chip_smoke import (
     pipeline_stages,
     random_case,
     replay_and_compare,
+    replay_pipeline,
     replay_serving,
 )
 from fluidframework_tpu_torch.ops import _cuda
@@ -257,3 +261,60 @@ def test_pipeline_on_the_card_matches_the_plain_versions():
         for f, x, y in zip(got[key]._fields, got[key], want[key]):
             np.testing.assert_array_equal(np.asarray(x), np.asarray(y),
                                           err_msg=f"{key} {f}")
+
+
+@pytest.mark.cuda
+def test_server_on_the_card_matches_the_plain_replay():
+    """The socket front door on the card: 16 writers over websockets
+    (the port's network driver, push sockets on), three 8-op frames
+    each; K1 launched on the server path, no document errs, and every
+    channel's state equals its deltas log replayed through a
+    ``kernel="plain"`` backend, by key."""
+    _need_card()
+    from fluidframework_tpu_torch.drivers.network_driver import (
+        NetworkFluidService,
+    )
+    from fluidframework_tpu_torch.protocol.opframe import OpFrame
+    from fluidframework_tpu_torch.service.network_server import (
+        FluidNetworkServer,
+    )
+
+    dev = torch.device("cuda", 0)
+    svc = PipelineFluidService(device_torch=dev, device_flush_min_rows=64)
+    srv = FluidNetworkServer(svc)
+    _cuda.reset_counts(*(spec["wrapper"] for spec in KERNELS.values()))
+    srv.start()
+    try:
+        cli = NetworkFluidService("127.0.0.1", srv.port, push=True)
+        conns = [cli.connect(f"w{i}") for i in range(16)]
+        for r in range(3):
+            for c in conns:
+                csn0 = r * 8 + 1
+                c.submit_frame(OpFrame.build(
+                    "s", ["ins"] * 8, [0] * 8,
+                    [c.conn_no * (1 << 14) + csn0 + j for j in range(8)],
+                    list("abcdefgh"), csn0=csn0, ref=c._seq_watermark))
+            for c in conns:
+                assert c.wait_for(lambda cc, last=r * 8 + 8: any(
+                    m.client_id == cc.client_id
+                    and m.client_sequence_number == last
+                    for m in cc.inbox), 60)
+        texts = {f"w{i}": cli.get_channel_text(f"w{i}", "s")
+                 for i in range(16)}
+        for c in conns:
+            c.disconnect()
+        served = _on_loop(srv, lambda: _snapshot(svc))
+    finally:
+        srv.stop()
+    assert KERNELS["K1_merge_apply"]["wrapper"].launches > 0
+    assert svc.device.stats()["docs_with_errors"] == 0
+    assert all(len(t) == 24 for t in texts.values())
+    be = svc.device
+    offsets = [{p: 0 for p in range(svc.log.n_partitions)},
+               dict(svc._device_runner._offsets)]
+    plain_texts = replay_pipeline(svc, lambda: DeviceFleetBackend(
+        device=dev, kernel="plain", capacity=128, max_batch=be.max_batch,
+        compact_every=be.compact_every, pump_mode=be.pump_mode,
+        ring_depth=2), offsets, text_keys=[(d, "s") for d in texts])
+    assert {d: plain_texts[(d, "s")] for d in texts} == texts
+    _same_states(served, _snapshot(svc), "served state after stop")

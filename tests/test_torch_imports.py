@@ -56,6 +56,11 @@ def test_port_modules_and_chip_smoke_load_no_jax():
     assert "fluidframework_tpu_torch.service.fleet_service" in mods
     assert "fluidframework_tpu_torch.parallel.fleet" in mods
     assert "fluidframework_tpu_torch.ops.encode" in mods
+    for m in ("drivers", "drivers.network_driver", "drivers.local_driver",
+              "service.network_server", "service.server_main",
+              "service.store_server", "service.wsproto",
+              "service.local_server"):
+        assert f"fluidframework_tpu_torch.{m}" in mods
 
 
 @pytest.mark.parametrize("path", sorted(

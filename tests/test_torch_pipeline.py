@@ -710,8 +710,10 @@ def test_refusals_and_the_default_device(monkeypatch):
     for kernel in ("xla", "pallas"):
         with pytest.raises(ValueError, match="kernel"):
             P(device_torch="cpu", device_kernel=kernel)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_summary_store.SummaryStore(native=True)
+    native = port_summary_store.SummaryStore(native=True)
+    assert type(native._backend).__name__ == "NativeBlobStore"
+    assert native.put_blob(b"native") == \
+        ref_summary_store.SummaryStore().put_blob(b"native")
     assert ref_summary_store.SummaryStore(native=False).chunk_bytes == \
         port_summary_store.SummaryStore().chunk_bytes
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
