@@ -88,6 +88,10 @@ kernels at the DocFleet cells' other widths), the kernels at phase 2's
 main shape and phases 3a and 3b's per-tier medians, for the tree unpacked
 at PARENT_DIR and for this one, in turns on one card (parent, change,
 change, parent; see :func:`ab`), and writes ``ab.json``.
+
+With ``--server N``, it builds the kernels and native libraries and runs
+only phase 6, ``N`` times in one process (the socket path's repeat check;
+see :func:`server_repeat`), and writes ``server_repeat.json``.
 """
 
 from __future__ import annotations
@@ -1848,6 +1852,28 @@ def _pct(xs, q) -> float:
     return float(np.percentile(np.asarray(xs, np.float64), q)) if xs else 0.0
 
 
+def _after_503(fn, counts, what, deadline):
+    """``fn()``, retried while the server's overload envelope answers 503
+    (a refused connection or a shed read), each time after its
+    Retry-After, as a client of that envelope must; ``counts[what]``
+    counts the retries. Past ``deadline`` the 503 is raised."""
+    from urllib.error import HTTPError
+
+    while True:
+        try:
+            return fn()
+        except HTTPError as e:
+            if e.code != 503 or time.perf_counter() > deadline:
+                raise
+            wait = float(e.headers.get("Retry-After") or 1)
+        except ConnectionError as e:
+            if " 503 " not in str(e) or time.perf_counter() > deadline:
+                raise
+            wait = 1.0
+        counts[what] += 1
+        time.sleep(wait)
+
+
 def socket_client(argv) -> int:
     """The client process of phase 6 (``python3 chip_smoke.py
     --socket-client HOST PORT N_WRITERS K BURSTS READ_DOCS THREADS OUT``):
@@ -1858,23 +1884,31 @@ def socket_client(argv) -> int:
     seen, on the binary frame wire: a warm-up burst and ``BURSTS`` timed
     ones. A burst has converged when every writer has seen each of its
     own ops come back sequenced; a frame's ack latency runs from its
-    submit until its last op comes back. Then ``THREADS`` threads issue
-    one concurrent REST channel read for each document of ``READ_DOCS``
-    (comma-separated). Writes its record to ``OUT``."""
+    first submit until its last op comes back. Then ``THREADS`` threads
+    issue one concurrent REST channel read for each document of
+    ``READ_DOCS`` (comma-separated). The client keeps the server's
+    overload contract as the container runtime does: a frame nacked with
+    a throttle (429 and a retry-after) is sent again, with the same
+    client sequence numbers, once its retry-after has passed; a connect
+    or read answered 503 is retried after its Retry-After. Any other nack
+    fails the run. Writes its record, with those counts, to ``OUT``."""
     from concurrent.futures import ThreadPoolExecutor as Pool
 
     from fluidframework_tpu_torch.drivers.network_driver import (
         NetworkFluidService,
     )
+    from fluidframework_tpu_torch.protocol.types import NackErrorType
 
     host, port, n, k, bursts = (argv[0], int(argv[1]), int(argv[2]),
                                 int(argv[3]), int(argv[4]))
     read_docs = [d for d in argv[5].split(",") if d]
     threads, out_path = int(argv[6]), argv[7]
     nofile = raise_nofile()
+    retries = {"connects_refused": 0, "reads_shed": 0}
     cli = NetworkFluidService(host, port, push=True)
     t0 = time.perf_counter()
-    conns = [cli.connect(f"s{i}") for i in range(n)]
+    conns = [_after_503(lambda i=i: cli.connect(f"s{i}"), retries,
+                        "connects_refused", t0 + 120) for i in range(n)]
     connect_s = time.perf_counter() - t0
     acked = [dict() for _ in conns]  # csn -> arrival time of own op
 
@@ -1890,28 +1924,56 @@ def socket_client(argv) -> int:
 
     for c, seen in zip(conns, acked):
         c._ingest = tap(c, seen)
-    from fluidframework_tpu_torch.protocol.opframe import OpFrame
 
+    def frame(c, csn0):
+        return OpFrame.build(
+            "s", ["ins"] * k, [0] * k,
+            [c.conn_no * (1 << 14) + csn0 + j for j in range(k)],
+            [ALPHABET[(csn0 + j) % 26] for j in range(k)], csn0=csn0,
+            ref=c._seq_watermark)
+
+    nacks = []  # (burst, writer, message) of every throttle nack
     lat_ms, walls = [], []
     for b in range(bursts + 1):
         csn0 = b * k + 1
-        frames = []
-        for c in conns:
-            origs = [c.conn_no * (1 << 14) + csn0 + j for j in range(k)]
-            frames.append(OpFrame.build(
-                "s", ["ins"] * k, [0] * k, origs,
-                [ALPHABET[(csn0 + j) % 26] for j in range(k)], csn0=csn0,
-                ref=c._seq_watermark))
         last = csn0 + k - 1
         sent = []
         t_b = time.perf_counter()
-        for c, f in zip(conns, frames):
+        for c in conns:
             sent.append(time.perf_counter())
-            c.submit_frame(f)
+            c.submit_frame(frame(c, csn0))
+        again = {}  # writer -> when its throttled frame is sent again
         deadline = time.perf_counter() + 120
         while not all(last in seen for seen in acked):
-            if time.perf_counter() > deadline:
-                raise AssertionError(f"socket burst {b} did not converge")
+            now = time.perf_counter()
+            for i, c in enumerate(conns):
+                while c.nacks:
+                    nk = c.nacks.pop(0)
+                    if (nk.error_type != NackErrorType.THROTTLING
+                            or nk.retry_after_s <= 0
+                            or nk.client_sequence_number != csn0):
+                        raise AssertionError(
+                            f"socket burst {b}: writer {i} nacked: {nk}")
+                    nacks.append((b, i, nk.message))
+                    again[i] = now + nk.retry_after_s
+                if i in again and now >= again[i]:
+                    del again[i]
+                    c.submit_frame(frame(c, csn0))
+            if now > deadline:
+                behind = [i for i, seen in enumerate(acked)
+                          if last not in seen]
+                raise AssertionError(
+                    f"socket burst {b} did not converge: "
+                    f"{len(behind)} of {n} writers short of csn {last}; "
+                    + "; ".join(
+                        f"writer {i}: csns seen {sorted(acked[i])[-3:]}, "
+                        f"seq watermark {conns[i]._seq_watermark}, "
+                        f"stashed {len(conns[i]._stash)}, frames received "
+                        f"{conns[i].frames_received}, closed "
+                        f"{conns[i].closed}, resend due {i in again}"
+                        for i in behind[:4])
+                    + f"; throttle nacks so far {len(nacks)} "
+                    f"({nacks[-3:]}); {retries}")
             time.sleep(0.0005)
         t_e = max(seen[last] for seen in acked)
         if b:
@@ -1922,7 +1984,8 @@ def socket_client(argv) -> int:
 
     def read(d):
         t = time.perf_counter()
-        text = cli.get_channel_text(d, "s")
+        text = _after_503(lambda: cli.get_channel_text(d, "s"), retries,
+                          "reads_shed", t + 120)
         return d, text, (time.perf_counter() - t) * 1e3
 
     t0 = time.perf_counter()
@@ -1936,6 +1999,9 @@ def socket_client(argv) -> int:
         connect_s=connect_s, converge_s=converge_s, burst_s=walls,
         socket_ingest_ops_per_sec=n * k * bursts / converge_s,
         ack_p50_ms=_pct(lat_ms, 50), ack_p99_ms=_pct(lat_ms, 99),
+        throttle_nacks=len(nacks),
+        throttle_nacks_timed=sum(1 for x in nacks if x[0]),
+        nack_reasons=sorted({x[2] for x in nacks}), **retries,
         n_reads=len(reads), read_threads=threads, reads_s=reads_s,
         read_p50_ms=_pct([r[2] for r in reads], 50),
         read_p99_ms=_pct([r[2] for r in reads], 99),
@@ -1955,6 +2021,26 @@ def _on_loop(srv, fn, timeout=600):
         return fn()
 
     return asyncio.run_coroutine_threadsafe(call(), srv._loop).result(timeout)
+
+
+def _envelope(srv, before=None) -> dict:
+    """The overload envelope of a front door: its tier, its tier
+    transitions by kind (the process's counter family), writes denied,
+    connections refused and reads shed; with ``before`` (an earlier
+    reading), the counts since it."""
+    svc = srv.service
+    now = dict(transitions=svc.overload.transition_counts(),
+               writes_denied=svc.admission.denied,
+               connections_refused=srv.connections_refused,
+               reads_shed=srv.reads_shed)
+    if before is not None:
+        for key, v in now.items():
+            if isinstance(v, dict):
+                now[key] = {t: n - before[key].get(t, 0) for t, n in v.items()
+                            if n != before[key].get(t, 0)}
+            else:
+                now[key] = v - before[key]
+    return dict(tier=svc.overload.tier.name, **now)
 
 
 def _snapshot(svc) -> dict:
@@ -2143,6 +2229,7 @@ def phase_server(device, report, n_docs=12_288, socket_docs=96, k=8,
         writers = [f"s{i}" for i in range(socket_docs)]
         out_path = os.path.join(tmp, "client.json")
         reads0 = srv.read_batches
+        envelope0 = _envelope(srv)
         reset_counts()
         busy0 = be.pump_busy_s
         with TierTimer() as timer:
@@ -2158,9 +2245,13 @@ def phase_server(device, report, n_docs=12_288, socket_docs=96, k=8,
             launches = read_counts()
             busy = be.pump_busy_s - busy0
             kernel_tiers = timer.summary()
+        envelope = _envelope(srv, envelope0)
         if client.returncode != 0:
-            raise AssertionError("server: socket client failed: "
-                                 + client.stderr[-3000:])
+            raise AssertionError(
+                "server: socket client failed: " + client.stderr[-3000:]
+                + f"\nserver side: frames_received {srv.frames_received}, "
+                f"pump_ticks {srv.pump_ticks}, stalls_seen "
+                f"{srv.stalls_seen}, overload envelope {envelope}")
         with open(out_path) as f:
             rec = json.load(f)
         read_batches = srv.read_batches - reads0
@@ -2212,9 +2303,14 @@ def phase_server(device, report, n_docs=12_288, socket_docs=96, k=8,
         srv2.start()
         # Its first read replays the whole log from the store node on the
         # loop before it is served: wait past the network driver's 10 s.
-        with urlopen(f"http://127.0.0.1:{srv2.port}/documents/"
-                     f"{doc_ids[0]}/channels/s", timeout=900) as r:
-            first = json.loads(r.read())["text"]
+        shed2 = {"reads_shed": 0}
+
+        def first_read():
+            with urlopen(f"http://127.0.0.1:{srv2.port}/documents/"
+                         f"{doc_ids[0]}/channels/s", timeout=900) as r:
+                return json.loads(r.read())["text"]
+
+        first = _after_503(first_read, shed2, "reads_shed", t0 + 900)
         first_read_s = time.perf_counter() - t0
         states2 = _on_loop(srv2, lambda: _snapshot(srv2.service))
         srv2.stop()
@@ -2222,7 +2318,8 @@ def phase_server(device, report, n_docs=12_288, socket_docs=96, k=8,
         if first != plain_texts[(doc_ids[0], "s")]:
             raise AssertionError("server: the replacement's first read")
         print(f"server: replacement front door replayed the store node and "
-              f"served its first read in {first_read_s:.2f} s; all "
+              f"served its first read in {first_read_s:.2f} s "
+              f"({shed2['reads_shed']} shed and retried); all "
               f"{len(states2)} channels equal bit for bit", flush=True)
         srv2 = states2 = None
         torch.cuda.empty_cache()
@@ -2246,7 +2343,7 @@ def phase_server(device, report, n_docs=12_288, socket_docs=96, k=8,
         client=client, frames_received=frames, pump_ticks=ticks,
         read_batches=read_batches,
         reads_per_batch=client["n_reads"] / max(1, read_batches),
-        stalls_seen=stalls, stage_s=stage_s,
+        stalls_seen=stalls, envelope=envelope, stage_s=stage_s,
         pump_busy_s=busy, device_idle_share=1 - busy / client_s,
         kernel_ms=kernel_ms, kernel_tiers=kernel_tiers, launches=launches,
         plain_tiers=plain_tiers, replay_s=replay_s, replay_exact=True,
@@ -2261,6 +2358,12 @@ def phase_server(device, report, n_docs=12_288, socket_docs=96, k=8,
           f"{[round(b, 4) for b in client['burst_s']]}; ack latency p50 "
           f"{client['ack_p50_ms']:.2f} ms p99 {client['ack_p99_ms']:.2f} ms;"
           f" client RLIMIT_NOFILE {client['nofile']})", flush=True)
+    print(f"server overload envelope (client run): {envelope}; the client "
+          f"resent {client['throttle_nacks']} throttled frames "
+          f"({client['throttle_nacks_timed']} in the timed bursts; "
+          f"{client['nack_reasons']}), retried "
+          f"{client['connects_refused']} refused connects and "
+          f"{client['reads_shed']} shed reads", flush=True)
     print(f"server: frames_received {frames}, pump_ticks {ticks}, "
           f"stalls_seen {stalls}, device idle share "
           f"{out['device_idle_share']:.4f} (pump_busy {busy:.4f} s of the "
@@ -2518,7 +2621,39 @@ def main() -> int:
     return 0
 
 
+def server_repeat(n: int) -> int:
+    """Phase 6 alone, ``n`` times in one process after the builds: each
+    run's client numbers, overload envelope and launches are printed and
+    written to ``server_repeat.json`` in the output directory; the first
+    failure ends the run with its error."""
+    device = torch.device("cuda", 0)
+    with ThreadPoolExecutor(4) as pool:
+        for b in [pool.submit(fn) for fn in (
+                _cuda.build, _load_ticket, native_store_available,
+                native_plog_available)]:
+            b.result()
+    runs = []
+    try:
+        for i in range(n):
+            t = time.perf_counter()
+            out = phase_server(device, {})
+            runs.append(dict(wall_s=time.perf_counter() - t, **{
+                key: out[key] for key in (
+                    "client", "envelope", "stalls_seen", "pump_ticks",
+                    "frames_received", "launches", "device_idle_share")}))
+            print(f"server run {i}: {runs[-1]['wall_s']:.1f} s", flush=True)
+    finally:
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "server_repeat.json"), "w") as f:
+            json.dump(runs, f, indent=1)
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "--server":
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device; nothing was run")
+        sys.exit(server_repeat(int(sys.argv[2])))
     if len(sys.argv) > 1 and sys.argv[1] == "--socket-client":
         sys.exit(socket_client(sys.argv[2:]))
     if len(sys.argv) > 2 and sys.argv[1] == "--ab":
