@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ab PARENT_DIR [NAME=VALUE,... ...]
+    python3 chip_smoke.py --tree [NAME=VALUE ...]
 
 Builds the hand-written kernels (``nvcc``, into the package's ``_build/``)
 and the native ticket loop, blob store and partition log (``g++``), then:
@@ -72,7 +73,18 @@ and the native ticket loop, blob store and partition log (``g++``), then:
    restored by a replacement front door (both bit for bit by key), and
    ``python3 -m fluidframework_tpu_torch.service.server_main`` run as a
    subprocess (listening line, one acked frame, ``/metrics``, exit 0 on
-   SIGTERM).
+   SIGTERM);
+7. SharedTree rebase path — no hand kernel of its own (its device code is
+   plain PyTorch): 7a config 3b, ``batched_trunk_scan`` over 1,024 docs
+   (Lc 128, Pc 32, W 16) staged on the card once, a warm-up and 3 timed
+   scans, every distinct script held to the host trunk; 7b configs 3c and
+   3c-moves through ``batch_ingest`` over ``EditManager(device=cuda)``s,
+   every distinct script held to the host EditManager; 7c config 3
+   through ``ContainerRuntime`` + ``SharedTree(device=cuda)``, replicas
+   converged. The scans run under ``torch.cuda.set_sync_debug_mode(
+   "error")`` and are held bit for bit to the same function on the CPU
+   for 16 documents; launches and device time a step come from
+   ``torch.profiler``.
 
 Launch counts (in all, and by tier: smem / cluster / global) are reset
 before each main path (2, then 3a+3b, then 4, then 5, then 6's client
@@ -92,6 +104,9 @@ change, parent; see :func:`ab`), and writes ``ab.json``.
 With ``--server N``, it builds the kernels and native libraries and runs
 only phase 6, ``N`` times in one process (the socket path's repeat check;
 see :func:`server_repeat`), and writes ``server_repeat.json``.
+
+With ``--tree``, it runs only phase 7 (``phase_tree``'s keyword arguments
+as ``NAME=VALUE``, e.g. ``b_commits=1000``) and writes ``tree.json``.
 """
 
 from __future__ import annotations
@@ -133,6 +148,7 @@ from fluidframework_tpu_torch.protocol.constants import (
     RSEQ_NONE,
     UNASSIGNED_SEQ,
 )
+from fluidframework_tpu_torch.ops import tree_kernel as TK
 from fluidframework_tpu_torch.ops.segment_state import SEGMENT_LANES
 from fluidframework_tpu_torch.parallel.fleet import DocFleet, _Pool
 from fluidframework_tpu_torch.protocol.opframe import OpFrame, SeqFrame
@@ -156,6 +172,11 @@ from fluidframework_tpu_torch.service.pipeline import (
     PipelineConnection,
     PipelineFluidService,
 )
+from fluidframework_tpu_torch.testing import tree_streams as TS
+from fluidframework_tpu_torch.tree import device_em as DEM
+from fluidframework_tpu_torch.tree import device_trunk as DT
+from fluidframework_tpu_torch.tree import edit_manager as TEM
+from fluidframework_tpu_torch.tree import marks as TM
 from fluidframework_tpu_torch.utils import pow2_at_least
 from fluidframework_tpu_torch.utils.native import (
     _load_ticket,
@@ -2383,6 +2404,514 @@ def phase_server(device, report, n_docs=12_288, socket_docs=96, k=8,
     return out
 
 
+# -- phase 7: the SharedTree rebase path -------------------------------------
+
+
+TREE_LC, TREE_PC, TREE_W = 128, 32, 16  # config 3b's dense shape
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _no_sync(dev, fn, *args, **kw):
+    """``fn(*args)`` with any host synchronisation on the card an error
+    (``torch.cuda.set_sync_debug_mode("error")``), reset after."""
+    if dev.type != "cuda":
+        return fn(*args, **kw)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _host_lanes(ts) -> list:
+    return [t.to("cpu", copy=True).numpy() for t in ts]
+
+
+def _same_lanes(a, b, what: str) -> None:
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(
+                x, y):
+            raise AssertionError(f"{what}: lane {i} differs between the "
+                                 "card and the CPU")
+
+
+def _profile(dev, fn) -> dict:
+    """Launches and device time of one call of ``fn`` under
+    ``torch.profiler``: device activities (kernels, copies, sets) and
+    their summed µs on the card, and the top-level ATen ops the host
+    dispatched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        fn()
+        _sync(dev)
+    events = prof.events()
+    kern = [e for e in events if e.device_type == DeviceType.CUDA]
+    return dict(
+        launches=len(kern),
+        device_us=float(sum(e.time_range.elapsed_us() for e in kern)),
+        aten_ops=sum(1 for e in events if e.device_type == DeviceType.CPU
+                     and e.name.startswith("aten::")
+                     and e.cpu_parent is None),
+    )
+
+
+def _per_step(dev, scan, c_lo=2, steps=4) -> dict:
+    """Launches, device µs and ATen ops of one scan step: the difference
+    between a profiled scan over ``c_lo + steps`` commits and one over
+    ``c_lo``, over ``steps`` (the set-up cancels; every step runs the same
+    branchless ops)."""
+    a = _profile(dev, lambda: scan(c_lo))
+    b = _profile(dev, lambda: scan(c_lo + steps))
+    return {k: (b[k] - a[k]) / steps for k in a}
+
+
+def _event_ms(dev, fn, reps=10) -> float:
+    """Median CUDA-event ms of ``fn`` (host wall on the CPU)."""
+    times = []
+    for _ in range(reps):
+        if dev.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        else:
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts
+               if torch.is_tensor(t))
+
+
+def tree_functions(dev, batch, docs, L) -> list:
+    """The dense algebra's batched entry points at config 3b's shape (N =
+    1,024 docs, Lc 128, Pc 32), on real commits of its streams: ms a call
+    (CUDA events), launches a call (profiler), and the byte floor — each
+    input read once, each output written once — at 3.35 TB/s."""
+    lanes = (batch.del_mask, batch.ins_cnt, batch.ins_ids, batch.mov_id,
+             batch.mov_off, batch.pool_mid, batch.pool_off)
+    c = TK.DenseChange(*[x[:, 1] for x in lanes])
+    over = TK.DenseChange(*[x[:, 2] for x in lanes])
+    calls = {
+        "batched_apply": (lambda: TK.batched_apply(docs, L, c, device=dev),
+                          (docs, L, *c)),
+        "batched_rebase": (lambda: TK.batched_rebase(c, over, L, False,
+                                                     device=dev),
+                           (*c, *over, L)),
+        "batched_invert": (lambda: TK.batched_invert(docs, L, c, device=dev),
+                           (docs, L, *c)),
+        "batched_compose": (lambda: TK.batched_compose(c, over, L,
+                                                       device=dev),
+                            (*c, *over, L)),
+    }
+    rows = []
+    for name, (fn, ins) in calls.items():
+        out = fn()
+        if name == "batched_compose":  # (change, overflow)
+            out = (*out[0], out[1])
+        prof = _profile(dev, fn)
+        b = _nbytes(*ins) + _nbytes(*out)
+        rows.append(dict(name=name, ms=_event_ms(dev, fn), **prof,
+                         bytes=b, bound_ms=b / HBM_BYTES_PER_S * 1e3))
+        print(f"tree fn {name}: {rows[-1]['ms']:.4f} ms, "
+              f"{prof['launches']} launches ({prof['aten_ops']} ATen ops), "
+              f"device {prof['device_us']:.1f} us, bound "
+              f"{rows[-1]['bound_ms']:.5f} ms", flush=True)
+    return rows
+
+
+def tree_3b(dev, n_docs=1024, n_commits=1000, scripts=64, cpu_docs=16,
+            cpu_commits=None):
+    """7a: ``config3b_tree_rebase_device`` through the port — 64 distinct
+    concurrent 3-session streams (``gen_streams``, seed 0) tiled over the
+    document batch, staged on the card once, one warm-up and 3 timed
+    ``batched_trunk_scan`` runs (W 16) under sync-debug "error"; the err
+    lane must be clear and every distinct script equal ``host_trunk``."""
+    Lc, Pc, W = TREE_LC, TREE_PC, TREE_W
+    scripts = min(scripts, n_docs)
+    t0 = time.perf_counter()
+    streams = TS.gen_streams(np.random.default_rng(0), scripts, n_commits,
+                             n_sessions=3, W=W, Lc=Lc)
+    base = TS.to_device_batch(streams, Lc, Pc)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_states = [TS.host_trunk(s) for s in streams]
+    cpu_rate = scripts * n_commits / (time.perf_counter() - t0)
+    reps = n_docs // scripts
+    n_docs = scripts * reps
+    batch = DT.CommitBatch(*[
+        torch.from_numpy(np.ascontiguousarray(x)).to(dev).repeat(
+            (reps,) + (1,) * (x.ndim - 1)) for x in base])
+    staged_gb = _nbytes(*batch) / 1e9
+    docs = torch.zeros((n_docs, Lc), dtype=torch.int32, device=dev)
+    L0 = torch.zeros(n_docs, dtype=torch.int32, device=dev)
+
+    def scan(cb=batch, d=docs, l0=L0, device=dev):
+        return DT.batched_trunk_scan(d, l0, cb, W, device=device)
+
+    t0 = time.perf_counter()
+    out = _no_sync(dev, scan)
+    _sync(dev)
+    warm_s = time.perf_counter() - t0
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = _no_sync(dev, scan)
+        _sync(dev)
+        times.append(time.perf_counter() - t0)
+    rate = n_docs * n_commits * len(times) / sum(times)
+    out_ids, out_L, err = _host_lanes(out)
+    if err.any():
+        raise AssertionError("7a: ring-window overflow in config 3b")
+    for d in range(scripts):
+        if TK.dense_to_doc(out_ids[d], out_L[d]) != host_states[d]:
+            raise AssertionError(f"7a: device/host divergence on doc {d}")
+    step = _per_step(dev, lambda c: scan(DT.CommitBatch(
+        *[x[:, :c] for x in batch])))
+    # The same function on the CPU for cpu_docs documents (over the first
+    # cpu_commits commits, all by default), bit for bit.
+    cpu_commits = cpu_commits or n_commits
+    sub = DT.CommitBatch(*[x[:cpu_docs, :cpu_commits] for x in batch])
+    got = _host_lanes(scan(sub, docs[:cpu_docs], L0[:cpu_docs]))
+    want = _host_lanes(scan(DT.CommitBatch(*[x.cpu() for x in sub]),
+                            docs[:cpu_docs].cpu(), L0[:cpu_docs].cpu(),
+                            torch.device("cpu")))
+    _same_lanes(got, want, "7a")
+    fns = tree_functions(dev, batch, torch.from_numpy(out_ids).to(dev),
+                         torch.from_numpy(out_L).to(dev))
+    scan_ms = float(np.median(times)) * 1e3
+    bound = (_nbytes(*batch) + 2 * _nbytes(docs, L0)) / HBM_BYTES_PER_S * 1e3
+    res = dict(
+        n_docs=n_docs, commits_per_doc=n_commits, scripts=scripts, window=W,
+        Lc=Lc, Pc=Pc, staged_gb=staged_gb, gen_s=gen_s, warm_s=warm_s,
+        scan_s=times, edits_per_sec=rate, ms_per_scan=scan_ms,
+        us_per_step=scan_ms * 1e3 / n_commits, step=step,
+        cpu_trunk_edits_per_sec=cpu_rate, scan_bound_ms=bound,
+        cpu_check=f"{cpu_docs} docs x {cpu_commits} commits",
+        functions=fns)
+    print(f"7a config 3b: {rate:,.0f} edits/s, {scan_ms:.1f} ms a scan "
+          f"({res['us_per_step']:.1f} us a step; {step['launches']:.1f} "
+          f"launches, device {step['device_us']:.1f} us, "
+          f"{step['aten_ops']:.1f} ATen ops a step), warm-up "
+          f"{warm_s:.1f} s, streams {gen_s:.1f} s, staged "
+          f"{staged_gb:.2f} GB, host trunk {cpu_rate:,.0f} edits/s",
+          flush=True)
+    return res
+
+
+def em_stream(seed: int, n: int, move_prob: float = 0.0):
+    """``config3c_em_kernel_concurrent``'s stream (``bench_configs.py``):
+    3 sessions authoring on views lagged up to 6 commits, each commit a
+    delete-biased pass over the view plus a 2-cell insert, or with
+    probability ``move_prob`` a first-class move of 1-3 cells."""
+    r = np.random.default_rng(seed)
+    sessions = [TEM.EditManager(session=100 + s) for s in range(3)]
+    processed = [0, 0, 0]
+    log = []
+    nid = [1]
+    for k in range(1, n + 1):
+        s = int(r.integers(0, 3))
+        em = sessions[s]
+        target = max(
+            processed[s],
+            max((c.seq for c in log if c.session == em.session), default=0),
+            len(log) - 6,
+        )
+        for c in log[processed[s]:target]:
+            em.add_sequenced(c)
+        processed[s] = target
+        view = em.local_view()
+        if move_prob and len(view) >= 4 and r.random() < move_prob:
+            i0 = int(r.integers(0, len(view) - 1))
+            cnt = int(r.integers(1, min(3, len(view) - i0) + 1))
+            dest = int(r.integers(0, len(view) - cnt + 1))
+            cells = view[i0:i0 + cnt]
+            if dest <= i0:
+                change = [TM.skip(dest), TM.move_in(0, cnt),
+                          TM.skip(i0 - dest), TM.move_out(0, cells)]
+            else:
+                change = [TM.skip(i0), TM.move_out(0, cells),
+                          TM.skip(dest - i0), TM.move_in(0, cnt)]
+            change = TM.normalize(change)
+            em.add_local(change)
+            log.append(TEM.Commit(session=em.session, seq=k, ref=target,
+                                  change=change))
+            continue
+        change = []
+        i = 0
+        while i < len(view):
+            roll = r.random()
+            run = min(int(r.integers(1, 3)), len(view) - i)
+            if roll < 0.45 and len(view) > 24:
+                change.append(TM.delete(view[i:i + run]))
+            else:
+                change.append(TM.skip(run))
+            i += run
+        cells = [((100 + s) * 1000000 + nid[0] + j, nid[0] + j)
+                 for j in range(2)]
+        nid[0] += 2
+        change.append(TM.insert(cells))
+        change = TM.normalize(change)
+        em.add_local(change)
+        log.append(TEM.Commit(session=em.session, seq=k, ref=target,
+                              change=change))
+    return log
+
+
+def tree_3c(dev, n_docs=1024, n_commits=512, scripts=16, wave=128,
+            move_prob=0.0, cpu_docs=16, single_base=False):
+    """7b: ``config3c_em_kernel_concurrent`` through the port — the
+    production ``batch_ingest`` over ``EditManager(device=cuda)``s, one
+    ``batched_em_trunk_scan_ring`` dispatch a wave for the whole document
+    batch; parity of every distinct script against the per-commit host
+    EditManager; then the first timed dispatch's scan again under
+    sync-debug "error", and on the CPU for ``cpu_docs`` documents."""
+    t0 = time.perf_counter()
+    streams = [em_stream(1000 + i, n_commits, move_prob)
+               for i in range(scripts)]
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_ems = []
+    for log in streams:
+        em = TEM.EditManager(session=1, device=dev)
+        for c in log:
+            em.add_sequenced(c)
+            em.host_commits += 1
+        host_ems.append(em)
+    cpu_rate = scripts * n_commits / (time.perf_counter() - t0)
+    reps = max(1, n_docs // scripts)
+    n_docs = scripts * reps
+    logs = [streams[d % scripts] for d in range(n_docs)]
+
+    real = TEM._em_dispatch
+    dispatch_s = []
+    recorded = []
+
+    def timed_dispatch(rings, mov_seq0, arrays, U, device):
+        t = time.perf_counter()
+        out = real(rings, mov_seq0, arrays, U, device)
+        dispatch_s.append(time.perf_counter() - t)
+        if not recorded:
+            recorded.append((rings, mov_seq0, arrays, U))
+        return out
+
+    TEM._em_dispatch = timed_dispatch
+    try:
+        warm = [TEM.EditManager(session=1, device=dev) for _ in range(n_docs)]
+        t0 = time.perf_counter()
+        TEM.batch_ingest([(em, list(log[:wave]), log[wave - 1].seq)
+                          for em, log in zip(warm, logs)])
+        warm_s = time.perf_counter() - t0
+        del warm
+        dispatch_s.clear()
+        recorded.clear()
+        ems = [TEM.EditManager(session=1, device=dev) for _ in range(n_docs)]
+        wave_s = []
+        device_commits = total = 0
+        for w0 in range(0, n_commits, wave):
+            items = []
+            for em, log in zip(ems, logs):
+                chunk = log[w0:w0 + wave]
+                items.append((em, chunk, max(0, chunk[-1].seq - 8)))
+            t0 = time.perf_counter()
+            stats = TEM.batch_ingest(items)
+            wave_s.append(time.perf_counter() - t0)
+            device_commits += stats["device_commits"]
+            total += stats["device_commits"] + stats["host_commits"]
+    finally:
+        TEM._em_dispatch = real
+    rate = total / sum(wave_s)
+    for d in range(scripts):
+        if ems[d].trunk_state != host_ems[d].trunk_state:
+            raise AssertionError(f"7b: device/host divergence on script {d}")
+    if device_commits <= 0:
+        raise AssertionError("7b: no commit rode the device")
+    reasons = {}
+    for em in ems:
+        for k, v in em.host_fallback_reason.items():
+            reasons[k] = reasons.get(k, 0) + v
+
+    # The first timed dispatch's scan, staged on the card, under
+    # sync-debug "error"; then on the CPU for cpu_docs documents.
+    (ring_ids, ring_L, ring_seq), mov0, arrays, U = recorded[0]
+    lanes = (arrays["dm"], arrays["ic"], arrays["ii"], arrays["rs"],
+             arrays["rl"], arrays["ro"], arrays["refs"], arrays["seqs"],
+             arrays["mv"])
+
+    def on(x, d=dev):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(d)
+
+    def scan(n, device=dev):
+        cb = DEM.EmCommitBatch(*[on(x[:n], device) for x in lanes])
+        rings = [on(x[:n], device) for x in (ring_ids, ring_L, ring_seq)]
+        return DEM.batched_em_trunk_scan_ring(*rings, on(mov0[:n], device),
+                                              cb, U, device=device)
+
+    N = ring_ids.shape[0]
+    staged = DEM.EmCommitBatch(*[on(x) for x in lanes])
+    rings = [on(x) for x in (ring_ids, ring_L, ring_seq)]
+    mov_t = on(mov0)
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = _no_sync(dev, DEM.batched_em_trunk_scan_ring, *rings, mov_t,
+                   staged, U, device=dev)
+    _sync(dev)
+    scan_only_s = time.perf_counter() - t0
+    step = _per_step(dev, lambda c: DEM.batched_em_trunk_scan_ring(
+        *rings, mov_t, DEM.EmCommitBatch(*[x[:, :c] for x in staged]), U,
+        device=dev))
+    got = _host_lanes(scan(cpu_docs))
+    want = _host_lanes(scan(cpu_docs, device=torch.device("cpu")))
+    _same_lanes(got, want, "7b")
+    first = _host_lanes(out)
+    C = lanes[0].shape[1]
+    W = ring_ids.shape[1]
+    single_ms = None
+    if single_base:
+        # The one-shot catch-up form on the same commits, from the
+        # newest seeded state alone.
+        t0 = time.perf_counter()
+        DEM.batched_em_trunk_scan(rings[0][:, -1], rings[1][:, -1],
+                                  rings[2][:, -1], staged, W, U, device=dev)
+        _sync(dev)
+        single_ms = (time.perf_counter() - t0) * 1e3
+    b = (sum(x.nbytes for x in lanes) + ring_ids.nbytes + ring_L.nbytes
+         + ring_seq.nbytes + first[0].nbytes + first[1].nbytes
+         + first[2].nbytes)
+    disp_ms = float(np.median(dispatch_s)) * 1e3
+    res = dict(
+        n_docs=n_docs, commits_per_doc=n_commits, scripts=scripts,
+        wave=wave, move_prob=move_prob, waves=len(wave_s), gen_s=gen_s,
+        warm_s=warm_s, wave_s=wave_s, edits_per_sec=rate,
+        device_fraction=device_commits / max(total, 1),
+        device_commits=device_commits, total_commits=total,
+        host_fallback_reason=reasons, dispatches=len(dispatch_s),
+        ms_per_dispatch=disp_ms, dispatch_s=dispatch_s,
+        host_share=1 - sum(dispatch_s) / sum(wave_s),
+        scan_shape=dict(N=N, C=C, W=W, Lc=ring_ids.shape[2],
+                        Pc=lanes[2].shape[2], R=lanes[3].shape[2], U=U),
+        scan_only_ms=scan_only_s * 1e3, single_base_scan_ms=single_ms,
+        us_per_step=scan_only_s * 1e6 / C, step=step,
+        scan_bound_ms=b / HBM_BYTES_PER_S * 1e3,
+        cpu_em_edits_per_sec=cpu_rate,
+        cpu_check=f"{cpu_docs} docs x {C} commits")
+    print(f"7b config {'3c-moves' if move_prob else '3c'}: {rate:,.0f} "
+          f"edits/s, device_fraction {res['device_fraction']:.3f}, "
+          f"{len(dispatch_s)} dispatches of {disp_ms:.1f} ms (the first's "
+          f"scan under sync-debug {res['scan_only_ms']:.1f} ms, "
+          f"single-base form {single_ms} ms, {res['us_per_step']:.1f} us a "
+          f"step; {step['launches']:.1f} launches, device "
+          f"{step['device_us']:.1f} us, {step['aten_ops']:.1f} ATen ops a "
+          f"step), host share of the waves {res['host_share']:.3f}, "
+          f"fallbacks {reasons}, scan shape {res['scan_shape']}, warm-up "
+          f"{warm_s:.1f} s, streams {gen_s:.1f} s, host EM "
+          f"{cpu_rate:,.0f} edits/s", flush=True)
+    return res
+
+
+def tree_3(dev, n_edits=1000, budget_s=60.0, min_docs=16, max_docs=1000):
+    """7c: ``config3_tree_rebase`` through the port's ``ContainerRuntime``
+    + ``SharedTree(device=cuda)`` over ``LocalFluidService``: 3 sessions
+    per document, a flush every 4 edits, ``process_incoming`` every 8,
+    ``n_edits`` edits a document; documents one after another until
+    ``budget_s`` has passed (at least ``min_docs``). All replicas must
+    converge."""
+    from fluidframework_tpu_torch.runtime.container import ContainerRuntime
+    from fluidframework_tpu_torch.service.local_server import (
+        LocalFluidService,
+    )
+    from fluidframework_tpu_torch.tree.shared_tree import SharedTree
+
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    total = 0
+    stats = {}
+    d = 0
+    while d < max_docs and (d < min_docs
+                            or time.perf_counter() - t0 < budget_s):
+        svc = LocalFluidService()
+        rts = [ContainerRuntime(svc, "t",
+                                channels=(SharedTree("tree", device=dev),))
+               for _ in range(3)]
+        trees = [rt.get_channel("tree") for rt in rts]
+        for i in range(n_edits):
+            k = int(rng.integers(0, 3))
+            t = trees[k]
+            if len(t) > 2 and rng.random() < 0.3:
+                t.delete_nodes(int(rng.integers(0, len(t) - 1)), 1)
+            else:
+                t.insert_nodes(int(rng.integers(0, len(t) + 1)), [i])
+            total += 1
+            if i % 4 == 0:
+                rts[k].flush()
+            if i % 8 == 0:
+                for rt in rts:
+                    rt.process_incoming()
+        for rt in rts:
+            rt.flush()
+        busy = True
+        while busy:
+            busy = any(rt.process_incoming() for rt in rts)
+        if not trees[0].get() == trees[1].get() == trees[2].get():
+            raise AssertionError(f"7c: replicas diverged on doc {d}")
+        for t in trees:
+            for k, v in t.ingest_stats.items():
+                if isinstance(v, dict):
+                    agg = stats.setdefault(k, {})
+                    for r, n in v.items():
+                        agg[r] = agg.get(r, 0) + n
+                else:
+                    stats[k] = stats.get(k, 0) + v
+        d += 1
+    dt = time.perf_counter() - t0
+    res = dict(n_docs=d, edits_per_doc=n_edits, wall_s=dt,
+               edits_per_sec=total / dt, ingest_stats=stats)
+    print(f"7c config 3: {res['edits_per_sec']:,.0f} edits/s over {d} docs "
+          f"x {n_edits} edits ({dt:.1f} s), ingest {stats}", flush=True)
+    return res
+
+
+def phase_tree(device, report, b_docs=1024, b_commits=250, c_docs=1024,
+               c_commits=256, m_docs=512, m_commits=256, wave=128,
+               c3_budget_s=60.0, c3_min_docs=16):
+    """Phase 7: the SharedTree rebase path on the card — 7a config 3b,
+    7b configs 3c and 3c-moves, 7c config 3. Depth is cut to keep the
+    phase near 240 s on one H100: 7a runs 250 of the bench's 1,000
+    commits a document (a step costs the same at every depth), 7b's
+    config 3c 256 of its 512 (two waves; a wave's host work grows with
+    its index). Every width, the document batches and the move mix are
+    the bench's."""
+    out = {}
+    t = time.perf_counter()
+    out["3b"] = tree_3b(device, n_docs=b_docs, n_commits=b_commits)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["3c"] = tree_3c(device, n_docs=c_docs, n_commits=c_commits,
+                        scripts=16, wave=wave)
+    out["3c-moves"] = tree_3c(device, n_docs=m_docs, n_commits=m_commits,
+                              scripts=8, wave=wave, move_prob=0.05,
+                              single_base=True)
+    out["3"] = tree_3(device, budget_s=c3_budget_s, min_docs=c3_min_docs)
+    out["wall_s"] = time.perf_counter() - t
+    report["tree"] = out
+    return out
+
+
 _AB_RUN = """
 import json, torch
 import chip_smoke as c
@@ -2580,6 +3109,9 @@ def main() -> int:
                       report)["launches"]
     # Phase 6: config 7 through the socket front door over a store node.
     launches6 = timed("6_server", phase_server, device, report)["launches"]
+    # Phase 7: the SharedTree rebase path (no hand kernel of its own).
+    torch.cuda.empty_cache()
+    timed("7_tree", phase_tree, device, report)
     report["wall_s"] = wall
 
     kernels = []
@@ -2621,6 +3153,26 @@ def main() -> int:
     return 0
 
 
+def tree_alone(**kw) -> int:
+    """Phase 7 alone (the tree path builds nothing); its record goes to
+    ``tree.json`` in the output directory."""
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    report = {"card": smi, "torch": torch.__version__}
+    t = time.perf_counter()
+    phase_tree(device, report, **kw)
+    print(f"phase 7_tree: {time.perf_counter() - t:.1f} s", flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "tree.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    print(smi)
+    return 0
+
+
 def server_repeat(n: int) -> int:
     """Phase 6 alone, ``n`` times in one process after the builds: each
     run's client numbers, overload envelope and launches are printed and
@@ -2654,6 +3206,12 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device; nothing was run")
         sys.exit(server_repeat(int(sys.argv[2])))
+    if len(sys.argv) > 1 and sys.argv[1] == "--tree":
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device; nothing was run")
+        sys.exit(tree_alone(**{k: float(v) if "." in v else int(v)
+                               for k, v in (a.split("=", 1)
+                                            for a in sys.argv[2:])}))
     if len(sys.argv) > 1 and sys.argv[1] == "--socket-client":
         sys.exit(socket_client(sys.argv[2:]))
     if len(sys.argv) > 2 and sys.argv[1] == "--ab":

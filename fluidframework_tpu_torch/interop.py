@@ -15,7 +15,10 @@ import torch
 
 from fluidframework_tpu_torch.ops.apply_kernel import N_LANES, N_SCALARS
 from fluidframework_tpu_torch.parallel.fleet import DocFleet
+from fluidframework_tpu_torch.ops.tree_kernel import DenseChange
 from fluidframework_tpu_torch.service.fleet_service import TpuFleetService
+from fluidframework_tpu_torch.tree.device_em import EmCommitBatch
+from fluidframework_tpu_torch.tree.device_trunk import CommitBatch
 from fluidframework_tpu_torch.utils import resolve_device
 
 
@@ -114,3 +117,51 @@ def fleet_from_reference(
         low_water=low_water, max_capacity=max_capacity,
         migrations=migrations, demotions=demotions, device=device,
     )
+
+
+# -- SharedTree dense IR ------------------------------------------------------
+#
+# The reference's ``DenseChange``, ``CommitBatch`` and ``EmCommitBatch`` are
+# NamedTuples of arrays in the same field order as the port's; they cross as
+# a sequence of numpy lanes (None for an absent optional move lane).
+
+
+def _lanes_to(cls, lanes, device):
+    dev = resolve_device(device)
+    lanes = list(lanes)
+    if len(lanes) != len(cls._fields):
+        raise ValueError(f"{cls.__name__} has {len(cls._fields)} lanes, "
+                         f"got {len(lanes)}")
+    return cls(*[
+        None if x is None
+        else torch.tensor(np.asarray(x, np.int32), device=dev)
+        for x in lanes
+    ])
+
+
+def _lanes_from(batch) -> tuple:
+    return tuple(None if x is None else x.to("cpu", copy=True).numpy()
+                 for x in batch)
+
+
+def dense_change_from_numpy(lanes, device="cuda") -> DenseChange:
+    """Reference ``DenseChange`` lanes (numpy, [N, ...]) -> the port's."""
+    return _lanes_to(DenseChange, lanes, device)
+
+
+def commit_batch_from_numpy(lanes, device="cuda") -> CommitBatch:
+    """Reference ``CommitBatch`` lanes (numpy, [N, C, ...]) -> the port's."""
+    return _lanes_to(CommitBatch, lanes, device)
+
+
+def em_commit_batch_from_numpy(lanes, device="cuda") -> EmCommitBatch:
+    """Reference ``EmCommitBatch`` lanes (numpy, [N, C, ...]) -> the
+    port's."""
+    return _lanes_to(EmCommitBatch, lanes, device)
+
+
+def tree_lanes_to_numpy(batch) -> tuple:
+    """A port ``DenseChange``, ``CommitBatch`` or ``EmCommitBatch`` -> its
+    lanes as host numpy copies in field order (the reference's NamedTuple
+    takes them positionally)."""
+    return _lanes_from(batch)

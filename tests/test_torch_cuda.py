@@ -31,6 +31,8 @@ from chip_smoke import (
     replay_and_compare,
     replay_pipeline,
     replay_serving,
+    tree_3b,
+    tree_3c,
 )
 from fluidframework_tpu_torch.ops import _cuda
 from fluidframework_tpu_torch.ops import apply_kernel as K1
@@ -39,6 +41,7 @@ from fluidframework_tpu_torch.service.device_backend import (
     DeviceFleetBackend,
 )
 from fluidframework_tpu_torch.service.pipeline import PipelineFluidService
+from fluidframework_tpu_torch.ops import tree_kernel as TK
 
 
 def _need_card():
@@ -318,3 +321,64 @@ def test_server_on_the_card_matches_the_plain_replay():
         ring_depth=2), offsets, text_keys=[(d, "s") for d in texts])
     assert {d: plain_texts[(d, "s")] for d in texts} == texts
     _same_states(served, _snapshot(svc), "served state after stop")
+
+
+@pytest.mark.cuda
+def test_tree_3b_scan_on_the_card_equals_the_cpu():
+    """A small 7a: the positional trunk scan under sync-debug "error",
+    every distinct script equal to the host trunk, the card equal to the
+    CPU bit for bit, the dense algebra's entry points timed."""
+    _need_card()
+    res = tree_3b(torch.device("cuda", 0), n_docs=16, n_commits=24,
+                  scripts=4, cpu_docs=8, cpu_commits=24)
+    assert res["step"]["launches"] > 0
+    assert {f["name"] for f in res["functions"]} == {
+        "batched_apply", "batched_rebase", "batched_invert",
+        "batched_compose"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("move_prob", [0.0, 0.05])
+def test_tree_3c_ingest_on_the_card_equals_the_cpu(move_prob):
+    """A small 7b: ``batch_ingest`` over ``EditManager(device=cuda)``s,
+    parity with the host EditManager, the recorded dispatch's scan under
+    sync-debug "error" and equal to the CPU bit for bit."""
+    _need_card()
+    res = tree_3c(torch.device("cuda", 0), n_docs=16, n_commits=48,
+                  scripts=4, wave=16, move_prob=move_prob, cpu_docs=8)
+    assert res["device_commits"] > 0
+
+
+@pytest.mark.cuda
+def test_tree_algebra_on_the_card_equals_the_cpu():
+    """Raw random lanes (several writers to a slot, duplicate tags,
+    overflowing pools) through apply / rebase (both ties) / invert /
+    compose: the card equals the CPU on every lane."""
+    _need_card()
+    rng = np.random.default_rng(5)
+    n, lc, pc = 64, 128, 32
+
+    def lanes():
+        def sparse(shape, hi):
+            return (rng.integers(0, hi, shape)
+                    * (rng.random(shape) < 0.3)).astype(np.int32)
+        return TK.DenseChange(
+            sparse((n, lc), 2), sparse((n, lc + 1), 3),
+            rng.integers(1, 1 << 20, (n, pc)).astype(np.int32),
+            sparse((n, lc), 4), sparse((n, lc), 4), sparse((n, pc), 4),
+            sparse((n, pc), 4))
+
+    ids = rng.integers(1, 1 << 20, (n, lc)).astype(np.int32)
+    L = rng.integers(0, lc + 1, n).astype(np.int32)
+    a, b = lanes(), lanes()
+    for fn, args in ((TK.batched_apply, (ids, L, a)),
+                     (TK.batched_rebase, (a, b, L, False)),
+                     (TK.batched_rebase, (a, b, L, True)),
+                     (TK.batched_invert, (ids, L, a)),
+                     (TK.batched_compose, (a, b, L))):
+        got = fn(*args, device="cuda")
+        want = fn(*args, device="cpu")
+        flat = (lambda r: list(r[0]) + [r[1]] if fn is TK.batched_compose
+                else list(r))
+        for x, y in zip(flat(got), flat(want)):
+            assert torch.equal(x.cpu(), y), fn.__name__

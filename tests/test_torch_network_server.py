@@ -694,7 +694,9 @@ def test_real_sockets_same_streams_and_texts(monkeypatch):
 
 def _push_socket(port, doc):
     """A raw websocket subscribed to ``doc``'s push stream (frames off),
-    returned once ``subscribe_push_success`` has arrived."""
+    returned once ``subscribe_push_success`` has arrived, with the frames
+    decoded after it in the same read (the server may push the first ops
+    right behind the reply)."""
     import socket
 
     sock = socket.create_connection(("127.0.0.1", port), timeout=10)
@@ -708,10 +710,12 @@ def _push_socket(port, doc):
     sock.sendall(port_wsproto.encode_frame(port_wsproto.OP_TEXT, json.dumps(
         {"type": "subscribe_push", "doc": doc, "from_seq": 0}).encode(),
         mask=True))
-    while not any(op == port_wsproto.OP_TEXT and json.loads(p)["type"]
-                  == "subscribe_push_success" for op, p in pending):
-        pending = dec.feed(sock.recv(65536))
-    return sock, dec
+    while True:
+        for i, (op, p) in enumerate(pending):
+            if (op == port_wsproto.OP_TEXT
+                    and json.loads(p)["type"] == "subscribe_push_success"):
+                return sock, dec, pending[i + 1:]
+        pending = list(dec.feed(sock.recv(65536)))
 
 
 def _wait(pred, timeout_s=15.0):
@@ -740,7 +744,7 @@ def test_push_writes_run_on_drainer_thread():
     try:
         writer = port_driver.NetworkFluidService(
             "127.0.0.1", srv.port).connect("off")
-        sock, dec = _push_socket(srv.port, "off")
+        sock, dec, early = _push_socket(srv.port, "off")
         frame = SIDES["port"]["opframe"].OpFrame.build(
             "s", ["ins"] * 4, [0] * 4,
             [writer.conn_no * (1 << 14) + 1 + j for j in range(4)],
@@ -751,6 +755,15 @@ def test_push_writes_run_on_drainer_thread():
             for m in c.inbox), 15)
         head = max(m.sequence_number for m in writer.inbox)
         got = []
+
+        def take(frames):
+            for opcode, payload in frames:
+                if opcode == port_wsproto.OP_TEXT:
+                    m = json.loads(payload.decode())
+                    if m.get("type") == "op":
+                        got.append(m["msg"]["sequence_number"])
+
+        take(early)
         sock.settimeout(0.2)
         deadline = time.monotonic() + 15
         while (not got or max(got) < head) and time.monotonic() < deadline:
@@ -760,11 +773,7 @@ def test_push_writes_run_on_drainer_thread():
                 sock.sendall(port_wsproto.encode_frame(
                     port_wsproto.OP_PING, b"", mask=True))
                 continue
-            for opcode, payload in dec.feed(data):
-                if opcode == port_wsproto.OP_TEXT:
-                    m = json.loads(payload.decode())
-                    if m.get("type") == "op":
-                        got.append(m["msg"]["sequence_number"])
+            take(dec.feed(data))
         assert got == list(range(1, head + 1)), got
         dr = srv._push_drainer
         assert _wait(lambda: dr.batches >= 1 and dr.threads), \
