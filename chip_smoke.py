@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --ab PARENT_DIR [NAME=VALUE,... ...]
     python3 chip_smoke.py --tree [NAME=VALUE ...]
+    python3 chip_smoke.py --client
 
 Builds the hand-written kernels (``nvcc``, into the package's ``_build/``)
 and the native ticket loop, blob store and partition log (``g++``), then:
@@ -84,11 +85,25 @@ and the native ticket loop, blob store and partition log (``g++``), then:
    converged. The scans run under ``torch.cuda.set_sync_debug_mode(
    "error")`` and are held bit for bit to the same function on the CPU
    for 16 documents; launches and device time a step come from
-   ``torch.profiler``.
+   ``torch.profiler``;
+8. client merge path — under ``torch.cuda.set_sync_debug_mode("warn")``:
+   8a config 1 (``config1_single_doc_replay``): the 10,000-op author with
+   ``SharedString(device=cuda)``, readers replaying its deltas log through
+   ``ReplayDocumentService`` on the card (timed, syncs counted over 1,000
+   messages; every op timed, launches counted by table width) and on the
+   CPU, the card equal to the author's text and the CPU's lanes; 8b config
+   2b (2,048 docs x 256 x K 16, 50 steps, K3 every 4th) and 8c config 4
+   (20,000 kernel docs x 256 x K 64 through ``merge_kernel``'s batched
+   API), each replayed through the plain versions; 8d three runtimes with
+   a SharedString (two interval collections), SharedMatrix, SparseMatrix
+   and SharedMap, undo-redo and a reconnect, converged and equal to the
+   same script on the CPU; 8e ``server_main`` and the port's smoke client;
+   then K1/K2/K3 held against their plain versions at one document on
+   every tier and at 8b's and 8c's shapes.
 
 Launch counts (in all, and by tier: smem / cluster / global) are reset
 before each main path (2, then 3a+3b, then 4, then 5, then 6's client
-run) and read after it;
+run, then each of 8a-8e) and read after it;
 the DocFleet path must launch K1 and K2 on the cluster tier. Prints the
 ptxas report of every kernel entry, each phase's wall time, the card's
 name and power limit, a ``{"kernels": [...]}`` line, and last ``{"ok":
@@ -107,6 +122,9 @@ see :func:`server_repeat`), and writes ``server_repeat.json``.
 
 With ``--tree``, it runs only phase 7 (``phase_tree``'s keyword arguments
 as ``NAME=VALUE``, e.g. ``b_commits=1000``) and writes ``tree.json``.
+
+With ``--client``, it builds the kernels and native libraries and runs
+only phase 8, and writes ``client.json``.
 """
 
 from __future__ import annotations
@@ -2888,14 +2906,14 @@ def tree_3(dev, n_edits=1000, budget_s=60.0, min_docs=16, max_docs=1000):
 
 def phase_tree(device, report, b_docs=1024, b_commits=250, c_docs=1024,
                c_commits=256, m_docs=512, m_commits=256, wave=128,
-               c3_budget_s=60.0, c3_min_docs=16):
+               c3_budget_s=30.0, c3_min_docs=16):
     """Phase 7: the SharedTree rebase path on the card — 7a config 3b,
     7b configs 3c and 3c-moves, 7c config 3. Depth is cut to keep the
-    phase near 240 s on one H100: 7a runs 250 of the bench's 1,000
+    phase near 210 s on one H100: 7a runs 250 of the bench's 1,000
     commits a document (a step costs the same at every depth), 7b's
     config 3c 256 of its 512 (two waves; a wave's host work grows with
-    its index). Every width, the document batches and the move mix are
-    the bench's."""
+    its index), 7c documents for 30 s (at least 16). Every width, the
+    document batches and the move mix are the bench's."""
     out = {}
     t = time.perf_counter()
     out["3b"] = tree_3b(device, n_docs=b_docs, n_commits=b_commits)
@@ -3027,6 +3045,656 @@ def ab(parent: str, variants=()) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the client merge path (SharedString, SharedMatrix, SparseMatrix,
+# undo-redo, the replay driver and the smoke client) on the card.
+
+# Rows of the one-document tables phase 8 holds K1/K2 at: the shared tier,
+# the cluster tier (one document over 4-16 CTAs) and the global tier.
+CLIENT_D1_CAPS = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
+
+
+class _Uncounted:
+    """Launches inside this block (holding a kernel against its plain
+    version) leave every launch count as it was."""
+
+    def __enter__(self):
+        self._saved = [(spec["wrapper"], dict(vars(spec["wrapper"])))
+                       for spec in KERNELS.values()]
+
+    def __exit__(self, *exc):
+        for w, attrs in self._saved:
+            for key, v in attrs.items():
+                if key.startswith("launches"):
+                    setattr(w, key, v)
+
+
+class _ByWidth:
+    """Counts the client API's K1/K2 launches by table width (rows) and
+    the DDS modules' compactions and grows, by wrapping the names the
+    modules call; the wrapped functions run unchanged."""
+
+    def __init__(self):
+        from collections import Counter
+
+        self.k1, self.k2 = Counter(), Counter()
+        self.compacts = self.grows = 0
+
+    def __enter__(self):
+        from fluidframework_tpu_torch.models import shared_string as SS
+        from fluidframework_tpu_torch.ops import merge_kernel as MK
+
+        self._saved = [(MK, "apply_ops_packed", MK.apply_ops_packed),
+                       (MK, "compact_packed", MK.compact_packed),
+                       (SS, "compact", SS.compact), (SS, "grow", SS.grow)]
+        k1, k2, compact, grow = (f for _m, _n, f in self._saved)
+
+        def apply_w(t, s, ops, **kw):
+            self.k1[t.shape[2]] += 1
+            return k1(t, s, ops, **kw)
+
+        def compact_w(t, s, **kw):
+            self.k2[t.shape[2]] += 1
+            return k2(t, s, **kw)
+
+        def compact_dds(state):
+            self.compacts += 1
+            return compact(state)
+
+        def grow_dds(state, cap):
+            self.grows += 1
+            return grow(state, cap)
+
+        MK.apply_ops_packed, MK.compact_packed = apply_w, compact_w
+        SS.compact, SS.grow = compact_dds, grow_dds
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def _count_syncs(fn, *args):
+    """Run ``fn`` with every warning recorded; return (result, how many
+    were CUDA synchronizations, which ``set_sync_debug_mode("warn")``
+    reports)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        out = fn(*args)
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def config1_author(device, n_ops: int, sync_window=(1000, 2000)):
+    """``config1_single_doc_replay``'s author (bench_configs.py): a
+    ``ContainerRuntime`` + ``SharedString`` over ``LocalFluidService``,
+    seed 0, 45% removes of 1-2 chars, 2-char inserts, flush and
+    ``process_incoming`` every 16 ops. Returns (service, runtime, wall s,
+    syncs in the ops of ``sync_window``)."""
+    from fluidframework_tpu_torch.models.shared_string import SharedString
+    from fluidframework_tpu_torch.runtime.container import ContainerRuntime
+    from fluidframework_tpu_torch.service.local_server import (
+        LocalFluidService,
+    )
+
+    rng = np.random.default_rng(0)
+    svc = LocalFluidService()
+    author = ContainerRuntime(
+        svc, "doc", channels=(SharedString("text", device=device),))
+    s = author.get_channel("text")
+
+    def edit(lo, hi):
+        for i in range(lo, hi):
+            length = len(s.get_text())
+            if length > 8 and rng.random() < 0.45:
+                a = int(rng.integers(0, length - 2))
+                s.remove_range(a, a + int(rng.integers(1, 3)))
+            else:
+                s.insert_text(int(rng.integers(0, length + 1)), "ab")
+            if i % 16 == 0:
+                author.flush()
+                author.process_incoming()
+
+    w0, w1 = (min(w, n_ops) for w in sync_window)
+    t0 = time.perf_counter()
+    edit(0, w0)
+    syncs = _count_syncs(edit, w0, w1)[1]
+    edit(w1, n_ops)
+    author.flush()
+    author.process_incoming()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return svc, author, time.perf_counter() - t0, syncs
+
+
+def replay_reader(deltas, device, window=None):
+    """A reader ``ContainerRuntime`` replaying the deltas log through
+    ``ReplayDocumentService`` (``config1_single_doc_replay``'s reader; the
+    runtime catches up while it is built). With ``window`` (lo, hi) the
+    replay controller stops the catch-up at seq lo, releases lo..hi to one
+    ``process_incoming``, then the rest. Returns (channel, wall s with the
+    card synchronized, syncs counted in each of those steps, messages in
+    the window)."""
+    from fluidframework_tpu_torch.drivers.replay_driver import (
+        ReplayDocumentService,
+    )
+    from fluidframework_tpu_torch.models.shared_string import SharedString
+    from fluidframework_tpu_torch.runtime.container import ContainerRuntime
+
+    replay = ReplayDocumentService(deltas, doc_id="doc",
+                                   replay_to=window[0] if window else None)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reader, built = _count_syncs(lambda: ContainerRuntime(
+        replay, "doc", channels=(SharedString("text", device=device),)))
+    syncs, in_window = [built], 0
+    if window:
+        replay.replay_to(window[1])
+        in_window, n = _count_syncs(reader.process_incoming)
+        syncs.append(n)
+        replay.replay_all()
+        syncs.append(_count_syncs(reader.process_incoming)[1])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return (reader.get_channel("text"), time.perf_counter() - t0, syncs,
+            in_window)
+
+
+def _lanes_equal(a, b, what: str) -> None:
+    """Two states (or their ``segment_state_to_numpy`` lanes) equal in
+    every lane and scalar."""
+    from fluidframework_tpu_torch.interop import segment_state_to_numpy
+
+    a, b = (segment_state_to_numpy(x) if isinstance(x[0], torch.Tensor)
+            else x for x in (a, b))
+    for name, x, y in zip(SEGMENT_LANES + ("count", "min_seq", "cur_seq",
+                                           "self_client", "err"), a, b):
+        if x.shape != y.shape or not np.array_equal(x, y):
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def _cpu_replay(deltas):
+    """The CPU reader of 8a, run in a process of its own (one torch
+    thread) beside the card's work: (text, lanes, wall s)."""
+    from fluidframework_tpu_torch.interop import segment_state_to_numpy
+
+    torch.set_num_threads(1)
+    reader, dt = replay_reader(deltas, torch.device("cpu"))[:2]
+    return reader.get_text(), segment_state_to_numpy(reader._state), dt
+
+
+def client_8a(device, out, n_ops=10_000):
+    """Config 1: the author on the card, a card reader (timed as the bench
+    times it, syncs counted over sequence numbers 2,001-3,000), a card
+    reader with every op timed (CUDA events, host wall with a synchronize)
+    and its launches counted by width, and a CPU reader (in a spawned
+    process beside the card readers); the card readers equal the author's text
+    and the CPU reader's lanes bit for bit."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from fluidframework_tpu_torch.models.shared_string import SharedString
+    from fluidframework_tpu_torch.ops.segment_state import capacity_of
+
+    svc, author, author_s, author_syncs = config1_author(device, n_ops)
+    text = author.get_channel("text").get_text()
+    deltas = svc.get_deltas("doc")
+    pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        cpu = pool.submit(_cpu_replay, deltas)
+        reader, dt, syncs, window_msgs = replay_reader(
+            deltas, device, window=(2000, 3000))
+        timed_reader, host_ms, dev_ms, widths = _timed_replay(deltas,
+                                                              device)
+        cpu_text, cpu_lanes, cpu_s = cpu.result()
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    if reader.get_text() != text or cpu_text != text:
+        raise AssertionError("8a: a reader's text != the author's")
+    _lanes_equal(reader._state, cpu_lanes, "8a card reader vs CPU")
+    _lanes_equal(timed_reader._state, cpu_lanes, "8a timed reader vs CPU")
+    out.update(
+        n_ops=len(deltas), single_doc_replay_ops_per_sec=len(deltas) / dt,
+        replay_s=dt, author_s=author_s, author_ops_per_sec=n_ops / author_s,
+        cpu_replay_ops_per_sec=len(deltas) / cpu_s,
+        apply_ms_p50=_pct(host_ms, 50), apply_ms_p99=_pct(host_ms, 99),
+        apply_event_ms_p50=_pct(dev_ms, 50),
+        apply_event_ms_p99=_pct(dev_ms, 99),
+        syncs_reader_window=syncs[1], window_msgs=window_msgs,
+        syncs_reader_all=sum(syncs),
+        syncs_author_1000_ops=author_syncs,
+        compactions=widths.compacts, grows=widths.grows,
+        peak_capacity=capacity_of(reader._state),
+        author_capacity=capacity_of(author.get_channel("text")._state),
+        k1_by_width=dict(widths.k1), k2_by_width=dict(widths.k2),
+        text_len=len(text),
+    )
+    print(f"8a config 1: {len(deltas)} msgs, card replay "
+          f"{out['single_doc_replay_ops_per_sec']:.0f} ops/s ({dt:.3f} s), "
+          f"CPU replay {out['cpu_replay_ops_per_sec']:.0f} ops/s, author "
+          f"{out['author_ops_per_sec']:.0f} ops/s; apply p50/p99 host "
+          f"{out['apply_ms_p50']:.4f}/{out['apply_ms_p99']:.4f} ms, events "
+          f"{out['apply_event_ms_p50']:.4f}/{out['apply_event_ms_p99']:.4f} "
+          f"ms; syncs: reader {syncs[1]} in {window_msgs} msgs (seqs "
+          f"2,001-3,000; {sum(syncs)} in all), author "
+          f"{author_syncs} in 1,000 ops; compactions {widths.compacts}, "
+          f"grows {widths.grows}, peak capacity {out['peak_capacity']}; "
+          f"K1 by width {dict(widths.k1)}, K2 by width {dict(widths.k2)}; "
+          "card == CPU bit for bit", flush=True)
+    return reader._state
+
+
+def _timed_replay(deltas, device):
+    """A card reader with every op timed on its own (CUDA events around
+    the op, host wall up to a synchronize after it) and its K1/K2 launches,
+    compactions and grows counted: (channel, host ms, event ms,
+    :class:`_ByWidth`)."""
+    from fluidframework_tpu_torch.models.shared_string import SharedString
+
+    host_ms, ev = [], []
+    orig = SharedString._apply
+
+    def timed(self, row):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        a.record()
+        orig(self, row)
+        b.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t) * 1e3)
+        ev.append((a, b))
+
+    SharedString._apply = timed
+    try:
+        with _ByWidth() as widths:
+            reader = replay_reader(deltas, device)[0]
+    finally:
+        SharedString._apply = orig
+    return reader, host_ms, [a.elapsed_time(b) for a, b in ev], widths
+
+
+def client_8b(device, out, n_docs=2048, k=16, steps=50):
+    """Config 2b (``config2b_apply_latency``): 2,048 docs x 256 rows x
+    K 16, a warm-up of each kernel, then 50 steps with K3 every 4th, each
+    step ending in the err lane's readback; replayed through the plain
+    versions from the same start, bit for bit."""
+    from fluidframework_tpu_torch.ops.segment_state import make_batched_state
+    from fluidframework_tpu_torch.testing.merge_streams import (
+        build_op_stream,
+    )
+
+    ops = torch.from_numpy(build_op_stream(
+        n_docs, k, np.random.default_rng(0))).to(device)
+    t, s = K1.pack_state(make_batched_state(n_docs, 256, NO_CLIENT,
+                                            device=device))
+    t0, s0 = t.clone(), s.clone()
+    K1.apply_ops_packed(t, s, ops)
+    K2.apply_compact_packed(t, s, ops)
+    s[:, K1.SC_ERR].cpu()
+    mid = (t.clone(), s.clone())
+    times = []
+    for i in range(steps):
+        a = time.perf_counter()
+        if i % 4 == 3:
+            K2.apply_compact_packed(t, s, ops)
+        else:
+            K1.apply_ops_packed(t, s, ops)
+        s[:, K1.SC_ERR].cpu()
+        times.append((time.perf_counter() - a) * 1e3)
+    errs = int(s[:, K1.SC_ERR].sum())
+    pt, ps = K1.apply_plain(t0, s0, ops)
+    pt, ps = K2.apply_compact_plain(pt, ps, ops)
+    for i in range(steps):
+        fn = K2.apply_compact_plain if i % 4 == 3 else K1.apply_plain
+        pt, ps = fn(pt, ps, ops)
+    if errs or not (torch.equal(pt, t) and torch.equal(ps, s)):
+        raise AssertionError(f"8b: errs {errs} or kernels != plain replay")
+    arr = np.asarray(times)
+    out.update(
+        apply_step_latency_ms=float(np.median(arr)),
+        p99_ms=_pct(times, 99),
+        apply_step_median_ms=float(np.median(np.delete(arr, np.s_[3::4]))),
+        fused_zamboni_step_median_ms=float(np.median(arr[3::4])),
+        ops_per_sec=n_docs * k * steps / (arr.sum() / 1e3), errs=errs,
+        n_docs=n_docs, k=k,
+    )
+    print(f"8b config 2b: {n_docs} docs x 256 x K {k}: step median "
+          f"{out['apply_step_latency_ms']:.4f} ms, p99 {out['p99_ms']:.4f}, "
+          f"plain-step median {out['apply_step_median_ms']:.4f}, fused-step "
+          f"median {out['fused_zamboni_step_median_ms']:.4f}, "
+          f"{out['ops_per_sec']:.0f} ops/s, errs 0, plain replay exact",
+          flush=True)
+    return mid, ops
+
+
+def client_8c(device, out, n_matrices=10_000, k=64, iters=3, sample=64):
+    """Config 4 (``config4_matrix_axis_merge``): 10,000 matrices, 20,000
+    kernel docs x 256 rows x K 64, through ``merge_kernel``'s batched API on
+    a packed state: a warm-up apply, then 3 timed iterations of
+    ``jit_batched_apply_ops`` + ``batched_compact``, each ending in the err
+    readback; a sample of docs (the 16 scripts and random tiled copies)
+    replayed through the plain versions, bit for bit."""
+    from fluidframework_tpu_torch.ops import merge_kernel as MK
+    from fluidframework_tpu_torch.ops.segment_state import (
+        make_batched_state,
+        packed_of,
+        packed_views,
+    )
+    from fluidframework_tpu_torch.testing.merge_streams import (
+        matrix_axis_stream,
+    )
+
+    docs = 2 * n_matrices
+    ops = torch.from_numpy(matrix_axis_stream(
+        docs, k, np.random.default_rng(0))).to(device)
+    state = packed_views(*K1.pack_state(make_batched_state(
+        docs, 256, NO_CLIENT, device=device)))
+    state = MK.jit_batched_apply_ops(state, ops)
+    errs = int(state.err.sum())
+    mid = tuple(x.clone() for x in packed_of(state))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state = MK.jit_batched_apply_ops(state, ops)
+        state = MK.batched_compact(state)
+        errs = int(state.err.sum())
+    dt = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+    idx = torch.from_numpy(np.concatenate([
+        np.arange(16), rng.choice(np.arange(16, docs), sample - 16, False)
+    ])).to(device)
+    pt, ps = K1.pack_state(make_batched_state(sample, 256, NO_CLIENT,
+                                              device=device))
+    pops = ops[idx]
+    pt, ps = K1.apply_plain(pt, ps, pops)
+    for _ in range(iters):
+        pt, ps = K1.apply_plain(pt, ps, pops)
+        pt, ps = K2.compact_plain(pt, ps)
+    t, s = packed_of(state)
+    if errs or not (torch.equal(pt, t[:, idx]) and torch.equal(ps, s[idx])):
+        raise AssertionError(f"8c: errs {errs} or sample != plain replay")
+    out.update(matrix_axis_ops_per_sec=docs * k * iters / dt, errs=errs,
+               n_matrices=n_matrices, kernel_docs=docs, k=k, seconds=dt,
+               sample_docs=sample)
+    print(f"8c config 4: {n_matrices} matrices ({docs} kernel docs) x 256 "
+          f"x K {k}: {out['matrix_axis_ops_per_sec']:.0f} matrix axis "
+          f"ops/s, errs 0, {sample} sampled docs == plain replay",
+          flush=True)
+    return mid, ops
+
+
+def client_family(device, seed=0, steps=300, offline=(70, 100)):
+    """Three ``ContainerRuntime``s, each with a ``SharedString`` (two
+    interval collections), a ``SharedMatrix``, a ``SparseMatrix`` and a
+    ``SharedMap`` on ``device``, over ``LocalFluidService``: a seeded
+    concurrent script, an ``UndoRedoStackManager`` on runtime 0 (string
+    and map handlers) undoing and redoing, and runtime 1 offline from step
+    ``offline[0]`` to ``offline[1]`` with pending string, interval,
+    sparse-row and map ops. Returns each replica's observable state, its
+    kernel lanes and its summaries (after a drain)."""
+    from fluidframework_tpu_torch.framework import undo_redo as UR
+    from fluidframework_tpu_torch.interop import segment_state_to_numpy
+    from fluidframework_tpu_torch.models.shared_map import SharedMap
+    from fluidframework_tpu_torch.models.shared_matrix import SharedMatrix
+    from fluidframework_tpu_torch.models.shared_string import SharedString
+    from fluidframework_tpu_torch.models.sparse_matrix import SparseMatrix
+    from fluidframework_tpu_torch.runtime.container import ContainerRuntime
+    from fluidframework_tpu_torch.service.local_server import (
+        LocalFluidService,
+    )
+
+    svc = LocalFluidService()
+    rts = [ContainerRuntime(svc, "doc", channels=(
+        SharedString("text", capacity=64, device=device),
+        SharedMatrix("m", capacity=32, device=device),
+        SparseMatrix("s", capacity=32, device=device),
+        SharedMap("map"))) for _ in range(3)]
+    stack = UR.UndoRedoStackManager()
+    UR.SharedStringUndoRedoHandler(stack).attach(rts[0].get_channel("text"))
+    UR.SharedMapUndoRedoHandler(stack).attach(rts[0].get_channel("map"))
+    rng = np.random.default_rng(seed)
+    labels = ("comments", "marks")
+    for step in range(steps):
+        if step == offline[0]:
+            rts[1].flush()
+            rts[1].disconnect()
+        if step == offline[1]:
+            rts[1].reconnect()
+        i = int(rng.integers(0, 3))
+        rt = rts[i]
+        s, m, sp, mp = (rt.get_channel(c) for c in ("text", "m", "s", "map"))
+        n = len(s.get_text())
+        r = rng.random()
+        offline_now = not rt.connected
+        if i == 0 and r < 0.08:
+            stack.undo_operation()
+        elif i == 0 and r < 0.12:
+            stack.redo_operation()
+        elif r < 0.35 or n < 6:
+            s.insert_text(int(rng.integers(0, n + 1)), "".join(
+                chr(97 + int(x)) for x in rng.integers(0, 26, 3)))
+        elif r < 0.45:
+            a = int(rng.integers(0, n - 2))
+            s.remove_range(a, a + int(rng.integers(1, 3)))
+        elif r < 0.5:
+            a = int(rng.integers(0, n - 3))
+            s.annotate(a, a + 3, int(rng.integers(1, 6)))
+        elif r < 0.58:
+            col = s.get_interval_collection(labels[step % 2])
+            a = int(rng.integers(0, n - 3))
+            col.add(a, a + 2, props={"k": step})
+        elif r < 0.66 and not offline_now:
+            if m.row_count < 24 and rng.random() < 0.5:
+                m.insert_rows(int(rng.integers(0, m.row_count + 1)), 2)
+            elif m.col_count < 12 and rng.random() < 0.5:
+                m.insert_cols(int(rng.integers(0, m.col_count + 1)), 1)
+            elif m.row_count > 2:
+                m.remove_rows(int(rng.integers(0, m.row_count - 1)), 1)
+        elif r < 0.72 and not offline_now and m.row_count and m.col_count:
+            m.set_cell(int(rng.integers(0, m.row_count)),
+                       int(rng.integers(0, m.col_count)), step)
+        elif r < 0.8:
+            if sp.row_count < 20 or rng.random() < 0.5:
+                sp.insert_rows(int(rng.integers(0, sp.row_count + 1)), 1)
+            elif sp.row_count > 1:
+                sp.remove_rows(int(rng.integers(0, sp.row_count - 1)), 1)
+        elif r < 0.85 and not offline_now and sp.row_count:
+            sp.set_cell(int(rng.integers(0, sp.row_count)),
+                        int(rng.integers(0, 1 << 14)), step)
+        else:
+            mp.set(f"k{int(rng.integers(0, 6))}", step)
+        if i == 0 and rng.random() < 0.5:
+            stack.close_current_operation()
+        if rng.random() < 0.4 and rt.connected:
+            rt.flush()
+        k = int(rng.integers(0, 3))
+        if rng.random() < 0.4 and rts[k].connected:
+            rts[k].process_incoming(int(rng.integers(1, 6)))
+    for rt in rts:
+        rt.flush()
+    while any(rt.process_incoming() for rt in rts):
+        pass
+    snap = []
+    for rt in rts:
+        s, m, sp, mp = (rt.get_channel(c) for c in ("text", "m", "s", "map"))
+        snap.append(dict(
+            text=s.get_text(), annotations=s.annotations(),
+            intervals=[s.get_interval_collection(lb).all() for lb in labels],
+            matrix=m.to_list(),
+            sparse=[sp.row_values(r) for r in range(sp.row_count)],
+            map=sorted(mp.items()),
+            summaries=[json.dumps(rt.get_channel(c).summarize_core())
+                       for c in ("text", "m", "s", "map")],
+            lanes=[segment_state_to_numpy(st) for st in (
+                s._state, m._rows.state, m._cols.state, sp._rows.state)],
+        ))
+    return snap
+
+
+def client_8d(device, out):
+    """The DDS family on the card: every replica converges (text,
+    annotations, grid, sparse cells, map), and every replica's state
+    equals the same script on the CPU bit for bit (lanes, intervals,
+    summaries)."""
+    t = time.perf_counter()
+    card = client_family(device)
+    card_s = time.perf_counter() - t
+    cpu = client_family(torch.device("cpu"))
+    # Interval positions are held card to CPU only: the reference's own
+    # replicas need not agree on them (ROADMAP, section 3).
+    for key in ("text", "annotations", "matrix", "sparse", "map"):
+        if any(r[key] != card[0][key] for r in card):
+            raise AssertionError(f"8d: replicas did not converge on {key}")
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        for key in a:
+            if key == "lanes":
+                for la, lb in zip(a[key], b[key]):
+                    if not all(np.array_equal(x, y) for x, y in zip(la, lb)):
+                        raise AssertionError(f"8d: rt {i} lanes card != CPU")
+            elif a[key] != b[key]:
+                raise AssertionError(f"8d: rt {i} {key} card != CPU")
+    out.update(wall_s=card_s, text_len=len(card[0]["text"]),
+               matrix_shape=[len(card[0]["matrix"]),
+                             len(card[0]["matrix"][0]) if card[0]["matrix"]
+                             else 0])
+    print(f"8d DDS family: 3 runtimes converged on the card in {card_s:.2f}"
+          f" s (text {out['text_len']} chars, grid {out['matrix_shape']}), "
+          "every replica == the CPU run bit for bit", flush=True)
+
+
+def client_8e(device, out):
+    """``python3 -m fluidframework_tpu_torch.service.server_main`` as a
+    subprocess, then the port's deployment smoke
+    (``service/smoke_client.run``) against it: 0 or the phase fails."""
+    from fluidframework_tpu_torch.service import smoke_client
+
+    cmd = [sys.executable, "-m", "fluidframework_tpu_torch.service.server_main",
+           "--config", CONFIG_PATH, "--port", "0", "--host", "127.0.0.1"]
+    if device.type != "cuda":
+        cmd += ["--device", device.type]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True,
+                            cwd=REPO_DIR,
+                            env=dict(os.environ, PYTHONPATH=REPO_DIR))
+    try:
+        info = json.loads(proc.stdout.readline())
+        if info.get("event") != "listening":
+            raise AssertionError(f"8e: server_main did not listen: {info}")
+        t = time.perf_counter()
+        rc = smoke_client.run("127.0.0.1", info["port"], timeout=120.0,
+                              device=device.type)
+        out.update(smoke_rc=rc, smoke_s=time.perf_counter() - t)
+    finally:
+        server_rc = _stop(proc)
+    if rc != 0 or server_rc != 0:
+        raise AssertionError(f"8e: smoke client {rc}, server {server_rc}")
+    print(f"8e smoke client: 0 in {out['smoke_s']:.2f} s against "
+          "server_main on the card", flush=True)
+
+
+def _client_holds(device, reader_state, b_mid, b_ops, c_mid, c_ops):
+    """Each kernel against its plain version at phase 8's shapes, with its
+    time and byte floor: K1/K2 at one document (random cases, K 1, at
+    every width of :data:`CLIENT_D1_CAPS`, and the moves at the tile and
+    cluster-slice edges and the compactions that meet them, one document
+    a launch), the end state of 8a's reader with its next ops; K1/K3 at
+    8b's shape; K1/K2 at 8c's. Launch counts are left as they were."""
+    from fluidframework_tpu_torch.ops.segment_state import to_packed
+
+    rows = []
+
+    def hold(name, t, s, ops, cell, reps=10, plain_reps=3):
+        d, cap = t.shape[1], t.shape[2]
+        k = ops.shape[1] if ops is not None else 0
+        err, ms, plain_ms = hold_kernel(name, t, s, ops, reps, plain_reps)
+        b = bound_bytes(name, d, cap, k)
+        rows.append(dict(kernel=name, cell=cell, docs=d, cap=cap, k=k,
+                         tier=_cuda.tier(cap, KERNELS[name]["entry"]),
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b / HBM_BYTES_PER_S * 1e3, bound_bytes=b,
+                         library_ms=None))
+        if ms is not None:
+            print(f"client kernels {cell} S={cap} D={d} K={k} "
+                  f"({rows[-1]['tier']}) {name}: exact, {ms:.4f} ms (plain "
+                  f"{plain_ms:.3f} ms, bound {rows[-1]['bound_ms']:.5f} ms)",
+                  flush=True)
+
+    with _Uncounted():
+        for cap in CLIENT_D1_CAPS:
+            for seed in range(4):
+                t, s, ops = random_case(np.random.default_rng(cap + seed), 1,
+                                        cap, 1, device)
+                reps = 10 if seed == 0 else 0
+                hold("K1_merge_apply", t, s, ops, "D1", reps)
+                hold("K2_zamboni_compact", t, s, None, "D1", reps)
+            t, s, ops = edge_case(cap, device, k=2)
+            for i in range(t.shape[1]):
+                hold("K1_merge_apply", t[:, i:i + 1].contiguous(),
+                     s[i:i + 1].contiguous(), ops[i:i + 1].contiguous(),
+                     "D1 edge", 0, 0)
+            t, s, _ = compact_edge_case(cap, device)
+            for i in range(t.shape[1]):
+                hold("K2_zamboni_compact", t[:, i:i + 1].contiguous(),
+                     s[i:i + 1].contiguous(), None, "D1 edge", 0, 0)
+        t, s, _single = to_packed(reader_state)
+        nxt = torch.from_numpy(np.stack([
+            E.insert(3, 10**6, 2, seq=10**6, ref=10**6 - 1, client=1),
+        ])[None]).to(device)
+        hold("K1_merge_apply", t, s, nxt, "8a end state")
+        hold("K2_zamboni_compact", t, s, None, "8a end state")
+        hold("K1_merge_apply", *b_mid, b_ops, "8b config 2b")
+        hold("K3_fused_apply_compact", *b_mid, b_ops, "8b config 2b")
+        hold("K1_merge_apply", *c_mid, c_ops, "8c config 4", 5, 1)
+        hold("K2_zamboni_compact", *c_mid, None, "8c config 4", 5, 1)
+    return [r for r in rows if r["ms"] is not None] + [dict(
+        kernel="all", cell="D1 edge", held=sum(
+            1 for r in rows if r["cell"] == "D1 edge"))]
+
+
+def phase_client(device, report):
+    """Phase 8: the client merge path on the card, under
+    ``torch.cuda.set_sync_debug_mode("warn")``: 8a config 1, 8b config 2b,
+    8c config 4, 8d the DDS family through the runtime, 8e the smoke
+    client; then each kernel held against its plain version at these
+    shapes. Launch counts are read per sub-phase; returns their sum."""
+    out = {key: {} for key in ("8a", "8b", "8c", "8d", "8e")}
+    launches = {}
+    wall = {}
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        steps = (("8a", client_8a), ("8b", client_8b), ("8c", client_8c),
+                 ("8d", client_8d), ("8e", client_8e))
+        results = {}
+        for key, fn in steps:
+            reset_counts()
+            t = time.perf_counter()
+            results[key] = fn(device, out[key])
+            wall[key] = time.perf_counter() - t
+            launches[key] = read_counts()
+            print(f"8 {key}: {wall[key]:.1f} s, launches "
+                  f"{ {n: c for n, c in launches[key].items() if c['all']} }",
+                  flush=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    total = {name: {t: sum(launches[k][name][t] for k in launches)
+                    for t in ("all", "smem", "cluster", "global")}
+             for name in KERNELS}
+    for name, c in total.items():
+        if c["all"] <= 0:
+            raise AssertionError(f"{name} never launched on the client path")
+    print(f"client launches by tier: {total}", flush=True)
+    t = time.perf_counter()
+    holds = _client_holds(device, results["8a"], *results["8b"],
+                          *results["8c"])
+    wall["holds"] = time.perf_counter() - t
+    report["phase_client"] = dict(out, launches=launches, total=total,
+                                  holds=holds, wall_s=wall)
+    return dict(launches=total, holds=holds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3112,6 +3780,9 @@ def main() -> int:
     # Phase 7: the SharedTree rebase path (no hand kernel of its own).
     torch.cuda.empty_cache()
     timed("7_tree", phase_tree, device, report)
+    # Phase 8: the client merge path.
+    torch.cuda.empty_cache()
+    client = timed("8_client", phase_client, device, report)
     report["wall_s"] = wall
 
     kernels = []
@@ -3119,7 +3790,8 @@ def main() -> int:
         err, ms, plain_ms, b = main_shape[name]
         by_path = {"fleet_service": launches2[name],
                    "docfleet": launches3[name], "serving": launches4[name],
-                   "pipeline": launches5[name], "server": launches6[name]}
+                   "pipeline": launches5[name], "server": launches6[name],
+                   "client": client["launches"][name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "fluidframework_tpu_torch/csrc/merge_kernels.cu",
@@ -3138,6 +3810,11 @@ def main() -> int:
                          ("tier", "docs", "cap", "k", "ms", "plain_ms",
                           "bound_ms")}
                         for r in glob if r["kernel"] == name],
+            "client_shapes": [{key: r[key] for key in
+                               ("cell", "tier", "docs", "cap", "k", "ms",
+                                "plain_ms", "bound_ms")}
+                              for r in client["holds"]
+                              if r["kernel"] == name],
         })
     report["kernels"] = kernels
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -3169,6 +3846,32 @@ def tree_alone(**kw) -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "tree.json"), "w") as f:
         json.dump(report, f, indent=1)
+    print(smi)
+    return 0
+
+
+def client_alone() -> int:
+    """Phase 8 alone, after the builds (the kernels, and the native
+    libraries 8e's server uses); its record goes to ``client.json`` in the
+    output directory."""
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    with ThreadPoolExecutor(4) as pool:
+        for b in [pool.submit(fn) for fn in (
+                _cuda.build, _load_ticket, native_store_available,
+                native_plog_available)]:
+            b.result()
+    report = {"card": smi, "torch": torch.__version__}
+    t = time.perf_counter()
+    phase_client(device, report)
+    print(f"phase 8_client: {time.perf_counter() - t:.1f} s", flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "client.json"), "w") as f:
+        json.dump(report, f, indent=1, default=str)
     print(smi)
     return 0
 
@@ -3212,6 +3915,10 @@ if __name__ == "__main__":
         sys.exit(tree_alone(**{k: float(v) if "." in v else int(v)
                                for k, v in (a.split("=", 1)
                                             for a in sys.argv[2:])}))
+    if len(sys.argv) > 1 and sys.argv[1] == "--client":
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device; nothing was run")
+        sys.exit(client_alone())
     if len(sys.argv) > 1 and sys.argv[1] == "--socket-client":
         sys.exit(socket_client(sys.argv[2:]))
     if len(sys.argv) > 2 and sys.argv[1] == "--ab":

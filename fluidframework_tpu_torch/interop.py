@@ -14,6 +14,11 @@ import numpy as np
 import torch
 
 from fluidframework_tpu_torch.ops.apply_kernel import N_LANES, N_SCALARS
+from fluidframework_tpu_torch.ops.segment_state import (
+    SegmentState,
+    packed_views,
+    to_host,
+)
 from fluidframework_tpu_torch.parallel.fleet import DocFleet
 from fluidframework_tpu_torch.ops.tree_kernel import DenseChange
 from fluidframework_tpu_torch.service.fleet_service import TpuFleetService
@@ -38,6 +43,32 @@ def state_from_numpy(tables, scalars, device="cuda"):
         raise ValueError("packed state must be int32")
     return (torch.tensor(t, device=dev).contiguous(),
             torch.tensor(s, device=dev).contiguous())
+
+
+def segment_state_from_numpy(arrays, device="cuda") -> SegmentState:
+    """A reference ``SegmentState`` read as numpy arrays (its 20 fields in
+    order: 15 lanes [S] or [D, S], then count, min_seq, cur_seq,
+    self_client, err as 0-d or [D]) -> the port's state, packed, on
+    ``device`` (one copy)."""
+    arrays = [np.asarray(x, np.int32) for x in arrays]
+    if len(arrays) != len(SegmentState._fields):
+        raise ValueError(f"a SegmentState has {len(SegmentState._fields)} "
+                         f"fields, got {len(arrays)}")
+    single = arrays[0].ndim == 1
+    tables = np.stack(arrays[:N_LANES])
+    sc = np.stack(arrays[N_LANES:], axis=-1)
+    if single:
+        tables, sc = tables[:, None], sc[None]
+    scalars = np.zeros((tables.shape[1], N_SCALARS), np.int32)
+    scalars[:, : sc.shape[1]] = sc
+    return packed_views(*state_from_numpy(tables, scalars, device), single)
+
+
+def segment_state_to_numpy(state) -> tuple:
+    """A port ``SegmentState`` -> its 20 fields as host numpy copies in
+    field order (the reference's ``SegmentState`` takes them
+    positionally)."""
+    return tuple(np.array(x, np.int32) for x in to_host(state))
 
 
 def service_from_reference_arrays(

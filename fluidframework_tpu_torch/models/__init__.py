@@ -1,1 +1,3 @@
-"""DDS pieces the serving stage shares with clients."""
+"""Client DDSes: SharedString with its interval collections, SharedMatrix,
+SparseMatrix and SharedMap; SharedString's wire lowering is shared with the
+service's device stage."""

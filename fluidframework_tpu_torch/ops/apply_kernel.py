@@ -33,6 +33,7 @@ import torch
 
 from fluidframework_tpu_torch.ops import _cuda
 from fluidframework_tpu_torch.ops.segment_state import (
+    N_SCALARS,
     SEGMENT_LANES,
     SegmentState,
     removed_by_slot,
@@ -69,9 +70,9 @@ from fluidframework_tpu_torch.protocol.constants import (
 
 _I32 = torch.int32
 N_LANES = len(SEGMENT_LANES)
-# Scalar pack layout (columns of the [D, N_SCALARS] array).
+# Scalar pack layout (columns of the [D, N_SCALARS] array; the order of
+# segment_state.SCALAR_FIELDS).
 SC_COUNT, SC_MIN_SEQ, SC_CUR_SEQ, SC_SELF, SC_ERR = range(5)
-N_SCALARS = 8
 
 (L_KIND, L_ORIG, L_OFF, L_LEN, L_SEQ, L_CLIENT, L_LSEQ, L_RSEQ, L_RLSEQ,
  L_RBITS, L_RBITS2, L_RBITS3, L_ASEQ, L_ALSEQ, L_AVAL) = range(N_LANES)

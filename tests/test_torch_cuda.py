@@ -16,6 +16,7 @@ from chip_smoke import (
     Config6Gen,
     _on_loop,
     _same_states,
+    _lanes_equal,
     _snapshot,
     Recorded,
     ServingRun,
@@ -23,6 +24,8 @@ from chip_smoke import (
     compact_edge_case,
     edge_case,
     bulk_connect,
+    client_family,
+    config1_author,
     hold_kernel,
     pipeline_frames,
     pipeline_round,
@@ -382,3 +385,76 @@ def test_tree_algebra_on_the_card_equals_the_cpu():
                 else list(r))
         for x, y in zip(flat(got), flat(want)):
             assert torch.equal(x.cpu(), y), fn.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [256, 2048, 4096, 16384, 65536])
+def test_kernels_at_one_document_match_plain(cap):
+    """K1 (one op a launch) and K2 at one document on every tier: random
+    states, then each edge move and each edge compaction as a document of
+    its own (a cluster or a split tier of one document)."""
+    _need_card()
+    dev = torch.device("cuda", 0)
+    for seed in range(3):
+        t, s, ops = random_case(np.random.default_rng(cap + seed), 1, cap, 1,
+                                dev)
+        hold_kernel("K1_merge_apply", t, s, ops, 0, 0)
+        hold_kernel("K2_zamboni_compact", t, s, None, 0, 0)
+    t, s, ops = edge_case(cap, dev, k=2)
+    for i in range(t.shape[1]):
+        hold_kernel("K1_merge_apply", t[:, i:i + 1].contiguous(),
+                    s[i:i + 1].contiguous(), ops[i:i + 1].contiguous(), 0, 0)
+    t, s, _ = compact_edge_case(cap, dev)
+    for i in range(t.shape[1]):
+        hold_kernel("K2_zamboni_compact", t[:, i:i + 1].contiguous(),
+                    s[i:i + 1].contiguous(), None, 0, 0)
+
+
+@pytest.mark.cuda
+def test_shared_string_on_the_card_matches_its_cpu_twin():
+    """Config 1's author (1,000 ops) with ``SharedString(device="cuda")``
+    against the same on the CPU: the text and every lane equal, and the
+    card's K1/K2 launched (the client path, one op a launch)."""
+    _need_card()
+    dev = torch.device("cuda", 0)
+    K1.apply_ops_packed.launches = 0
+    _svc, card, _s, _n = config1_author(dev, 1000)
+    assert K1.apply_ops_packed.launches >= 1000
+    _svc, cpu, _s, _n = config1_author(torch.device("cpu"), 1000)
+    a, b = card.get_channel("text"), cpu.get_channel("text")
+    assert a.get_text() == b.get_text()
+    _lanes_equal(a._state, b._state, "card vs CPU")
+    assert a._state.kind.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_dds_family_on_the_card_matches_the_cpu():
+    """Phase 8d's script (SharedString with intervals, SharedMatrix,
+    SparseMatrix, SharedMap, undo-redo, a reconnect) at 120 steps."""
+    _need_card()
+    card = client_family(torch.device("cuda", 0), steps=120, offline=(40, 60))
+    cpu = client_family(torch.device("cpu"), steps=120, offline=(40, 60))
+    for a, b in zip(card, cpu):
+        for key in a:
+            if key == "lanes":
+                for la, lb in zip(a[key], b[key]):
+                    assert all(np.array_equal(x, y) for x, y in zip(la, lb))
+            else:
+                assert a[key] == b[key], key
+
+
+@pytest.mark.cuda
+def test_grow_past_the_largest_tier_raises_on_the_card():
+    """``grow`` beyond 65,536 rows raises on the card (no kernel tier takes
+    the table) instead of moving the state to the CPU."""
+    _need_card()
+    from fluidframework_tpu_torch.ops.segment_state import (
+        grow,
+        make_interactive_state,
+    )
+
+    st = make_interactive_state(65536, 0, device="cuda")
+    with pytest.raises(ValueError, match="65536"):
+        grow(st, 131072)
+    assert grow(make_interactive_state(32768, 0, device="cuda"),
+                65536).kind.device.type == "cuda"

@@ -142,3 +142,26 @@ def test_server_main_process_serves_and_stops():
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=15)
+
+
+def test_smoke_client_against_the_port_server():
+    """The port's deployment smoke (``service/smoke_client.py``) against
+    ``server_main --device cpu``: two networked ``SharedString`` clients
+    converge and the server's device-backed REST read serves their text."""
+    from fluidframework_tpu_torch.service import smoke_client
+
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fluidframework_tpu_torch.service.server_main",
+         "--config", CONFIG, "--port", "0", "--host", "127.0.0.1",
+         "--device", "cpu"],
+        stdout=subprocess.PIPE, text=True, env=env, cwd=REPO)
+    try:
+        info = json.loads(proc.stdout.readline())
+        assert smoke_client.run("127.0.0.1", info["port"], device="cpu") == 0
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=15)

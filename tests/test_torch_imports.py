@@ -59,7 +59,12 @@ def test_port_modules_and_chip_smoke_load_no_jax():
     for m in ("drivers", "drivers.network_driver", "drivers.local_driver",
               "service.network_server", "service.server_main",
               "service.store_server", "service.wsproto",
-              "service.local_server"):
+              "service.local_server", "ops.merge_kernel",
+              "models.shared_string", "models.interval_collection",
+              "models.shared_matrix", "models.sparse_matrix",
+              "models.shared_map", "framework.undo_redo",
+              "runtime.rebase", "drivers.replay_driver",
+              "service.smoke_client", "testing.merge_streams"):
         assert f"fluidframework_tpu_torch.{m}" in mods
 
 
@@ -115,6 +120,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
             t, s, np.zeros((2, 2), np.int32), np.zeros((2, 93, 3), np.int32),
             np.zeros(2, np.int64),
         )
+    from fluidframework_tpu_torch.models.shared_matrix import SharedMatrix
+    from fluidframework_tpu_torch.models.shared_string import SharedString
+    from fluidframework_tpu_torch.models.sparse_matrix import SparseMatrix
+    from fluidframework_tpu_torch.ops.segment_state import (
+        interactive_state_from_rows,
+        make_interactive_state,
+    )
+
+    for make in (lambda: SharedString("t"), lambda: SharedMatrix("m"),
+                 lambda: SparseMatrix("s"),
+                 lambda: make_interactive_state(8, 0),
+                 lambda: interactive_state_from_rows(8, 0, {}, 0, 0, 0)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
     # Asked for by name, the CPU path runs.
     assert TpuFleetService(4, capacity=8, device="cpu").tables.device.type \
         == "cpu"
