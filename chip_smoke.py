@@ -4,9 +4,11 @@
     python3 chip_smoke.py --ab PARENT_DIR [NAME=VALUE,... ...]
     python3 chip_smoke.py --tree [NAME=VALUE ...]
     python3 chip_smoke.py --client
+    python3 chip_smoke.py --mesh
 
 Builds the hand-written kernels (``nvcc``, into the package's ``_build/``)
-and the native ticket loop, blob store and partition log (``g++``), then:
+and the native ticket loop, blob store, partition log and lease
+coordination (``g++``), all at once, then:
 
 1. kernels — holds K1 (merge apply), K2 (compact) and K3 (apply+compact)
    bit-exactly against their plain PyTorch versions on the card, at
@@ -99,11 +101,32 @@ and the native ticket loop, blob store and partition log (``g++``), then:
    and SharedMap, undo-redo and a reconnect, converged and equal to the
    same script on the CPU; 8e ``server_main`` and the port's smoke client;
    then K1/K2/K3 held against their plain versions at one document on
-   every tier and at 8b's and 8c's shapes.
+   every tier and at 8b's and 8c's shapes;
+9. scale-out — the port's device list set to 8 x ``cuda:0`` (the
+   counterpart of the reference's 8-device test mesh): 9a
+   ``fleet_mesh_comparison``'s shape (bench.py:319-383), DocFleet(12,288,
+   128) x K 8 x 3 rounds with and without ``mesh=``, on that list and on
+   the list of every visible card, every mesh pool equal to the no-mesh
+   fleet's; 9b ``serving_pump_benchmark``'s shape (bench.py:387-510),
+   DeviceFleetBackend(capacity=1,024, max_batch=1<<20) with 4,096
+   channels x K 16 x 12 rounds after a compaction cadence of warm-up,
+   pump and one-shot on the mesh and the pump without it, all equal to a
+   ``kernel="plain"`` replay; 9c ``config/config.json`` with
+   ``device_sharded_overflow=True`` through PipelineFluidService's bulk
+   front door: one document grows through every tier, re-homes past
+   49,152 live rows into a ShardedDoc of 8 x 65,536 rows and goes on past
+   80,000, its text equal to a host string, the 1,000 ops after promotion
+   replayed through ``kernel="plain"`` from a clone shard for shard, one
+   apply and one compaction under sync-debug "error", and on the list of
+   every visible card (one card: 524,288 rows a shard) the promotion's
+   ValueError; 9d tests/test_multinode.py's failover and fencing at 3
+   nodes x 1,024 documents over ``NativeCoordination``. K1/K2 held
+   against their plain versions at the mesh shard's and the sharded
+   document's shapes.
 
 Launch counts (in all, and by tier: smem / cluster / global) are reset
 before each main path (2, then 3a+3b, then 4, then 5, then 6's client
-run, then each of 8a-8e) and read after it;
+run, then each of 8a-8e, then each run of 9a-9c) and read after it;
 the DocFleet path must launch K1 and K2 on the cluster tier. Prints the
 ptxas report of every kernel entry, each phase's wall time, the card's
 name and power limit, a ``{"kernels": [...]}`` line, and last ``{"ok":
@@ -125,6 +148,9 @@ as ``NAME=VALUE``, e.g. ``b_commits=1000``) and writes ``tree.json``.
 
 With ``--client``, it builds the kernels and native libraries and runs
 only phase 8, and writes ``client.json``.
+
+With ``--mesh``, it builds the kernels and native libraries and runs only
+phase 9, and writes ``mesh.json``.
 """
 
 from __future__ import annotations
@@ -159,6 +185,7 @@ from fluidframework_tpu_torch.protocol.constants import (
     F_REF,
     F_SEQ,
     F_TYPE,
+    KIND_TEXT,
     NO_CLIENT,
     OP_INSERT,
     OP_REMOVE,
@@ -198,6 +225,7 @@ from fluidframework_tpu_torch.tree import marks as TM
 from fluidframework_tpu_torch.utils import pow2_at_least
 from fluidframework_tpu_torch.utils.native import (
     _load_ticket,
+    native_coordination_available,
     native_plog_available,
     native_store_available,
 )
@@ -215,6 +243,12 @@ AB_WIDTH_SHAPES = ((256, 16384), (512, 16384), (1024, 16384), (256, 256),
                    (512, 256), (1024, 256))
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chiprun_out")
+
+# Every library the smoke builds, all started together: the kernels
+# (nvcc) and the native ticket loop, blob store, partition log and lease
+# coordination (g++).
+BUILDS = (_cuda.build, _load_ticket, native_store_available,
+          native_plog_available, native_coordination_available)
 
 KERNELS = {
     "K1_merge_apply": dict(
@@ -3695,6 +3729,603 @@ def phase_client(device, report):
     return dict(launches=total, holds=holds)
 
 
+# -- phase 9: scale-out (the mesh fleet, the serving pump on the mesh,
+# sharded overflow, multi-node ordering) ----------------------------------------
+
+
+def mesh_op_stream(n_docs: int, k: int, rng) -> np.ndarray:
+    """``build_op_stream`` of bench.py: 16 scripts tiled over the fleet,
+    inserts/removes with fully acked refs, each closed by a whole-document
+    remove that the collab window passes, so the stream replays forever."""
+    ops = np.zeros((n_docs, k, OP_WIDTH), np.int32)
+    for d in range(min(n_docs, 16)):
+        length = seq = 0
+        for i in range(k - 1):
+            seq += 1
+            if length >= 8 and rng.random() < 0.45:
+                a = int(rng.integers(0, length - 2))
+                b = a + int(rng.integers(1, 3))
+                ops[d, i] = E.remove(a, b, seq=seq, ref=seq - 1,
+                                     client=int(rng.integers(0, 8)))
+                length -= b - a
+            else:
+                ops[d, i] = E.insert(int(rng.integers(0, length + 1)),
+                                     1000 + i, 4, seq=seq, ref=seq - 1,
+                                     client=int(rng.integers(0, 8)))
+                length += 4
+        ops[d, k - 1] = E.remove(0, length, seq=k, ref=k - 1, client=0,
+                                 msn=k)
+    for d in range(16, n_docs):
+        ops[d] = ops[d % 16]
+    return ops
+
+
+def _same_pools(a, b, what: str) -> None:
+    """Every pool of fleet ``b`` equals ``a``'s lane for lane (a mesh
+    pool's shards gathered on its first device)."""
+    if sorted(a.pools) != sorted(b.pools):
+        raise AssertionError(f"{what}: pools {sorted(a.pools)} != "
+                             f"{sorted(b.pools)}")
+    for cap, pa in a.pools.items():
+        pb = b.pools[cap]
+        if not (torch.equal(pa.tables, pb.tables.to(pa.device))
+                and torch.equal(pa.scalars, pb.scalars.to(pa.device))
+                and np.array_equal(pa.doc_of_slot, pb.doc_of_slot)):
+            raise AssertionError(f"{what}: pool {cap} differs")
+
+
+def _sum_counts(*counts) -> dict:
+    return {name: {t: sum(c[name][t] for c in counts)
+                   for t in ("all", "smem", "cluster", "global")}
+            for name in KERNELS}
+
+
+def mesh_9a(device, lists, n_docs=12_288, cap=128, k=8, rounds=3):
+    """9a: ``fleet_mesh_comparison``'s TPU shape (bench.py:319-383) —
+    DocFleet(n_docs, cap) with and without ``mesh=``, the same sparse
+    boxcars of k ops to every document + a compaction, two warm steps,
+    then ``rounds`` timed, in turns (no mesh, each list, no mesh again);
+    every mesh pool equal to the no-mesh fleet's."""
+    from fluidframework_tpu_torch.parallel.mesh import Mesh
+
+    ops = mesh_op_stream(n_docs, k, np.random.default_rng(3))
+    docs = np.arange(n_docs)
+
+    def step(fleet):
+        fleet.apply_sparse(docs, ops)
+        fleet.compact()
+
+    def run(fleet):
+        step(fleet)
+        step(fleet)
+        _sync(device)
+        reset_counts()
+        t = time.perf_counter()
+        for _ in range(rounds):
+            step(fleet)
+        _sync(device)
+        wall = time.perf_counter() - t
+        launches = read_counts()
+        step_ms = _event_ms(device, lambda: step(fleet), reps=3)
+        st = fleet.stats()
+        if st["docs_with_errors"]:
+            raise AssertionError(f"9a: {st['docs_with_errors']} docs erred")
+        return dict(ops_per_s=n_docs * k * rounds / wall,
+                    ms_per_step=wall / rounds * 1e3, event_ms_per_step=step_ms,
+                    launches=launches,
+                    launches_per_step={n: c["all"] / rounds
+                                       for n, c in launches.items()})
+
+    base = DocFleet(n_docs, cap, device=device)
+    out = {"no_mesh": run(base)}
+    holds = []
+    for name, devs in lists.items():
+        fleet = DocFleet(n_docs, cap, mesh=Mesh(devs))
+        per = fleet.pools[cap].per
+        if name == "8x":
+            # K1/K2 against their plain versions at one shard's shape.
+            t0, s0 = (x.clone() for x in fleet.pools[cap].parts[0])
+            o0 = torch.from_numpy(ops[:per]).to(device)
+        out[name] = run(fleet)
+        out[name]["shards"] = len(devs)
+        _same_pools(base, fleet, f"9a mesh {name}")
+        if name == "8x":
+            for kname in ("K1_merge_apply", "K2_zamboni_compact"):
+                err, ms, plain_ms = hold_kernel(kname, t0, s0, o0)
+                holds.append(dict(
+                    kernel=kname, cell="9a", docs=per, cap=cap, k=k,
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_bytes(kname, per, cap, k)
+                    / HBM_BYTES_PER_S * 1e3))
+            del t0, s0, o0
+        del fleet
+        torch.cuda.empty_cache()
+    # The no-mesh fleet again, last: the lists ran between its two turns.
+    out["no_mesh_again"] = run(base)
+    for name, r in out.items():
+        print(f"9a {name}: {r['ops_per_s']:,.0f} ops/s, "
+              f"{r['ms_per_step']:.3f} ms a step (event "
+              f"{r['event_ms_per_step']:.3f}), launches a step "
+              f"{r['launches_per_step']}", flush=True)
+    return out, holds
+
+
+def mesh_9b(device, mesh_devs, n_ch=4096, k=16, rounds=12, cap=1024,
+            compact_every=8):
+    """9b: ``serving_pump_benchmark``'s TPU shape (bench.py:387-510) —
+    DeviceFleetBackend(capacity=1,024, max_batch=1<<20) fed n_ch channels
+    of one k-op SeqFrame a round (a compaction cadence of warm-up, then
+    ``rounds`` timed), pump and one-shot on the mesh, the pump without it,
+    and a ``kernel="plain"`` replay: every final pool equal."""
+    from fluidframework_tpu_torch.parallel.mesh import Mesh
+
+    base_rows = np.zeros((n_ch, k, OP_WIDTH), np.int32)
+    base_rows[:, :, F_TYPE] = OP_INSERT
+    base_rows[:, :, F_LEN] = 1
+    ar = np.arange(k, dtype=np.int32)
+
+    def feed(be, r):
+        rows = base_rows.copy()
+        rows[:, :, F_SEQ] = r * k + 1 + ar[None, :]
+        rows[:, :, F_REF] = r * k
+        rows[:, :, F_ARG] = r * k + 1 + ar[None, :]
+        for i in range(n_ch):
+            be.enqueue_frame(f"d{i}", SeqFrame("s", 0, 1, rows[i], (), 0.0))
+
+    def run(pump, mesh=None, kernel="auto"):
+        be = DeviceFleetBackend(
+            capacity=cap, max_batch=1 << 20, mesh=mesh, pump_mode=pump,
+            compact_every=compact_every, kernel=kernel,
+            device=None if mesh is not None else device)
+        for r in range(compact_every):
+            feed(be, r)
+            be.flush()
+        be.collect_now()
+        _sync(device)
+        reset_counts()
+        busy0 = be.pump_busy_s
+        t = time.perf_counter()
+        for r in range(compact_every, compact_every + rounds):
+            feed(be, r)
+            if pump:
+                be.pump_stage()
+                be.pump_dispatch()
+            else:
+                be.flush()
+        if pump:
+            be.pump_drain()
+        else:
+            be.collect_now()
+        _sync(device)
+        wall = time.perf_counter() - t
+        st = be.stats()
+        if st["docs_with_errors"] or st["ops_applied"] != \
+                n_ch * k * (rounds + compact_every):
+            raise AssertionError(f"9b: {st}")
+        return be, dict(
+            ops_per_s=n_ch * k * rounds / wall,
+            ms_per_round=wall / rounds * 1e3,
+            idle_share=max(0.0, 1 - (be.pump_busy_s - busy0) / wall)
+            if pump else None,
+            launches=read_counts())
+
+    mesh = Mesh(mesh_devs)
+    out, fleets = {}, {}
+    for name, pump, m in (("mesh_pump", True, mesh),
+                          ("mesh_oneshot", False, mesh),
+                          ("no_mesh_pump", True, None)):
+        be, out[name] = run(pump, m)
+        fleets[name] = be.fleet
+        print(f"9b {name}: {out[name]['ops_per_s']:,.0f} ops/s, "
+              f"{out[name]['ms_per_round']:.2f} ms a round, idle share "
+              f"{out[name]['idle_share']}, launches "
+              f"{ {n: c['all'] for n, c in out[name]['launches'].items()} }",
+              flush=True)
+    plain, _r = run(False, None, "plain")
+    for name, fleet in fleets.items():
+        _same_pools(plain.fleet, fleet, f"9b {name} vs the plain replay")
+    del fleets, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def _overflow_state(n_rows: int, cap: int):
+    """A host single-document state of ``n_rows`` distinct acked one-char
+    inserts in a ``cap``-row table (no two rows merge on compaction)."""
+    from fluidframework_tpu_torch.ops.segment_state import (
+        LANE_FILLS,
+        SegmentState,
+    )
+
+    lanes = {k: np.full(cap, LANE_FILLS.get(k, 0), np.int32)
+             for k in SEGMENT_LANES}
+    lanes["kind"][:n_rows] = KIND_TEXT
+    lanes["orig"][:n_rows] = np.arange(1, n_rows + 1)
+    lanes["length"][:n_rows] = 1
+    lanes["seq"][:n_rows] = np.arange(1, n_rows + 1)
+    return SegmentState(**lanes, count=np.int32(n_rows), min_seq=np.int32(0),
+                        cur_seq=np.int32(n_rows),
+                        self_client=np.int32(NO_CLIENT),
+                        err=np.int32(0))
+
+
+def mesh_9c(device, window=1000, frame_ops=512, target_rows=80_000,
+            **overrides):
+    """9c: ``config/config.json`` (capacity 128, max capacity 65,536) with
+    ``device_sharded_overflow=True`` through PipelineFluidService's bulk
+    front door: one document of frames of 4-character inserts at random
+    positions (most split a row, so a row costs ~0.6 ops) grows
+    through every tier, re-homes past 49,152 live rows into a ShardedDoc
+    of 8 x 65,536 rows and goes on past ``target_rows``; its text equals a
+    host string of the same inserts. The ``window`` ops after promotion
+    are replayed from a clone through ``kernel="plain"``, every shard bit
+    for bit; one apply and one compaction run under sync-debug "error".
+    ``overrides`` replace config keys (a CPU rehearsal's small tiers)."""
+    from fluidframework_tpu_torch.service.server_main import load_config
+
+    cfg = load_config(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "config", "config.json"),
+        overrides=overrides)
+    svc = PipelineFluidService(
+        n_partitions=cfg["partitions"],
+        checkpoint_every=cfg["checkpoint_every"],
+        device_capacity=cfg["device_capacity"],
+        device_max_capacity=cfg["device_max_capacity"],
+        device_sharded_overflow=True, device_torch=device)
+    be = svc.device
+    doc = "big"
+    conn = svc.connect(doc)
+    rng = np.random.default_rng(9)
+    text: list = []
+    orig = csn = 0
+    ops_total = 0
+    promoted_at = None
+    sharded = None
+    record: list = []
+    twin = None
+    t_start = time.perf_counter()
+    t_promo = None
+    apply_wall = [0.0, 0]
+
+    def frame(n):
+        nonlocal orig, csn
+        kinds, pos, origs, texts = [], [], [], []
+        for _ in range(n):
+            p = int(rng.integers(0, len(text) + 1))
+            orig += 1
+            t = "".join(chr(97 + (orig + j) % 26) for j in range(4))
+            text[p:p] = t
+            kinds.append("ins")
+            pos.append(p)
+            origs.append(orig)
+            texts.append(t)
+        f = OpFrame.build("s", kinds, pos, origs, texts, csn0=csn + 1,
+                          ref=svc.doc_head(doc))
+        csn += n
+        return f
+
+    reset_counts()
+    launches_pre = None
+    while True:
+        if ops_total > 4 * target_rows:
+            raise AssertionError(f"9c: no promotion past {ops_total} ops")
+        idx = be._index.get((doc, "s"))
+        rows_now = (sharded.rows_in_use() if sharded is not None
+                    else 0 if idx is None
+                    else int(be.fleet.doc_counts([idx])[0]))
+        if sharded is not None and rows_now >= target_rows \
+                and len(record) >= 1 and twin is None:
+            break
+        svc.submit_frames_bulk([(doc, conn.client_id, frame(frame_ops))])
+        svc.flush_device()
+        ops_total += frame_ops
+        conn.inbox.clear()
+        if sharded is None and be.stats()["sharded_docs"]:
+            promoted_at = ops_total
+            t_promo = time.perf_counter()
+            launches_pre = read_counts()
+            reset_counts()
+            sharded = be._sharded[idx]
+            twin = sharded.clone(kernel="plain")
+            real = dict(apply=sharded.apply, compact=sharded.compact,
+                        rebalance=sharded.rebalance)
+
+            def apply(rows):
+                t = time.perf_counter()
+                if twin is not None:
+                    record.append(("apply", np.array(rows)))
+                real["apply"](rows)
+                apply_wall[0] += time.perf_counter() - t
+                apply_wall[1] += len(rows)
+
+            def compact():
+                if twin is not None:
+                    record.append(("compact", None))
+                real["compact"]()
+
+            def rebalance(trigger=0.8):
+                if twin is not None:
+                    record.append(("rebalance", trigger))
+                return real["rebalance"](trigger)
+
+            sharded.apply, sharded.compact = apply, compact
+            sharded.rebalance = rebalance
+            print(f"9c: promoted at {ops_total} ops ({rows_now} live rows "
+                  f"before), shard cap {sharded.shard_cap} x "
+                  f"{sharded.n_shards}", flush=True)
+        if twin is not None and sum(len(r[1]) for r in record
+                                    if r[0] == "apply") >= window:
+            # The plain replay of the window from the clone.
+            for what, arg in record:
+                if what == "apply":
+                    twin.apply(arg)
+                elif what == "compact":
+                    twin.compact()
+                else:
+                    twin.rebalance(arg)
+            for f, a, b in zip(SEGMENT_LANES + ("scalars",),
+                               [*sharded.state[:15],
+                                np.stack(sharded.state[15:])],
+                               [*twin.state[:15],
+                                np.stack(twin.state[15:])]):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"9c: the card != the plain replay "
+                                         f"over {window} ops ({f})")
+            print(f"9c: {sum(len(r[1]) for r in record if r[0] == 'apply')}"
+                  f" ops after promotion equal the plain replay, every "
+                  "shard", flush=True)
+            twin = None
+    _sync(device)
+    wall_post = time.perf_counter() - t_promo
+    launches_post = read_counts()
+    ops_post = ops_total - promoted_at
+    st = be.stats()
+    if st["sharded_docs"] != 1 or st["docs_with_errors"]:
+        raise AssertionError(f"9c: {st}")
+    rows = sharded.rows_in_use()
+    if rows < target_rows:
+        raise AssertionError(f"9c: {rows} live rows < {target_rows}")
+    got = svc.device_text(doc, "s")
+    if got != "".join(text):
+        raise AssertionError("9c: the device text != the host string")
+    # No host sync in apply and compact of a clone.
+    probe = sharded.clone()
+    probe_rows = frame(64).rows.copy()
+    probe_rows[:, F_SEQ] = np.arange(64) + int(probe.state.cur_seq.max()) + 1
+    _no_sync(device, probe.apply, probe_rows)
+    _no_sync(device, probe.compact)
+    # One op's launches and device time (torch.profiler), and its host
+    # wall with a synchronize.
+    one = probe_rows[:1].copy()
+    one[0, F_SEQ] += 64
+    prof = _profile(device, lambda: probe.apply(one))
+    one[0, F_SEQ] += 1
+    t = time.perf_counter()
+    probe.apply(one)
+    _sync(device)
+    op_wall_ms = (time.perf_counter() - t) * 1e3
+    # K1/K2 against their plain versions at the sharded shape: one insert
+    # owner, every other shard a NOOP.
+    g = sharded._groups[0]
+    t0, s0 = g.tables.clone(), g.scalars.clone()
+    o1 = torch.zeros((sharded.n_shards, 1, OP_WIDTH), dtype=torch.int32,
+                     device=device)
+    o1[:, 0, F_SEQ] = int(s0[:, 2].max()) + 1
+    o1[3, 0] = torch.from_numpy(E.insert(int(s0[3, 0]) // 2, 1, 1,
+                                         seq=int(s0[:, 2].max()) + 1,
+                                         ref=0, client=0))
+    holds = []
+    for kname in ("K1_merge_apply", "K2_zamboni_compact"):
+        err, ms, plain_ms = hold_kernel(kname, t0, s0, o1)
+        holds.append(dict(
+            kernel=kname, cell="9c", docs=sharded.n_shards,
+            cap=sharded.shard_cap, k=1, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms,
+            bound_ms=bound_bytes(kname, sharded.n_shards, sharded.shard_cap,
+                                 1) / HBM_BYTES_PER_S * 1e3))
+    del t0, s0, probe
+    out = dict(
+        ops_total=ops_total, promoted_at_ops=promoted_at,
+        live_rows=rows, shard_rows=[int(c) for c in sharded.state.count],
+        ops_per_s_after_promotion=ops_post / wall_post,
+        ms_per_op_after_promotion=wall_post / ops_post * 1e3,
+        apply_ms_per_op=apply_wall[0] / max(apply_wall[1], 1) * 1e3,
+        launches_before_promotion=launches_pre,
+        launches_after_promotion=launches_post,
+        launches_per_op={n: c["all"] / ops_post
+                         for n, c in launches_post.items()},
+        one_op=dict(prof, host_ms_synced=op_wall_ms),
+        wall_s=time.perf_counter() - t_start, stats=dict(
+            sharded_docs=st["sharded_docs"], sharded_rows=st["sharded_rows"],
+            docs_with_errors=st["docs_with_errors"]))
+    print(f"9c: {ops_total} ops, {rows} live rows over "
+          f"{sharded.n_shards} shards {out['shard_rows']}; after promotion "
+          f"{out['ops_per_s_after_promotion']:,.0f} ops/s "
+          f"({out['ms_per_op_after_promotion']:.3f} ms an op, apply "
+          f"{out['apply_ms_per_op']:.3f} ms), launches an op "
+          f"{out['launches_per_op']}; one op: {prof['launches']} device "
+          f"launches, {prof['device_us']:.1f} µs busy, {prof['aten_ops']} "
+          f"ATen ops, {op_wall_ms:.3f} ms synced", flush=True)
+    del svc, be, sharded
+    torch.cuda.empty_cache()
+    return out, holds
+
+
+def mesh_9c_one_entry(device, visible) -> str:
+    """9c on the list of every visible card: with one card the backend's
+    overflow promotion asks for 8 x 65,536 / 1 = 524,288 rows a shard,
+    past K1's largest tier, and must raise the port's ValueError (a doc
+    of 49,153 distinct rows is placed at the top tier's high water)."""
+    from fluidframework_tpu_torch.parallel import mesh as M
+
+    be = DeviceFleetBackend(capacity=65536, max_capacity=65536,
+                            sharded_overflow=True, device=device)
+    idx = be.ensure("one", "s")
+    be.fleet.evict_doc(idx)
+    be.fleet.restore_doc(idx, _overflow_state(49_153, 65536))
+    cap = -(-8 * 65536 // len(visible))
+    M.set_devices(visible)
+    try:
+        be._promote_overflow()
+    except ValueError as e:
+        print(f"9c list {[str(d) for d in visible]}: ValueError: {e}",
+              flush=True)
+        return str(e)
+    finally:
+        M.set_devices([device] * 8)
+    if cap > 65536:
+        raise AssertionError(f"9c: a {cap}-row shard on the card did not "
+                             "raise")
+    return f"{len(visible)} cards: {cap} rows a shard fit the kernels"
+
+
+def mesh_9d(n_nodes=3, n_docs=1024, fenced=16):
+    """9d: tests/test_multinode.py's failover and fencing at 3 nodes x
+    1,024 documents over NativeCoordination (``native/coordination.cpp``):
+    two replicas of a SharedMap per document, the node holding the most
+    documents killed, its documents sequenced again by the survivors
+    (the failover time), stale owners fenced; every log contiguous and
+    fenced, every replica pair equal."""
+    from fluidframework_tpu_torch.models.shared_map import SharedMap
+    from fluidframework_tpu_torch.protocol.types import (
+        DocumentMessage as DM,
+        NackMessage,
+    )
+    from fluidframework_tpu_torch.runtime.container import ContainerRuntime
+    from fluidframework_tpu_torch.service.multinode import (
+        MultiNodeFluidService,
+    )
+    from fluidframework_tpu_torch.utils.native import NativeCoordination
+
+    now = [1000.0]
+
+    def clock():
+        return now[0]
+
+    svc = MultiNodeFluidService(
+        n_nodes=n_nodes, clock=clock,
+        reservations=NativeCoordination(clock), lease_ttl_s=5.0,
+        rebalance_every=0)
+    docs = [f"doc-{i}" for i in range(n_docs)]
+    rts = {}
+    t = time.perf_counter()
+    for d in docs:
+        a = ContainerRuntime(svc, d, channels=(SharedMap("m"),))
+        b = ContainerRuntime(svc, d, channels=(SharedMap("m"),))
+        a.get_channel("m").set("k", "before")
+        for rt in (a, b):
+            rt.flush()
+        while a.process_incoming() or b.process_incoming():
+            pass
+        rts[d] = (a, b)
+    setup_s = time.perf_counter() - t
+    owners = {d: svc.cluster.reservations.holder(d) for d in docs}
+    per_node = {n.name: sum(1 for o in owners.values() if o == n.name)
+                for n in svc.cluster.nodes}
+    victim = max(per_node, key=per_node.get)
+    moved = [d for d in docs if owners[d] == victim]
+    next(n for n in svc.cluster.nodes if n.name == victim).kill()
+    now[0] += 10  # the victim's leases lapse
+    t = time.perf_counter()
+    for d in moved:
+        a, b = rts[d]
+        b.get_channel("m").set("k", "after")
+        b.flush()
+        while a.process_incoming() or b.process_incoming():
+            pass
+    failover_s = time.perf_counter() - t
+    # Stale owners: a paused holder loses its lease to a survivor and its
+    # next (valid) ticket is fenced off the log.
+    fences = 0
+    picks = [d for d in docs if d not in moved][:fenced]
+    stale_of = {d: svc.cluster.owner(d) for d in picks}  # renews the lease
+    now[0] += 10  # the holders pause past their leases
+    for d in picks:
+        stale = stale_of[d]
+        other = next(n for n in svc.cluster.nodes
+                     if n.alive and n is not stale)
+        if not other.try_own(d):
+            raise AssertionError(f"9d: no takeover of {d}")
+        a = rts[d][0]
+        zombie = stale._docs[d]
+        res = stale.ticket(d, a.client_id, DM(
+            zombie.clients[a.client_id].client_seq + 1, zombie.seq,
+            MessageType.OPERATION, contents={"address": "m",
+                                              "contents": None}))
+        fences += isinstance(res, NackMessage)
+    for d in docs:
+        seqs = [m.sequence_number for m in svc.get_deltas(d)]
+        if seqs != list(range(1, len(seqs) + 1)):
+            raise AssertionError(f"9d: {d}'s log is not contiguous")
+        a, b = rts[d]
+        if a.get_channel("m").get("k") != b.get_channel("m").get("k"):
+            raise AssertionError(f"9d: {d}'s replicas differ")
+    if any(svc.cluster.op_log._epochs[d] < 2 for d in moved) or \
+            fences != fenced:
+        raise AssertionError("9d: a takeover was not fenced")
+    out = dict(nodes=n_nodes, docs=n_docs, per_node=per_node,
+               killed=victim, migrated=len(moved), setup_s=setup_s,
+               failover_s=failover_s,
+               failover_ms_per_doc=failover_s / max(len(moved), 1) * 1e3,
+               fenced=fences)
+    print(f"9d: {n_nodes} nodes x {n_docs} docs {per_node}; killed "
+          f"{victim}: {len(moved)} docs failed over in {failover_s:.3f} s "
+          f"({out['failover_ms_per_doc']:.3f} ms a doc); {fences} stale "
+          "owners fenced; every log contiguous", flush=True)
+    return out
+
+
+def phase_mesh(device, report):
+    """Phase 9: scale-out. The port's device list is set to 8 x
+    ``cuda:0`` (the counterpart of the reference's 8-device test mesh);
+    9a also runs the 1-entry list of every visible card. Launch counts are
+    reset before each sub-phase and read after it; returns the mesh path's
+    (9a's and 9b's mesh runs) and the sharded path's (9c) launches and the
+    kernel holds at their shapes."""
+    from fluidframework_tpu_torch.parallel import mesh as M
+
+    visible = [torch.device("cuda", i)
+               for i in range(torch.cuda.device_count())]
+    lists = {"8x": [device] * 8, "visible": visible}
+    M.set_devices(lists["8x"])
+    wall = {}
+    try:
+        t = time.perf_counter()
+        r9a, holds = mesh_9a(device, lists)
+        wall["9a"] = time.perf_counter() - t
+        t = time.perf_counter()
+        r9b = mesh_9b(device, lists["8x"])
+        wall["9b"] = time.perf_counter() - t
+        t = time.perf_counter()
+        r9c, holds_c = mesh_9c(device)
+        r9c["one_entry_error"] = mesh_9c_one_entry(device, visible)
+        wall["9c"] = time.perf_counter() - t
+        t = time.perf_counter()
+        r9d = mesh_9d()
+        wall["9d"] = time.perf_counter() - t
+    finally:
+        M.set_devices(None)
+    mesh_launches = _sum_counts(r9a["8x"]["launches"],
+                                r9a["visible"]["launches"],
+                                r9b["mesh_pump"]["launches"],
+                                r9b["mesh_oneshot"]["launches"])
+    sharded_launches = _sum_counts(r9c["launches_before_promotion"],
+                                   r9c["launches_after_promotion"])
+    for name in ("K1_merge_apply", "K2_zamboni_compact"):
+        for path, c in (("mesh", mesh_launches),
+                        ("sharded", sharded_launches)):
+            if c[name]["all"] <= 0:
+                raise AssertionError(f"{name} never launched on the {path} "
+                                     "path")
+    print(f"9 wall s: { {k: round(v, 1) for k, v in wall.items()} }",
+          flush=True)
+    report["phase_mesh"] = dict(fleet=r9a, serving=r9b, sharded=r9c,
+                                multinode=r9d, holds=holds + holds_c,
+                                wall_s=wall)
+    return dict(mesh=mesh_launches, sharded=sharded_launches,
+                holds=holds + holds_c)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3710,10 +4341,8 @@ def main() -> int:
     report["card"] = smi
 
     t_b = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
-        builds = [pool.submit(fn) for fn in (
-            _cuda.build, _load_ticket, native_store_available,
-            native_plog_available)]
+    with ThreadPoolExecutor(5) as pool:
+        builds = [pool.submit(fn) for fn in BUILDS]
         for b in builds:
             b.result()
     report["build_s"] = time.perf_counter() - t_b
@@ -3783,6 +4412,10 @@ def main() -> int:
     # Phase 8: the client merge path.
     torch.cuda.empty_cache()
     client = timed("8_client", phase_client, device, report)
+    # Phase 9: scale-out (the mesh fleet, the serving pump on the mesh,
+    # sharded overflow, multi-node ordering).
+    torch.cuda.empty_cache()
+    scale = timed("9_mesh", phase_mesh, device, report)
     report["wall_s"] = wall
 
     kernels = []
@@ -3791,7 +4424,9 @@ def main() -> int:
         by_path = {"fleet_service": launches2[name],
                    "docfleet": launches3[name], "serving": launches4[name],
                    "pipeline": launches5[name], "server": launches6[name],
-                   "client": client["launches"][name]}
+                   "client": client["launches"][name],
+                   "mesh": scale["mesh"][name],
+                   "sharded": scale["sharded"][name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "fluidframework_tpu_torch/csrc/merge_kernels.cu",
@@ -3801,8 +4436,9 @@ def main() -> int:
             "launches_cluster": sum(p["cluster"] for p in by_path.values()),
             "launches_global": sum(p["global"] for p in by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": max(err, max(r["max_abs_err"] for r in glob
-                                        if r["kernel"] == name)),
+            "max_abs_err": max([err] + [r["max_abs_err"]
+                                        for r in glob + scale["holds"]
+                                        if r["kernel"] == name]),
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": None,
@@ -3815,6 +4451,10 @@ def main() -> int:
                                 "plain_ms", "bound_ms")}
                               for r in client["holds"]
                               if r["kernel"] == name],
+            "mesh_shapes": [{key: r[key] for key in
+                             ("cell", "docs", "cap", "k", "ms", "plain_ms",
+                              "bound_ms")}
+                            for r in scale["holds"] if r["kernel"] == name],
         })
     report["kernels"] = kernels
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -3860,10 +4500,8 @@ def client_alone() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    with ThreadPoolExecutor(4) as pool:
-        for b in [pool.submit(fn) for fn in (
-                _cuda.build, _load_ticket, native_store_available,
-                native_plog_available)]:
+    with ThreadPoolExecutor(5) as pool:
+        for b in [pool.submit(fn) for fn in BUILDS]:
             b.result()
     report = {"card": smi, "torch": torch.__version__}
     t = time.perf_counter()
@@ -3876,16 +4514,39 @@ def client_alone() -> int:
     return 0
 
 
+def mesh_alone() -> int:
+    """Phase 9 alone, after the builds; its record goes to ``mesh.json``
+    in the output directory."""
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    with ThreadPoolExecutor(5) as pool:
+        for b in [pool.submit(fn) for fn in BUILDS]:
+            b.result()
+    report = {"card": smi, "torch": torch.__version__}
+    t = time.perf_counter()
+    out = phase_mesh(device, report)
+    print(f"phase 9_mesh: {time.perf_counter() - t:.1f} s", flush=True)
+    print(f"mesh launches {out['mesh']}; sharded launches "
+          f"{out['sharded']}", flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "mesh.json"), "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    print(smi)
+    return 0
+
+
 def server_repeat(n: int) -> int:
     """Phase 6 alone, ``n`` times in one process after the builds: each
     run's client numbers, overload envelope and launches are printed and
     written to ``server_repeat.json`` in the output directory; the first
     failure ends the run with its error."""
     device = torch.device("cuda", 0)
-    with ThreadPoolExecutor(4) as pool:
-        for b in [pool.submit(fn) for fn in (
-                _cuda.build, _load_ticket, native_store_available,
-                native_plog_available)]:
+    with ThreadPoolExecutor(5) as pool:
+        for b in [pool.submit(fn) for fn in BUILDS]:
             b.result()
     runs = []
     try:
@@ -3919,6 +4580,10 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device; nothing was run")
         sys.exit(client_alone())
+    if len(sys.argv) > 1 and sys.argv[1] == "--mesh":
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device; nothing was run")
+        sys.exit(mesh_alone())
     if len(sys.argv) > 1 and sys.argv[1] == "--socket-client":
         sys.exit(socket_client(sys.argv[2:]))
     if len(sys.argv) > 2 and sys.argv[1] == "--ab":

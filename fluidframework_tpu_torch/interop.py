@@ -20,6 +20,13 @@ from fluidframework_tpu_torch.ops.segment_state import (
     to_host,
 )
 from fluidframework_tpu_torch.parallel.fleet import DocFleet
+from fluidframework_tpu_torch.parallel.mesh import (
+    DocShard,
+    Mesh,
+    gather_parts,
+    shard_state,
+)
+from fluidframework_tpu_torch.parallel.sharded_doc import ShardedDoc
 from fluidframework_tpu_torch.ops.tree_kernel import DenseChange
 from fluidframework_tpu_torch.service.fleet_service import TpuFleetService
 from fluidframework_tpu_torch.tree.device_em import EmCommitBatch
@@ -123,6 +130,7 @@ def fleet_from_reference(
     migrations: int = 0,
     demotions: int = 0,
     device="cuda",
+    mesh: Optional[Mesh] = None,
 ) -> DocFleet:
     """A port ``DocFleet`` in the state of a reference ``DocFleet``.
 
@@ -132,22 +140,68 @@ def fleet_from_reference(
     then count, min_seq, cur_seq, self_client, err [n_slots]) and ``free``
     its slot free-list (``pool._free``), so slots are handed out in the
     reference's order. ``placement`` is the reference's per-doc
-    ``(cap, slot)`` or ``None`` (evicted)."""
-
-    def packed(state):
-        arrays = [np.asarray(x, np.int32) for x in state]
-        scalars = np.zeros((arrays[0].shape[0], N_SCALARS), np.int32)
-        scalars[:, : len(arrays) - N_LANES] = np.stack(arrays[N_LANES:], 1)
-        return (torch.from_numpy(np.stack(arrays[:N_LANES])),
-                torch.from_numpy(scalars))
-
+    ``(cap, slot)`` or ``None`` (evicted). With ``mesh`` (the reference
+    fleet's mesh read as global arrays) each pool splits into the port's
+    per-shard tensors."""
     return DocFleet.from_pools(
-        {cap: (*packed(state), doc_of_slot, slot_gen, free)
+        {cap: (*_packed(state), doc_of_slot, slot_gen, free)
          for cap, (state, doc_of_slot, slot_gen, free) in pools.items()},
         placement, base_capacity=base_capacity, high_water=high_water,
         low_water=low_water, max_capacity=max_capacity,
-        migrations=migrations, demotions=demotions, device=device,
+        migrations=migrations, demotions=demotions,
+        device=None if mesh is not None else device, mesh=mesh,
     )
+
+
+def _packed(state):
+    """20 SegmentState fields as numpy (15 lanes [D, S], 5 scalars [D]) ->
+    a packed host pair of tensors."""
+    arrays = [np.asarray(x, np.int32) for x in state]
+    scalars = np.zeros((arrays[0].shape[0], N_SCALARS), np.int32)
+    scalars[:, : len(arrays) - N_LANES] = np.stack(arrays[N_LANES:], 1)
+    return (torch.from_numpy(np.stack(arrays[:N_LANES])),
+            torch.from_numpy(scalars))
+
+
+# -- mesh-sharded state ---------------------------------------------------------
+#
+# A mesh-sharded reference state crosses as its global arrays (the 20
+# SegmentState fields as numpy, the document or shard axis first); the port
+# splits them into per-shard tensors, and reads them back as one array.
+
+
+def doc_shard_from_reference(state, mesh: Mesh,
+                             kernel: str = "auto") -> DocShard:
+    """A port ``DocShard`` holding a reference ``DocShard``'s state (its
+    ``state`` or ``unpacked_state()`` as 20 numpy fields [D, ...])."""
+    t, s = _packed(state)
+    shard = DocShard(t.shape[1], t.shape[2], mesh=mesh, kernel=kernel)
+    shard.parts = shard_state(t, s, mesh)
+    return shard
+
+
+def sharded_doc_from_reference(state, mesh: Mesh,
+                               kernel: str = "auto") -> ShardedDoc:
+    """A port ``ShardedDoc`` holding a reference ``ShardedDoc``'s state
+    (20 numpy fields, lanes [n_shards, shard_cap])."""
+    fields = [np.asarray(x, np.int32) for x in state]
+    doc = ShardedDoc(fields[0].shape[1], mesh=mesh,
+                     self_client=int(fields[N_LANES + 3][0]), kernel=kernel)
+    doc.load_state(fields)
+    return doc
+
+
+def mesh_state_to_numpy(obj) -> tuple:
+    """The 20 SegmentState fields of a port ``DocShard``, fleet pool or
+    ``ShardedDoc`` as one host numpy array each (its per-shard tensors
+    concatenated shard-major, as the reference's global arrays read)."""
+    if isinstance(obj, ShardedDoc):
+        return tuple(np.asarray(x, np.int32) for x in obj.state)
+    t, s = gather_parts(obj.parts, obj.parts[0][0].device)
+    t = t.to("cpu", copy=True).numpy()
+    s = s.to("cpu", copy=True).numpy()
+    return tuple(t) + tuple(s[:, j] for j in range(len(SegmentState._fields)
+                                                  - N_LANES))
 
 
 # -- SharedTree dense IR ------------------------------------------------------

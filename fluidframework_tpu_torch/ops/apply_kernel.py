@@ -133,6 +133,21 @@ def _perspective(L, clientn, refn, is_local, min_seq):
     return part, torch.where(part, vis, zero)
 
 
+def insert_place_mask(L, seqn, part, vis, rem):
+    """Rows an insert of sequence number ``seqn`` may land before, where
+    ``rem`` is its position less each row's visible prefix
+    (insertingWalk + breakTie, mergeTree.ts:1740/1719). Shared with the
+    sharded document's owner resolution (``parallel/sharded_doc.py``), so
+    ownership and the owner's own insert cannot disagree."""
+    op_norm = torch.where(seqn == UNASSIGNED_SEQ, NORM_NEW_LOCAL, seqn)
+    seq = L[L_SEQ]
+    seg_norm = torch.where(seq == UNASSIGNED_SEQ, NORM_EXISTING_LOCAL, seq)
+    return part & (
+        ((vis > 0) & (rem >= 0) & (rem < vis))
+        | ((vis == 0) & (rem == 0) & (op_norm > seg_norm))
+    )
+
+
 def _apply_values(tables, scalars, ops):
     """The op loop on values: returns (lanes [N_LANES, D, S], count,
     min_seq, cur_seq, self_client, err), the scalars as [D, 1]."""
@@ -202,14 +217,7 @@ def _apply_values(tables, scalars, ops):
         split2 = value_at(rem2, idx2)
 
         # Insert placement with tie-break (insertingWalk + breakTie).
-        op_norm = torch.where(local_op, NORM_NEW_LOCAL, seqn)
-        seq = L[L_SEQ]
-        seg_norm = torch.where(seq == UNASSIGNED_SEQ, NORM_EXISTING_LOCAL, seq)
-        place = part & (
-            ((vis > 0) & (rem1 >= 0) & (rem1 < vis))
-            | ((vis == 0) & (rem1 == 0) & (op_norm > seg_norm))
-        )
-        hasp, idxp = first_true(place)
+        hasp, idxp = first_true(insert_place_mask(L, seqn, part, vis, rem1))
         idxp = torch.where(hasp, idxp, count)
 
         # Capacity / do flags (sequential checks).

@@ -23,8 +23,13 @@ from 4,096 to 65,536 rows. Promotion, demotion and eviction move lanes with
 device-side ``index_select`` / ``index_copy_`` instead of the reference's
 whole-pool host round trip; the result is the same bit for bit.
 
-Not ported: the mesh (a pool sharded over several devices; ``mesh=``
-raises) and ``parallel/aot.py`` — PyTorch runs eagerly, so
+With ``mesh=`` (a :class:`~fluidframework_tpu_torch.parallel.mesh.Mesh`)
+every pool's slot axis is split into contiguous per-shard ranges, one
+packed pair per shard on its device, and each step, compaction and
+lifecycle move runs per shard (the reference's ``shard_map`` paths); the
+scans, telemetry and reads gather on the first device, in one readback.
+
+Not ported: ``parallel/aot.py`` — PyTorch runs eagerly, so
 ``sparse_step_aot`` and ``compact_aot`` run the same eager step under the
 reference's names.
 """
@@ -37,8 +42,6 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from fluidframework_tpu_torch.ops import apply_kernel as K1
-from fluidframework_tpu_torch.ops import compact_kernel as K2
 from fluidframework_tpu_torch.ops.apply_kernel import (
     N_LANES,
     N_SCALARS,
@@ -54,6 +57,17 @@ from fluidframework_tpu_torch.ops.segment_state import (
     SEGMENT_LANES,
     SegmentState,
 )
+from fluidframework_tpu_torch.parallel.mesh import (
+    Mesh,
+    apply_part as _apply_part,
+    compact_part as _compact_part,
+    gather_parts,
+    gather_slots,
+    norm_device,
+    put_slots,
+    resolve_kernel,
+    shard_state,
+)
 from fluidframework_tpu_torch.protocol.constants import NO_CLIENT, OP_WIDTH
 from fluidframework_tpu_torch.utils import pow2_at_least, resolve_device
 
@@ -63,7 +77,6 @@ _SCALARS = ("count", "min_seq", "cur_seq", "self_client", "err")
 # SC_ERR); columns 5..7 are padding and stay 0.
 _N_SC = len(_SCALARS)
 _SCALAR_FILLS = {SC_SELF: NO_CLIENT}
-KERNELS = ("auto", "cuda", "plain")
 
 
 # -- device telemetry lanes ----------------------------------------------------
@@ -169,16 +182,23 @@ def _blank_packed(n_docs: int, capacity: int, device):
 
 
 def _blank_slots(pool: "_Pool", slots) -> None:
-    """Blank a batch of vacated slots in place on the device (the lanes'
-    and scalars' free values), without a host round trip."""
-    idx = torch.as_tensor(slots, dtype=torch.long, device=pool.device)
-    pool.tables.index_fill_(1, idx, 0)
-    for i, k in enumerate(SEGMENT_LANES):
-        if LANE_FILLS.get(k, 0):
-            pool.tables[i].index_fill_(0, idx, LANE_FILLS[k])
-    pool.scalars.index_fill_(0, idx, 0)
-    for c, v in _SCALAR_FILLS.items():
-        pool.scalars[:, c].index_fill_(0, idx, v)
+    """Blank a batch of vacated slots (host ints) in place on the device
+    (the lanes' and scalars' free values), one fill per shard that holds
+    any of them, without a host round trip."""
+    slots = np.asarray(slots, np.int64)
+    per = pool.per
+    owner = slots // per
+    for i in np.unique(owner):
+        tables, scalars = pool.parts[int(i)]
+        idx = torch.from_numpy(slots[owner == i] - int(i) * per).to(
+            tables.device)
+        tables.index_fill_(1, idx, 0)
+        for j, k in enumerate(SEGMENT_LANES):
+            if LANE_FILLS.get(k, 0):
+                tables[j].index_fill_(0, idx, LANE_FILLS[k])
+        scalars.index_fill_(0, idx, 0)
+        for c, v in _SCALAR_FILLS.items():
+            scalars[:, c].index_fill_(0, idx, v)
 
 
 def _write_slot(pool: "_Pool", slot: int, doc: SegmentState) -> None:
@@ -191,8 +211,8 @@ def _write_slot(pool: "_Pool", slot: int, doc: SegmentState) -> None:
     scal = torch.zeros(N_SCALARS, dtype=_I32)
     scal[:_N_SC] = torch.tensor([int(getattr(doc, s)) for s in _SCALARS],
                                 dtype=_I32)
-    pool.tables[:, slot, :] = lanes.to(pool.device)
-    pool.scalars[slot] = scal.to(pool.device)
+    put_slots(pool.parts, [slot], lanes[:, None].to(pool.device),
+              scal[None].to(pool.device))
 
 
 def _scatter_rows(rows_b, slots, n_slots: int):
@@ -212,10 +232,19 @@ def _scatter_rows(rows_b, slots, n_slots: int):
 
 
 def _fused_sparse_step(pool: "_Pool", rows_b, slots) -> None:
-    """Scatter + apply: the dense batch built on the device by
-    :func:`_scatter_rows`, then K1 on the pool in place (the serving path's
-    dispatch unit)."""
-    pool._step(_scatter_rows(rows_b, slots, pool.n_slots))
+    """Scatter + apply: each shard's dense batch built on its device by
+    :func:`_scatter_rows` from the slots it holds (the others, and the
+    padding slot ``n_slots``, drop per shard rather than wrap into the
+    next one), then K1 on the shard in place (the serving path's dispatch
+    unit; a pool without a mesh is one shard)."""
+    per = pool.per
+    for i, part in enumerate(pool.parts):
+        dev = part[0].device
+        local = slots.to(dev)
+        if i:
+            local = local - i * per
+        _apply_part(part, _scatter_rows(rows_b.to(dev), local, per),
+                    pool.kernel)
 
 
 def _pool_scan(scalars):
@@ -224,34 +253,41 @@ def _pool_scan(scalars):
     return torch.stack([scalars[:, SC_COUNT], scalars[:, SC_ERR]])
 
 
-def _doc_gather(tables, scalars, slot: int):
-    """One document's lanes [N_LANES, S] + scalars [5], sliced on the
-    device (a doc's worth of bytes crosses to the host, not the pool)."""
-    return tables[:, slot, :], scalars[slot, :_N_SC]
-
-
-def _docs_gather(tables, scalars, slots):
-    """N documents' lanes + scalars gathered on the device as one flat
-    ``[n * (N_LANES * S + 5)]`` vector (per doc: its lanes row-major, then
-    its five scalars) — N snapshot reads, one transfer."""
-    n = slots.shape[0]
-    lanes = tables.index_select(1, slots).permute(1, 0, 2).reshape(n, -1)
-    scal = scalars.index_select(0, slots)[:, :_N_SC]
-    return torch.cat([lanes, scal], dim=1).reshape(-1)
+def _docs_gather(pool: "_Pool", slots):
+    """N documents' lanes + scalars gathered on the pool's first device as
+    one flat ``[n * (N_LANES * S + 5)]`` vector (per doc: its lanes
+    row-major, then its five scalars) — N snapshot reads, one transfer."""
+    lanes, scal = gather_slots(pool.parts, slots, pool.device)
+    n = len(slots)
+    lanes = lanes.permute(1, 0, 2).reshape(n, -1)
+    return torch.cat([lanes, scal[:, :_N_SC]], dim=1).reshape(-1)
 
 
 class _Pool:
     """One capacity tier: packed ``tables [N_LANES, n_slots, S]`` and
-    ``scalars [n_slots, N_SCALARS]`` on the device, plus slot bookkeeping
-    on the host. ``doc_of_slot`` is an int32 array (-1 = free) so batch
-    routing is a vectorized gather, not a Python slot loop."""
+    ``scalars [n_slots, N_SCALARS]``, plus slot bookkeeping on the host.
+    ``doc_of_slot`` is an int32 array (-1 = free) so batch routing is a
+    vectorized gather, not a Python slot loop.
 
-    def __init__(self, capacity: int, n_slots: int, kernel: str, device):
+    The state is held as ``parts``: one packed pair per shard. Without a
+    mesh that is one pair on ``device``; with a mesh of n devices, shard i
+    holds the contiguous slot range ``[i * per, (i + 1) * per)`` on
+    ``mesh.devices[i]`` (the reference's slot axis sharded over the mesh's
+    docs axis), and ``n_slots`` is at least n so every shard holds a
+    slot."""
+
+    def __init__(self, capacity: int, n_slots: int, kernel: str, device,
+                 mesh=None):
         self.capacity = capacity
+        self.mesh = mesh
+        self.devices = mesh.devices if mesh is not None else (device,)
+        self.device = self.devices[0]
+        if mesh is not None:
+            n_slots = max(n_slots, mesh.size)
         self.n_slots = n_slots
         self.kernel = kernel
-        self.device = device
-        self.tables, self.scalars = _blank_packed(n_slots, capacity, device)
+        self.parts = self._split(*_blank_packed(n_slots, capacity,
+                                                self.device))
         self.doc_of_slot = np.full(n_slots, -1, np.int32)
         # Placement generation per slot: bumped whenever the occupant
         # changes, so a stale health scan cannot attribute a departed doc's
@@ -263,36 +299,69 @@ class _Pool:
         # list falls back to a scan.
         self._free: List[int] = list(range(n_slots - 1, -1, -1))
 
+    def _split(self, tables, scalars) -> List[List[torch.Tensor]]:
+        """Per-shard parts of a whole-pool packed pair (the pair itself
+        without a mesh)."""
+        if self.mesh is None:
+            return [[tables, scalars]]
+        return shard_state(tables, scalars, self.mesh)
+
+    @property
+    def per(self) -> int:
+        """Slots per shard."""
+        return self.n_slots // len(self.parts)
+
+    @property
+    def tables(self) -> torch.Tensor:
+        """The pool's ``[N_LANES, n_slots, S]`` lanes: its own tensor
+        without a mesh, a copy gathered on the first device with one."""
+        if len(self.parts) == 1:
+            return self.parts[0][0]
+        return gather_parts(self.parts, self.device)[0]
+
+    @property
+    def scalars(self) -> torch.Tensor:
+        """The pool's ``[n_slots, N_SCALARS]`` scalars (as :attr:`tables`:
+        a gathered copy on the first device with a mesh)."""
+        if len(self.parts) == 1:
+            return self.parts[0][1]
+        return torch.cat([s.to(self.device) for _, s in self.parts])
+
     @property
     def state(self) -> SegmentState:
         """The pool as a SegmentState of [n_slots, S] / [n_slots] views of
-        the packed tensors."""
+        the packed tensors (of the gathered copies with a mesh)."""
         return unpack_state(self.tables, self.scalars)
 
-    def _step(self, ops) -> None:
-        """K1 on the whole pool, in place (ops [n_slots, K, OP_WIDTH])."""
-        if self.kernel == "plain":
-            nt, ns = K1.apply_plain(self.tables, self.scalars, ops)
-            self.tables.copy_(nt)
-            self.scalars.copy_(ns)
+    def load(self, tables, scalars) -> None:
+        """Replace the whole pool's packed state (copied to the shards)."""
+        t = torch.as_tensor(tables, dtype=_I32).to(self.device)
+        s = torch.as_tensor(scalars, dtype=_I32).to(self.device)
+        if len(self.parts) == 1:
+            self.parts[0][0].copy_(t)
+            self.parts[0][1].copy_(s)
         else:
-            K1.apply_ops_packed(self.tables, self.scalars, ops)
+            self.parts = self._split(t, s)
+
+    def _step(self, ops) -> None:
+        """K1 on every shard, in place (ops [n_slots, K, OP_WIDTH] on the
+        first device; each shard takes its slice)."""
+        per = self.per
+        for i, part in enumerate(self.parts):
+            _apply_part(part, ops[i * per:(i + 1) * per].to(part[0].device),
+                        self.kernel)
 
     def _compact(self) -> None:
-        """K2 on the whole pool, in place, at every tier (the reference
+        """K2 on every shard, in place, at every tier (the reference
         compacts in Pallas up to 256 rows and with XLA above; one kernel
         here)."""
-        if self.kernel == "plain":
-            nt, ns = K2.compact_plain(self.tables, self.scalars)
-            self.tables.copy_(nt)
-            self.scalars.copy_(ns)
-        else:
-            K2.compact_packed(self.tables, self.scalars)
+        for part in self.parts:
+            _compact_part(part, self.kernel)
 
     def sparse_step_aot(self, dev_rows, dev_slots) -> None:
         """One serving dispatch: scatter ``dev_rows [B, K, OP_WIDTH]`` (on
-        the device, not consumed) to ``dev_slots`` and apply. The name is
-        the reference's; PyTorch runs it eagerly."""
+        the first device, not consumed) to ``dev_slots`` and apply. The
+        name is the reference's; PyTorch runs it eagerly."""
         _fused_sparse_step(self, dev_rows, dev_slots)
 
     def compact_aot(self) -> None:
@@ -324,11 +393,12 @@ class _Pool:
         return np.flatnonzero(self.doc_of_slot >= 0)
 
     def grow_slots(self) -> None:
-        """Double the slot dimension (new slots empty), on the device."""
+        """Double the slot dimension (new slots empty), on the device; a
+        mesh pool re-splits, so each shard keeps a contiguous range."""
         extra = self.n_slots
         t, s = _blank_packed(extra, self.capacity, self.device)
-        self.tables = torch.cat([self.tables, t], dim=1)
-        self.scalars = torch.cat([self.scalars, s], dim=0)
+        self.parts = self._split(torch.cat([self.tables, t], dim=1),
+                                 torch.cat([self.scalars, s], dim=0))
         self.doc_of_slot = np.concatenate(
             [self.doc_of_slot, np.full(extra, -1, np.int32)]
         )
@@ -354,7 +424,9 @@ class DocFleet:
     device and the plain PyTorch versions on the CPU; ``"cuda"`` insists on
     the kernels (a CPU device raises); ``"plain"`` runs the plain versions
     on any device (an explicit reference run, never a fallback).
-    ``device`` defaults to ``"cuda"`` and raises without a card."""
+    ``device`` defaults to ``"cuda"`` and raises without a card; with
+    ``mesh=`` every pool is split over the mesh's devices and ``device``
+    is the mesh's first."""
 
     def __init__(
         self,
@@ -368,20 +440,23 @@ class DocFleet:
         low_water: float = 0.2,
         device=None,
     ):
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError("mesh must be a parallel.mesh.Mesh (an ordered "
+                            f"device list), got {type(mesh).__name__}")
         if mesh is not None:
-            raise NotImplementedError(
-                "a mesh-sharded DocFleet is not ported yet (multi-device "
-                "is a later slice of the port; see ROADMAP.md)"
-            )
-        if kernel not in KERNELS:
-            raise ValueError(
-                f"kernel must be one of {KERNELS}; got {kernel!r}"
-            )
-        self.device = resolve_device("cuda" if device is None else device)
-        if kernel == "cuda" and self.device.type != "cuda":
-            raise ValueError("kernel='cuda' needs a CUDA device; use "
-                             "kernel='auto' or 'plain' on the CPU")
-        self.kernel = kernel
+            # Pools hold pow2 slot counts split evenly over the shards.
+            if mesh.size & (mesh.size - 1):
+                raise ValueError(f"a mesh fleet needs a power-of-two "
+                                 f"device count, got {mesh.size}")
+            self.device = mesh.first
+            if device is not None and norm_device(device) != mesh.first:
+                raise ValueError("device= must be the mesh's first device")
+        else:
+            self.device = resolve_device("cuda" if device is None
+                                         else device)
+        self.kernel = resolve_kernel(
+            kernel, mesh.devices if mesh is not None else (self.device,)
+        )
         self.n_docs = n_docs
         self.high_water = high_water
         # Demotion threshold (the inverse of the promotion walk): a doc
@@ -391,8 +466,8 @@ class DocFleet:
         self.low_water = low_water
         self.max_capacity = max_capacity
         self.base_capacity = capacity
-        self.mesh = None
-        pool = _Pool(capacity, pow2_at_least(n_docs), kernel, self.device)
+        self.mesh = mesh
+        pool = self._new_pool(capacity, pow2_at_least(n_docs))
         pool.doc_of_slot[:n_docs] = np.arange(n_docs)
         self.pools: Dict[int, _Pool] = {capacity: pool}
         self.placement: List[Optional[Tuple[int, int]]] = [
@@ -419,23 +494,23 @@ class DocFleet:
         migrations: int = 0,
         demotions: int = 0,
         device=None,
+        mesh=None,
     ) -> "DocFleet":
         """A fleet in a given state. ``pools`` maps each capacity, in pool
         order, to ``(tables, scalars, doc_of_slot, slot_gen, free)``: the
         packed state ``[N_LANES, n_slots, S]`` / ``[n_slots, N_SCALARS]``
-        (copied to the fleet's device), each slot's doc (-1 = free), the
-        slot generations and the slot free-list (popped from its end).
-        ``placement`` is each doc's ``(cap, slot)``, or ``None`` when
-        evicted."""
+        (copied to the fleet's device, or split over ``mesh``), each slot's
+        doc (-1 = free), the slot generations and the slot free-list
+        (popped from its end). ``placement`` is each doc's ``(cap, slot)``,
+        or ``None`` when evicted."""
         fleet = cls(0, base_capacity, high_water=high_water,
                     max_capacity=max_capacity, low_water=low_water,
-                    device=device)
+                    device=device, mesh=mesh)
         fleet.pools = {}
         for cap, (tables, scalars, doc_of_slot, slot_gen, free) in \
                 pools.items():
             pool = fleet._new_pool(int(cap), int(tables.shape[1]))
-            pool.tables.copy_(tables)
-            pool.scalars.copy_(scalars)
+            pool.load(tables, scalars)
             pool.doc_of_slot = np.array(doc_of_slot, np.int32)
             pool.slot_gen = np.array(slot_gen, np.int64)
             pool._free = [int(s) for s in free]
@@ -448,7 +523,7 @@ class DocFleet:
         return fleet
 
     def _new_pool(self, capacity: int, n_slots: int) -> _Pool:
-        return _Pool(capacity, n_slots, self.kernel, self.device)
+        return _Pool(capacity, n_slots, self.kernel, self.device, self.mesh)
 
     def _place_arrays(self) -> Tuple[np.ndarray, np.ndarray]:
         if self._place_dirty:
@@ -642,15 +717,19 @@ class DocFleet:
     def _telemetry_device(self):
         """The device half of one scrape, no readback: every pool's
         :func:`_pool_telemetry` concatenated into one flat device vector,
-        plus the [(cap, n_shards), ...] layout to split it with (one shard
-        per pool: no mesh)."""
+        plus the [(cap, n_shards), ...] layout to split it with (the slot
+        axis folds per mesh shard)."""
+        n_shards = self.mesh.size if self.mesh is not None else 1
         layout: List[Tuple[int, int]] = []
         devs = []
         for cap in sorted(self.pools):
             pool = self.pools[cap]
-            layout.append((cap, 1))
+            shards = n_shards if pool.n_slots % n_shards == 0 else 1
+            layout.append((cap, shards))
             live = torch.from_numpy(pool.doc_of_slot >= 0).to(self.device)
-            devs.append(_pool_telemetry(pool.scalars, live, 1).reshape(-1))
+            devs.append(
+                _pool_telemetry(pool.scalars, live, shards).reshape(-1)
+            )
         dev = torch.cat(devs) if len(devs) > 1 else devs[0]
         return dev, layout
 
@@ -717,11 +796,9 @@ class DocFleet:
         first ``n_rows[i]`` rows, the rest free), the vacated slots are
         blanked and released, and placement follows."""
         dev = self.device
-        src = torch.tensor([m[0] for m in moves], dtype=torch.long,
-                           device=dev)
-        to = torch.tensor([m[2] for m in moves], dtype=torch.long, device=dev)
+        src = [m[0] for m in moves]
         lanes, _ = _blank_packed(len(moves), dst.capacity, dev)
-        rows = pool.tables.index_select(1, src)
+        rows, scal = gather_slots(pool.parts, src, dev)
         if dst.capacity > pool.capacity:
             lanes[:, :, : pool.capacity] = rows
         else:
@@ -729,8 +806,7 @@ class DocFleet:
             keep = (torch.arange(dst.capacity, dtype=_I32, device=dev)[None]
                     < n[:, None])
             lanes = torch.where(keep[None], rows[:, :, : dst.capacity], lanes)
-        dst.tables.index_copy_(1, to, lanes)
-        dst.scalars.index_copy_(0, to, pool.scalars.index_select(0, src))
+        put_slots(dst.parts, [m[2] for m in moves], lanes, scal)
         _blank_slots(pool, src)
         for slot, doc, dst_slot in moves:
             self._vacate(pool, slot, doc)
@@ -939,8 +1015,8 @@ class DocFleet:
         slice ([N_LANES, S] lanes + [5] scalars cross, not the pool)."""
         cap, slot = self.placement[doc]
         pool = self.pools[cap]
-        lanes, scal = _doc_gather(pool.tables, pool.scalars, slot)
-        lanes, scal = _host(lanes), _host(scal)
+        lanes, scal = gather_slots(pool.parts, [slot], pool.device)
+        lanes, scal = _host(lanes[:, 0]), _host(scal[0, :_N_SC])
         return SegmentState(
             **{k: lanes[i] for i, k in enumerate(SEGMENT_LANES)},
             **{s: scal[i] for i, s in enumerate(_SCALARS)},
@@ -966,8 +1042,7 @@ class DocFleet:
             pad = pow2_at_least(len(members))
             slots = np.zeros(pad, np.int64)
             slots[: len(members)] = slot_arr[np.asarray(members, np.int64)]
-            devs.append(_docs_gather(pool.tables, pool.scalars,
-                                     torch.from_numpy(slots).to(self.device)))
+            devs.append(_docs_gather(pool, slots))
             layout.append((cap, members, pad))
         dev = torch.cat(devs) if len(devs) > 1 else devs[0]
         return dev, layout

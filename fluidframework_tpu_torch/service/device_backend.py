@@ -47,11 +47,14 @@ port has so far:
 - there is nothing to compile ahead: on a card the constructor builds and
   loads the kernel library (``ops/_cuda.py``) instead of warming
   throwaway fleets;
-- a mesh fleet and sharded overflow (a document re-homed over the device
-  mesh when it outgrows the top tier) are not ported: ``mesh=`` and
-  ``sharded_overflow=True`` raise, and a document that outgrows the top
-  tier trips ERR_CAPACITY, reported once as a nack (the reference's
-  default).
+- ``mesh=`` is the port's :class:`~fluidframework_tpu_torch.parallel.mesh.
+  Mesh` (an ordered device list), and a document re-homed by
+  ``sharded_overflow=True`` spreads over :func:`parallel.mesh.devices`,
+  the port's ``jax.devices()``; the sharded document takes the backend's
+  ``kernel``;
+- a sharded document's rows are applied unpadded: the reference pads them
+  to a pow2 K of zero rows to bound its jit shapes, and a zero row changes
+  nothing (a NOOP bookkeeping seq 0 and min seq 0).
 """
 
 from __future__ import annotations
@@ -65,7 +68,12 @@ import numpy as np
 import torch
 
 from fluidframework_tpu_torch.ops import _cuda
-from fluidframework_tpu_torch.ops.apply_kernel import SC_ERR
+from fluidframework_tpu_torch.ops.apply_kernel import (
+    SC_COUNT,
+    SC_CUR_SEQ,
+    SC_ERR,
+    SC_MIN_SEQ,
+)
 from fluidframework_tpu_torch.ops.segment_state import (
     SEGMENT_LANES,
     materialize,
@@ -74,8 +82,11 @@ from fluidframework_tpu_torch.parallel.fleet import (
     TELEMETRY_COLS,
     DocFleet,
     _host,
+    _stacked_docs_telemetry,
     split_telemetry,
 )
+from fluidframework_tpu_torch.parallel.mesh import devices as mesh_devices
+from fluidframework_tpu_torch.parallel.sharded_doc import ShardedDoc
 from fluidframework_tpu_torch.protocol.constants import F_ARG, F_SEQ, OP_WIDTH
 from fluidframework_tpu_torch.service import retry
 from fluidframework_tpu_torch.service.admission import PressureSignal
@@ -94,10 +105,6 @@ from fluidframework_tpu_torch.testing.faults import inject_fault
 from fluidframework_tpu_torch.utils import pow2_at_least as _pow2_at_least
 
 ChannelKey = Tuple[str, str]  # (doc_id, channel address)
-
-_NOT_PORTED = ("is not ported yet (multi-device is a later slice of the "
-               "port; see ROADMAP.md)")
-
 
 class _RingSlot:
     """One staged boxcar in the ingest ring: the device rows (uploaded
@@ -162,7 +169,11 @@ class DeviceFleetBackend:
 
     ``kernel`` passes through to the fleet (``"auto"``, ``"cuda"`` or
     ``"plain"``); ``device`` defaults to ``"cuda"`` and raises without a
-    card (``device="cpu"`` runs the plain versions, for the tests)."""
+    card (``device="cpu"`` runs the plain versions, for the tests).
+    ``mesh`` shards every fleet pool's slot axis over a device list (then
+    ``device`` is the mesh's first). ``sharded_overflow``: a channel that
+    outgrows the top tier re-homes into a ``ShardedDoc`` instead of
+    tripping ERR_CAPACITY (the default: a 429 nack)."""
 
     def __init__(
         self,
@@ -180,22 +191,15 @@ class DeviceFleetBackend:
         wake_pending_max: int = 4096,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"a mesh-sharded DocFleet {_NOT_PORTED}"
-            )
-        if sharded_overflow:
-            raise NotImplementedError(
-                f"sharded overflow (a ShardedDoc over the device mesh) "
-                f"{_NOT_PORTED}"
-            )
         self.fleet = DocFleet(
-            0, capacity, max_capacity=max_capacity, kernel=kernel,
-            device=device,
+            0, capacity, max_capacity=max_capacity, mesh=mesh,
+            kernel=kernel, device=device,
         )
         self.device = self.fleet.device
         self.max_batch = max_batch
         self.compact_every = compact_every
+        self.sharded_overflow = sharded_overflow
+        self._sharded: Dict[int, ShardedDoc] = {}  # fleet idx -> doc
         self._index: Dict[ChannelKey, int] = {}
         self._keys: List[ChannelKey] = []  # dense fleet id -> key
         self.payloads: Dict[ChannelKey, dict] = {}
@@ -694,36 +698,65 @@ class DeviceFleetBackend:
             self._consume_pending_scan(newly_errored)
             t0 = time.perf_counter()
             idxs, rows_list, lens, jspans, bid = self._stage_host()
-            k = _pow2_at_least(max(int(lens.max()), 8))
-            lmax = int(lens.max())
-            ops_b = np.zeros((len(rows_list), k, OP_WIDTH), np.int32)
-            if int(lens.min()) == lmax:
-                ops_b[:, :lmax] = np.stack(rows_list)
-            else:
-                for j, rows in enumerate(rows_list):
-                    ops_b[j, : rows.shape[0]] = rows
-            t1 = time.perf_counter()
-            self.fleet.apply_sparse(idxs, ops_b)
-            t2 = time.perf_counter()
-            if profiler._ON:
-                # One clock: the same t0/t1/t2 reads feed the profiler
-                # lanes and the staging/dispatch split below.
-                profiler.record(
-                    "host_stage", t0, t1, boxcar=bid,
-                    rows=int(lens.sum()),
+            n = len(idxs)
+            if self._sharded:
+                shard_sel = np.fromiter(
+                    (int(i) in self._sharded for i in idxs), bool, n
                 )
-                profiler.record("dispatch", t1, t2, boxcar=bid)
-            staging_s += t1 - t0
-            routing_s += self.fleet.last_routing_s
-            dispatch_s += (t2 - t1) - self.fleet.last_routing_s
-            staged_rows += ops_b.shape[0] * k
-            self._scan_token = self.fleet.begin_scan()
-            self._scan_bid = bid
-            if jspans:
-                journal.record("device.dispatch", spans=jspans)
-                self._journal_inflight.append(jspans)
+                fleet_sel = np.flatnonzero(~shard_sel)
+                sharded_rows = {
+                    int(idxs[i]): rows_list[i]
+                    for i in np.flatnonzero(shard_sel)
+                }
+            else:
+                fleet_sel = np.arange(n)
+                sharded_rows = {}
+            if fleet_sel.size:
+                fleet_docs = idxs[fleet_sel]
+                fl = (rows_list if fleet_sel.size == n
+                      else [rows_list[i] for i in fleet_sel])
+                flens = lens[fleet_sel]
+                k = _pow2_at_least(max(int(lens.max()), 8))
+                lmax = int(flens.max())
+                ops_b = np.zeros((len(fl), k, OP_WIDTH), np.int32)
+                if int(flens.min()) == lmax:
+                    ops_b[:, :lmax] = np.stack(fl)
+                else:
+                    for j, rows in enumerate(fl):
+                        ops_b[j, : rows.shape[0]] = rows
+                t1 = time.perf_counter()
+                self.fleet.apply_sparse(fleet_docs, ops_b)
+                t2 = time.perf_counter()
+                if profiler._ON:
+                    # One clock: the same t0/t1/t2 reads feed the profiler
+                    # lanes and the staging/dispatch split below.
+                    profiler.record(
+                        "host_stage", t0, t1, boxcar=bid,
+                        rows=int(lens.sum()),
+                    )
+                    profiler.record("dispatch", t1, t2, boxcar=bid)
+                staging_s += t1 - t0
+                routing_s += self.fleet.last_routing_s
+                dispatch_s += (t2 - t1) - self.fleet.last_routing_s
+                staged_rows += ops_b.shape[0] * k
+                self._scan_token = self.fleet.begin_scan()
+                self._scan_bid = bid
+                if jspans:
+                    journal.record("device.dispatch", spans=jspans)
+                    self._journal_inflight.append(jspans)
+            else:
+                t1 = time.perf_counter()
+                if profiler._ON:
+                    profiler.record(
+                        "host_stage", t0, t1, boxcar=bid,
+                        rows=int(lens.sum()),
+                    )
+                staging_s += t1 - t0
             self._flushes += 1
-            if self._flushes % self.compact_every == 0:
+            compact_now = self._flushes % self.compact_every == 0
+            for idx, rows in sharded_rows.items():
+                self._apply_sharded(idx, rows, compact_now)
+            if compact_now:
                 self.fleet.compact()
         self._buffered_rows = 0
         self._close_pending_traces()
@@ -998,7 +1031,19 @@ class DeviceFleetBackend:
                 self._trace_inflight.extend(slot.traces)
         self.pump_dispatches += 1
         self._flushes += 1
-        if self._flushes % self.compact_every == 0:
+        compact_now = self._flushes % self.compact_every == 0
+        if self._sharded and not in_fleet.all():
+            # Docs re-homed into ShardedDocs (possibly by the promotion
+            # consumed moments ago): their rows dropped in the scatter, so
+            # they apply from the slot's host copy.
+            for i in np.flatnonzero(~in_fleet):
+                idx = int(slot.docs[i])
+                if idx in self._sharded:
+                    self._apply_sharded(
+                        idx, slot.host_rows[i, : int(slot.lens[i])],
+                        compact_now,
+                    )
+        if compact_now:
             self.fleet.compact_aot()
         routing = self.fleet.last_routing_s if in_fleet.any() else 0.0
         self.flush_totals["dispatch_s"] += (
@@ -1007,6 +1052,16 @@ class DeviceFleetBackend:
         self.flush_totals["routing_s"] += routing
         self._unreported.extend(newly)
         return newly
+
+    def _apply_sharded(self, idx: int, rows: np.ndarray,
+                       compact_now: bool) -> None:
+        """Apply one channel's rows to its ShardedDoc, compact on the
+        cadence, then let it rebalance (which compacts when it fires)."""
+        doc = self._sharded[idx]
+        doc.apply(rows)
+        if compact_now:
+            doc.compact()
+        doc.rebalance()
 
     def pump_drain(self) -> List[ChannelKey]:
         """Shutdown drain: stage whatever is still buffered, dispatch every
@@ -1209,6 +1264,8 @@ class DeviceFleetBackend:
         self.fleet.check_and_migrate(counts)
         # Demotion rides the same one-boxcar-stale scan counts.
         self.fleet.check_and_demote(counts)
+        if self.sharded_overflow:
+            self._promote_overflow()
         newly_errored.extend(self._collect_errors(errs))
 
     def collect_now(self) -> List[ChannelKey]:
@@ -1221,6 +1278,26 @@ class DeviceFleetBackend:
         self._unreported.extend(newly)
         return newly
 
+    def _promote_overflow(self) -> None:
+        """Re-home docs that outgrew the top fleet tier into ShardedDocs
+        (the segment table spread over the device list, positions resolved
+        by the per-op offset exchange, ``parallel/sharded_doc.py``)."""
+        if not self.fleet.overflowing_docs():
+            return
+        # Promotion is irreversible and takes every device for one
+        # document: reclaim tombstones first so only live growth promotes.
+        self.fleet.compact()
+        for idx in self.fleet.overflowing_docs():
+            state = self.fleet.evict_doc(idx)
+            # Total sharded capacity is 8x the top fleet tier whatever the
+            # device count (one device must still grow the document). On a
+            # card a shard cap past the kernels' largest tier raises.
+            n_dev = len(mesh_devices())
+            shard_cap = -(-8 * self.fleet.max_capacity // n_dev)
+            doc = ShardedDoc(shard_cap=shard_cap, kernel=self.fleet.kernel)
+            doc.load_single(state)
+            self._sharded[idx] = doc
+
     def _collect_errors(
         self, errs: Optional[Dict[int, np.ndarray]] = None
     ) -> List[ChannelKey]:
@@ -1229,7 +1306,7 @@ class DeviceFleetBackend:
             err = errs.get(cap) if errs is not None else None
             if err is None:
                 # A pool the scan did not cover: a synchronous copy.
-                err = _host(pool.scalars[:, SC_ERR])
+                err = _host(pool.scalars[:, SC_ERR])  # (gathered on a mesh)
             if len(err) < pool.n_slots:
                 err = np.concatenate(
                     [err, np.zeros(pool.n_slots - len(err), np.int32)]
@@ -1240,6 +1317,10 @@ class DeviceFleetBackend:
                 if idx not in self._errored:
                     self._errored.add(idx)
                     out.append(self._keys[idx])
+        for idx, doc in self._sharded.items():
+            if doc.err != 0 and idx not in self._errored:
+                self._errored.add(idx)
+                out.append(self._keys[idx])
         if out and journal._ON:
             # One journal event per newly errored channel and one
             # auto-dump with the lineage of the ops that tripped it.
@@ -1248,11 +1329,20 @@ class DeviceFleetBackend:
             journal.auto_dump("err_lane")
         return out
 
+    def _doc_state(self, idx: int):
+        if idx in self._sharded:
+            return self._sharded[idx].to_single()
+        key = self._keys[idx]
+        if key in self._cold:
+            return self._cold[key][0]
+        return self.fleet.doc_state(idx)
+
     # -- the read path ---------------------------------------------------------
 
     def read_start(self, keys: List[ChannelKey]) -> dict:
         """The serving-thread half of one batched snapshot read: resolve
-        channel keys to fleet slots and start the fleet's batched device
+        channel keys to fleet slots, read sharded-overflow docs whole
+        (they live outside the pools) and start the fleet's batched device
         gather. Returns a token whose ``dev`` vector may be transferred
         off the serving thread (:meth:`read_transfer`) before
         :meth:`read_finish`. A faulted gather (the ``read.gather`` site)
@@ -1260,13 +1350,18 @@ class DeviceFleetBackend:
         order: List[Tuple[ChannelKey, int]] = [
             (key, self._index[key]) for key in keys
         ]
+        sharded = {
+            idx: self._sharded[idx].to_single()
+            for _key, idx in order if idx in self._sharded
+        }
         # COLD channels serve straight from their cold records — a read
         # never wakes a doc.
         cold = {
             idx: self._cold[key][0]
             for key, idx in order if key in self._cold
         }
-        fleet_idxs = [idx for _key, idx in order if idx not in cold]
+        fleet_idxs = [idx for _key, idx in order
+                      if idx not in sharded and idx not in cold]
         dev = layout = fallback = None
         if fleet_idxs:
             try:
@@ -1288,7 +1383,7 @@ class DeviceFleetBackend:
             else:
                 self.read_gathers += 1
         return {
-            "order": order, "cold": cold,
+            "order": order, "sharded": sharded, "cold": cold,
             "dev": dev, "layout": layout, "fallback": fallback,
         }
 
@@ -1317,6 +1412,7 @@ class DeviceFleetBackend:
             states.update(
                 DocFleet.doc_states_finish(host, token["layout"])
             )
+        states.update(token["sharded"])
         states.update(token["cold"])
         self.reads_served += len(token["order"])
         return {key: states[idx] for key, idx in token["order"]}
@@ -1387,14 +1483,32 @@ class DeviceFleetBackend:
 
     def _telemetry_start(self):
         """The serving-thread half of one scrape: the device telemetry
-        vector and a snapshot of the host-side totals."""
+        vector — the fleet's pools plus a ``"sharded"`` row per device-list
+        shard covering every sharded-overflow doc — and a snapshot of the
+        host-side totals."""
         dev, layout = self.fleet._telemetry_device()
+        if self._sharded:
+            docs = [self._sharded[i] for i in sorted(self._sharded)]
+            # The doc axis pads to pow2 with dead rows, as the reference's.
+            pad = _pow2_at_least(len(docs))
+            sc = torch.stack([d.device_scalars().to(self.device)
+                              for d in docs])
+            sc = torch.cat([sc, torch.zeros(
+                (pad - len(docs),) + tuple(sc.shape[1:]), dtype=sc.dtype,
+                device=sc.device)])
+            live = torch.arange(pad, device=sc.device) < len(docs)
+            sh = _stacked_docs_telemetry(
+                live, sc[..., SC_COUNT], sc[..., SC_ERR],
+                sc[..., SC_MIN_SEQ], sc[..., SC_CUR_SEQ],
+            )
+            layout = layout + [("sharded", sh.shape[0])]
+            dev = torch.cat([dev, sh.reshape(-1)])
         totals = {
             "ops_applied": self.ops_applied,
             "flushes": self._flushes,
             "buffered_rows": self._buffered_rows,
             "channels": len(self._keys),
-            "sharded_docs": 0,
+            "sharded_docs": len(self._sharded),
             "reads_served": self.reads_served,
             "read_gathers": self.read_gathers,
         }
@@ -1459,13 +1573,18 @@ class DeviceFleetBackend:
 
     def stats(self) -> dict:
         s = self.fleet.stats()
+        s["docs_with_errors"] += sum(
+            1 for d in self._sharded.values() if d.err != 0
+        )
         s.update(
             channels=len(self._keys),
             ops_applied=self.ops_applied,
             buffered=self._buffered_rows,
             flushes=self._flushes,
-            sharded_docs=0,
-            sharded_rows=0,
+            sharded_docs=len(self._sharded),
+            sharded_rows=sum(
+                d.rows_in_use() for d in self._sharded.values()
+            ),
             pump_mode=self.pump_mode,
             ring_staged=len(self._ring),
             pump_dispatches=self.pump_dispatches,

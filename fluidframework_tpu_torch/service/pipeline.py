@@ -15,8 +15,11 @@ on the port's host tier and device stage. The service takes one argument
 the reference lacks, ``device_torch``: the torch device of its
 ``DeviceFleetBackend``, ``"cuda"`` by default (it raises without a card;
 ``"cpu"`` runs the plain PyTorch versions, for the tests). ``device_kernel``
-is ``"auto"``, ``"cuda"`` or ``"plain"``; ``device_mesh=`` and
-``device_sharded_overflow=True`` raise, as the port's backend does.
+is ``"auto"``, ``"cuda"`` or ``"plain"``. ``device_mesh=`` is a
+:class:`~fluidframework_tpu_torch.parallel.mesh.Mesh` (an ordered device
+list) whose first device is ``device_torch``; with
+``device_sharded_overflow=True`` a channel that outgrows the top tier
+re-homes into a ``ShardedDoc`` over :func:`parallel.mesh.devices`.
 """
 
 from __future__ import annotations

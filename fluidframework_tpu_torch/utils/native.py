@@ -1,9 +1,10 @@
 """ctypes bindings for the native (C++) host components.
 
-Counterpart of ``fluidframework_tpu/utils/native.py``, of which the deli
-ticket loop (``native/ticket_loop.cpp``), the content-addressed blob store
-(``native/ca_store.cpp``) and the disk-backed partition log
-(``native/partition_log.cpp``) are ported; ``NativeCoordination`` is not.
+Counterpart of ``fluidframework_tpu/utils/native.py``: the deli ticket
+loop (``native/ticket_loop.cpp``), the content-addressed blob store
+(``native/ca_store.cpp``), the disk-backed partition log
+(``native/partition_log.cpp``) and the lease coordination of multi-node
+ordering (``native/coordination.cpp``).
 
 Each library is compiled with ``g++`` and the flags of ``native/Makefile``
 from the repository's ``native/`` source into this package's own
@@ -12,9 +13,10 @@ named by the hash of the source and the flags so an edited source never
 loads a stale build; nothing is written into ``native/``. When the compiler
 or the source is missing, :class:`NativeTicketLoop` reports ``available =
 False`` and its caller takes the Python path, while
-:class:`NativeBlobStore` and :class:`NativePartitionLog` raise
-``RuntimeError`` (probe with
-:func:`native_store_available` / :func:`native_plog_available`).
+:class:`NativeBlobStore`, :class:`NativePartitionLog` and
+:class:`NativeCoordination` raise ``RuntimeError`` (probe with
+:func:`native_store_available`, :func:`native_plog_available` and
+:func:`native_coordination_available`).
 """
 
 from __future__ import annotations
@@ -306,3 +308,100 @@ class NativePartitionLog:
 
 def native_plog_available() -> bool:
     return _load_plog() is not None
+
+
+# -- lease coordination (native/coordination.cpp) ----------------------------
+
+
+def _declare_coord(lib: ctypes.CDLL) -> None:
+    lib.coord_new.restype = ctypes.c_void_p
+    lib.coord_new.argtypes = [ctypes.c_char_p]
+    lib.coord_free.argtypes = [ctypes.c_void_p]
+    lib.coord_acquire.restype = ctypes.c_int64
+    lib.coord_acquire.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p,
+        ctypes.c_int64, ctypes.c_int64,
+    ]
+    lib.coord_renew.restype = ctypes.c_int
+    lib.coord_renew.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p,
+        ctypes.c_int64, ctypes.c_int64,
+    ]
+    lib.coord_holder.restype = ctypes.c_int64
+    lib.coord_holder.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64,
+        ctypes.c_char_p, ctypes.c_size_t,
+    ]
+    lib.coord_epoch.restype = ctypes.c_int64
+    lib.coord_epoch.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    lib.coord_release.restype = ctypes.c_int
+    lib.coord_release.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int64,
+    ]
+
+
+def _load_coord() -> Optional[ctypes.CDLL]:
+    return _load("coordination.cpp", "libcoord", _declare_coord)
+
+
+class NativeCoordination:
+    """C++ lease coordination (the ZooKeeper-client equivalent): fenced
+    epochs per document, a caller-supplied clock (seconds, passed to the
+    library in ms) and optional append-log durability under ``path``. The
+    same surface as ``service.pipeline.ReservationManager``; raises if
+    the library cannot be built."""
+
+    def __init__(self, clock, path: Optional[str] = None):
+        lib = _load_coord()
+        if lib is None:
+            raise RuntimeError("libcoord unavailable (native/coordination.cpp "
+                               "did not build)")
+        self._lib = lib
+        self._clock = clock
+        self._h = lib.coord_new(path.encode() if path else None)
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.coord_free(self._h)
+            self._h = None
+
+    def _now_ms(self) -> int:
+        return int(self._clock() * 1000)
+
+    def acquire(self, node: str, doc_id: str, ttl_s: float) -> Optional[int]:
+        epoch = self._lib.coord_acquire(
+            self._h, node.encode(), doc_id.encode(),
+            int(ttl_s * 1000), self._now_ms(),
+        )
+        return int(epoch) if epoch > 0 else None
+
+    def renew(self, node: str, doc_id: str, ttl_s: float) -> bool:
+        return bool(
+            self._lib.coord_renew(
+                self._h, node.encode(), doc_id.encode(),
+                int(ttl_s * 1000), self._now_ms(),
+            )
+        )
+
+    def holder(self, doc_id: str) -> Optional[str]:
+        out = ctypes.create_string_buffer(256)
+        n = self._lib.coord_holder(
+            self._h, doc_id.encode(), self._now_ms(), out, 256
+        )
+        return out.raw[:n].decode() if n >= 0 else None
+
+    def release(self, node: str, doc_id: str) -> bool:
+        """Voluntary surrender for load migration (fenced like a TTL lapse:
+        the next acquire bumps the epoch)."""
+        return bool(
+            self._lib.coord_release(
+                self._h, node.encode(), doc_id.encode(), self._now_ms()
+            )
+        )
+
+    def epoch(self, doc_id: str) -> int:
+        return int(self._lib.coord_epoch(self._h, doc_id.encode()))
+
+
+def native_coordination_available() -> bool:
+    return _load_coord() is not None

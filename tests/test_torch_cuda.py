@@ -458,3 +458,140 @@ def test_grow_past_the_largest_tier_raises_on_the_card():
         grow(st, 131072)
     assert grow(make_interactive_state(32768, 0, device="cuda"),
                 65536).kind.device.type == "cuda"
+
+
+# -- the mesh and the sharded document (tolerance 0, int32) -------------------
+
+
+def _mesh_ops(n_docs, k, seed):
+    from chip_smoke import mesh_op_stream
+
+    return mesh_op_stream(n_docs, k, np.random.default_rng(seed))
+
+
+def _mesh_fleet_run(devs, ops, rounds=3):
+    from fluidframework_tpu_torch.parallel.mesh import Mesh
+
+    fleet = DocFleet(ops.shape[0], 16, mesh=Mesh(devs))
+    for r in range(rounds):
+        fleet.apply_sparse(np.arange(ops.shape[0]), ops)
+        fleet.compact()
+        fleet.check_and_migrate()
+    return fleet
+
+
+def _sharded_stream(rng, n, seq0, length):
+    """Inserts, removes and annotates at random global positions (some
+    past the end), unknown types and wide writers among them."""
+    from fluidframework_tpu_torch.ops import encode as E
+    from fluidframework_tpu_torch.protocol.constants import F_TYPE
+
+    rows = []
+    for i in range(n):
+        s = seq0 + i
+        pos = int(rng.integers(0, length + 3))
+        client = int(rng.integers(0, 4)) if rng.random() < 0.9 else 120
+        r = rng.random()
+        if r < 0.6:
+            rows.append(E.insert(pos, 1 + i % 7, 3, seq=s, ref=s - 1,
+                                 client=client, msn=max(0, s - 8)))
+            length += 3
+        elif r < 0.8:
+            rows.append(E.remove(pos, pos + 4, seq=s, ref=s - 1,
+                                 client=client, msn=max(0, s - 8)))
+        elif r < 0.9:
+            rows.append(E.annotate(pos, pos + 5, 3, seq=s, ref=s - 1,
+                                   client=client))
+        else:
+            row = E.insert(pos, 2, 1, seq=s, ref=s - 1, client=client)
+            row[F_TYPE] = int(rng.choice([-1, 7, 100]))
+            rows.append(row)
+    return np.stack(rows).astype(np.int32)
+
+
+def _sharded_run(devs, rows, kernel="auto"):
+    from fluidframework_tpu_torch.parallel.mesh import Mesh
+    from fluidframework_tpu_torch.parallel.sharded_doc import ShardedDoc
+
+    doc = ShardedDoc(64, mesh=Mesh(devs, "seg"), kernel=kernel)
+    for i in range(0, len(rows), 16):
+        doc.apply(rows[i:i + 16])
+        doc.compact()
+        doc.rebalance(0.5)
+    return doc
+
+
+@pytest.mark.cuda
+def test_mesh_fleet_on_eight_card_entries_equals_the_cpu():
+    """DocFleet(mesh=8 x cuda:0): every pool equal to the same run over
+    eight CPU entries, through promotions."""
+    _need_card()
+    ops = _mesh_ops(48, 8, 1)
+    card = _mesh_fleet_run([torch.device("cuda", 0)] * 8, ops)
+    cpu = _mesh_fleet_run(["cpu"] * 8, ops)
+    assert sorted(card.pools) == sorted(cpu.pools)
+    for cap, pool in card.pools.items():
+        assert len(pool.parts) == 8
+        assert torch.equal(pool.tables.cpu(), cpu.pools[cap].tables)
+        assert torch.equal(pool.scalars.cpu(), cpu.pools[cap].scalars)
+
+
+@pytest.mark.cuda
+def test_sharded_doc_on_the_card_equals_the_cpu_without_a_sync():
+    """ShardedDoc over 8 x cuda:0 equals its run over eight CPU entries
+    shard for shard; apply and compact make no host sync."""
+    _need_card()
+    from fluidframework_tpu_torch.interop import mesh_state_to_numpy
+
+    rows = _sharded_stream(np.random.default_rng(4), 96, 1, 0)
+    card = _sharded_run([torch.device("cuda", 0)] * 8, rows)
+    cpu = _sharded_run(["cpu"] * 8, rows)
+    for a, b in zip(mesh_state_to_numpy(card), mesh_state_to_numpy(cpu)):
+        np.testing.assert_array_equal(a, b)
+    more = _sharded_stream(np.random.default_rng(5), 16, 97, 40)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        card.apply(more)
+        card.compact()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    cpu.apply(more)
+    cpu.compact()
+    for a, b in zip(mesh_state_to_numpy(card), mesh_state_to_numpy(cpu)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_sharded_doc_past_the_largest_tier_raises_on_the_card():
+    """A shard cap past K1's largest tier raises ValueError on the card
+    (the 1-card list's 8 x 65,536 / 1 rows a shard); the plain versions
+    take any cap."""
+    _need_card()
+    from fluidframework_tpu_torch.parallel.mesh import Mesh
+    from fluidframework_tpu_torch.parallel.sharded_doc import ShardedDoc
+
+    one = Mesh([torch.device("cuda", 0)], "seg")
+    with pytest.raises(ValueError, match="largest kernel tier"):
+        ShardedDoc(8 * 65536, mesh=one)
+    assert ShardedDoc(65536, mesh=one).shard_cap == 65536
+    assert ShardedDoc(65537, mesh=one, kernel="plain").kernel == "plain"
+
+
+@pytest.mark.cuda
+def test_mesh_over_two_cards_equals_the_cpu():
+    """Shards alternating over two cards: the mesh fleet and the sharded
+    document equal their CPU runs (stream-ordered cross-card gathers)."""
+    _need_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from fluidframework_tpu_torch.interop import mesh_state_to_numpy
+
+    devs = [torch.device("cuda", i % 2) for i in range(8)]
+    ops = _mesh_ops(48, 8, 2)
+    card, cpu = _mesh_fleet_run(devs, ops), _mesh_fleet_run(["cpu"] * 8, ops)
+    for cap, pool in card.pools.items():
+        assert torch.equal(pool.tables.cpu(), cpu.pools[cap].tables)
+    rows = _sharded_stream(np.random.default_rng(6), 64, 1, 0)
+    a, b = _sharded_run(devs, rows), _sharded_run(["cpu"] * 8, rows)
+    for x, y in zip(mesh_state_to_numpy(a), mesh_state_to_numpy(b)):
+        np.testing.assert_array_equal(x, y)

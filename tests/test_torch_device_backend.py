@@ -548,10 +548,9 @@ def test_pallas_reference_at_a_small_shape():
 
 def test_mesh_and_sharded_overflow_raise_and_default_needs_a_card(
         monkeypatch):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(TypeError, match="Mesh"):
         PortBackend(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PortBackend(sharded_overflow=True, device="cpu")
+    assert PortBackend(sharded_overflow=True, device="cpu").sharded_overflow
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         PortBackend()

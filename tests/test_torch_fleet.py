@@ -494,7 +494,7 @@ def test_kernel_and_mesh_arguments():
         DocFleet(2, 8, kernel="xla", device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
         DocFleet(2, 8, kernel="cuda", device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         DocFleet(2, 8, mesh=object(), device="cpu")
     plain = DocFleet(2, 8, kernel="plain", device="cpu")
     auto = DocFleet(2, 8, device="cpu")

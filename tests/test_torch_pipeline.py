@@ -703,10 +703,10 @@ def test_faults_at_dispatch_and_lambda_batches(monkeypatch, device_pump):
 
 def test_refusals_and_the_default_device(monkeypatch):
     P = port_pipeline.PipelineFluidService
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(TypeError, match="Mesh"):
         P(device_torch="cpu", device_mesh=object())
-    with pytest.raises(NotImplementedError, match="not ported"):
-        P(device_torch="cpu", device_sharded_overflow=True)
+    assert P(device_torch="cpu",
+             device_sharded_overflow=True).device.sharded_overflow
     for kernel in ("xla", "pallas"):
         with pytest.raises(ValueError, match="kernel"):
             P(device_torch="cpu", device_kernel=kernel)
