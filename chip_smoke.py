@@ -5,6 +5,7 @@
     python3 chip_smoke.py --tree [NAME=VALUE ...]
     python3 chip_smoke.py --client
     python3 chip_smoke.py --mesh
+    python3 chip_smoke.py --load [reference]
 
 Builds the hand-written kernels (``nvcc``, into the package's ``_build/``)
 and the native ticket loop, blob store, partition log and lease
@@ -118,15 +119,36 @@ coordination (``g++``), all at once, then:
    80,000, its text equal to a host string, the 1,000 ops after promotion
    replayed through ``kernel="plain"`` from a clone shard for shard, one
    apply and one compaction under sync-debug "error", and on the list of
-   every visible card (one card: 524,288 rows a shard) the promotion's
-   ValueError; 9d tests/test_multinode.py's failover and fencing at 3
+   every visible card (one card: 524,288 rows a shard) the promotion
+   refused before anything moves: the document keeps its top-tier slot
+   and lanes, then trips ERR_CAPACITY as a backend without sharded
+   overflow does; 9d tests/test_multinode.py's failover and fencing at 3
    nodes x 1,024 documents over ``NativeCoordination``. K1/K2 held
    against their plain versions at the mesh shard's and the sharded
-   document's shapes.
+   document's shapes;
+10. the oracle, the load harness and the other DDS models — 10a
+   bench.py's ``device_state_parity`` at 4,096 docs x 256 rows and 256
+   docs x 4,096 rows (the shared and the cluster tier), 96 ops a document
+   from the port's ``random_acked_stream`` (msn lag 24, refs caught up):
+   K1 half, K2, K1 half, K2 on the card, every document's text equal to
+   its ``OracleDoc``'s, err lanes clear, lanes equal to the plain
+   versions'; 10b ``CHAOS_STRESS_FULL_PROFILE`` (48 clients, trees, the
+   elected summarizer, GC, client offline windows and service chaos; its
+   3,000 ops cut to ``SMOKE_LOAD_OPS`` here, all of them with ``--load``)
+   through the port's ``LoadRunner`` over
+   ``PipelineFluidService(n_partitions=4)``, the device stage and every
+   replica's string and tree on the card: converged, the counts of the
+   profile, a late joiner's text; the card's busy share sampled from
+   ``nvidia-smi``; then the CI-sized full-stack profile (16 x 600) on the
+   card and on the CPU (a spawned process), reports and late joiners
+   equal; 10c three runtimes with the twelve models of ``models/``
+   beyond the merge path and a ``SharedString`` on the card, a seeded
+   script with an offline window, converged and equal to the CPU run.
 
 Launch counts (in all, and by tier: smem / cluster / global) are reset
 before each main path (2, then 3a+3b, then 4, then 5, then 6's client
-run, then each of 8a-8e, then each run of 9a-9c) and read after it;
+run, then each of 8a-8e, then each run of 9a-9c, then each of 10a-10c)
+and read after it;
 the DocFleet path must launch K1 and K2 on the cluster tier. Prints the
 ptxas report of every kernel entry, each phase's wall time, the card's
 name and power limit, a ``{"kernels": [...]}`` line, and last ``{"ok":
@@ -151,10 +173,16 @@ only phase 8, and writes ``client.json``.
 
 With ``--mesh``, it builds the kernels and native libraries and runs only
 phase 9, and writes ``mesh.json``.
+
+With ``--load``, it builds the kernels and native libraries and runs only
+phase 10, and writes ``load.json``; ``--load reference`` runs instead
+10b's harness on ``CHAOS_REFERENCE_PROFILE`` (120 clients x 10,000 ops,
+the upstream ci profile) and writes ``load_reference.json``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -2938,16 +2966,18 @@ def tree_3(dev, n_edits=1000, budget_s=60.0, min_docs=16, max_docs=1000):
     return res
 
 
-def phase_tree(device, report, b_docs=1024, b_commits=250, c_docs=1024,
-               c_commits=256, m_docs=512, m_commits=256, wave=128,
-               c3_budget_s=30.0, c3_min_docs=16):
+def phase_tree(device, report, b_docs=1024, b_commits=125, c_docs=1024,
+               c_commits=128, m_docs=512, m_commits=128, wave=128,
+               c3_budget_s=15.0, c3_min_docs=16):
     """Phase 7: the SharedTree rebase path on the card — 7a config 3b,
     7b configs 3c and 3c-moves, 7c config 3. Depth is cut to keep the
-    phase near 210 s on one H100: 7a runs 250 of the bench's 1,000
-    commits a document (a step costs the same at every depth), 7b's
-    config 3c 256 of its 512 (two waves; a wave's host work grows with
-    its index), 7c documents for 30 s (at least 16). Every width, the
-    document batches and the move mix are the bench's."""
+    phase near 130 s on one H100 (and the smoke, with phase 10, well
+    inside its limit): 7a runs 125 of the bench's 1,000 commits a
+    document (a step costs the same at every depth), 7b's configs 3c and
+    3c-moves 128 of their 512 (one wave; a wave's host work grows with
+    its index, so later waves are slower), 7c documents for 15 s (at
+    least 16). Every width, the document batches and the move mix are
+    the bench's."""
     out = {}
     t = time.perf_counter()
     out["3b"] = tree_3b(device, n_docs=b_docs, n_commits=b_commits)
@@ -4151,32 +4181,99 @@ def mesh_9c(device, window=1000, frame_ops=512, target_rows=80_000,
     return out, holds
 
 
-def mesh_9c_one_entry(device, visible) -> str:
-    """9c on the list of every visible card: with one card the backend's
-    overflow promotion asks for 8 x 65,536 / 1 = 524,288 rows a shard,
-    past K1's largest tier, and must raise the port's ValueError (a doc
-    of 49,153 distinct rows is placed at the top tier's high water)."""
+def mesh_9c_one_entry(device, visible, cap=65536,
+                      frame_ops=2048) -> dict:
+    """9c on the list of every visible card. With one card the backend's
+    overflow promotion would ask for 8 x ``cap`` / 1 rows a shard, past
+    K1's largest tier: the promotion is refused before anything moves.
+    A document of 0.75 ``cap`` + 1 distinct rows, placed at the top
+    tier's high water, keeps its top-tier slot and its lanes, is not
+    sharded, and a second scan neither compacts nor counts it again. It
+    then takes one-character appends until it trips ERR_CAPACITY, reported
+    once, exactly as a backend without sharded overflow given the same
+    frames (lanes equal at every frame). With more cards the shard fits
+    and nothing is refused."""
+    from fluidframework_tpu_torch.interop import segment_state_to_numpy
     from fluidframework_tpu_torch.parallel import mesh as M
+    from fluidframework_tpu_torch.parallel.sharded_doc import check_shard_cap
 
-    be = DeviceFleetBackend(capacity=65536, max_capacity=65536,
-                            sharded_overflow=True, device=device)
-    idx = be.ensure("one", "s")
-    be.fleet.evict_doc(idx)
-    be.fleet.restore_doc(idx, _overflow_state(49_153, 65536))
-    cap = -(-8 * 65536 // len(visible))
+    shard_cap = -(-8 * cap // len(visible))
+    try:
+        check_shard_cap(shard_cap, "auto", visible)
+    except ValueError as e:
+        reason = str(e)
+    else:
+        return dict(cards=len(visible), shard_cap=shard_cap, refused=False)
+    n0 = cap * 3 // 4 + 1
+    bes = []
+    for overflow in (True, False):
+        be = DeviceFleetBackend(capacity=cap, max_capacity=cap,
+                                sharded_overflow=overflow, device=device)
+        idx = be.ensure("one", "s")
+        be.fleet.evict_doc(idx)
+        be.fleet.restore_doc(idx, _overflow_state(n0, cap))
+        bes.append(be)
+    be, off = bes
+    idx = be._index[("one", "s")]
+    place = be.fleet.placement[idx]
+
+    def lanes(b):
+        return list(segment_state_to_numpy(b.fleet.doc_state(idx)))
+
     M.set_devices(visible)
     try:
-        be._promote_overflow()
-    except ValueError as e:
-        print(f"9c list {[str(d) for d in visible]}: ValueError: {e}",
-              flush=True)
-        return str(e)
+        before = lanes(be)
+        compacts = []
+        real = be.fleet.compact
+        be.fleet.compact = lambda: (compacts.append(1), real())[1]
+        for call in range(2):
+            be._promote_overflow()
+            if (be.fleet.placement[idx] != place or idx in be._sharded
+                    or compacts or be._promotion_refused != {idx}):
+                raise AssertionError(
+                    f"9c one card, call {call}: placement "
+                    f"{be.fleet.placement[idx]} (was {place}), sharded "
+                    f"{idx in be._sharded}, compactions {len(compacts)}, "
+                    f"refused {be._promotion_refused}")
+            _same_lanes(lanes(be), before, "9c refused promotion")
+        del be.fleet.compact  # the class's again for the scheduled ones
+        seq, n_ops, reported = n0, 0, []
+        while not reported:
+            if n_ops > cap:
+                raise AssertionError("9c one card: no ERR_CAPACITY")
+            rows = np.stack([E.insert(seq + j, seq + j + 1, 1,
+                                      seq=seq + j + 1, ref=seq + j, client=0)
+                             for j in range(frame_ops)]).astype(np.int32)
+            got = []
+            for b in (be, off):
+                b.enqueue_frame("one", SeqFrame("s", 0, seq + 1, rows, (),
+                                                0.0))
+                got.append(b.flush() + b.collect_now())
+            if got[0] != got[1]:
+                raise AssertionError(f"9c one card: reports {got}")
+            _same_lanes(lanes(be), lanes(off), "9c refused vs no overflow")
+            reported = got[0]
+            seq += frame_ops
+            n_ops += frame_ops
+        st = be.stats()
+        if (reported != [("one", "s")] or be.fleet.placement[idx] != place
+                or st["docs_with_errors"] != 1 or st["sharded_docs"]
+                or st["promotions_refused"] != 1):
+            raise AssertionError(f"9c one card: reported {reported}, stats "
+                                 f"{st}")
+        if be.flush() + be.collect_now():
+            raise AssertionError("9c one card: ERR_CAPACITY reported twice")
     finally:
         M.set_devices([device] * 8)
-    if cap > 65536:
-        raise AssertionError(f"9c: a {cap}-row shard on the card did not "
-                             "raise")
-    return f"{len(visible)} cards: {cap} rows a shard fit the kernels"
+    out = dict(cards=len(visible), shard_cap=shard_cap, refused=True,
+               reason=reason, rows_at_refusal=n0, ops_to_capacity=n_ops,
+               placement=list(place))
+    print(f"9c list {[str(d) for d in visible]}: promotion refused "
+          f"({reason}); the doc kept its {place} slot and lanes, no "
+          f"compaction, refused once; ERR_CAPACITY after {n_ops} more ops, "
+          "reported once, lanes == the backend without sharded overflow",
+          flush=True)
+    return out
 
 
 def mesh_9d(n_nodes=3, n_docs=1024, fenced=16):
@@ -4298,7 +4395,7 @@ def phase_mesh(device, report):
         wall["9b"] = time.perf_counter() - t
         t = time.perf_counter()
         r9c, holds_c = mesh_9c(device)
-        r9c["one_entry_error"] = mesh_9c_one_entry(device, visible)
+        r9c["one_entry"] = mesh_9c_one_entry(device, visible)
         wall["9c"] = time.perf_counter() - t
         t = time.perf_counter()
         r9d = mesh_9d()
@@ -4324,6 +4421,601 @@ def phase_mesh(device, report):
                                 wall_s=wall)
     return dict(mesh=mesh_launches, sharded=sharded_launches,
                 holds=holds + holds_c)
+
+
+# -- phase 10: the oracle, the load harness and the other DDS models ---------
+
+# (rows S, docs D) of 10a: the shared tier and the cluster tier, 96 ops a
+# document (bench.py's device_state_parity at larger sizes).
+ORACLE_SHAPES = ((256, 4096), (4096, 256))
+ORACLE_OPS = 96
+# 10b's ops in the default smoke: CHAOS_STRESS_FULL_PROFILE at its full
+# width (48 clients, trees, the summarizer every 150, GC every 300,
+# chaos) cut from 3,000 ops, whose run takes ~700 s on the card (the
+# replicas' tree ingest is host- and launch-bound; PERF.md), more than
+# the smoke's budget leaves; 320 keeps one GC pass. ``--load`` runs all
+# 3,000.
+SMOKE_LOAD_OPS = 320
+
+
+def oracle_streams(n_docs: int, n_ops: int, seed0: int):
+    """bench.py's parity streams: one ``random_acked_stream`` a document
+    (msn lag 24, refs caught up, seed ``seed0 + d``), evolved beside its
+    ``OracleDoc``, one payload table. Returns (int32 ops [D, K, W],
+    payloads, oracles)."""
+    from fluidframework_tpu_torch.testing.fuzz import random_acked_stream
+    from fluidframework_tpu_torch.testing.oracle import OracleDoc
+
+    payloads: dict = {}
+    oracles = [OracleDoc(NO_CLIENT) for _ in range(n_docs)]
+    batch = np.stack([np.stack(random_acked_stream(
+        np.random.default_rng(seed0 + d), n_ops, payloads, oracles[d],
+        msn_lag=24, caught_up=True)) for d in range(n_docs)])
+    return batch.astype(np.int32), payloads, oracles
+
+
+def oracle_rate(batch: np.ndarray, n_docs: int = 256) -> float:
+    """The oracle's host ops/s replaying ``n_docs`` of the streams
+    (bench.py's ``cpu_oracle_baseline``)."""
+    from fluidframework_tpu_torch.testing.oracle import OracleDoc
+
+    t = time.perf_counter()
+    for row_set in batch[:n_docs]:
+        doc = OracleDoc(NO_CLIENT)
+        for row in row_set:
+            doc.apply(row)
+    return min(n_docs, len(batch)) * batch.shape[1] / (
+        time.perf_counter() - t)
+
+
+def load_10a(device, cap: int, n_docs: int, seed0: int, n_ops=ORACLE_OPS):
+    """One 10a shape: the streams through K1 (first half), K2, K1 (second
+    half), K2 on the card; every document's text equals its oracle's,
+    every err lane is clear, and the lanes equal the plain versions' on
+    the same inputs. K1 and K2 are then timed at the shape beside their
+    plain versions. Returns (record, holds)."""
+    from fluidframework_tpu_torch.ops import segment_state as SS
+
+    t = time.perf_counter()
+    batch, payloads, oracles = oracle_streams(n_docs, n_ops, seed0)
+    gen_s = time.perf_counter() - t
+    rate = oracle_rate(batch)
+    t0, s0, _ = SS.to_packed(SS.make_batched_state(n_docs, cap, NO_CLIENT,
+                                                   device=device))
+    ops = torch.from_numpy(batch).to(device)
+    half = n_ops // 2
+    first, second = ops[:, :half].contiguous(), ops[:, half:].contiguous()
+    t, s = t0.clone(), s0.clone()
+    reset_counts()
+    K1.apply_ops_packed(t, s, first)
+    K2.compact_packed(t, s)
+    t_mid, s_mid = t.clone(), s.clone()
+    K1.apply_ops_packed(t, s, second)
+    K2.compact_packed(t, s)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    pt, ps = K1.apply_plain(t0, s0, first)
+    pt, ps = K2.compact_plain(pt, ps)
+    pt, ps = K1.apply_plain(pt, ps, second)
+    pt, ps = K2.compact_plain(pt, ps)
+    if not (torch.equal(t, pt) and torch.equal(s, ps)):
+        raise AssertionError(f"10a S={cap}: card lanes != plain lanes")
+    host = SS.to_host(SS.packed_views(t, s, False))
+    if int((host.err != 0).sum()):
+        raise AssertionError(f"10a S={cap}: err lanes set")
+    bad = [d for d in range(n_docs) if SS.materialize(
+        SS.SegmentState(*[x[d] for x in host]), payloads)
+        != oracles[d].text(payloads)]
+    if bad:
+        raise AssertionError(f"10a S={cap}: {len(bad)} docs != their "
+                             f"oracles, first {bad[:5]}")
+    holds = []
+    for name, (tt, ss, oo) in (("K1_merge_apply", (t0, s0, first)),
+                               ("K2_zamboni_compact", (t_mid, s_mid, None))):
+        err, ms, plain_ms = hold_kernel(name, tt, ss, oo)
+        b = bound_bytes(name, n_docs, cap, half)
+        holds.append(dict(kernel=name, cell=f"10a S={cap}",
+                          tier=_cuda.tier(cap, KERNELS[name]["entry"]),
+                          docs=n_docs, cap=cap, k=half, max_abs_err=err,
+                          ms=ms, plain_ms=plain_ms,
+                          bound_ms=b / HBM_BYTES_PER_S * 1e3,
+                          bound_bytes=b, library_ms=None))
+    rows = int(host.count.max())
+    out = dict(docs=n_docs, cap=cap, ops=n_ops, gen_s=gen_s,
+               oracle_ops_per_sec=rate, max_rows=rows, launches=launches,
+               k1_ms=holds[0]["ms"], k2_ms=holds[1]["ms"])
+    print(f"10a S={cap} D={n_docs} ({holds[0]['tier']}): {n_docs} docs x "
+          f"{n_ops} ops == their oracles, err lanes clear, lanes == plain; "
+          f"oracle host {rate:.0f} ops/s; K1 {holds[0]['ms']:.4f} ms a "
+          f"{half}-op call (plain {holds[0]['plain_ms']:.3f}, bound "
+          f"{holds[0]['bound_ms']:.4f}), K2 {holds[1]['ms']:.4f} ms (plain "
+          f"{holds[1]['plain_ms']:.3f}, bound {holds[1]['bound_ms']:.4f}); "
+          f"rows <= {rows}; streams built in {gen_s:.1f} s", flush=True)
+    del t0, s0, t, s, pt, ps, t_mid, s_mid, ops, first, second
+    torch.cuda.empty_cache()
+    return out, holds
+
+
+class UtilSampler:
+    """``nvidia-smi``'s utilization.gpu (the share of each sample period in
+    which a kernel ran) sampled every 200 ms while the ``with`` block
+    runs; ``share`` is their mean over 100, None where it reads nothing."""
+
+    def __enter__(self):
+        try:
+            self.proc = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=utilization.gpu",
+                 "--format=csv,noheader,nounits", "-lms", "200", "-i", "0"],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        except OSError:
+            self.proc = None
+        return self
+
+    def __exit__(self, *exc):
+        self.samples, self.share = 0, None
+        if self.proc is None:
+            return False
+        self.proc.terminate()
+        try:
+            out = self.proc.communicate(timeout=10)[0]
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out = self.proc.communicate()[0]
+        vals = [int(x) for x in out.split() if x.strip().isdigit()]
+        self.samples = len(vals)
+        self.share = sum(vals) / len(vals) / 100 if vals else None
+        return False
+
+
+def load_profile_full_smoke():
+    """tests/test_load.py's CI-sized full-stack chaos shape (16 clients x
+    600 ops, trees, the elected summarizer, GC, chaos 0.02)."""
+    from fluidframework_tpu_torch.testing.load import CHAOS_SMOKE_PROFILE
+
+    return dataclasses.replace(
+        CHAOS_SMOKE_PROFILE, doc_id="chaos-full-smoke", tree_weight=0.25,
+        summary_interval=60, gc_every=120, total_ops=600)
+
+
+def load_run(device, profile, n_partitions: int, exact: bool = False):
+    """One ``LoadRunner`` profile over ``PipelineFluidService`` with the
+    device stage and every replica's string and tree on ``device``; then
+    a late-joining runtime loads the document (summary + deltas). With
+    ``exact``, no wall clock decides a boxcar or a nack (feed deadline 0,
+    overload lag reference infinite), so a card run and a CPU run can be
+    compared. Returns (report fields, the late joiner's state, wall s)."""
+
+    from fluidframework_tpu_torch.models.shared_map import SharedMap
+    from fluidframework_tpu_torch.models.shared_string import SharedString
+    from fluidframework_tpu_torch.runtime.container import ContainerRuntime
+    from fluidframework_tpu_torch.service.admission import (
+        OverloadController,
+    )
+    from fluidframework_tpu_torch.testing import faults
+    from fluidframework_tpu_torch.testing.load import LoadRunner
+    from fluidframework_tpu_torch.tree.shared_tree import SharedTree
+
+    faults.REGISTRY.reset()
+    kw = dict(n_partitions=n_partitions, device_torch=device)
+    if exact:
+        kw.update(device_feed_deadline_ms=0.0, overload=OverloadController(
+            lag_ref_ms=float("inf")))
+    svc = PipelineFluidService(**kw)
+    t = time.perf_counter()
+    report = LoadRunner(svc, profile, device=device).run()
+    wall = time.perf_counter() - t
+    chans = [SharedString("text", device=device), SharedMap("map")]
+    if profile.tree_weight > 0:
+        chans.append(SharedTree("tree", device=device))
+    late = ContainerRuntime(svc, profile.doc_id, channels=tuple(chans))
+    while late.process_incoming():
+        pass
+    state = dict(text=late.get_channel("text").get_text(),
+                 annotations=late.get_channel("text").annotations(),
+                 map=sorted(late.get_channel("map").items()),
+                 tree=(late.get_channel("tree").get()
+                       if profile.tree_weight > 0 else None))
+    late.disconnect()
+    fields = dataclasses.asdict(report)
+    for key in ("elapsed_s", "journal_dump"):
+        fields.pop(key)
+    return fields, state, wall
+
+
+def _cpu_load_run(profile, n_partitions):
+    """The CPU half of 10b's card-vs-CPU check, in a process of its own
+    beside the card's work."""
+    torch.set_num_threads(1)
+    return load_run(torch.device("cpu"), profile, n_partitions, exact=True)
+
+
+def load_10b(device, profile=None, compare=True):
+    """10b: ``profile`` (``CHAOS_STRESS_FULL_PROFILE`` by default) through
+    the port's ``LoadRunner`` over ``PipelineFluidService(n_partitions=4)``
+    on the card, with no wall clock deciding a boxcar or a nack (so the
+    counts it checks are the same in every run, and the same as on the
+    CPU): converged, every op submitted, chaos and client faults
+    injected, summaries and GC ran, tree ingest recorded (the last three
+    where the profile asks for them); wall, ops/s, K1/K2 launches and the
+    card's busy share (``nvidia-smi``). With ``compare``, the CI-sized
+    full-stack profile also runs on the card and on the CPU (in a spawned
+    process, beside the card runs): reports and late joiners equal."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from fluidframework_tpu_torch.testing.load import (
+        CHAOS_STRESS_FULL_PROFILE,
+    )
+
+    profile = profile or CHAOS_STRESS_FULL_PROFILE
+    small = load_profile_full_smoke()
+    pool = cpu = None
+    if compare:
+        pool = ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        if compare:
+            cpu = pool.submit(_cpu_load_run, small, 2)
+        reset_counts()
+        with UtilSampler() as util:
+            rep, state, wall = load_run(device, profile, 4, exact=True)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        checks = dict(converged=rep["converged"],
+                      ops=rep["ops_submitted"] == profile.total_ops,
+                      chaos=rep["chaos_injected"] > 0,
+                      faults=rep["faults_injected"] > 0)
+        if profile.summary_interval:
+            checks.update(summaries=rep["summaries"] > 0,
+                          gc=rep["gc_runs"] > 0)
+        if profile.tree_weight > 0:
+            checks["tree_ingest"] = bool(rep["tree_ingest"])
+        if not all(checks.values()):
+            counts = {k: v for k, v in rep.items()
+                      if k not in ("texts", "annotations", "trees")}
+            raise AssertionError(f"10b {profile.doc_id}: {checks}; "
+                                 f"report {counts}")
+        if state["text"] != rep["texts"][0]:
+            raise AssertionError("10b: the late joiner's text != the "
+                                 "replicas'")
+        out = dict(
+            profile=profile.doc_id, clients=profile.n_clients,
+            ops=profile.total_ops, wall_s=wall,
+            ops_per_sec=profile.total_ops / wall, launches=launches,
+            busy_share=util.share, util_samples=util.samples,
+            **{k: rep[k] for k in (
+                "faults_injected", "chaos_injected", "reconnects", "nacks",
+                "summaries", "gc_runs", "tree_ops_submitted",
+                "tree_moves_submitted", "final_text_len", "tree_ingest")})
+        busy = ("not measured" if util.share is None
+                else f"{util.share:.3f}")
+        print(f"10b {profile.doc_id} ({profile.n_clients} clients x "
+              f"{profile.total_ops} ops) on the card: converged in "
+              f"{wall:.1f} s ({out['ops_per_sec']:.1f} ops/s); faults "
+              f"{rep['faults_injected']}, chaos {rep['chaos_injected']}, "
+              f"nacks {rep['nacks']}, summaries {rep['summaries']}, GC "
+              f"{rep['gc_runs']}, tree ops {rep['tree_ops_submitted']} "
+              f"(moves {rep['tree_moves_submitted']}), tree ingest "
+              f"{rep['tree_ingest']}; K1 {launches['K1_merge_apply']['all']}"
+              f", K2 {launches['K2_zamboni_compact']['all']}; card busy {busy} "
+              f"({util.samples} samples)", flush=True)
+        if compare:
+            t = time.perf_counter()
+            card_rep, card_state, card_wall = load_run(device, small, 2,
+                                                       exact=True)
+            cpu_rep, cpu_state, cpu_wall = cpu.result()
+            if card_rep != cpu_rep or card_state != cpu_state:
+                diff = sorted(k for k in card_rep
+                              if card_rep[k] != cpu_rep[k])
+                raise AssertionError(f"10b CI-sized profile: card != CPU "
+                                     f"(report fields {diff}; late joiner "
+                                     f"{card_state == cpu_state})")
+            if not card_rep["converged"]:
+                raise AssertionError("10b CI-sized profile did not converge")
+            out["ci_profile"] = dict(card_wall_s=card_wall,
+                                     cpu_wall_s=cpu_wall,
+                                     chaos_injected=card_rep[
+                                         "chaos_injected"],
+                                     summaries=card_rep["summaries"])
+            print(f"10b CI-sized full-stack profile (16 x 600): card "
+                  f"{card_wall:.1f} s, CPU {cpu_wall:.1f} s; reports "
+                  "(every count, text, annotation and tree) and late "
+                  "joiners (text, map, tree) card == CPU", flush=True)
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
+    return out
+
+
+class _CountingUuid:
+    """``uuid.uuid4`` from a counter, so two runs draw the same ids."""
+
+    def __init__(self):
+        self.n = 0
+
+    def uuid4(self):
+        self.n += 1
+        from types import SimpleNamespace
+
+        return SimpleNamespace(hex=f"{self.n:032x}")
+
+
+def dds_models(device, seed=0, steps=240, offline=(60, 100)):
+    """10c: three ``ContainerRuntime``s over ``LocalFluidService``, each
+    with the twelve models of ``models/`` beyond the client merge path
+    and a ``SharedString`` on ``device``: a seeded concurrent script
+    (consensus writes, acquires, volunteers and pacts resolved through
+    sequencing, quorum and MSN; directory subtrees; ID ranges across three
+    sessions; ink strokes; OT json and PropertyDDS changesets; text), with
+    runtime 1 offline from step ``offline[0]`` to ``offline[1]`` with
+    pending ops on every model that buffers them. Returns each replica's
+    observable state and summaries after a drain."""
+    from fluidframework_tpu_torch.models import consensus_register as CR
+    from fluidframework_tpu_torch.models import id_compressor as IC
+    from fluidframework_tpu_torch.models import ink as INK
+    from fluidframework_tpu_torch.models import ordered_collection as OC
+    from fluidframework_tpu_torch.models import ot_json as OT
+    from fluidframework_tpu_torch.models import pact_map as PM
+    from fluidframework_tpu_torch.models import property_dds as PD
+    from fluidframework_tpu_torch.models import shared_cell as CELL
+    from fluidframework_tpu_torch.models import shared_counter as CNT
+    from fluidframework_tpu_torch.models import shared_directory as DIR
+    from fluidframework_tpu_torch.models import summary_block as SB
+    from fluidframework_tpu_torch.models import task_manager as TMG
+    from fluidframework_tpu_torch.models.shared_string import SharedString
+    from fluidframework_tpu_torch.runtime.container import ContainerRuntime
+    from fluidframework_tpu_torch.service.local_server import (
+        LocalFluidService,
+    )
+
+    real_uuid = OC.uuid
+    OC.uuid = _CountingUuid()
+    try:
+        svc = LocalFluidService()
+
+        def channels(i):
+            return (CNT.SharedCounter("n"), CELL.SharedCell("c"),
+                    CR.ConsensusRegisterCollection("r"),
+                    OC.ConsensusOrderedCollection("q"),
+                    TMG.TaskManager("t"), PM.PactMap("p"),
+                    SB.SharedSummaryBlock("sb"), DIR.SharedDirectory("d"),
+                    IC.IdCompressor("ids", cluster_capacity=8,
+                                    session_id=f"sess-{i}"),
+                    INK.Ink("ink"),
+                    OT.SharedOTJson("j", initial={"items": [], "n": 0}),
+                    PD.SharedPropertyTree("pt"),
+                    SharedString("text", capacity=64, device=device))
+
+        rts = [ContainerRuntime(svc, "doc", channels=channels(i))
+               for i in range(3)]
+        rng = np.random.default_rng(seed)
+        strokes = {i: [] for i in range(3)}
+        for step in range(steps):
+            if step == offline[0]:
+                rts[1].flush()
+                rts[1].disconnect()
+            if step == offline[1]:
+                rts[1].reconnect()
+            i = int(rng.integers(0, 3))
+            rt = rts[i]
+            ch = rt.get_channel
+            r = int(rng.integers(0, 16))
+            if r == 0:
+                ch("n").increment(int(rng.integers(-3, 6)))
+            elif r == 1:
+                if rng.random() < 0.8:
+                    ch("c").set(step)
+                else:
+                    ch("c").delete()
+            elif r == 2:
+                ch("r").write(f"k{int(rng.integers(0, 3))}", step)
+            elif r == 3:
+                q = ch("q")
+                held = sorted(q.acquired())
+                x = rng.random()
+                if held and x < 0.3:
+                    (q.complete if x < 0.15 else q.release)(held[0])
+                elif x < 0.65:
+                    q.acquire()
+                else:
+                    q.add(f"job{step}")
+            elif r == 4:
+                task = f"t{int(rng.integers(0, 2))}"
+                if rt.connected and ch("t").queued(task):
+                    ch("t").abandon(task)
+                elif rt.connected:
+                    ch("t").volunteer(task)
+            elif r == 5:
+                ch("p").set(f"k{int(rng.integers(0, 3))}", step)
+            elif r == 6:
+                ch("sb").set(f"k{i}", step)
+            elif r == 7:
+                d = ch("d")
+                sub = f"s{int(rng.integers(0, 3))}"
+                x = rng.random()
+                if x < 0.3:
+                    d.set(f"k{int(rng.integers(0, 4))}", step)
+                elif x < 0.6:
+                    d.create_subdirectory(sub).set("v", step)
+                elif x < 0.85 and d.get_subdirectory(sub) is not None:
+                    d.get_subdirectory(sub).create_subdirectory(
+                        "deep").set("w", step)
+                else:
+                    d.root.delete_subdirectory(sub)
+            elif r == 8:
+                ids = ch("ids")
+                ids.generate_ids(int(rng.integers(1, 6)))
+                if rng.random() < 0.6:
+                    ids.take_id_range()
+            elif r == 9:
+                ink = ch("ink")
+                if not strokes[i] or rng.random() < 0.3:
+                    strokes[i].append(ink.create_stroke(
+                        {"w": int(rng.integers(1, 4))}).id)
+                else:
+                    ink.append_points(strokes[i][-1], [
+                        [float(step), float(x), 0.5, 1.0]
+                        for x in range(int(rng.integers(1, 4)))])
+            elif r == 10:
+                j = ch("j")
+                items = j.get("items")
+                x = rng.random()
+                if x < 0.45 or not items:
+                    j.list_insert(["items"],
+                                  int(rng.integers(0, len(items) + 1)),
+                                  f"s{step}")
+                elif x < 0.7:
+                    j.list_delete(["items"], int(rng.integers(0, len(items))))
+                elif x < 0.85:
+                    j.number_add(["n"], int(rng.integers(1, 5)))
+                else:
+                    j.set_key([f"k{int(rng.integers(0, 3))}"], step)
+            elif r == 11:
+                pt = ch("pt")
+                arr = pt.get("arr")
+                x = rng.random()
+                if arr is None:
+                    pt.insert_array_property("arr", [step])
+                elif x < 0.4:
+                    pt.array_insert("arr", int(rng.integers(0, len(arr) + 1)),
+                                    [step])
+                elif x < 0.6 and arr:
+                    pt.array_remove("arr", int(rng.integers(0, len(arr))))
+                elif pt.get(f"p{i}.v") is None:
+                    pt.insert_property(f"p{i}.v", "Int32", step)
+                else:
+                    pt.set_value(f"p{i}.v", step)
+                pt.commit()
+            elif r == 12 and rt.connected:
+                rt.propose("code", f"v{step}")
+            elif r in (13, 14):
+                s = ch("text")
+                n = len(s.get_text())
+                if n > 6 and rng.random() < 0.3:
+                    a = int(rng.integers(0, n - 2))
+                    s.remove_range(a, a + 2)
+                else:
+                    s.insert_text(int(rng.integers(0, n + 1)), "".join(
+                        chr(97 + int(c)) for c in rng.integers(0, 26, 3)))
+            elif rt.connected:
+                rt.send_noop()
+            if rng.random() < 0.4 and rt.connected:
+                rt.flush()
+            k = int(rng.integers(0, 3))
+            if rng.random() < 0.4 and rts[k].connected:
+                rts[k].process_incoming(int(rng.integers(1, 6)))
+        for rt in rts:
+            if not rt.connected:
+                rt.reconnect()
+        for _ in range(3):  # noops move the MSN past every proposal and pact
+            for rt in rts:
+                rt.flush()
+                rt.send_noop()
+            while any(rt.process_incoming() for rt in rts):
+                pass
+        snap = []
+        for rt in rts:
+            ch = rt.get_channel
+            snap.append(dict(
+                counter=ch("n").value, cell=(ch("c").empty, ch("c").get()),
+                registers={k: (ch("r").read(k), ch("r").read_versions(k))
+                           for k in sorted(ch("r").keys())},
+                queue=ch("q").summarize_core(),
+                tasks={t: ch("t").assigned_to(t) for t in ("t0", "t1")},
+                pacts=ch("p").summarize_core(),
+                directory=ch("d").summarize_core(),
+                ids=ch("ids").summarize_core(),
+                ink=[(st.id, st.pen, st.points.tolist())
+                     for st in ch("ink").strokes()],
+                ot=ch("j").as_data(),
+                props=ch("pt").summarize_core(),
+                text=ch("text").get_text(),
+                proposals=dict(rt.approved_proposals),
+                local=dict(block=ch("sb").summarize_core(),
+                           acquired=ch("q").acquired(),
+                           summaries=[json.dumps(ch(c).summarize_core(),
+                                                 sort_keys=True, default=repr)
+                                      for c in ("n", "c", "r", "q", "t", "p",
+                                                "sb", "d", "ids", "ink", "j",
+                                                "pt", "text")]),
+            ))
+        return snap
+    finally:
+        OC.uuid = real_uuid
+
+
+def load_10c(device) -> dict:
+    """10c: the other DDS models on the card: every replica converges
+    (everything but each replica's own summary block and held queue
+    items, which by design stay with their writer, and the directory, as
+    the reference's), and each replica's state and summaries equal the
+    same script on the CPU."""
+    t = time.perf_counter()
+    reset_counts()
+    card = dds_models(device)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    card_s = time.perf_counter() - t
+    cpu = dds_models(torch.device("cpu"))
+    # Directory replicas are held card to CPU only: the reference's own
+    # replicas differ after a delete of a path races a remote create of
+    # it (ROADMAP, section 3), and this script makes that race.
+    for key in card[0]:
+        if key not in ("local", "directory") and any(
+                r[key] != card[0][key] for r in card):
+            raise AssertionError(f"10c: replicas did not converge on {key}")
+    dir_agree = all(r["directory"] == card[0]["directory"] for r in card)
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        if a != b:
+            diff = [k for k in a if a[k] != b[k]]
+            raise AssertionError(f"10c: rt {i} card != CPU on {diff}")
+    r = card[0]
+    out = dict(wall_s=card_s, launches=launches, counter=r["counter"],
+               text_len=len(r["text"]), strokes=len(r["ink"]),
+               id_clusters=len(r["ids"]["clusters"]),
+               proposals=r["proposals"],
+               committed_pacts=len(r["pacts"]["committed"]),
+               directory_replicas_agree=dir_agree)
+    print(f"10c DDS models: 3 runtimes x 12 models + SharedString converged "
+          f"on the card in {card_s:.2f} s (counter {r['counter']}, text "
+          f"{out['text_len']} chars, {out['strokes']} strokes, "
+          f"{out['id_clusters']} id clusters, {out['committed_pacts']} "
+          f"pacts, proposals {r['proposals']}); K1 "
+          f"{launches['K1_merge_apply']['all']}, K2 "
+          f"{launches['K2_zamboni_compact']['all']}; directory replicas "
+          f"agree: {dir_agree}; every replica == the CPU run", flush=True)
+    return out
+
+
+def phase_load(device, report, stress=None):
+    """Phase 10: 10a oracle parity at the two shapes, 10b the load
+    harness (``stress``: the profile of its main run), 10c the other DDS
+    models. Launch counts are reset before each and read after it;
+    returns the path's launches and the holds of 10a."""
+    wall = {}
+    t = time.perf_counter()
+    r10a, holds = {}, []
+    for j, (cap, d) in enumerate(ORACLE_SHAPES):
+        rec, h = load_10a(device, cap, d, seed0=1000 + 10_000 * j)
+        r10a[f"S{cap}"] = rec
+        holds += h
+    wall["10a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    r10b = load_10b(device, stress)
+    wall["10b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    r10c = load_10c(device)
+    wall["10c"] = time.perf_counter() - t
+    launches = _sum_counts(*[r["launches"] for r in r10a.values()],
+                           r10b["launches"], r10c["launches"])
+    for name in ("K1_merge_apply", "K2_zamboni_compact"):
+        if launches[name]["all"] <= 0:
+            raise AssertionError(f"{name} never launched on the load path")
+    print(f"10 wall s: { {k: round(v, 1) for k, v in wall.items()} }; "
+          f"launches {launches}", flush=True)
+    report["phase_load"] = dict(oracle=r10a, load=r10b, dds=r10c,
+                                holds=holds, wall_s=wall)
+    return dict(launches=launches, holds=holds)
 
 
 def main() -> int:
@@ -4416,6 +5108,15 @@ def main() -> int:
     # sharded overflow, multi-node ordering).
     torch.cuda.empty_cache()
     scale = timed("9_mesh", phase_mesh, device, report)
+    # Phase 10: the oracle on the card, the load harness over the
+    # pipeline, the other DDS models.
+    torch.cuda.empty_cache()
+    from fluidframework_tpu_torch.testing.load import (
+        CHAOS_STRESS_FULL_PROFILE,
+    )
+
+    load = timed("10_load", phase_load, device, report, dataclasses.replace(
+        CHAOS_STRESS_FULL_PROFILE, total_ops=SMOKE_LOAD_OPS))
     report["wall_s"] = wall
 
     kernels = []
@@ -4426,7 +5127,8 @@ def main() -> int:
                    "pipeline": launches5[name], "server": launches6[name],
                    "client": client["launches"][name],
                    "mesh": scale["mesh"][name],
-                   "sharded": scale["sharded"][name]}
+                   "sharded": scale["sharded"][name],
+                   "load": load["launches"][name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "fluidframework_tpu_torch/csrc/merge_kernels.cu",
@@ -4438,6 +5140,7 @@ def main() -> int:
             "launches_by_path": by_path,
             "max_abs_err": max([err] + [r["max_abs_err"]
                                         for r in glob + scale["holds"]
+                                        + load["holds"]
                                         if r["kernel"] == name]),
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
@@ -4455,6 +5158,10 @@ def main() -> int:
                              ("cell", "docs", "cap", "k", "ms", "plain_ms",
                               "bound_ms")}
                             for r in scale["holds"] if r["kernel"] == name],
+            "load_shapes": [{key: r[key] for key in
+                             ("cell", "tier", "docs", "cap", "k", "ms",
+                              "plain_ms", "bound_ms")}
+                            for r in load["holds"] if r["kernel"] == name],
         })
     report["kernels"] = kernels
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -4539,6 +5246,40 @@ def mesh_alone() -> int:
     return 0
 
 
+def load_alone(which: str = "") -> int:
+    """Phase 10 alone after the builds, or with ``which="reference"`` only
+    10b's run of ``CHAOS_REFERENCE_PROFILE`` (120 clients x 10,000 ops,
+    the upstream ci profile); its record goes to ``load.json`` (or
+    ``load_reference.json``) in the output directory."""
+    from fluidframework_tpu_torch.testing.load import CHAOS_REFERENCE_PROFILE
+
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    with ThreadPoolExecutor(5) as pool:
+        for b in [pool.submit(fn) for fn in BUILDS]:
+            b.result()
+    report = {"card": smi, "torch": torch.__version__}
+    t = time.perf_counter()
+    if which == "reference":
+        report["reference"] = load_10b(device, CHAOS_REFERENCE_PROFILE,
+                                       compare=False)
+        name = "load_reference.json"
+    else:
+        out = phase_load(device, report)
+        print(f"load launches {out['launches']}", flush=True)
+        name = "load.json"
+    print(f"phase 10_load: {time.perf_counter() - t:.1f} s", flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, name), "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    print(smi)
+    return 0
+
+
 def server_repeat(n: int) -> int:
     """Phase 6 alone, ``n`` times in one process after the builds: each
     run's client numbers, overload envelope and launches are printed and
@@ -4584,6 +5325,10 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device; nothing was run")
         sys.exit(mesh_alone())
+    if len(sys.argv) > 1 and sys.argv[1] == "--load":
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device; nothing was run")
+        sys.exit(load_alone(*sys.argv[2:3]))
     if len(sys.argv) > 1 and sys.argv[1] == "--socket-client":
         sys.exit(socket_client(sys.argv[2:]))
     if len(sys.argv) > 2 and sys.argv[1] == "--ab":

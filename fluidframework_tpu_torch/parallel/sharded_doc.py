@@ -107,6 +107,17 @@ class _Group:
         self.at = torch.tensor(shards, dtype=torch.long, device=first)
 
 
+def check_shard_cap(shard_cap: int, kernel: str, devs) -> str:
+    """Check that shards of ``shard_cap`` rows fit the kernels that would
+    run them on ``devs``: on a card, a cap past the kernels' largest tier
+    raises ``ValueError`` (the plain versions have no cap). Returns the
+    resolved ``kernel``."""
+    kernel = resolve_kernel(kernel, devs)
+    if kernel != "plain" and any(d.type == "cuda" for d in devs):
+        _cuda.tier(shard_cap, "merge_apply")
+    return kernel
+
+
 class ShardedDoc:
     """One document spread over the mesh: capacity = n_shards * shard_cap.
     The host API mirrors a single-document state; positions are global.
@@ -124,10 +135,7 @@ class ShardedDoc:
         self.axis = mesh.axis
         self.n_shards = mesh.size
         self.shard_cap = shard_cap
-        self.kernel = resolve_kernel(kernel, mesh.devices)
-        if self.kernel != "plain" and any(d.type == "cuda"
-                                          for d in mesh.devices):
-            _cuda.tier(shard_cap, "merge_apply")  # raises past the top tier
+        self.kernel = check_shard_cap(shard_cap, kernel, mesh.devices)
         self._first = mesh.first
         self._groups: List[_Group] = []
         for dev, shards in mesh.groups():

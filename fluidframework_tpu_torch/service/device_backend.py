@@ -86,7 +86,10 @@ from fluidframework_tpu_torch.parallel.fleet import (
     split_telemetry,
 )
 from fluidframework_tpu_torch.parallel.mesh import devices as mesh_devices
-from fluidframework_tpu_torch.parallel.sharded_doc import ShardedDoc
+from fluidframework_tpu_torch.parallel.sharded_doc import (
+    ShardedDoc,
+    check_shard_cap,
+)
 from fluidframework_tpu_torch.protocol.constants import F_ARG, F_SEQ, OP_WIDTH
 from fluidframework_tpu_torch.service import retry
 from fluidframework_tpu_torch.service.admission import PressureSignal
@@ -200,6 +203,9 @@ class DeviceFleetBackend:
         self.compact_every = compact_every
         self.sharded_overflow = sharded_overflow
         self._sharded: Dict[int, ShardedDoc] = {}  # fleet idx -> doc
+        # Overflowing docs whose promotion the kernels' top tier refused:
+        # they stay in their top-tier slot (as without sharded overflow).
+        self._promotion_refused: set = set()
         self._index: Dict[ChannelKey, int] = {}
         self._keys: List[ChannelKey] = []  # dense fleet id -> key
         self.payloads: Dict[ChannelKey, dict] = {}
@@ -1282,18 +1288,29 @@ class DeviceFleetBackend:
         """Re-home docs that outgrew the top fleet tier into ShardedDocs
         (the segment table spread over the device list, positions resolved
         by the per-op offset exchange, ``parallel/sharded_doc.py``)."""
-        if not self.fleet.overflowing_docs():
+        over = [i for i in self.fleet.overflowing_docs()
+                if i not in self._promotion_refused]
+        if not over:
+            return
+        # Total sharded capacity is 8x the top fleet tier whatever the
+        # device count (one device must still grow the document). Checked
+        # before anything moves: on a card a shard cap past the kernels'
+        # largest tier is refused, and the docs run on in their top-tier
+        # slots until they trip ERR_CAPACITY.
+        devs = mesh_devices()
+        shard_cap = -(-8 * self.fleet.max_capacity // len(devs))
+        try:
+            check_shard_cap(shard_cap, self.fleet.kernel, devs)
+        except ValueError:
+            self._promotion_refused.update(over)
             return
         # Promotion is irreversible and takes every device for one
         # document: reclaim tombstones first so only live growth promotes.
         self.fleet.compact()
         for idx in self.fleet.overflowing_docs():
+            if idx in self._promotion_refused:
+                continue
             state = self.fleet.evict_doc(idx)
-            # Total sharded capacity is 8x the top fleet tier whatever the
-            # device count (one device must still grow the document). On a
-            # card a shard cap past the kernels' largest tier raises.
-            n_dev = len(mesh_devices())
-            shard_cap = -(-8 * self.fleet.max_capacity // n_dev)
             doc = ShardedDoc(shard_cap=shard_cap, kernel=self.fleet.kernel)
             doc.load_single(state)
             self._sharded[idx] = doc
@@ -1585,6 +1602,7 @@ class DeviceFleetBackend:
             sharded_rows=sum(
                 d.rows_in_use() for d in self._sharded.values()
             ),
+            promotions_refused=len(self._promotion_refused),
             pump_mode=self.pump_mode,
             ring_staged=len(self._ring),
             pump_dispatches=self.pump_dispatches,

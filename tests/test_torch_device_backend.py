@@ -299,6 +299,8 @@ class Pair:
         want, got = self._both(lambda _s, be: be.stats())
         for s in (want, got):
             s["residency"].pop("wake_p99_ms")  # a wall-clock latency
+        # The port's own count: no promotion is refused on the CPU.
+        assert got.pop("promotions_refused") == 0
         _same(want, got)
         want, got = self._both(lambda _s, be: be.pressure())
         assert (want.ring_frac, want.queue_frac, want.scan_inflight,
@@ -555,6 +557,75 @@ def test_mesh_and_sharded_overflow_raise_and_default_needs_a_card(
     with pytest.raises(RuntimeError, match="CUDA"):
         PortBackend()
     assert PortBackend(device="cpu").fleet.device.type == "cpu"
+
+
+def test_refused_promotion_keeps_the_document(monkeypatch):
+    """Sharded overflow on a one-card device list: a shard would need 8 x
+    the top tier's rows, past the kernels' largest tier (stubbed here as
+    the card would see it: the list reports one card and the top tier is
+    64 rows). The promotion is refused before anything moves: the
+    document keeps its top-tier slot and its lanes, is not sharded, and
+    a later scan neither compacts again nor counts it again. It then runs
+    on exactly as a backend without sharded overflow, trips ERR_CAPACITY
+    and is reported once."""
+    from fluidframework_tpu_torch.ops import _cuda
+    from fluidframework_tpu_torch.service import device_backend as DBK
+
+    monkeypatch.setattr(DBK, "mesh_devices",
+                        lambda: [torch.device("cuda", 0)])
+    monkeypatch.setattr(_cuda, "MAX_CAPACITY", 64)  # shard cap 8 x 16 = 128
+    kw = dict(capacity=8, max_capacity=16, device="cpu")
+    on = PortBackend(sharded_overflow=True, **kw)
+    off = PortBackend(**kw)
+    lams = [PortLambda("big", on), PortLambda("big", off)]
+    ops = Ops(seed=12)
+
+    def round_(n=2):
+        lo, hi = ops.advance("big", n)
+        rows, texts = ops.rows("big", lo, hi)
+        out = []
+        for lam in lams:
+            f = port_opframe.SeqFrame("s", 0, lo, rows.copy(), texts, 0.0)
+            lam.handler("big", {"t": "seqframe", "frame": f})
+            out.append(lam.backend.flush() + lam.backend.collect_now())
+        return out
+
+    def lanes(be):
+        st = be.fleet.doc_state(be._index[("big", "s")])
+        return [np.asarray(x).copy() for x in st]
+
+    while not on._promotion_refused:
+        assert round_() == [[], []]
+    idx = on._index[("big", "s")]
+    place = on.fleet.placement[idx]
+    assert place[0] == 16 and idx in on.fleet.overflowing_docs()
+    before = lanes(on)
+    compacts = []
+    real = on.fleet.compact
+    monkeypatch.setattr(on.fleet, "compact",
+                        lambda: (compacts.append(1), real())[1])
+    for _ in range(2):
+        on._promote_overflow()
+        assert on.fleet.placement[idx] == place
+        for x, y in zip(lanes(on), before):
+            np.testing.assert_array_equal(x, y)
+        assert idx not in on._sharded and compacts == []
+    assert on.stats()["promotions_refused"] == 1
+    reported = []
+    for _ in range(40):
+        got = round_()
+        assert got[0] == got[1]
+        reported += got[0]
+        for x, y in zip(lanes(on), lanes(off)):
+            np.testing.assert_array_equal(x, y)
+        if reported:
+            break
+    assert reported == [("big", "s")]
+    assert on.fleet.placement[idx] == place
+    st = on.stats()
+    assert st["docs_with_errors"] == 1 and st["sharded_docs"] == 0
+    assert st["promotions_refused"] == 1
+    assert round_() == [[], []]  # reported once
 
 
 def test_a_real_dispatch_failure_propagates(monkeypatch):

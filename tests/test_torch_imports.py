@@ -64,7 +64,14 @@ def test_port_modules_and_chip_smoke_load_no_jax():
               "models.shared_matrix", "models.sparse_matrix",
               "models.shared_map", "framework.undo_redo",
               "runtime.rebase", "drivers.replay_driver",
-              "service.smoke_client", "testing.merge_streams"):
+              "service.smoke_client", "testing.merge_streams",
+              "testing.oracle", "testing.fuzz", "testing.load",
+              "models.shared_counter", "models.shared_cell",
+              "models.consensus_register", "models.ordered_collection",
+              "models.task_manager", "models.pact_map",
+              "models.summary_block", "models.shared_directory",
+              "models.id_compressor", "models.ink", "models.ot_json",
+              "models.property_dds"):
         assert f"fluidframework_tpu_torch.{m}" in mods
 
 

@@ -13,6 +13,7 @@ the log and checkpoint epochs, the lease holders and epochs, each node's
 owned documents and load, the migrations and every replica's text.
 """
 
+import dataclasses
 import types as pytypes
 
 import numpy as np
@@ -26,6 +27,7 @@ from fluidframework_tpu.runtime.container import ContainerRuntime as RefRT
 from fluidframework_tpu.service import multinode as ref_multinode
 from fluidframework_tpu.service import pipeline as ref_pipeline
 from fluidframework_tpu.service import sequencer as ref_sequencer
+from fluidframework_tpu.testing import load as ref_load
 from fluidframework_tpu.utils import native as ref_native
 from fluidframework_tpu_torch.models.shared_map import SharedMap as PortMap
 from fluidframework_tpu_torch.models.shared_string import (
@@ -38,16 +40,18 @@ from fluidframework_tpu_torch.runtime.container import (
 from fluidframework_tpu_torch.service import multinode as port_multinode
 from fluidframework_tpu_torch.service import pipeline as port_pipeline
 from fluidframework_tpu_torch.service import sequencer as port_sequencer
+from fluidframework_tpu_torch.testing import load as port_load
 from fluidframework_tpu_torch.utils import native as port_native
 
 SIDES = {
     "ref": dict(mn=ref_multinode, rt=RefRT, types=ref_types,
                 string=RefString, map=RefMap, pipeline=ref_pipeline,
-                sequencer=ref_sequencer, native=ref_native),
+                sequencer=ref_sequencer, native=ref_native, load=ref_load),
     "port": dict(mn=port_multinode, rt=PortRT, types=port_types,
                  string=lambda cid: PortString(cid, device="cpu"),
                  map=PortMap, pipeline=port_pipeline,
-                 sequencer=port_sequencer, native=port_native),
+                 sequencer=port_sequencer, native=port_native,
+                 load=port_load),
 }
 COORDS = ["python", "native"]
 
@@ -232,40 +236,34 @@ def test_stale_owner_is_fenced(coord, monkeypatch):
 
 @pytest.mark.parametrize("coord", COORDS)
 def test_load_profile_over_cluster(coord, monkeypatch):
-    """A seeded multi-writer load over three nodes (the counterpart of
-    the reference's LoadRunner profile, which drives only its own
-    package): random inserts and removes from four clients, offline
-    stretches with reconnects, a node crash and a rebalance cadence; all
-    replicas converge."""
-    def script(s):
-        rng = np.random.default_rng(11)
-        rts = [s.rt("cluster-load") for _ in range(4)]
-        drain(rts)
-        for step in range(150):
-            i = int(rng.integers(4))
-            t = rts[i].get_channel("t")
-            n = len(t.get_text())
-            if n > 4 and rng.random() < 0.3:
-                a = int(rng.integers(0, n - 2))
-                t.remove_range(a, a + int(rng.integers(1, 3)))
-            else:
-                t.insert_text(int(rng.integers(0, n + 1)),
-                              chr(97 + step % 26))
-            if step == 60:
-                rts[3].disconnect()
-            if step == 72:
-                rts[3].reconnect()
-            if step == 100:
-                s.node(s.holder("cluster-load")).kill()
-                s.clock.now += 10
-            if rng.random() < 0.5:
-                drain(rts if step < 60 or step >= 72 else rts[:3])
-        drain(rts)
-        return rts
+    """tests/test_multinode.py's load profile over three nodes: each
+    package's ``LoadRunner`` (the port's with ``device="cpu"``) drives
+    four clients with offline windows over its own cluster; the logs,
+    leases and checkpoints agree, and so do the two reports in every
+    field but the wall time (every replica's text among them)."""
+    reports = {}
 
-    _s, rts = lockstep(script, coord, monkeypatch, n_nodes=3,
-                       rebalance_every=16)
-    assert len({rt.get_channel("t").get_text() for rt in rts}) == 1
+    def script(s):
+        side = "port" if s.m is SIDES["port"] else "ref"
+        load = s.m["load"]
+        profile = load.LoadProfile(
+            n_clients=4, total_ops=150, seed=11, fault_rate=0.02,
+            offline_ops=12, doc_id="cluster-load",
+        )
+        kw = {"device": "cpu"} if side == "port" else {}
+        reports[side] = load.LoadRunner(s.svc, profile, **kw).run()
+        return []
+
+    lockstep(script, coord, monkeypatch, n_nodes=3)
+    fields = {}
+    for side, rep in reports.items():
+        d = dataclasses.asdict(rep)
+        d.pop("elapsed_s")
+        d.pop("journal_dump")
+        fields[side] = d
+    TP._eq(fields["ref"], fields["port"], "load report")
+    assert reports["port"].converged, f"divergence: {reports['port']}"
+    assert reports["port"].faults_injected > 0
 
 
 def test_native_coordination_backend(monkeypatch):

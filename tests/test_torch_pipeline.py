@@ -450,9 +450,11 @@ class Pipe:
                 self.text(d)
                 self.same("device_summary", d, "s")
 
-            def stats(_side, svc):
+            def stats(side, svc):
                 s = svc.device.stats()
                 s["residency"].pop("wake_p99_ms")  # a wall-clock latency
+                if side == "port":  # the port's own count
+                    assert s.pop("promotions_refused") == 0
                 return s
 
             self.both(stats)

@@ -392,6 +392,7 @@ def _same_service(svc, rts):
     st = {k: s.device.stats() for k, s in svc.items()}
     for s in st.values():
         s["residency"].pop("wake_p99_ms")
+    assert st["port"].pop("promotions_refused") == 0  # the port's own
     assert st["ref"] == st["port"]
     texts = {k: s.device_text("doc", "s") for k, s in svc.items()}
     assert texts["ref"] == texts["port"] == \
