@@ -6,6 +6,7 @@
     python3 chip_smoke.py --client
     python3 chip_smoke.py --mesh
     python3 chip_smoke.py --load [reference]
+    python3 chip_smoke.py --framework
 
 Builds the hand-written kernels (``nvcc``, into the package's ``_build/``)
 and the native ticket loop, blob store, partition log and lease
@@ -143,11 +144,35 @@ coordination (``g++``), all at once, then:
    card and on the CPU (a spawned process), reports and late joiners
    equal; 10c three runtimes with the twelve models of ``models/``
    beyond the merge path and a ``SharedString`` on the card, a seeded
-   script with an offline window, converged and equal to the CPU run.
+   script with an offline window, converged and equal to the CPU run;
+11. the framework layer, the hierarchy trees and the drivers — 11a
+   three ``TpuFluidClient(device=cuda)`` containers of one schema (a
+   ``SharedString``, a ``SharedMap``, a ``HierarchicalTree``, a
+   ``LegacySharedTree``, an ``AgentScheduler``; a dynamic
+   ``SharedString``) and a ``DataObject`` through
+   ``ContainerRuntimeFactoryWithDefaultDataStore`` author config 1's
+   10,000 string ops (not cut) and 313 other edits, with
+   ``mixin_attributor``, ``OldestClientObserver`` and interception
+   wrappers over the stream; K1 and K2 must launch; 11b a 16,384-point
+   field chunked by ``chunk_field`` and its columns ``to_device``d, dtype
+   and bytes equal to the CPU's, the integer sum exact; 11c
+   ``save_document`` / ``load_document`` and a read-mode replay equal to
+   a live loader lane for lane, ``encode_snapshot`` round-tripped, a
+   paused ``DebuggerFluidService`` stepped to 3 checkpoints, a
+   ``CachingFluidService`` cold load and a warm one that fetches only the
+   ops past its cached head; 11d ``perspective``, ``insert_place_mask``,
+   ``trunk_scan``, ``em_trunk_scan_one``, ``em_trunk_scan_ring_one`` and
+   ``sharded_apply_ops`` on the card against the CPU, at the shapes
+   their paths give them (7a's batch, a recorded config-3c dispatch, 9c's
+   8 x 65,536-row shards). 11a and 11c equal
+   the same script on the CPU, run in a spawned process that the smoke
+   starts after phase 6 (:func:`start_framework_twin`); K1/K2 are held
+   against their plain versions at 11a's end state.
 
 Launch counts (in all, and by tier: smem / cluster / global) are reset
 before each main path (2, then 3a+3b, then 4, then 5, then 6's client
-run, then each of 8a-8e, then each run of 9a-9c, then each of 10a-10c)
+run, then each of 8a-8e, then each run of 9a-9c, then each of 10a-10c,
+then 11a)
 and read after it;
 the DocFleet path must launch K1 and K2 on the cluster tier. Prints the
 ptxas report of every kernel entry, each phase's wall time, the card's
@@ -173,6 +198,10 @@ only phase 8, and writes ``client.json``.
 
 With ``--mesh``, it builds the kernels and native libraries and runs only
 phase 9, and writes ``mesh.json``.
+
+With ``--framework``, it builds the kernels and native libraries and runs
+only phase 11 (its CPU twin starting with it), and writes
+``framework.json``.
 
 With ``--load``, it builds the kernels and native libraries and runs only
 phase 10, and writes ``load.json``; ``--load reference`` runs instead
@@ -2488,6 +2517,12 @@ def phase_server(device, report, n_docs=12_288, socket_docs=96, k=8,
 
 
 TREE_LC, TREE_PC, TREE_W = 128, 32, 16  # config 3b's dense shape
+TREE_7A_SCRIPTS, TREE_7A_COMMITS = 64, 125  # 7a's distinct scripts, depth
+# 9c's sharded document: 8 shards of 8 x config.json's top tier / 8 rows,
+# fed frames of 512 ops.
+SHARDED_SHARD_CAP, SHARDED_FRAME_OPS = 65_536, 512
+SHARDED_CPU_OPS = 64  # 11d's CPU twin of sharded_apply_ops: the frame's head
+TRUNK_11D_COMMITS = 32  # 11d's trunk_scan: the head of 7a's commits
 
 
 def _sync(dev) -> None:
@@ -2615,8 +2650,17 @@ def tree_functions(dev, batch, docs, L) -> list:
     return rows
 
 
-def tree_3b(dev, n_docs=1024, n_commits=1000, scripts=64, cpu_docs=16,
-            cpu_commits=None):
+def tree_3b_batch(scripts, n_commits):
+    """7a's ``scripts`` distinct concurrent 3-session streams
+    (``gen_streams``, seed 0) and their host CommitBatch at config 3b's
+    dense shape."""
+    streams = TS.gen_streams(np.random.default_rng(0), scripts, n_commits,
+                             n_sessions=3, W=TREE_W, Lc=TREE_LC)
+    return streams, TS.to_device_batch(streams, TREE_LC, TREE_PC)
+
+
+def tree_3b(dev, n_docs=1024, n_commits=1000, scripts=TREE_7A_SCRIPTS,
+            cpu_docs=16, cpu_commits=None):
     """7a: ``config3b_tree_rebase_device`` through the port — 64 distinct
     concurrent 3-session streams (``gen_streams``, seed 0) tiled over the
     document batch, staged on the card once, one warm-up and 3 timed
@@ -2625,9 +2669,7 @@ def tree_3b(dev, n_docs=1024, n_commits=1000, scripts=64, cpu_docs=16,
     Lc, Pc, W = TREE_LC, TREE_PC, TREE_W
     scripts = min(scripts, n_docs)
     t0 = time.perf_counter()
-    streams = TS.gen_streams(np.random.default_rng(0), scripts, n_commits,
-                             n_sessions=3, W=W, Lc=Lc)
-    base = TS.to_device_batch(streams, Lc, Pc)
+    streams, base = tree_3b_batch(scripts, n_commits)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     host_states = [TS.host_trunk(s) for s in streams]
@@ -2966,7 +3008,8 @@ def tree_3(dev, n_edits=1000, budget_s=60.0, min_docs=16, max_docs=1000):
     return res
 
 
-def phase_tree(device, report, b_docs=1024, b_commits=125, c_docs=1024,
+def phase_tree(device, report, b_docs=1024, b_commits=TREE_7A_COMMITS,
+               c_docs=1024,
                c_commits=128, m_docs=512, m_commits=128, wave=128,
                c3_budget_s=15.0, c3_min_docs=16):
     """Phase 7: the SharedTree rebase path on the card — 7a config 3b,
@@ -3979,7 +4022,8 @@ def _overflow_state(n_rows: int, cap: int):
                         err=np.int32(0))
 
 
-def mesh_9c(device, window=1000, frame_ops=512, target_rows=80_000,
+def mesh_9c(device, window=1000, frame_ops=SHARDED_FRAME_OPS,
+            target_rows=80_000,
             **overrides):
     """9c: ``config/config.json`` (capacity 128, max capacity 65,536) with
     ``device_sharded_overflow=True`` through PipelineFluidService's bulk
@@ -5018,11 +5062,829 @@ def phase_load(device, report, stress=None):
     return dict(launches=launches, holds=holds)
 
 
+# -- phase 11: the framework layer, the hierarchy trees and the drivers ----------
+
+FRAMEWORK_OPS = 10_000  # config 1's string stream, not cut
+FRAMEWORK_EDIT_EVERY = 32  # one map/directory/tree/scheduler edit per 32
+FRAMEWORK_TAIL = 512  # string ops after the summary 11c loads
+FRAMEWORK_POINTS = 16_384
+
+
+class _CounterClock:
+    """``time.time`` of the sequencer from a counter: the card run and its
+    CPU twin stamp the same timestamps (the attributor records them)."""
+
+    def __init__(self):
+        self.t = 1_700_000_000.0
+
+    def time(self):
+        self.t += 0.001
+        return self.t
+
+
+def framework_schema():
+    """11a's container: the merge-tree string, a map, both hierarchy
+    trees and the agent scheduler; SharedString also as a dynamic type."""
+    from fluidframework_tpu_torch.framework.agent_scheduler import (
+        AgentScheduler,
+    )
+    from fluidframework_tpu_torch.framework.fluid_static import (
+        ContainerSchema,
+    )
+    from fluidframework_tpu_torch.models.shared_map import SharedMap
+    from fluidframework_tpu_torch.models.shared_string import SharedString
+    from fluidframework_tpu_torch.tree.hierarchical_tree import (
+        HierarchicalTree,
+    )
+    from fluidframework_tpu_torch.tree.legacy_tree import LegacySharedTree
+
+    return ContainerSchema(
+        initial_objects={"text": SharedString, "map": SharedMap,
+                         "tree": HierarchicalTree,
+                         "legacy": LegacySharedTree,
+                         "scheduler": AgentScheduler},
+        dynamic_object_types=(SharedString,))
+
+
+def _side_edit(k, c, board, dyn, rng, i, own_edits) -> None:
+    """One map, directory, tree, legacy-tree, scheduler or dynamic-string
+    edit by client ``k`` (``c`` its container, ``board`` its data object)."""
+    o = c.initial_objects
+    r = rng.random()
+    if r < 0.2:
+        o["map"].set(f"k{int(rng.integers(0, 12))}", i)
+    elif r < 0.4:
+        d = board.root if rng.random() < 0.5 else \
+            board.root.get_subdirectory("ws")
+        d.set(f"d{int(rng.integers(0, 8))}", [k, i])
+    elif r < 0.6:
+        items = o["tree"].root["items"]
+        if len(items) < 6 or rng.random() < 0.4:
+            items.append({"type": "item", "value": i})
+        elif rng.random() < 0.7:
+            items[int(rng.integers(0, len(items)))].value = i
+        else:
+            o["tree"].move_node(items[int(rng.integers(0, len(items)))]
+                                .node_id, 0, "done", 0)
+    elif r < 0.75:
+        lt = o["legacy"]
+        kids = lt.children(0, "kids")
+        done = [e for e in own_edits if e in lt.edit_log._by_id]
+        if done and rng.random() < 0.15:
+            lt.undo(done[int(rng.integers(0, len(done)))])
+        elif kids and rng.random() < 0.5:
+            own_edits.append(lt.apply_edit({
+                "k": "val", "id": kids[int(rng.integers(0, len(kids)))],
+                "value": i}))
+        else:
+            lt.insert_node(0, "kids", {"type": "n", "value": i})
+    elif r < 0.9:
+        task = f"task{int(rng.integers(0, 3))}"
+        if rng.random() < 0.7:
+            o["scheduler"].pick(task)
+        else:
+            o["scheduler"].release(task)
+    else:
+        dyn.insert_text(int(rng.integers(0, len(dyn.get_text()) + 1)), "z")
+
+
+def _pump(rts) -> None:
+    for rt in rts:
+        rt.flush()
+    for rt in rts:
+        rt.process_incoming()
+
+
+def _drain(rts) -> None:
+    for rt in rts:
+        rt.flush()
+    while any(rt.process_incoming() for rt in rts):
+        pass
+
+
+def _dir_digest(d: str) -> dict:
+    """{relative path: sha256} of every file under ``d``."""
+    import hashlib
+
+    out = {}
+    for root, _dirs, files in os.walk(d):
+        for name in files:
+            p = os.path.join(root, name)
+            with open(p, "rb") as f:
+                out[os.path.relpath(p, d)] = hashlib.sha256(
+                    f.read()).hexdigest()
+    return out
+
+
+def framework_script(device, n_ops=FRAMEWORK_OPS, tail=FRAMEWORK_TAIL,
+                     keep=None, after_11a=None):
+    """11a and 11c on ``device`` (the card run and its CPU twin run this
+    alike; the sequencer's clock is a counter). Returns what the two are
+    compared on; ``keep`` (a dict) receives the live objects of the card
+    run, and ``after_11a()`` runs between 11a and 11c.
+
+    11a: ``TpuFluidClient(device=)`` creates one document of
+    :func:`framework_schema`; two more clients open it with
+    ``get_container``; a ``DataObject`` through
+    ``ContainerRuntimeFactoryWithDefaultDataStore(device=)`` lives in a
+    second document on the same service, on three runtimes. The three
+    clients author config 1's stream (``config1_single_doc_replay``: seed
+    0, 45% removes of 1-2 chars, 2-char inserts; op ``i`` by client ``i %
+    3`` on its own view, all pumped every 16 ops) and, every
+    ``FRAMEWORK_EDIT_EVERY`` ops, a map, directory, tree, legacy-tree,
+    scheduler or dynamic-string edit; ``tail`` string ops before the end
+    client 1 summarizes (after a drain). ``mixin_attributor``, an
+    ``OldestClientObserver`` on each runtime and interception wrappers (the
+    map of client 1, the string of client 3) run over the whole stream.
+
+    11c: a read-mode runtime loads the live document (summary + tail),
+    then ``save_document`` / ``load_document`` and a read-mode runtime
+    over ``as_replay_service()`` on ``device``, which must equal it lane
+    for lane; ``encode_snapshot`` of client 1's summary round-trips; a paused
+    ``DebuggerFluidService`` reader is stepped to 3 checkpoints of the
+    tail, each equal to a file replay to that seq; a
+    ``CachingFluidService`` cold load and snapshot, 48 more ops, then a
+    warm load from the cache directory that fetches only the ops past the
+    cached head."""
+    import tempfile
+
+    from fluidframework_tpu_torch.drivers.binary_snapshot import (
+        decode_snapshot,
+        encode_snapshot,
+    )
+    from fluidframework_tpu_torch.drivers.caching_driver import (
+        CachingFluidService,
+        PersistentCache,
+    )
+    from fluidframework_tpu_torch.drivers.debugger_driver import (
+        DebuggerController,
+        DebuggerFluidService,
+    )
+    from fluidframework_tpu_torch.drivers.file_driver import (
+        load_document,
+        save_document,
+    )
+    from fluidframework_tpu_torch.framework.attributor import (
+        mixin_attributor,
+    )
+    from fluidframework_tpu_torch.framework.client import TpuFluidClient
+    from fluidframework_tpu_torch.framework.data_object import (
+        ContainerRuntimeFactoryWithDefaultDataStore,
+        DataObject,
+        DataObjectFactory,
+    )
+    from fluidframework_tpu_torch.framework.fluid_static import (
+        FluidContainer,
+        build_root_datastore,
+        schema_type_registry,
+    )
+    from fluidframework_tpu_torch.framework.helpers import (
+        OldestClientObserver,
+    )
+    from fluidframework_tpu_torch.framework.interceptions import (
+        create_shared_map_with_interception,
+        create_shared_string_with_interception,
+    )
+    from fluidframework_tpu_torch.interop import segment_state_to_numpy
+    from fluidframework_tpu_torch.models.shared_string import SharedString
+    from fluidframework_tpu_torch.runtime.container import ContainerRuntime
+    from fluidframework_tpu_torch.service import sequencer
+
+    saved_time = sequencer.time
+    sequencer.time = _CounterClock()
+    try:
+        schema = framework_schema()
+        client = TpuFluidClient(device=device)
+        svc = client.service
+        c1, doc_id = client.create_container(schema, doc_id="framework")
+        cs = [c1] + [client.get_container(doc_id, schema) for _ in range(2)]
+        factory = ContainerRuntimeFactoryWithDefaultDataStore(
+            DataObjectFactory("board", DataObject), device=device)
+        boards = [factory.instantiate(svc, "framework-board",
+                                      existing=i > 0) for i in range(3)]
+        rts = [c.runtime for c in cs] + [rt for rt, _ in boards]
+        boards = [b for _, b in boards]
+        boards[0].root.create_subdirectory("ws")
+        dyn = c1.create(SharedString)
+        dyn.insert_text(0, "dynamic")
+        c1.initial_objects["map"].set("dyn", c1.handle_of(dyn))
+        _drain(rts)
+        dyns = [c.resolve_handle(c.initial_objects["map"].get("dyn"))
+                for c in cs]
+        attributor = mixin_attributor(cs[1].runtime)
+        observers = [OldestClientObserver(c.runtime) for c in cs]
+        events = [[] for _ in cs]
+        for o, ev in zip(observers, events):
+            o.on_change(ev.append)
+        stamped = [0, 0]
+
+        def stamp_map(contents):
+            stamped[0] += 1
+            return {"stamp": "c1"}
+
+        def stamp_text(contents):
+            if contents.get("k") != "ins":
+                return {}
+            stamped[1] += 1
+            return {"stamp": "c3"}
+
+        create_shared_map_with_interception(c1.initial_objects["map"],
+                                            stamp_map)
+        create_shared_string_with_interception(cs[2].initial_objects["text"],
+                                               stamp_text)
+        texts = [c.initial_objects["text"] for c in cs]
+        rng = np.random.default_rng(0)  # config 1's draws
+        side = np.random.default_rng(11)
+        own_edits = [[] for _ in cs]
+        summary_at = max(0, n_ops - tail)
+        summary_seq = 0
+        t0 = time.perf_counter()
+        for i in range(n_ops):
+            k = i % 3
+            s = texts[k]
+            length = len(s.get_text())
+            if length > 8 and rng.random() < 0.45:
+                a = int(rng.integers(0, length - 2))
+                s.remove_range(a, a + int(rng.integers(1, 3)))
+            else:
+                s.insert_text(int(rng.integers(0, length + 1)), "ab")
+            if i % FRAMEWORK_EDIT_EVERY == 0:
+                _side_edit(k, cs[k], boards[k], dyns[k], side, i,
+                           own_edits[k])
+            if i % 16 == 0:
+                _pump(rts)
+            if i == summary_at:
+                _drain(rts)
+                c1.runtime.submit_summary()
+                _drain(rts)
+                summary_seq = svc.docs[doc_id].latest_summary[1]
+        _drain(rts)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall_11a = time.perf_counter() - t0
+        n_msgs = len(svc.get_deltas(doc_id))
+        for name, got in (
+                ("texts", [x.get_text() for x in texts]),
+                ("dynamic texts", [x.get_text() for x in dyns]),
+                ("maps", [sorted(c.initial_objects["map"].items())
+                          for c in cs]),
+                ("directories", [json.dumps(b.root.summarize_core(),
+                                            sort_keys=True)
+                                 for b in boards]),
+                ("trees", [json.dumps(c.initial_objects["tree"].root
+                                      .as_data(), sort_keys=True)
+                           for c in cs]),
+                ("legacy trees", [(json.dumps(
+                    c.initial_objects["legacy"].current_view(),
+                    sort_keys=True), len(c.initial_objects["legacy"]
+                                         .edit_log)) for c in cs]),
+                ("scheduler", [json.dumps(
+                    c.initial_objects["scheduler"].summarize_core(),
+                    sort_keys=True) for c in cs])):
+            if any(x != got[0] for x in got):
+                raise AssertionError(f"11a: replicas did not converge on "
+                                     f"{name}")
+        obs = dict(
+            text=texts[0].get_text(), dyn=dyns[0].get_text(),
+            lanes=[segment_state_to_numpy(x._state) for x in texts + dyns],
+            map=repr(sorted(c1.initial_objects["map"].items())),
+            directory=json.dumps(boards[0].root.summarize_core(),
+                                 sort_keys=True),
+            tree=json.dumps(c1.initial_objects["tree"].root.as_data(),
+                            sort_keys=True),
+            legacy=json.dumps(c1.initial_objects["legacy"]
+                              .summarize_core(), sort_keys=True),
+            scheduler=json.dumps(c1.initial_objects["scheduler"]
+                                 .summarize_core(), sort_keys=True),
+            attributor=attributor.serialize(),
+            oldest=[o.is_oldest for o in observers], oldest_events=events,
+            stamped=list(stamped), msgs=n_msgs, summary_seq=summary_seq)
+        if keep is not None:
+            keep.update(texts=texts, wall_11a=wall_11a)
+        if after_11a is not None:
+            after_11a()
+
+        # -- 11c: the drivers over 11a's document ---------------------------
+        t0 = time.perf_counter()
+
+        def reader(service, mode="read"):
+            rt = ContainerRuntime(
+                service, doc_id,
+                channels=(build_root_datastore(schema, device),),
+                channel_types=schema_type_registry(schema, device),
+                mode=mode)
+            return FluidContainer(rt, schema, device=device)
+
+        def lanes_of(c):
+            return segment_state_to_numpy(c.initial_objects["text"]._state)
+
+        def same_doc(a, b, what):
+            """Every lane and scalar equal but ``self_client``, the
+            loader's own slot (a replay reads as client -2)."""
+            x, y = list(lanes_of(a)), list(lanes_of(b))
+            x[len(SEGMENT_LANES) + 3] = y[len(SEGMENT_LANES) + 3]
+            _lanes_equal(x, y, what)
+
+        with tempfile.TemporaryDirectory() as work:
+            live = reader(svc)  # a live loader, read-only as the replay
+            _drain(rts + [live.runtime])
+            save_dir = os.path.join(work, "saved")
+            save_document(svc, doc_id, save_dir)
+            fds = load_document(save_dir, doc_id=doc_id)
+            replayed = reader(fds.as_replay_service())
+            if replayed.initial_objects["text"].get_text() != obs["text"]:
+                raise AssertionError("11c: file replay text != the live "
+                                     "document's")
+            same_doc(replayed, live, "11c file replay vs a live loader")
+            for key in ("map", "tree", "legacy"):
+                a, b = (c.initial_objects[key].summarize_core()
+                        for c in (replayed, live))
+                if a != b:
+                    raise AssertionError(f"11c: file replay {key} != live")
+            summary = c1.runtime.summarize()
+            blob = encode_snapshot(summary)
+            if decode_snapshot(blob) != json.loads(json.dumps(summary)):
+                raise AssertionError("11c: encode_snapshot did not "
+                                     "round-trip the summary")
+            # The debugger: a paused reader stepped through the tail.
+            tail_n = sum(1 for m in fds.ops
+                         if m.sequence_number > summary_seq)
+            ctl = DebuggerController()
+            ctl.pause()
+            stepped = reader(DebuggerFluidService(svc, ctl))
+            checkpoints, released = [], 0
+            for j in (1, 2, 3):
+                target = tail_n * j // 3
+                ctl.step(target - released)
+                stepped.runtime.process_incoming()
+                released = target
+                seq = stepped.runtime.ref_seq
+                at = reader(fds.as_replay_service(replay_to=seq))
+                got = stepped.initial_objects["text"].get_text()
+                if got != at.initial_objects["text"].get_text():
+                    raise AssertionError(f"11c: debugger text at seq {seq} "
+                                         "!= the replay to it")
+                same_doc(stepped, at, f"11c debugger vs replay at {seq}")
+                checkpoints.append((seq, len(got)))
+            # The caching driver: cold load, snapshot, 48 more ops, warm.
+            fetched = []
+            inner_connect = svc.connect
+
+            def recording_connect(doc, mode="write", from_seq=0, **kw):
+                conn = inner_connect(doc, mode, from_seq=from_seq, **kw)
+                fetched.append((from_seq, len(conn.inbox)))
+                return conn
+
+            svc.connect = recording_connect
+            try:
+                cache_dir = os.path.join(work, "cache")
+                cold = CachingFluidService(svc, PersistentCache(cache_dir))
+                cold_c = reader(cold)
+                cold.snapshot_to_cache(
+                    doc_id, initial_summary=svc.docs[doc_id].latest_summary)
+                head = cold.cache.get_doc(doc_id)["head"]
+                for j in range(48):
+                    t = texts[1]
+                    t.insert_text(int(rng.integers(0, len(t.get_text())
+                                                   + 1)), "c")
+                    if j % 16 == 15:
+                        _pump(rts)
+                _drain(rts + [live.runtime])
+                warm = CachingFluidService(svc, PersistentCache(cache_dir))
+                warm_c = reader(warm)
+            finally:
+                del svc.connect
+            past_head = sum(1 for m in svc.get_deltas(doc_id)
+                            if m.sequence_number > head) - 1  # its own join
+            if fetched[-1] != (head, past_head + 1):
+                raise AssertionError(f"11c: the warm load fetched "
+                                     f"{fetched[-1]}, expected ops past the "
+                                     f"cached head {head} only")
+            want = texts[0].get_text()
+            for name, c in (("cold", cold_c), ("warm", warm_c)):
+                c.runtime.process_incoming()
+                if c.initial_objects["text"].get_text() != want:
+                    raise AssertionError(f"11c: {name} cache load text != "
+                                         "live")
+            obs.update(
+                snapshot=blob, saved=_dir_digest(save_dir),
+                cache_files=_dir_digest(cache_dir),
+                replayed_lanes=lanes_of(replayed), checkpoints=checkpoints,
+                cold_stats=dict(cold.stats), warm_stats=dict(warm.stats),
+                fetched=fetched, tail_msgs=tail_n,
+                final_text=want)
+        if keep is not None:
+            keep.update(wall_11c=time.perf_counter() - t0,
+                        snapshot_bytes=len(blob))
+        return obs
+    finally:
+        sequencer.time = saved_time
+
+
+def _framework_cpu_twin(n_ops=FRAMEWORK_OPS, tail=FRAMEWORK_TAIL):
+    """11a and 11c on the CPU, in a process of its own (one torch
+    thread): (observations, wall s)."""
+    torch.set_num_threads(1)
+    t = time.perf_counter()
+    obs = framework_script(torch.device("cpu"), n_ops, tail)
+    return obs, time.perf_counter() - t
+
+
+def start_framework_twin(n_ops=FRAMEWORK_OPS, tail=FRAMEWORK_TAIL):
+    """Start 11a/11c's CPU twin in a spawned process; it needs no card, so
+    the full smoke starts it after phase 6 and collects it in phase 11.
+    Returns (pool, future)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(_framework_cpu_twin, n_ops, tail)
+
+
+def stop_framework_twin(twin) -> None:
+    """End the twin's process at once (a failed run does not wait for
+    it)."""
+    pool, fut = twin
+    fut.cancel()
+    for proc in list((getattr(pool, "_processes", None) or {}).values()):
+        proc.terminate()
+    pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _same_obs(card: dict, cpu: dict, what: str) -> None:
+    for key, a in card.items():
+        b = cpu[key]
+        if key in ("lanes",):
+            for i, (x, y) in enumerate(zip(a, b)):
+                _lanes_equal(x, y, f"{what} {key}[{i}] card vs CPU")
+        elif key == "replayed_lanes":
+            _lanes_equal(a, b, f"{what} {key} card vs CPU")
+        elif a != b:
+            raise AssertionError(f"{what}: {key} card != CPU")
+
+
+def framework_11b(device, n_points=FRAMEWORK_POINTS) -> dict:
+    """11b: a ``HierarchicalTree`` field of ``n_points`` uniform ``point``
+    nodes (an integer ``x``, a float ``y``), authored through a runtime in
+    runs of 2,048; ``chunk_field`` gives one ``UniformChunk``; ``to_device``
+    puts each column on the card and on the CPU: dtype (the JAX rule,
+    int32 / float32) and bytes equal; the integer column's sum on the card
+    equals numpy's exactly. Transfer and sum timed with CUDA events."""
+    from fluidframework_tpu_torch.runtime.container import ContainerRuntime
+    from fluidframework_tpu_torch.service.local_server import (
+        LocalFluidService,
+    )
+    from fluidframework_tpu_torch.tree.chunked import (
+        UniformChunk,
+        chunk_field,
+        device_dtype,
+    )
+    from fluidframework_tpu_torch.tree.hierarchical_tree import (
+        HierarchicalTree,
+    )
+
+    t0 = time.perf_counter()
+    rt = ContainerRuntime(LocalFluidService(), "points",
+                          channels=(HierarchicalTree("tree"),))
+    tree = rt.get_channel("tree")
+    # Runs of 2,048 points (6,144 node ids: a connection mints 16,384; a
+    # reconnect refreshes them), last run first, each at the front of the
+    # field (placement scans from the field's start for its anchor, so a
+    # run costs its length squared, and each acked run reclones the view).
+    step = 2048
+    for lo in reversed(range(0, n_points, step)):
+        tree.root["points"].insert(0, *[{
+            "type": "point",
+            "fields": {"x": [{"type": "num", "value": i * 7 - 3}],
+                       "y": [{"type": "num", "value": i * 0.1}]},
+        } for i in range(lo, min(n_points, lo + step))])
+        _drain([rt])
+        rt.disconnect()
+        rt.reconnect()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chunks = chunk_field(tree._view, 0, "points")
+    chunk_s = time.perf_counter() - t0
+    if len(chunks) != 1 or not isinstance(chunks[0], UniformChunk) \
+            or chunks[0].count != n_points:
+        raise AssertionError("11b: the field did not chunk as one run")
+    ch = chunks[0]
+    out = dict(points=n_points, build_s=build_s, chunk_s=chunk_s)
+    for path, want_dtype in (("x[0]", np.int32), ("y[0]", np.float32)):
+        col = ch.columns[path]
+        card = ch.to_device(path, device)
+        cpu = ch.to_device(path, "cpu")
+        host = card.cpu().numpy()
+        if device_dtype(col.dtype) != np.dtype(want_dtype) or \
+                host.dtype != np.dtype(want_dtype) or \
+                host.tobytes() != cpu.numpy().tobytes() or \
+                host.tobytes() != col.astype(want_dtype).tobytes():
+            raise AssertionError(f"11b: column {path} on the card != the "
+                                 "CPU twin / the JAX dtype rule")
+        copy_ms = _event_ms(device, lambda: ch.to_device(path, device))
+        out[path] = dict(dtype=host.dtype.str, nbytes=host.nbytes,
+                         to_device_ms=copy_ms)
+        if path == "x[0]":
+            total = int(card.sum())
+            if total != int(col.sum()) or total != int(cpu.sum()):
+                raise AssertionError("11b: the integer column's sum on the "
+                                     "card != numpy's")
+            out[path].update(sum=total, sum_ms=_event_ms(
+                device, lambda: card.sum()))
+    print(f"11b chunked forest: {n_points} points built in {build_s:.2f} s, "
+          f"chunked in {chunk_s:.2f} s; columns x int32 / y float32 equal "
+          f"to the CPU twin; to_device "
+          f"{out['x[0]']['to_device_ms']:.4f} / "
+          f"{out['y[0]']['to_device_ms']:.4f} ms, x sum "
+          f"{out['x[0]']['sum']} in {out['x[0]']['sum_ms']:.4f} ms (exact)",
+          flush=True)
+    return out
+
+
+def _record_em_dispatch(n_docs=4, wave=128):
+    """7b's first dispatch at its own shapes: config 3c's stream
+    (``em_stream``, 7b's seeds), one wave of ``wave`` commits through the
+    production ``batch_ingest`` over fresh ``EditManager``s on the CPU.
+    Returns ``((rings, mov_seq0, arrays, U), rows)``: the dispatch as
+    ``_em_dispatch`` received it (host arrays) and the batched ring scan's
+    rows it returned."""
+    logs = [em_stream(1000 + i, wave) for i in range(n_docs)]
+    ems = [TEM.EditManager(session=1, device="cpu") for _ in logs]
+    real = TEM._em_dispatch
+    recorded = []
+
+    def record(rings, mov_seq0, arrays, U, device):
+        out = real(rings, mov_seq0, arrays, U, device)
+        recorded.append(((rings, mov_seq0, arrays, U), out))
+        return out
+
+    TEM._em_dispatch = record
+    try:
+        TEM.batch_ingest([(em, log, max(0, log[-1].seq - 8))
+                          for em, log in zip(ems, logs)])
+    finally:
+        TEM._em_dispatch = real
+    return recorded[0]
+
+
+def framework_11d(device) -> dict:
+    """11d: the thin functions of the public surface on the card against
+    the same calls on the CPU, at the widths their paths give them:
+    ``merge_kernel.perspective`` and ``insert_place_mask`` on a 4,096-row
+    state; ``device_trunk.trunk_scan`` on a document of 7a's batch (its 64
+    distinct scripts, Lc 128, Pc 32, W 16; the first ``TRUNK_11D_COMMITS``
+    of its commits) against the batched scan's row;
+    ``device_em.em_trunk_scan_ring_one`` / ``em_trunk_scan_one`` on a
+    document of 7b's first dispatch against the batched scans' rows on
+    the CPU; and
+    ``sharded_doc.sharded_apply_ops`` at 9c's shard shape (8 x 65,536 rows
+    on 8 x the card) against ``ShardedDoc.apply`` on the same ops."""
+    from fluidframework_tpu_torch.ops import merge_kernel as MK
+    from fluidframework_tpu_torch.parallel.mesh import Mesh
+    from fluidframework_tpu_torch.parallel.sharded_doc import (
+        ShardedDoc,
+        sharded_apply_ops,
+    )
+    from fluidframework_tpu_torch.testing.fuzz import random_acked_stream
+    from fluidframework_tpu_torch.testing.oracle import OracleDoc
+
+    cpu = torch.device("cpu")
+    checked = []
+    shapes = {}
+    part_s = {}
+
+    def same(a, b, what):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if not torch.equal(torch.as_tensor(x).cpu(),
+                               torch.as_tensor(y).cpu()):
+                raise AssertionError(f"11d: {what}[{i}] card != CPU")
+        checked.append(what)
+
+    # perspective / insert_place_mask on a 4,096-row state.
+    t0 = time.perf_counter()
+    with _Uncounted():
+        t, s, ops = random_case(np.random.default_rng(4096), 1, 4096, 16,
+                                device)
+        K1.apply_ops_packed(t, s, ops)
+    state = K1.unpack_state(t, s)
+    state = type(state)(*[x[0] for x in state])
+    cpu_state = type(state)(*[x.cpu() for x in state])
+    top = int(state.cur_seq)
+    for ref in (0, top // 2, top):
+        for client in (0, 1, 5):
+            for local in (False, True):
+                got = MK.perspective(state, ref, client, local)
+                want = MK.perspective(cpu_state, ref, client, local)
+                same(got, want, f"perspective({ref}, {client}, {local})")
+                op = ops[0, 0]
+                rem = op[F_POS1] - K1.excl_cumsum(got[1])
+                same([MK.insert_place_mask(state, op, *got, rem)],
+                     [MK.insert_place_mask(cpu_state, op.cpu(), *want,
+                                           rem.cpu())],
+                     f"insert_place_mask({ref}, {client}, {local})")
+    shapes["perspective"] = "4,096 rows"
+    part_s["perspective"] = time.perf_counter() - t0
+    # trunk_scan on a document of 7a's batch: its 64 distinct scripts (the
+    # batch tiles them to 1,024 documents, so each row equals its copies').
+    # The scans are launch-bound, so the depth is cut to the first
+    # TRUNK_11D_COMMITS commits; the widths are 7a's.
+    t0 = time.perf_counter()
+    _streams, base = tree_3b_batch(TREE_7A_SCRIPTS, TREE_7A_COMMITS)
+    batch = DT.CommitBatch(*[torch.from_numpy(np.ascontiguousarray(
+        x[:, :TRUNK_11D_COMMITS])).to(device) for x in base])
+    docs = torch.zeros((TREE_7A_SCRIPTS, TREE_LC), dtype=torch.int32,
+                       device=device)
+    L0 = torch.zeros(TREE_7A_SCRIPTS, dtype=torch.int32, device=device)
+    rows = DT.batched_trunk_scan(docs, L0, batch, TREE_W, device=device)
+    d = TREE_7A_SCRIPTS - 1
+    one = DT.CommitBatch(*[x[d] for x in batch])
+    got = DT.trunk_scan(docs[d], 0, one, TREE_W, device=device)
+    same(got, [x[d] for x in rows], f"trunk_scan doc {d} vs batched")
+    same(got, DT.trunk_scan(docs[d].cpu(), 0,
+                            DT.CommitBatch(*[x.cpu() for x in one]),
+                            TREE_W, device=cpu),
+         f"trunk_scan doc {d}")
+    shapes["trunk_scan"] = (f"64 scripts, {TRUNK_11D_COMMITS} of "
+                            f"{TREE_7A_COMMITS} commits, Lc {TREE_LC}, "
+                            f"Pc {TREE_PC}, W {TREE_W}")
+    part_s["trunk_scan"] = time.perf_counter() - t0
+    # The EM scans on the last document of 7b's first dispatch, recorded on
+    # the CPU: the ring form against the dispatch's batched rows, the
+    # one-base form against the batched one-base scan, both on the CPU.
+    t0 = time.perf_counter()
+    ((ring_ids, ring_L, ring_seq), mov0, arrays, U), ring_rows = \
+        _record_em_dispatch()
+    lanes = [arrays[k] for k in ("dm", "ic", "ii", "rs", "rl", "ro", "refs",
+                                 "seqs", "mv")]
+    W = ring_ids.shape[1]
+    d = len(mov0) - 1
+    cb = DEM.EmCommitBatch(*[x[d] for x in lanes])
+    ring = [x[d] for x in (ring_ids, ring_L, ring_seq)]
+    got = DEM.em_trunk_scan_ring_one(*ring, int(mov0[d]), cb, U,
+                                     device=device)
+    same(got, [x[d] for x in ring_rows], f"em ring one doc {d} vs batched")
+    base_rows = DEM.batched_em_trunk_scan(
+        ring_ids[:, -1], ring_L[:, -1], ring_seq[:, -1],
+        DEM.EmCommitBatch(*lanes), W, U, device=cpu)
+    got = DEM.em_trunk_scan_one(ring_ids[d, -1], ring_L[d, -1],
+                                ring_seq[d, -1], cb, W, U, device=device)
+    same(got, [x[d] for x in base_rows], f"em one doc {d} vs batched (CPU)")
+    shapes["em"] = (f"C {lanes[0].shape[1]}, Lc {ring_ids.shape[2]}, "
+                    f"Pc {lanes[2].shape[2]}, R {lanes[3].shape[2]}, W {W}, "
+                    f"U {U}")
+    part_s["em"] = time.perf_counter() - t0
+    # sharded_apply_ops at 9c's shard shape against ShardedDoc.apply on 9c's
+    # frame of ops; against the CPU on the frame's first SHARDED_CPU_OPS ops
+    # (the plain exchange on the host is slow at this shape).
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(8)
+    payloads = {}
+    track = OracleDoc(NO_CLIENT)
+    first = np.stack(random_acked_stream(rng, SHARDED_FRAME_OPS, payloads,
+                                         track, caught_up=True)
+                     ).astype(np.int32)
+    more = np.stack(random_acked_stream(rng, SHARDED_FRAME_OPS, payloads,
+                                        track, caught_up=True,
+                                        seq0=SHARDED_FRAME_OPS + 1)
+                    ).astype(np.int32)
+    doc = ShardedDoc(SHARDED_SHARD_CAP, Mesh([device] * 8, "seg"))
+    doc.apply(first)
+    start = type(state)(*[torch.from_numpy(np.array(x)).to(device)
+                          for x in doc.state])
+    got = sharded_apply_ops(start, more)
+    doc.apply(more)
+    same(got, [torch.from_numpy(np.asarray(x)) for x in doc.state],
+         "sharded_apply_ops vs ShardedDoc.apply")
+    if int(got.err.max()) != 0:
+        raise AssertionError("11d: the sharded stream set an err bit")
+    head = more[:SHARDED_CPU_OPS]
+    same(sharded_apply_ops(start, head),
+         sharded_apply_ops(type(state)(*[x.cpu() for x in start]), head),
+         "sharded_apply_ops")
+    shapes["sharded"] = (f"8 x {SHARDED_SHARD_CAP:,} rows, "
+                         f"{SHARDED_FRAME_OPS} ops ({SHARDED_CPU_OPS} "
+                         "against the CPU)")
+    part_s["sharded"] = time.perf_counter() - t0
+    print(f"11d thin functions: {len(checked)} calls on the card equal "
+          f"the CPU; shapes {shapes}; s "
+          f"{ {k: round(v, 2) for k, v in part_s.items()} }", flush=True)
+    return dict(calls=len(checked), shapes=shapes, part_s=part_s)
+
+
+def phase_framework(device, report, twin=None, n_ops=FRAMEWORK_OPS,
+                    tail=FRAMEWORK_TAIL, n_points=FRAMEWORK_POINTS):
+    """Phase 11: the framework layer, the hierarchy trees and the drivers
+    on the card. 11a and 11c run :func:`framework_script` on the card (K1
+    and K2 launches counted over 11a, both above 0) and compare it with
+    its CPU twin (``twin``: a (pool, future) from
+    :func:`start_framework_twin`, started here if None); 11b the chunked
+    forest; 11d the thin functions; then K1/K2 held against their plain
+    versions at the end state of a replica's string."""
+    from fluidframework_tpu_torch.ops.segment_state import to_packed
+
+    if twin is None:
+        twin = start_framework_twin(n_ops, tail)
+    wall = {}
+    keep = {}
+    counts = {}
+
+    def after_11a():
+        torch.cuda.synchronize()
+        counts.update(read_counts())
+
+    try:
+        reset_counts()
+        t = time.perf_counter()
+        card = framework_script(device, n_ops, tail, keep=keep,
+                                after_11a=after_11a)
+        wall["11a+11c"] = time.perf_counter() - t
+        for name in ("K1_merge_apply", "K2_zamboni_compact"):
+            if counts[name]["all"] <= 0:
+                raise AssertionError(f"{name} never launched on the "
+                                     "framework path")
+        t = time.perf_counter()
+        r11b = framework_11b(device, n_points)
+        wall["11b"] = time.perf_counter() - t
+        t = time.perf_counter()
+        r11d = framework_11d(device)
+        wall["11d"] = time.perf_counter() - t
+        t = time.perf_counter()
+        cpu, cpu_s = twin[1].result()
+        wall["twin_wait"] = time.perf_counter() - t
+    except BaseException:
+        stop_framework_twin(twin)
+        raise
+    twin[0].shutdown(wait=True)
+    _same_obs(card, cpu, "11a/11c")
+    # Each kernel against its plain version at the end state of client
+    # 1's string, with its time and byte floor.
+    holds = []
+    tt, ss, _single = to_packed(keep["texts"][0]._state)
+    nxt = torch.from_numpy(np.stack([
+        E.insert(3, 10**6, 2, seq=10**6, ref=10**6 - 1, client=1),
+    ])[None]).to(device)
+    with _Uncounted():
+        for name, ops in (("K1_merge_apply", nxt),
+                          ("K2_zamboni_compact", None)):
+            err, ms, plain_ms = hold_kernel(name, tt, ss, ops)
+            d, cap = tt.shape[1], tt.shape[2]
+            b = bound_bytes(name, d, cap, 1 if ops is not None else 0)
+            holds.append(dict(kernel=name, cell="11a end state", docs=d,
+                              cap=cap, k=1 if ops is not None else 0,
+                              tier=_cuda.tier(cap, KERNELS[name]["entry"]),
+                              max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=b / HBM_BYTES_PER_S * 1e3,
+                              library_ms=None))
+            print(f"framework kernels 11a end state S={cap} {name}: exact, "
+                  f"{ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+                  f"{holds[-1]['bound_ms']:.6f} ms)", flush=True)
+    ops_s = card["msgs"] / keep["wall_11a"]
+    print(f"11a framework: {n_ops} string ops by 3 clients + "
+          f"{-(-n_ops // FRAMEWORK_EDIT_EVERY)} other edits, "
+          f"{card['msgs']} msgs sequenced in {keep['wall_11a']:.1f} s "
+          f"({ops_s:.0f} msgs/s), text {len(card['text'])} chars; "
+          f"attributor {len(card['attributor']['seqDeltas'])} entries, "
+          f"scheduler {card['scheduler']}, oldest {card['oldest']}, "
+          f"stamped {card['stamped']}; K1 "
+          f"{counts['K1_merge_apply']['all']}, K2 "
+          f"{counts['K2_zamboni_compact']['all']}; card == CPU twin "
+          f"({cpu_s:.1f} s in its own process)", flush=True)
+    print(f"11c drivers: {len(card['saved'])} files saved, file replay == a "
+          f"live loader lane for lane, snapshot {len(card['snapshot'])} "
+          f"bytes (== CPU), debugger checkpoints {card['checkpoints']}, "
+          f"cold {card['cold_stats']}, warm {card['warm_stats']}, inner "
+          f"fetches {card['fetched']}; {keep['wall_11c']:.1f} s", flush=True)
+    out = dict(msgs=card["msgs"], text_len=len(card["text"]),
+               wall_11a_s=keep["wall_11a"], wall_11c_s=keep["wall_11c"],
+               msgs_per_sec=ops_s, cpu_twin_s=cpu_s,
+               snapshot_bytes=len(card["snapshot"]),
+               checkpoints=card["checkpoints"],
+               cold_stats=card["cold_stats"], warm_stats=card["warm_stats"],
+               fetched=card["fetched"], oldest=card["oldest"],
+               stamped=card["stamped"], points=r11b, thin=r11d,
+               launches=counts, holds=holds, wall_s=wall)
+    print(f"11 wall s: { {k: round(v, 1) for k, v in wall.items()} }; "
+          f"launches {counts}", flush=True)
+    report["phase_framework"] = out
+    return dict(launches=counts, holds=holds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     device = torch.device("cuda", 0)
+    twins = []
+    try:
+        return _main(device, twins)
+    except BaseException:
+        for twin in twins:
+            stop_framework_twin(twin)
+        raise
+
+
+def _main(device, twins) -> int:
     report = {"torch": torch.__version__, "cuda": torch.version.cuda,
               "python": sys.version.split()[0]}
     smi = subprocess.run(
@@ -5098,6 +5960,10 @@ def main() -> int:
                       report)["launches"]
     # Phase 6: config 7 through the socket front door over a store node.
     launches6 = timed("6_server", phase_server, device, report)["launches"]
+    # Phase 11's CPU twin needs no card: it runs in its own process from
+    # here on, beside phases 7-10, once the timed windows of the
+    # host-bound serving phases 4-6 have closed.
+    twins.append(start_framework_twin())
     # Phase 7: the SharedTree rebase path (no hand kernel of its own).
     torch.cuda.empty_cache()
     timed("7_tree", phase_tree, device, report)
@@ -5117,6 +5983,10 @@ def main() -> int:
 
     load = timed("10_load", phase_load, device, report, dataclasses.replace(
         CHAOS_STRESS_FULL_PROFILE, total_ops=SMOKE_LOAD_OPS))
+    # Phase 11: the framework layer, the hierarchy trees and the drivers.
+    torch.cuda.empty_cache()
+    framework = timed("11_framework", phase_framework, device, report,
+                      twins[0])
     report["wall_s"] = wall
 
     kernels = []
@@ -5128,7 +5998,8 @@ def main() -> int:
                    "client": client["launches"][name],
                    "mesh": scale["mesh"][name],
                    "sharded": scale["sharded"][name],
-                   "load": load["launches"][name]}
+                   "load": load["launches"][name],
+                   "framework": framework["launches"][name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "fluidframework_tpu_torch/csrc/merge_kernels.cu",
@@ -5141,6 +6012,7 @@ def main() -> int:
             "max_abs_err": max([err] + [r["max_abs_err"]
                                         for r in glob + scale["holds"]
                                         + load["holds"]
+                                        + framework["holds"]
                                         if r["kernel"] == name]),
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
@@ -5162,6 +6034,11 @@ def main() -> int:
                              ("cell", "tier", "docs", "cap", "k", "ms",
                               "plain_ms", "bound_ms")}
                             for r in load["holds"] if r["kernel"] == name],
+            "framework_shapes": [{key: r[key] for key in
+                                  ("cell", "tier", "docs", "cap", "k", "ms",
+                                   "plain_ms", "bound_ms")}
+                                 for r in framework["holds"]
+                                 if r["kernel"] == name],
         })
     report["kernels"] = kernels
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -5280,6 +6157,34 @@ def load_alone(which: str = "") -> int:
     return 0
 
 
+def framework_alone() -> int:
+    """Phase 11 alone, after the builds (its CPU twin starts with it); its
+    record goes to ``framework.json`` in the output directory."""
+    device = torch.device("cuda", 0)
+    twin = start_framework_twin()
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
+        with ThreadPoolExecutor(5) as pool:
+            for b in [pool.submit(fn) for fn in BUILDS]:
+                b.result()
+        report = {"card": smi, "torch": torch.__version__}
+        t = time.perf_counter()
+        phase_framework(device, report, twin)
+    except BaseException:
+        stop_framework_twin(twin)
+        raise
+    print(f"phase 11_framework: {time.perf_counter() - t:.1f} s", flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "framework.json"), "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    print(smi)
+    return 0
+
+
 def server_repeat(n: int) -> int:
     """Phase 6 alone, ``n`` times in one process after the builds: each
     run's client numbers, overload envelope and launches are printed and
@@ -5329,6 +6234,10 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device; nothing was run")
         sys.exit(load_alone(*sys.argv[2:3]))
+    if len(sys.argv) > 1 and sys.argv[1] == "--framework":
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device; nothing was run")
+        sys.exit(framework_alone())
     if len(sys.argv) > 1 and sys.argv[1] == "--socket-client":
         sys.exit(socket_client(sys.argv[2:]))
     if len(sys.argv) > 2 and sys.argv[1] == "--ab":

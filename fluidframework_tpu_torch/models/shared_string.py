@@ -43,7 +43,8 @@ from fluidframework_tpu_torch.ops.segment_state import (
     restamp_rows,
     to_host,
 )
-from fluidframework_tpu_torch.protocol.constants import (
+from fluidframework_tpu_torch.protocol.constants import (  # noqa: F401
+    ERR_CAPACITY,
     KIND_FREE,
     RSEQ_NONE,
     UNASSIGNED_SEQ,

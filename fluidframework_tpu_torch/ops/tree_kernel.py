@@ -453,6 +453,12 @@ def dense_to_doc(ids, L) -> list:
 # -- batched entry points -----------------------------------------------------
 
 
+def batch_of_one(x):
+    """``x`` with a leading document axis of 1 (None stays None): one
+    document's lanes as a batch for the ``batched_*`` scans."""
+    return None if x is None else torch.as_tensor(x)[None]
+
+
 def to_device(x, device) -> torch.Tensor:
     """An int32 tensor on ``device`` (no copy when already there)."""
     return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,

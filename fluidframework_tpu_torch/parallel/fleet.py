@@ -52,6 +52,10 @@ from fluidframework_tpu_torch.ops.apply_kernel import (
     SC_SELF,
     unpack_state,
 )
+from fluidframework_tpu_torch.ops.merge_kernel import (  # noqa: F401
+    batched_apply_ops,
+    batched_compact,
+)
 from fluidframework_tpu_torch.ops.segment_state import (
     LANE_FILLS,
     SEGMENT_LANES,
@@ -68,7 +72,13 @@ from fluidframework_tpu_torch.parallel.mesh import (
     resolve_kernel,
     shard_state,
 )
-from fluidframework_tpu_torch.protocol.constants import NO_CLIENT, OP_WIDTH
+from fluidframework_tpu_torch.protocol.constants import (  # noqa: F401
+    ERR_CAPACITY,
+    KIND_FREE,
+    NO_CLIENT,
+    OP_WIDTH,
+    RSEQ_NONE,
+)
 from fluidframework_tpu_torch.utils import pow2_at_least, resolve_device
 
 _I32 = torch.int32

@@ -39,10 +39,16 @@ from fluidframework_tpu_torch.ops.apply_kernel import (
     SC_SELF,
     unpack_state,
 )
-from fluidframework_tpu_torch.ops.segment_state import (
+from fluidframework_tpu_torch.ops.merge_kernel import (  # noqa: F401
+    batched_apply_ops,
+    batched_compact,
+)
+from fluidframework_tpu_torch.ops.segment_state import (  # noqa: F401
     SEGMENT_LANES,
     SegmentState,
+    make_batched_state,
 )
+from fluidframework_tpu_torch.protocol.constants import NO_CLIENT  # noqa: F401
 from fluidframework_tpu_torch.utils import pow2_at_least, resolve_device
 
 _I32 = torch.int32

@@ -39,6 +39,9 @@ redistribution of live rows into equal contiguous runs. On a card the
 kernels take at most 65,536 rows per shard: a larger ``shard_cap`` raises
 ``ValueError`` at construction (the plain versions on the CPU have no
 cap, as the reference has none).
+
+:func:`sharded_apply_ops` is the same exchange as a function of a stacked
+state, the counterpart of the reference's ``shard_map`` body of that name.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ import numpy as np
 import torch
 
 from fluidframework_tpu_torch.ops import _cuda
+from fluidframework_tpu_torch.ops import apply_kernel as K1
 from fluidframework_tpu_torch.ops.apply_kernel import (
     N_SCALARS,
     SC_COUNT,
@@ -57,13 +61,19 @@ from fluidframework_tpu_torch.ops.apply_kernel import (
     SC_SELF,
     _perspective,
     excl_cumsum,
-    insert_place_mask,
+    pack_state,
+    unpack_state,
 )
-from fluidframework_tpu_torch.ops.merge_kernel import _ops_on
-from fluidframework_tpu_torch.ops.segment_state import (
+from fluidframework_tpu_torch.ops.merge_kernel import (  # noqa: F401
+    _ops_on,
+    insert_place_mask,
+    perspective,
+)
+from fluidframework_tpu_torch.ops.segment_state import (  # noqa: F401
     SCALAR_FIELDS,
     SEGMENT_LANES,
     SegmentState,
+    make_state,
     to_host,
 )
 from fluidframework_tpu_torch.parallel.fleet import _blank_packed, _host
@@ -162,8 +172,8 @@ class ShardedDoc:
         part, vis = _perspective(L, clientn, f(F_REF), is_local,
                                  sc[:, SC_MIN_SEQ:SC_MIN_SEQ + 1])
         total = vis.sum(1, keepdim=True).to(_I32)
-        tail = insert_place_mask(L, f(F_SEQ), part, vis,
-                                 total - excl_cumsum(vis)).any(1)
+        tail = K1.insert_place_mask(L, f(F_SEQ), part, vis,
+                                    total - excl_cumsum(vis)).any(1)
         return torch.stack([total[:, 0], (sc[:, SC_COUNT] > 0).to(_I32),
                             tail.to(_I32)], dim=1)
 
@@ -375,3 +385,26 @@ class ShardedDoc:
         """The shards' sticky err bits ORed (one small readback)."""
         return int(np.bitwise_or.reduce(
             _host(self.device_scalars()[:, SC_ERR])))
+
+
+def sharded_apply_ops(state: SegmentState, ops) -> SegmentState:
+    """Apply ops ``[K, OP_WIDTH]`` (GLOBAL positions) in order to one
+    document sharded over ``n_shards`` tables; returns the new sharded
+    state and leaves ``state`` as it was.
+
+    The signature differs from the reference's ``sharded_apply_ops(state,
+    ops, axis, n_shards)``, which is the body of a ``shard_map``: there
+    each shard passes its own slice and the exchange runs as collectives
+    over ``axis``. Here ``state`` is the whole stack (15 lanes ``[n_shards,
+    S]``, scalars ``[n_shards]``) on one device, and the exchange is
+    :class:`ShardedDoc`'s over a mesh of ``n_shards`` entries of that
+    device; no axis name or shard count is passed."""
+    dev = state.kind.device
+    n, cap = state.kind.shape
+    doc = ShardedDoc(cap, Mesh([dev] * n, "seg"))
+    g = doc._groups[0]
+    tables, scalars = pack_state(state)
+    g.tables.copy_(tables)
+    g.scalars.copy_(scalars)
+    doc.apply(ops)
+    return unpack_state(g.tables, g.scalars)

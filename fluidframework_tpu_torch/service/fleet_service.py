@@ -33,11 +33,12 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from fluidframework_tpu_torch.ops.apply_kernel import (
+from fluidframework_tpu_torch.ops.apply_kernel import (  # noqa: F401
     SC_COUNT,
     SC_CUR_SEQ,
     SC_ERR,
     SC_MIN_SEQ,
+    SC_SELF,
     apply_ops_packed,
     pack_state,
 )
@@ -68,6 +69,7 @@ from fluidframework_tpu_torch.protocol.constants import (
     F_SEQ,
     F_TYPE,
     NO_CLIENT,
+    OP_WIDTH,
     RSEQ_NONE,
 )
 from fluidframework_tpu_torch.service.fleet_sequencer import FleetSequencer

@@ -39,13 +39,15 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from fluidframework_tpu_torch.ops.tree_kernel import (
+from fluidframework_tpu_torch.ops.tree_kernel import (  # noqa: F401
     I32,
     DenseChange,
     _apply,
+    apply_change,
     _arange,
     _scatter,
     _take,
+    batch_of_one,
     to_device,
 )
 from fluidframework_tpu_torch.utils import resolve_device
@@ -219,3 +221,32 @@ def batched_em_trunk_scan_ring(ring_ids, ring_L, ring_seq, mov_seq0,
         mov_seq = torch.where(has_move, cb.seq[:, k], mov_seq)
         doc_ids, L = doc2, L2
     return doc_ids, L, err
+
+
+def em_trunk_scan_one(doc_ids, L, base_seq, commits: EmCommitBatch,
+                      W: int, U: int, device="cuda"):
+    """One document's EM scan from a single base state: ``doc_ids [Lc]``,
+    scalars ``L`` and ``base_seq``, an EmCommitBatch of ``[C, ...]`` lanes.
+    Returns ``(doc_ids [Lc], L, err)`` (0-d ``L`` and ``err``):
+    :func:`batched_em_trunk_scan` over a batch of one."""
+    out = batched_em_trunk_scan(
+        batch_of_one(doc_ids), batch_of_one(L), batch_of_one(base_seq),
+        EmCommitBatch(*[batch_of_one(x) for x in commits]), W, U,
+        device=device,
+    )
+    return tuple(x[0] for x in out)
+
+
+def em_trunk_scan_ring_one(ring_ids, ring_L, ring_seq, mov_seq0,
+                           commits: EmCommitBatch, U: int, device="cuda"):
+    """One document's EM scan over a pre-seeded ring: ``ring_ids [W, Lc]``,
+    ``ring_L``/``ring_seq`` ``[W]``, a scalar ``mov_seq0``, an
+    EmCommitBatch of ``[C, ...]`` lanes. Returns ``(doc_ids [Lc], L,
+    err)``: :func:`batched_em_trunk_scan_ring` over a batch of one."""
+    out = batched_em_trunk_scan_ring(
+        batch_of_one(ring_ids), batch_of_one(ring_L), batch_of_one(ring_seq),
+        batch_of_one(mov_seq0),
+        EmCommitBatch(*[batch_of_one(x) for x in commits]), U,
+        device=device,
+    )
+    return tuple(x[0] for x in out)

@@ -31,6 +31,7 @@ from fluidframework_tpu_torch.ops.tree_kernel import (
     I32,
     DenseChange,
     apply_change,
+    batch_of_one,
     rebase_change,
     to_device,
 )
@@ -114,3 +115,16 @@ def batched_trunk_scan(doc_ids, L, commits: CommitBatch, W: int,
         ring_seq[:, slot] = cb.seq[:, k]
         doc_ids, L = new_doc, new_L
     return doc_ids, L, err
+
+
+def trunk_scan(doc_ids, L, commits: CommitBatch, W: int, device="cuda"):
+    """One document's scan: ``doc_ids [Lc]``, a scalar ``L`` and a
+    CommitBatch of ``[C, ...]`` lanes (``ref``/``seq`` ``[C]``). Returns
+    ``(doc_ids [Lc], L, err)`` with 0-d ``L`` and ``err``: the reference's
+    single-document ``trunk_scan``, here :func:`batched_trunk_scan` over a
+    batch of one."""
+    out = batched_trunk_scan(
+        batch_of_one(doc_ids), batch_of_one(L),
+        CommitBatch(*[batch_of_one(x) for x in commits]), W, device=device,
+    )
+    return tuple(x[0] for x in out)

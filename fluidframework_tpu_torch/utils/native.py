@@ -189,6 +189,11 @@ class NativeBlobStore:
         return bool(self._lib.castore_has(self._h, handle.encode()))
 
 
+def native_ticket_available() -> bool:
+    """Whether the native ticket loop builds and loads here."""
+    return _load_ticket() is not None
+
+
 def native_store_available() -> bool:
     return _load_castore() is not None
 

@@ -595,3 +595,40 @@ def test_mesh_over_two_cards_equals_the_cpu():
     a, b = _sharded_run(devs, rows), _sharded_run(["cpu"] * 8, rows)
     for x, y in zip(mesh_state_to_numpy(a), mesh_state_to_numpy(b)):
         np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.cuda
+def test_fluid_container_on_the_card_equals_the_cpu():
+    """Phase 11's script at a small depth: three clients of a
+    ``FluidContainer`` on the card (string, map, both hierarchy trees,
+    scheduler, a data object, a dynamic string) and the drivers over the
+    document equal the same script on the CPU: texts, lanes, summaries,
+    saved files, snapshot bytes, attributor and scheduler."""
+    _need_card()
+    from chip_smoke import _same_obs, framework_script
+
+    card = framework_script(torch.device("cuda", 0), n_ops=600, tail=120)
+    cpu = framework_script(torch.device("cpu"), n_ops=600, tail=120)
+    _same_obs(card, cpu, "framework")
+
+
+@pytest.mark.cuda
+def test_chunk_columns_to_device_on_the_card():
+    """``UniformChunk.to_device`` on the card: 64-bit columns narrow to
+    their 32-bit type with the CPU's bytes, and a column's sum there
+    equals numpy's."""
+    _need_card()
+    from chip_smoke import framework_11b
+    from fluidframework_tpu_torch.tree.chunked import UniformChunk
+
+    framework_11b(torch.device("cuda", 0), 2048)
+    cols = {"i": np.arange(-5, 4000, 3), "f": np.linspace(0, 1, 999),
+            "b": np.arange(7) % 2 == 0, "h": np.arange(9, dtype=np.int16)}
+    chunk = UniformChunk(shape=None, count=0, node_ids=[], columns=cols)
+    for path, col in cols.items():
+        card = chunk.to_device(path, device="cuda")
+        cpu = chunk.to_device(path, device="cpu")
+        assert card.device.type == "cuda" and card.dtype == cpu.dtype
+        assert card.cpu().numpy().tobytes() == cpu.numpy().tobytes()
+    assert int(chunk.to_device("i", device="cuda").sum()) == \
+        int(cols["i"].sum())

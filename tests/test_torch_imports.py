@@ -71,7 +71,15 @@ def test_port_modules_and_chip_smoke_load_no_jax():
               "models.task_manager", "models.pact_map",
               "models.summary_block", "models.shared_directory",
               "models.id_compressor", "models.ink", "models.ot_json",
-              "models.property_dds"):
+              "models.property_dds",
+              "framework.attributor", "framework.interceptions",
+              "framework.synthesize", "framework.agent_scheduler",
+              "framework.helpers", "framework.fluid_static",
+              "framework.data_object", "framework.client",
+              "tree.hierarchy", "tree.chunked", "tree.hierarchical_tree",
+              "tree.legacy_tree", "drivers.binary_snapshot",
+              "drivers.caching_driver", "drivers.debugger_driver",
+              "drivers.file_driver"):
         assert f"fluidframework_tpu_torch.{m}" in mods
 
 
@@ -135,6 +143,31 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         make_interactive_state,
     )
 
+    from fluidframework_tpu_torch.framework.client import TpuFluidClient
+    from fluidframework_tpu_torch.framework.data_object import (
+        ContainerRuntimeFactoryWithDefaultDataStore,
+        DataObject,
+        DataObjectFactory,
+    )
+    from fluidframework_tpu_torch.framework.fluid_static import (
+        ContainerSchema,
+        build_root_datastore,
+        schema_type_registry,
+    )
+    from fluidframework_tpu_torch.tree.chunked import UniformChunk
+
+    schema = ContainerSchema(initial_objects={"t": SharedString},
+                             dynamic_object_types=(SharedString,))
+    chunk = UniformChunk(shape=None, count=2, node_ids=[0, 1],
+                         columns={"v": np.arange(2)})
+    for make in (lambda: TpuFluidClient(),
+                 lambda: build_root_datastore(schema),
+                 lambda: schema_type_registry(schema),
+                 lambda: ContainerRuntimeFactoryWithDefaultDataStore(
+                     DataObjectFactory("d", DataObject)),
+                 lambda: chunk.to_device("v")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
     for make in (lambda: SharedString("t"), lambda: SharedMatrix("m"),
                  lambda: SparseMatrix("s"),
                  lambda: make_interactive_state(8, 0),
