@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ab PARENT_DIR [NAME=VALUE,... ...]
+    python3 chip_smoke.py --split [NAME=VALUE,... ...]
     python3 chip_smoke.py --tree [NAME=VALUE ...]
     python3 chip_smoke.py --client
     python3 chip_smoke.py --mesh
@@ -19,12 +20,16 @@ coordination (``g++``), all at once, then:
    unknown writers, and local ops with acks; times each (median of
    CUDA-event timings) beside its byte-floor bound;
 1b. the tiers above — the same at S = 4,096 and 8,192 (D=256), 16,384
-   (D=64) and 65,536 (D=16) rows: all three kernels split tables of up to
-   16,384 rows across a thread-block cluster and keep larger ones in
-   global memory; the shared tier at S = 2,048 (D=256) beside it. At
-   every shape of 1 and 1b K2 and K3 are also held, untimed, on
+   (D=64), 65,536 (D=16), 131,072 (D=2) and 524,288 (D=1) rows: all
+   three kernels split tables of up to 16,384 rows across a thread-block
+   cluster, keep larger ones in global memory, and past 65,536 rows split
+   each document over a cluster of up to 16 CTAs there (the split tier);
+   the shared tier at S = 2,048 (D=256) beside it. At every shape of 1
+   and 1b all three are also held, untimed, on :func:`edge_case` (moves
+   on the tile and slice edges) and K2 and K3 on
    :func:`compact_edge_case` (merge runs across tile and slice edges, all
-   rows reclaimed, none reclaimed);
+   rows reclaimed, none reclaimed), past 65,536 rows in launches of up to
+   8 documents cut at the split tier's slices (:func:`edge_batches`);
 2. fleet service — drives ``TpuFleetService`` at 100,000 docs x capacity
    128 x 16 ops/doc/round: a warm-up round plus 3 timed rounds at
    compact_every=1 (a scribe sweep of n_docs/3 docs in each), then 2 rounds
@@ -102,8 +107,10 @@ coordination (``g++``), all at once, then:
    a SharedString (two interval collections), SharedMatrix, SparseMatrix
    and SharedMap, undo-redo and a reconnect, converged and equal to the
    same script on the CPU; 8e ``server_main`` and the port's smoke client;
-   then K1/K2/K3 held against their plain versions at one document on
-   every tier and at 8b's and 8c's shapes;
+   8f a full 65,536-row document ``grow``n to 131,072 rows on the card and
+   256 fuzz ops through ``merge_kernel`` on the split tier, equal to the
+   CPU; then K1/K2/K3 held against their plain versions at one document
+   on every tier (up to 524,288 rows) and at 8b's and 8c's shapes;
 9. scale-out — the port's device list set to 8 x ``cuda:0`` (the
    counterpart of the reference's 8-device test mesh): 9a
    ``fleet_mesh_comparison``'s shape (bench.py:319-383), DocFleet(12,288,
@@ -120,10 +127,11 @@ coordination (``g++``), all at once, then:
    80,000, its text equal to a host string, the 1,000 ops after promotion
    replayed through ``kernel="plain"`` from a clone shard for shard, one
    apply and one compaction under sync-debug "error", and on the list of
-   every visible card (one card: 524,288 rows a shard) the promotion
-   refused before anything moves: the document keeps its top-tier slot
-   and lanes, then trips ERR_CAPACITY as a backend without sharded
-   overflow does; 9d tests/test_multinode.py's failover and fencing at 3
+   every visible card (one card: 524,288 rows a shard, the split tier) a
+   document of 65,000 rows promoted at the first scan and carried past
+   65,536 live rows by mixed frames, equal to a ``kernel="plain"`` twin
+   at every frame (:func:`mesh_9c_one_entry`); 9d
+   tests/test_multinode.py's failover and fencing at 3
    nodes x 1,024 documents over ``NativeCoordination``. K1/K2 held
    against their plain versions at the mesh shard's and the sharded
    document's shapes;
@@ -169,7 +177,7 @@ coordination (``g++``), all at once, then:
    starts after phase 6 (:func:`start_framework_twin`); K1/K2 are held
    against their plain versions at 11a's end state.
 
-Launch counts (in all, and by tier: smem / cluster / global) are reset
+Launch counts (in all, and by tier: smem / cluster / global / split) are reset
 before each main path (2, then 3a+3b, then 4, then 5, then 6's client
 run, then each of 8a-8e, then each run of 9a-9c, then each of 10a-10c,
 then 11a)
@@ -185,6 +193,13 @@ kernels at the DocFleet cells' other widths), the kernels at phase 2's
 main shape and phases 3a and 3b's per-tier medians, for the tree unpacked
 at PARENT_DIR and for this one, in turns on one card (parent, change,
 change, parent; see :func:`ab`), and writes ``ab.json``.
+
+With ``--split``, it times instead K1/K2/K3 on the split tier at
+524,288 x 1 and 131,072 x 2, and K1/K3 on the global and the split tier
+at 32,768 x 16 and 65,536 x 8, each held bit for bit, for this tree and
+for a variant with its kernel constants changed (by default
+``SPLIT_MAX_CTAS=8``), in turns (see :func:`split_ab`), and writes
+``split.json``.
 
 With ``--server N``, it builds the kernels and native libraries and runs
 only phase 6, ``N`` times in one process (the socket path's repeat check;
@@ -292,7 +307,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
 # at the widths DocFleet's deep tiers reach, the shared tier beside them).
 PHASE1_SHAPES = ((128, 4096), (512, 4096), (2048, 4096))
 PHASE1B_SHAPES = ((2048, 256), (4096, 256), (8192, 256), (16384, 64),
-                  (65536, 16))
+                  (65536, 16), (131_072, 2), (524_288, 1))
+# Documents an edge-case launch holds past the global tier: up to 8 docs
+# a launch get C = 16 CTAs a document on a 132-SM card, the split tier's
+# slices at their widest count.
+SPLIT_EDGE_DOCS = 8
 # The other widths the DocFleet cells compact at (config 6's pools of
 # 16,384 slots, the deep cell's of 256), timed by --ab alone: the cells'
 # per-tier medians mix calls on full and (in the parent) empty pools.
@@ -306,6 +325,9 @@ OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # coordination (g++).
 BUILDS = (_cuda.build, _load_ticket, native_store_available,
           native_plog_available, native_coordination_available)
+
+# The keys of a launch count: in all, then each tier.
+COUNT_KEYS = ("all",) + tuple(_cuda.TIER_CODES)
 
 KERNELS = {
     "K1_merge_apply": dict(
@@ -500,20 +522,18 @@ def random_case(rng, n_docs: int, cap: int, k: int, device):
     return as_t(tables), as_t(scalars), as_t(ops)
 
 
-def edge_case(cap: int, device, k: int = 4):
-    """A packed state and op batch whose moves land exactly on the edges
-    the kernels cut a table at: each doc holds ``cap - 10`` live 4-char
-    rows (row r starts at visible position 4r), and its first op splits
-    row e (an insert at 4e+2), places a row at e (an insert at 4e), splits
-    row e twice (a remove of 4e+1..4e+3), splits rows e and e+1 (a remove
-    or annotate of 4e+1..4e+5), or inserts at the very end (the new row at
-    ``count``), for e at row 0, the 32-row tile edges, the edges of the
-    cluster tier's first slices (SL rows each, as merge_kernels.cu cuts a
-    table into slices of at most 1,024 rows), the middle and the last rows.
-    The next ``k - 1`` ops hit the rows next to e."""
-    count = cap - 10
+def _slice_rows(cap: int, sl) -> int:
+    """``sl``, or the cluster tier's slice for ``cap`` rows (at most 1,024
+    rows, rounded up to 32)."""
+    if sl is not None:
+        return sl
     n_slices = -(-cap // 1024)
-    sl = (-(-cap // n_slices) + 31) // 32 * 32
+    return (-(-cap // n_slices) + 31) // 32 * 32
+
+
+def _edge_firsts(cap: int, sl: int) -> list:
+    """edge_case's first op of each document (see there)."""
+    count = cap - 10
     edges = sorted({e for e in (0, 1, 30, 31, 32, 33, 63, 64, sl - 1, sl,
                                 sl + 1, 2 * sl - 1, 2 * sl, 2 * sl + 1,
                                 cap // 2, count - 2, count - 1)
@@ -527,6 +547,26 @@ def edge_case(cap: int, device, k: int = 4):
                    E.remove(p + 1, p + 5, seq=101, ref=100, client=1),
                    E.annotate(p + 1, p + 5, 5, seq=101, ref=100, client=1),
                    E.insert(4 * count, 7, 3, seq=101, ref=100, client=1)]
+    return firsts
+
+
+def edge_case(cap: int, device, k: int = 4, sl=None, picks=None):
+    """A packed state and op batch whose moves land exactly on the edges
+    the kernels cut a table at: each doc holds ``cap - 10`` live 4-char
+    rows (row r starts at visible position 4r), and its first op splits
+    row e (an insert at 4e+2), places a row at e (an insert at 4e), splits
+    row e twice (a remove of 4e+1..4e+3), splits rows e and e+1 (a remove
+    or annotate of 4e+1..4e+5), or inserts at the very end (the new row at
+    ``count``), for e at row 0, the 32-row tile edges, the edges of the
+    first slices (``sl`` rows each: by default the cluster tier's, as
+    merge_kernels.cu cuts a table into slices of at most 1,024 rows; the
+    split tier's from :func:`_cuda.split_slice_rows`), the middle and the
+    last rows. The next ``k - 1`` ops hit the rows next to e. ``picks``
+    (a slice or index list) keeps those documents only."""
+    count = cap - 10
+    firsts = _edge_firsts(cap, _slice_rows(cap, sl))
+    if picks is not None:
+        firsts = list(np.asarray(firsts)[picks])
     d = len(firsts)
     ops = np.zeros((d, k, OP_WIDTH), np.int32)
     for i, row in enumerate(firsts):
@@ -538,16 +578,18 @@ def edge_case(cap: int, device, k: int = 4):
                                   client=2) if j % 2 else
                          E.remove(q, q + 3, seq=101 + j, ref=100 + j,
                                   client=2))
-    live = np.arange(cap)[None, :] < count
-    lanes = {n: np.zeros((d, cap), np.int64) for n in SEGMENT_LANES}
+    # Every document holds the same table.
+    live = np.arange(cap) < count
+    lanes = {n: np.zeros(cap, np.int32) for n in SEGMENT_LANES}
     lanes["kind"][:] = 1
     lanes["orig"][:] = 1 + np.arange(cap) % 7
     lanes["length"][:] = 4
     lanes["seq"][:] = 1 + np.arange(cap) % 50
     lanes["rseq"][:] = RSEQ_NONE
     fills = {"kind": 0, "rseq": RSEQ_NONE}
-    tables = np.stack([np.where(live, lanes[n], fills.get(n, 0))
-                       for n in SEGMENT_LANES]).astype(np.int32)
+    one = np.stack([np.where(live, lanes[n], fills.get(n, 0))
+                    for n in SEGMENT_LANES]).astype(np.int32)
+    tables = np.broadcast_to(one[:, None], (K1.N_LANES, d, cap)).copy()
     scalars = np.zeros((d, K1.N_SCALARS), np.int32)
     scalars[:, K1.SC_COUNT] = count
     scalars[:, K1.SC_CUR_SEQ] = 100
@@ -556,32 +598,39 @@ def edge_case(cap: int, device, k: int = 4):
     return as_t(tables), as_t(scalars), as_t(ops)
 
 
-def compact_edge_case(cap: int, device):
+def compact_edge_case(cap: int, device, sl=None, picks=None):
     """A packed state whose compaction meets every seam the kernels cut a
-    table at (32-row tiles, cluster slices of SL rows): each doc holds
-    ``cap - 3`` live rows, min_seq 10, and one of nine patterns. Rows are
-    splits of one insert (contiguous offsets) unless a pattern breaks the
-    run; reclaimed rows are acked removals at seq 6. Patterns: none
-    reclaimed (one merge run over the whole table); all reclaimed; runs
-    that break one row before each tile edge; every other row reclaimed
-    (no merges); zero-length reclaimed rows at the tile and slice edges (the
-    run merges across them); the first slice reclaimed; only the edge rows
-    kept, the rest zero-length and reclaimed (a warp's first kept row
-    merges into a row many warps or CTAs back); the same with reclaimed
-    rows of length 1 (nothing merges); pending stamps, local removes and
-    UNASSIGNED seqs on rows that would otherwise go. Returns (tables,
-    scalars, ops), ops all no-ops (K=1), for K3."""
+    table at (32-row tiles, slices of ``sl`` rows, by default the cluster
+    tier's): each doc holds ``cap - 3`` live rows, min_seq 10, and one of
+    nine patterns. Rows are splits of one insert (contiguous offsets)
+    unless a pattern breaks the run; reclaimed rows are acked removals at
+    seq 6. Patterns: none reclaimed (one merge run over the whole table);
+    all reclaimed; runs that break one row before each tile edge; every
+    other row reclaimed (no merges); zero-length reclaimed rows at the tile
+    and slice edges (the run merges across them); the first slice
+    reclaimed; only the edge rows kept, the rest zero-length and reclaimed
+    (a warp's first kept row merges into a row many warps or CTAs back);
+    the same with reclaimed rows of length 1 (nothing merges); pending
+    stamps, local removes and UNASSIGNED seqs on rows that would otherwise
+    go. ``picks`` (a slice or index list of patterns) keeps those
+    documents only. Returns (tables, scalars, ops), ops all no-ops (K=1),
+    for K3."""
     count = cap - 3
-    n_slices = -(-cap // 1024)
-    sl = (-(-cap // n_slices) + 31) // 32 * 32
+    sl = _slice_rows(cap, sl)
     r = np.arange(cap)
     edge = np.zeros(cap, bool)
     edge[[e for e in (0, 1, 31, 32, 33, 63, 64, sl - 1, sl, sl + 1,
                       2 * sl - 1, 2 * sl, count - 1) if 0 <= e < count]] = True
     tile_edge = (r % 32 == 0) | (r % 32 == 31) | (r % sl == 0) | \
         (r % sl == sl - 1)
-    pats = []
-    for p in range(9):
+    live = r < count
+    fills = {"kind": 0, "rseq": RSEQ_NONE}
+    pats = list(range(9))
+    if picks is not None:
+        pats = list(np.asarray(pats)[picks])
+    d = len(pats)
+    tables = np.empty((K1.N_LANES, d, cap), np.int32)
+    for i, p in enumerate(pats):
         rec = np.zeros(cap, bool)
         length = np.full(cap, 2)
         orig = np.full(cap, 3)
@@ -599,29 +648,24 @@ def compact_edge_case(cap: int, device):
         elif p in (6, 7):
             rec = ~edge
             length[rec] = 0 if p == 6 else 1
-        pats.append((rec, length, orig))
-    d = len(pats)
-    lanes = {n: np.zeros((d, cap), np.int64) for n in SEGMENT_LANES}
-    for i, (rec, length, orig) in enumerate(pats):
-        lanes["kind"][i] = 1
-        lanes["orig"][i] = orig
-        lanes["length"][i] = length
-        lanes["off"][i] = np.concatenate([[0], np.cumsum(length)[:-1]])
-        lanes["seq"][i] = 5
-        lanes["client"][i] = 1
-        lanes["rseq"][i] = np.where(rec, 6, RSEQ_NONE)
-    # The last pattern: every row acked-removed at seq 6, but some carry a
-    # pending stamp or are local removes, and some seqs are unassigned.
-    last = d - 1
-    lanes["rseq"][last] = np.where(r % 13 == 0, UNASSIGNED_SEQ, 6)
-    lanes["rlseq"][last] = np.where((r % 7 == 0) | (r % 13 == 0), 1, 0)
-    lanes["lseq"][last] = np.where(r % 11 == 0, 2, 0)
-    lanes["seq"][last] = np.where(r % 11 == 0, UNASSIGNED_SEQ, 5)
-    lanes["alseq"][last] = np.where(r % 17 == 0, 3, 0)
-    live = r[None, :] < count
-    fills = {"kind": 0, "rseq": RSEQ_NONE}
-    tables = np.stack([np.where(live, lanes[n], fills.get(n, 0))
-                       for n in SEGMENT_LANES]).astype(np.int32)
+        lanes = {n: np.zeros(cap, np.int64) for n in SEGMENT_LANES}
+        lanes["kind"][:] = 1
+        lanes["orig"][:] = orig
+        lanes["length"][:] = length
+        lanes["off"][:] = np.concatenate([[0], np.cumsum(length)[:-1]])
+        lanes["seq"][:] = 5
+        lanes["client"][:] = 1
+        lanes["rseq"][:] = np.where(rec, 6, RSEQ_NONE)
+        if p == 8:
+            # Every row acked-removed at seq 6, but some carry a pending
+            # stamp or are local removes, and some seqs are unassigned.
+            lanes["rseq"][:] = np.where(r % 13 == 0, UNASSIGNED_SEQ, 6)
+            lanes["rlseq"][:] = np.where((r % 7 == 0) | (r % 13 == 0), 1, 0)
+            lanes["lseq"][:] = np.where(r % 11 == 0, 2, 0)
+            lanes["seq"][:] = np.where(r % 11 == 0, UNASSIGNED_SEQ, 5)
+            lanes["alseq"][:] = np.where(r % 17 == 0, 3, 0)
+        for j, n in enumerate(SEGMENT_LANES):
+            tables[j, i] = np.where(live, lanes[n], fills.get(n, 0))
     scalars = np.zeros((d, K1.N_SCALARS), np.int32)
     scalars[:, K1.SC_COUNT] = count
     scalars[:, K1.SC_MIN_SEQ] = 10
@@ -630,6 +674,29 @@ def compact_edge_case(cap: int, device):
     ops = np.zeros((d, 1, OP_WIDTH), np.int32)
     as_t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
     return as_t(tables), as_t(scalars), as_t(ops)
+
+
+def edge_batches(cap: int, device, k: int = 4, launch_docs=None):
+    """:func:`edge_case` and :func:`compact_edge_case` as the holds take
+    them: whole, up to the global tier; past it, in batches of
+    :data:`SPLIT_EDGE_DOCS` documents, each cut at the split tier's slices
+    for a launch of ``launch_docs`` documents (default: a whole batch; C =
+    16 CTAs a document on an H100 for up to 8 documents, so a shorter last
+    batch is cut alike), so the slice edges the cases name are the
+    kernel's. Yields ("apply" or "compact", (tables, scalars, ops))."""
+    if cap <= _cuda.GLOBAL_MAX_CAPACITY:
+        yield "apply", edge_case(cap, device, k)
+        yield "compact", compact_edge_case(cap, device)
+        return
+    per = SPLIT_EDGE_DOCS
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sl = _cuda.split_slice_rows(cap, launch_docs or per, sms)
+    for kind, n in (("apply", len(_edge_firsts(cap, sl))), ("compact", 9)):
+        for i in range(0, n, per):
+            picks = slice(i, i + per)
+            yield kind, (edge_case(cap, device, k, sl, picks)
+                         if kind == "apply"
+                         else compact_edge_case(cap, device, sl, picks))
 
 
 def _median_ms(fn, reset, reps: int) -> float:
@@ -657,9 +724,9 @@ def read_counts() -> dict:
     out = {}
     for name, spec in KERNELS.items():
         w = spec["wrapper"]
-        out[name] = {"all": w.launches, "smem": w.launches_smem,
-                     "cluster": w.launches_cluster,
-                     "global": w.launches_global}
+        out[name] = {"all": w.launches}
+        out[name].update((t, getattr(w, f"launches_{t}"))
+                         for t in _cuda.TIER_CODES)
     return out
 
 
@@ -708,6 +775,7 @@ def phase_kernels(device, report, key, shapes, seed_offset=0):
     states; time each beside its byte-floor bound. Returns the rows."""
     rows = []
     for cap, d in shapes:
+        t_shape = time.perf_counter()
         rng = np.random.default_rng(cap + seed_offset)
         t0, s0, ops = random_case(rng, d, cap, 16, device)
         for name in KERNELS:
@@ -723,14 +791,12 @@ def phase_kernels(device, report, key, shapes, seed_offset=0):
                   f"exact, {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
                   f"{rows[-1]['bound_ms']:.4f} ms, library_ms null)",
                   flush=True)
-        # The same kernels on moves at the tile and slice edges, untimed.
-        edges = edge_case(cap, device)
-        for name in KERNELS:
-            hold_kernel(name, *edges, kernel_reps=0, plain_reps=0)
-        # K2 and K3 on compactions that meet the tile and slice edges.
-        edges = compact_edge_case(cap, device)
-        for name in ("K2_zamboni_compact", "K3_fused_apply_compact"):
-            hold_kernel(name, *edges, kernel_reps=0, plain_reps=0)
+        # The same kernels on moves at the tile and slice edges, and K2 and
+        # K3 on compactions that meet them, untimed.
+        for kind, edges in edge_batches(cap, device):
+            for name in KERNELS:
+                if kind == "apply" or name != "K1_merge_apply":
+                    hold_kernel(name, *edges, kernel_reps=0, plain_reps=0)
         del edges
         t, s = t0.clone(), s0.clone()
         K1.apply_ops_packed(t, s, ops)
@@ -738,8 +804,8 @@ def phase_kernels(device, report, key, shapes, seed_offset=0):
         cov = {bit: float(((errs & v) != 0).float().mean())
                for bit, v in (("capacity", ERR_CAPACITY),
                               ("range", ERR_RANGE), ("client", ERR_CLIENT))}
-        print(f"kernels S={cap} err-bit coverage (share of docs): {cov}",
-              flush=True)
+        print(f"kernels S={cap} err-bit coverage (share of docs): {cov}; "
+              f"{time.perf_counter() - t_shape:.1f} s", flush=True)
         rows[-1]["err_coverage"] = cov
         del t0, s0, ops, t, s
         torch.cuda.empty_cache()
@@ -3157,8 +3223,10 @@ def ab(parent: str, variants=()) -> int:
 # undo-redo, the replay driver and the smoke client) on the card.
 
 # Rows of the one-document tables phase 8 holds K1/K2 at: the shared tier,
-# the cluster tier (one document over 4-16 CTAs) and the global tier.
-CLIENT_D1_CAPS = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
+# the cluster tier (one document over 4-16 CTAs), the global tier and the
+# split tier (one document over 16 CTAs).
+CLIENT_D1_CAPS = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536,
+                  131_072, 524_288)
 
 
 class _Uncounted:
@@ -3702,6 +3770,51 @@ def client_8e(device, out):
           "server_main on the card", flush=True)
 
 
+CLIENT_GROW_OPS = 256  # 8f's ops after the grow past 65,536 rows
+
+
+def client_8f(device, out, n_ops=CLIENT_GROW_OPS):
+    """8f: a full one-document ``SegmentState`` of 65,536 distinct rows on
+    the card, ``grow``n to 131,072 rows (past the one-CTA global tier),
+    then ``n_ops`` of ``random_acked_stream`` (refs caught up, collab
+    window 32 seqs behind) through ``ops/merge_kernel.py``'s
+    ``jit_apply_ops`` in calls of 32 ops, each followed by ``compact``:
+    every K1/K2 launch on the split tier. The inserts land at the head, so
+    each moves every row. Its lanes equal the same run on the CPU."""
+    from fluidframework_tpu_torch.interop import (
+        segment_state_from_numpy,
+        segment_state_to_numpy,
+    )
+    from fluidframework_tpu_torch.ops import merge_kernel as MK
+    from fluidframework_tpu_torch.ops.segment_state import grow
+    from fluidframework_tpu_torch.testing.fuzz import random_acked_stream
+    from fluidframework_tpu_torch.testing.oracle import OracleDoc
+
+    n = 65536
+    start = list(_overflow_state(n, n))
+    ops = np.stack(random_acked_stream(
+        np.random.default_rng(8), n_ops, {}, OracleDoc(NO_CLIENT),
+        msn_lag=32, caught_up=True, seq0=n + 1)).astype(np.int32)
+    lanes, wall = {}, {}
+    for side, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        t = time.perf_counter()
+        st = grow(segment_state_from_numpy(start, dev), 2 * n)
+        for i in range(0, n_ops, 32):
+            MK.jit_apply_ops(st, torch.from_numpy(ops[i:i + 32]).to(dev))
+            MK.compact(st)
+        lanes[side] = segment_state_to_numpy(st)
+        wall[side] = time.perf_counter() - t
+    _lanes_equal(lanes["card"], lanes["cpu"], "8f grow past 65,536")
+    rows = int(lanes["card"][15])
+    if rows <= n or lanes["card"][19] != 0:
+        raise AssertionError(f"8f: {rows} rows, err {lanes['card'][19]}")
+    out.update(rows=rows, ops=n_ops, card_s=wall["card"],
+               cpu_s=wall["cpu"])
+    print(f"8f grow 65,536 -> 131,072 rows on the card, {n_ops} ops, "
+          f"{rows} rows: card == CPU lane for lane (card {wall['card']:.2f} "
+          f"s, CPU {wall['cpu']:.2f} s)", flush=True)
+
+
 def _client_holds(device, reader_state, b_mid, b_ops, c_mid, c_ops):
     """Each kernel against its plain version at phase 8's shapes, with its
     time and byte floor: K1/K2 at one document (random cases, K 1, at
@@ -3731,21 +3844,26 @@ def _client_holds(device, reader_state, b_mid, b_ops, c_mid, c_ops):
 
     with _Uncounted():
         for cap in CLIENT_D1_CAPS:
+            t_cap = time.perf_counter()
             for seed in range(4):
                 t, s, ops = random_case(np.random.default_rng(cap + seed), 1,
                                         cap, 1, device)
                 reps = 10 if seed == 0 else 0
                 hold("K1_merge_apply", t, s, ops, "D1", reps)
                 hold("K2_zamboni_compact", t, s, None, "D1", reps)
-            t, s, ops = edge_case(cap, device, k=2)
-            for i in range(t.shape[1]):
-                hold("K1_merge_apply", t[:, i:i + 1].contiguous(),
-                     s[i:i + 1].contiguous(), ops[i:i + 1].contiguous(),
-                     "D1 edge", 0, 0)
-            t, s, _ = compact_edge_case(cap, device)
-            for i in range(t.shape[1]):
-                hold("K2_zamboni_compact", t[:, i:i + 1].contiguous(),
-                     s[i:i + 1].contiguous(), None, "D1 edge", 0, 0)
+            for kind, (t, s, ops) in edge_batches(cap, device, k=2,
+                                                  launch_docs=1):
+                for i in range(t.shape[1]):
+                    if kind == "apply":
+                        hold("K1_merge_apply", t[:, i:i + 1].contiguous(),
+                             s[i:i + 1].contiguous(),
+                             ops[i:i + 1].contiguous(), "D1 edge", 0, 0)
+                    else:
+                        hold("K2_zamboni_compact",
+                             t[:, i:i + 1].contiguous(),
+                             s[i:i + 1].contiguous(), None, "D1 edge", 0, 0)
+            print(f"client holds D1 S={cap}: "
+                  f"{time.perf_counter() - t_cap:.1f} s", flush=True)
         t, s, _single = to_packed(reader_state)
         nxt = torch.from_numpy(np.stack([
             E.insert(3, 10**6, 2, seq=10**6, ref=10**6 - 1, client=1),
@@ -3767,13 +3885,13 @@ def phase_client(device, report):
     8c config 4, 8d the DDS family through the runtime, 8e the smoke
     client; then each kernel held against its plain version at these
     shapes. Launch counts are read per sub-phase; returns their sum."""
-    out = {key: {} for key in ("8a", "8b", "8c", "8d", "8e")}
+    out = {key: {} for key in ("8a", "8b", "8c", "8d", "8e", "8f")}
     launches = {}
     wall = {}
     torch.cuda.set_sync_debug_mode("warn")
     try:
         steps = (("8a", client_8a), ("8b", client_8b), ("8c", client_8c),
-                 ("8d", client_8d), ("8e", client_8e))
+                 ("8d", client_8d), ("8e", client_8e), ("8f", client_8f))
         results = {}
         for key, fn in steps:
             reset_counts()
@@ -3787,7 +3905,7 @@ def phase_client(device, report):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     total = {name: {t: sum(launches[k][name][t] for k in launches)
-                    for t in ("all", "smem", "cluster", "global")}
+                    for t in COUNT_KEYS}
              for name in KERNELS}
     for name, c in total.items():
         if c["all"] <= 0:
@@ -3849,7 +3967,7 @@ def _same_pools(a, b, what: str) -> None:
 
 def _sum_counts(*counts) -> dict:
     return {name: {t: sum(c[name][t] for c in counts)
-                   for t in ("all", "smem", "cluster", "global")}
+                   for t in COUNT_KEYS}
             for name in KERNELS}
 
 
@@ -4225,98 +4343,186 @@ def mesh_9c(device, window=1000, frame_ops=SHARDED_FRAME_OPS,
     return out, holds
 
 
-def mesh_9c_one_entry(device, visible, cap=65536,
-                      frame_ops=2048) -> dict:
+# The stats 9c's one-card run holds equal to its plain twin's.
+ONE_CARD_STATS = ("channels", "ops_applied", "docs_with_errors",
+                  "sharded_docs", "sharded_rows", "promotions_refused")
+
+
+def one_card_frame(rng, n: int, seq0: int, length: int, msn_lag: int = 64):
+    """``n`` sequenced rows from seq ``seq0`` on, every writer caught up:
+    70% inserts of 1-4 characters, 15% removes of 1-2 and 15% annotates of
+    1-6, at random positions across the whole document of ``length``
+    visible characters; the collab window ``msn_lag`` seqs behind. Returns
+    (rows, the length after them)."""
+    rows = []
+    for i in range(n):
+        s = seq0 + i
+        msn = max(0, s - msn_lag)
+        r = rng.random()
+        if r < 0.7 or length < 8:
+            k = int(rng.integers(1, 5))
+            rows.append(E.insert(int(rng.integers(0, length + 1)),
+                                 10**6 + s, k, seq=s, ref=s - 1,
+                                 client=int(rng.integers(0, 4)), msn=msn))
+            length += k
+        elif r < 0.85:
+            a = int(rng.integers(0, length - 2))
+            b = a + int(rng.integers(1, 3))
+            rows.append(E.remove(a, b, seq=s, ref=s - 1,
+                                 client=int(rng.integers(0, 4)), msn=msn))
+            length -= b - a
+        else:
+            a = int(rng.integers(0, length - 6))
+            rows.append(E.annotate(a, a + int(rng.integers(1, 7)),
+                                   int(rng.integers(1, 9)), seq=s,
+                                   ref=s - 1, client=int(rng.integers(0, 4)),
+                                   msn=msn))
+    return np.stack(rows).astype(np.int32), length
+
+
+def mesh_9c_one_entry(device, visible, cap=65536, n0=65_000, first_ops=256,
+                      frame_ops=512, min_frames=2) -> dict:
     """9c on the list of every visible card. With one card the backend's
-    overflow promotion would ask for 8 x ``cap`` / 1 rows a shard, past
-    K1's largest tier: the promotion is refused before anything moves.
-    A document of 0.75 ``cap`` + 1 distinct rows, placed at the top
-    tier's high water, keeps its top-tier slot and its lanes, is not
-    sharded, and a second scan neither compacts nor counts it again. It
-    then takes one-character appends until it trips ERR_CAPACITY, reported
-    once, exactly as a backend without sharded overflow given the same
-    frames (lanes equal at every frame). With more cards the shard fits
-    and nothing is refused."""
-    from fluidframework_tpu_torch.interop import segment_state_to_numpy
+    overflow promotion asks for 8 x ``cap`` rows in one shard, as the
+    reference's one-device mesh does, and the kernels' split tier takes
+    it: a document of ``n0`` distinct rows placed in its top-tier slot
+    (``config/config.json``'s 65,536 rows) takes a first frame of
+    ``first_ops``, is promoted at the scan after it into a one-shard
+    ShardedDoc of 8 x ``cap`` rows, then takes frames of ``frame_ops``
+    (:func:`one_card_frame`) until it holds more than ``cap`` live rows,
+    at least ``min_frames`` of them. A twin backend with
+    ``kernel="plain"`` on the card takes the same frames: their reports,
+    lanes (the fleet slot's, then the shard's) and stats are equal after
+    every frame; nothing is refused or errored. K1 and K2 are held against
+    their plain versions at the shard's shape, K1's time being its time an
+    op. With more cards the shard is smaller and nothing is refused."""
+    from fluidframework_tpu_torch.interop import (
+        mesh_state_to_numpy,
+        segment_state_to_numpy,
+    )
     from fluidframework_tpu_torch.parallel import mesh as M
     from fluidframework_tpu_torch.parallel.sharded_doc import check_shard_cap
 
     shard_cap = -(-8 * cap // len(visible))
-    try:
-        check_shard_cap(shard_cap, "auto", visible)
-    except ValueError as e:
-        reason = str(e)
-    else:
-        return dict(cards=len(visible), shard_cap=shard_cap, refused=False)
-    n0 = cap * 3 // 4 + 1
+    check_shard_cap(shard_cap, "auto", visible)
+    if len(visible) > 1:
+        return dict(cards=len(visible), shard_cap=shard_cap)
+    t_start = time.perf_counter()
     bes = []
-    for overflow in (True, False):
+    for kernel in ("auto", "plain"):
         be = DeviceFleetBackend(capacity=cap, max_capacity=cap,
-                                sharded_overflow=overflow, device=device)
+                                compact_every=1, sharded_overflow=True,
+                                kernel=kernel, device=device)
         idx = be.ensure("one", "s")
         be.fleet.evict_doc(idx)
         be.fleet.restore_doc(idx, _overflow_state(n0, cap))
         bes.append(be)
-    be, off = bes
+    be, twin = bes
     idx = be._index[("one", "s")]
-    place = be.fleet.placement[idx]
 
     def lanes(b):
+        if idx in b._sharded:
+            return list(mesh_state_to_numpy(b._sharded[idx]))
         return list(segment_state_to_numpy(b.fleet.doc_state(idx)))
 
+    rng = np.random.default_rng(11)
+    seq, length, frames, promoted_at = n0, n0, 0, None
+    apply_s, ops_after = 0.0, 0
+    launches = {}
     M.set_devices(visible)
+    reset_counts()
     try:
-        before = lanes(be)
-        compacts = []
-        real = be.fleet.compact
-        be.fleet.compact = lambda: (compacts.append(1), real())[1]
-        for call in range(2):
-            be._promote_overflow()
-            if (be.fleet.placement[idx] != place or idx in be._sharded
-                    or compacts or be._promotion_refused != {idx}):
-                raise AssertionError(
-                    f"9c one card, call {call}: placement "
-                    f"{be.fleet.placement[idx]} (was {place}), sharded "
-                    f"{idx in be._sharded}, compactions {len(compacts)}, "
-                    f"refused {be._promotion_refused}")
-            _same_lanes(lanes(be), before, "9c refused promotion")
-        del be.fleet.compact  # the class's again for the scheduled ones
-        seq, n_ops, reported = n0, 0, []
-        while not reported:
-            if n_ops > cap:
-                raise AssertionError("9c one card: no ERR_CAPACITY")
-            rows = np.stack([E.insert(seq + j, seq + j + 1, 1,
-                                      seq=seq + j + 1, ref=seq + j, client=0)
-                             for j in range(frame_ops)]).astype(np.int32)
+        while True:
+            rows_now = (be._sharded[idx].rows_in_use() if idx in be._sharded
+                        else 0)
+            if rows_now > cap and frames >= min_frames:
+                break
+            if seq - n0 > 16 * frame_ops:
+                raise AssertionError(f"9c one card: {rows_now} live rows "
+                                     f"after {seq - n0} ops")
+            n = first_ops if promoted_at is None else frame_ops
+            rows, length = one_card_frame(rng, n, seq + 1, length)
             got = []
-            for b in (be, off):
+            for b in (be, twin):
+                t = time.perf_counter()
                 b.enqueue_frame("one", SeqFrame("s", 0, seq + 1, rows, (),
                                                 0.0))
                 got.append(b.flush() + b.collect_now())
-            if got[0] != got[1]:
+                if b is be and promoted_at is not None:
+                    _sync(device)
+                    apply_s += time.perf_counter() - t
+            if promoted_at is not None:
+                ops_after += n
+                frames += 1
+            seq += n
+            if got[0] != got[1] or got[0]:
                 raise AssertionError(f"9c one card: reports {got}")
-            _same_lanes(lanes(be), lanes(off), "9c refused vs no overflow")
-            reported = got[0]
-            seq += frame_ops
-            n_ops += frame_ops
-        st = be.stats()
-        if (reported != [("one", "s")] or be.fleet.placement[idx] != place
-                or st["docs_with_errors"] != 1 or st["sharded_docs"]
-                or st["promotions_refused"] != 1):
-            raise AssertionError(f"9c one card: reported {reported}, stats "
-                                 f"{st}")
-        if be.flush() + be.collect_now():
-            raise AssertionError("9c one card: ERR_CAPACITY reported twice")
+            _same_lanes(lanes(be), lanes(twin), "9c one card vs plain")
+            st, st_twin = ({k: b.stats()[k] for k in ONE_CARD_STATS}
+                           for b in (be, twin))
+            if st != st_twin:
+                raise AssertionError(f"9c one card: stats {st} != {st_twin}")
+            if promoted_at is None and idx in be._sharded:
+                promoted_at = seq - n0
+                launches["before_promotion"] = read_counts()
+                reset_counts()
+                doc = be._sharded[idx]
+                if doc.n_shards != 1 or doc.shard_cap != shard_cap:
+                    raise AssertionError(f"9c one card: {doc.n_shards} x "
+                                         f"{doc.shard_cap}")
+                print(f"9c one card: promoted at the scan after the first "
+                      f"{promoted_at} ops into 1 x {doc.shard_cap} rows",
+                      flush=True)
+        launches["after_promotion"] = read_counts()
     finally:
         M.set_devices([device] * 8)
-    out = dict(cards=len(visible), shard_cap=shard_cap, refused=True,
-               reason=reason, rows_at_refusal=n0, ops_to_capacity=n_ops,
-               placement=list(place))
-    print(f"9c list {[str(d) for d in visible]}: promotion refused "
-          f"({reason}); the doc kept its {place} slot and lanes, no "
-          f"compaction, refused once; ERR_CAPACITY after {n_ops} more ops, "
-          "reported once, lanes == the backend without sharded overflow",
-          flush=True)
+    after = launches["after_promotion"]
+    for kname in ("K1_merge_apply", "K2_zamboni_compact"):
+        c = after[kname]
+        if c["all"] <= 0 or c["split"] != c["all"]:
+            raise AssertionError(f"9c one card: {kname} after promotion "
+                                 f"{c}, not all on the split tier")
+    st = be.stats()
+    if (st["sharded_docs"] != 1 or st["promotions_refused"] != 0
+            or st["docs_with_errors"] != 0 or promoted_at != first_ops):
+        raise AssertionError(f"9c one card: promoted at {promoted_at}, "
+                             f"stats {st}")
+    doc = be._sharded[idx]
+    live = doc.rows_in_use()
+    # K1 (one insert, K 1: its time is the time an op) and K2 against their
+    # plain versions at the shard's shape.
+    g = doc._groups[0]
+    t0, s0 = g.tables.clone(), g.scalars.clone()
+    o1 = torch.from_numpy(one_card_frame(rng, 1, seq + 1, length)[0][None])
+    o1 = o1.to(device)
+    holds = []
+    for kname in ("K1_merge_apply", "K2_zamboni_compact"):
+        err, ms, plain_ms = hold_kernel(kname, t0, s0, o1)
+        holds.append(dict(
+            kernel=kname, cell="9c one card", docs=1, cap=shard_cap, k=1,
+            tier=_cuda.tier(shard_cap, KERNELS[kname]["entry"]),
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_bytes(kname, 1, shard_cap, 1)
+            / HBM_BYTES_PER_S * 1e3))
+    del t0, s0, bes, be, twin, doc, g
+    torch.cuda.empty_cache()
+    out = dict(cards=1, shard_cap=shard_cap, rows_at_start=n0, promoted_at_ops=promoted_at,
+               live_rows=live, ops=seq - n0, frames_after_promotion=frames,
+               ops_per_s_after_promotion=ops_after / apply_s,
+               launches=launches, k1_ms_per_op=holds[0]["ms"],
+               wall_s=time.perf_counter() - t_start, holds=holds,
+               stats=dict(sharded_docs=st["sharded_docs"],
+                          promotions_refused=st["promotions_refused"],
+                          docs_with_errors=st["docs_with_errors"]))
+    print(f"9c one card [{visible[0]}]: {n0} rows, promoted after "
+          f"{promoted_at} ops into 1 x {shard_cap} rows, {frames} frames "
+          f"of {frame_ops} ops after it to {live} live rows; "
+          f"{out['ops_per_s_after_promotion']:,.0f} ops/s after promotion; "
+          f"== the plain twin at every frame; launches by tier after "
+          f"promotion { {n: c for n, c in after.items() if c['all']} }; K1 "
+          f"{holds[0]['ms']:.4f} ms an op at 1 x {shard_cap} (plain "
+          f"{holds[0]['plain_ms']:.3f} ms, bound {holds[0]['bound_ms']:.5f} "
+          f"ms); {out['wall_s']:.1f} s", flush=True)
     return out
 
 
@@ -4439,8 +4645,11 @@ def phase_mesh(device, report):
         wall["9b"] = time.perf_counter() - t
         t = time.perf_counter()
         r9c, holds_c = mesh_9c(device)
-        r9c["one_entry"] = mesh_9c_one_entry(device, visible)
         wall["9c"] = time.perf_counter() - t
+        t = time.perf_counter()
+        r9c["one_entry"] = one = mesh_9c_one_entry(device, visible)
+        wall["9c_one_card"] = time.perf_counter() - t
+        holds_c = holds_c + one.get("holds", [])
         t = time.perf_counter()
         r9d = mesh_9d()
         wall["9d"] = time.perf_counter() - t
@@ -4450,8 +4659,9 @@ def phase_mesh(device, report):
                                 r9a["visible"]["launches"],
                                 r9b["mesh_pump"]["launches"],
                                 r9b["mesh_oneshot"]["launches"])
-    sharded_launches = _sum_counts(r9c["launches_before_promotion"],
-                                   r9c["launches_after_promotion"])
+    sharded_launches = _sum_counts(
+        r9c["launches_before_promotion"], r9c["launches_after_promotion"],
+        *one.get("launches", {}).values())
     for name in ("K1_merge_apply", "K2_zamboni_compact"):
         for path, c in (("mesh", mesh_launches),
                         ("sharded", sharded_launches)):
@@ -6008,6 +6218,7 @@ def _main(device, twins) -> int:
             "launches_smem": sum(p["smem"] for p in by_path.values()),
             "launches_cluster": sum(p["cluster"] for p in by_path.values()),
             "launches_global": sum(p["global"] for p in by_path.values()),
+            "launches_split": sum(p["split"] for p in by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max([err] + [r["max_abs_err"]
                                         for r in glob + scale["holds"]
@@ -6071,6 +6282,124 @@ def tree_alone(**kw) -> int:
     with open(os.path.join(OUT_DIR, "tree.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(smi)
+    return 0
+
+
+# The split tier's widths (--split): phase 1b's shapes past the global
+# tier, then the global tier's shapes K1 and K3 could also take it at
+# (config 6's deep tier at 16 docs, 9c's 8 shards of 65,536 rows).
+SPLIT_SHAPES = ((524_288, 1), (131_072, 2))
+SPLIT_VS_GLOBAL_SHAPES = ((32_768, 16), (65_536, 8))
+
+_SPLIT_RUN = """
+import json, torch
+import chip_smoke as c
+{patch}
+print("SPLIT_JSON " + json.dumps(c.split_times(torch.device("cuda", 0))))
+"""
+
+
+def _entry_ms(name: str, t0, s0, ops, tier: str, reps: int) -> float:
+    """A kernel's C entry forced onto ``tier``, held bit for bit against
+    its plain version on the same input; its median CUDA-event time.
+    Nothing is counted."""
+    spec = KERNELS[name]
+    args = (ops,) if spec["takes_ops"] else ()
+    want = spec["plain"](t0, s0, *args)
+    t, s = t0.clone(), s0.clone()
+
+    def run():
+        _cuda.launch(spec["entry"], t, s, ops if args else None, (t, s),
+                     t=tier)
+
+    run()
+    torch.cuda.synchronize()
+    if not (torch.equal(t, want[0]) and torch.equal(s, want[1])):
+        raise AssertionError(f"{name} on the {tier} tier != plain")
+
+    def reset():
+        t.copy_(t0)
+        s.copy_(s0)
+
+    return _median_ms(run, reset, reps)
+
+
+def split_times(device, reps=10) -> dict:
+    """K1, K2 and K3 at :data:`SPLIT_SHAPES` (random cases, K 16, and K1
+    with one op, the sharded document's launch), and K1 and K3 at
+    :data:`SPLIT_VS_GLOBAL_SHAPES` on the global tier and on the split
+    tier, each held bit for bit against its plain version; median
+    CUDA-event ms of each."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = []
+    for cap, d in SPLIT_SHAPES + SPLIT_VS_GLOBAL_SHAPES:
+        t0, s0, ops = random_case(np.random.default_rng(cap + 1), d, cap,
+                                  16, device)
+        tiers = (("split",) if cap > _cuda.GLOBAL_MAX_CAPACITY
+                 else ("global", "split"))
+        for name in KERNELS:
+            for tier in tiers:
+                if tier == "split" and len(tiers) == 2 and \
+                        name == "K2_zamboni_compact":
+                    continue  # K2's global tier is already split
+                for k in ((16, 1) if name == "K1_merge_apply" else (16,)):
+                    ms = _entry_ms(name, t0, s0, ops[:, :k].contiguous(),
+                                   tier, reps)
+                    rows.append(dict(
+                        kernel=name, cap=cap, docs=d, k=k, tier=tier,
+                        ms=ms, slice_rows=_cuda.split_slice_rows(cap, d,
+                                                                 sms)))
+                    print(f"split S={cap} D={d} K={k} {name} {tier}: "
+                          f"{ms:.4f} ms", flush=True)
+        del t0, s0, ops
+        torch.cuda.empty_cache()
+    return dict(split_max_ctas=_cuda.lib().merge_split_max_ctas(),
+                rows=rows)
+
+
+def split_ab(variants=("SPLIT_MAX_CTAS=8",)) -> int:
+    """:func:`split_times` of this tree and of each variant (this tree
+    with the kernel constants of one spec changed, as for :func:`ab`),
+    each run in its own process on this card in turns: each variant, this
+    tree twice, each variant again. Prints each row's times and writes
+    every run to ``split.json`` in the output directory."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = {"change": ""}
+    for i, spec in enumerate(variants):
+        trees[f"v{i + 1}"] = ("import fluidframework_tpu_torch.ops._cuda "
+                              "as cu; cu.SOURCE = "
+                              f"{_variant_source(spec, f'v{i + 1}')!r}")
+        print(f"split: v{i + 1} = {spec}", flush=True)
+    labels = [x for x in trees if x != "change"]
+    runs = []
+    for label in labels + ["change", "change"] + labels:
+        code = _SPLIT_RUN.format(patch=trees[label])
+        t = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", code], cwd=here,
+                             env=dict(os.environ, PYTHONPATH=here),
+                             capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"split run of {label} failed")
+        line = next(x for x in res.stdout.splitlines()
+                    if x.startswith("SPLIT_JSON "))
+        runs.append(dict(label=label, wall_s=time.perf_counter() - t,
+                         **json.loads(line[len("SPLIT_JSON "):])))
+        print(f"split: {label} (max CTAs {runs[-1]['split_max_ctas']}) in "
+              f"{runs[-1]['wall_s']:.1f} s", flush=True)
+    by = {}
+    for run in runs:
+        for r in run["rows"]:
+            key = (r["kernel"], r["cap"], r["docs"], r["k"], r["tier"])
+            by.setdefault(key, {}).setdefault(
+                f"{run['label']}({run['split_max_ctas']})", []).append(
+                    r["ms"])
+    for (name, cap, d, k, tier), v in by.items():
+        print(f"split {name} S={cap} D={d} K={k} {tier}: " + ", ".join(
+            f"{label} {ms}" for label, ms in v.items()), flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "split.json"), "w") as f:
+        json.dump(runs, f, indent=1)
     return 0
 
 
@@ -6240,6 +6569,10 @@ if __name__ == "__main__":
         sys.exit(framework_alone())
     if len(sys.argv) > 1 and sys.argv[1] == "--socket-client":
         sys.exit(socket_client(sys.argv[2:]))
+    if len(sys.argv) > 1 and sys.argv[1] == "--split":
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device; nothing was run")
+        sys.exit(split_ab(*([sys.argv[2:]] if len(sys.argv) > 2 else [])))
     if len(sys.argv) > 2 and sys.argv[1] == "--ab":
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device; nothing was run")

@@ -27,15 +27,25 @@
 //     Slices of 2,048 rows (512 threads, 1 CTA per SM, C <= 8) ran 13-46%
 //     slower at 4,096-16,384 rows on an H100, so the slices are 1,024 rows.
 //     A cluster that cannot be scheduled fails the launch.
-//   - global (16,384 < S <= 65,536): one CTA of 512 threads per document;
-//     the lanes stay in tables_out (lane stride D*S) and the scratch
-//     arrays in a per-doc slice of a device workspace the wrapper
+//   - global (16,384 < S <= 65,536): K1 and K3 run one CTA of 512 threads
+//     per document; the lanes stay in tables_out (lane stride D*S) and the
+//     scratch arrays in a per-doc slice of a device workspace the wrapper
 //     allocates. Barriers order the global writes. K2 runs there on the
-//     split tier: the same, but each document split over a cluster of C
-//     CTAs (C = ceil(SMs / D), at most 8), slices of SL rows as on the
-//     cluster tier, so a few large documents still cover every SM; the
-//     warp totals meet through DSMEM and cluster barriers order the
-//     global writes.
+//     split tier's code with at most 8 CTAs per document (a portable
+//     cluster).
+//   - split (65,536 < S <= 2^30; K1, K2, K3): the global tier's layout (the
+//     table in tables_out, the scratch in the workspace), each document
+//     split over a thread-block cluster of C = min(16, ceil(SMs / D)) CTAs
+//     of 512 threads (above 8 a non-portable size), slices of SL rows as on
+//     the cluster tier, so one large document still covers 16 SMs. The warp
+//     totals meet through DSMEM after a cluster barrier, and cluster
+//     barriers (release/acquire at cluster scope) order the global writes:
+//     a row another CTA wrote is read only after one, never through the
+//     non-coherent load path. The only such reads are K1's row move (the
+//     two rows below a slice, read before the barrier that lets their
+//     owner overwrite them), the prefix at a hit row, and K2's gather.
+//     2^30 is the largest table the kernels' int row indices address; a
+//     table the card cannot hold fails at allocation, in the wrapper.
 //
 // K1's op loop (apply_ops_doc) gives each warp a contiguous block of rows
 // and walks it in 32-row tiles, lane i on row tile + i, so one lane access
@@ -48,8 +58,9 @@
 //   - One row move per op. The splits and the insert of an op compose into
 //     one displacement of at most 2 rows (final row r takes old row y =
 //     r - d(r), then the split-length edits): move_rows reads the previous
-//     warp's top tile (through DSMEM when it lies in the previous CTA),
-//     one barrier, then each warp walks its tiles from the top down taking
+//     warp's top tile (when it lies in the previous CTA: through DSMEM on
+//     the cluster tier, from global memory on the split tier), one
+//     barrier, then each warp walks its tiles from the top down taking
 //     its sources by __shfl_sync from the tile and the one below it.
 //   Each op costs 3 barriers (insert) or 4 (remove/annotate), against 5-8
 //   with per-thread chunks and one shift per split.
@@ -69,9 +80,9 @@
 // prefix length at its output index, one barrier, and the store: on the
 // shared and cluster tiers it goes straight from shared memory to
 // tables_out by warp tiles (the table crosses memory once in, once out);
-// on the global tier each lane is gathered into the workspace, one
-// barrier, and written back in place. K3 runs K1's loop and K2 back to
-// back in one CTA (or cluster).
+// on the global and split tiers each lane is gathered into the workspace,
+// one barrier, and written back in place. K3 runs K1's loop, one barrier,
+// and K2 in one CTA (or cluster).
 // The TPU-side workarounds (Hillis-Steele shift ladders, the f32
 // permutation matmul, the 256-row compact cap) are not carried over.
 //
@@ -84,7 +95,10 @@
 // over the SMs of the cluster) and passes over 1,024-row slices; 256 docs
 // at 8,192 rows are 2,048 CTAs, about 5 waves at 3 CTAs per SM. Global
 // tier: the passes go to L2/HBM (coalesced), with one CTA per doc, so
-// D < 132 leaves SMs idle (K2 splits the doc instead). K2 itself is one
+// D < 132 leaves SMs idle (K2 splits the doc instead). Split tier: the
+// same passes over S/C-row slices, each op a few cluster barriers over up
+// to 16 SMs; once table and workspace (73 B a row) pass the 50 MB L2,
+// each pass pays HBM. K2 itself is one
 // pass over the rows and one store per document, with 3 barriers (14 more
 // on the global tier), so it is bound by its bytes once enough CTAs are in
 // flight: each thread loads all 15 lanes of a row before it stores any.
@@ -106,12 +120,14 @@ constexpr int OP_WIDTH = 10;
 constexpr int N_SCALARS = 8;
 constexpr int SMEM_MAX_CAP = 2048;      // largest shared-tier table
 constexpr int CLUSTER_MAX_CAP = 16384;  // largest cluster-tier table
-constexpr int MAX_CAP = 65536;          // largest global-tier table
+constexpr int GLOBAL_MAX_CAP = 65536;   // largest global-tier table
+constexpr int MAX_CAP = 1 << 30;  // largest split-tier table (int row indices)
 constexpr int MAX_THREADS = 256;        // shared tier
 constexpr int CLUSTER_ROWS = 1024;      // rows per CTA of a cluster, at most
 constexpr int CLUSTER_THREADS = 256;    // cluster tier
 constexpr int GLOBAL_THREADS = 512;     // global and split tiers
-constexpr int SPLIT_MAX_CTAS = 8;       // CTAs per doc on the split tier
+constexpr int SPLIT_MAX_CTAS = 16;      // CTAs per doc on the split tier
+constexpr int K2_GLOBAL_CTAS = 8;       // K2's CTAs per doc, global tier
 // CTAs per SM that each entry's register budget aims at (the second
 // argument of __launch_bounds__; see ctas_per_sm). The shared tier: 4 (64
 // registers a thread) up to SMEM_NARROW_CAP rows, where more CTAs fit an
@@ -126,8 +142,9 @@ constexpr int SMEM_WIDE_CTAS_PER_SM = 3;
 constexpr int CLUSTER_CTAS_PER_SM = 3;
 constexpr unsigned FULL = 0xffffffffu;
 
-// T_SPLIT is K2's form of the global tier: the table in global memory, a
-// cluster of CTAs per document (internal; the C entries' tier 2 selects it).
+// T_SPLIT: the table in global memory, a cluster of CTAs per document.
+// The C entries' tier 3 selects it for every entry; tier 2 selects it for
+// K2 alone.
 enum Tier { T_SMEM = 0, T_CLUSTER = 1, T_GLOBAL = 2, T_SPLIT = 3 };
 
 enum Lane {
@@ -382,8 +399,9 @@ struct Move {
 // The two rows below local row t0 (the only ones a displacement of at most
 // 2 reaches), packed one value per lane: lane i < 15 holds lane-of-table i
 // of row t0 - 1, lane 15 + i lane-of-table i of row t0 - 2 (lanes 30-31
-// hold nothing). A row below 0 reads as zeros; on the cluster tier a row
-// below the slice is read from the previous CTA through DSMEM.
+// hold nothing). A row below 0 reads as zeros; a row below the slice is
+// read from the previous CTA, through DSMEM on the cluster tier and from
+// global memory on the split tier.
 template <class Doc>
 __device__ __forceinline__ int rows_below(const Doc &d, int t0) {
   const int lane = threadIdx.x & 31;
@@ -392,15 +410,18 @@ __device__ __forceinline__ int rows_below(const Doc &d, int t0) {
   const int lr = t0 - (lane < N_LANES ? 1 : 2);
   if (lr >= 0) return d.at(l, lr);
   if (d.rank == 0) return 0;
-  return d.remote(d.L, d.rank - 1)[l * d.SL + d.SL + lr];
+  if constexpr (Doc::kTier == T_SPLIT)
+    return d.at(l, lr);  // the previous slice's rows, in global memory
+  else
+    return d.remote(d.L, d.rank - 1)[l * d.SL + d.SL + lr];
 }
 
 // One pass that applies a Move in place: final row r takes old row
 // y = r - d(r), d in {0, 1, 2} and non-decreasing in r, then the split
 // edits. Rows below the lowest edge do not change. Each warp whose bottom
 // tile moves first reads the two rows below its block (the previous
-// warp's, or the previous CTA's through DSMEM); then one barrier; then it
-// walks its tiles from the top down: it loads the tile and the two rows
+// warp's, or the previous CTA's); then one barrier; then it walks its
+// tiles from the top down: it loads the tile and the two rows
 // below it (still unwritten) and takes each row's source by __shfl_sync.
 // Every row is written by the thread that reads it in the op loop's
 // passes, so no barrier is needed after the pass.
@@ -875,10 +896,10 @@ __host__ __device__ constexpr int ctas_per_sm(int tier, bool wide) {
                             : SMEM_CTAS_PER_SM;
 }
 
-// MODE 0: K1 apply. MODE 1: K2 compact. MODE 2: K3 apply then compact
-// (T_SPLIT: K2 only). WIDE: a shared-tier K1/K3 entry for tables past
-// SMEM_NARROW_CAP rows. SL: rows per CTA (the cluster and split tiers; S
-// otherwise). `work`: the global and split tiers' workspace.
+// MODE 0: K1 apply. MODE 1: K2 compact. MODE 2: K3 apply then compact.
+// WIDE: a shared-tier K1/K3 entry for tables past SMEM_NARROW_CAP rows.
+// SL: rows per CTA (the cluster and split tiers; S otherwise). `work`:
+// the global and split tiers' workspace.
 template <int MODE, int TIER, bool WIDE = false>
 __global__ void __launch_bounds__(
     TIER == T_SMEM ? MAX_THREADS
@@ -912,8 +933,8 @@ merge_kernel(const int *__restrict__ ops, const int *tables_in,
     int *wk = work + (size_t)doc * work_ints(S);
     d.A = wk + d.base;
     d.B = wk + S + d.base;
-    d.C = wk + 2 * S + d.base;
-    d.F = reinterpret_cast<unsigned char *>(wk + 3 * S) + d.base;
+    d.C = wk + (size_t)2 * S + d.base;
+    d.F = reinterpret_cast<unsigned char *>(wk + (size_t)3 * S) + d.base;
   } else {
     d.L = smem_raw;
     d.ls = SL;
@@ -996,7 +1017,7 @@ cudaError_t allow_smem(Kern kern, size_t smem) {
 
 // A launch of clusters of C CTAs (`threads` each, `smem` bytes of dynamic
 // shared memory, SL rows) per doc: the cluster tier (C = ceil(S /
-// CLUSTER_ROWS), the slices in shared memory) and K2's split tier (the
+// CLUSTER_ROWS), the slices in shared memory) and the split tier (the
 // table in global memory). Returns an error when such a cluster cannot be
 // scheduled; it never falls back to another tier.
 template <int MODE, int TIER>
@@ -1049,9 +1070,28 @@ int launch_smem(const int *ops, const int *tables_in, const int *scalars_in,
   return 0;
 }
 
+// The split tier: each doc over a cluster of C = ceil(SMs / n_docs) CTAs,
+// at most `max_ctas` and at least 1, so a few large documents still
+// cover the card's SMs.
+template <int MODE>
+int launch_split(const int *ops, const int *tables_in, const int *scalars_in,
+                 int *tables_out, int *scalars_out, int *work, int n_docs,
+                 int S, int K, int max_ctas, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t ce = cudaGetDevice(&dev);
+  if (ce == cudaSuccess)
+    ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (ce != cudaSuccess) return (int)ce;
+  const int C = max(1, min(max_ctas, (sms + n_docs - 1) / n_docs));
+  return launch_cluster<MODE, T_SPLIT>(ops, tables_in, scalars_in, tables_out,
+                                       scalars_out, work, n_docs, S, K, C,
+                                       GLOBAL_THREADS, 0, stream);
+}
+
 // tier T_SMEM: S <= SMEM_MAX_CAP. T_CLUSTER: S <= CLUSTER_MAX_CAP.
-// T_GLOBAL: S <= MAX_CAP, with n_docs * work_ints(S) ints at `work` (K2
-// there runs on T_SPLIT).
+// T_GLOBAL: S <= GLOBAL_MAX_CAP (K2 there runs on T_SPLIT, at most
+// K2_GLOBAL_CTAS CTAs a doc). T_SPLIT: S <= MAX_CAP. The last two take
+// n_docs * work_ints(S) ints at `work`.
 template <int MODE>
 int launch(const int *ops, const int *tables_in, const int *scalars_in,
            int *tables_out, int *scalars_out, int *work, int n_docs, int S,
@@ -1077,25 +1117,24 @@ int launch(const int *ops, const int *tables_in, const int *scalars_in,
         st);
     if (e != 0) return e;
   } else if (tier == T_GLOBAL) {
-    if (S > MAX_CAP || work == nullptr) return (int)cudaErrorInvalidValue;
+    if (S > GLOBAL_MAX_CAP || work == nullptr)
+      return (int)cudaErrorInvalidValue;
     if constexpr (MODE == 1) {
-      // K2 splits each doc over enough CTAs (at most SPLIT_MAX_CTAS, a
-      // portable cluster) that the launch covers every SM.
-      int dev = 0, sms = 0;
-      cudaError_t ce = cudaGetDevice(&dev);
-      if (ce == cudaSuccess)
-        ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      if (ce != cudaSuccess) return (int)ce;
-      const int C = max(1, min(SPLIT_MAX_CTAS, (sms + n_docs - 1) / n_docs));
-      const int e = launch_cluster<MODE, T_SPLIT>(
-          ops, tables_in, scalars_in, tables_out, scalars_out, work, n_docs,
-          S, K, C, GLOBAL_THREADS, 0, st);
+      const int e = launch_split<MODE>(ops, tables_in, scalars_in, tables_out,
+                                       scalars_out, work, n_docs, S, K,
+                                       K2_GLOBAL_CTAS, st);
       if (e != 0) return e;
     } else {
       merge_kernel<MODE, T_GLOBAL><<<n_docs, GLOBAL_THREADS, 0, st>>>(
           ops, tables_in, scalars_in, tables_out, scalars_out, work, n_docs,
           S, K, S);
     }
+  } else if (tier == T_SPLIT) {
+    if (S > MAX_CAP || work == nullptr) return (int)cudaErrorInvalidValue;
+    const int e = launch_split<MODE>(ops, tables_in, scalars_in, tables_out,
+                                     scalars_out, work, n_docs, S, K,
+                                     SPLIT_MAX_CTAS, st);
+    if (e != 0) return e;
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -1108,8 +1147,8 @@ extern "C" {
 
 // Each entry launches on `stream` and returns cudaGetLastError() (0 = ok).
 // tables_out/scalars_out may alias tables_in/scalars_in (in-place update).
-// `tier`: 0 shared, 1 cluster, 2 global; the global
-// tier takes a device buffer of n_docs * merge_work_ints(S) int32 at
+// `tier`: 0 shared, 1 cluster, 2 global, 3 split; the global and split
+// tiers take a device buffer of n_docs * merge_work_ints(S) int32 at
 // `work` (NULL otherwise).
 
 int merge_apply(const int *ops, const int *tables_in, const int *scalars_in,
@@ -1138,7 +1177,11 @@ int merge_smem_max_capacity(void) { return SMEM_MAX_CAP; }
 
 int merge_cluster_max_capacity(void) { return CLUSTER_MAX_CAP; }
 
+int merge_global_max_capacity(void) { return GLOBAL_MAX_CAP; }
+
 int merge_max_capacity(void) { return MAX_CAP; }
+
+int merge_split_max_ctas(void) { return SPLIT_MAX_CTAS; }
 
 long long merge_work_ints(int S) { return (long long)work_ints(S); }
 

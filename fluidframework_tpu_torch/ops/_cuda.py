@@ -31,11 +31,15 @@ SMEM_MAX_CAPACITY = 2048
 # memory (the cluster tier, at most 16 CTAs of 1,024 rows); CLUSTER_MAX_CAP
 # there.
 CLUSTER_MAX_CAPACITY = 16384
-# Largest table the kernels take at all (the global tier above the others;
-# the reference fleet's max_capacity); must equal MAX_CAP there.
-MAX_CAPACITY = 65536
+# Largest table of the global tier (K1 and K3 one CTA a document, the table
+# in global memory); GLOBAL_MAX_CAP there.
+GLOBAL_MAX_CAPACITY = 65536
+# Largest table the kernels take at all (the split tier above the others: a
+# cluster of CTAs a document, the table in global memory), the most the
+# kernels' int row indices address; must equal MAX_CAP there.
+MAX_CAPACITY = 1 << 30
 # The C entries' tier argument.
-TIER_CODES = {"smem": 0, "cluster": 1, "global": 2}
+TIER_CODES = {"smem": 0, "cluster": 1, "global": 2, "split": 3}
 ENTRIES = ("merge_apply", "merge_compact", "merge_apply_compact")
 
 _lib: Optional[ctypes.CDLL] = None
@@ -102,7 +106,8 @@ def lib() -> ctypes.CDLL:
             fn.argtypes = args
             fn.restype = ctypes.c_int
         for name in ("merge_smem_max_capacity", "merge_cluster_max_capacity",
-                     "merge_max_capacity"):
+                     "merge_global_max_capacity", "merge_max_capacity",
+                     "merge_split_max_ctas"):
             getattr(cdll, name).argtypes = []
             getattr(cdll, name).restype = ctypes.c_int
         cdll.merge_work_ints.argtypes = [ctypes.c_int]
@@ -111,6 +116,7 @@ def lib() -> ctypes.CDLL:
         cdll.merge_error_string.restype = ctypes.c_char_p
         if (cdll.merge_smem_max_capacity() != SMEM_MAX_CAPACITY
                 or cdll.merge_cluster_max_capacity() != CLUSTER_MAX_CAPACITY
+                or cdll.merge_global_max_capacity() != GLOBAL_MAX_CAPACITY
                 or cdll.merge_max_capacity() != MAX_CAPACITY):
             raise RuntimeError("merge_kernels.cu tier limits != _cuda.py's")
         _lib = cdll
@@ -123,8 +129,10 @@ def tier(s: int, entry: str) -> str:
     shared memory) up to :data:`SMEM_MAX_CAPACITY`; ``"cluster"`` (the
     table split across a thread-block cluster's shared memory) up to
     :data:`CLUSTER_MAX_CAPACITY`; ``"global"`` (the table in global
-    memory) up to :data:`MAX_CAPACITY`. Larger tables raise
-    ``ValueError``."""
+    memory, one CTA a document for K1 and K3) up to
+    :data:`GLOBAL_MAX_CAPACITY`; ``"split"`` (the table in global memory,
+    a cluster of CTAs a document) up to :data:`MAX_CAPACITY`. Larger
+    tables raise ``ValueError``."""
     if entry not in ENTRIES:
         raise ValueError(f"unknown kernel entry {entry!r}")
     if s > MAX_CAPACITY:
@@ -136,7 +144,17 @@ def tier(s: int, entry: str) -> str:
         return "smem"
     if s <= CLUSTER_MAX_CAPACITY:
         return "cluster"
-    return "global"
+    if s <= GLOBAL_MAX_CAPACITY:
+        return "global"
+    return "split"
+
+
+def split_slice_rows(s: int, d: int, sms: int) -> int:
+    """Rows a CTA holds when the split tier runs ``d`` tables of ``s``
+    rows on a card of ``sms`` SMs: the kernel's C = min(split CTAs,
+    ceil(sms / d)), at least 1, and ceil(s / C) rounded up to 32 rows."""
+    c = max(1, min(lib().merge_split_max_ctas(), -(-sms // d)))
+    return (-(-s // c) + 31) // 32 * 32
 
 
 def check_packed(tables, scalars, ops=None) -> None:
@@ -163,22 +181,24 @@ def check_packed(tables, scalars, ops=None) -> None:
         raise ValueError(f"ops must be [{d}, K, {OP_WIDTH}]")
 
 
-def launch(name: str, tables, scalars, ops, out) -> str:
+def launch(name: str, tables, scalars, ops, out, t: Optional[str] = None
+           ) -> str:
     """Launch one C entry (``merge_apply``, ``merge_compact`` or
     ``merge_apply_compact``) on PyTorch's current stream of the tables'
     device, reading ``tables``/``scalars`` (and ``ops``) and writing the
-    ``out`` pair; returns the tier it ran on (:func:`tier`). The global
-    tier gets a fresh workspace from the caching allocator, sized by the
-    kernel library (``merge_work_ints``). Raises on a CUDA error (a refused
-    launch never runs, and a later synchronize would not say so; a cluster
-    that cannot be scheduled is refused)."""
+    ``out`` pair; returns the tier it ran on (:func:`tier`, unless ``t``
+    names another that takes the size: a measurement's choice). The
+    global and split tiers get a fresh workspace from the caching
+    allocator, sized by the kernel library (``merge_work_ints``). Raises
+    on a CUDA error (a refused launch never runs, and a later synchronize
+    would not say so; a cluster that cannot be scheduled is refused)."""
     check_packed(tables, scalars, ops)
     ot, os_ = out
     check_packed(ot, os_)
     d, s = tables.shape[1], tables.shape[2]
-    t = tier(s, name)
+    t = t or tier(s, name)
     work = None
-    if t == "global":
+    if t in ("global", "split"):
         work = torch.empty((d, lib().merge_work_ints(s)), dtype=torch.int32,
                            device=tables.device)
     args = [tables.data_ptr(), scalars.data_ptr(), ot.data_ptr(),
@@ -198,7 +218,8 @@ def launch(name: str, tables, scalars, ops, out) -> str:
 
 def count_launch(wrapper, t: str) -> None:
     """Add one launch to a wrapper's counters: ``launches`` (every tier)
-    and ``launches_smem``, ``launches_cluster`` or ``launches_global``."""
+    and ``launches_smem``, ``launches_cluster``, ``launches_global`` or
+    ``launches_split``."""
     wrapper.launches += 1
     key = f"launches_{t}"
     setattr(wrapper, key, getattr(wrapper, key) + 1)

@@ -2,11 +2,13 @@
 
 Replaces the Pallas TPU kernel ``fluidframework_tpu/ops/pallas_kernel.py``
 (``_apply_values``, reached through ``apply_ops_packed``). The CUDA kernel
-is ``csrc/merge_kernels.cu`` (``merge_apply``), in three tiers: one CTA per
+is ``csrc/merge_kernels.cu`` (``merge_apply``), in four tiers: one CTA per
 document with its table resident in shared memory up to 2,048 rows; a
 thread-block cluster of 3-16 CTAs per document, the table split across
-their shared memory, up to 16,384 rows; and one CTA per document reading
-and writing the table in place in global memory up to 65,536 rows. Each
+their shared memory, up to 16,384 rows; one CTA per document reading and
+writing the table in place in global memory up to 65,536 rows; and above
+that a cluster of up to 16 CTAs per document over the table in global
+memory (the split tier), up to 2**30 rows. Each
 warp walks its own block of rows in 32-row tiles, and each op moves the
 rows once. It is latency-bound on the K sequential ops' barriers, not
 bandwidth-bound; its byte floor is 2 x 15 x S x 4 B x D of table traffic
@@ -340,8 +342,9 @@ def apply_ops_packed(tables, scalars, ops, *, out=None):
     (a (tables, scalars) pair) or, by default, into the inputs in place;
     returns the written pair. CPU tensors take :func:`apply_plain`; CUDA
     tensors launch ``merge_apply`` on the tier S calls for (shared memory up
-    to 2,048 rows, a cluster up to 16,384, global memory up to 65,536) or
-    raise."""
+    to 2,048 rows, a cluster up to 16,384, global memory with one CTA a
+    document up to 65,536, global memory with a cluster a document above
+    it) or raise."""
     ot, os_ = _destination(tables, scalars, out)
     if tables.device.type == "cpu":
         nt, ns = apply_plain(tables, scalars, ops)

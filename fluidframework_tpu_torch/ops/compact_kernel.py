@@ -10,10 +10,11 @@ head, its length a difference of prefix lengths), with K3 running K1's op
 loop and K2 back to back so the table never leaves the CTA between them.
 They keep the table in one CTA's shared memory up to 2,048 rows, split
 across a thread-block cluster's shared memory up to 16,384 and in global
-memory above that, up to 65,536 rows (the tiers of K1); so K2 replaces
-both the reference's Pallas compact and the XLA compact it falls back to
-above 256 rows. Their byte floor is 2 x 15 x S x 4 B x D of table traffic
-(plus D x K x 40 B of ops for K3).
+memory above that, split over a cluster of CTAs a document (K3 past 65,536
+rows, K2 at every such width), up to 2**30 rows (the tiers of K1); so
+K2 replaces both the reference's Pallas compact and the XLA compact it
+falls back to above 256 rows. Their byte floor is 2 x 15 x S x 4 B x D
+of table traffic (plus D x K x 40 B of ops for K3).
 
 :func:`compact_plain` is the plain PyTorch version: reclaim rows that are
 removed, acked, at or below min_seq and carry no pending stamp; squeeze the
@@ -155,7 +156,7 @@ def apply_compact_plain(tables, scalars, ops):
 def compact_packed(tables, scalars, *, out=None):
     """Compact a packed state, in place unless ``out`` is given; returns
     the written pair. CPU: :func:`compact_plain`; CUDA: ``merge_compact`` on
-    the tier S calls for (every S up to 65,536 rows)."""
+    the tier S calls for (every S up to 2**30 rows)."""
     ot, os_ = _destination(tables, scalars, out)
     if tables.device.type == "cpu":
         nt, ns = compact_plain(tables, scalars)

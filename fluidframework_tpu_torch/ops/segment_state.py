@@ -263,9 +263,11 @@ def capacity_of(state: SegmentState) -> int:
 def grow(state: SegmentState, new_capacity: int) -> SegmentState:
     """Reallocate a state with a larger segment table (new rows free),
     returned packed on the state's device. On the card a table above the
-    kernels' largest tier (65,536 rows per document) raises ``ValueError``:
-    no kernel could apply an op to it, and the state never moves to the
-    CPU behind the caller's back."""
+    kernels' largest tier (2**30 rows per document, the split tier's int
+    row indices) raises ``ValueError``: no kernel could apply an op to it,
+    and the state never moves to the CPU behind the caller's back. A
+    table the card cannot hold fails at allocation, with PyTorch's
+    out-of-memory error."""
     cap = capacity_of(state)
     assert new_capacity > cap, "grow() requires a larger capacity"
     t, s, single = to_packed(state)

@@ -18,8 +18,9 @@ documents into the next tier BEFORE they overflow:
 
 Every step runs K1 (``ops/apply_kernel.py``) and every compaction K2
 (``ops/compact_kernel.py``) on the pool in place, at every tier: the
-kernels' shared-memory tier up to 2,048 rows and their global-memory tier
-from 4,096 to 65,536 rows. Promotion, demotion and eviction move lanes with
+kernels' shared-memory tier up to 2,048 rows, their cluster tier up to
+16,384 and their global-memory tiers above it, to any ``max_capacity``
+up to 2**30 rows. Promotion, demotion and eviction move lanes with
 device-side ``index_select`` / ``index_copy_`` instead of the reference's
 whole-pool host round trip; the result is the same bit for bit.
 

@@ -35,10 +35,12 @@ mask evaluated at ``total`` — known before any offset.
 Nothing in :meth:`ShardedDoc.apply` or :meth:`ShardedDoc.compact` waits on
 the host: owner and offsets stay on the device. Compaction is shard-local
 (K2 per shard), and :meth:`ShardedDoc.rebalance` is the host-driven
-redistribution of live rows into equal contiguous runs. On a card the
-kernels take at most 65,536 rows per shard: a larger ``shard_cap`` raises
-``ValueError`` at construction (the plain versions on the CPU have no
-cap, as the reference has none).
+redistribution of live rows into equal contiguous runs. On a card a
+shard past 65,536 rows runs on the kernels' split tier (one thread-block
+cluster a shard), so the one-card list's 8 x 65,536 rows a shard runs as
+the reference's one-device mesh does; only a ``shard_cap`` past the
+kernels' largest tier (2**30 rows) raises ``ValueError`` at construction
+(the plain versions on the CPU have no cap, as the reference has none).
 
 :func:`sharded_apply_ops` is the same exchange as a function of a stacked
 state, the counterpart of the reference's ``shard_map`` body of that name.
@@ -120,8 +122,8 @@ class _Group:
 def check_shard_cap(shard_cap: int, kernel: str, devs) -> str:
     """Check that shards of ``shard_cap`` rows fit the kernels that would
     run them on ``devs``: on a card, a cap past the kernels' largest tier
-    raises ``ValueError`` (the plain versions have no cap). Returns the
-    resolved ``kernel``."""
+    (2**30 rows) raises ``ValueError`` (the plain versions have no cap).
+    Pure Python: it asks no card. Returns the resolved ``kernel``."""
     kernel = resolve_kernel(kernel, devs)
     if kernel != "plain" and any(d.type == "cuda" for d in devs):
         _cuda.tier(shard_cap, "merge_apply")

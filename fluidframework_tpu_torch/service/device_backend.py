@@ -1293,10 +1293,11 @@ class DeviceFleetBackend:
         if not over:
             return
         # Total sharded capacity is 8x the top fleet tier whatever the
-        # device count (one device must still grow the document). Checked
-        # before anything moves: on a card a shard cap past the kernels'
-        # largest tier is refused, and the docs run on in their top-tier
-        # slots until they trip ERR_CAPACITY.
+        # device count (one device must still grow the document: on one
+        # card a shard of 8 x max_capacity rows, on the kernels' split
+        # tier). Checked before anything moves: on a card a shard cap past
+        # the kernels' largest tier (2**30 rows) is refused, and the docs
+        # run on in their top-tier slots until they trip ERR_CAPACITY.
         devs = mesh_devices()
         shard_cap = -(-8 * self.fleet.max_capacity // len(devs))
         try:

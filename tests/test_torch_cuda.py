@@ -22,6 +22,7 @@ from chip_smoke import (
     ServingRun,
     ServingTraffic,
     compact_edge_case,
+    edge_batches,
     edge_case,
     bulk_connect,
     client_family,
@@ -100,15 +101,35 @@ def test_global_tier_matches_plain_on_the_card(cap, n_docs):
 
 
 @pytest.mark.cuda
-def test_capacity_past_the_largest_tier_raises():
+def test_split_tier_matches_plain_on_the_card():
+    """Tables past 65,536 rows (2 x 131,072, and the edge cases in
+    launches of up to 8) run on the split tier, bit for bit with the plain
+    versions, for K1, K2 and K3: random states, moves on the tile and
+    slice edges, compactions that meet them; each launch counts on the
+    split tier. A tier the library refuses for the size
+    raises and counts nothing: no fallback."""
     _need_card()
-    t = torch.zeros((15, 2, _cuda.MAX_CAPACITY * 2), dtype=torch.int32,
-                    device="cuda")
-    s = torch.zeros((2, 8), dtype=torch.int32, device="cuda")
-    ops = torch.zeros((2, 1, 10), dtype=torch.int32, device="cuda")
+    dev = torch.device("cuda", 0)
+    cap = 131072
+    cases = [("apply", random_case(np.random.default_rng(cap), 2, cap, 16,
+                                   dev))] + list(edge_batches(cap, dev))
+    for kind, (t0, s0, ops) in cases:
+        for name, spec in KERNELS.items():
+            if kind == "compact" and name == "K1_merge_apply":
+                continue
+            w = spec["wrapper"]
+            assert _cuda.tier(cap, spec["entry"]) == "split"
+            before = _tier_counts(w)
+            err, _ms, _plain_ms = hold_kernel(name, t0, s0, ops, 1, 1)
+            assert err == 0
+            want = dict(before)
+            want["split"] += 2  # check + one timing
+            assert _tier_counts(w) == want
+    t0, s0, ops = cases[0][1]
     before = K1.apply_ops_packed.launches
-    with pytest.raises(ValueError, match="65536"):
-        K1.apply_ops_packed(t, s, ops)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _cuda.launch("merge_apply", t0, s0, ops, (t0.clone(), s0.clone()),
+                     t="global")
     assert K1.apply_ops_packed.launches == before
 
 
@@ -206,13 +227,15 @@ def test_serving_scan_token_prefetch():
 
 
 @pytest.mark.cuda
-def test_serving_launch_error_is_not_swallowed():
-    """A table past the largest kernel tier makes K1's wrapper raise at
-    the first dispatch: flush re-raises it (no fallback, no requeue), and
-    no kernel launched; the plain version of the same backend applies the
-    rows."""
+def test_serving_launch_error_is_not_swallowed(monkeypatch):
+    """A launch the kernel library refuses (the tier choice forced to the
+    one-CTA global tier for a 131,072-row table, which the library does
+    not take) makes K1's wrapper raise at the first dispatch: flush
+    re-raises it (no fallback, no requeue), and no kernel launched; the
+    same backend with the tier chosen as usual applies the rows, as does
+    the plain version."""
     _need_card()
-    cap = _cuda.MAX_CAPACITY * 2
+    cap = 131072
     traffic = ServingTraffic(2, k=8, prefix="e")
     be = DeviceFleetBackend(capacity=cap, max_capacity=cap, device="cuda")
     run = ServingRun(be)
@@ -220,16 +243,22 @@ def test_serving_launch_error_is_not_swallowed():
     for doc, frame in frames:
         run.handle(doc, {"t": "seqframe", "frame": frame})
     before = K1.apply_ops_packed.launches
-    with pytest.raises(ValueError, match="largest kernel tier"):
-        be.flush()
+    with monkeypatch.context() as m:
+        m.setattr(_cuda, "tier", lambda s, entry: "global")
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            be.flush()
     assert K1.apply_ops_packed.launches == before
     assert len(be._ring) == 0 and be.pump_dispatches == 0
-    plain = ServingRun(DeviceFleetBackend(capacity=cap, max_capacity=cap,
-                                          kernel="plain", device="cuda"))
-    for doc, frame in frames:
-        plain.handle(doc, {"t": "seqframe", "frame": frame})
-    plain("flush")
-    assert plain("text", "e0", "s") == traffic.expected(0)
+    for make in (lambda: DeviceFleetBackend(capacity=cap, max_capacity=cap,
+                                            device="cuda"),
+                 lambda: DeviceFleetBackend(capacity=cap, max_capacity=cap,
+                                            kernel="plain", device="cuda")):
+        ok = ServingRun(make())
+        for doc, frame in frames:
+            ok.handle(doc, {"t": "seqframe", "frame": frame})
+        ok("flush")
+        assert ok("text", "e0", "s") == traffic.expected(0)
+    assert K1.apply_ops_packed.launches > before
 
 
 def _pipeline_states(kernel, n_docs=256, rounds=9, k=8):
@@ -388,7 +417,7 @@ def test_tree_algebra_on_the_card_equals_the_cpu():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cap", [256, 2048, 4096, 16384, 65536])
+@pytest.mark.parametrize("cap", [256, 2048, 4096, 16384, 65536, 131072])
 def test_kernels_at_one_document_match_plain(cap):
     """K1 (one op a launch) and K2 at one document on every tier: random
     states, then each edge move and each edge compaction as a document of
@@ -400,14 +429,14 @@ def test_kernels_at_one_document_match_plain(cap):
                                 dev)
         hold_kernel("K1_merge_apply", t, s, ops, 0, 0)
         hold_kernel("K2_zamboni_compact", t, s, None, 0, 0)
-    t, s, ops = edge_case(cap, dev, k=2)
-    for i in range(t.shape[1]):
-        hold_kernel("K1_merge_apply", t[:, i:i + 1].contiguous(),
-                    s[i:i + 1].contiguous(), ops[i:i + 1].contiguous(), 0, 0)
-    t, s, _ = compact_edge_case(cap, dev)
-    for i in range(t.shape[1]):
-        hold_kernel("K2_zamboni_compact", t[:, i:i + 1].contiguous(),
-                    s[i:i + 1].contiguous(), None, 0, 0)
+    for kind, (t, s, ops) in edge_batches(cap, dev, k=2, launch_docs=1):
+        for i in range(t.shape[1]):
+            one = (t[:, i:i + 1].contiguous(), s[i:i + 1].contiguous())
+            if kind == "apply":
+                hold_kernel("K1_merge_apply", *one,
+                            ops[i:i + 1].contiguous(), 0, 0)
+            else:
+                hold_kernel("K2_zamboni_compact", *one, None, 0, 0)
 
 
 @pytest.mark.cuda
@@ -444,20 +473,25 @@ def test_dds_family_on_the_card_matches_the_cpu():
 
 
 @pytest.mark.cuda
-def test_grow_past_the_largest_tier_raises_on_the_card():
-    """``grow`` beyond 65,536 rows raises on the card (no kernel tier takes
-    the table) instead of moving the state to the CPU."""
+def test_grow_past_65536_rows_on_the_card():
+    """``grow`` from 65,536 to 131,072 rows stays on the card and the next
+    ops run on the split tier, equal to the same run on the CPU (phase
+    8f at 64 ops); past the kernels' largest tier ``grow`` raises before
+    it allocates, and never moves the state to the CPU."""
     _need_card()
+    from chip_smoke import client_8f
     from fluidframework_tpu_torch.ops.segment_state import (
         grow,
         make_interactive_state,
     )
 
+    before = K1.apply_ops_packed.launches_split
+    client_8f(torch.device("cuda", 0), {}, n_ops=64)
+    assert K1.apply_ops_packed.launches_split == before + 2
     st = make_interactive_state(65536, 0, device="cuda")
-    with pytest.raises(ValueError, match="65536"):
-        grow(st, 131072)
-    assert grow(make_interactive_state(32768, 0, device="cuda"),
-                65536).kind.device.type == "cuda"
+    assert grow(st, 131072).kind.device.type == "cuda"
+    with pytest.raises(ValueError, match="1073741824"):
+        grow(st, _cuda.MAX_CAPACITY + 1)
 
 
 # -- the mesh and the sharded document (tolerance 0, int32) -------------------
@@ -562,19 +596,37 @@ def test_sharded_doc_on_the_card_equals_the_cpu_without_a_sync():
 
 
 @pytest.mark.cuda
-def test_sharded_doc_past_the_largest_tier_raises_on_the_card():
-    """A shard cap past K1's largest tier raises ValueError on the card
-    (the 1-card list's 8 x 65,536 / 1 rows a shard); the plain versions
-    take any cap."""
+def test_one_card_sharded_doc_equals_plain_on_the_card():
+    """The one-card list's ShardedDoc of 8 x 65,536 rows in one shard (the
+    reference's one-device size) takes a document of 70,000 distinct rows
+    and a mixed stream with compactions on the split tier, bit for bit
+    with ``kernel="plain"`` on the card; only a shard cap past the
+    kernels' largest tier raises ValueError."""
     _need_card()
+    from chip_smoke import _overflow_state
+    from fluidframework_tpu_torch.interop import mesh_state_to_numpy
     from fluidframework_tpu_torch.parallel.mesh import Mesh
     from fluidframework_tpu_torch.parallel.sharded_doc import ShardedDoc
 
     one = Mesh([torch.device("cuda", 0)], "seg")
+    n = 70000
+    rows = _sharded_stream(np.random.default_rng(7), 96, n + 1, n)
+    docs = {}
+    before = _tier_counts(K1.apply_ops_packed)
+    for kernel in ("auto", "plain"):
+        doc = ShardedDoc(8 * 65536, mesh=one, kernel=kernel)
+        doc.load_single(_overflow_state(n, 8 * 65536))
+        for i in range(0, len(rows), 32):
+            doc.apply(rows[i:i + 32])
+            doc.compact()
+        docs[kernel] = doc
+    got = _tier_counts(K1.apply_ops_packed)
+    assert got["split"] - before["split"] == len(rows)
+    for a, b in zip(mesh_state_to_numpy(docs["auto"]),
+                    mesh_state_to_numpy(docs["plain"])):
+        np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError, match="largest kernel tier"):
-        ShardedDoc(8 * 65536, mesh=one)
-    assert ShardedDoc(65536, mesh=one).shard_cap == 65536
-    assert ShardedDoc(65537, mesh=one, kernel="plain").kernel == "plain"
+        ShardedDoc(_cuda.MAX_CAPACITY + 1, mesh=one)
 
 
 @pytest.mark.cuda

@@ -305,7 +305,8 @@ def test_plain_apply_matches_xla_at_4096_rows():
 
 _TIERS = {8: "smem", 2048: "smem", 2049: "cluster", 2050: "cluster",
              4096: "cluster", 8192: "cluster", 16384: "cluster",
-             16385: "global", 65536: "global"}
+             16385: "global", 65536: "global", 65537: "split",
+             131072: "split", 524288: "split", 1 << 30: "split"}
 
 
 @pytest.mark.parametrize("entry", ["merge_apply", "merge_compact",
@@ -314,8 +315,9 @@ _TIERS = {8: "smem", 2048: "smem", 2049: "cluster", 2050: "cluster",
 def test_wrappers_route_by_tier(entry, cap):
     """S up to 2,048 takes the shared-memory tier. Above it every entry
     (K1, K2 and K3) splits the table across a thread-block cluster up to
-    16,384 rows and keeps it in global memory up to 65,536. The choice
-    launches nothing."""
+    16,384 rows, keeps it in global memory up to 65,536, and above that
+    keeps it in global memory split over a cluster of CTAs (the split
+    tier), up to 2**30 rows. The choice launches nothing."""
     from fluidframework_tpu_torch.ops import _cuda
 
     assert _cuda.tier(cap, entry) == _TIERS[cap]
@@ -324,8 +326,9 @@ def test_wrappers_route_by_tier(entry, cap):
 def test_wrappers_refuse_past_the_largest_tier():
     from fluidframework_tpu_torch.ops import _cuda
 
+    assert _cuda.MAX_CAPACITY == 1 << 30
     for entry in _cuda.ENTRIES:
-        with pytest.raises(ValueError, match="65536"):
+        with pytest.raises(ValueError, match="1073741824"):
             _cuda.tier(_cuda.MAX_CAPACITY + 1, entry)
     t = torch.zeros((15, 1, 2 * _cuda.MAX_CAPACITY), dtype=torch.int32,
                     device="meta")
@@ -626,3 +629,48 @@ def test_plain_compact_matches_xla_on_compaction_edges(cap):
         lanes, nh = _one_gather(t0[:, d], 10, 32)
         assert nh == heads[d]
         assert torch.equal(lanes, got[0][:, d])
+
+
+def test_grow_past_65536_rows_matches_the_reference():
+    """A full one-document table of 65,536 distinct rows grown to 131,072
+    (past the old one-CTA ceiling), then 64 fuzz ops that move every row
+    and add rows past 65,536: the port's ``grow`` + ``jit_apply_ops``
+    equals the reference's lane for lane."""
+    from fluidframework_tpu.ops.merge_kernel import jit_apply_ops as ref_jit
+    from fluidframework_tpu.ops.segment_state import (
+        SegmentState as RefState,
+        grow as ref_grow,
+    )
+    from fluidframework_tpu_torch.interop import (
+        segment_state_from_numpy,
+        segment_state_to_numpy,
+    )
+    from fluidframework_tpu_torch.ops.merge_kernel import jit_apply_ops
+    from fluidframework_tpu_torch.ops.segment_state import (
+        LANE_FILLS,
+        SEGMENT_LANES,
+        grow,
+    )
+
+    n = 65536
+    lanes = {k: np.full(n, LANE_FILLS.get(k, 0), np.int32)
+             for k in SEGMENT_LANES}
+    lanes["kind"][:] = KIND_TEXT
+    lanes["orig"][:] = np.arange(1, n + 1)
+    lanes["length"][:] = 1
+    lanes["seq"][:] = np.arange(1, n + 1)
+    arrays = [lanes[k] for k in SEGMENT_LANES] + [
+        np.int32(n), np.int32(0), np.int32(n), np.int32(NO_CLIENT),
+        np.int32(0)]
+    ops = np.stack(random_acked_stream(
+        np.random.default_rng(65), 64, {}, OracleDoc(NO_CLIENT),
+        caught_up=True, seq0=n + 1)).astype(np.int32)
+    ref = ref_jit(ref_grow(RefState(*[jnp.asarray(a) for a in arrays]),
+                           2 * n), jnp.asarray(ops))
+    port = grow(segment_state_from_numpy(arrays, device="cpu"), 2 * n)
+    assert port.kind.shape == (2 * n,)
+    port = jit_apply_ops(port, torch.from_numpy(ops))
+    got = segment_state_to_numpy(port)
+    for f, a, b in zip(RefState._fields, ref, got):
+        np.testing.assert_array_equal(np.asarray(a), b, err_msg=f)
+    assert int(got[15]) > n  # count: rows past the old ceiling

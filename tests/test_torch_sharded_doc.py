@@ -14,6 +14,7 @@ and positions past the document's end.
 
 import numpy as np
 import pytest
+import torch
 
 import test_torch_device_backend as DB
 from fluidframework_tpu.models.shared_string import SharedString as RefString
@@ -358,6 +359,53 @@ def test_backend_overflow_stats_telemetry_and_reads(pump):
     assert p.port.telemetry()["shards"]["sharded"].shape == (N_DEV, 9)
     p.reads()
     DB._texts(p, ops)
+
+
+@pytest.mark.parametrize("pump", DB.MODES)
+def test_one_entry_list_promotes_as_the_reference(pump, monkeypatch):
+    """The one-card deployment: the port's device list holds one entry and
+    the reference sees one device. A document outgrows a 16-row top tier
+    and both promote it into a one-shard ShardedDoc of 8 x 16 rows, which
+    keeps taking frames past the top tier; every lane and scalar of the
+    shard is equal after every frame, and nothing is refused."""
+    import jax
+
+    first = jax.devices()[:1]
+    monkeypatch.setattr(jax, "devices", lambda *a, **k: list(first))
+    M.set_devices(["cpu"])
+    p = OverflowPair(capacity=8, max_capacity=16, sharded_overflow=True,
+                     pump_mode=pump, feed_deadline_ms=0.0)
+    ops = DB.Ops(seed=23, remove_p=0.2, msn_lag=6)
+    for _r in range(12):
+        p.frame("a", ops, *ops.advance("a", 3))
+        p.same("flush")
+    p.same("collect_now")
+    (idx,) = p.port._sharded
+    for doc in (p.ref._sharded[idx], p.port._sharded[idx]):
+        assert doc.n_shards == 1 and doc.shard_cap == 8 * 16
+    st = p.port.stats()
+    assert st["sharded_docs"] == 1 and st["docs_with_errors"] == 0
+    assert st["promotions_refused"] == 0 and st["sharded_rows"] > 16
+    assert p.port.telemetry()["shards"]["sharded"].shape == (1, 9)
+    p.reads()
+    DB._texts(p, ops)
+
+
+def test_check_shard_cap_takes_the_one_card_shard():
+    """The one-card list's shard of 8 x 65,536 rows fits the kernels (the
+    split tier); only a cap past their largest tier is refused, and the
+    plain versions take any cap. No card is asked."""
+    from fluidframework_tpu_torch.ops import _cuda
+    from fluidframework_tpu_torch.parallel.sharded_doc import check_shard_cap
+
+    one = [torch.device("cuda", 0)]
+    assert check_shard_cap(8 * 65_536, "auto", one) == "auto"
+    assert check_shard_cap(_cuda.MAX_CAPACITY, "cuda", one) == "cuda"
+    with pytest.raises(ValueError, match="largest kernel tier"):
+        check_shard_cap(_cuda.MAX_CAPACITY + 1, "auto", one)
+    assert check_shard_cap(_cuda.MAX_CAPACITY + 1, "plain", one) == "plain"
+    cpu = [torch.device("cpu")]
+    assert check_shard_cap(_cuda.MAX_CAPACITY + 1, "auto", cpu) == "auto"
 
 
 def _runtime_pair(n_writes, burst=False):
