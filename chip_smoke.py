@@ -9,9 +9,10 @@
     python3 chip_smoke.py --load [reference]
     python3 chip_smoke.py --framework
 
-Builds the hand-written kernels (``nvcc``, into the package's ``_build/``)
-and the native ticket loop, blob store, partition log and lease
-coordination (``g++``), all at once, then:
+Builds the hand-written kernels (one ``nvcc`` for each of
+``csrc/merge_kernels.cu`` and ``csrc/tree_kernels.cu``, into the
+package's ``_build/``) and the native ticket loop, blob store, partition
+log and lease coordination (``g++``), all at once, then:
 
 1. kernels — holds K1 (merge apply), K2 (compact) and K3 (apply+compact)
    bit-exactly against their plain PyTorch versions on the card, at
@@ -84,17 +85,26 @@ coordination (``g++``), all at once, then:
    ``python3 -m fluidframework_tpu_torch.service.server_main`` run as a
    subprocess (listening line, one acked frame, ``/metrics``, exit 0 on
    SIGTERM);
-7. SharedTree rebase path — no hand kernel of its own (its device code is
-   plain PyTorch): 7a config 3b, ``batched_trunk_scan`` over 1,024 docs
-   (Lc 128, Pc 32, W 16) staged on the card once, a warm-up and 3 timed
-   scans, every distinct script held to the host trunk; 7b configs 3c and
-   3c-moves through ``batch_ingest`` over ``EditManager(device=cuda)``s,
-   every distinct script held to the host EditManager; 7c config 3
-   through ``ContainerRuntime`` + ``SharedTree(device=cuda)``, replicas
-   converged. The scans run under ``torch.cuda.set_sync_debug_mode(
-   "error")`` and are held bit for bit to the same function on the CPU
-   for 16 documents; launches and device time a step come from
-   ``torch.profiler``;
+7. SharedTree rebase path — the hand kernels T1 (the positional trunk
+   scan) and T2 (the EditManager ring scan) of ``csrc/tree_kernels.cu``,
+   one launch a scan: 7h holds each against its plain version on the
+   card at edge shapes (T1 at W 3/8/16, Lc 32/128/512, Pc 8/32, moves or
+   none, the ring-window err, N 1/7/1,024; T2 at every Lc bucket from 32
+   to 4,096 with R 16, ring misses with and without a move watermark and
+   a capacity overflow; both tiers) under
+   ``torch.cuda.set_sync_debug_mode("error")``; 7a config 3b,
+   ``batched_trunk_scan`` over 1,024 docs (Lc 128, Pc 32, W 16) staged
+   on the card once, a warm-up and 3 timed scans, every distinct script
+   held to the host trunk, the whole batch to T1's plain version on the
+   card; 7b configs 3c and 3c-moves through ``batch_ingest`` over
+   ``EditManager(device=cuda)``s, every distinct script held to the host
+   EditManager, the first dispatch to T2's plain version on the card; 7c
+   config 3 through ``ContainerRuntime`` + ``SharedTree(device=cuda)``,
+   replicas converged (its commits take the host path). The scans run
+   under sync-debug "error" and are held bit for bit to the same function
+   on the CPU for 16 documents; each sub-path's T1/T2 launches are
+   counted, and a scan's launches and device time come from the kernels'
+   counts and ``torch.profiler``;
 8. client merge path — under ``torch.cuda.set_sync_debug_mode("warn")``:
    8a config 1 (``config1_single_doc_replay``): the 10,000-op author with
    ``SharedString(device=cuda)``, readers replaying its deltas log through
@@ -142,8 +152,8 @@ coordination (``g++``), all at once, then:
    K1 half, K2, K1 half, K2 on the card, every document's text equal to
    its ``OracleDoc``'s, err lanes clear, lanes equal to the plain
    versions'; 10b ``CHAOS_STRESS_FULL_PROFILE`` (48 clients, trees, the
-   elected summarizer, GC, client offline windows and service chaos; its
-   3,000 ops cut to ``SMOKE_LOAD_OPS`` here, all of them with ``--load``)
+   elected summarizer, GC, client offline windows and service chaos; all
+   3,000 ops, its replicas' tree ingest on T2)
    through the port's ``LoadRunner`` over
    ``PipelineFluidService(n_partitions=4)``, the device stage and every
    replica's string and tree on the card: converged, the counts of the
@@ -181,10 +191,12 @@ Launch counts (in all, and by tier: smem / cluster / global / split) are reset
 before each main path (2, then 3a+3b, then 4, then 5, then 6's client
 run, then each of 8a-8e, then each run of 9a-9c, then each of 10a-10c,
 then 11a)
-and read after it;
-the DocFleet path must launch K1 and K2 on the cluster tier. Prints the
-ptxas report of every kernel entry, each phase's wall time, the card's
-name and power limit, a ``{"kernels": [...]}`` line, and last ``{"ok":
+and read after it; T1's and T2's counts (in all, shared, global) the
+same way around 7a, 7b, 7b-moves, 7c, 10b and 11d's tree scans, and 7a
+must launch T1, 7b T2. The DocFleet path must launch K1 and K2 on the
+cluster tier. Prints the ptxas report of every kernel entry, each phase's
+wall time, the card's name and power limit, a ``{"kernels": [...]}`` line
+(K1, K2, K3, T1, T2), and last ``{"ok":
 true, "device": {...}}``. Any failure exits non-zero. A longer record goes to
 ``chip_smoke.json`` in the output directory (``OUT_DIR``).
 
@@ -205,8 +217,10 @@ With ``--server N``, it builds the kernels and native libraries and runs
 only phase 6, ``N`` times in one process (the socket path's repeat check;
 see :func:`server_repeat`), and writes ``server_repeat.json``.
 
-With ``--tree``, it runs only phase 7 (``phase_tree``'s keyword arguments
-as ``NAME=VALUE``, e.g. ``b_commits=1000``) and writes ``tree.json``.
+With ``--tree``, it builds the tree kernels and runs only phase 7, the
+holds of T1 and T2 first (``phase_tree``'s keyword arguments as
+``NAME=VALUE``, e.g. ``b_commits=1000`` or ``holds=0``), and writes
+``tree.json``.
 
 With ``--client``, it builds the kernels and native libraries and runs
 only phase 8, and writes ``client.json``.
@@ -227,6 +241,7 @@ the upstream ci profile) and writes ``load_reference.json``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -266,6 +281,7 @@ from fluidframework_tpu_torch.protocol.constants import (
     UNASSIGNED_SEQ,
 )
 from fluidframework_tpu_torch.ops import tree_kernel as TK
+from fluidframework_tpu_torch.ops import tree_scan_kernel as TSK
 from fluidframework_tpu_torch.ops.segment_state import SEGMENT_LANES
 from fluidframework_tpu_torch.parallel.fleet import DocFleet, _Pool
 from fluidframework_tpu_torch.protocol.opframe import OpFrame, SeqFrame
@@ -320,11 +336,12 @@ AB_WIDTH_SHAPES = ((256, 16384), (512, 16384), (1024, 16384), (256, 256),
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chiprun_out")
 
-# Every library the smoke builds, all started together: the kernels
-# (nvcc) and the native ticket loop, blob store, partition log and lease
-# coordination (g++).
-BUILDS = (_cuda.build, _load_ticket, native_store_available,
-          native_plog_available, native_coordination_available)
+# Every library the smoke builds, all started together: the merge and tree
+# kernels (one nvcc each) and the native ticket loop, blob store, partition
+# log and lease coordination (g++).
+BUILDS = (_cuda.build, functools.partial(_cuda.build, "tree"),
+          _load_ticket, native_store_available, native_plog_available,
+          native_coordination_available)
 
 # The keys of a launch count: in all, then each tier.
 COUNT_KEYS = ("all",) + tuple(_cuda.TIER_CODES)
@@ -344,6 +361,19 @@ KERNELS = {
         wrapper=K2.apply_compact_packed, plain=K2.apply_compact_plain,
         takes_ops=True, entry="merge_apply_compact",
         replaces="fluidframework_tpu/ops/pallas_compact.py:273",
+    ),
+}
+# The SharedTree rebase scans' hand kernels (csrc/tree_kernels.cu), each
+# the counterpart of a jitted XLA scan of the reference (no pl.pallas_call).
+TREE_KERNELS = {
+    "T1_trunk_scan": dict(
+        wrapper=TSK.trunk_scan_cuda, plain=DT.batched_trunk_scan_plain,
+        replaces="fluidframework_tpu/tree/device_trunk.py:161",
+    ),
+    "T2_em_ring_scan": dict(
+        wrapper=TSK.em_ring_scan_cuda,
+        plain=DEM.batched_em_trunk_scan_ring_plain,
+        replaces="fluidframework_tpu/tree/device_em.py:129",
     ),
 }
 
@@ -717,6 +747,19 @@ def _median_ms(fn, reset, reps: int) -> float:
 
 def reset_counts() -> None:
     _cuda.reset_counts(*(spec["wrapper"] for spec in KERNELS.values()))
+
+
+def reset_tree_counts() -> None:
+    TSK.reset_counts(*(spec["wrapper"] for spec in TREE_KERNELS.values()))
+
+
+def read_tree_counts() -> dict:
+    """Each tree kernel's launches since the last reset: in all and by
+    tier."""
+    return {name: {"all": spec["wrapper"].launches,
+                   **{t: getattr(spec["wrapper"], f"launches_{t}")
+                      for t in TSK.TIER_CODES}}
+            for name, spec in TREE_KERNELS.items()}
 
 
 def read_counts() -> dict:
@@ -2583,12 +2626,18 @@ def phase_server(device, report, n_docs=12_288, socket_docs=96, k=8,
 
 
 TREE_LC, TREE_PC, TREE_W = 128, 32, 16  # config 3b's dense shape
-TREE_7A_SCRIPTS, TREE_7A_COMMITS = 64, 125  # 7a's distinct scripts, depth
+TREE_7A_SCRIPTS, TREE_7A_COMMITS = 64, 1000  # 7a's distinct scripts, depth
+# The commits of 7a's prefix held against T1's plain version (~36 ms a step
+# on one H100) and on the CPU, and of 11d's trunk_scan.
+TREE_PLAIN_COMMITS = 125
+# What a hold fills a tree kernel's outputs with before the launch: the
+# plain versions never produce it on the holds' inputs, so a lane the kernel
+# leaves unwritten cannot pass.
+TREE_SENTINEL = -0x5EED
 # 9c's sharded document: 8 shards of 8 x config.json's top tier / 8 rows,
 # fed frames of 512 ops.
 SHARDED_SHARD_CAP, SHARDED_FRAME_OPS = 65_536, 512
 SHARDED_CPU_OPS = 64  # 11d's CPU twin of sharded_apply_ops: the frame's head
-TRUNK_11D_COMMITS = 32  # 11d's trunk_scan: the head of 7a's commits
 
 
 def _sync(dev) -> None:
@@ -2645,14 +2694,16 @@ def _profile(dev, fn) -> dict:
     )
 
 
-def _per_step(dev, scan, c_lo=2, steps=4) -> dict:
-    """Launches, device µs and ATen ops of one scan step: the difference
-    between a profiled scan over ``c_lo + steps`` commits and one over
-    ``c_lo``, over ``steps`` (the set-up cancels; every step runs the same
-    branchless ops)."""
-    a = _profile(dev, lambda: scan(c_lo))
-    b = _profile(dev, lambda: scan(c_lo + steps))
-    return {k: (b[k] - a[k]) / steps for k in a}
+def _scan_launches(dev, fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (:func:`_profile`: the
+    device activities it saw and their µs), plus ``kernel_launches``, the
+    tree kernels' own launch counts over the call. Run it inside
+    :class:`_Uncounted`."""
+    before = {n: s["wrapper"].launches for n, s in TREE_KERNELS.items()}
+    prof = _profile(dev, fn)
+    prof["kernel_launches"] = sum(s["wrapper"].launches - before[n]
+                                  for n, s in TREE_KERNELS.items())
+    return prof
 
 
 def _event_ms(dev, fn, reps=10) -> float:
@@ -2672,6 +2723,31 @@ def _event_ms(dev, fn, reps=10) -> float:
             fn()
             times.append((time.perf_counter() - t) * 1e3)
     return float(np.median(times))
+
+
+def _sentinel_out(like, dev):
+    """``(doc_ids [N, Lc], L [N], err [N])`` filled with
+    :data:`TREE_SENTINEL`, for a tree kernel whose first input is ``like``
+    (``[N, Lc]`` or ``[N, W, Lc]``)."""
+    n, lc = like.shape[0], like.shape[-1]
+    return tuple(torch.full(s, TREE_SENTINEL, dtype=torch.int32, device=dev)
+                 for s in ((n, lc), (n,), (n,)))
+
+
+def _held(got, want, what: str) -> int:
+    """Assert a tree kernel's lanes ``got`` (written into
+    :func:`_sentinel_out`) equal the plain version's ``want`` in every
+    lane; the plain lanes must not hold the sentinel, so an unwritten lane
+    fails. Returns the largest absolute error (0)."""
+    if any(bool((y == TREE_SENTINEL).any()) for y in want):
+        raise AssertionError(f"{what}: the plain lanes hold the sentinel")
+    err = max(int((x.long() - y.long()).abs().max()) if x.numel() else 0
+              for x, y in zip(got, want))
+    if err or not all(torch.equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError(f"{what}: kernel != plain at "
+                             f"{[tuple(x.shape) for x in got]}, max_abs_err "
+                             f"{err}")
+    return err
 
 
 def _nbytes(*ts) -> int:
@@ -2725,15 +2801,23 @@ def tree_3b_batch(scripts, n_commits):
     return streams, TS.to_device_batch(streams, TREE_LC, TREE_PC)
 
 
-def tree_3b(dev, n_docs=1024, n_commits=1000, scripts=TREE_7A_SCRIPTS,
-            cpu_docs=16, cpu_commits=None):
+def tree_3b(dev, n_docs=1024, n_commits=TREE_7A_COMMITS,
+            scripts=TREE_7A_SCRIPTS, cpu_docs=16,
+            plain_commits=TREE_PLAIN_COMMITS):
     """7a: ``config3b_tree_rebase_device`` through the port — 64 distinct
     concurrent 3-session streams (``gen_streams``, seed 0) tiled over the
     document batch, staged on the card once, one warm-up and 3 timed
-    ``batched_trunk_scan`` runs (W 16) under sync-debug "error"; the err
-    lane must be clear and every distinct script equal ``host_trunk``."""
+    ``batched_trunk_scan`` runs (W 16; on the card each one launch of T1)
+    under sync-debug "error"; the err lane must be clear, every distinct
+    script equal ``host_trunk`` and every tile its script. Outside the
+    counts: the run again into sentinel-filled outputs, equal to it; the
+    launches and device time of one scan from ``torch.profiler``; the
+    first ``plain_commits`` commits of the whole batch through T1 and its
+    plain version on the card (the plain loop takes ~36 ms a step on one
+    H100), equal, and ``cpu_docs`` documents of them equal on the CPU."""
     Lc, Pc, W = TREE_LC, TREE_PC, TREE_W
     scripts = min(scripts, n_docs)
+    plain_commits = min(plain_commits, n_commits)
     t0 = time.perf_counter()
     streams, base = tree_3b_batch(scripts, n_commits)
     gen_s = time.perf_counter() - t0
@@ -2763,42 +2847,76 @@ def tree_3b(dev, n_docs=1024, n_commits=1000, scripts=TREE_7A_SCRIPTS,
         _sync(dev)
         times.append(time.perf_counter() - t0)
     rate = n_docs * n_commits * len(times) / sum(times)
+    pre = DT.CommitBatch(*[x[:, :plain_commits].contiguous() for x in batch])
+    with _Uncounted():
+        if dev.type == "cuda":
+            again = TSK.trunk_scan_cuda(docs, L0, batch, W,
+                                        out=_sentinel_out(docs, dev))
+            _held(again, out, "7a T1 into sentinel outputs")
+            del again
+        prof = _scan_launches(dev, scan)
+        event_ms = _event_ms(dev, scan, reps=5)
+        prefix_ms = _event_ms(dev, lambda: scan(pre), reps=5)
+        plain_ms = None
+        if dev.type == "cuda":
+            # The prefix of the whole batch against T1's plain version.
+            got = TSK.trunk_scan_cuda(docs, L0, pre, W,
+                                      out=_sentinel_out(docs, dev))
+            t0 = time.perf_counter()
+            want = DT.batched_trunk_scan_plain(docs, L0, pre, W,
+                                               device=dev)
+            _sync(dev)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            _held(got, want, "7a T1 vs plain")
+            del got, want
+        # The same function on the CPU for cpu_docs documents of the
+        # prefix, bit for bit.
+        sub = DT.CommitBatch(*[x[:cpu_docs] for x in pre])
+        got = _host_lanes(scan(sub, docs[:cpu_docs], L0[:cpu_docs]))
+    want = _host_lanes(scan(DT.CommitBatch(*[x.cpu() for x in sub]),
+                            docs[:cpu_docs].cpu(), L0[:cpu_docs].cpu(),
+                            torch.device("cpu")))
+    _same_lanes(got, want, "7a")
     out_ids, out_L, err = _host_lanes(out)
     if err.any():
         raise AssertionError("7a: ring-window overflow in config 3b")
     for d in range(scripts):
         if TK.dense_to_doc(out_ids[d], out_L[d]) != host_states[d]:
             raise AssertionError(f"7a: device/host divergence on doc {d}")
-    step = _per_step(dev, lambda c: scan(DT.CommitBatch(
-        *[x[:, :c] for x in batch])))
-    # The same function on the CPU for cpu_docs documents (over the first
-    # cpu_commits commits, all by default), bit for bit.
-    cpu_commits = cpu_commits or n_commits
-    sub = DT.CommitBatch(*[x[:cpu_docs, :cpu_commits] for x in batch])
-    got = _host_lanes(scan(sub, docs[:cpu_docs], L0[:cpu_docs]))
-    want = _host_lanes(scan(DT.CommitBatch(*[x.cpu() for x in sub]),
-                            docs[:cpu_docs].cpu(), L0[:cpu_docs].cpu(),
-                            torch.device("cpu")))
-    _same_lanes(got, want, "7a")
+    if not (np.array_equal(out_ids.reshape(reps, scripts, Lc),
+                           np.broadcast_to(out_ids[:scripts],
+                                           (reps, scripts, Lc)))
+            and np.array_equal(out_L.reshape(reps, scripts),
+                               np.broadcast_to(out_L[:scripts],
+                                               (reps, scripts)))):
+        raise AssertionError("7a: a tiled document differs from its script")
     fns = tree_functions(dev, batch, torch.from_numpy(out_ids).to(dev),
                          torch.from_numpy(out_L).to(dev))
     scan_ms = float(np.median(times)) * 1e3
-    bound = (_nbytes(*batch) + 2 * _nbytes(docs, L0)) / HBM_BYTES_PER_S * 1e3
+    b = _nbytes(*batch) + 2 * _nbytes(docs, L0) + _nbytes(err)
+    b_pre = _nbytes(*pre) + 2 * _nbytes(docs, L0) + _nbytes(err)
     res = dict(
         n_docs=n_docs, commits_per_doc=n_commits, scripts=scripts, window=W,
         Lc=Lc, Pc=Pc, staged_gb=staged_gb, gen_s=gen_s, warm_s=warm_s,
         scan_s=times, edits_per_sec=rate, ms_per_scan=scan_ms,
-        us_per_step=scan_ms * 1e3 / n_commits, step=step,
-        cpu_trunk_edits_per_sec=cpu_rate, scan_bound_ms=bound,
-        cpu_check=f"{cpu_docs} docs x {cpu_commits} commits",
+        event_ms_per_scan=event_ms, us_per_step=event_ms * 1e3 / n_commits,
+        scan=prof, tier=TSK.tier("tree_trunk_scan", Lc, Pc, W),
+        cpu_trunk_edits_per_sec=cpu_rate, scan_bytes=b,
+        scan_bound_ms=b / HBM_BYTES_PER_S * 1e3,
+        prefix_commits=plain_commits, prefix_event_ms=prefix_ms,
+        plain_ms_per_prefix=plain_ms,
+        prefix_bound_ms=b_pre / HBM_BYTES_PER_S * 1e3,
+        cpu_check=f"{cpu_docs} docs x {plain_commits} commits",
         functions=fns)
-    print(f"7a config 3b: {rate:,.0f} edits/s, {scan_ms:.1f} ms a scan "
-          f"({res['us_per_step']:.1f} us a step; {step['launches']:.1f} "
-          f"launches, device {step['device_us']:.1f} us, "
-          f"{step['aten_ops']:.1f} ATen ops a step), warm-up "
-          f"{warm_s:.1f} s, streams {gen_s:.1f} s, staged "
-          f"{staged_gb:.2f} GB, host trunk {cpu_rate:,.0f} edits/s",
-          flush=True)
+    print(f"7a config 3b: {rate:,.0f} edits/s, {scan_ms:.2f} ms a scan of "
+          f"{n_commits} commits (CUDA events {event_ms:.3f} ms, "
+          f"{res['us_per_step']:.2f} us a step; {prof['kernel_launches']} "
+          f"kernel launch a scan, the profiler's {prof['launches']} device "
+          f"activities, {prof['device_us']:.1f} us, {prof['aten_ops']} ATen "
+          f"ops); the first {plain_commits} commits: T1 {prefix_ms:.3f} ms, "
+          f"plain {plain_ms} ms; warm-up {warm_s:.1f} s, streams "
+          f"{gen_s:.1f} s, staged {staged_gb:.2f} GB, host trunk "
+          f"{cpu_rate:,.0f} edits/s", flush=True)
     return res
 
 
@@ -2954,16 +3072,37 @@ def tree_3c(dev, n_docs=1024, n_commits=512, scripts=16, wave=128,
     staged = DEM.EmCommitBatch(*[on(x) for x in lanes])
     rings = [on(x) for x in (ring_ids, ring_L, ring_seq)]
     mov_t = on(mov0)
-    _sync(dev)
-    t0 = time.perf_counter()
-    out = _no_sync(dev, DEM.batched_em_trunk_scan_ring, *rings, mov_t,
-                   staged, U, device=dev)
-    _sync(dev)
-    scan_only_s = time.perf_counter() - t0
-    step = _per_step(dev, lambda c: DEM.batched_em_trunk_scan_ring(
-        *rings, mov_t, DEM.EmCommitBatch(*[x[:, :c] for x in staged]), U,
-        device=dev))
-    got = _host_lanes(scan(cpu_docs))
+    with _Uncounted():
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = _no_sync(dev, DEM.batched_em_trunk_scan_ring, *rings, mov_t,
+                       staged, U, device=dev)
+        _sync(dev)
+        scan_only_s = time.perf_counter() - t0
+
+        def rescan():
+            return DEM.batched_em_trunk_scan_ring(*rings, mov_t, staged, U,
+                                                  device=dev)
+
+        prof = _scan_launches(dev, rescan)
+        event_ms = _event_ms(dev, rescan, reps=5)
+        plain_ms = None
+        if dev.type == "cuda":
+            # The whole dispatch against T2's plain version on the card,
+            # T2 run again into sentinel-filled outputs (a reused block
+            # cannot hold this dispatch's result for it).
+            got = TSK.em_ring_scan_cuda(*rings, mov_t, staged, U,
+                                        out=_sentinel_out(rings[0], dev))
+            t0 = time.perf_counter()
+            want = DEM.batched_em_trunk_scan_ring_plain(*rings, mov_t,
+                                                        staged, U,
+                                                        device=dev)
+            _sync(dev)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            _held(got, want, "7b T2 vs plain")
+            _held(out, want, "7b T2 (the dispatch under sync-debug)")
+            del got, want
+        got = _host_lanes(scan(cpu_docs))
     want = _host_lanes(scan(cpu_docs, device=torch.device("cpu")))
     _same_lanes(got, want, "7b")
     first = _host_lanes(out)
@@ -2973,14 +3112,16 @@ def tree_3c(dev, n_docs=1024, n_commits=512, scripts=16, wave=128,
     if single_base:
         # The one-shot catch-up form on the same commits, from the
         # newest seeded state alone.
-        t0 = time.perf_counter()
-        DEM.batched_em_trunk_scan(rings[0][:, -1], rings[1][:, -1],
-                                  rings[2][:, -1], staged, W, U, device=dev)
-        _sync(dev)
-        single_ms = (time.perf_counter() - t0) * 1e3
+        with _Uncounted():
+            t0 = time.perf_counter()
+            DEM.batched_em_trunk_scan(rings[0][:, -1], rings[1][:, -1],
+                                      rings[2][:, -1], staged, W, U,
+                                      device=dev)
+            _sync(dev)
+            single_ms = (time.perf_counter() - t0) * 1e3
     b = (sum(x.nbytes for x in lanes) + ring_ids.nbytes + ring_L.nbytes
-         + ring_seq.nbytes + first[0].nbytes + first[1].nbytes
-         + first[2].nbytes)
+         + ring_seq.nbytes + mov0.nbytes + first[0].nbytes
+         + first[1].nbytes + first[2].nbytes)
     disp_ms = float(np.median(dispatch_s)) * 1e3
     res = dict(
         n_docs=n_docs, commits_per_doc=n_commits, scripts=scripts,
@@ -2994,18 +3135,23 @@ def tree_3c(dev, n_docs=1024, n_commits=512, scripts=16, wave=128,
         scan_shape=dict(N=N, C=C, W=W, Lc=ring_ids.shape[2],
                         Pc=lanes[2].shape[2], R=lanes[3].shape[2], U=U),
         scan_only_ms=scan_only_s * 1e3, single_base_scan_ms=single_ms,
-        us_per_step=scan_only_s * 1e6 / C, step=step,
-        scan_bound_ms=b / HBM_BYTES_PER_S * 1e3,
+        event_ms_per_scan=event_ms, plain_ms_per_scan=plain_ms,
+        us_per_step=event_ms * 1e3 / C, scan=prof,
+        tier=TSK.tier("tree_em_ring_scan", ring_ids.shape[2],
+                      lanes[2].shape[2], W, lanes[3].shape[2], U),
+        scan_bytes=b, scan_bound_ms=b / HBM_BYTES_PER_S * 1e3,
         cpu_em_edits_per_sec=cpu_rate,
         cpu_check=f"{cpu_docs} docs x {C} commits")
     print(f"7b config {'3c-moves' if move_prob else '3c'}: {rate:,.0f} "
           f"edits/s, device_fraction {res['device_fraction']:.3f}, "
           f"{len(dispatch_s)} dispatches of {disp_ms:.1f} ms (the first's "
-          f"scan under sync-debug {res['scan_only_ms']:.1f} ms, "
-          f"single-base form {single_ms} ms, {res['us_per_step']:.1f} us a "
-          f"step; {step['launches']:.1f} launches, device "
-          f"{step['device_us']:.1f} us, {step['aten_ops']:.1f} ATen ops a "
-          f"step), host share of the waves {res['host_share']:.3f}, "
+          f"scan under sync-debug {res['scan_only_ms']:.1f} ms, CUDA "
+          f"events {event_ms:.3f} ms, plain {plain_ms} ms, single-base form "
+          f"{single_ms} ms, {res['us_per_step']:.2f} us a step; "
+          f"{prof['kernel_launches']} kernel launch a scan, the profiler's "
+          f"{prof['launches']} device activities, {prof['device_us']:.1f} "
+          f"us, {prof['aten_ops']} ATen ops), host share of the waves "
+          f"{res['host_share']:.3f}, "
           f"fallbacks {reasons}, scan shape {res['scan_shape']}, warm-up "
           f"{warm_s:.1f} s, streams {gen_s:.1f} s, host EM "
           f"{cpu_rate:,.0f} edits/s", flush=True)
@@ -3074,31 +3220,220 @@ def tree_3(dev, n_edits=1000, budget_s=60.0, min_docs=16, max_docs=1000):
     return res
 
 
+# T1's holds: (docs, commits, ring W, Lc, Pc, move_prob, the streams' lag
+# window). A ring shallower than the streams' lag (W 3 under a lag window
+# of 8) trips the ring-window err lane; Lc 1,024 at W 16 is past the shared
+# tier (its ring alone is 268,480 bytes), so it runs on the global tier.
+T1_HOLDS = (
+    (1, 40, 3, 32, 8, 0.2, 8),
+    (7, 40, 8, 32, 8, 0.0, 8),
+    (7, 40, 8, 128, 32, 0.2, 8),
+    (7, 40, 16, 512, 32, 0.2, 16),
+    (7, 40, 16, 512, 8, 0.0, 16),
+    (7, 40, 16, 1024, 32, 0.2, 16),
+    (1024, 40, 16, 128, 32, 0.0, 16),
+    (1024, 40, 3, 128, 32, 0.2, 8),
+)
+# T2's holds: every Lc bucket batch_ingest makes (W 16, R 16), 7 documents
+# x 16 commits of em_case's lanes; Lc 4,096 runs on the global tier.
+T2_HOLD_LCS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
+T2_HOLD_DOCS, T2_HOLD_COMMITS = 7, 16
+
+
+def trunk_case(dev, n_docs, n_commits, lag_w, Lc, Pc, move_prob, seed=0):
+    """T1's inputs: ``gen_streams`` streams (3 sessions lagging within
+    ``lag_w``, up to 8 ids a commit, ``move_prob`` of moves), at most 64
+    distinct scripts tiled over ``n_docs`` documents, empty documents."""
+    scripts = min(n_docs, 64)
+    streams = TS.gen_streams(np.random.default_rng(seed), scripts,
+                             n_commits, n_sessions=3, W=lag_w, Lc=Lc,
+                             max_ins=min(8, Pc), move_prob=move_prob)
+    reps = -(-n_docs // scripts)
+    cb = DT.CommitBatch(*[
+        torch.from_numpy(np.ascontiguousarray(
+            np.concatenate([x] * reps)[:n_docs])).to(dev)
+        for x in TS.to_device_batch(streams, Lc, Pc)])
+    docs = torch.zeros((n_docs, Lc), dtype=torch.int32, device=dev)
+    return docs, torch.zeros(n_docs, dtype=torch.int32, device=dev), cb
+
+
+def em_case(dev, n_docs, n_commits, lc, W=16, R=16, seed=0, U=None):
+    """T2's inputs at one bucket, sized as ``batch_ingest`` sizes them (Pc
+    a power of two >= 8, U a power of two over the ids): rings of W trunk
+    states of distinct ids, 1/2 to 3/4 of Lc long, seqs rising to the
+    newest at slot W-1 (every third ring starts with empty slots, seq -1);
+    commits whose refs lag the head by 1-6 states; 4% deletes and 1%
+    move-outs over the author view; 0-4 attach runs of 1-2 fresh ids (all R
+    on commit 1). Document 1 misses the ring halfway with a move watermark
+    above its ref, document 4 without one (no move-outs); the last
+    document's runs carry the whole pool each, so it passes Lc. Ring ids
+    lie below 2 Lc, inserted ids in [2 Lc, U) (``U`` a power of two over
+    4 Lc by default)."""
+    rng = np.random.default_rng(seed)
+    N, C = n_docs, n_commits
+    pc = pow2_at_least(max(8, lc // 8))
+    U = U or pow2_at_least(4 * lc + 2)
+    base = 100
+    ring_ids = np.zeros((N, W, lc), np.int32)
+    ring_L = np.zeros((N, W), np.int32)
+    ring_seq = np.full((N, W), -1, np.int32)
+    for d in range(N):
+        n_empty = int(rng.integers(1, W // 2)) if d % 3 == 0 else 0
+        for w in range(n_empty, W):
+            n = int(rng.integers(lc // 2, 3 * lc // 4 + 1))
+            ring_ids[d, w, :n] = rng.choice(np.arange(1, 2 * lc), n,
+                                            replace=False)
+            ring_L[d, w] = n
+            ring_seq[d, w] = base - 2 * (W - 1 - w)
+    seqs = np.tile(base + 3 * np.arange(1, C + 1), (N, 1)).astype(np.int32)
+    lag = rng.integers(1, 7, (N, C))
+    k_ago = np.arange(C)[None, :] - lag
+    refs = np.where(k_ago >= 0, base + 3 * (k_ago + 1), base - 2 * lag)
+    mov0 = np.full(N, -1, np.int32)
+    for d in (1, 4):
+        if d < N:
+            refs[d, C // 2] = base - 2 * W - 5
+    if N > 1:
+        mov0[1] = base + 10 * C
+    dm = (rng.random((N, C, lc)) < 0.04).astype(np.int32)
+    mv = (rng.random((N, C, lc)) < 0.01).astype(np.int32)
+    if N > 4:
+        mv[4] = 0
+    ic = np.zeros((N, C, lc + 1), np.int32)
+    ii = rng.integers(2 * lc, U, (N, C, pc)).astype(np.int32)
+    rs = np.full((N, C, R), -1, np.int32)
+    rl = np.zeros((N, C, R), np.int32)
+    ro = np.zeros((N, C, R), np.int32)
+    for d in range(N):
+        for k in range(C):
+            n_runs = R if k == 1 else int(rng.integers(0, 5))
+            off = 0
+            for r in range(n_runs):
+                n = pc if d == N - 1 else int(rng.integers(1, 3))
+                at = int(rng.integers(0, 3 * lc // 4 + 1))
+                rs[d, k, r], rl[d, k, r], ro[d, k, r] = at, n, off % pc
+                ic[d, k, at] += n
+                off += n
+    lanes = (dm, ic, ii, rs, rl, ro, refs.astype(np.int32), seqs, mv)
+    cb = DEM.EmCommitBatch(*[torch.from_numpy(np.ascontiguousarray(x)).to(
+        dev) for x in lanes])
+    rings = [torch.from_numpy(x).to(dev) for x in (ring_ids, ring_L,
+                                                   ring_seq, mov0)]
+    return rings, cb, U
+
+
+def hold_tree(dev, name, args, reps=5) -> dict:
+    """Run tree kernel ``name`` under sync-debug "error" into
+    sentinel-filled outputs and its plain version on the same inputs on the
+    card; assert every lane equal (:func:`_held`); return the row: tier,
+    max_abs_err, CUDA-event ms of the kernel (median of ``reps``) and of
+    one plain run, the byte floor (inputs read once, outputs written
+    once)."""
+    spec = TREE_KERNELS[name]
+    with _Uncounted():
+        got = _no_sync(dev, spec["wrapper"], *args,
+                       out=_sentinel_out(args[0], dev))
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        want = spec["plain"](*args, device=dev)
+        b.record()
+        torch.cuda.synchronize()
+        plain_ms = a.elapsed_time(b)
+        err = _held(got, want, name)
+        ms = _event_ms(dev, lambda: spec["wrapper"](*args), reps)
+    nbytes = _nbytes(*args[:-2], *args[-2]) + _nbytes(*got)
+    return dict(kernel=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                err_lane=_host_lanes([want[2]])[0].tolist())
+
+
+def tree_holds(dev) -> list:
+    """T1 and T2 against their plain versions on the card at the edge
+    shapes (``T1_HOLDS``, ``T2_HOLD_LCS``: both tiers of each), under
+    sync-debug "error"; the T1 ring-window err and T2's three err bits
+    must show where the inputs call for them."""
+    rows = []
+    for (n, c, w, lc, pc, mp, lag_w) in T1_HOLDS:
+        docs, L0, cb = trunk_case(dev, n, c, lag_w, lc, pc, mp)
+        r = hold_tree(dev, "T1_trunk_scan", (docs, L0, cb, w))
+        r.update(docs=n, commits=c, W=w, Lc=lc, Pc=pc, move_prob=mp,
+                 tier=TSK.tier("tree_trunk_scan", lc, pc, w))
+        if (w < lag_w) != any(r["err_lane"]):
+            raise AssertionError(f"T1 hold {r}: the ring-window err lane")
+        rows.append(r)
+    for lc in T2_HOLD_LCS:
+        rings, cb, U = em_case(dev, T2_HOLD_DOCS, T2_HOLD_COMMITS, lc)
+        r = hold_tree(dev, "T2_em_ring_scan", (*rings, cb, U))
+        pc, R = cb.ins_ids.shape[2], cb.run_start.shape[2]
+        r.update(docs=T2_HOLD_DOCS, commits=T2_HOLD_COMMITS, W=16, Lc=lc,
+                 Pc=pc, R=R, U=U,
+                 tier=TSK.tier("tree_em_ring_scan", lc, pc, 16, R, U))
+        e = r["err_lane"]
+        if not (e[1] & DEM.ERR_MOVE_EVICTED and e[4] & DEM.ERR_RING_MISS
+                and not e[4] & DEM.ERR_MOVE_EVICTED
+                and e[-1] & DEM.ERR_CAPACITY):
+            raise AssertionError(f"T2 hold at Lc {lc}: err lane {e}")
+        rows.append(r)
+    for name, entry in (("T1_trunk_scan", "tree_trunk_scan"),
+                        ("T2_em_ring_scan", "tree_em_ring_scan")):
+        if {r["tier"] for r in rows if r["kernel"] == name} != set(
+                TSK.TIER_CODES):
+            raise AssertionError(f"{name}'s holds miss a tier of {entry}")
+    for r in rows:
+        r.pop("err_lane")
+        print(f"tree hold {r['kernel']} {r['tier']} N {r['docs']} C "
+              f"{r['commits']} W {r['W']} Lc {r['Lc']} Pc {r['Pc']}"
+              f"{' U ' + str(r['U']) if 'U' in r else ''}: "
+              f"{r['ms']:.4f} ms (plain {r['plain_ms']:.1f} ms, bound "
+              f"{r['bound_ms']:.5f} ms), max_abs_err {r['max_abs_err']}",
+              flush=True)
+    return rows
+
+
 def phase_tree(device, report, b_docs=1024, b_commits=TREE_7A_COMMITS,
                c_docs=1024,
                c_commits=128, m_docs=512, m_commits=128, wave=128,
-               c3_budget_s=15.0, c3_min_docs=16):
-    """Phase 7: the SharedTree rebase path on the card — 7a config 3b,
-    7b configs 3c and 3c-moves, 7c config 3. Depth is cut to keep the
-    phase near 130 s on one H100 (and the smoke, with phase 10, well
-    inside its limit): 7a runs 125 of the bench's 1,000 commits a
-    document (a step costs the same at every depth), 7b's configs 3c and
-    3c-moves 128 of their 512 (one wave; a wave's host work grows with
-    its index, so later waves are slower), 7c documents for 15 s (at
-    least 16). Every width, the document batches and the move mix are
-    the bench's."""
+               c3_budget_s=15.0, c3_min_docs=16, holds=True):
+    """Phase 7: the SharedTree rebase path on the card — 7h T1 and T2 held
+    against their plain versions at edge shapes (``holds``), 7a config 3b
+    (T1), 7b configs 3c and 3c-moves (T2 through ``batch_ingest``), 7c
+    config 3. Each sub-path runs with the tree kernels' launch counts set
+    to 0 just before it and read just after; 7a and 7b must launch their
+    kernel. 7a runs the bench's whole 1,000 commits a document (its plain
+    hold the first 125). Depth is cut elsewhere to keep the phase short on
+    one H100: 7b's configs 3c and 3c-moves run 128 of their 512 commits
+    (one wave; a wave's host work grows with its index, so later waves are
+    slower), 7c documents for 15 s (at least 16). Every width, the
+    document batches and the move mix are the bench's."""
     out = {}
+    launches = {}
     t = time.perf_counter()
-    out["3b"] = tree_3b(device, n_docs=b_docs, n_commits=b_commits)
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-    out["3c"] = tree_3c(device, n_docs=c_docs, n_commits=c_commits,
-                        scripts=16, wave=wave)
-    out["3c-moves"] = tree_3c(device, n_docs=m_docs, n_commits=m_commits,
-                              scripts=8, wave=wave, move_prob=0.05,
-                              single_base=True)
-    out["3"] = tree_3(device, budget_s=c3_budget_s, min_docs=c3_min_docs)
+    if holds and device.type == "cuda":
+        out["holds"] = tree_holds(device)
+        out["holds_s"] = time.perf_counter() - t
+    for key, fn, kw in (
+            ("7a", tree_3b, dict(n_docs=b_docs, n_commits=b_commits)),
+            ("7b", tree_3c, dict(n_docs=c_docs, n_commits=c_commits,
+                                 scripts=16, wave=wave)),
+            ("7b-moves", tree_3c, dict(n_docs=m_docs, n_commits=m_commits,
+                                       scripts=8, wave=wave, move_prob=0.05,
+                                       single_base=True)),
+            ("7c", tree_3, dict(budget_s=c3_budget_s,
+                                min_docs=c3_min_docs))):
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        reset_tree_counts()
+        out[{"7a": "3b", "7b": "3c", "7b-moves": "3c-moves",
+             "7c": "3"}[key]] = fn(device, **kw)
+        launches[key] = read_tree_counts()
+    for key, name in (("7a", "T1_trunk_scan"), ("7b", "T2_em_ring_scan"),
+                      ("7b-moves", "T2_em_ring_scan")):
+        if device.type == "cuda" and launches[key][name]["all"] <= 0:
+            raise AssertionError(f"{name} never launched on {key}")
+    out["launches"] = launches
     out["wall_s"] = time.perf_counter() - t
+    print(f"7 tree kernel launches by sub-path: {launches}", flush=True)
     report["tree"] = out
     return out
 
@@ -3235,7 +3570,8 @@ class _Uncounted:
 
     def __enter__(self):
         self._saved = [(spec["wrapper"], dict(vars(spec["wrapper"])))
-                       for spec in KERNELS.values()]
+                       for spec in (*KERNELS.values(),
+                                    *TREE_KERNELS.values())]
 
     def __exit__(self, *exc):
         for w, attrs in self._saved:
@@ -4683,15 +5019,6 @@ def phase_mesh(device, report):
 # document (bench.py's device_state_parity at larger sizes).
 ORACLE_SHAPES = ((256, 4096), (4096, 256))
 ORACLE_OPS = 96
-# 10b's ops in the default smoke: CHAOS_STRESS_FULL_PROFILE at its full
-# width (48 clients, trees, the summarizer every 150, GC every 300,
-# chaos) cut from 3,000 ops, whose run takes ~700 s on the card (the
-# replicas' tree ingest is host- and launch-bound; PERF.md), more than
-# the smoke's budget leaves; 320 keeps one GC pass. ``--load`` runs all
-# 3,000.
-SMOKE_LOAD_OPS = 320
-
-
 def oracle_streams(n_docs: int, n_ops: int, seed0: int):
     """bench.py's parity streams: one ``random_acked_stream`` a document
     (msn lag 24, refs caught up, seed ``seed0 + d``), evolved beside its
@@ -4911,10 +5238,12 @@ def load_10b(device, profile=None, compare=True):
         if compare:
             cpu = pool.submit(_cpu_load_run, small, 2)
         reset_counts()
+        reset_tree_counts()
         with UtilSampler() as util:
             rep, state, wall = load_run(device, profile, 4, exact=True)
         torch.cuda.synchronize()
         launches = read_counts()
+        tree_launches = read_tree_counts()
         checks = dict(converged=rep["converged"],
                       ops=rep["ops_submitted"] == profile.total_ops,
                       chaos=rep["chaos_injected"] > 0,
@@ -4936,6 +5265,7 @@ def load_10b(device, profile=None, compare=True):
             profile=profile.doc_id, clients=profile.n_clients,
             ops=profile.total_ops, wall_s=wall,
             ops_per_sec=profile.total_ops / wall, launches=launches,
+            tree_launches=tree_launches,
             busy_share=util.share, util_samples=util.samples,
             **{k: rep[k] for k in (
                 "faults_injected", "chaos_injected", "reconnects", "nacks",
@@ -4951,7 +5281,8 @@ def load_10b(device, profile=None, compare=True):
               f"{rep['gc_runs']}, tree ops {rep['tree_ops_submitted']} "
               f"(moves {rep['tree_moves_submitted']}), tree ingest "
               f"{rep['tree_ingest']}; K1 {launches['K1_merge_apply']['all']}"
-              f", K2 {launches['K2_zamboni_compact']['all']}; card busy {busy} "
+              f", K2 {launches['K2_zamboni_compact']['all']}, T2 "
+              f"{tree_launches['T2_em_ring_scan']['all']}; card busy {busy} "
               f"({util.samples} samples)", flush=True)
         if compare:
             t = time.perf_counter()
@@ -5269,7 +5600,8 @@ def phase_load(device, report, stress=None):
           f"launches {launches}", flush=True)
     report["phase_load"] = dict(oracle=r10a, load=r10b, dds=r10c,
                                 holds=holds, wall_s=wall)
-    return dict(launches=launches, holds=holds)
+    return dict(launches=launches, holds=holds,
+                tree_launches=r10b["tree_launches"])
 
 
 # -- phase 11: the framework layer, the hierarchy trees and the drivers ----------
@@ -5843,11 +6175,12 @@ def framework_11d(device) -> dict:
     the same calls on the CPU, at the widths their paths give them:
     ``merge_kernel.perspective`` and ``insert_place_mask`` on a 4,096-row
     state; ``device_trunk.trunk_scan`` on a document of 7a's batch (its 64
-    distinct scripts, Lc 128, Pc 32, W 16; the first ``TRUNK_11D_COMMITS``
-    of its commits) against the batched scan's row;
+    distinct scripts, Lc 128, Pc 32, W 16, the first 125 commits: the
+    CPU side's plain loop is the cost) against the
+    batched scan's row and the CPU (T1 on the card);
     ``device_em.em_trunk_scan_ring_one`` / ``em_trunk_scan_one`` on a
     document of 7b's first dispatch against the batched scans' rows on
-    the CPU; and
+    the CPU (T2 on the card); and
     ``sharded_doc.sharded_apply_ops`` at 9c's shard shape (8 x 65,536 rows
     on 8 x the card) against ``ShardedDoc.apply`` on the same ops."""
     from fluidframework_tpu_torch.ops import merge_kernel as MK
@@ -5896,13 +6229,13 @@ def framework_11d(device) -> dict:
     shapes["perspective"] = "4,096 rows"
     part_s["perspective"] = time.perf_counter() - t0
     # trunk_scan on a document of 7a's batch: its 64 distinct scripts (the
-    # batch tiles them to 1,024 documents, so each row equals its copies').
-    # The scans are launch-bound, so the depth is cut to the first
-    # TRUNK_11D_COMMITS commits; the widths are 7a's.
+    # batch tiles them to 1,024 documents, so each row equals its copies'),
+    # at 7a's widths and plain-held depth.
     t0 = time.perf_counter()
-    _streams, base = tree_3b_batch(TREE_7A_SCRIPTS, TREE_7A_COMMITS)
+    reset_tree_counts()
+    _streams, base = tree_3b_batch(TREE_7A_SCRIPTS, TREE_PLAIN_COMMITS)
     batch = DT.CommitBatch(*[torch.from_numpy(np.ascontiguousarray(
-        x[:, :TRUNK_11D_COMMITS])).to(device) for x in base])
+        x)).to(device) for x in base])
     docs = torch.zeros((TREE_7A_SCRIPTS, TREE_LC), dtype=torch.int32,
                        device=device)
     L0 = torch.zeros(TREE_7A_SCRIPTS, dtype=torch.int32, device=device)
@@ -5915,9 +6248,8 @@ def framework_11d(device) -> dict:
                             DT.CommitBatch(*[x.cpu() for x in one]),
                             TREE_W, device=cpu),
          f"trunk_scan doc {d}")
-    shapes["trunk_scan"] = (f"64 scripts, {TRUNK_11D_COMMITS} of "
-                            f"{TREE_7A_COMMITS} commits, Lc {TREE_LC}, "
-                            f"Pc {TREE_PC}, W {TREE_W}")
+    shapes["trunk_scan"] = (f"64 scripts, {TREE_PLAIN_COMMITS} commits, Lc "
+                            f"{TREE_LC}, Pc {TREE_PC}, W {TREE_W}")
     part_s["trunk_scan"] = time.perf_counter() - t0
     # The EM scans on the last document of 7b's first dispatch, recorded on
     # the CPU: the ring form against the dispatch's batched rows, the
@@ -5944,6 +6276,7 @@ def framework_11d(device) -> dict:
                     f"Pc {lanes[2].shape[2]}, R {lanes[3].shape[2]}, W {W}, "
                     f"U {U}")
     part_s["em"] = time.perf_counter() - t0
+    tree_launches = read_tree_counts()
     # sharded_apply_ops at 9c's shard shape against ShardedDoc.apply on 9c's
     # frame of ops; against the CPU on the frame's first SHARDED_CPU_OPS ops
     # (the plain exchange on the host is slow at this shape).
@@ -5979,7 +6312,8 @@ def framework_11d(device) -> dict:
     print(f"11d thin functions: {len(checked)} calls on the card equal "
           f"the CPU; shapes {shapes}; s "
           f"{ {k: round(v, 2) for k, v in part_s.items()} }", flush=True)
-    return dict(calls=len(checked), shapes=shapes, part_s=part_s)
+    return dict(calls=len(checked), shapes=shapes, part_s=part_s,
+                tree_launches=tree_launches)
 
 
 def phase_framework(device, report, twin=None, n_ops=FRAMEWORK_OPS,
@@ -6077,7 +6411,8 @@ def phase_framework(device, report, twin=None, n_ops=FRAMEWORK_OPS,
     print(f"11 wall s: { {k: round(v, 1) for k, v in wall.items()} }; "
           f"launches {counts}", flush=True)
     report["phase_framework"] = out
-    return dict(launches=counts, holds=holds)
+    return dict(launches=counts, holds=holds,
+                tree_launches=r11d["tree_launches"])
 
 
 def main() -> int:
@@ -6105,7 +6440,7 @@ def _main(device, twins) -> int:
     report["card"] = smi
 
     t_b = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(len(BUILDS)) as pool:
         builds = [pool.submit(fn) for fn in BUILDS]
         for b in builds:
             b.result()
@@ -6174,9 +6509,9 @@ def _main(device, twins) -> int:
     # here on, beside phases 7-10, once the timed windows of the
     # host-bound serving phases 4-6 have closed.
     twins.append(start_framework_twin())
-    # Phase 7: the SharedTree rebase path (no hand kernel of its own).
+    # Phase 7: the SharedTree rebase path (T1, T2 and their holds).
     torch.cuda.empty_cache()
-    timed("7_tree", phase_tree, device, report)
+    tree = timed("7_tree", phase_tree, device, report)
     # Phase 8: the client merge path.
     torch.cuda.empty_cache()
     client = timed("8_client", phase_client, device, report)
@@ -6187,12 +6522,7 @@ def _main(device, twins) -> int:
     # Phase 10: the oracle on the card, the load harness over the
     # pipeline, the other DDS models.
     torch.cuda.empty_cache()
-    from fluidframework_tpu_torch.testing.load import (
-        CHAOS_STRESS_FULL_PROFILE,
-    )
-
-    load = timed("10_load", phase_load, device, report, dataclasses.replace(
-        CHAOS_STRESS_FULL_PROFILE, total_ops=SMOKE_LOAD_OPS))
+    load = timed("10_load", phase_load, device, report)
     # Phase 11: the framework layer, the hierarchy trees and the drivers.
     torch.cuda.empty_cache()
     framework = timed("11_framework", phase_framework, device, report,
@@ -6251,6 +6581,7 @@ def _main(device, twins) -> int:
                                  for r in framework["holds"]
                                  if r["kernel"] == name],
         })
+    kernels += tree_kernel_rows(tree, load, framework)
     report["kernels"] = kernels
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -6265,9 +6596,56 @@ def _main(device, twins) -> int:
     return 0
 
 
+def tree_kernel_rows(tree, load, framework) -> list:
+    """The kernels line's T1 and T2 entries: launches by path (7a, 7b,
+    7b-moves, 7c, 10b, 11d), the time, plain time and byte floor on the
+    same inputs of the main path (7a's whole batch over the commits held
+    against the plain version for T1, with the time of the whole 7a scan
+    beside them; 7b's first dispatch for T2), the largest error of every
+    hold, and the holds' rows. No PyTorch call computes a rebase scan, so
+    ``library_ms`` is null."""
+    b3 = tree["3b"]
+    main = {"T1_trunk_scan": dict(
+        b3, event_ms_per_scan=b3["prefix_event_ms"],
+        plain_ms_per_scan=b3["plain_ms_per_prefix"],
+        scan_bound_ms=b3["prefix_bound_ms"]),
+        "T2_em_ring_scan": tree["3c"]}
+    rows = []
+    for name, spec in TREE_KERNELS.items():
+        by_path = {**{k: v[name] for k, v in tree["launches"].items()},
+                   "10b": load["tree_launches"][name],
+                   "11d": framework["tree_launches"][name]}
+        m = main[name]
+        holds = [r for r in tree.get("holds", []) if r["kernel"] == name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "fluidframework_tpu_torch/csrc/tree_kernels.cu",
+            "replaces": spec["replaces"],
+            "launches": sum(p["all"] for p in by_path.values()),
+            **{f"launches_{t}": sum(p[t] for p in by_path.values())
+               for t in TSK.TIER_CODES},
+            "launches_by_path": by_path,
+            "max_abs_err": max([0] + [r["max_abs_err"] for r in holds]),
+            "ms": m["event_ms_per_scan"], "plain_ms": m["plain_ms_per_scan"],
+            "bound_ms": m["scan_bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "main_shape": {
+                "n_docs": m["n_docs"], "tier": m["tier"],
+                "commits": m.get("prefix_commits", m["commits_per_doc"]),
+                **({"whole_scan": {"commits": m["commits_per_doc"],
+                                   "ms": b3["event_ms_per_scan"],
+                                   "bound_ms": b3["scan_bound_ms"]}}
+                   if m is main["T1_trunk_scan"] else {})},
+            "holds": [{k: r[k] for k in ("tier", "docs", "commits", "W",
+                                         "Lc", "Pc", "ms", "plain_ms",
+                                         "bound_ms")} for r in holds],
+        })
+    return rows
+
+
 def tree_alone(**kw) -> int:
-    """Phase 7 alone (the tree path builds nothing); its record goes to
-    ``tree.json`` in the output directory."""
+    """Phase 7 alone, after building the tree kernels (T1, T2); its record
+    goes to ``tree.json`` in the output directory."""
     device = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6275,6 +6653,13 @@ def tree_alone(**kw) -> int:
         capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     report = {"card": smi, "torch": torch.__version__}
+    t = time.perf_counter()
+    _cuda.build("tree")
+    report["build_s"] = time.perf_counter() - t
+    print(f"build: {report['build_s']:.1f} s", flush=True)
+    for line in _cuda.build_log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print("ptxas:", line.strip(), flush=True)
     t = time.perf_counter()
     phase_tree(device, report, **kw)
     print(f"phase 7_tree: {time.perf_counter() - t:.1f} s", flush=True)
@@ -6413,7 +6798,7 @@ def client_alone() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(len(BUILDS)) as pool:
         for b in [pool.submit(fn) for fn in BUILDS]:
             b.result()
     report = {"card": smi, "torch": torch.__version__}
@@ -6436,7 +6821,7 @@ def mesh_alone() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(len(BUILDS)) as pool:
         for b in [pool.submit(fn) for fn in BUILDS]:
             b.result()
     report = {"card": smi, "torch": torch.__version__}
@@ -6465,7 +6850,7 @@ def load_alone(which: str = "") -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(len(BUILDS)) as pool:
         for b in [pool.submit(fn) for fn in BUILDS]:
             b.result()
     report = {"card": smi, "torch": torch.__version__}
@@ -6497,7 +6882,7 @@ def framework_alone() -> int:
              "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60,
         ).stdout.strip().splitlines()[0]
-        with ThreadPoolExecutor(5) as pool:
+        with ThreadPoolExecutor(len(BUILDS)) as pool:
             for b in [pool.submit(fn) for fn in BUILDS]:
                 b.result()
         report = {"card": smi, "torch": torch.__version__}
@@ -6520,7 +6905,7 @@ def server_repeat(n: int) -> int:
     written to ``server_repeat.json`` in the output directory; the first
     failure ends the run with its error."""
     device = torch.device("cuda", 0)
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(len(BUILDS)) as pool:
         for b in [pool.submit(fn) for fn in BUILDS]:
             b.result()
     runs = []

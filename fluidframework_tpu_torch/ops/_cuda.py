@@ -1,12 +1,14 @@
-"""Build and load the hand-written Hopper kernels (``csrc/merge_kernels.cu``).
+"""Build and load the hand-written Hopper kernels (``csrc/*.cu``).
 
-The source compiles with ``nvcc`` into a shared library with a plain C
-interface, at first use, into the package's ``_build/`` directory (listed
-in ``.gitignore``); the library is named by the source's content hash, so
-an edited source never loads a stale build. It is loaded with ``ctypes``:
-pointers are ``c_void_p``, the stream is PyTorch's current CUDA stream,
-and every entry returns ``cudaGetLastError()``, which :func:`launch` turns
-into an exception. Nothing here runs at import time.
+Each source compiles with ``nvcc`` into a shared library of its own with a
+plain C interface, at first use, into the package's ``_build/`` directory
+(listed in ``.gitignore``): ``csrc/merge_kernels.cu`` (K1-K3, the merge
+path) and ``csrc/tree_kernels.cu`` (T1/T2, the SharedTree rebase scans).
+Each library is named by its own source's content hash, so an edited
+source never loads a stale build. It is loaded with ``ctypes``: pointers
+are ``c_void_p``, the stream is PyTorch's current CUDA stream, and every
+entry returns ``cudaGetLastError()``, which the wrappers turn into an
+exception. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -21,7 +23,9 @@ from typing import Optional
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# The merge kernels' source (an A/B run may point it at a variant).
 SOURCE = os.path.join(_PKG, "csrc", "merge_kernels.cu")
+TREE_SOURCE = os.path.join(_PKG, "csrc", "tree_kernels.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 ARCH = "arch=compute_90a,code=sm_90a"
 # Largest table (rows per document) whose lanes fit one CTA's shared
@@ -40,10 +44,23 @@ GLOBAL_MAX_CAPACITY = 65536
 MAX_CAPACITY = 1 << 30
 # The C entries' tier argument.
 TIER_CODES = {"smem": 0, "cluster": 1, "global": 2, "split": 3}
-ENTRIES = ("merge_apply", "merge_compact", "merge_apply_compact")
+# Every C entry of the kernel libraries and the library it lives in. The
+# merge entries run on the tiers of :func:`tier`; the tree entries' tiers
+# depend on their widths (``tree_scan_kernel.tier``).
+ENTRIES = {
+    "merge_apply": "merge",
+    "merge_compact": "merge",
+    "merge_apply_compact": "merge",
+    "tree_trunk_scan": "tree",
+    "tree_em_ring_scan": "tree",
+}
+LIBRARIES = ("merge", "tree")
 
-_lib: Optional[ctypes.CDLL] = None
-build_log = ""  # ptxas report of the last build (registers, smem, spills)
+_libs: dict = {}
+_logs: dict = {}
+# The ptxas reports (registers, smem, spills) of the libraries built or
+# found so far, merge first.
+build_log = ""
 
 
 def _nvcc() -> str:
@@ -57,82 +74,107 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build() -> str:
-    """Compile the kernels if no build of this source exists; return the
-    library path. Concurrent builds each write private temp files and
+def source(name: str = "merge") -> str:
+    """The source file of library ``name`` (``"merge"`` or ``"tree"``)."""
+    if name not in LIBRARIES:
+        raise ValueError(f"unknown kernel library {name!r}")
+    return SOURCE if name == "merge" else TREE_SOURCE
+
+
+def library_path(name: str = "merge") -> str:
+    """Where library ``name``'s build lives: ``_build/lib<stem>-<hash>.so``,
+    the stem the source's file name, the hash the first 16 hex digits of
+    the SHA-256 of its content."""
+    src = source(name)
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+
+
+def _keep_log(name: str, text: str) -> None:
+    global build_log
+    _logs[name] = text
+    build_log = "".join(_logs[n] for n in LIBRARIES if n in _logs)
+
+
+def build(name: str = "merge") -> str:
+    """Compile library ``name`` if no build of its source exists; return
+    the library path. Concurrent builds each write private temp files and
     rename them into place. The ptxas report is kept beside the library,
     so :data:`build_log` holds it after a reused build too."""
-    global build_log
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"libmerge_kernels-{digest}.so")
-    log = os.path.join(BUILD_DIR, f"libmerge_kernels-{digest}.ptxas")
+    so = library_path(name)
+    log = so[:-3] + ".ptxas"
     if os.path.exists(so):
         if os.path.exists(log):
             with open(log) as f:
-                build_log = f.read()
+                _keep_log(name, f.read())
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
     cmd = [
         _nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, SOURCE,
+        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, source(name),
     ]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if res.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
         )
-    build_log = res.stderr
     with open(f"{log}.{os.getpid()}.tmp", "w") as f:
-        f.write(build_log)
+        f.write(res.stderr)
     os.replace(f"{log}.{os.getpid()}.tmp", log)
     os.replace(tmp, so)
+    _keep_log(name, res.stderr)
     return so
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
-    if _lib is None:
-        cdll = ctypes.CDLL(build())
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for name, args in (
-            ("merge_apply", [p, p, p, p, p, p, i, i, i, i, p]),
-            ("merge_compact", [p, p, p, p, p, i, i, i, p]),
-            ("merge_apply_compact", [p, p, p, p, p, p, i, i, i, i, p]),
-        ):
-            fn = getattr(cdll, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        for name in ("merge_smem_max_capacity", "merge_cluster_max_capacity",
-                     "merge_global_max_capacity", "merge_max_capacity",
-                     "merge_split_max_ctas"):
-            getattr(cdll, name).argtypes = []
-            getattr(cdll, name).restype = ctypes.c_int
-        cdll.merge_work_ints.argtypes = [ctypes.c_int]
-        cdll.merge_work_ints.restype = ctypes.c_longlong
-        cdll.merge_error_string.argtypes = [ctypes.c_int]
-        cdll.merge_error_string.restype = ctypes.c_char_p
+def bind(cdll: ctypes.CDLL, sigs) -> None:
+    """Set the ctypes signature of each ``(entry, argtypes, restype)``."""
+    for name, args, res in sigs:
+        fn = getattr(cdll, name)
+        fn.argtypes = args
+        fn.restype = res
+
+
+def lib(name: str = "merge") -> ctypes.CDLL:
+    """The loaded kernel library ``name`` (built on first call). The merge
+    library's entries are bound and its tier limits checked here; the tree
+    library's are bound by its wrapper module (``tree_scan_kernel.lib``)."""
+    if name in _libs:
+        return _libs[name]
+    cdll = ctypes.CDLL(build(name))
+    if name == "merge":
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        bind(cdll, [
+            ("merge_apply", [p, p, p, p, p, p, i, i, i, i, p], i),
+            ("merge_compact", [p, p, p, p, p, i, i, i, p], i),
+            ("merge_apply_compact", [p, p, p, p, p, p, i, i, i, i, p], i),
+            ("merge_work_ints", [i], ll),
+            ("merge_error_string", [i], ctypes.c_char_p),
+        ] + [(f, [], i) for f in (
+            "merge_smem_max_capacity", "merge_cluster_max_capacity",
+            "merge_global_max_capacity", "merge_max_capacity",
+            "merge_split_max_ctas")])
         if (cdll.merge_smem_max_capacity() != SMEM_MAX_CAPACITY
                 or cdll.merge_cluster_max_capacity() != CLUSTER_MAX_CAPACITY
                 or cdll.merge_global_max_capacity() != GLOBAL_MAX_CAPACITY
                 or cdll.merge_max_capacity() != MAX_CAPACITY):
             raise RuntimeError("merge_kernels.cu tier limits != _cuda.py's")
-        _lib = cdll
-    return _lib
+    _libs[name] = cdll
+    return cdll
 
 
 def tier(s: int, entry: str) -> str:
-    """The tier C entry ``entry`` runs tables of ``s`` rows per document
-    on (the same for every entry): ``"smem"`` (the table in one CTA's
-    shared memory) up to :data:`SMEM_MAX_CAPACITY`; ``"cluster"`` (the
-    table split across a thread-block cluster's shared memory) up to
-    :data:`CLUSTER_MAX_CAPACITY`; ``"global"`` (the table in global
-    memory, one CTA a document for K1 and K3) up to
+    """The tier merge entry ``entry`` runs tables of ``s`` rows per
+    document on (the same for every merge entry): ``"smem"`` (the table
+    in one CTA's shared memory) up to :data:`SMEM_MAX_CAPACITY`;
+    ``"cluster"`` (the table split across a thread-block cluster's shared
+    memory) up to :data:`CLUSTER_MAX_CAPACITY`; ``"global"`` (the table
+    in global memory, one CTA a document for K1 and K3) up to
     :data:`GLOBAL_MAX_CAPACITY`; ``"split"`` (the table in global memory,
     a cluster of CTAs a document) up to :data:`MAX_CAPACITY`. Larger
-    tables raise ``ValueError``."""
+    tables raise ``ValueError``, and so does a tree entry."""
     if entry not in ENTRIES:
         raise ValueError(f"unknown kernel entry {entry!r}")
     if s > MAX_CAPACITY:
@@ -140,6 +182,9 @@ def tier(s: int, entry: str) -> str:
             f"capacity tier {s} exceeds the largest kernel tier "
             f"(<= {MAX_CAPACITY} rows per document)"
         )
+    if ENTRIES[entry] != "merge":
+        raise ValueError(f"{entry} runs on the tiers of its widths: "
+                         "tree_scan_kernel.tier")
     if s <= SMEM_MAX_CAPACITY:
         return "smem"
     if s <= CLUSTER_MAX_CAPACITY:

@@ -23,9 +23,12 @@ report a distinct bit.
 
 Every document pushes one state per step, so the ring's write slot is the
 same for the whole batch and known on the host: the ring is circular
-(reads are order-free selects by seq). Steps and attach runs are Python
-loops over batched tensors with ``torch.where`` selects; nothing in a step
-synchronises with the host.
+(reads are order-free selects by seq). On the card a scan is one launch of
+the hand kernel T2 (``ops/tree_scan_kernel.py``, ``csrc/tree_kernels.cu``):
+one CTA per document, the multihots as bitsets. The plain version,
+:func:`batched_em_trunk_scan_ring_plain`, taken for CPU tensors, runs the
+steps and attach runs as Python loops over batched tensors with
+``torch.where`` selects; nothing in a step synchronises with the host.
 
 The sticky per-document ``err`` lane is a BITMASK: bit 0 = the ref fell off
 the ring, bit 1 = capacity overflow, bit 2 = the ring miss crossed a
@@ -50,6 +53,7 @@ from fluidframework_tpu_torch.ops.tree_kernel import (  # noqa: F401
     batch_of_one,
     to_device,
 )
+from fluidframework_tpu_torch.ops.tree_scan_kernel import em_ring_scan_cuda
 from fluidframework_tpu_torch.utils import resolve_device
 
 # err bitmask lanes (sticky, per document).
@@ -129,7 +133,26 @@ def batched_em_trunk_scan_ring(ring_ids, ring_L, ring_seq, mov_seq0,
     leftward, empties seq -1 — so a commit stream may reference states
     behind the trunk head (the steady-streaming shape). ``mov_seq0`` [N]
     seeds the move watermark (-1 = none retained). Returns ``(doc_ids
-    [N, Lc], L [N], err [N])``; the inputs are not modified."""
+    [N, Lc], L [N], err [N])``; the inputs are not modified. On a card it
+    is one launch of T2; on the CPU
+    :func:`batched_em_trunk_scan_ring_plain`."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return batched_em_trunk_scan_ring_plain(ring_ids, ring_L, ring_seq,
+                                                mov_seq0, commits, U, dev)
+    rings = [to_device(x, dev).contiguous()
+             for x in (ring_ids, ring_L, ring_seq, mov_seq0)]
+    cb = EmCommitBatch(*[x.contiguous() for x in em_commits_on(commits,
+                                                               dev)])
+    return em_ring_scan_cuda(*rings, cb, U)
+
+
+def batched_em_trunk_scan_ring_plain(ring_ids, ring_L, ring_seq, mov_seq0,
+                                     commits: EmCommitBatch, U: int,
+                                     device="cuda"):
+    """The plain version of :func:`batched_em_trunk_scan_ring` (the same
+    function, on any device): Python loops over the commits and attach
+    runs over batched tensors."""
     dev = resolve_device(device)
     cb = em_commits_on(commits, dev)
     ring_ids = to_device(ring_ids, dev).clone()

@@ -16,6 +16,12 @@ same for the whole batch and known on the host (``step % W``): the ring is
 circular, with no per-step copy. Move-bearing commits ride the same scan
 (the ring carries the full dense IR, move lanes included).
 
+On the card the whole scan is one launch of the hand kernel T1
+(``ops/tree_scan_kernel.py``, ``csrc/tree_kernels.cu``): one CTA per
+document with its ring on chip. :func:`batched_trunk_scan_plain` is the
+plain PyTorch version of the same function, taken for CPU tensors (and
+held against T1 on the card by ``chip_smoke.py``).
+
 Restriction (matches the generated workload): a commit's refSeq covers all
 of its author's own earlier commits, so every ring entry newer than the ref
 is a concurrent other-session commit.
@@ -35,6 +41,7 @@ from fluidframework_tpu_torch.ops.tree_kernel import (
     rebase_change,
     to_device,
 )
+from fluidframework_tpu_torch.ops.tree_scan_kernel import trunk_scan_cuda
 from fluidframework_tpu_torch.utils import resolve_device
 
 
@@ -77,7 +84,21 @@ def batched_trunk_scan(doc_ids, L, commits: CommitBatch, W: int,
     returns ``(doc_ids [N, Lc], L [N], err [N])``. ``err`` is sticky and
     set when a commit's ``ref`` reaches behind the W-entry ring (the rebase
     chain would be incomplete): callers fall back to the host path for
-    that stream rather than trust the result."""
+    that stream rather than trust the result. On a card it is one launch
+    of T1; on the CPU :func:`batched_trunk_scan_plain`."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return batched_trunk_scan_plain(doc_ids, L, commits, W, dev)
+    cb = CommitBatch(*[x.contiguous() for x in commits_on(commits, dev)])
+    return trunk_scan_cuda(to_device(doc_ids, dev).contiguous(),
+                           to_device(L, dev).contiguous(), cb, W)
+
+
+def batched_trunk_scan_plain(doc_ids, L, commits: CommitBatch, W: int,
+                             device="cuda"):
+    """The plain version of :func:`batched_trunk_scan` (the same function,
+    on any device): a Python loop over the commits, each folded over the
+    ring with the batched dense rebase and applied."""
     dev = resolve_device(device)
     cb = commits_on(commits, dev)
     doc_ids = to_device(doc_ids, dev)

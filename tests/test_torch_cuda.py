@@ -7,12 +7,21 @@ without the suite's conftest, which imports jax:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 from chip_smoke import (
     KERNELS,
+    T1_HOLDS,
+    T2_HOLD_COMMITS,
+    T2_HOLD_DOCS,
+    T2_HOLD_LCS,
     Config6Gen,
     _on_loop,
     _same_states,
@@ -35,8 +44,10 @@ from chip_smoke import (
     replay_and_compare,
     replay_pipeline,
     replay_serving,
+    em_case,
+    hold_tree,
     tree_3b,
-    tree_3c,
+    trunk_case,
 )
 from fluidframework_tpu_torch.ops import _cuda
 from fluidframework_tpu_torch.ops import apply_kernel as K1
@@ -46,6 +57,9 @@ from fluidframework_tpu_torch.service.device_backend import (
 )
 from fluidframework_tpu_torch.service.pipeline import PipelineFluidService
 from fluidframework_tpu_torch.ops import tree_kernel as TK
+from fluidframework_tpu_torch.ops import tree_scan_kernel as TSK
+from fluidframework_tpu_torch.tree import device_em as DEM
+from fluidframework_tpu_torch.tree import device_trunk as DT
 
 
 def _need_card():
@@ -359,11 +373,17 @@ def test_server_on_the_card_matches_the_plain_replay():
 def test_tree_3b_scan_on_the_card_equals_the_cpu():
     """A small 7a: the positional trunk scan under sync-debug "error",
     every distinct script equal to the host trunk, the card equal to the
-    CPU bit for bit, the dense algebra's entry points timed."""
+    CPU bit for bit, the dense algebra's entry points timed. A scan is one
+    launch of T1 and nothing else on the card (the profiler's device
+    activities of one scan)."""
     _need_card()
+    TSK.reset_counts()
     res = tree_3b(torch.device("cuda", 0), n_docs=16, n_commits=24,
-                  scripts=4, cpu_docs=8, cpu_commits=24)
-    assert res["step"]["launches"] > 0
+                  scripts=4, cpu_docs=8)
+    assert res["scan"]["kernel_launches"] == 1
+    assert res["scan"]["launches"] == 1
+    assert TSK.trunk_scan_cuda.launches > 0
+    assert TSK.em_ring_scan_cuda.launches == 0
     assert {f["name"] for f in res["functions"]} == {
         "batched_apply", "batched_rebase", "batched_invert",
         "batched_compose"}
@@ -374,11 +394,90 @@ def test_tree_3b_scan_on_the_card_equals_the_cpu():
 def test_tree_3c_ingest_on_the_card_equals_the_cpu(move_prob):
     """A small 7b: ``batch_ingest`` over ``EditManager(device=cuda)``s,
     parity with the host EditManager, the recorded dispatch's scan under
-    sync-debug "error" and equal to the CPU bit for bit."""
+    sync-debug "error", equal to T2 into sentinel-filled outputs, to the
+    plain version on the card and to the CPU bit for bit. A scan is one
+    launch of T2 and one device activity on the profiler. It runs in a
+    process of its own: after other card work in one process,
+    ``torch.profiler`` records no device activity for T2 (PERF.md §7)."""
     _need_card()
-    res = tree_3c(torch.device("cuda", 0), n_docs=16, n_commits=48,
-                  scripts=4, wave=16, move_prob=move_prob, cpu_docs=8)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import json, torch\n"
+        "import chip_smoke as c\n"
+        "from fluidframework_tpu_torch.ops import tree_scan_kernel as TSK\n"
+        "TSK.reset_counts()\n"
+        "r = c.tree_3c(torch.device('cuda', 0), n_docs=16, n_commits=48, "
+        f"scripts=4, wave=16, move_prob={move_prob!r}, cpu_docs=8)\n"
+        "print('TREE_3C ' + json.dumps(dict(r, t1=TSK.trunk_scan_cuda."
+        "launches, t2=TSK.em_ring_scan_cuda.launches)))\n")
+    run = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         env=dict(os.environ, PYTHONPATH=root),
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
+    res = json.loads(next(x for x in run.stdout.splitlines()
+                          if x.startswith("TREE_3C "))[len("TREE_3C "):])
     assert res["device_commits"] > 0
+    assert res["scan"]["kernel_launches"] == 1
+    assert res["scan"]["launches"] == 1
+    assert res["t2"] >= res["dispatches"] > 0
+    assert res["t1"] == 0
+
+
+def _scan_once(fn, *args, **kw):
+    """``fn`` under sync-debug "error" with the tree counts zeroed first."""
+    TSK.reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hold", T1_HOLDS)
+def test_trunk_scan_kernel_matches_plain_on_the_card(hold):
+    """T1 at each hold shape of the smoke (W 3/8/16, Lc 32-1,024, Pc
+    8/32, moves or none, the ring-window err, N 1/7/1,024, both tiers):
+    the kernel, writing into sentinel-filled outputs, equals its plain
+    version on the card in every lane, and ``batched_trunk_scan`` is one
+    launch on its tier without a host sync."""
+    _need_card()
+    dev = torch.device("cuda", 0)
+    n, c, w, lc, pc, mp, lag_w = hold
+    docs, L0, cb = trunk_case(dev, n, c, lag_w, lc, pc, mp)
+    assert hold_tree(dev, "T1_trunk_scan", (docs, L0, cb, w))[
+        "max_abs_err"] == 0
+    got = _scan_once(DT.batched_trunk_scan, docs, L0, cb, w, device=dev)
+    tier = TSK.tier("tree_trunk_scan", lc, pc, w)
+    assert TSK.trunk_scan_cuda.launches == 1
+    assert getattr(TSK.trunk_scan_cuda, f"launches_{tier}") == 1
+    want = DT.batched_trunk_scan_plain(docs, L0, cb, w, device=dev)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert bool(want[2].any()) == (w < lag_w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lc", T2_HOLD_LCS)
+def test_em_ring_scan_kernel_matches_plain_on_the_card(lc):
+    """T2 at every Lc bucket of ``batch_ingest`` (both tiers; W 16, R 16,
+    all 16 runs on one commit, ring misses with and without a move
+    watermark, an ``ERR_CAPACITY`` overflow): the kernel, writing into
+    sentinel-filled outputs, equals its plain version on the card in
+    every lane, and ``batched_em_trunk_scan_ring`` is one launch without a
+    host sync."""
+    _need_card()
+    dev = torch.device("cuda", 0)
+    rings, cb, U = em_case(dev, T2_HOLD_DOCS, T2_HOLD_COMMITS, lc)
+    assert hold_tree(dev, "T2_em_ring_scan", (*rings, cb, U))[
+        "max_abs_err"] == 0
+    got = _scan_once(DEM.batched_em_trunk_scan_ring, *rings, cb, U,
+                     device=dev)
+    assert TSK.em_ring_scan_cuda.launches == 1
+    want = DEM.batched_em_trunk_scan_ring_plain(*rings, cb, U, device=dev)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    err = want[2].tolist()
+    assert err[1] & DEM.ERR_MOVE_EVICTED and err[-1] & DEM.ERR_CAPACITY
+    assert err[4] & DEM.ERR_RING_MISS and not err[4] & DEM.ERR_MOVE_EVICTED
 
 
 @pytest.mark.cuda
