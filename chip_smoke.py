@@ -88,10 +88,14 @@ log and lease coordination (``g++``), all at once, then:
 7. SharedTree rebase path — the hand kernels T1 (the positional trunk
    scan) and T2 (the EditManager ring scan) of ``csrc/tree_kernels.cu``,
    one launch a scan: 7h holds each against its plain version on the
-   card at edge shapes (T1 at W 3/8/16, Lc 32/128/512, Pc 8/32, moves or
-   none, the ring-window err, N 1/7/1,024; T2 at every Lc bucket from 32
-   to 4,096 with R 16, ring misses with and without a move watermark and
-   a capacity overflow; both tiers) under
+   card at edge shapes (T1 at W 3/8/16, Lc 32/128/512/1,024, Pc 8/32,
+   moves or none, the ring-window err, N 1/7/1,024; T2 at every Lc bucket
+   from 32 to 4,096 with R 16, ring misses with and without a move
+   watermark and a capacity overflow, at 7 documents and at one), at
+   7a's and 7b's shapes and across the document counts where the warp
+   tier meets the CTA tiers, each shape on every tier that takes it (the
+   warp tier with its ring in the slice and in the workspace, the shared
+   and global tiers) and timed there on the same inputs, under
    ``torch.cuda.set_sync_debug_mode("error")``; 7a config 3b,
    ``batched_trunk_scan`` over 1,024 docs (Lc 128, Pc 32, W 16) staged
    on the card once, a warm-up and 3 timed scans, every distinct script
@@ -102,9 +106,10 @@ log and lease coordination (``g++``), all at once, then:
    config 3 through ``ContainerRuntime`` + ``SharedTree(device=cuda)``,
    replicas converged (its commits take the host path). The scans run
    under sync-debug "error" and are held bit for bit to the same function
-   on the CPU for 16 documents; each sub-path's T1/T2 launches are
-   counted, and a scan's launches and device time come from the kernels'
-   counts and ``torch.profiler``;
+   on the CPU for 16 documents, and 7a's and 7b's scans again on every
+   tier (held and timed, outside the counts); each sub-path's T1/T2
+   launches are counted, and a scan's launches and device time come from
+   the kernels' counts and ``torch.profiler``;
 8. client merge path — under ``torch.cuda.set_sync_debug_mode("warn")``:
    8a config 1 (``config1_single_doc_replay``): the 10,000-op author with
    ``SharedString(device=cuda)``, readers replaying its deltas log through
@@ -367,15 +372,20 @@ KERNELS = {
 # the counterpart of a jitted XLA scan of the reference (no pl.pallas_call).
 TREE_KERNELS = {
     "T1_trunk_scan": dict(
-        wrapper=TSK.trunk_scan_cuda, plain=DT.batched_trunk_scan_plain,
+        wrapper=TSK.trunk_scan_cuda, on=TSK.trunk_scan_on, entry=TSK.T1,
+        plain=DT.batched_trunk_scan_plain,
         replaces="fluidframework_tpu/tree/device_trunk.py:161",
     ),
     "T2_em_ring_scan": dict(
-        wrapper=TSK.em_ring_scan_cuda,
+        wrapper=TSK.em_ring_scan_cuda, on=TSK.em_ring_scan_on, entry=TSK.T2,
         plain=DEM.batched_em_trunk_scan_ring_plain,
         replaces="fluidframework_tpu/tree/device_em.py:129",
     ),
 }
+# Every (tier, ring) a tree kernel may run on: the warp tier with its ring
+# in the document's shared-memory slice or in the workspace, the CTA tiers.
+TREE_TIER_OPTIONS = tuple(("warp", r) for r in TSK.RINGS) + tuple(
+    (t, None) for t in TSK.TIER_CODES if t != "warp")
 
 
 class RoundGen:
@@ -2857,7 +2867,7 @@ def tree_3b(dev, n_docs=1024, n_commits=TREE_7A_COMMITS,
         prof = _scan_launches(dev, scan)
         event_ms = _event_ms(dev, scan, reps=5)
         prefix_ms = _event_ms(dev, lambda: scan(pre), reps=5)
-        plain_ms = None
+        plain_ms = prefix_tiers = scan_tiers = None
         if dev.type == "cuda":
             # The prefix of the whole batch against T1's plain version.
             got = TSK.trunk_scan_cuda(docs, L0, pre, W,
@@ -2868,6 +2878,12 @@ def tree_3b(dev, n_docs=1024, n_commits=TREE_7A_COMMITS,
             _sync(dev)
             plain_ms = (time.perf_counter() - t0) * 1e3
             _held(got, want, "7a T1 vs plain")
+            # Every tier on the same inputs: the prefix against the plain
+            # version, the whole scan against the main path's result.
+            prefix_tiers = tiers_held(dev, "T1_trunk_scan",
+                                      (docs, L0, pre, W), want, "7a prefix")
+            scan_tiers = tiers_held(dev, "T1_trunk_scan",
+                                    (docs, L0, batch, W), out, "7a scan")
             del got, want
         # The same function on the CPU for cpu_docs documents of the
         # prefix, bit for bit.
@@ -2900,12 +2916,15 @@ def tree_3b(dev, n_docs=1024, n_commits=TREE_7A_COMMITS,
         Lc=Lc, Pc=Pc, staged_gb=staged_gb, gen_s=gen_s, warm_s=warm_s,
         scan_s=times, edits_per_sec=rate, ms_per_scan=scan_ms,
         event_ms_per_scan=event_ms, us_per_step=event_ms * 1e3 / n_commits,
-        scan=prof, tier=TSK.tier("tree_trunk_scan", Lc, Pc, W),
+        scan=prof,
+        tier=tier_label(*tree_options("T1_trunk_scan",
+                                      (docs, L0, batch, W))[0]),
         cpu_trunk_edits_per_sec=cpu_rate, scan_bytes=b,
         scan_bound_ms=b / HBM_BYTES_PER_S * 1e3,
         prefix_commits=plain_commits, prefix_event_ms=prefix_ms,
         plain_ms_per_prefix=plain_ms,
         prefix_bound_ms=b_pre / HBM_BYTES_PER_S * 1e3,
+        prefix_tiers=prefix_tiers, scan_tiers=scan_tiers,
         cpu_check=f"{cpu_docs} docs x {plain_commits} commits",
         functions=fns)
     print(f"7a config 3b: {rate:,.0f} edits/s, {scan_ms:.2f} ms a scan of "
@@ -2917,7 +2936,15 @@ def tree_3b(dev, n_docs=1024, n_commits=TREE_7A_COMMITS,
           f"plain {plain_ms} ms; warm-up {warm_s:.1f} s, streams "
           f"{gen_s:.1f} s, staged {staged_gb:.2f} GB, host trunk "
           f"{cpu_rate:,.0f} edits/s", flush=True)
+    if scan_tiers:
+        print("7a T1 on every tier (ms): the first "
+              f"{plain_commits} commits {_tier_ms(prefix_tiers)}; the whole "
+              f"scan {_tier_ms(scan_tiers)}", flush=True)
     return res
+
+
+def _tier_ms(tiers) -> str:
+    return ", ".join(f"{k} {v['ms']:.4f}" for k, v in tiers.items())
 
 
 def em_stream(seed: int, n: int, move_prob: float = 0.0):
@@ -3086,7 +3113,7 @@ def tree_3c(dev, n_docs=1024, n_commits=512, scripts=16, wave=128,
 
         prof = _scan_launches(dev, rescan)
         event_ms = _event_ms(dev, rescan, reps=5)
-        plain_ms = None
+        plain_ms = scan_tiers = None
         if dev.type == "cuda":
             # The whole dispatch against T2's plain version on the card,
             # T2 run again into sentinel-filled outputs (a reused block
@@ -3101,6 +3128,8 @@ def tree_3c(dev, n_docs=1024, n_commits=512, scripts=16, wave=128,
             plain_ms = (time.perf_counter() - t0) * 1e3
             _held(got, want, "7b T2 vs plain")
             _held(out, want, "7b T2 (the dispatch under sync-debug)")
+            scan_tiers = tiers_held(dev, "T2_em_ring_scan",
+                                    (*rings, mov_t, staged, U), want, "7b")
             del got, want
         got = _host_lanes(scan(cpu_docs))
     want = _host_lanes(scan(cpu_docs, device=torch.device("cpu")))
@@ -3136,9 +3165,9 @@ def tree_3c(dev, n_docs=1024, n_commits=512, scripts=16, wave=128,
                         Pc=lanes[2].shape[2], R=lanes[3].shape[2], U=U),
         scan_only_ms=scan_only_s * 1e3, single_base_scan_ms=single_ms,
         event_ms_per_scan=event_ms, plain_ms_per_scan=plain_ms,
-        us_per_step=event_ms * 1e3 / C, scan=prof,
-        tier=TSK.tier("tree_em_ring_scan", ring_ids.shape[2],
-                      lanes[2].shape[2], W, lanes[3].shape[2], U),
+        us_per_step=event_ms * 1e3 / C, scan=prof, scan_tiers=scan_tiers,
+        tier=tier_label(*tree_options("T2_em_ring_scan",
+                                      (*rings, mov_t, staged, U))[0]),
         scan_bytes=b, scan_bound_ms=b / HBM_BYTES_PER_S * 1e3,
         cpu_em_edits_per_sec=cpu_rate,
         cpu_check=f"{cpu_docs} docs x {C} commits")
@@ -3155,6 +3184,8 @@ def tree_3c(dev, n_docs=1024, n_commits=512, scripts=16, wave=128,
           f"fallbacks {reasons}, scan shape {res['scan_shape']}, warm-up "
           f"{warm_s:.1f} s, streams {gen_s:.1f} s, host EM "
           f"{cpu_rate:,.0f} edits/s", flush=True)
+    if scan_tiers:
+        print(f"7b T2 on every tier (ms): {_tier_ms(scan_tiers)}", flush=True)
     return res
 
 
@@ -3322,13 +3353,65 @@ def em_case(dev, n_docs, n_commits, lc, W=16, R=16, seed=0, U=None):
     return rings, cb, U
 
 
+def _tree_shape(name, args):
+    """``(Lc, Pc, W, R, U, N)`` of tree kernel ``name``'s arguments."""
+    if name == "T1_trunk_scan":
+        docs, _, cb, W = args
+        return docs.shape[1], cb[2].shape[2], W, 0, 1, docs.shape[0]
+    ring_ids, _, _, _, cb, U = args
+    return (ring_ids.shape[2], cb[2].shape[2], ring_ids.shape[1],
+            cb[3].shape[2], int(U), ring_ids.shape[0])
+
+
+def tier_label(t, ring) -> str:
+    return f"{t}/{ring}" if ring else t
+
+
+def tree_options(name, args) -> list:
+    """``(tier, ring)`` of every tier that takes tree kernel ``name``'s
+    shape at ``args`` (:data:`TREE_TIER_OPTIONS`), the wrapper's own pick
+    (``tier()``, ``warp_ring()``) first."""
+    entry = TREE_KERNELS[name]["entry"]
+    lc, pc, W, R, U, n = _tree_shape(name, args)
+    t = TSK.tier(entry, lc, pc, W, R, U, n)
+    chosen = (t, TSK.warp_ring(entry, lc, pc, W, R, U, n) if t == "warp"
+              else None)
+    return [chosen] + [o for o in TREE_TIER_OPTIONS if o != chosen
+                       and TSK.placement(entry, lc, pc, W, U, o[0], R, o[1])
+                       is not None]
+
+
+def tiers_held(dev, name, args, want, what: str, reps=5) -> dict:
+    """Tree kernel ``name`` on every tier that takes its shape
+    (:func:`tree_options`), each under sync-debug "error" into
+    sentinel-filled outputs and held against ``want`` in every lane;
+    ``{tier label: {ms, max_abs_err}}`` with the CUDA-event ms (median of
+    ``reps``) on the same inputs, the wrapper's pick first. Launches made
+    here count nowhere."""
+    spec = TREE_KERNELS[name]
+    rows = {}
+    with _Uncounted():
+        for t, ring in tree_options(name, args):
+            lab = tier_label(t, ring)
+            got = _no_sync(dev, spec["on"], t, ring, *args,
+                           out=_sentinel_out(args[0], dev))
+            err = _held(got, want, f"{what} on {lab}")
+            del got
+            rows[lab] = dict(ms=_event_ms(
+                dev, lambda: spec["on"](t, ring, *args), reps),
+                max_abs_err=err)
+    return rows
+
+
 def hold_tree(dev, name, args, reps=5) -> dict:
-    """Run tree kernel ``name`` under sync-debug "error" into
-    sentinel-filled outputs and its plain version on the same inputs on the
-    card; assert every lane equal (:func:`_held`); return the row: tier,
-    max_abs_err, CUDA-event ms of the kernel (median of ``reps``) and of
-    one plain run, the byte floor (inputs read once, outputs written
-    once)."""
+    """Run tree kernel ``name`` (the wrapper, on the tier ``tier()``
+    picks) under sync-debug "error" into sentinel-filled outputs and its
+    plain version on the same inputs on the card; assert every lane equal
+    (:func:`_held`), and every other tier that takes the shape too
+    (:func:`tiers_held`); return the row: tier and ring, max_abs_err,
+    CUDA-event ms of the kernel (median of ``reps``) and of one plain run,
+    the byte floor (inputs read once, outputs written once), each tier's
+    ms and error (``tiers``) and the fastest."""
     spec = TREE_KERNELS[name]
     with _Uncounted():
         got = _no_sync(dev, spec["wrapper"], *args,
@@ -3342,52 +3425,83 @@ def hold_tree(dev, name, args, reps=5) -> dict:
         plain_ms = a.elapsed_time(b)
         err = _held(got, want, name)
         ms = _event_ms(dev, lambda: spec["wrapper"](*args), reps)
+    tiers = tiers_held(dev, name, args, want, name, reps)
+    t, ring = tree_options(name, args)[0]
     nbytes = _nbytes(*args[:-2], *args[-2]) + _nbytes(*got)
-    return dict(kernel=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+    return dict(kernel=name, tier=t, ring=ring,
+                max_abs_err=max([err] + [r["max_abs_err"]
+                                         for r in tiers.values()]),
+                ms=ms, plain_ms=plain_ms, bytes=nbytes,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, tiers=tiers,
+                fastest=min(tiers, key=lambda k: tiers[k]["ms"]),
                 err_lane=_host_lanes([want[2]])[0].tolist())
+
+
+# 7h's holds at the main paths' shapes, each timing every tier on the same
+# inputs: T1 at 7a's (1,024 docs x the 125 commits 7a holds against the
+# plain version, Lc 128, Pc 32, W 16, gen_streams' lanes) and T2 at 7b's
+# (1,024 docs x 128 commits, Lc 512, W 16, R 16, em_case's lanes); and T2
+# at N = 1, the EditManager's one-document dispatch, at every bucket.
+T1_MAIN_HOLD = (1024, TREE_PLAIN_COMMITS, TREE_W, TREE_LC, TREE_PC, 0.0,
+                TREE_W)
+T2_MAIN_HOLD = (1024, 128, 512)
+# 7h's document-count sweep where the warp tier meets the CTA tiers, on
+# both sides of each threshold of tree_scan_kernel.WARP_MIN_DOCS: T1 at
+# Lc 512 from 256 documents; T2 at Lc 256 from 1,024, at Lc 512 from 512,
+# never at Lc 128 or 1,024.
+T1_SWEEP = tuple((n, 40, TREE_W, lc, TREE_PC, 0.0, TREE_W)
+                 for n, lc in ((128, 512), (256, 512), (256, 128)))
+T2_SWEEP = tuple((n, T2_HOLD_COMMITS, lc)
+                 for n, lc in ((528, 256), (1024, 256), (256, 512),
+                               (528, 512), (1024, 128), (1024, 1024)))
 
 
 def tree_holds(dev) -> list:
     """T1 and T2 against their plain versions on the card at the edge
-    shapes (``T1_HOLDS``, ``T2_HOLD_LCS``: both tiers of each), under
-    sync-debug "error"; the T1 ring-window err and T2's three err bits
-    must show where the inputs call for them."""
+    shapes (``T1_HOLDS``, ``T2_HOLD_LCS``), the main paths' shapes
+    (``T1_MAIN_HOLD``, ``T2_MAIN_HOLD``) and T2 at one document a launch,
+    each on every tier that takes the shape, under sync-debug "error";
+    the T1 ring-window err and T2's three err bits must show where the
+    inputs call for them, and each kernel's holds must reach every tier."""
     rows = []
-    for (n, c, w, lc, pc, mp, lag_w) in T1_HOLDS:
+    for (n, c, w, lc, pc, mp, lag_w) in T1_HOLDS + (T1_MAIN_HOLD,) + T1_SWEEP:
         docs, L0, cb = trunk_case(dev, n, c, lag_w, lc, pc, mp)
         r = hold_tree(dev, "T1_trunk_scan", (docs, L0, cb, w))
-        r.update(docs=n, commits=c, W=w, Lc=lc, Pc=pc, move_prob=mp,
-                 tier=TSK.tier("tree_trunk_scan", lc, pc, w))
+        r.update(docs=n, commits=c, W=w, Lc=lc, Pc=pc, move_prob=mp)
         if (w < lag_w) != any(r["err_lane"]):
             raise AssertionError(f"T1 hold {r}: the ring-window err lane")
         rows.append(r)
-    for lc in T2_HOLD_LCS:
-        rings, cb, U = em_case(dev, T2_HOLD_DOCS, T2_HOLD_COMMITS, lc)
+        del docs, L0, cb
+    for n, c, lc in ([(T2_HOLD_DOCS, T2_HOLD_COMMITS, lc)
+                      for lc in T2_HOLD_LCS] + [T2_MAIN_HOLD]
+                     + [(1, T2_HOLD_COMMITS, lc) for lc in T2_HOLD_LCS]
+                     + list(T2_SWEEP)):
+        rings, cb, U = em_case(dev, n, c, lc)
         r = hold_tree(dev, "T2_em_ring_scan", (*rings, cb, U))
         pc, R = cb.ins_ids.shape[2], cb.run_start.shape[2]
-        r.update(docs=T2_HOLD_DOCS, commits=T2_HOLD_COMMITS, W=16, Lc=lc,
-                 Pc=pc, R=R, U=U,
-                 tier=TSK.tier("tree_em_ring_scan", lc, pc, 16, R, U))
+        r.update(docs=n, commits=c, W=16, Lc=lc, Pc=pc, R=R, U=U)
         e = r["err_lane"]
-        if not (e[1] & DEM.ERR_MOVE_EVICTED and e[4] & DEM.ERR_RING_MISS
-                and not e[4] & DEM.ERR_MOVE_EVICTED
-                and e[-1] & DEM.ERR_CAPACITY):
-            raise AssertionError(f"T2 hold at Lc {lc}: err lane {e}")
+        if not (e[-1] & DEM.ERR_CAPACITY and (n == 1 or (
+                e[1] & DEM.ERR_MOVE_EVICTED and e[4] & DEM.ERR_RING_MISS
+                and not e[4] & DEM.ERR_MOVE_EVICTED))):
+            raise AssertionError(f"T2 hold at N {n}, Lc {lc}: err lane {e}")
         rows.append(r)
+        del rings, cb
     for name, entry in (("T1_trunk_scan", "tree_trunk_scan"),
                         ("T2_em_ring_scan", "tree_em_ring_scan")):
-        if {r["tier"] for r in rows if r["kernel"] == name} != set(
-                TSK.TIER_CODES):
+        if {lab.split("/")[0] for r in rows if r["kernel"] == name
+                for lab in r["tiers"]} != set(TSK.TIER_CODES):
             raise AssertionError(f"{name}'s holds miss a tier of {entry}")
     for r in rows:
         r.pop("err_lane")
-        print(f"tree hold {r['kernel']} {r['tier']} N {r['docs']} C "
-              f"{r['commits']} W {r['W']} Lc {r['Lc']} Pc {r['Pc']}"
-              f"{' U ' + str(r['U']) if 'U' in r else ''}: "
+        print(f"tree hold {r['kernel']} {tier_label(r['tier'], r['ring'])}"
+              f" N {r['docs']} C {r['commits']} W {r['W']} Lc {r['Lc']} Pc "
+              f"{r['Pc']}{' U ' + str(r['U']) if 'U' in r else ''}: "
               f"{r['ms']:.4f} ms (plain {r['plain_ms']:.1f} ms, bound "
-              f"{r['bound_ms']:.5f} ms), max_abs_err {r['max_abs_err']}",
-              flush=True)
+              f"{r['bound_ms']:.5f} ms), max_abs_err {r['max_abs_err']}; "
+              f"every tier: " + ", ".join(
+                  f"{k} {v['ms']:.4f}" for k, v in r["tiers"].items())
+              + f" (fastest {r['fastest']})", flush=True)
     return rows
 
 
@@ -6632,13 +6746,22 @@ def tree_kernel_rows(tree, load, framework) -> list:
             "main_shape": {
                 "n_docs": m["n_docs"], "tier": m["tier"],
                 "commits": m.get("prefix_commits", m["commits_per_doc"]),
+                "tiers_ms": {k: v["ms"] for k, v in (
+                    m.get("prefix_tiers") or m.get("scan_tiers")
+                    or {}).items()},
                 **({"whole_scan": {"commits": m["commits_per_doc"],
                                    "ms": b3["event_ms_per_scan"],
-                                   "bound_ms": b3["scan_bound_ms"]}}
+                                   "bound_ms": b3["scan_bound_ms"],
+                                   "tiers_ms": {k: v["ms"] for k, v in (
+                                       b3.get("scan_tiers") or {}).items()}}}
                    if m is main["T1_trunk_scan"] else {})},
-            "holds": [{k: r[k] for k in ("tier", "docs", "commits", "W",
-                                         "Lc", "Pc", "ms", "plain_ms",
-                                         "bound_ms")} for r in holds],
+            "holds": [{**{k: r[k] for k in ("tier", "ring", "docs",
+                                            "commits", "W", "Lc", "Pc", "ms",
+                                            "plain_ms", "bound_ms",
+                                            "fastest")},
+                       "tiers_ms": {k: v["ms"]
+                                    for k, v in r["tiers"].items()}}
+                      for r in holds],
         })
     return rows
 

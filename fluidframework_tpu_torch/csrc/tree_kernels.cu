@@ -9,23 +9,21 @@
 //       (jit over vmap of a lax.scan; a fori_loop over the R attach runs,
 //       an associative_scan cummax)
 // The reference compiles each dispatch into one device program; here each
-// dispatch is one launch: one CTA per document, the document's whole
-// C-commit stream inside it, every per-commit step a handful of block
-// phases separated by __syncthreads.
+// dispatch is one launch, the document's whole C-commit stream inside it.
 //
 // The dense IR (ops/tree_kernel.py) as device functions: _prefix and
-// _pool_positions become two or three block prefix sums in one pass
-// (block_scan), _apply (apply_change) and rebase_change (c_after=False, the
-// only form the scans use) become phases of per-thread strided loops over
-// the Lc slots, Lc + 1 boundaries and Pc pool atoms. Every transport keeps
-// the plain version's semantics, so the result matches it bit for bit in
-// every int32 lane: a position outside [0, size) is dropped; several
-// writers to one slot sum (atomicAdd on ints: order-free, so exact); a
-// gather outside the range reads 0; sums and prefix sums wrap as int32;
-// multihots drop ids outside [0, U) and never hold id 0; output slots past
-// Lc are dropped while L still counts them. The attach pool's boundary of
-// atom k (#{b : bcum[b] <= k}) is a binary search when the prefix sum came
-// out non-decreasing (block_scan reports it) and a count otherwise.
+// _pool_positions become two or three prefix sums in one pass, _apply
+// (apply_change) and rebase_change (c_after=False, the only form the scans
+// use) become phases of strided loops over the Lc slots, Lc + 1 boundaries
+// and Pc pool atoms. Every transport keeps the plain version's semantics,
+// so the result matches it bit for bit in every int32 lane: a position
+// outside [0, size) is dropped; several writers to one slot sum (atomicAdd
+// on ints: order-free, so exact); a gather outside the range reads 0; sums
+// and prefix sums wrap as int32; multihots drop ids outside [0, U) and
+// never hold id 0; output slots past Lc are dropped while L still counts
+// them. The attach pool's boundary of atom k (#{b : bcum[b] <= k}) is a
+// binary search when the prefix sum came out non-decreasing (the scan
+// reports it) and a count otherwise.
 //
 // Layout (int32, C-contiguous, the plain versions' lanes):
 //   T1  doc_ids [N, Lc], L [N]; commit lanes del/mid/moff [N, C, Lc],
@@ -35,29 +33,57 @@
 //       lanes dm/mv [N, C, Lc], ic [N, C, Lc+1], ii [N, C, Pc],
 //       rs/rl/ro [N, C, R], refs/seqs [N, C]; out as T1.
 //
+// What bounds them. The work per commit is O(W * (Lc + Pc)) int ops for T1
+// (one rebase per active ring entry) and O(Lc + R * Lc) for T2, and the
+// bytes are the commit lanes read once: at the scans' batch sizes the card
+// is far from both peaks (T1 at config 3b: 39x its byte floor on the CTA
+// tiers, 15x on the warp tier). Each commit depends on the one before, so
+// the time is the commit loop's latency. clock64() stamps (the repository's
+// tools/tree_scan_profile.py) put a CTA's waits at __syncthreads at 2-4% of
+// its cycles: the phases' own chains of shared-memory accesses, the
+// commit's lane loads (19-28%) and a second wave of CTAs (as long as the
+// first at configs 3b and 3c) take the time. The warp tier answers those:
+// a document on one warp, so 8 share an SM and 1,024 run in one wave; the
+// next commit's lanes staged while the current one computes; T1's newest
+// ring entries cached in the slice. A warp is slower than a CTA on a lone
+// wide document, so tree_scan_kernel.tier gives it a launch only where the
+// CTA tiers would fill the card. Tensor cores do not apply: the work is
+// int32 prefix sums, scatters and compares with wrap-around; there is no
+// product for wgmma, and int8 MMA cannot hold int32 sums exactly.
+//
 // Tiers. Each kernel's per-document state is two regions: the ring (T1:
 // W changesets of 4 Lc + 1 + 3 Pc ints plus L and seq; T2: W states of Lc
 // ids plus L and seq) and the rest (the incoming change, the document, the
 // prefix sums and pool scratch; T2 also its multihot bitset of U bits).
-//   - shared: both regions in dynamic shared memory (up to SMEM_BYTES, the
-//     227 KB a CTA may opt in to less this file's static shared memory).
-//     T1 at config 3b's widths (Lc 128, Pc 32, W 16): 47,572 bytes; T2 at
-//     the EditManager's bucket of config 3c (Lc 512, W 16, U 512): 47,304.
-//   - global: the ring in a per-document slice of a device workspace the
-//     wrapper allocates (read again every commit, so it stays in L2 at the
-//     batch sizes the scans run), the rest in shared memory if it fits and
-//     in the workspace after the ring otherwise. Every access goes through
-//     a generic pointer, so one body of code serves both tiers, and
-//     __syncthreads orders the global accesses of the block as it does the
-//     shared ones.
-//
-// Bound. The work per commit is O(W * (Lc + Pc)) int ops and a few dozen
-// block barriers per active ring entry (T1) or attach run (T2); the bytes
-// are the commit lanes read once. At the scans' batch sizes the card is far
-// from both peaks: the kernels are bound by the sequential commit loop's
-// barrier latency, which the design keeps low by holding the ring and the
-// scratch on chip and skipping inactive ring entries and empty runs (a
-// uniform branch per CTA: the plain version computes them and selects).
+//   - warp: one warp a document, D documents a CTA (each in its own slice
+//     of the dynamic shared memory), so a phase ends at a __syncwarp and no
+//     block barrier runs in the commit loop. Prefix sums are warp scans
+//     (per-lane chunk sums and __shfl_up_sync; the non-decreasing flag a
+//     __reduce_or_sync), the move loops warp-cooperative (each lane tests
+//     its own slots or atoms, __ballot_sync picks the atoms or slots to
+//     resolve and __reduce_add_sync / __any_sync combine, in the same
+//     wrap-around int32 sums), T2's anchor cummax and anchor position warp
+//     reductions. The next commit's lanes are staged into a second buffer
+//     of the slice by cp.async while the current one computes (4 bytes a
+//     copy: the lanes' rows of Lc + 1, Pc and R ints are not 16-byte
+//     aligned in general, and 16-byte copies into a padded layout measured
+//     slower). The ring lies in the slice (ring_g 0) or in the document's
+//     workspace (ring_g 1); there T1 keeps its newest entries in the slice
+//     too, stages each older entry it folds while the one before folds,
+//     and T2 stages the author view it reads.
+//   - shared: one CTA a document, both regions in dynamic shared memory (up
+//     to SMEM_BYTES, the 227 KB a CTA may opt in to less this file's static
+//     shared memory), every phase closed by __syncthreads.
+//   - global: as shared, with the ring in a per-document slice of a device
+//     workspace the wrapper allocates (read again every commit, so it stays
+//     in L2 at the batch sizes the scans run), the rest in shared memory if
+//     it fits and in the workspace after the ring otherwise. Every access
+//     goes through a generic pointer, so one body of code serves both CTA
+//     tiers, and __syncthreads orders the global accesses of the block as
+//     it does the shared ones.
+// The CTA tiers skip inactive ring entries and empty runs (a uniform branch
+// per CTA; the plain version computes them and selects), as the warp tier
+// does per warp.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -79,6 +105,15 @@ constexpr int MIN_THREADS = 128;
 constexpr int MAX_THREADS = 512;
 constexpr int T_SHARED = 0;
 constexpr int T_GLOBAL = 1;
+// The warp tier, its ring in the slice or in the workspace.
+constexpr int T_WARP = 2;
+constexpr int T_WARP_RING_G = 3;
+// Documents (warps) a CTA of the warp tier holds at most.
+constexpr int WARP_MAX_D = 8;
+// Ring entries T1's warp tier caches in the slice at most, with its ring in
+// the workspace.
+constexpr int WARP_CACHE_MAX = 8;
+constexpr unsigned FULL = 0xffffffffu;
 // block_scan's scratch: 32 partial sums for each of up to 3 arrays, then
 // the flag word at a fixed slot, so scans of different widths never race.
 constexpr int SCAN_ARRAYS = 3;
@@ -346,18 +381,23 @@ __device__ int apply_change(const int *doc, const int L, const Ch c,
 }
 
 // Where a kernel's two regions live: in dynamic shared memory or in the
-// document's slice of the workspace, at an int offset.
+// document's slice of the workspace, at an int offset. The warp tier gives
+// each of its `docs` documents a `slice` of shared-memory ints (the rest,
+// and the ring unless ring_g).
 struct Place {
   long long work_ints;  // per document
   long long ring_off, rest_off;
   int ring_g, rest_g;
+  long long slice;
+  int docs;   // documents a CTA: 1 on the CTA tiers
+  int cache;  // T1's warp tier: the newest ring entries kept in the slice
 };
 
 struct TrunkArgs {
   const int *doc_in, *L_in, *del, *ins, *ids, *mid, *moff, *pmid, *poff,
       *ref, *seq;
   int *doc_out, *L_out, *err_out, *work;
-  int C, Lc, Pc, W;
+  int N, C, Lc, Pc, W;
   Place pl;
 };
 
@@ -475,7 +515,7 @@ struct EmArgs {
   const int *ring_ids, *ring_L, *ring_seq, *mov0, *dm, *ic, *ii, *rs, *rl,
       *ro, *refs, *seqs, *mv;
   int *doc_out, *L_out, *err_out, *work;
-  int C, Lc, Pc, W, R, U;
+  int N, C, Lc, Pc, W, R, U;
   Place pl;
 };
 
@@ -694,6 +734,711 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
 }
 
+// -- the warp tier: one warp a document -------------------------------------
+
+// Asynchronous 4-byte copies from device memory into shared memory
+// (cp.async): the next commit's lanes, and with the ring in the workspace
+// the next ring entry, land while the warp computes. 4 bytes a copy: the
+// lanes' rows (Lc + 1, Pc and R ints) are not 16-byte aligned in general.
+__device__ __forceinline__ void cp_async4(int *smem, const int *gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `pending` of this thread's newest copy groups are in
+// flight (0 or 1).
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Start copying n ints from src to the slice at dst, lane j taking ints j,
+// j + 32, ... (the mapping every writer of the ring uses too, so a lane
+// re-reads what it wrote itself).
+__device__ __forceinline__ void stage(int *dst, const int *src, int n,
+                                      int lane) {
+  for (int j = lane; j < n; j += 32) cp_async4(dst + j, src + j);
+}
+
+// block_scan for one warp over its slice: inclusive int32 prefix sums of K
+// arrays of n ints in place; bit q set where array q did not come out
+// non-decreasing. Each lane sums a contiguous chunk, the chunk totals are
+// scanned with shuffles, each chunk is rewritten from its offset. Ends with
+// __syncwarp.
+template <int K>
+__device__ unsigned warp_scan(int *const (&a)[K], int n) {
+  const int lane = threadIdx.x & 31;
+  const int per = (n + 31) >> 5;
+  const int lo = min(n, lane * per), hi = min(n, lo + per);
+  unsigned s[K], run[K];
+#pragma unroll
+  for (int q = 0; q < K; ++q) s[q] = 0;
+  for (int j = lo; j < hi; ++j) {
+#pragma unroll
+    for (int q = 0; q < K; ++q) s[q] += (unsigned)a[q][j];
+  }
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    unsigned v = s[q];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned y = __shfl_up_sync(FULL, v, d);
+      if (lane >= d) v += y;
+    }
+    run[q] = v - s[q];
+  }
+  unsigned bad = 0;
+  int prev[K];
+#pragma unroll
+  for (int q = 0; q < K; ++q) prev[q] = (int)run[q];
+  for (int j = lo; j < hi; ++j) {
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      run[q] += (unsigned)a[q][j];
+      if (j > 0 && (int)run[q] < prev[q]) bad |= 1u << q;
+      prev[q] = (int)run[q];
+      a[q][j] = (int)run[q];
+    }
+  }
+  __syncwarp();
+  return __reduce_or_sync(FULL, bad);
+}
+
+// rebase() for one warp: the same phases with __syncwarp between them. The
+// landing position of each of o's slots is scattered as soon as it is
+// known; a slot that o moved takes the sum of its move tag's live atoms,
+// every lane summing its own atoms. A move-in atom of c dies where o
+// deleted its source slot, every lane testing its own slots.
+__device__ void rebase_w(const Ch c, const Ch o, const int L, const Ch out,
+                         const int E, const Scratch s, const int Lc,
+                         const int Pc) {
+  const int lane = threadIdx.x & 31;
+  for (int b = lane; b <= Lc; b += 32) {
+    if (b < Lc)
+      s.dex[b + 1] = max(o.del[b], (int)(o.mid[b] > 0)) * (int)(b < L);
+    else
+      s.dex[0] = 0;
+    s.bcum[b] = o.ins[b] * (int)(b <= L);
+    s.cbcum[b] = c.ins[b] * (int)(b <= L);
+  }
+  for (int j = lane; j < E; j += 32) out.del[j] = 0;  // the whole output
+  __syncwarp();
+  int *const arrs[3] = {s.dex, s.bcum, s.cbcum};
+  const unsigned bad = warp_scan<3>(arrs, Lc + 1);
+  const bool o_mono = !(bad & 2u), c_mono = !(bad & 4u);
+  const int o_total = s.bcum[Lc], c_total = s.cbcum[Lc];
+  for (int k = lane; k < Pc; k += 32) {
+    const int ob = count_leq(s.bcum, Lc + 1, k, o_mono);
+    s.kpos[k] = wadd(wsub(ob, s.dex[clampi(ob, 0, Lc)]), k);
+    const int cb = clampi(count_leq(s.cbcum, Lc + 1, k, c_mono), 0, Lc);
+    const int oicnt = o.ins[cb] * (int)(cb <= L);
+    s.kb[k] = wsub(wadd(wsub(cb, s.dex[cb]), s.bcum[cb]), oicnt);
+  }
+  __syncwarp();
+  for (int i0 = 0; i0 < Lc; i0 += 32) {
+    const int i = i0 + lane;
+    const bool ov = i < Lc && i < L;
+    int tp = -1;
+    bool moved = false;
+    if (ov) {
+      const int om = o.mid[i];
+      if (max(o.del[i], (int)(om > 0)) == 0)
+        tp = wadd(wsub(i, s.dex[i]), s.bcum[i]);
+      else
+        moved = om > 0;
+    }
+    for (unsigned pend = __ballot_sync(FULL, moved); pend;
+         pend &= pend - 1) {
+      const int src = __ffs(pend) - 1;
+      const int mi = o.mid[i0 + src], mo = o.moff[i0 + src];
+      unsigned acc = 0;
+      for (int k = lane; k < Pc && k < o_total; k += 32)
+        if (o.pmid[k] == mi && o.poff[k] == mo) acc += (unsigned)s.kpos[k];
+      const unsigned tot = __reduce_add_sync(FULL, acc);
+      if (lane == src) tp = (int)tot;
+    }
+    if (ov && tp >= 0 && tp < Lc) {
+      if (c.del[i] > 0) atomicAdd(&out.del[tp], c.del[i]);
+      if (c.mid[i] > 0) {
+        atomicAdd(&out.mid[tp], c.mid[i]);
+        atomicAdd(&out.moff[tp], c.moff[i]);
+      }
+    }
+  }
+  for (int k0 = 0; k0 < Pc; k0 += 32) {
+    const int k = k0 + lane;
+    const int pm = k < Pc ? c.pmid[k] : 0;
+    bool dead = false;
+    for (unsigned pend = __ballot_sync(FULL, pm > 0); pend;
+         pend &= pend - 1) {
+      const int src = __ffs(pend) - 1;
+      const int pms = c.pmid[k0 + src], pos = c.poff[k0 + src];
+      bool hit = false;
+      for (int i = lane; i < L && i < Lc; i += 32)
+        hit |= c.mid[i] == pms && c.moff[i] == pos && o.del[i] > 0;
+      const bool any = __any_sync(FULL, hit);
+      if (lane == src) dead = any;
+    }
+    if (k < Pc) {
+      const int live = (!dead && k < c_total) ? 1 : 0;
+      s.klive[k] = live;
+      s.kcum[k] = live;
+    }
+  }
+  __syncwarp();
+  int *const karr[1] = {s.kcum};
+  warp_scan<1>(karr, Pc);
+  for (int k = lane; k < Pc; k += 32) {
+    if (s.klive[k]) {
+      const int b = s.kb[k];
+      if (b >= 0 && b <= Lc) atomicAdd(&out.ins[b], 1);
+      const int g = s.kcum[k] - 1;  // live atoms keep their order
+      out.ids[g] = c.ids[k];
+      out.pmid[g] = c.pmid[k];
+      out.poff[g] = c.poff[k];
+    }
+  }
+  __syncwarp();
+}
+
+// apply_change() for one warp; a move-in atom's value is summed by every
+// lane over its own slots.
+__device__ int apply_w(const int *doc, const int L, const Ch c, int *out,
+                       const Scratch s, const int Lc, const int Pc) {
+  const int lane = threadIdx.x & 31;
+  for (int b = lane; b <= Lc; b += 32) {
+    if (b < Lc)
+      s.dex[b + 1] = max(c.del[b], (int)(c.mid[b] > 0)) * (int)(b < L);
+    else
+      s.dex[0] = 0;
+    s.bcum[b] = c.ins[b] * (int)(b <= L);
+  }
+  for (int i = lane; i < Lc; i += 32) out[i] = 0;
+  __syncwarp();
+  int *const arrs[2] = {s.dex, s.bcum};
+  const unsigned bad = warp_scan<2>(arrs, Lc + 1);
+  const bool mono = !(bad & 2u);
+  const int total = s.bcum[Lc];
+  const int new_L = wadd(wsub(L, s.dex[Lc]), total);
+  for (int i = lane; i < Lc; i += 32) {
+    if (i < L && max(c.del[i], (int)(c.mid[i] > 0)) == 0) {
+      const int sp = wadd(wsub(i, s.dex[i]), s.bcum[i]);
+      if (sp >= 0 && sp < Lc) atomicAdd(&out[sp], doc[i]);
+    }
+  }
+  for (int k0 = 0; k0 < Pc; k0 += 32) {
+    const int k = k0 + lane;
+    int ip = -1, v = 0, pm = 0;
+    if (k < Pc && k < total) {
+      const int b = count_leq(s.bcum, Lc + 1, k, mono);
+      ip = wadd(wsub(b, s.dex[clampi(b, 0, Lc)]), k);
+      v = c.ids[k];
+      pm = c.pmid[k];
+    }
+    const bool ok = ip >= 0 && ip < Lc;
+    for (unsigned pend = __ballot_sync(FULL, ok && pm > 0); pend;
+         pend &= pend - 1) {
+      // A move-in atom pulls the value its tag detached.
+      const int src = __ffs(pend) - 1;
+      const int pms = c.pmid[k0 + src], pos = c.poff[k0 + src];
+      unsigned acc = 0;
+      for (int j = lane; j < L && j < Lc; j += 32)
+        if (c.mid[j] == pms && c.moff[j] == pos) acc += (unsigned)doc[j];
+      const unsigned tot = __reduce_add_sync(FULL, acc);
+      if (lane == src) v = (int)tot;
+    }
+    if (ok) atomicAdd(&out[ip], v);
+  }
+  __syncwarp();
+  return new_L;
+}
+
+// Start staging commit k of document n into `dst` (a changeset, then ref
+// and seq at E and E + 1) as one copy group.
+__device__ void stage_trunk_commit(const TrunkArgs &a, int *dst, int n,
+                                   int k, int E, int lane) {
+  const int Lc = a.Lc, Pc = a.Pc;
+  const size_t ck = (size_t)n * a.C + k;
+  const Ch d = change_at(dst, Lc, Pc);
+  stage(d.del, a.del + ck * Lc, Lc, lane);
+  stage(d.ins, a.ins + ck * (Lc + 1), Lc + 1, lane);
+  stage(d.ids, a.ids + ck * Pc, Pc, lane);
+  stage(d.mid, a.mid + ck * Lc, Lc, lane);
+  stage(d.moff, a.moff + ck * Lc, Lc, lane);
+  stage(d.pmid, a.pmid + ck * Pc, Pc, lane);
+  stage(d.poff, a.poff + ck * Pc, Pc, lane);
+  if (lane == 0) {
+    cp_async4(dst + E, a.ref + ck);
+    cp_async4(dst + E + 1, a.seq + ck);
+  }
+  cp_async_commit();
+}
+
+// Ring slot (oldest + j) mod W, for 0 <= oldest, j < W.
+__device__ __forceinline__ int ring_slot(int oldest, int j, int W) {
+  const int w = oldest + j;
+  return w < W ? w : w - W;
+}
+
+// The first ring position j >= j0 (oldest first from slot `oldest`) whose
+// entry the commit folds: seq > ref and the slot not empty. W when none.
+__device__ __forceinline__ int next_active(const int *ring_seq, int oldest,
+                                           int j0, int W, int ref) {
+  for (int j = j0, w = ring_slot(oldest, j0, W); j < W; ++j) {
+    const int sw = ring_seq[w];
+    if (sw > ref && sw > 0) return j;
+    if (++w == W) w = 0;
+  }
+  return W;
+}
+
+// T1 on the warp tier. A document's slice: [the ring, unless in the
+// workspace] ring_L [W] ring_seq [W], three changeset buffers of E + 2 ints
+// (the current change, the rebase output, the next commit being staged),
+// [with the ring in the workspace: two staged ring entries and the newest
+// `cache` entries, E ints each], the document and its next state [Lc]
+// each, dex/bcum/cbcum [Lc + 1] each, kpos/kb/klive/kcum [Pc] each. A
+// commit folds the entries newer than its ref, mostly the newest few (at
+// config 3b 1.6 a commit, 92% of them among the newest 5), so the cache
+// serves most folds from the slice and the rest are staged from the
+// workspace, the next while the current one folds.
+__global__ void __launch_bounds__(32 * WARP_MAX_D)
+    trunk_warp_kernel(const TrunkArgs a) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int n = blockIdx.x * a.pl.docs + wid;
+  if (n >= a.N) return;
+  const int C = a.C, Lc = a.Lc, Pc = a.Pc, W = a.W;
+  const int E = 4 * Lc + 1 + 3 * Pc;
+  const bool ring_g = a.pl.ring_g;
+  int *p = tree_smem + (size_t)wid * a.pl.slice;
+  int *ring;
+  if (ring_g) {
+    ring = a.work + (size_t)n * a.pl.work_ints;
+  } else {
+    ring = p;
+    p += (size_t)W * E;
+  }
+  int *const ring_L = p;
+  p += W;
+  int *const ring_seq = p;
+  p += W;
+  int *cur = p;
+  p += E + 2;
+  int *nxt = p;
+  p += E + 2;
+  int *stg = p;
+  p += E + 2;
+  int *ob = p, *ob_next = p + E;  // the staged ring entries
+  const int M = a.pl.cache;
+  int *const cache = p + 2 * E;
+  if (ring_g) p += (size_t)(2 + M) * E;
+  int *doc = p;
+  p += Lc;
+  int *dout = p;
+  p += Lc;
+  Scratch s;
+  s.tpos = nullptr;
+  s.dex = p;
+  p += Lc + 1;
+  s.bcum = p;
+  p += Lc + 1;
+  s.cbcum = p;
+  p += Lc + 1;
+  s.kpos = p;
+  p += Pc;
+  s.kb = p;
+  p += Pc;
+  s.klive = p;
+  p += Pc;
+  s.kcum = p;
+
+  const size_t dn = (size_t)n * Lc;
+  stage(doc, a.doc_in + dn, Lc, lane);
+  if (C > 0) stage_trunk_commit(a, cur, n, 0, E, lane);
+  else cp_async_commit();
+  for (int w = lane; w < W; w += 32) {  // seq 0 = an empty slot
+    ring_L[w] = 0;
+    ring_seq[w] = 0;
+  }
+  int L = a.L_in[n], err = 0, max_ev = 0;
+  // slot = k % W, the oldest entry and the one commit k overwrites; cslot =
+  // k % M, the cache slot commit k's entry takes.
+  for (int k = 0, slot = 0, cslot = 0; k < C; ++k) {
+    cp_async_wait(0);
+    __syncwarp();  // commit k's lanes are in `cur`
+    const int ref = cur[E], seq = cur[E + 1];
+    if (k + 1 < C) stage_trunk_commit(a, stg, n, k + 1, E, lane);
+    // Ring-window guard: an evicted entry with seq > ref would be skipped.
+    if (ref < max_ev && max_ev > 0) err = 1;
+    // Fold over the ring oldest -> newest (slot k % W is the oldest); an
+    // inactive entry leaves the change as it is.
+    if (!ring_g) {
+      for (int j = 0; j < W; ++j) {
+        const int w = ring_slot(slot, j, W);
+        const int sw = ring_seq[w];
+        if (sw > ref && sw > 0) {
+          rebase_w(change_at(cur, Lc, Pc),
+                   change_at(ring + (size_t)w * E, Lc, Pc), ring_L[w],
+                   change_at(nxt, Lc, Pc), E, s, Lc, Pc);
+          int *const tmp = cur;
+          cur = nxt;
+          nxt = tmp;
+        }
+      }
+    } else {
+      // Position j holds the entry of commit k - W + j (an active entry was
+      // pushed, so it is >= 0), a = W - 1 - j commits old: the newest M lie
+      // in the cache at (k - 1 - a) mod M; each older active entry is
+      // staged into `ob` while the one before it folds.
+      const int last_g = W - 1 - M;
+      int j = next_active(ring_seq, slot, 0, W, ref);
+      if (j <= last_g) {
+        stage(ob, ring + (size_t)ring_slot(slot, j, W) * E, E, lane);
+        cp_async_commit();
+      }
+      while (j < W) {
+        const int jn = next_active(ring_seq, slot, j + 1, W, ref);
+        int *o;
+        if (j <= last_g) {
+          if (jn <= last_g) {
+            stage(ob_next, ring + (size_t)ring_slot(slot, jn, W) * E, E,
+                  lane);
+            cp_async_commit();
+          }
+          cp_async_wait(jn <= last_g);
+          __syncwarp();
+          o = ob;
+          ob = ob_next;
+          ob_next = o;
+        } else {
+          const int c = cslot - 1 - (W - 1 - j);  // > -M - 1
+          o = cache + (size_t)(c < 0 ? c + M : c) * E;
+        }
+        rebase_w(change_at(cur, Lc, Pc), change_at(o, Lc, Pc),
+                 ring_L[ring_slot(slot, j, W)], change_at(nxt, Lc, Pc), E, s,
+                 Lc, Pc);
+        int *const tmp = cur;
+        cur = nxt;
+        nxt = tmp;
+        j = jn;
+      }
+    }
+    const int new_L = apply_w(doc, L, change_at(cur, Lc, Pc), dout, s, Lc,
+                              Pc);
+    // Push (c, L, seq) over the oldest slot; record the evicted seq.
+    max_ev = max(max_ev, ring_seq[slot]);
+    __syncwarp();
+    int *const e = ring + (size_t)slot * E;
+    int *const ce = M > 0 ? cache + (size_t)cslot * E : nullptr;
+    for (int j = lane; j < E; j += 32) {
+      const int v = cur[j];
+      e[j] = v;
+      if (ce) ce[j] = v;
+    }
+    if (lane == 0) {
+      ring_L[slot] = L;
+      ring_seq[slot] = seq;
+    }
+    int *const tmp = doc;
+    doc = dout;
+    dout = tmp;
+    L = new_L;
+    // The staged commit becomes the current change; the two others free.
+    int *const fa = cur;
+    cur = stg;
+    stg = nxt;
+    nxt = fa;
+    if (++slot == W) slot = 0;
+    if (M > 0 && ++cslot == M) cslot = 0;
+    __syncwarp();
+  }
+  cp_async_wait(0);
+  __syncwarp();
+  for (int i = lane; i < Lc; i += 32) a.doc_out[dn + i] = doc[i];
+  if (lane == 0) {
+    a.L_out[n] = L;
+    a.err_out[n] = err;
+  }
+}
+
+// Start staging commit k of document n into `dst` (the layout of
+// em_warp_kernel's commit buffers) as one copy group.
+__device__ void stage_em_commit(const EmArgs &a, int *dst, int n, int k,
+                                int lane) {
+  const int Lc = a.Lc, Pc = a.Pc, R = a.R;
+  const size_t ck = (size_t)n * a.C + k;
+  stage(dst, a.dm + ck * Lc, Lc, lane);
+  stage(dst + Lc, a.mv + ck * Lc, Lc, lane);
+  stage(dst + 2 * Lc, a.ic + ck * (Lc + 1), Lc + 1, lane);
+  int *const q = dst + 3 * Lc + 1;
+  stage(q, a.ii + ck * Pc, Pc, lane);
+  stage(q + Pc, a.rs + ck * R, R, lane);
+  stage(q + Pc + R, a.rl + ck * R, R, lane);
+  stage(q + Pc + 2 * R, a.ro + ck * R, R, lane);
+  if (lane == 0) {
+    cp_async4(q + Pc + 3 * R, a.refs + ck);
+    cp_async4(q + Pc + 3 * R + 1, a.seqs + ck);
+  }
+  cp_async_commit();
+}
+
+// T2 on the warp tier. A document's slice: [the ring, W states of Lc ids,
+// unless in the workspace] ring_L [W] ring_seq [W], the bitset
+// [(U + 31) / 32], the trunk state and its next [Lc] each, post [Lc], the
+// author view [Lc], dex/bcum [Lc + 1] each, two commit buffers (the
+// current commit, the next being staged) of dm [Lc] mv [Lc] ic [Lc + 1]
+// ii [Pc] rs/rl/ro [R] ref seq. A ring in the workspace holds only pushed
+// states, each staged into the author view when it is the one the commit
+// reads.
+__global__ void __launch_bounds__(32 * WARP_MAX_D)
+    em_warp_kernel(const EmArgs a) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int n = blockIdx.x * a.pl.docs + wid;
+  if (n >= a.N) return;
+  const int C = a.C, Lc = a.Lc, Pc = a.Pc, W = a.W, R = a.R, U = a.U;
+  const int BW = (U + 31) >> 5;
+  const int S = 3 * Lc + 1 + Pc + 3 * R + 2;
+  const bool ring_g = a.pl.ring_g;
+  int *p = tree_smem + (size_t)wid * a.pl.slice;
+  int *ring;
+  if (ring_g) {
+    ring = a.work + (size_t)n * a.pl.work_ints;
+  } else {
+    ring = p;
+    p += (size_t)W * Lc;
+  }
+  int *const ring_L = p;
+  p += W;
+  int *const ring_seq = p;
+  p += W;
+  unsigned *const bits = (unsigned *)p;
+  p += BW;
+  int *doc = p;
+  p += Lc;
+  int *dout = p;
+  p += Lc;
+  int *const post = p;
+  p += Lc;
+  int *const avb = p;
+  p += Lc;
+  int *const dex = p;
+  p += Lc + 1;
+  int *const bcum = p;
+  p += Lc + 1;
+  int *cm = p, *cm_next = p + S;  // the current and the next commit
+
+  // The initial ring and the carry (the ring's newest slot) are staged
+  // with commit 0. A ring in the workspace holds only pushed states: slot w
+  // is read from ring_ids until commit w overwrites it.
+  const size_t rn = (size_t)n * W;
+  const int *const ring0 = a.ring_ids + rn * Lc;
+  if (!ring_g) stage(ring, ring0, W * Lc, lane);
+  stage(ring_L, a.ring_L + rn, W, lane);
+  stage(ring_seq, a.ring_seq + rn, W, lane);
+  stage(doc, ring0 + (size_t)(W - 1) * Lc, Lc, lane);
+  if (C > 0) stage_em_commit(a, cm, n, 0, lane);
+  else cp_async_commit();
+  int L = a.ring_L[rn + W - 1], mov = a.mov0[n], err = 0;
+  for (int k = 0; k < C; ++k) {
+    cp_async_wait(0);
+    __syncwarp();  // commit k's lanes are in cm
+    const int *const cdm = cm;
+    const int *const cmv = cdm + Lc;
+    const int *const cic = cdm + 2 * Lc;
+    const int *const cii = cdm + 3 * Lc + 1;
+    const int *const crs = cii + Pc;
+    const int *const crl = crs + R;
+    const int *const cro = crl + R;
+    const int ref = cro[R], sq = cro[R + 1];
+    // 1. Author view at ref: the latest ring state with 0 <= seq <= ref,
+    //    the hit slots summed (a miss reads an empty view).
+    int best = -1;
+    for (int w = lane; w < W; w += 32) {
+      const int sw = ring_seq[w];
+      if (sw >= 0 && sw <= ref && sw > best) best = sw;
+    }
+    best = __reduce_max_sync(FULL, best);
+    unsigned acc_L = 0, hits = 0;
+    int hw = -1;
+    for (int w = lane; w < W; w += 32) {
+      if (best >= 0 && ring_seq[w] == best) {
+        acc_L += (unsigned)ring_L[w];
+        ++hits;
+        hw = w;
+      }
+    }
+    const int av_L = (int)__reduce_add_sync(FULL, acc_L);
+    hits = __reduce_add_sync(FULL, hits);
+    hw = __reduce_max_sync(FULL, hw);
+    if (best < 0) {
+      err |= ERR_RING_MISS;
+      if (mov > ref) err |= ERR_MOVE_EVICTED;
+    }
+    const int *av = avb;
+    bool staged = false;
+    if (hits == 1 && !ring_g) {
+      av = ring + (size_t)hw * Lc;
+    } else if (hits == 1) {
+      stage(avb, (hw < k ? ring : ring0) + (size_t)hw * Lc, Lc, lane);
+      cp_async_commit();
+      staged = true;
+    } else {
+      for (int i = lane; i < Lc; i += 32) {
+        unsigned acc = 0;
+        for (int w = 0; w < W; ++w)
+          if (best >= 0 && ring_seq[w] == best)
+            acc += (unsigned)(ring_g && w >= k ? ring0 : ring)[
+                (size_t)w * Lc + i];
+        avb[i] = (int)acc;
+      }
+    }
+    if (k + 1 < C) stage_em_commit(a, cm_next, n, k + 1, lane);
+    bool mv_any = false;
+    for (int i = lane; i < Lc; i += 32) {
+      const int m = cmv[i];
+      const int d = max(cdm[i], m);  // move-outs detach too
+      mv_any |= m > 0;
+      dex[i + 1] = max(d, 0) * (int)(i < av_L);
+      post[i] = 0;
+    }
+    for (int b = lane; b <= Lc; b += 32) bcum[b] = cic[b] * (int)(b <= av_L);
+    for (int j = lane; j < BW; j += 32) bits[j] = 0u;
+    if (lane == 0) dex[0] = 0;
+    const bool moves = __any_sync(FULL, mv_any);
+    if (staged) cp_async_wait(k + 1 < C);
+    __syncwarp();
+    int *const arrs[2] = {dex, bcum};
+    const unsigned bad = warp_scan<2>(arrs, Lc + 1);
+    const bool mono = !(bad & 2u);
+    const int total = bcum[Lc];
+    // 2. Post view: the commit applied to the author view (no move lanes).
+    // 3. The detached ids of the author view as a multihot over U.
+    for (int i = lane; i < Lc; i += 32) {
+      if (i < av_L) {
+        if (max(cdm[i], cmv[i]) <= 0) {
+          const int sp = wadd(wsub(i, dex[i]), bcum[i]);
+          if (sp >= 0 && sp < Lc) atomicAdd(&post[sp], av[i]);
+        } else {
+          const int id = av[i];
+          if (id > 0 && id < U) atomicOr(&bits[id >> 5], 1u << (id & 31));
+        }
+      }
+    }
+    for (int j = lane; j < Pc; j += 32) {
+      if (j < total) {
+        const int b = count_leq(bcum, Lc + 1, j, mono);
+        const int ip = wadd(wsub(b, dex[clampi(b, 0, Lc)]), j);
+        if (ip >= 0 && ip < Lc) atomicAdd(&post[ip], cii[j]);
+      }
+    }
+    __syncwarp();
+    //    Drop the detached ids from the trunk (a compaction).
+    for (int i = lane; i < Lc; i += 32) {
+      dex[i + 1] = (i < L && member(bits, doc[i], U)) ? 1 : 0;
+      dout[i] = 0;
+    }
+    if (lane == 0) dex[0] = 0;
+    __syncwarp();
+    int *const darr[1] = {dex};
+    warp_scan<1>(darr, Lc + 1);
+    for (int i = lane; i < Lc; i += 32) {
+      if (i < L && !member(bits, doc[i], U)) {
+        const int sp = wsub(i, dex[i]);
+        if (sp >= 0 && sp < Lc) atomicAdd(&dout[sp], doc[i]);
+      }
+    }
+    int L2 = wsub(L, dex[Lc]);
+    __syncwarp();
+    int *cur = dout, *spare = doc;
+    // 4. Attach runs in wire order, each after the nearest left post-view
+    //    neighbour present in the evolving output. A run without slots or
+    //    without ids changes nothing.
+    for (int r = 0; r < R; ++r) {
+      const int st = crs[r], len = crl[r], off = cro[r];
+      if (!(st >= 0 && len > 0)) continue;
+      for (int j = lane; j < BW; j += 32) bits[j] = 0u;
+      __syncwarp();
+      for (int i = lane; i < Lc; i += 32) {
+        if (i < L2) {
+          const int id = cur[i];
+          if (id > 0 && id < U) atomicOr(&bits[id >> 5], 1u << (id & 31));
+        }
+      }
+      __syncwarp();
+      int anchor_at = -1;
+      if (st > 0) {  // the cummax of present post-view slots at st - 1
+        const int idx = min(st - 1, Lc - 1);
+        int best_i = -1;
+        for (int i = lane; i <= idx; i += 32)
+          if (member(bits, post[i], U)) best_i = i;
+        anchor_at = __reduce_max_sync(FULL, best_i);
+      }
+      int pb = 0;
+      if (anchor_at >= 0) {
+        const int anchor = post[clampi(anchor_at, 0, Lc - 1)];
+        unsigned acc = 0;
+        for (int i = lane; i < Lc; i += 32)
+          if (i < L2 && cur[i] == anchor) acc += (unsigned)(i + 1);
+        pb = (int)__reduce_add_sync(FULL, acc);
+      }
+      for (int i = lane; i < Lc; i += 32) spare[i] = 0;
+      __syncwarp();
+      // Insert `len` ids of the pool rotated by `off` at boundary p (after
+      // the anchor), counted only where p is a boundary of the document.
+      const bool inc = pb >= 0 && pb <= Lc && pb <= L2;
+      const int v = inc ? len : 0;
+      for (int i = lane; i < Lc; i += 32) {
+        if (i < L2) {
+          const int sp = (inc && i >= pb) ? wadd(i, v) : i;
+          if (sp >= 0 && sp < Lc) atomicAdd(&spare[sp], cur[i]);
+        }
+      }
+      for (int j = lane; j < Pc; j += 32) {
+        if (j < v) {
+          const int ip = wadd(pb, j);
+          if (ip >= 0 && ip < Lc)
+            atomicAdd(&spare[ip], cii[floor_mod(wadd(j, off), Pc)]);
+        }
+      }
+      L2 = wadd(L2, v);
+      __syncwarp();
+      int *const tmp = cur;
+      cur = spare;
+      spare = tmp;
+    }
+    // 5. Capacity. 6. Push the new trunk state over the oldest slot; the
+    //    watermark remembers the newest move-bearing commit.
+    if (L2 > Lc) err |= ERR_CAPACITY;
+    const int slot = k % W;
+    for (int i = lane; i < Lc; i += 32) ring[(size_t)slot * Lc + i] = cur[i];
+    if (moves) mov = sq;
+    if (lane == 0) {
+      ring_L[slot] = L2;
+      ring_seq[slot] = sq;
+    }
+    doc = cur;
+    dout = spare;
+    L = L2;
+    int *const tmp = cm;
+    cm = cm_next;
+    cm_next = tmp;
+    __syncwarp();
+  }
+  cp_async_wait(0);
+  __syncwarp();
+  for (int i = lane; i < Lc; i += 32) a.doc_out[(size_t)n * Lc + i] = doc[i];
+  if (lane == 0) {
+    a.L_out[n] = L;
+    a.err_out[n] = err;
+  }
+}
+
 // -- host side --------------------------------------------------------------
 
 long long trunk_entry_ints(int Lc, int Pc) { return 4LL * Lc + 1 + 3LL * Pc; }
@@ -713,11 +1458,28 @@ long long em_rest_ints(int Lc, int U) {
   return (U + 31LL) / 32 + 5LL * Lc + 2LL * (Lc + 1);
 }
 
-// The placement of the two regions on a tier; false where the tier cannot
-// take them.
+// A document's shared-memory slice on the warp tier (the layouts above
+// trunk_warp_kernel and em_warp_kernel) and its ring's ints in the
+// workspace when the ring lies there.
+// (T1's without its cache of ring entries.)
+long long trunk_warp_slice(int Lc, int Pc, int W, int ring_g) {
+  const long long E = trunk_entry_ints(Lc, Pc);
+  return (ring_g ? 2 * E : W * E) + 2LL * W + 3 * (E + 2) + 2LL * Lc +
+         3LL * (Lc + 1) + 4LL * Pc;
+}
+
+long long em_warp_slice(int Lc, int Pc, int W, int R, int U, int ring_g) {
+  const long long S = 3LL * Lc + 1 + Pc + 3LL * R + 2;
+  return (ring_g ? 0 : (long long)W * Lc) + 2LL * W + (U + 31LL) / 32 +
+         4LL * Lc + 2LL * (Lc + 1) + 2 * S;
+}
+
+// The placement of the two regions on a CTA tier; false where the tier
+// cannot take them.
 bool place(long long ring, long long rest, int tier, Place *pl,
            long long *smem) {
   *pl = Place{};
+  pl->docs = 1;
   if (tier == T_SHARED) {
     pl->rest_off = ring;
     *smem = 4 * (ring + rest);
@@ -737,6 +1499,68 @@ bool place(long long ring, long long rest, int tier, Place *pl,
   return true;
 }
 
+// Documents a CTA of the warp tier holds at `slice` ints each: as many as
+// fit SMEM_BYTES, at most WARP_MAX_D.
+long long warp_docs(long long slice) {
+  const long long d = SMEM_BYTES / (4 * slice);
+  return d < WARP_MAX_D ? d : WARP_MAX_D;
+}
+
+// The ring entries T1's warp tier caches with its ring in the workspace:
+// as many (up to WARP_CACHE_MAX and W) as leave its documents a CTA as
+// they are without a cache.
+int trunk_warp_cache(int Lc, int Pc, int W) {
+  const long long E = trunk_entry_ints(Lc, Pc);
+  const long long base = trunk_warp_slice(Lc, Pc, W, 1);
+  const long long d0 = warp_docs(base);
+  int m = 0;
+  while (d0 >= 1 && m < WARP_CACHE_MAX && m < W &&
+         warp_docs(base + (m + 1) * E) >= d0)
+    ++m;
+  return m;
+}
+
+// The warp tier: as many documents a CTA as their slices fit SMEM_BYTES,
+// at most WARP_MAX_D; false where not one fits.
+bool place_warp(long long slice, long long ring_work, int ring_g, Place *pl,
+                long long *smem) {
+  *pl = Place{};
+  const long long d = warp_docs(slice);
+  if (d < 1) return false;
+  pl->docs = (int)d;
+  pl->slice = slice;
+  pl->ring_g = ring_g;
+  pl->work_ints = ring_g ? ring_work : 0;
+  *smem = 4 * slice * pl->docs;
+  return true;
+}
+
+bool place_trunk(int Lc, int Pc, int W, int tier, Place *pl,
+                 long long *smem) {
+  if (tier == T_WARP || tier == T_WARP_RING_G) {
+    const int g = tier == T_WARP_RING_G;
+    const int m = g ? trunk_warp_cache(Lc, Pc, W) : 0;
+    const long long E = trunk_entry_ints(Lc, Pc);
+    if (!place_warp(trunk_warp_slice(Lc, Pc, W, g) + m * E, (long long)W * E,
+                    g, pl, smem))
+      return false;
+    pl->cache = m;
+    return true;
+  }
+  return place(trunk_ring_ints(Lc, Pc, W), trunk_rest_ints(Lc, Pc), tier,
+               pl, smem);
+}
+
+bool place_em(int Lc, int Pc, int W, int R, int U, int tier, Place *pl,
+              long long *smem) {
+  if (tier == T_WARP || tier == T_WARP_RING_G) {
+    const int g = tier == T_WARP_RING_G;
+    return place_warp(em_warp_slice(Lc, Pc, W, R, U, g), (long long)W * Lc,
+                      g, pl, smem);
+  }
+  return place(em_ring_ints(Lc, W), em_rest_ints(Lc, U), tier, pl, smem);
+}
+
 int threads_for(int Lc) {
   int t = MIN_THREADS;
   while (t < Lc && t < MAX_THREADS) t <<= 1;
@@ -749,15 +1573,27 @@ bool shapes_ok(int n_docs, int C, int Lc, int Pc, int W) {
 }
 
 template <typename Kern, typename Args>
-int launch_tree(Kern kern, const Args &a, int n_docs, int threads,
+int launch_tree(Kern kern, const Args &a, int blocks, int threads,
                 long long smem, cudaStream_t st) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kern<<<n_docs, threads, (size_t)smem, st>>>(a);
+  kern<<<blocks, threads, (size_t)smem, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+// One launch of a kernel's tier: the warp kernel over ceil(N / D) CTAs of
+// D warps, or the CTA kernel over N CTAs.
+template <typename Args>
+int launch_tier(void (*cta)(Args), void (*warp)(Args), const Args &a,
+                long long smem, cudaStream_t st) {
+  if (a.pl.slice > 0) {
+    const int d = a.pl.docs;
+    return launch_tree(warp, a, (a.N + d - 1) / d, 32 * d, smem, st);
+  }
+  return launch_tree(cta, a, a.N, threads_for(a.Lc), smem, st);
 }
 
 }  // namespace
@@ -765,9 +1601,10 @@ int launch_tree(Kern kern, const Args &a, int n_docs, int threads,
 extern "C" {
 
 // Each scan launches on `stream` and returns cudaGetLastError() (0 = ok).
-// `tier`: 0 shared, 1 global; the global tier takes a device buffer of
-// n_docs * tree_*_work_ints(...) int32 at `work` (NULL otherwise). Inputs
-// are not modified.
+// `tier`: 0 shared, 1 global, 2 warp (the ring in shared memory), 3 warp
+// (the ring in the workspace); the global tier and tier 3 take a device
+// buffer of n_docs * tree_*_work_ints(...) int32 at `work` (NULL
+// otherwise). Inputs are not modified.
 
 int tree_trunk_scan(const int *doc_in, const int *L_in, const int *del,
                     const int *ins, const int *ids, const int *mid,
@@ -776,14 +1613,14 @@ int tree_trunk_scan(const int *doc_in, const int *L_in, const int *del,
                     int *err_out, int *work, int n_docs, int C, int Lc,
                     int Pc, int W, int tier, void *stream) {
   if (!shapes_ok(n_docs, C, Lc, Pc, W)) return (int)cudaErrorInvalidValue;
-  TrunkArgs a{doc_in, L_in, del, ins, ids, mid, moff, pmid, poff, ref, seq,
-              doc_out, L_out, err_out, work, C, Lc, Pc, W, Place{}};
+  TrunkArgs a{doc_in,  L_in,  del,     ins,  ids,    mid, moff, pmid,
+              poff,    ref,   seq,     doc_out, L_out, err_out, work,
+              n_docs,  C,     Lc,      Pc,   W,      Place{}};
   long long smem;
-  if (!place(trunk_ring_ints(Lc, Pc, W), trunk_rest_ints(Lc, Pc), tier,
-             &a.pl, &smem) ||
+  if (!place_trunk(Lc, Pc, W, tier, &a.pl, &smem) ||
       (a.pl.work_ints > 0 && work == nullptr))
     return (int)cudaErrorInvalidValue;
-  return launch_tree(trunk_scan_kernel, a, n_docs, threads_for(Lc), smem,
+  return launch_tier(trunk_scan_kernel, trunk_warp_kernel, a, smem,
                      (cudaStream_t)stream);
 }
 
@@ -798,45 +1635,54 @@ int tree_em_ring_scan(const int *ring_ids, const int *ring_L,
   if (!shapes_ok(n_docs, C, Lc, Pc, W) || R < 0 || R > MAX_R || U < 1 ||
       U > MAX_U)
     return (int)cudaErrorInvalidValue;
-  EmArgs a{ring_ids, ring_L, ring_seq, mov_seq0, dm, ic, ii, rs, rl, ro,
-           refs, seqs, mv, doc_out, L_out, err_out, work, C, Lc, Pc, W, R, U,
-           Place{}};
+  EmArgs a{ring_ids, ring_L, ring_seq, mov_seq0, dm,     ic,      ii,
+           rs,       rl,     ro,       refs,     seqs,   mv,      doc_out,
+           L_out,    err_out, work,    n_docs,   C,      Lc,      Pc,
+           W,        R,      U,        Place{}};
   long long smem;
-  if (!place(em_ring_ints(Lc, W), em_rest_ints(Lc, U), tier, &a.pl, &smem) ||
+  if (!place_em(Lc, Pc, W, R, U, tier, &a.pl, &smem) ||
       (a.pl.work_ints > 0 && work == nullptr))
     return (int)cudaErrorInvalidValue;
-  return launch_tree(em_scan_kernel, a, n_docs, threads_for(Lc), smem,
+  return launch_tier(em_scan_kernel, em_warp_kernel, a, smem,
                      (cudaStream_t)stream);
 }
 
-// Per-document workspace ints and dynamic shared memory bytes of a tier
-// (-1 where the tier cannot take the shape).
+// Per-document workspace ints, dynamic shared memory bytes a CTA and
+// documents a CTA of a tier code (-1 where the tier cannot take the shape).
 long long tree_trunk_work_ints(int Lc, int Pc, int W, int tier) {
   Place pl;
   long long smem;
-  return place(trunk_ring_ints(Lc, Pc, W), trunk_rest_ints(Lc, Pc), tier,
-               &pl, &smem) ? pl.work_ints : -1;
+  return place_trunk(Lc, Pc, W, tier, &pl, &smem) ? pl.work_ints : -1;
 }
 
 long long tree_trunk_smem_bytes(int Lc, int Pc, int W, int tier) {
   Place pl;
   long long smem;
-  return place(trunk_ring_ints(Lc, Pc, W), trunk_rest_ints(Lc, Pc), tier,
-               &pl, &smem) ? smem : -1;
+  return place_trunk(Lc, Pc, W, tier, &pl, &smem) ? smem : -1;
 }
 
-long long tree_em_work_ints(int Lc, int W, int U, int tier) {
+long long tree_trunk_docs(int Lc, int Pc, int W, int tier) {
   Place pl;
   long long smem;
-  return place(em_ring_ints(Lc, W), em_rest_ints(Lc, U), tier, &pl, &smem)
-             ? pl.work_ints : -1;
+  return place_trunk(Lc, Pc, W, tier, &pl, &smem) ? pl.docs : -1;
 }
 
-long long tree_em_smem_bytes(int Lc, int W, int U, int tier) {
+long long tree_em_work_ints(int Lc, int Pc, int W, int R, int U, int tier) {
   Place pl;
   long long smem;
-  return place(em_ring_ints(Lc, W), em_rest_ints(Lc, U), tier, &pl, &smem)
-             ? smem : -1;
+  return place_em(Lc, Pc, W, R, U, tier, &pl, &smem) ? pl.work_ints : -1;
+}
+
+long long tree_em_smem_bytes(int Lc, int Pc, int W, int R, int U, int tier) {
+  Place pl;
+  long long smem;
+  return place_em(Lc, Pc, W, R, U, tier, &pl, &smem) ? smem : -1;
+}
+
+long long tree_em_docs(int Lc, int Pc, int W, int R, int U, int tier) {
+  Place pl;
+  long long smem;
+  return place_em(Lc, Pc, W, R, U, tier, &pl, &smem) ? pl.docs : -1;
 }
 
 long long tree_smem_budget(void) { return SMEM_BYTES; }

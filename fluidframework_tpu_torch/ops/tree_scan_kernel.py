@@ -7,10 +7,9 @@ EditManager ring scan, ``fluidframework_tpu/tree/device_em.py:129``
 ``batched_em_trunk_scan_ring``. Neither is a ``pl.pallas_call``: the
 reference compiles each dispatch into one XLA program (``jit`` over ``vmap``
 of a ``lax.scan``), and here each dispatch is one launch of
-``csrc/tree_kernels.cu`` — one CTA per document, the document's whole
-C-commit stream inside it. The kernels are bound by the commit loop's
-barrier latency, not by bytes or operations; the source says how the
-design keeps that short.
+``csrc/tree_kernels.cu``, the document's whole C-commit stream inside it.
+The kernels are bound by the commit loop's latency, not by bytes or
+operations; the source says how each tier keeps that short.
 
 The plain versions are the Python loops over batched tensors that
 ``tree/device_trunk.py`` (``batched_trunk_scan_plain``) and
@@ -21,11 +20,15 @@ stream, makes no host synchronisation, allocates its workspace (and its
 outputs, unless ``out`` gives them) with ``torch.empty`` and raises on a
 shape beyond its tiers or a CUDA error.
 
-Tiers (:func:`tier`): ``"shared"`` holds a document's ring and scratch in
-the CTA's dynamic shared memory, up to :data:`SMEM_BYTES`; ``"global"``
-puts the ring in a per-document slice of a device workspace and keeps the
+Tiers (:func:`tier`): ``"warp"`` runs one warp a document, up to
+:data:`WARP_MAX_D` documents a CTA, each in its own slice of the CTA's
+shared memory, with the ring in the slice or in a per-document workspace
+(:func:`warp_ring`); ``"shared"`` runs one CTA a document with its ring and
+scratch in the CTA's dynamic shared memory, up to :data:`SMEM_BYTES`;
+``"global"`` runs one CTA a document with the ring in the workspace and the
 rest in shared memory while it fits (in the workspace after the ring
-otherwise).
+otherwise). The shape and the launch's document count pick the tier and
+the ring's place; no switch does.
 """
 
 from __future__ import annotations
@@ -49,41 +52,174 @@ MAX_W = 1024
 MAX_R = 1024
 MAX_U = 1 << 26
 ENTRIES = ("tree_trunk_scan", "tree_em_ring_scan")
-TIER_CODES = {"shared": 0, "global": 1}
+T1, T2 = ENTRIES
+TIER_CODES = {"shared": 0, "global": 1, "warp": 2}
+# Where the warp tier keeps a document's ring: in its shared-memory slice
+# (the C entries' code TIER_CODES["warp"]) or in the workspace (that code
+# plus one).
+RINGS = ("shared", "global")
+# Documents (warps) a CTA of the warp tier holds at most, and ring entries
+# T1's warp tier caches in its slice at most with its ring in the
+# workspace; WARP_MAX_D and WARP_CACHE_MAX in tree_kernels.cu.
+WARP_MAX_D = 8
+WARP_CACHE_MAX = 8
+# When the warp tier runs a launch: (widest Lc, fewest documents) pairs,
+# narrowest first (None: never at those widths); past the last width it
+# does not. A warp gives one document a quarter to a sixteenth of a CTA's
+# threads, so past the narrow widths it wins only once the CTA tiers would
+# fill the card (chip_smoke 7h's sweep times every tier on the same inputs
+# at 1 to 1,024 documents; PERF.md).
+WARP_MIN_DOCS = {T1: ((128, 1), (512, 256)),
+                 T2: ((64, 1), (128, None), (256, 1024), (512, 512))}
+# The card the tier rules are measured on: an H100's SMs and the shared
+# memory an SM holds (228 KB; each CTA also takes 1 KB of it).
+SMS = 132
+SM_SMEM_BYTES = 233_472
 _lib = None  # the bound and checked library (:func:`lib`)
 
 
 def _regions(entry: str, lc: int, pc: int, W: int, U: int):
-    """Ints a document's ring and the rest take (the layout of
-    tree_kernels.cu's ``trunk_*_ints`` / ``em_*_ints``)."""
-    if entry == "tree_trunk_scan":
+    """Ints a document's ring and the rest take on the CTA tiers (the
+    layout of tree_kernels.cu's ``trunk_*_ints`` / ``em_*_ints``)."""
+    if entry == T1:
         e = 4 * lc + 1 + 3 * pc  # one changeset's seven lanes
         return W * e + 2 * W, 2 * e + 2 * lc + 3 * (lc + 1) + lc + 4 * pc
     return W * lc + 2 * W, (U + 31) // 32 + 5 * lc + 2 * (lc + 1)
 
 
-def placement(entry: str, lc: int, pc: int, W: int, U: int, t: str):
+def _warp_docs(slice_: int) -> int:
+    """Documents a warp-tier CTA holds at ``slice_`` ints each."""
+    return min(WARP_MAX_D, SMEM_BYTES // (4 * slice_))
+
+
+def trunk_cache(lc: int, pc: int, W: int) -> int:
+    """The newest ring entries T1's warp tier keeps in a document's slice
+    with its ring in the workspace: as many (up to
+    :data:`WARP_CACHE_MAX` and ``W``) as leave its documents a CTA as they
+    are without them (config 3b: 5)."""
+    e = 4 * lc + 1 + 3 * pc
+    base = _warp_slice(T1, lc, pc, W, 0, 1, "global", cache=0)[0]
+    d0, m = _warp_docs(base), 0
+    while (d0 >= 1 and m < min(WARP_CACHE_MAX, W)
+           and _warp_docs(base + (m + 1) * e) >= d0):
+        m += 1
+    return m
+
+
+def _warp_slice(entry: str, lc: int, pc: int, W: int, R: int, U: int,
+                ring: str, cache: int = None):
+    """``(slice, ring_ints)``: the shared-memory ints of one document on
+    the warp tier with its ring in ``ring``, and the ring's ints (the
+    layouts above ``trunk_warp_kernel`` / ``em_warp_kernel``)."""
+    g = ring == "global"
+    if entry == T1:
+        e = 4 * lc + 1 + 3 * pc
+        if g and cache is None:
+            cache = trunk_cache(lc, pc, W)
+        return (((2 + cache) * e if g else W * e) + 2 * W + 3 * (e + 2)
+                + 2 * lc + 3 * (lc + 1) + 4 * pc), W * e
+    s = 3 * lc + 1 + pc + 3 * R + 2  # one staged commit's lanes
+    return ((0 if g else W * lc) + 2 * W + (U + 31) // 32 + 4 * lc
+            + 2 * (lc + 1) + 2 * s), W * lc
+
+
+def _warp(entry, lc, pc, W, U, R, ring):
+    """``(smem_bytes, work_ints, docs)`` of the warp tier, or ``None``."""
+    if ring not in RINGS:
+        raise ValueError(f"unknown ring placement {ring!r}")
+    slice_, ring_ints = _warp_slice(entry, lc, pc, W, R, U, ring)
+    d = _warp_docs(slice_)
+    if d < 1:
+        return None
+    return 4 * slice_ * d, ring_ints if ring == "global" else 0, d
+
+
+def wave_docs(smem: int, docs: int) -> int:
+    """Documents the card runs at once in CTAs of ``docs`` warps (one
+    document each) and ``smem`` bytes of shared memory."""
+    per_sm = min(32, 64 // docs, SM_SMEM_BYTES // (smem + 1024))
+    return SMS * per_sm * docs
+
+
+def warp_ring(entry: str, lc: int, pc: int, W: int, R: int = 0, U: int = 1,
+              n: int = None) -> str:
+    """Where the warp tier keeps a document's ring for a launch of ``n``
+    documents: ``"shared"`` (in its slice) while all ``n`` fit the card at
+    once that way, ``"global"`` (in the workspace, each entry staged into
+    the slice before it is read) past that. Config 3b's T1 ring is 39,104
+    bytes a document and 7b's T2 ring 32,896, so with them in the slice an
+    H100 runs 528 and 396 documents at once. With ``n`` ``None``, in the
+    slice only where that costs no documents a CTA."""
+    full = _warp(entry, lc, pc, W, U, R, "shared")
+    if full is None:
+        return "global"
+    if n is None:
+        return "shared" if full[2] == WARP_MAX_D else "global"
+    return "shared" if n <= wave_docs(full[0], full[2]) else "global"
+
+
+def placement(entry: str, lc: int, pc: int, W: int, U: int, t: str,
+              R: int = 0, ring: str = None):
     """``(smem_bytes, work_ints)`` of tier ``t``: the dynamic shared memory
     a CTA takes and the workspace ints a document takes there (``None``
-    where the shared tier cannot take the shape)."""
-    ring, rest = _regions(entry, lc, pc, W, U)
+    where the tier cannot take the shape). The warp tier's ring lies where
+    ``ring`` says (:func:`warp_ring` by default); T2's warp tier also
+    stages ``R`` runs a commit."""
+    if t == "warp":
+        pl = _warp(entry, lc, pc, W, U, R,
+                   ring or warp_ring(entry, lc, pc, W, R, U))
+        return None if pl is None else pl[:2]
+    ring_i, rest = _regions(entry, lc, pc, W, U)
     if t == "shared":
-        smem = 4 * (ring + rest)
+        smem = 4 * (ring_i + rest)
         return (smem, 0) if smem <= SMEM_BYTES else None
     if 4 * rest <= SMEM_BYTES:
-        return 4 * rest, ring
-    return 0, ring + rest
+        return 4 * rest, ring_i
+    return 0, ring_i + rest
 
 
-def tier(entry: str, lc: int, pc: int, W: int, R: int = 0, U: int = 1
-         ) -> str:
-    """The tier ``entry`` runs documents of width ``lc`` (pool ``pc``, ring
-    depth ``W``; T2 also ``R`` attach runs a commit over ``U`` interned
-    ids) on: ``"shared"`` where the whole per-document state fits
-    :data:`SMEM_BYTES` of shared memory (T1 at config 3b's Lc 128, Pc 32,
-    W 16 takes 47,572 bytes; T2 at Lc 2,048, W 16, U 8,192 takes 189,576),
-    ``"global"`` above.
-    A shape beyond the kernels' limits raises ``ValueError``."""
+def docs_per_cta(entry: str, lc: int, pc: int, W: int, U: int, t: str,
+                 R: int = 0, ring: str = None):
+    """Documents a CTA of tier ``t`` runs: 1 on the CTA tiers, up to
+    :data:`WARP_MAX_D` on the warp tier (``None`` where it cannot take
+    the shape)."""
+    if t != "warp":
+        return None if placement(entry, lc, pc, W, U, t) is None else 1
+    pl = _warp(entry, lc, pc, W, U, R,
+               ring or warp_ring(entry, lc, pc, W, R, U))
+    return None if pl is None else pl[2]
+
+
+def code(t: str, ring: str = None) -> int:
+    """The C entries' tier code of tier ``t`` (the warp tier's with its ring
+    in ``ring``)."""
+    if t == "warp":
+        if ring not in RINGS:
+            raise ValueError(f"unknown ring placement {ring!r}")
+        return TIER_CODES["warp"] + RINGS.index(ring)
+    return TIER_CODES[t]
+
+
+def warp_min_docs(entry: str, lc: int):
+    """The fewest documents a launch of width ``lc`` needs for the warp
+    tier (:data:`WARP_MIN_DOCS`; ``None``: the warp tier never runs it)."""
+    for widest, fewest in WARP_MIN_DOCS[entry]:
+        if lc <= widest:
+            return fewest
+    return None
+
+
+def tier(entry: str, lc: int, pc: int, W: int, R: int = 0, U: int = 1,
+         n: int = None) -> str:
+    """The tier ``entry`` runs a launch of ``n`` documents (a large batch
+    where ``None``) of width ``lc`` (pool ``pc``, ring depth ``W``; T2 also
+    ``R`` attach runs a commit over ``U`` interned ids) on: ``"warp"``
+    where :data:`WARP_MIN_DOCS` lets it and a document's slice fits
+    (config 3b's T1 and 7b's T2 run there), else ``"shared"`` where the
+    whole per-document state fits :data:`SMEM_BYTES` of one CTA's shared
+    memory (T2 at Lc 2,048, W 16, U 8,192 takes 189,576 bytes),
+    ``"global"`` above. A shape beyond the kernels' limits raises
+    ``ValueError``."""
     if entry not in ENTRIES:
         raise ValueError(f"unknown tree kernel entry {entry!r}")
     for what, v, lo, hi in (("Lc", lc, 1, MAX_LC), ("Pc", pc, 1, MAX_PC),
@@ -92,6 +228,10 @@ def tier(entry: str, lc: int, pc: int, W: int, R: int = 0, U: int = 1
         if not lo <= v <= hi:
             raise ValueError(f"{entry}: {what} {v} is outside the kernel's "
                              f"[{lo}, {hi}]")
+    fewest = warp_min_docs(entry, lc)
+    if (fewest is not None and (n is None or n >= fewest)
+            and placement(entry, lc, pc, W, U, "warp", R) is not None):
+        return "warp"
     if placement(entry, lc, pc, W, U, "shared") is not None:
         return "shared"
     return "global"
@@ -110,8 +250,10 @@ def lib() -> ctypes.CDLL:
             ("tree_em_ring_scan", [p] * 17 + [i] * 8 + [p], i),
             ("tree_trunk_work_ints", [i] * 4, ll),
             ("tree_trunk_smem_bytes", [i] * 4, ll),
-            ("tree_em_work_ints", [i] * 4, ll),
-            ("tree_em_smem_bytes", [i] * 4, ll),
+            ("tree_trunk_docs", [i] * 4, ll),
+            ("tree_em_work_ints", [i] * 6, ll),
+            ("tree_em_smem_bytes", [i] * 6, ll),
+            ("tree_em_docs", [i] * 6, ll),
             ("tree_smem_budget", [], ll),
             ("tree_error_string", [i], ctypes.c_char_p),
         ])
@@ -120,22 +262,43 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
+# Shapes check_library compares the library's placements at: (Lc, Pc, W,
+# R, U).
+_CHECK_SHAPES = ((128, 32, 16, 16, 512), (512, 8, 16, 16, 512),
+                 (4096, 8, 16, 16, 16384), (65_536, 8, 3, 16, 1 << 20))
+
+
+def _placements(t: str, ring: str = None):
+    """Every (entry, shape, code) check_library compares, with this
+    module's ``(smem_bytes, work_ints, docs)`` (-1s where the tier cannot
+    take the shape)."""
+    for lc, pc, W, R, U in _CHECK_SHAPES:
+        for entry in ENTRIES:
+            pl = placement(entry, lc, pc, W, U, t, R, ring)
+            want = (-1, -1, -1) if pl is None else (
+                *pl, docs_per_cta(entry, lc, pc, W, U, t, R, ring))
+            yield entry, (lc, pc, W, R, U), code(t, ring), want
+
+
 def check_library(cdll) -> None:
     """Raise unless the built library's budget and layout are this
-    module's."""
+    module's, on every tier code."""
     if cdll.tree_smem_budget() != SMEM_BYTES:
         raise RuntimeError("tree_kernels.cu SMEM_BYTES != tree_scan_kernel's")
-    for lc, pc, W, U in ((128, 32, 16, 512), (4096, 8, 16, 16384),
-                         (65_536, 8, 3, 1 << 20)):
-        for t, code in TIER_CODES.items():
-            want = placement("tree_trunk_scan", lc, pc, W, U, t) or (-1, -1)
-            got = (cdll.tree_trunk_smem_bytes(lc, pc, W, code),
-                   cdll.tree_trunk_work_ints(lc, pc, W, code))
-            want_em = placement("tree_em_ring_scan", lc, pc, W, U, t) or (
-                -1, -1)
-            got_em = (cdll.tree_em_smem_bytes(lc, W, U, code),
-                      cdll.tree_em_work_ints(lc, W, U, code))
-            if got != want or got_em != want_em:
+    for t, ring in (("shared", None), ("global", None), ("warp", "shared"),
+                    ("warp", "global")):
+        for entry, (lc, pc, W, R, U), c, want in _placements(t, ring):
+            if entry == T1:
+                args = (lc, pc, W, c)
+                got = (cdll.tree_trunk_smem_bytes(*args),
+                       cdll.tree_trunk_work_ints(*args),
+                       cdll.tree_trunk_docs(*args))
+            else:
+                args = (lc, pc, W, R, U, c)
+                got = (cdll.tree_em_smem_bytes(*args),
+                       cdll.tree_em_work_ints(*args),
+                       cdll.tree_em_docs(*args))
+            if got != want:
                 raise RuntimeError("tree_kernels.cu layout != "
                                    "tree_scan_kernel's")
 
@@ -203,12 +366,34 @@ def reset_counts(*wrappers) -> None:
             setattr(w, f"launches_{t}", 0)
 
 
-def trunk_scan_cuda(doc_ids, L, commits, W: int, out=None):
-    """T1: ``batched_trunk_scan`` on the card. ``doc_ids [N, Lc]``,
-    ``L [N]`` and a ``device_trunk.CommitBatch`` with all nine lanes
-    (``[N, C, Lc | Lc+1 | Pc]``, ``ref``/``seq`` ``[N, C]``), int32,
-    contiguous, on one card. Returns ``(doc_ids [N, Lc], L [N], err [N])``,
-    written into ``out`` where given (the kernel writes every lane)."""
+def _run(wrapper, entry, tensors, shape, t, ring, out, dev):
+    """Launch ``entry`` on tier ``t`` (:func:`tier`'s for the shape and
+    document count where ``None``; the warp tier's ring where ``ring``
+    says, :func:`warp_ring`'s where ``None``) into ``out`` (checked, or
+    fresh) and count the launch.
+    ``shape`` is ``(N, C, Lc, Pc, W, R, U)``."""
+    N, C, Lc, Pc, W, R, U = shape
+    if t is None:
+        t = tier(entry, Lc, Pc, W, R, U, N)
+    elif t not in TIER_CODES:
+        raise ValueError(f"unknown tier {t!r}")
+    if t == "warp":
+        ring = ring or warp_ring(entry, Lc, Pc, W, R, U, N)
+    pl = placement(entry, Lc, Pc, W, U, t, R, ring)
+    if pl is None:
+        raise ValueError(f"{entry}: tier {t} cannot take Lc {Lc}, Pc {Pc}, "
+                         f"W {W}, R {R}, U {U}")
+    out = _outputs(out, N, Lc, dev, entry)
+    if N == 0:
+        return out
+    ints = [N, C, Lc, Pc, W] + ([R, U] if entry == T2 else [])
+    _launch(entry, [*tensors, *out], ints + [code(t, ring)], dev, N, pl[1])
+    _count(wrapper, t)
+    return out
+
+
+def _trunk_inputs(doc_ids, L, commits, W: int):
+    """T1's inputs checked: ``(tensors, (N, C, Lc, Pc, W, 0, 1))``."""
     lanes = list(commits)
     if any(x is None for x in lanes):
         raise ValueError("tree_trunk_scan: every commit lane is needed")
@@ -224,27 +409,34 @@ def trunk_scan_cuda(doc_ids, L, commits, W: int, out=None):
                          (pmid, (N, C, Pc), "pool_mid"),
                          (poff, (N, C, Pc), "pool_off")):
         _shape(x, shp, name)
-    t = tier("tree_trunk_scan", Lc, Pc, W)
-    pl = placement("tree_trunk_scan", Lc, Pc, W, 1, t)
-    dev = doc_ids.device
-    out, out_L, err = _outputs(out, N, Lc, dev, "tree_trunk_scan")
-    if N == 0:
-        return out, out_L, err
-    _launch("tree_trunk_scan",
-            [doc_ids, L, dm, ic, ii, mid, moff, pmid, poff, ref, seq, out,
-             out_L, err], [N, C, Lc, Pc, W, TIER_CODES[t]], dev, N, pl[1])
-    _count(trunk_scan_cuda, t)
-    return out, out_L, err
+    return ([doc_ids, L, dm, ic, ii, mid, moff, pmid, poff, ref, seq],
+            (N, C, Lc, Pc, W, 0, 1))
 
 
-def em_ring_scan_cuda(ring_ids, ring_L, ring_seq, mov_seq0, commits, U: int,
-                      out=None):
-    """T2: ``batched_em_trunk_scan_ring`` on the card. ``ring_ids
-    [N, W, Lc]``, ``ring_L``/``ring_seq`` ``[N, W]``, ``mov_seq0 [N]`` and
-    a ``device_em.EmCommitBatch`` with all nine lanes, int32, contiguous,
-    on one card; ``U`` the interned id universe. Returns ``(doc_ids
-    [N, Lc], L [N], err [N])``, written into ``out`` where given; the
-    inputs are not modified."""
+def trunk_scan_cuda(doc_ids, L, commits, W: int, out=None):
+    """T1: ``batched_trunk_scan`` on the card, on the tier :func:`tier`
+    names. ``doc_ids [N, Lc]``, ``L [N]`` and a ``device_trunk.CommitBatch``
+    with all nine lanes (``[N, C, Lc | Lc+1 | Pc]``, ``ref``/``seq``
+    ``[N, C]``), int32, contiguous, on one card. Returns ``(doc_ids
+    [N, Lc], L [N], err [N])``, written into ``out`` where given (the
+    kernel writes every lane)."""
+    tensors, shape = _trunk_inputs(doc_ids, L, commits, W)
+    return _run(trunk_scan_cuda, T1, tensors, shape, None, None, out,
+                doc_ids.device)
+
+
+def trunk_scan_on(t: str, ring, doc_ids, L, commits, W: int, out=None):
+    """T1 on tier ``t`` (the warp tier's ring in ``ring``, ``None`` for
+    :func:`warp_ring`'s place), for the holds that hold every tier against
+    the plain version and time two tiers on the same inputs; raises where
+    the tier cannot take the shape. The scans never call it."""
+    tensors, shape = _trunk_inputs(doc_ids, L, commits, W)
+    return _run(trunk_scan_cuda, T1, tensors, shape, t, ring, out,
+                doc_ids.device)
+
+
+def _em_inputs(ring_ids, ring_L, ring_seq, mov_seq0, commits, U: int):
+    """T2's inputs checked: ``(tensors, (N, C, Lc, Pc, W, R, U))``."""
     lanes = list(commits)
     if any(x is None for x in lanes):
         raise ValueError("tree_em_ring_scan: every commit lane is needed")
@@ -267,19 +459,31 @@ def em_ring_scan_cuda(ring_ids, ring_L, ring_seq, mov_seq0, commits, U: int,
                          (seqs, (N, C), "seq"), (mv, (N, C, Lc),
                                                  "mov_mask")):
         _shape(x, shp, name)
-    U = int(U)
-    t = tier("tree_em_ring_scan", Lc, Pc, W, R, U)
-    pl = placement("tree_em_ring_scan", Lc, Pc, W, U, t)
-    dev = ring_ids.device
-    out, out_L, err = _outputs(out, N, Lc, dev, "tree_em_ring_scan")
-    if N == 0:
-        return out, out_L, err
-    _launch("tree_em_ring_scan",
-            [ring_ids, ring_L, ring_seq, mov_seq0, dm, ic, ii, rs, rl, ro,
-             refs, seqs, mv, out, out_L, err],
-            [N, C, Lc, Pc, W, R, U, TIER_CODES[t]], dev, N, pl[1])
-    _count(em_ring_scan_cuda, t)
-    return out, out_L, err
+    return ([ring_ids, ring_L, ring_seq, mov_seq0, dm, ic, ii, rs, rl, ro,
+             refs, seqs, mv], (N, C, Lc, Pc, W, R, int(U)))
+
+
+def em_ring_scan_cuda(ring_ids, ring_L, ring_seq, mov_seq0, commits, U: int,
+                      out=None):
+    """T2: ``batched_em_trunk_scan_ring`` on the card, on the tier
+    :func:`tier` names. ``ring_ids [N, W, Lc]``, ``ring_L``/``ring_seq``
+    ``[N, W]``, ``mov_seq0 [N]`` and a ``device_em.EmCommitBatch`` with all
+    nine lanes, int32, contiguous, on one card; ``U`` the interned id
+    universe. Returns ``(doc_ids [N, Lc], L [N], err [N])``, written into
+    ``out`` where given; the inputs are not modified."""
+    tensors, shape = _em_inputs(ring_ids, ring_L, ring_seq, mov_seq0,
+                                commits, U)
+    return _run(em_ring_scan_cuda, T2, tensors, shape, None, None, out,
+                ring_ids.device)
+
+
+def em_ring_scan_on(t: str, ring, ring_ids, ring_L, ring_seq, mov_seq0,
+                    commits, U: int, out=None):
+    """T2 on tier ``t``, as :func:`trunk_scan_on` is T1's."""
+    tensors, shape = _em_inputs(ring_ids, ring_L, ring_seq, mov_seq0,
+                                commits, U)
+    return _run(em_ring_scan_cuda, T2, tensors, shape, t, ring, out,
+                ring_ids.device)
 
 
 # CUDA launches, in all and by tier (the CPU path never counts).

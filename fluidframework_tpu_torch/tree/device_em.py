@@ -25,7 +25,8 @@ Every document pushes one state per step, so the ring's write slot is the
 same for the whole batch and known on the host: the ring is circular
 (reads are order-free selects by seq). On the card a scan is one launch of
 the hand kernel T2 (``ops/tree_scan_kernel.py``, ``csrc/tree_kernels.cu``):
-one CTA per document, the multihots as bitsets. The plain version,
+one warp or one CTA per document (``tree_scan_kernel.tier``), the
+multihots as bitsets. The plain version,
 :func:`batched_em_trunk_scan_ring_plain`, taken for CPU tensors, runs the
 steps and attach runs as Python loops over batched tensors with
 ``torch.where`` selects; nothing in a step synchronises with the host.

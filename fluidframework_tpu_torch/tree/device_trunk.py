@@ -17,8 +17,9 @@ circular, with no per-step copy. Move-bearing commits ride the same scan
 (the ring carries the full dense IR, move lanes included).
 
 On the card the whole scan is one launch of the hand kernel T1
-(``ops/tree_scan_kernel.py``, ``csrc/tree_kernels.cu``): one CTA per
-document with its ring on chip. :func:`batched_trunk_scan_plain` is the
+(``ops/tree_scan_kernel.py``, ``csrc/tree_kernels.cu``): one warp per
+document (one CTA per document past the warp tier's widths).
+:func:`batched_trunk_scan_plain` is the
 plain PyTorch version of the same function, taken for CPU tensors (and
 held against T1 on the card by ``chip_smoke.py``).
 

@@ -437,18 +437,21 @@ def _scan_once(fn, *args, **kw):
 @pytest.mark.parametrize("hold", T1_HOLDS)
 def test_trunk_scan_kernel_matches_plain_on_the_card(hold):
     """T1 at each hold shape of the smoke (W 3/8/16, Lc 32-1,024, Pc
-    8/32, moves or none, the ring-window err, N 1/7/1,024, both tiers):
-    the kernel, writing into sentinel-filled outputs, equals its plain
-    version on the card in every lane, and ``batched_trunk_scan`` is one
-    launch on its tier without a host sync."""
+    8/32, moves or none, the ring-window err, N 1/7/1,024), on every tier
+    that takes the shape (the warp tier with its ring in the slice and in
+    the workspace, the shared and global tiers): the kernel, writing into
+    sentinel-filled outputs, equals its plain version on the card in every
+    lane, and ``batched_trunk_scan`` is one launch on the tier ``tier()``
+    names without a host sync."""
     _need_card()
     dev = torch.device("cuda", 0)
     n, c, w, lc, pc, mp, lag_w = hold
     docs, L0, cb = trunk_case(dev, n, c, lag_w, lc, pc, mp)
-    assert hold_tree(dev, "T1_trunk_scan", (docs, L0, cb, w))[
-        "max_abs_err"] == 0
+    row = hold_tree(dev, "T1_trunk_scan", (docs, L0, cb, w))
+    assert row["max_abs_err"] == 0
+    assert all(r["max_abs_err"] == 0 for r in row["tiers"].values())
     got = _scan_once(DT.batched_trunk_scan, docs, L0, cb, w, device=dev)
-    tier = TSK.tier("tree_trunk_scan", lc, pc, w)
+    tier = TSK.tier("tree_trunk_scan", lc, pc, w, n=n)
     assert TSK.trunk_scan_cuda.launches == 1
     assert getattr(TSK.trunk_scan_cuda, f"launches_{tier}") == 1
     want = DT.batched_trunk_scan_plain(docs, L0, cb, w, device=dev)
@@ -459,25 +462,79 @@ def test_trunk_scan_kernel_matches_plain_on_the_card(hold):
 @pytest.mark.cuda
 @pytest.mark.parametrize("lc", T2_HOLD_LCS)
 def test_em_ring_scan_kernel_matches_plain_on_the_card(lc):
-    """T2 at every Lc bucket of ``batch_ingest`` (both tiers; W 16, R 16,
-    all 16 runs on one commit, ring misses with and without a move
-    watermark, an ``ERR_CAPACITY`` overflow): the kernel, writing into
-    sentinel-filled outputs, equals its plain version on the card in
-    every lane, and ``batched_em_trunk_scan_ring`` is one launch without a
-    host sync."""
+    """T2 at every Lc bucket of ``batch_ingest`` (every tier that takes
+    it; W 16, R 16, all 16 runs on one commit, ring misses with and
+    without a move watermark, an ``ERR_CAPACITY`` overflow): the kernel,
+    writing into sentinel-filled outputs, equals its plain version on the
+    card in every lane, and ``batched_em_trunk_scan_ring`` is one launch
+    on the tier ``tier()`` names without a host sync."""
     _need_card()
     dev = torch.device("cuda", 0)
     rings, cb, U = em_case(dev, T2_HOLD_DOCS, T2_HOLD_COMMITS, lc)
-    assert hold_tree(dev, "T2_em_ring_scan", (*rings, cb, U))[
-        "max_abs_err"] == 0
+    row = hold_tree(dev, "T2_em_ring_scan", (*rings, cb, U))
+    assert row["max_abs_err"] == 0
+    assert all(r["max_abs_err"] == 0 for r in row["tiers"].values())
     got = _scan_once(DEM.batched_em_trunk_scan_ring, *rings, cb, U,
                      device=dev)
     assert TSK.em_ring_scan_cuda.launches == 1
+    tier = TSK.tier("tree_em_ring_scan", lc, cb.ins_ids.shape[2], 16,
+                    cb.run_start.shape[2], U, n=T2_HOLD_DOCS)
+    assert getattr(TSK.em_ring_scan_cuda, f"launches_{tier}") == 1
     want = DEM.batched_em_trunk_scan_ring_plain(*rings, cb, U, device=dev)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
     err = want[2].tolist()
     assert err[1] & DEM.ERR_MOVE_EVICTED and err[-1] & DEM.ERR_CAPACITY
     assert err[4] & DEM.ERR_RING_MISS and not err[4] & DEM.ERR_MOVE_EVICTED
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lc", T2_HOLD_LCS)
+def test_em_ring_scan_one_document_matches_plain_on_the_card(lc):
+    """T2 at one document a launch (the EditManager's own dispatch) at
+    every bucket, on every tier that takes it, equal to its plain version
+    in every lane into sentinel-filled outputs; one launch on the tier
+    ``tier()`` names for one document, without a host sync."""
+    _need_card()
+    dev = torch.device("cuda", 0)
+    rings, cb, U = em_case(dev, 1, T2_HOLD_COMMITS, lc)
+    row = hold_tree(dev, "T2_em_ring_scan", (*rings, cb, U))
+    assert all(r["max_abs_err"] == 0 for r in row["tiers"].values())
+    got = _scan_once(DEM.batched_em_trunk_scan_ring, *rings, cb, U,
+                     device=dev)
+    tier = TSK.tier("tree_em_ring_scan", lc, cb.ins_ids.shape[2], 16,
+                    cb.run_start.shape[2], U, n=1)
+    assert TSK.em_ring_scan_cuda.launches == 1
+    assert getattr(TSK.em_ring_scan_cuda, f"launches_{tier}") == 1
+    want = DEM.batched_em_trunk_scan_ring_plain(*rings, cb, U, device=dev)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert want[2][0] & DEM.ERR_CAPACITY
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["T1", "T2"])
+def test_tree_scans_take_the_warp_tier_at_the_main_shapes(name):
+    """At 3b's and 7b's widths and 1,024 documents each scan is one launch
+    of the warp tier with its ring in the workspace, without a host sync,
+    equal to its plain version in every lane."""
+    _need_card()
+    dev = torch.device("cuda", 0)
+    if name == "T1":
+        docs, L0, cb = trunk_case(dev, 1024, 24, 16, 128, 32, 0.0)
+        args, scan = (docs, L0, cb, 16), DT.batched_trunk_scan
+        plain, wrapper = DT.batched_trunk_scan_plain, TSK.trunk_scan_cuda
+        shape = ("tree_trunk_scan", 128, 32, 16, 0, 1)
+    else:
+        rings, cb, U = em_case(dev, 1024, 16, 512, U=2048)
+        args, scan = (*rings, cb, U), DEM.batched_em_trunk_scan_ring
+        plain = DEM.batched_em_trunk_scan_ring_plain
+        wrapper = TSK.em_ring_scan_cuda
+        shape = ("tree_em_ring_scan", 512, cb.ins_ids.shape[2], 16, 16, U)
+    assert TSK.tier(*shape, n=1024) == "warp"
+    assert TSK.warp_ring(*shape, n=1024) == "global"
+    got = _scan_once(scan, *args, device=dev)
+    assert wrapper.launches == 1 and wrapper.launches_warp == 1
+    want = plain(*args, device=dev)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 @pytest.mark.cuda

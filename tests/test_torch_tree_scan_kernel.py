@@ -129,25 +129,39 @@ def test_a_hold_fails_on_a_lane_the_kernel_leaves_unwritten():
     assert tuple(_sentinel_out(ring_ids, CPU)[0].shape) == (2, 64)
 
 
+# The C entries' tier codes: (tier, the warp tier's ring).
+_CODES = {0: ("shared", None), 1: ("global", None), 2: ("warp", "shared"),
+          3: ("warp", "global")}
+
+
 class _FakeTreeLib:
     """Stands in for the built tree library: its entries answer from
-    ``tree_scan_kernel.placement``, shifted by ``skew`` ints."""
+    ``tree_scan_kernel.placement`` and ``docs_per_cta``, the workspace
+    shifted by ``skew`` ints."""
 
     def __init__(self, skew=0):
         def entry(kernel, what):
-            def f(lc, pc_or_w, w_or_u, code):
-                t = {v: k for k, v in TSK.TIER_CODES.items()}[code]
-                args = ((lc, pc_or_w, w_or_u, 1) if kernel == T1
-                        else (lc, 8, pc_or_w, w_or_u))
-                pl = TSK.placement(kernel, *args, t)
-                return -1 if pl is None else pl[what] + skew * what
+            def f(*args):
+                t, ring = _CODES[args[-1]]
+                if kernel == T1:
+                    (lc, pc, W), R, U = args[:3], 0, 1
+                else:
+                    lc, pc, W, R, U = args[:5]
+                pl = TSK.placement(kernel, lc, pc, W, U, t, R, ring)
+                if pl is None:
+                    return -1
+                if what == 2:
+                    return TSK.docs_per_cta(kernel, lc, pc, W, U, t, R, ring)
+                return pl[what] + skew * what
             return f
 
         self.tree_smem_budget = lambda: TSK.SMEM_BYTES
         self.tree_trunk_smem_bytes = entry(T1, 0)
         self.tree_trunk_work_ints = entry(T1, 1)
+        self.tree_trunk_docs = entry(T1, 2)
         self.tree_em_smem_bytes = entry(T2, 0)
         self.tree_em_work_ints = entry(T2, 1)
+        self.tree_em_docs = entry(T2, 2)
         for name in ("tree_trunk_scan", "tree_em_ring_scan",
                      "tree_error_string"):
             setattr(self, name, lambda *a: 0)
@@ -181,43 +195,177 @@ _LCS = [32 << i for i in range(9)]
 
 @pytest.mark.parametrize("lc", _LCS)
 def test_tier_takes_every_batch_ingest_bucket(lc):
+    """Every bucket takes a tier at every document count a dispatch has
+    (one document through a large batch): the warp tier where
+    ``WARP_MIN_DOCS`` lets it, the shared tier where the whole state fits
+    one CTA, the global tier above."""
     W, R = EditManager.DEVICE_WINDOW, EditManager.DEVICE_MAX_RUNS
     pcs = [8 << i for i in range(lc.bit_length()) if 8 << i <= lc]
     us = [1 << i for i in range(5, (2 * W * lc).bit_length() + 1)]
     for pc in pcs:
         for U in us:
-            t = TSK.tier(T2, lc, pc, W, R, U)
-            smem, work = TSK.placement(T2, lc, pc, W, U, t)
-            assert smem <= TSK.SMEM_BYTES
-            if t == "shared":
-                assert work == 0
-                assert lc <= 2048
-            else:
-                assert TSK.placement(T2, lc, pc, W, U, "shared") is None
-                assert work >= W * lc
-    assert TSK.tier(T2, lc, 8, W, R, 1 << 10) == ("shared" if lc <= 2048
-                                                  else "global")
+            for n in (1, 7, 512, 1024, None):
+                t = TSK.tier(T2, lc, pc, W, R, U, n)
+                smem, work = TSK.placement(T2, lc, pc, W, U, t, R,
+                                           TSK.warp_ring(T2, lc, pc, W, R, U,
+                                                         n))
+                assert smem <= TSK.SMEM_BYTES
+                fewest = TSK.warp_min_docs(T2, lc)
+                if t == "warp":
+                    assert lc <= 512 and (n or 1 << 30) >= fewest
+                elif t == "shared":
+                    assert work == 0
+                    assert lc <= 2048
+                else:
+                    assert TSK.placement(T2, lc, pc, W, U, "shared") is None
+                    assert work >= W * lc
+    want = ("warp" if lc <= 512 and lc != 128 else "shared" if lc <= 2048
+            else "global")
+    assert TSK.tier(T2, lc, 8, W, R, 1 << 10) == want
 
 
 @pytest.mark.parametrize("W", [3, 8, 16])
 @pytest.mark.parametrize("lc,pc", [(32, 8), (32, 16), (128, 32), (512, 8),
                                    (512, 32), (1024, 32), (4096, 64)])
 def test_trunk_tier_takes_its_callers_shapes(lc, pc, W):
-    t = TSK.tier(T1, lc, pc, W)
-    smem, work = TSK.placement(T1, lc, pc, W, 1, t)
-    assert smem <= TSK.SMEM_BYTES
+    """Every T1 caller shape takes a tier, for one document and for a
+    large batch: the warp tier up to Lc 512 (past Lc 128 only with 256
+    documents or more), the shared tier where the CTA's state fits, the
+    global tier above."""
     e = 4 * lc + 1 + 3 * pc
-    assert (t == "shared") == (4 * (W * e + 2 * W + 2 * e + 6 * lc + 3
-                                    + 4 * pc) <= TSK.SMEM_BYTES)
-    if t == "global":
-        assert work >= W * e
+    fits = 4 * (W * e + 2 * W + 2 * e + 6 * lc + 3 + 4 * pc) <= TSK.SMEM_BYTES
+    for n in (1, 255, 256, None):
+        t = TSK.tier(T1, lc, pc, W, n=n)
+        smem, work = TSK.placement(T1, lc, pc, W, 1, t, 0,
+                                   TSK.warp_ring(T1, lc, pc, W, n=n))
+        assert smem <= TSK.SMEM_BYTES
+        if lc <= 128 or (lc <= 512 and (n is None or n >= 256)):
+            assert t == "warp"
+        else:
+            assert (t == "shared") == fits
+        if t == "global":
+            assert work >= W * e
 
 
-def test_config_3b_and_7b_run_on_the_shared_tier():
-    assert TSK.tier(T1, 128, 32, 16) == "shared"
-    assert TSK.placement(T1, 128, 32, 16, 1, "shared") == (47_572, 0)
-    assert TSK.tier(T2, 512, 8, 16, 16, 512) == "shared"
-    assert TSK.placement(T2, 512, 8, 16, 512, "shared") == (47_304, 0)
+@pytest.mark.parametrize("entry,shape,n,slice_bytes,work", [
+    # 3b (7a): 1,024 documents, Lc 128, Pc 32, W 16; the workspace ring of
+    # 16 changesets of 609 ints, 5 of them cached in the slice.
+    (T1, (128, 32, 16, 0, 1), 1024, 27_596, 9744),
+    # 7b: 1,024 documents (3c-moves 512), Lc 512, Pc 8, W 16, R 16, U 512.
+    (T2, (512, 8, 16, 16, 512), 1024, 25_248, 8192),
+    (T2, (512, 8, 16, 16, 512), 512, 25_248, 8192),
+])
+def test_config_3b_and_7b_run_on_the_shared_tier(entry, shape, n,
+                                                 slice_bytes, work):
+    """3b's and 7b's scans run on the warp tier with the ring in the
+    workspace, 8 documents a CTA, one wave on an H100; the shared tier
+    they ran on before (the CTA tier the holds time beside it) keeps its
+    bytes."""
+    lc, pc, W, R, U = shape
+    assert TSK.tier(entry, lc, pc, W, R, U, n) == "warp"
+    assert TSK.warp_ring(entry, lc, pc, W, R, U, n) == "global"
+    assert TSK.placement(entry, lc, pc, W, U, "warp", R, "global") == (
+        8 * slice_bytes, work)
+    assert TSK.docs_per_cta(entry, lc, pc, W, U, "warp", R, "global") == 8
+    assert TSK.placement(entry, lc, pc, W, U, "shared") == (
+        (47_572, 0) if entry == T1 else (47_304, 0))
+    assert TSK.wave_docs(8 * slice_bytes, 8) >= 1024
+
+
+@pytest.mark.parametrize("entry", [T1, T2])
+@pytest.mark.parametrize("ring", TSK.RINGS)
+@pytest.mark.parametrize("lc", [32, 100, 128, 512, 1024, 4096])
+def test_warp_placement_bytes(entry, ring, lc):
+    """The warp tier's bytes for each ring placement: D documents a CTA
+    (1 to WARP_MAX_D) of one slice each within SMEM_BYTES, a slice of the
+    kernels' layout; the workspace holds the ring only when it lies
+    there."""
+    pc, W, R = max(8, lc // 8), 16, 16
+    U = 4 * lc
+    pl = TSK.placement(entry, lc, pc, W, U, "warp", R, ring)
+    d = TSK.docs_per_cta(entry, lc, pc, W, U, "warp", R, ring)
+    e = 4 * lc + 1 + 3 * pc
+    if entry == T1:
+        m = TSK.trunk_cache(lc, pc, W) if ring == "global" else 0
+        slice_ = (((2 + m) * e if ring == "global" else W * e) + 2 * W
+                  + 3 * (e + 2) + 5 * lc + 3 + 4 * pc)
+        ring_ints = W * e
+    else:
+        s_ = 3 * lc + 1 + pc + 3 * R + 2
+        slice_ = ((0 if ring == "global" else W * lc) + 2 * W + (U + 31) // 32
+                  + 6 * lc + 2 + 2 * s_)
+        ring_ints = W * lc
+    if 4 * slice_ > TSK.SMEM_BYTES:
+        assert pl is None and d is None
+        return
+    assert d == min(TSK.WARP_MAX_D, TSK.SMEM_BYTES // (4 * slice_))
+    assert pl == (4 * slice_ * d, ring_ints if ring == "global" else 0)
+    assert pl[0] <= TSK.SMEM_BYTES
+
+
+def test_trunk_cache_keeps_the_documents_a_cta():
+    """T1's cache of the newest ring entries is as large as leaves the
+    warp tier's documents a CTA as they are without it: 5 at config 3b,
+    never more than W."""
+    assert TSK.trunk_cache(128, 32, 16) == 5
+    assert TSK.trunk_cache(32, 8, 3) == 3
+    for lc, pc, W in ((128, 32, 16), (512, 32, 16), (32, 8, 8), (64, 8, 16)):
+        m = TSK.trunk_cache(lc, pc, W)
+        assert 0 <= m <= min(W, TSK.WARP_CACHE_MAX)
+        e = 4 * lc + 1 + 3 * pc
+        base = TSK._warp_slice(T1, lc, pc, W, 0, 1, "global", cache=0)[0]
+        assert TSK._warp_docs(base + m * e) == TSK._warp_docs(base)
+        if m < min(W, TSK.WARP_CACHE_MAX):
+            assert TSK._warp_docs(base + (m + 1) * e) < TSK._warp_docs(base)
+
+
+@pytest.mark.parametrize("entry,lc,pc,R,U", [(T1, 128, 32, 0, 1),
+                                             (T2, 512, 8, 16, 512),
+                                             (T2, 32, 8, 16, 256)])
+def test_warp_ring_follows_one_wave(entry, lc, pc, R, U):
+    """The warp tier keeps the ring in the slice while the launch's
+    documents all fit the card at once that way, and in the workspace past
+    that; with no count, in the slice only where it costs no documents a
+    CTA."""
+    W = 16
+    full = TSK._warp(entry, lc, pc, W, U, R, "shared")
+    wave = TSK.wave_docs(full[0], full[2])
+    assert TSK.warp_ring(entry, lc, pc, W, R, U, wave) == "shared"
+    assert TSK.warp_ring(entry, lc, pc, W, R, U, wave + 1) == "global"
+    assert TSK.warp_ring(entry, lc, pc, W, R, U) == (
+        "shared" if full[2] == TSK.WARP_MAX_D else "global")
+
+
+def test_warp_min_docs_by_width():
+    """Which launches the warp tier takes: T1 at Lc 128 from one document,
+    at Lc 512 from 256; T2 at Lc 64 from one, never at Lc 128, at Lc 256
+    from 1,024 and at Lc 512 from 512; neither past Lc 512."""
+    want = {T1: {32: 1, 128: 1, 256: 256, 512: 256, 1024: None},
+            T2: {32: 1, 64: 1, 128: None, 256: 1024, 512: 512,
+                 1024: None}}
+    for entry, by_lc in want.items():
+        for lc, fewest in by_lc.items():
+            assert TSK.warp_min_docs(entry, lc) == fewest
+            pc = 32 if entry == T1 else 8
+            args = (lc, pc, 16, 16 if entry == T2 else 0, 4 * lc)
+            if fewest is None:
+                assert TSK.tier(entry, *args, n=1 << 20) != "warp"
+            else:
+                assert TSK.tier(entry, *args, n=fewest) == "warp"
+                if fewest > 1:
+                    assert TSK.tier(entry, *args, n=fewest - 1) != "warp"
+
+
+def test_tier_codes_name_every_placement():
+    """The C entries' tier codes: 0 shared, 1 global, 2 and 3 the warp
+    tier with its ring in the slice or the workspace; an unknown ring or
+    tier raises."""
+    assert [TSK.code(*_CODES[c]) for c in range(4)] == [0, 1, 2, 3]
+    assert set(TSK.TIER_CODES) == {"shared", "global", "warp"}
+    with pytest.raises(ValueError):
+        TSK.code("warp", "l2")
+    with pytest.raises(ValueError):
+        TSK.placement(T1, 128, 32, 16, 1, "warp", 0, "l2")
 
 
 @pytest.mark.parametrize("entry,args", [
