@@ -141,7 +141,9 @@ log and lease coordination (``g++``), all at once, then:
    49,152 live rows into a ShardedDoc of 8 x 65,536 rows and goes on past
    80,000, its text equal to a host string, the 1,000 ops after promotion
    replayed through ``kernel="plain"`` from a clone shard for shard, one
-   apply and one compaction under sync-debug "error", and on the list of
+   apply and one compaction under sync-debug "error", one op's launches
+   by name (X1, X2 and K1 on one device group) and its ATen ops, and on
+   the list of
    every visible card (one card: 524,288 rows a shard, the split tier) a
    document of 65,000 rows promoted at the first scan and carried past
    65,536 live rows by mixed frames, equal to a ``kernel="plain"`` twin
@@ -149,7 +151,9 @@ log and lease coordination (``g++``), all at once, then:
    tests/test_multinode.py's failover and fencing at 3
    nodes x 1,024 documents over ``NativeCoordination``. K1/K2 held
    against their plain versions at the mesh shard's and the sharded
-   document's shapes;
+   document's shapes, and X1/X2 (the sharded document's per-op
+   exchange) at 9c's 8 x 65,536 rows and the one card's 1 x 524,288, into
+   outputs filled with a sentinel (:func:`hold_exchange`);
 10. the oracle, the load harness and the other DDS models — 10a
    bench.py's ``device_state_parity`` at 4,096 docs x 256 rows and 256
    docs x 4,096 rows (the shared and the cluster tier), 96 ops a document
@@ -198,10 +202,12 @@ run, then each of 8a-8e, then each run of 9a-9c, then each of 10a-10c,
 then 11a)
 and read after it; T1's and T2's counts (in all, shared, global) the
 same way around 7a, 7b, 7b-moves, 7c, 10b and 11d's tree scans, and 7a
-must launch T1, 7b T2. The DocFleet path must launch K1 and K2 on the
+must launch T1, 7b T2; X1's and X2's around 9c and the one card's run
+after promotion and 11d's sharded functions, each of which must launch
+both. The DocFleet path must launch K1 and K2 on the
 cluster tier. Prints the ptxas report of every kernel entry, each phase's
 wall time, the card's name and power limit, a ``{"kernels": [...]}`` line
-(K1, K2, K3, T1, T2), and last ``{"ok":
+(K1, K2, K3, T1, T2, X1, X2), and last ``{"ok":
 true, "device": {...}}``. Any failure exits non-zero. A longer record goes to
 ``chip_smoke.json`` in the output directory (``OUT_DIR``).
 
@@ -245,6 +251,7 @@ the upstream ci profile) and writes ``load_reference.json``.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import json
@@ -263,6 +270,7 @@ from fluidframework_tpu_torch.ops import _cuda
 from fluidframework_tpu_torch.ops import apply_kernel as K1
 from fluidframework_tpu_torch.ops import compact_kernel as K2
 from fluidframework_tpu_torch.ops import encode as E
+from fluidframework_tpu_torch.ops import shard_exchange_kernel as SX
 from fluidframework_tpu_torch.protocol.constants import (
     ERR_CAPACITY,
     ERR_CLIENT,
@@ -380,6 +388,19 @@ TREE_KERNELS = {
         wrapper=TSK.em_ring_scan_cuda, on=TSK.em_ring_scan_on, entry=TSK.T2,
         plain=DEM.batched_em_trunk_scan_ring_plain,
         replaces="fluidframework_tpu/tree/device_em.py:129",
+    ),
+}
+# The sharded document's per-op exchange (csrc/merge_kernels.cu, beside
+# K1): the exchange half of the reference's jitted shard_map body (two
+# all_gathers, no pl.pallas_call).
+SHARD_KERNELS = {
+    "X1_shard_stats": dict(
+        wrapper=SX.shard_stats,
+        replaces="fluidframework_tpu/parallel/sharded_doc.py:71",
+    ),
+    "X2_shard_resolve": dict(
+        wrapper=SX.shard_resolve,
+        replaces="fluidframework_tpu/parallel/sharded_doc.py:71",
     ),
 }
 # Every (tier, ring) a tree kernel may run on: the warp tier with its ring
@@ -757,6 +778,13 @@ def _median_ms(fn, reset, reps: int) -> float:
 
 def reset_counts() -> None:
     _cuda.reset_counts(*(spec["wrapper"] for spec in KERNELS.values()))
+    SX.reset_counts()
+
+
+def read_shard_counts() -> dict:
+    """X1's and X2's launches since the last :func:`reset_counts`."""
+    return {name: spec["wrapper"].launches
+            for name, spec in SHARD_KERNELS.items()}
 
 
 def reset_tree_counts() -> None:
@@ -2682,8 +2710,8 @@ def _same_lanes(a, b, what: str) -> None:
 def _profile(dev, fn) -> dict:
     """Launches and device time of one call of ``fn`` under
     ``torch.profiler``: device activities (kernels, copies, sets) and
-    their summed µs on the card, and the top-level ATen ops the host
-    dispatched."""
+    their summed µs on the card, the kernels among them by name, and the
+    top-level ATen ops the host dispatched (count and names)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2695,13 +2723,77 @@ def _profile(dev, fn) -> dict:
         _sync(dev)
     events = prof.events()
     kern = [e for e in events if e.device_type == DeviceType.CUDA]
+    aten = [e.name for e in events if e.device_type == DeviceType.CPU
+            and e.name.startswith("aten::") and e.cpu_parent is None]
+    named = [(_kernel_name(e.name), e.time_range.elapsed_us()) for e in kern
+             if not e.name.startswith(("Memcpy", "Memset"))]
+    kernel_us = collections.defaultdict(float)
+    for name, us in named:
+        kernel_us[name] += us
     return dict(
         launches=len(kern),
         device_us=float(sum(e.time_range.elapsed_us() for e in kern)),
-        aten_ops=sum(1 for e in events if e.device_type == DeviceType.CPU
-                     and e.name.startswith("aten::")
-                     and e.cpu_parent is None),
+        kernels=dict(collections.Counter(name for name, _us in named)),
+        kernel_us=dict(kernel_us),
+        aten_ops=len(aten), aten_names=sorted(set(aten)),
     )
+
+
+def _kernel_name(name: str) -> str:
+    """A device kernel's name without its return type, namespace and
+    parameter list (``merge_kernel<0, 2, false>``)."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = name.removeprefix("void ").split("(", 1)[0].strip()
+    head, sep, tail = name.partition("<")
+    return head.rsplit("::", 1)[-1] + sep + tail
+
+
+def _queued_ms(dev, fn, reps: int = 50, spin_cycles: int = 50_000_000):
+    """Device ms a call of ``fn`` over ``reps`` calls launched back to
+    back behind a spin kernel (``torch.cuda._sleep``, ~25 ms at the H100's
+    clock), so the host has queued every launch before the first runs and
+    the CUDA events between them see the device's own time, not the
+    host's launch cost. Raises if queueing took longer than the spin. Host
+    wall a call on the CPU."""
+    if dev.type != "cuda":
+        return _event_ms(dev, fn, reps)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    spin = torch.cuda.Event(enable_timing=True)
+    spin.record()
+    torch.cuda._sleep(spin_cycles)
+    t = time.perf_counter()
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    queued_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    if queued_ms >= spin.elapsed_time(a):
+        raise AssertionError(f"_queued_ms: queueing took {queued_ms:.2f} ms,"
+                             f" the spin {spin.elapsed_time(a):.2f} ms")
+    return a.elapsed_time(b) / reps
+
+
+def _device_ms(dev, fn, reps: int, kernel: str):
+    """Median device time (ms) of the launches of ``kernel`` (a kernel's
+    short name) over ``reps`` calls of ``fn`` under ``torch.profiler``:
+    the kernel's own time, without the host's launch cost. None on the CPU
+    or when the profiler records no such launch."""
+    if dev.type != "cuda":
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        _sync(dev)
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA
+          and _kernel_name(e.name) == kernel]
+    return float(np.median(us)) / 1e3 if us else None
 
 
 def _scan_launches(dev, fn) -> dict:
@@ -3685,7 +3777,8 @@ class _Uncounted:
     def __enter__(self):
         self._saved = [(spec["wrapper"], dict(vars(spec["wrapper"])))
                        for spec in (*KERNELS.values(),
-                                    *TREE_KERNELS.values())]
+                                    *TREE_KERNELS.values(),
+                                    *SHARD_KERNELS.values())]
 
     def __exit__(self, *exc):
         for w, attrs in self._saved:
@@ -4570,6 +4663,172 @@ def mesh_9b(device, mesh_devs, n_ch=4096, k=16, rounds=12, cap=1024,
     return out
 
 
+def exchange_case(dev, n: int, s: int, seed: int = 0, k: int = 8):
+    """A packed pair of ``n`` shards of ``s`` rows and ``k`` op rows
+    ``[k, OP_WIDTH]`` on ``dev`` for holding X1 and X2: live rows up to
+    each shard's count (random, one shard full), free rows past it,
+    random stamps, some rows removed or unsequenced, every shard ending
+    in zero-length tombstones, and inserts, removes and annotates whose
+    seq, ref and writer span the stamps (some unsequenced, some the self
+    client's), at positions on the shards' ends and past the document's
+    end."""
+    rng = np.random.default_rng(seed)
+    lanes = {name: np.full((n, s), fill, np.int32) for name, fill in (
+        ("kind", 0), ("length", 0), ("seq", 0), ("client", 0),
+        ("rseq", RSEQ_NONE), ("rbits", 0))}
+    counts = rng.integers(0, s + 1, n)
+    counts[0] = s
+    top = 64
+    for d, c in enumerate(counts):
+        c = int(c)
+        lanes["kind"][d, :c] = KIND_TEXT
+        lanes["length"][d, :c] = rng.integers(0, 5, c)
+        seq = rng.integers(1, top, c).astype(np.int32)
+        seq[rng.random(c) < 0.05] = UNASSIGNED_SEQ
+        lanes["seq"][d, :c] = seq
+        lanes["client"][d, :c] = rng.integers(0, 4, c)
+        rseq = np.where(rng.random(c) < 0.3, rng.integers(1, top, c),
+                        RSEQ_NONE).astype(np.int32)
+        if c:
+            tail = int(rng.integers(1, min(c, 3) + 1))
+            rseq[c - tail:] = rng.integers(1, 4, tail)
+        lanes["rseq"][d, :c] = rseq
+        lanes["rbits"][d, :c] = np.where(rseq != RSEQ_NONE,
+                                         rng.integers(0, 16, c), 0)
+    t = torch.zeros((K1.N_LANES, n, s), dtype=torch.int32)
+    t[SEGMENT_LANES.index("rseq")] = RSEQ_NONE
+    for name, arr in lanes.items():
+        t[SEGMENT_LANES.index(name)] = torch.from_numpy(arr)
+    sc = torch.zeros((n, K1.N_SCALARS), dtype=torch.int32)
+    sc[:, K1.SC_COUNT] = torch.from_numpy(counts.astype(np.int32))
+    sc[:, K1.SC_MIN_SEQ] = torch.from_numpy(rng.integers(0, 3, n).astype(
+        np.int32))
+    sc[:, K1.SC_SELF] = torch.from_numpy(rng.choice([NO_CLIENT, 1], n)
+                                         .astype(np.int32))
+    ends = np.cumsum(lanes["length"].sum(1))
+    rows = []
+    for i in range(k):
+        seq = UNASSIGNED_SEQ if i % 4 == 3 else int(rng.integers(1, top))
+        pos = int(ends[i % n]) if i % 3 != 2 else int(ends[-1]) + 1 + i
+        kw = dict(seq=seq, ref=int(rng.integers(0, top + 8)),
+                  client=int(rng.integers(0, 3)), lseq=i + 1)
+        if i % 4 == 1:
+            rows.append(E.remove(max(pos - 3, 0), pos + 5, **kw))
+        elif i % 4 == 2:
+            rows.append(E.annotate(max(pos - 2, 0), pos + 2, 3, **kw))
+        else:
+            rows.append(E.insert(pos, 1, 1, **kw))
+    ops = torch.from_numpy(np.stack(rows).astype(np.int32))
+    return t.to(dev), sc.to(dev), ops.to(dev)
+
+
+def exchange_bound_bytes(tables) -> tuple:
+    """Bytes X1 and X2 must move on a group's packed pair ``tables``
+    (this run's data): X1 reads the kind of every row, the length, seq,
+    writer and removed seq of each live row and one removers lane of each
+    removed one, three scalars a shard and the op row, and writes 3 ints a
+    shard; X2 (the group of every shard) reads 3 stats and a row index a
+    shard, a shard index and the err lane of each shard and the op row,
+    and writes the err lane and a rewritten op row a shard."""
+    n, s = tables.shape[1], tables.shape[2]
+    live = tables[SEGMENT_LANES.index("kind")] != 0
+    removed = live & (tables[SEGMENT_LANES.index("rseq")] != RSEQ_NONE)
+    x1 = 4 * (n * s + 4 * int(live.sum()) + int(removed.sum()) + 3 * n
+              + OP_WIDTH + 3 * n)
+    x2 = 4 * (4 * n + OP_WIDTH + n * (1 + 2 + OP_WIDTH))
+    return x1, x2
+
+
+def hold_exchange(dev, tables, scalars, ops, cell: str, reps=10,
+                  plain_reps=3) -> list:
+    """X1 and X2 against their plain versions on ``dev`` for every op row
+    of ``ops`` ([K, OP_WIDTH], read in place), their outputs filled with
+    :data:`TREE_SENTINEL` before each launch so an unwritten lane fails;
+    X1's accumulators must come back reset. X2 runs as the group of all
+    shards in order, as a group of every other shard with the stats in
+    reversed row order (``row_of``; from two shards on), and on a copy of
+    each op past the document's end (ERR_RANGE). With ``reps``, times
+    each on op 0 (CUDA events; host wall on the CPU) beside its byte
+    floor. Launch counts stay as they were. Returns the two rows."""
+    with _Uncounted():
+        return _hold_exchange(dev, tables, scalars, ops, cell, reps,
+                              plain_reps)
+
+
+def _hold_exchange(dev, tables, scalars, ops, cell, reps, plain_reps):
+    n_g = tables.shape[1]
+    i32 = dict(dtype=torch.int32, device=dev)
+    acc = SX.new_accumulators(n_g, dev)
+    ar = torch.arange(n_g, **i32)
+    flip = torch.flip(ar, (0,))
+    # (the group's shards, the shard each stats row holds)
+    groups = ((ar, ar), (ar[1::2].contiguous(), flip))[:1 + (n_g > 1)]
+    past = ops.clone()
+    past[:, F_POS1] = past[:, F_POS2] = (1 << 31) - 1
+    err1 = err2 = 0
+    for k in range(ops.shape[0]):
+        want = SX.shard_stats_plain(tables, scalars, ops[k])
+        out = torch.full((n_g, SX.N_STATS), TREE_SENTINEL, **i32)
+        SX.shard_stats(tables, scalars, ops, k, out=out, acc=acc)
+        _sync(dev)
+        err1 = max(err1, _held([out], [want], f"X1 {cell} op {k}"))
+        if not torch.equal(acc, SX.new_accumulators(n_g, dev)):
+            raise AssertionError(f"X1 {cell}: accumulators left set")
+        for at, held in groups:
+            stats = want.index_select(0, held.long())
+            row_of = torch.argsort(held).to(torch.int32)
+            for buf in (ops, past):
+                sc = scalars.index_select(0, at.long())
+                rows, sc_want = SX.shard_resolve_plain(stats, buf[k], at,
+                                                       row_of, sc)
+                out = torch.full((at.shape[0], 1, OP_WIDTH), TREE_SENTINEL,
+                                 **i32)
+                SX.shard_resolve(stats, buf, k, at, row_of, sc, out=out)
+                _sync(dev)
+                err2 = max(err2, _held([out, sc], [rows, sc_want],
+                                       f"X2 {cell} op {k}"))
+    stats = SX.shard_stats_plain(tables, scalars, ops[0])
+    sc = scalars.clone()
+    rows_out = torch.empty((n_g, 1, OP_WIDTH), **i32)
+    timed = {
+        "X1_shard_stats": (
+            "shard_stats_kernel",
+            lambda: SX.shard_stats(tables, scalars, ops, 0, out=stats,
+                                   acc=acc),
+            lambda: SX.shard_stats_plain(tables, scalars, ops[0])),
+        "X2_shard_resolve": (
+            "shard_resolve_kernel",
+            lambda: SX.shard_resolve(stats, ops, 0, ar, ar, sc,
+                                     out=rows_out),
+            lambda: SX.shard_resolve_plain(stats, ops[0], ar, ar, sc)),
+    }
+    bounds = dict(zip(timed, exchange_bound_bytes(tables)))
+    rows = []
+    for name, (kernel, fn, plain) in timed.items():
+        row = dict(kernel=name, cell=cell, shards=n_g, cap=tables.shape[2],
+                   ops=ops.shape[0],
+                   max_abs_err=err1 if name.startswith("X1") else err2,
+                   ms=None, profiler_ms=None, event_ms=None, plain_ms=None,
+                   bound_ms=bounds[name] / HBM_BYTES_PER_S * 1e3)
+        if reps:
+            # ms: a launch's device time, launched back to back (CUDA
+            # events); profiler_ms: the profiler's median kernel time
+            # (None where it records no device activity); event_ms: one
+            # call between CUDA events, the host's launch cost included.
+            row.update(ms=_queued_ms(dev, fn),
+                       profiler_ms=_device_ms(dev, fn, reps, kernel),
+                       event_ms=_event_ms(dev, fn, reps),
+                       plain_ms=_event_ms(dev, plain, plain_reps))
+            print(f"{cell} {name} at {n_g} x {tables.shape[2]:,}: exact "
+                  f"over {ops.shape[0]} ops, {row['ms']:.4f} ms a launch "
+                  f"on the device (profiler {row['profiler_ms']}), "
+                  f"{row['event_ms']:.4f} ms a call (plain "
+                  f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.5f} "
+                  "ms)", flush=True)
+        rows.append(row)
+    return rows
+
+
 def _overflow_state(n_rows: int, cap: int):
     """A host single-document state of ``n_rows`` distinct acked one-char
     inserts in a ``cap``-row table (no two rows merge on compaction)."""
@@ -4720,7 +4979,12 @@ def mesh_9c(device, window=1000, frame_ops=SHARDED_FRAME_OPS,
     _sync(device)
     wall_post = time.perf_counter() - t_promo
     launches_post = read_counts()
+    exchange_post = read_shard_counts()
     ops_post = ops_total - promoted_at
+    for name, c in exchange_post.items():
+        if c <= 0 and device.type == "cuda":
+            raise AssertionError(f"9c: {name} never launched after "
+                                 "promotion")
     st = be.stats()
     if st["sharded_docs"] != 1 or st["docs_with_errors"]:
         raise AssertionError(f"9c: {st}")
@@ -4736,11 +5000,25 @@ def mesh_9c(device, window=1000, frame_ops=SHARDED_FRAME_OPS,
     probe_rows[:, F_SEQ] = np.arange(64) + int(probe.state.cur_seq.max()) + 1
     _no_sync(device, probe.apply, probe_rows)
     _no_sync(device, probe.compact)
-    # One op's launches and device time (torch.profiler), and its host
-    # wall with a synchronize.
+    # One op's launches by name and device time (torch.profiler), the
+    # wrappers' counts over it, and its host wall with a synchronize. On
+    # one device group an op is X1, X2 and K1 and nothing else.
     one = probe_rows[:1].copy()
     one[0, F_SEQ] += 64
+    before = dict(read_shard_counts(), K1=K1.apply_ops_packed.launches)
     prof = _profile(device, lambda: probe.apply(one))
+    after = dict(read_shard_counts(), K1=K1.apply_ops_packed.launches)
+    prof["kernel_launches"] = {n: after[n] - before[n] for n in after}
+    names = " ".join(prof["kernels"])
+    if device.type == "cuda" and set(prof["kernel_launches"].values()) \
+            != {1} or (
+            prof["kernels"] and (sum(prof["kernels"].values()) != 3 or not
+                                 all(k in names for k in (
+                                     "shard_stats_kernel",
+                                     "shard_resolve_kernel",
+                                     "merge_kernel<0")))):
+        raise AssertionError(f"9c: one op launched {prof['kernels']} "
+                             f"({prof['kernel_launches']})")
     one[0, F_SEQ] += 1
     t = time.perf_counter()
     probe.apply(one)
@@ -4765,6 +5043,10 @@ def mesh_9c(device, window=1000, frame_ops=SHARDED_FRAME_OPS,
             plain_ms=plain_ms,
             bound_ms=bound_bytes(kname, sharded.n_shards, sharded.shard_cap,
                                  1) / HBM_BYTES_PER_S * 1e3))
+    # X1 and X2 against their plain versions at the sharded shape, on the
+    # document's state and eight ops of the probe's frame.
+    xholds = hold_exchange(device, g.tables, g.scalars,
+                           torch.from_numpy(probe_rows[:8]).to(device), "9c")
     del t0, s0, probe
     out = dict(
         ops_total=ops_total, promoted_at_ops=promoted_at,
@@ -4774,8 +5056,11 @@ def mesh_9c(device, window=1000, frame_ops=SHARDED_FRAME_OPS,
         apply_ms_per_op=apply_wall[0] / max(apply_wall[1], 1) * 1e3,
         launches_before_promotion=launches_pre,
         launches_after_promotion=launches_post,
-        launches_per_op={n: c["all"] / ops_post
-                         for n, c in launches_post.items()},
+        exchange_launches=exchange_post,
+        launches_per_op={**{n: c["all"] / ops_post
+                            for n, c in launches_post.items()},
+                         **{n: c / ops_post
+                            for n, c in exchange_post.items()}},
         one_op=dict(prof, host_ms_synced=op_wall_ms),
         wall_s=time.perf_counter() - t_start, stats=dict(
             sharded_docs=st["sharded_docs"], sharded_rows=st["sharded_rows"],
@@ -4786,11 +5071,13 @@ def mesh_9c(device, window=1000, frame_ops=SHARDED_FRAME_OPS,
           f"({out['ms_per_op_after_promotion']:.3f} ms an op, apply "
           f"{out['apply_ms_per_op']:.3f} ms), launches an op "
           f"{out['launches_per_op']}; one op: {prof['launches']} device "
-          f"launches, {prof['device_us']:.1f} µs busy, {prof['aten_ops']} "
-          f"ATen ops, {op_wall_ms:.3f} ms synced", flush=True)
+          f"activities, kernels (µs) {prof['kernel_us']}, wrapper launches "
+          f"{prof['kernel_launches']}, {prof['device_us']:.1f} µs busy, "
+          f"{prof['aten_ops']} ATen ops {prof['aten_names']}, "
+          f"{op_wall_ms:.3f} ms synced", flush=True)
     del svc, be, sharded
     torch.cuda.empty_cache()
-    return out, holds
+    return out, holds, xholds
 
 
 # The stats 9c's one-card run holds equal to its plain twin's.
@@ -4924,6 +5211,7 @@ def mesh_9c_one_entry(device, visible, cap=65536, n0=65_000, first_ops=256,
                       f"{promoted_at} ops into 1 x {doc.shard_cap} rows",
                       flush=True)
         launches["after_promotion"] = read_counts()
+        exchange = read_shard_counts()
     finally:
         M.set_devices([device] * 8)
     after = launches["after_promotion"]
@@ -4932,6 +5220,10 @@ def mesh_9c_one_entry(device, visible, cap=65536, n0=65_000, first_ops=256,
         if c["all"] <= 0 or c["split"] != c["all"]:
             raise AssertionError(f"9c one card: {kname} after promotion "
                                  f"{c}, not all on the split tier")
+    for name, c in exchange.items():
+        if c <= 0 and device.type == "cuda":
+            raise AssertionError(f"9c one card: {name} never launched "
+                                 "after promotion")
     st = be.stats()
     if (st["sharded_docs"] != 1 or st["promotions_refused"] != 0
             or st["docs_with_errors"] != 0 or promoted_at != first_ops):
@@ -4954,13 +5246,18 @@ def mesh_9c_one_entry(device, visible, cap=65536, n0=65_000, first_ops=256,
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_bytes(kname, 1, shard_cap, 1)
             / HBM_BYTES_PER_S * 1e3))
+    xops = torch.from_numpy(one_card_frame(rng, 8, seq + 2, length)[0])
+    xholds = hold_exchange(device, g.tables, g.scalars, xops.to(device),
+                           "9c one card")
     del t0, s0, bes, be, twin, doc, g
     torch.cuda.empty_cache()
     out = dict(cards=1, shard_cap=shard_cap, rows_at_start=n0, promoted_at_ops=promoted_at,
                live_rows=live, ops=seq - n0, frames_after_promotion=frames,
                ops_per_s_after_promotion=ops_after / apply_s,
-               launches=launches, k1_ms_per_op=holds[0]["ms"],
+               launches=launches, exchange_launches=exchange,
+               k1_ms_per_op=holds[0]["ms"],
                wall_s=time.perf_counter() - t_start, holds=holds,
+               exchange_holds=xholds,
                stats=dict(sharded_docs=st["sharded_docs"],
                           promotions_refused=st["promotions_refused"],
                           docs_with_errors=st["docs_with_errors"]))
@@ -4969,7 +5266,8 @@ def mesh_9c_one_entry(device, visible, cap=65536, n0=65_000, first_ops=256,
           f"of {frame_ops} ops after it to {live} live rows; "
           f"{out['ops_per_s_after_promotion']:,.0f} ops/s after promotion; "
           f"== the plain twin at every frame; launches by tier after "
-          f"promotion { {n: c for n, c in after.items() if c['all']} }; K1 "
+          f"promotion { {n: c for n, c in after.items() if c['all']} }, "
+          f"{exchange}; K1 "
           f"{holds[0]['ms']:.4f} ms an op at 1 x {shard_cap} (plain "
           f"{holds[0]['plain_ms']:.3f} ms, bound {holds[0]['bound_ms']:.5f} "
           f"ms); {out['wall_s']:.1f} s", flush=True)
@@ -5094,12 +5392,13 @@ def phase_mesh(device, report):
         r9b = mesh_9b(device, lists["8x"])
         wall["9b"] = time.perf_counter() - t
         t = time.perf_counter()
-        r9c, holds_c = mesh_9c(device)
+        r9c, holds_c, xholds = mesh_9c(device)
         wall["9c"] = time.perf_counter() - t
         t = time.perf_counter()
         r9c["one_entry"] = one = mesh_9c_one_entry(device, visible)
         wall["9c_one_card"] = time.perf_counter() - t
         holds_c = holds_c + one.get("holds", [])
+        xholds = xholds + one.get("exchange_holds", [])
         t = time.perf_counter()
         r9d = mesh_9d()
         wall["9d"] = time.perf_counter() - t
@@ -5118,13 +5417,18 @@ def phase_mesh(device, report):
             if c[name]["all"] <= 0:
                 raise AssertionError(f"{name} never launched on the {path} "
                                      "path")
+    exchange = dict(launches={"9c": r9c["exchange_launches"],
+                              "9c_one_card": one.get(
+                                  "exchange_launches",
+                                  dict.fromkeys(SHARD_KERNELS, 0))},
+                    holds=xholds)
     print(f"9 wall s: { {k: round(v, 1) for k, v in wall.items()} }",
           flush=True)
     report["phase_mesh"] = dict(fleet=r9a, serving=r9b, sharded=r9c,
                                 multinode=r9d, holds=holds + holds_c,
-                                wall_s=wall)
+                                exchange_holds=xholds, wall_s=wall)
     return dict(mesh=mesh_launches, sharded=sharded_launches,
-                holds=holds + holds_c)
+                holds=holds + holds_c, exchange=exchange)
 
 
 # -- phase 10: the oracle, the load harness and the other DDS models ---------
@@ -6393,8 +6697,10 @@ def framework_11d(device) -> dict:
     tree_launches = read_tree_counts()
     # sharded_apply_ops at 9c's shard shape against ShardedDoc.apply on 9c's
     # frame of ops; against the CPU on the frame's first SHARDED_CPU_OPS ops
-    # (the plain exchange on the host is slow at this shape).
+    # (the plain exchange on the host is slow at this shape). X1's and X2's
+    # launches are counted over it.
     t0 = time.perf_counter()
+    SX.reset_counts()
     rng = np.random.default_rng(8)
     payloads = {}
     track = OracleDoc(NO_CLIENT)
@@ -6419,6 +6725,7 @@ def framework_11d(device) -> dict:
     same(sharded_apply_ops(start, head),
          sharded_apply_ops(type(state)(*[x.cpu() for x in start]), head),
          "sharded_apply_ops")
+    exchange_launches = read_shard_counts()
     shapes["sharded"] = (f"8 x {SHARDED_SHARD_CAP:,} rows, "
                          f"{SHARDED_FRAME_OPS} ops ({SHARDED_CPU_OPS} "
                          "against the CPU)")
@@ -6427,7 +6734,8 @@ def framework_11d(device) -> dict:
           f"the CPU; shapes {shapes}; s "
           f"{ {k: round(v, 2) for k, v in part_s.items()} }", flush=True)
     return dict(calls=len(checked), shapes=shapes, part_s=part_s,
-                tree_launches=tree_launches)
+                tree_launches=tree_launches,
+                exchange_launches=exchange_launches)
 
 
 def phase_framework(device, report, twin=None, n_ops=FRAMEWORK_OPS,
@@ -6526,7 +6834,8 @@ def phase_framework(device, report, twin=None, n_ops=FRAMEWORK_OPS,
           f"launches {counts}", flush=True)
     report["phase_framework"] = out
     return dict(launches=counts, holds=holds,
-                tree_launches=r11d["tree_launches"])
+                tree_launches=r11d["tree_launches"],
+                exchange_launches=r11d["exchange_launches"])
 
 
 def main() -> int:
@@ -6696,6 +7005,8 @@ def _main(device, twins) -> int:
                                  if r["kernel"] == name],
         })
     kernels += tree_kernel_rows(tree, load, framework)
+    kernels += exchange_kernel_rows(scale["exchange"],
+                                    framework["exchange_launches"])
     report["kernels"] = kernels
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -6761,6 +7072,39 @@ def tree_kernel_rows(tree, load, framework) -> list:
                                             "fastest")},
                        "tiers_ms": {k: v["ms"]
                                     for k, v in r["tiers"].items()}}
+                      for r in holds],
+        })
+    return rows
+
+
+def exchange_kernel_rows(exchange, framework_launches) -> list:
+    """The kernels line's X1 and X2 entries: launches by path (9c and 9c
+    on one card after promotion, 11d), the time, plain time and byte
+    floor of the hold at 9c's shape (8 x 65,536 rows on 8 x the card, one
+    device group; the first hold), the largest error of every hold, and
+    the holds' rows. No PyTorch call computes the exchange, so
+    ``library_ms`` is null."""
+    rows = []
+    for name, spec in SHARD_KERNELS.items():
+        by_path = {**{p: c[name] for p, c in exchange["launches"].items()},
+                   "11d": framework_launches[name]}
+        holds = [r for r in exchange["holds"] if r["kernel"] == name]
+        if any(v <= 0 for p, v in by_path.items() if p != "9c_one_card"):
+            raise AssertionError(f"{name}: launches by path {by_path}")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "fluidframework_tpu_torch/csrc/merge_kernels.cu",
+            "replaces": spec["replaces"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in holds),
+            "ms": holds[0]["ms"], "plain_ms": holds[0]["plain_ms"],
+            "bound_ms": holds[0]["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "event_ms": holds[0]["event_ms"],
+            "profiler_ms": holds[0]["profiler_ms"],
+            "holds": [{k: r[k] for k in ("cell", "shards", "cap", "ops",
+                                         "ms", "profiler_ms", "event_ms",
+                                         "plain_ms", "bound_ms")}
                       for r in holds],
         })
     return rows

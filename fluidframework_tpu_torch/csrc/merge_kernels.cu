@@ -1,5 +1,7 @@
 // Merge apply (K1), zamboni compact (K2) and fused apply+compact (K3)
-// kernels for Hopper (sm_90a), bound to Python through a plain C interface.
+// kernels for Hopper (sm_90a), and the sharded document's per-op exchange
+// beside them (X1, X2; at the end of the file), bound to Python through a
+// plain C interface.
 //
 // Replaces the three Pallas TPU kernels of the reference package:
 //   K1  fluidframework_tpu/ops/pallas_kernel.py   _apply_values / apply_ops_packed
@@ -162,7 +164,7 @@ constexpr int RSEQ_NONE = 1 << 30;
 constexpr int NORM_NEW_LOCAL = (1 << 30) + 2;
 constexpr int NORM_EXISTING_LOCAL = (1 << 30) + 1;
 constexpr int KIND_FREE = 0, KIND_TEXT = 1;
-constexpr int OP_INSERT = 1, OP_REMOVE = 2, OP_ANNOTATE = 3,
+constexpr int OP_NOOP = 0, OP_INSERT = 1, OP_REMOVE = 2, OP_ANNOTATE = 3,
               OP_ACK_INSERT = 4, OP_ACK_REMOVE = 5, OP_ACK_ANNOTATE = 6;
 constexpr int MAX_WRITERS = 93;
 constexpr int ERR_CAPACITY = 1, ERR_RANGE = 2, ERR_CLIENT = 4;
@@ -363,6 +365,14 @@ __device__ __forceinline__ int perspective(const Doc &d, int lr, const Op &o,
   return part ? (o.is_local ? vis_local : vis_remote) : 0;
 }
 
+// breakTie (mergeTree.ts:1719): an insert whose normalized seq is
+// `op_norm` lands before a zero-length row of seq `seq` it reaches. K1's
+// placement and X1's owner resolution share it, so ownership and the
+// owner's own insert cannot disagree.
+__device__ __forceinline__ bool ties_before(int op_norm, int seq) {
+  return op_norm > (seq == UNASSIGNED_SEQ ? NORM_EXISTING_LOCAL : seq);
+}
+
 // Perspective pass over this warp's rows: A = visible length, F = takes
 // part, C = the warp-local exclusive prefix. Returns the warp's total.
 // Only the row's own thread reads A, F and C.
@@ -537,11 +547,9 @@ __device__ void apply_ops_doc(const Doc &d, const int *ops_doc, int K,
           const int rem1 = o.pos1 - run, rem2 = o.pos2 - run;
           h1 = part && v > 0 && rem1 > 0 && rem1 < v;
           h2 = part && v > 0 && rem2 > 0 && rem2 < v;
-          const int seq = d.at(L_SEQ, lr);
-          const int seg_norm =
-              seq == UNASSIGNED_SEQ ? NORM_EXISTING_LOCAL : seq;
           hp = part && ((v > 0 && rem1 >= 0 && rem1 < v) ||
-                        (v == 0 && rem1 == 0 && op_norm > seg_norm));
+                        (v == 0 && rem1 == 0 &&
+                         ties_before(op_norm, d.at(L_SEQ, lr))));
         }
         const unsigned b1 = __ballot_sync(FULL, h1);
         const unsigned b2 = __ballot_sync(FULL, h2);
@@ -1141,6 +1149,232 @@ int launch(const int *ops, const int *tables_in, const int *scalars_in,
   return (int)cudaGetLastError();
 }
 
+// -- X1 and X2: the sharded document's per-op exchange ----------------------
+//
+// Replace the exchange half of the reference's
+//   fluidframework_tpu/parallel/sharded_doc.py  _shard_apply_one
+// (the body of a jitted shard_map: the per-shard perspective, two scalar
+// all_gathers, then the owner, offsets and ERR_RANGE; no pl.pallas_call).
+// A document's shards sit in one packed pair per device group,
+// [N_LANES, n_g, S] / [n_g, N_SCALARS]; the op row is read in place from
+// the uploaded [K, OP_WIDTH] buffer. One op is X1, X2 and K1 on one stream,
+// with nothing read back to the host.
+//
+// X1 (shard_stats) writes [n_g, 3] per shard: its visible length, whether
+// it holds rows (count > 0), and whether an insert at its end may land in
+// it. The last is the placement predicate of K1 evaluated at rem = total -
+// prefix, computed in one pass without a prefix scan: a row of positive
+// visible length has prefix + vis <= total, so it never fires there; a
+// zero-length row fires iff it takes part, breaks the tie
+// (ties_before) and prefix == total, i.e. no row after it has positive
+// visible length. So tail = last eligible zero row > last positive row,
+// both maxima of row indices (-1 for none), and the length is a sum; all
+// three are free of order, and the int32 sum wraps as the plain version's
+// int64 sum cast to int32 does. (The two forms agree while a shard's
+// visible length stays below 2^32 and no length is negative.) Free rows
+// take no part, so a thread reads only the kind lane of a free row and the
+// perspective's lanes of a live one. The grid is C CTAs a shard, C chosen
+// so that the grid fills the card (X1_CTAS_PER_SM CTAs a SM, at least
+// X1_MIN_ROWS rows a CTA): each CTA reduces its rows, folds them into the
+// shard's accumulators [n_g, 4] with atomics, and the CTA that finishes
+// last writes the shard's stats and resets the accumulators for the next
+// op (no memset launch). Bound: bytes, 4 B of kind for every row plus the
+// perspective's lanes of the live rows (0.8 us for 80,000 live rows of
+// 524,288 at 3.35 TB/s); the launch costs more than that.
+//
+// X2 (shard_resolve) is one CTA a device group. It reads the [n, 3] stats
+// of every shard (row_of[j]: the row holding shard j) and the op row, scans
+// the lengths into exclusive offsets (in dynamic shared memory), finds the
+// global length, the first shard whose placement fires and the last one
+// holding rows, and writes the group's rewritten rows [n_g, 1, OP_WIDTH]
+// (K1's op input; at[i]: the shard index of the group's i-th shard): the
+// owner gets the INSERT at its local, clamped position and every other
+// shard a NOOP; REMOVE/ANNOTATE get the range clamped into the shard, a
+// NOOP where it is empty; every other type passes. The global ERR_RANGE
+// is ORed into each shard's err lane here, before K1: K1 only ever ORs
+// that lane, never reads it as a gate.
+
+constexpr int X1_THREADS = 256;
+constexpr int X1_MIN_ROWS = 1024;    // rows a CTA of X1 takes, at least
+constexpr int X1_CTAS_PER_SM = 2;    // X1's grid target
+constexpr int X2_THREADS = 128;
+constexpr int X2_MAX_SHARDS = 8192;  // X2's offsets in 32 KB of smem
+constexpr int ST_VIS = 0, ST_LIVE = 1, ST_TAIL = 2, N_STATS = 3;
+constexpr int ACC_VIS = 0, ACC_POS = 1, ACC_ZERO = 2, ACC_DONE = 3,
+              N_ACC = 4;
+
+__device__ __forceinline__ int warp_max(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+__device__ __forceinline__ unsigned warp_sum_u(unsigned v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+__device__ __forceinline__ unsigned warp_incl_scan_u(unsigned v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned n = __shfl_up_sync(FULL, v, o);
+    if (lane >= o) v += n;
+  }
+  return v;
+}
+
+// CTAs of X1 a shard (R = ceil(S / C) rows each).
+int x1_ctas(int n_g, int S, int sms) {
+  const int fill = (X1_CTAS_PER_SM * sms + n_g - 1) / n_g;
+  const int most = (S + X1_MIN_ROWS - 1) / X1_MIN_ROWS;
+  return max(1, min(fill, most));
+}
+
+__global__ void __launch_bounds__(X1_THREADS)
+shard_stats_kernel(const int *__restrict__ op, const int *tables,
+                   const int *__restrict__ scalars, int *stats, int *acc,
+                   int n_g, int S, int C, int R) {
+  const int shard = blockIdx.x / C, c = blockIdx.x % C;
+  DocT<T_GLOBAL> d;
+  d.L = const_cast<int *>(tables) + (size_t)shard * S;
+  d.ls = (size_t)n_g * S;
+  const int *sc = scalars + (size_t)shard * N_SCALARS;
+  Op o{};
+  o.seqn = op[F_SEQ];
+  o.refn = op[F_REF];
+  o.clientn = op[F_CLIENT];
+  o.is_local = o.clientn == sc[SC_SELF];
+  const int min_seq = sc[SC_MIN_SEQ];
+  const int op_norm = o.seqn == UNASSIGNED_SEQ ? NORM_NEW_LOCAL : o.seqn;
+  unsigned vis = 0;
+  int last_pos = -1, last_zero = -1;  // rows rise along a thread's walk
+  const int hi = min(S, (c + 1) * R);
+  for (int r = c * R + (int)threadIdx.x; r < hi; r += blockDim.x) {
+    if (d.at(L_KIND, r) == KIND_FREE) continue;
+    bool part;
+    const int v = perspective(d, r, o, min_seq, part);
+    vis += (unsigned)v;
+    if (v > 0)
+      last_pos = r;
+    else if (part && v == 0 && ties_before(op_norm, d.at(L_SEQ, r)))
+      last_zero = r;
+  }
+  __shared__ unsigned s_vis[X1_THREADS / 32];
+  __shared__ int s_pos[X1_THREADS / 32], s_zero[X1_THREADS / 32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  vis = warp_sum_u(vis);
+  last_pos = warp_max(last_pos);
+  last_zero = warp_max(last_zero);
+  if (lane == 0) {
+    s_vis[w] = vis;
+    s_pos[w] = last_pos;
+    s_zero[w] = last_zero;
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  for (int i = 1; i < (int)(blockDim.x >> 5); ++i) {
+    vis += s_vis[i];
+    last_pos = max(last_pos, s_pos[i]);
+    last_zero = max(last_zero, s_zero[i]);
+  }
+  if (C > 1) {
+    int *a = acc + (size_t)shard * N_ACC;
+    atomicAdd(reinterpret_cast<unsigned *>(a + ACC_VIS), vis);
+    atomicMax(a + ACC_POS, last_pos);
+    atomicMax(a + ACC_ZERO, last_zero);
+    __threadfence();
+    if (atomicAdd(a + ACC_DONE, 1) != C - 1) return;
+    // The last CTA of the shard: every other CTA's atomics are done. Read
+    // the totals and leave the accumulators reset for the next op.
+    __threadfence();
+    vis = atomicExch(reinterpret_cast<unsigned *>(a + ACC_VIS), 0u);
+    last_pos = atomicExch(a + ACC_POS, -1);
+    last_zero = atomicExch(a + ACC_ZERO, -1);
+    atomicExch(a + ACC_DONE, 0);
+  }
+  int *out = stats + (size_t)shard * N_STATS;
+  out[ST_VIS] = (int)vis;
+  out[ST_LIVE] = sc[SC_COUNT] > 0;
+  out[ST_TAIL] = last_zero > last_pos;
+}
+
+__global__ void __launch_bounds__(X2_THREADS)
+shard_resolve_kernel(const int *__restrict__ op,
+                     const int *__restrict__ stats,
+                     const int *__restrict__ row_of,
+                     const int *__restrict__ at, int *scalars, int *rows,
+                     int n, int n_g) {
+  extern __shared__ int offsets[];  // [n]: each shard's exclusive offset
+  __shared__ unsigned ws[X2_THREADS / 32];
+  __shared__ int s_first, s_last;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int ty = op[F_TYPE], pos1 = op[F_POS1], pos2 = op[F_POS2];
+  if (threadIdx.x == 0) {
+    s_first = n;  // no shard's placement fires
+    s_last = 0;   // no shard holds rows: shard 0
+  }
+  __syncthreads();
+  unsigned carry = 0;  // int32 sums wrap as the plain version's
+  for (int base = 0; base < n; base += blockDim.x) {
+    const int j = base + (int)threadIdx.x;
+    const int *st = j < n ? stats + (size_t)row_of[j] * N_STATS : nullptr;
+    const unsigned t = st ? (unsigned)st[ST_VIS] : 0u;
+    const unsigned inc = warp_incl_scan_u(t);
+    if (lane == 31) ws[w] = inc;
+    __syncthreads();
+    unsigned before = 0, tot = 0;
+    for (int i = 0; i < nw; ++i) {
+      if (i < w) before += ws[i];
+      tot += ws[i];
+    }
+    if (st) {
+      const unsigned off = carry + before + inc - t;
+      offsets[j] = (int)off;
+      const int p = (int)((unsigned)pos1 - off), len = (int)t;
+      if ((p >= 0 && p < len) || (p == len && st[ST_TAIL] != 0))
+        atomicMin(&s_first, j);
+      if (st[ST_LIVE] != 0) atomicMax(&s_last, j);
+    }
+    carry += tot;
+    __syncthreads();  // ws is reused; offsets and the extrema are final
+  }
+  const int first = s_first;
+  const int owner = first < n ? first : s_last;
+  const int total = (int)carry;
+  const bool is_ins = ty == OP_INSERT;
+  const bool is_rng = ty == OP_REMOVE || ty == OP_ANNOTATE;
+  // Out of range in GLOBAL coordinates: per-shard clamping would make
+  // streams legal that the single-table kernel flags.
+  const bool range_err =
+      is_ins ? (first >= n && pos1 > total) : (is_rng && pos2 > total);
+  for (int i = threadIdx.x; i < n_g; i += blockDim.x) {
+    const int j = at[i];
+    const unsigned off = (unsigned)offsets[j];
+    const int len = stats[(size_t)row_of[j] * N_STATS + ST_VIS];
+    const int a = min(max((int)((unsigned)pos1 - off), 0), len);
+    const int b = min(max((int)((unsigned)pos2 - off), 0), len);
+    int *row = rows + (size_t)i * OP_WIDTH;
+#pragma unroll
+    for (int f = 0; f < OP_WIDTH; ++f) row[f] = op[f];
+    row[F_POS1] = (is_ins || is_rng) ? a : pos1;
+    row[F_POS2] = is_rng ? b : pos2;
+    row[F_TYPE] = is_ins ? (j == owner ? OP_INSERT : OP_NOOP)
+                         : (is_rng && a >= b ? OP_NOOP : ty);
+    if (range_err) scalars[(size_t)i * N_SCALARS + SC_ERR] |= ERR_RANGE;
+  }
+}
+
+int sm_count(int &sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1184,6 +1418,40 @@ int merge_max_capacity(void) { return MAX_CAP; }
 int merge_split_max_ctas(void) { return SPLIT_MAX_CTAS; }
 
 long long merge_work_ints(int S) { return (long long)work_ints(S); }
+
+// X1: `op` points at one row of the uploaded [K, OP_WIDTH] buffer;
+// tables/scalars are a device group's packed pair of n_g shards of S rows;
+// writes stats [n_g, 3]. `acc` is [n_g, 4] int32 accumulators, (0, -1, -1,
+// 0) a shard before the first launch and left so after each.
+int shard_stats(const int *op, const int *tables, const int *scalars,
+                int *stats, int *acc, int n_g, int S, void *stream) {
+  if (n_g < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  const int e = sm_count(sms);
+  if (e != 0) return e;
+  const int C = x1_ctas(n_g, S, sms);
+  if (acc == nullptr) return (int)cudaErrorInvalidValue;
+  const int R = (S + C - 1) / C;
+  shard_stats_kernel<<<n_g * C, X1_THREADS, 0, (cudaStream_t)stream>>>(
+      op, tables, scalars, stats, acc, n_g, S, C, R);
+  return (int)cudaGetLastError();
+}
+
+// X2: stats [n, 3] of every shard (row_of[j] the row of shard j), the op
+// row, the group's shard indices at [n_g]; writes rows [n_g, OP_WIDTH] and
+// ORs ERR_RANGE into scalars[:, SC_ERR] of the group's shards.
+int shard_resolve(const int *op, const int *stats, const int *row_of,
+                  const int *at, int *scalars, int *rows, int n, int n_g,
+                  void *stream) {
+  if (n < 1 || n > X2_MAX_SHARDS || n_g < 1 || n_g > n)
+    return (int)cudaErrorInvalidValue;
+  shard_resolve_kernel<<<1, X2_THREADS, (size_t)n * sizeof(int),
+                         (cudaStream_t)stream>>>(op, stats, row_of, at,
+                                                 scalars, rows, n, n_g);
+  return (int)cudaGetLastError();
+}
+
+int shard_max_shards(void) { return X2_MAX_SHARDS; }
 
 const char *merge_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);

@@ -3,7 +3,8 @@
 Each source compiles with ``nvcc`` into a shared library of its own with a
 plain C interface, at first use, into the package's ``_build/`` directory
 (listed in ``.gitignore``): ``csrc/merge_kernels.cu`` (K1-K3, the merge
-path) and ``csrc/tree_kernels.cu`` (T1/T2, the SharedTree rebase scans).
+path, and X1/X2, the sharded document's per-op exchange) and
+``csrc/tree_kernels.cu`` (T1/T2, the SharedTree rebase scans).
 Each library is named by its own source's content hash, so an edited
 source never loads a stale build. It is loaded with ``ctypes``: pointers
 are ``c_void_p``, the stream is PyTorch's current CUDA stream, and every
@@ -45,16 +46,21 @@ MAX_CAPACITY = 1 << 30
 # The C entries' tier argument.
 TIER_CODES = {"smem": 0, "cluster": 1, "global": 2, "split": 3}
 # Every C entry of the kernel libraries and the library it lives in. The
-# merge entries run on the tiers of :func:`tier`; the tree entries' tiers
-# depend on their widths (``tree_scan_kernel.tier``).
+# merge entries run on the tiers of :func:`tier`; the exchange entries have
+# no tiers (``shard_exchange_kernel``); the tree entries' tiers depend on
+# their widths (``tree_scan_kernel.tier``).
 ENTRIES = {
     "merge_apply": "merge",
     "merge_compact": "merge",
     "merge_apply_compact": "merge",
+    "shard_stats": "merge",
+    "shard_resolve": "merge",
     "tree_trunk_scan": "tree",
     "tree_em_ring_scan": "tree",
 }
 LIBRARIES = ("merge", "tree")
+# The merge library's entries without tiers.
+UNTIERED = ("shard_stats", "shard_resolve")
 
 _libs: dict = {}
 _logs: dict = {}
@@ -150,12 +156,14 @@ def lib(name: str = "merge") -> ctypes.CDLL:
             ("merge_apply", [p, p, p, p, p, p, i, i, i, i, p], i),
             ("merge_compact", [p, p, p, p, p, i, i, i, p], i),
             ("merge_apply_compact", [p, p, p, p, p, p, i, i, i, i, p], i),
+            ("shard_stats", [p, p, p, p, p, i, i, p], i),
+            ("shard_resolve", [p, p, p, p, p, p, i, i, p], i),
             ("merge_work_ints", [i], ll),
             ("merge_error_string", [i], ctypes.c_char_p),
         ] + [(f, [], i) for f in (
             "merge_smem_max_capacity", "merge_cluster_max_capacity",
             "merge_global_max_capacity", "merge_max_capacity",
-            "merge_split_max_ctas")])
+            "merge_split_max_ctas", "shard_max_shards")])
         if (cdll.merge_smem_max_capacity() != SMEM_MAX_CAPACITY
                 or cdll.merge_cluster_max_capacity() != CLUSTER_MAX_CAPACITY
                 or cdll.merge_global_max_capacity() != GLOBAL_MAX_CAPACITY
@@ -174,7 +182,8 @@ def tier(s: int, entry: str) -> str:
     in global memory, one CTA a document for K1 and K3) up to
     :data:`GLOBAL_MAX_CAPACITY`; ``"split"`` (the table in global memory,
     a cluster of CTAs a document) up to :data:`MAX_CAPACITY`. Larger
-    tables raise ``ValueError``, and so does a tree entry."""
+    tables raise ``ValueError``, and so does a tree or an exchange
+    entry."""
     if entry not in ENTRIES:
         raise ValueError(f"unknown kernel entry {entry!r}")
     if s > MAX_CAPACITY:
@@ -185,6 +194,8 @@ def tier(s: int, entry: str) -> str:
     if ENTRIES[entry] != "merge":
         raise ValueError(f"{entry} runs on the tiers of its widths: "
                          "tree_scan_kernel.tier")
+    if entry in UNTIERED:
+        raise ValueError(f"{entry} runs on no tier: shard_exchange_kernel")
     if s <= SMEM_MAX_CAPACITY:
         return "smem"
     if s <= CLUSTER_MAX_CAPACITY:

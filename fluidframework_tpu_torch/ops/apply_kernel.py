@@ -135,18 +135,25 @@ def _perspective(L, clientn, refn, is_local, min_seq):
     return part, torch.where(part, vis, zero)
 
 
+def ties_before(seqn, seq):
+    """breakTie (mergeTree.ts:1719): an insert of sequence number ``seqn``
+    lands before a zero-length row of sequence number ``seq`` it reaches.
+    Shared by K1's placement and the sharded document's owner resolution
+    (``ops/shard_exchange_kernel.py``), so ownership and the owner's own
+    insert cannot disagree; ``ties_before`` in ``csrc/merge_kernels.cu``
+    is the kernels' copy."""
+    op_norm = torch.where(seqn == UNASSIGNED_SEQ, NORM_NEW_LOCAL, seqn)
+    seg_norm = torch.where(seq == UNASSIGNED_SEQ, NORM_EXISTING_LOCAL, seq)
+    return op_norm > seg_norm
+
+
 def insert_place_mask(L, seqn, part, vis, rem):
     """Rows an insert of sequence number ``seqn`` may land before, where
     ``rem`` is its position less each row's visible prefix
-    (insertingWalk + breakTie, mergeTree.ts:1740/1719). Shared with the
-    sharded document's owner resolution (``parallel/sharded_doc.py``), so
-    ownership and the owner's own insert cannot disagree."""
-    op_norm = torch.where(seqn == UNASSIGNED_SEQ, NORM_NEW_LOCAL, seqn)
-    seq = L[L_SEQ]
-    seg_norm = torch.where(seq == UNASSIGNED_SEQ, NORM_EXISTING_LOCAL, seq)
+    (insertingWalk + breakTie, mergeTree.ts:1740/1719)."""
     return part & (
         ((vis > 0) & (rem >= 0) & (rem < vis))
-        | ((vis == 0) & (rem == 0) & (op_norm > seg_norm))
+        | ((vis == 0) & (rem == 0) & ties_before(seqn, L[L_SEQ]))
     )
 
 

@@ -8,21 +8,23 @@ global document. Per sequenced op:
 - every shard evaluates the visibility perspective locally (row stamps are
   shard-local state) and reports three numbers: its visible length, whether
   it holds rows, and whether an insert at its own end may land in it (a
-  zero-length row there that the insert's tie-break would go before);
-- the ``[n_shards, 3]`` reports come together on the mesh's first device,
-  which resolves the exclusive offsets, the insert's owner (the first
-  shard whose placement predicate fires, else the last shard with rows,
-  else shard 0), the global length and the global ERR_RANGE — the
-  reference's two scalar ``all_gather``s, here one stream-ordered gather;
-- each shard then gets its rewritten copy of the op and K1 applies it
-  (``ops/apply_kernel.py``), one launch per op for the shards on one
-  device: the owner gets the INSERT at its local, clipped position and
-  every other shard the same row as a NOOP (bookkeeping only);
-  REMOVE/ANNOTATE reach every shard with the range clamped into its
-  coordinates, as a NOOP where that range is empty; ACKs pass unchanged;
-  the type is first clipped into [NOOP, ACK_ANNOTATE], as the reference's
-  ``lax.switch`` does; the global ERR_RANGE is then ORed into every
-  shard's err lane.
+  zero-length row there that the insert's tie-break would go before):
+  X1, one launch a device group (``ops/shard_exchange_kernel.py``);
+- every group's ``[n_g, 3]`` reaches every group's device (the
+  reference's two scalar ``all_gather``s; with one device group, every
+  layout one card runs, nothing moves), and X2, one launch a group,
+  resolves the exclusive offsets, the insert's owner (the first shard
+  whose placement predicate fires, else the last shard with rows, else
+  shard 0), the global length and the global ERR_RANGE, which it ORs into
+  every shard's err lane, and writes each shard's rewritten copy of the
+  op: the owner gets the INSERT at its local, clipped position and every
+  other shard the same row as a NOOP (bookkeeping only); REMOVE/ANNOTATE
+  reach every shard with the range clamped into its coordinates, as a
+  NOOP where that range is empty; ACKs pass unchanged; the type is first
+  clipped into [NOOP, ACK_ANNOTATE], as the reference's ``lax.switch``
+  does;
+- K1 applies the rows (``ops/apply_kernel.py``), one launch a group. So
+  an op on one device group is three launches on one stream: X1, X2, K1.
 
 Why three numbers suffice for the placement: the reference evaluates
 ``insert_place_mask`` at the shard-local position ``P = pos1 - offset``,
@@ -33,7 +35,8 @@ total`` only on a zero-length row at the shard's end, which is the
 mask evaluated at ``total`` — known before any offset.
 
 Nothing in :meth:`ShardedDoc.apply` or :meth:`ShardedDoc.compact` waits on
-the host: owner and offsets stay on the device. Compaction is shard-local
+the host: owner and offsets stay on the device, and the kernels read the
+op row in place from the buffer ``apply`` uploads once. Compaction is shard-local
 (K2 per shard), and :meth:`ShardedDoc.rebalance` is the host-driven
 redistribution of live rows into equal contiguous runs. On a card a
 shard past 65,536 rows runs on the kernels' split tier (one thread-block
@@ -54,15 +57,12 @@ import numpy as np
 import torch
 
 from fluidframework_tpu_torch.ops import _cuda
-from fluidframework_tpu_torch.ops import apply_kernel as K1
+from fluidframework_tpu_torch.ops import shard_exchange_kernel as SX
 from fluidframework_tpu_torch.ops.apply_kernel import (
     N_SCALARS,
     SC_COUNT,
     SC_ERR,
-    SC_MIN_SEQ,
     SC_SELF,
-    _perspective,
-    excl_cumsum,
     pack_state,
     unpack_state,
 )
@@ -86,20 +86,18 @@ from fluidframework_tpu_torch.parallel.mesh import (
     devices,
     resolve_kernel,
 )
-from fluidframework_tpu_torch.protocol.constants import (
-    ERR_RANGE,
+from fluidframework_tpu_torch.protocol.constants import (  # noqa: F401
     F_CLIENT,
     F_POS1,
     F_POS2,
     F_REF,
-    F_SEQ,
     F_TYPE,
     KIND_FREE,
     NO_CLIENT,
     OP_ANNOTATE,
     OP_INSERT,
-    OP_NOOP,
     OP_REMOVE,
+    OP_WIDTH,
     RSEQ_NONE,
 )
 
@@ -108,15 +106,31 @@ _I32 = torch.int32
 
 class _Group:
     """The shards of one device: one packed pair ``[N_LANES, n_g, S]`` /
-    ``[n_g, N_SCALARS]`` (so K1 and K2 launch once for all of them) and
-    their shard indices as an index on the mesh's first device."""
+    ``[n_g, N_SCALARS]`` (so X1, X2, K1 and K2 launch once for all of
+    them), their shard indices as an index on the mesh's first device
+    (``at``, for gathers), and the exchange's buffers on its own device:
+    its shard indices (``ids``), X1's accumulators, the stats of every
+    shard in per-group concatenation order (``stats``: this group's at
+    rows ``[lo, lo + n_g)``, its view ``own``; shard ``j`` in row
+    ``row_of[j]``) and K1's rewritten op rows."""
 
-    def __init__(self, device, shards: List[int], tables, scalars, first):
+    def __init__(self, device, shards: List[int], tables, scalars, first,
+                 lo: int, row_of: np.ndarray):
+        n_g = len(shards)
         self.device = device
         self.shards = shards
         self.tables = tables
         self.scalars = scalars
         self.at = torch.tensor(shards, dtype=torch.long, device=first)
+        self.ids = torch.tensor(shards, dtype=_I32, device=device)
+        self.row_of = torch.from_numpy(row_of.astype(np.int32)).to(device)
+        self.stats = torch.empty((len(row_of), SX.N_STATS), dtype=_I32,
+                                 device=device)
+        self.lo = lo
+        self.own = self.stats[lo:lo + n_g]
+        self.acc = SX.new_accumulators(n_g, device)
+        self.rows = torch.empty((n_g, 1, OP_WIDTH), dtype=_I32,
+                                device=device)
 
 
 def check_shard_cap(shard_cap: int, kernel: str, devs) -> str:
@@ -149,35 +163,49 @@ class ShardedDoc:
         self.shard_cap = shard_cap
         self.kernel = check_shard_cap(shard_cap, kernel, mesh.devices)
         self._first = mesh.first
+        groups = mesh.groups()
+        # Row i of a per-group concatenation is shard _order[i].
+        self._order = np.concatenate([shards for _d, shards in groups])
+        self._in_order = bool((self._order == np.arange(self.n_shards)).all())
+        self._row_of = np.argsort(self._order)
         self._groups: List[_Group] = []
-        for dev, shards in mesh.groups():
+        lo = 0
+        for dev, shards in groups:
             t, s = _blank_packed(len(shards), shard_cap, dev)
             s[:, SC_SELF] = self_client
-            self._groups.append(_Group(dev, shards, t, s, self._first))
-        # Row i of a per-group concatenation is shard _order[i].
-        self._order = np.concatenate([g.shards for g in self._groups])
-        self._in_order = bool((self._order == np.arange(self.n_shards)).all())
-        self._ar = torch.arange(self.n_shards, dtype=_I32, device=self._first)
+            self._groups.append(_Group(dev, shards, t, s, self._first, lo,
+                                       self._row_of))
+            lo += len(shards)
 
     # -- the per-op exchange ------------------------------------------------
 
-    def _local_stats(self, g: _Group, op) -> torch.Tensor:
-        """[n_g, 3] per shard of group ``g``: visible length, holds rows,
-        an insert at its end may land in it."""
-        L, sc = g.tables, g.scalars
+    def _stats(self, g: _Group, ops, k: int) -> None:
+        """X1 for op ``ops[k]`` on group ``g``, into ``g.own``."""
+        if self.kernel == "plain":
+            g.own.copy_(SX.shard_stats_plain(g.tables, g.scalars, ops[k]))
+        else:
+            SX.shard_stats(g.tables, g.scalars, ops, k, out=g.own,
+                           acc=g.acc)
 
-        def f(i):
-            return op[i].reshape(1, 1)
+    def _share_stats(self) -> None:
+        """Every group's stats onto every other group's device
+        (stream-ordered copies): the reference's all_gathers."""
+        for h in self._groups:
+            for g in self._groups:
+                if g is not h:
+                    h.stats[g.lo:g.lo + len(g.shards)].copy_(g.own)
 
-        clientn = f(F_CLIENT)
-        is_local = clientn == sc[:, SC_SELF:SC_SELF + 1]
-        part, vis = _perspective(L, clientn, f(F_REF), is_local,
-                                 sc[:, SC_MIN_SEQ:SC_MIN_SEQ + 1])
-        total = vis.sum(1, keepdim=True).to(_I32)
-        tail = K1.insert_place_mask(L, f(F_SEQ), part, vis,
-                                    total - excl_cumsum(vis)).any(1)
-        return torch.stack([total[:, 0], (sc[:, SC_COUNT] > 0).to(_I32),
-                            tail.to(_I32)], dim=1)
+    def _resolve(self, g: _Group, ops, k: int) -> None:
+        """X2 for op ``ops[k]`` on group ``g``: its rows into ``g.rows``,
+        the global ERR_RANGE into its err lanes."""
+        if self.kernel == "plain":
+            rows, sc = SX.shard_resolve_plain(g.stats, ops[k], g.ids,
+                                              g.row_of, g.scalars)
+            g.rows.copy_(rows)
+            g.scalars.copy_(sc)
+        else:
+            SX.shard_resolve(g.stats, ops, k, g.ids, g.row_of, g.scalars,
+                             out=g.rows)
 
     def _gather(self, per_group: List[torch.Tensor]) -> torch.Tensor:
         """Per-group ``[n_g, ...]`` tensors -> one ``[n_shards, ...]`` on the
@@ -190,53 +218,22 @@ class ShardedDoc:
             out.index_copy_(0, g.at, x.to(self._first))
         return out
 
-    def _apply_one(self, op, op_groups) -> None:
-        """One sequenced op (``op`` [OP_WIDTH] on the first device, its
-        copy on each group's device in ``op_groups``)."""
-        n = self.n_shards
-        st = self._gather([self._local_stats(g, o)
-                           for g, o in zip(self._groups, op_groups)])
-        totals, live, tail = st[:, 0], st[:, 1], st[:, 2] != 0
-        offset = excl_cumsum(totals)
-        global_total = totals.sum().to(_I32)
-        ty, pos1, pos2 = op[F_TYPE], op[F_POS1], op[F_POS2]
-        p = pos1 - offset
-        has_place = ((p >= 0) & (p < totals)) | ((p == totals) & tail)
-        first_place = torch.where(has_place, self._ar, n).amin()
-        last_live = torch.where(live != 0, self._ar, 0).amax()
-        owner = torch.where(first_place < n, first_place, last_live)
-        is_ins = ty == OP_INSERT
-        is_rng = (ty == OP_REMOVE) | (ty == OP_ANNOTATE)
-        # Out-of-range detection in GLOBAL coordinates: per-shard clamping
-        # would legalize streams the single-table kernel flags.
-        range_err = torch.where(
-            is_ins, (first_place >= n) & (pos1 > global_total),
-            is_rng & (pos2 > global_total),
-        )
-        a = torch.minimum(torch.clamp(p, min=0), totals)
-        b = torch.minimum(torch.clamp(pos2 - offset, min=0), totals)
-        rows = op.expand(n, op.shape[0]).clone()
-        rows[:, F_POS1] = torch.where(is_ins | is_rng, a, pos1)
-        rows[:, F_POS2] = torch.where(is_rng, b, pos2)
-        rows[:, F_TYPE] = torch.where(
-            is_ins, torch.where(self._ar == owner, OP_INSERT, OP_NOOP),
-            torch.where(is_rng, torch.where(a < b, ty, OP_NOOP), ty),
-        )
-        err = torch.where(range_err, ERR_RANGE, 0).to(_I32)
-        for g in self._groups:
-            r = rows if (len(self._groups) == 1 and self._in_order) \
-                else rows.index_select(0, g.at)
-            apply_part((g.tables, g.scalars),
-                       r.to(g.device)[:, None].contiguous(), self.kernel)
-            g.scalars[:, SC_ERR] |= err.to(g.device)
-
     def apply(self, ops) -> None:
         """ops: ``[K, OP_WIDTH]`` sequenced rows with GLOBAL positions
-        (numpy rows go up through a pinned buffer without a host sync)."""
+        (numpy rows go up through a pinned buffer without a host sync).
+        Each op: X1 on every group, the stats shared when there are
+        several groups, then X2 and K1 on every group."""
         o = _ops_on(ops, self._first, batched=False)[0]
         per_group = [o.to(g.device) for g in self._groups]
+        several = len(self._groups) > 1
         for k in range(o.shape[0]):
-            self._apply_one(o[k], [x[k] for x in per_group])
+            for g, og in zip(self._groups, per_group):
+                self._stats(g, og, k)
+            if several:
+                self._share_stats()
+            for g, og in zip(self._groups, per_group):
+                self._resolve(g, og, k)
+                apply_part((g.tables, g.scalars), g.rows, self.kernel)
 
     def compact(self) -> None:
         """Shard-local zamboni: K2 on every shard (one launch per device).
@@ -299,11 +296,11 @@ class ShardedDoc:
         out = ShardedDoc.__new__(ShardedDoc)
         out.__dict__.update(self.__dict__)
         out.kernel = resolve_kernel(kernel or self.kernel, self.mesh.devices)
-        out._groups = [
-            _Group(g.device, g.shards, g.tables.clone(), g.scalars.clone(),
-                   self._first)
-            for g in self._groups
-        ]
+        # Buffers of its own: a clone shares no exchange state.
+        out._groups = [_Group(g.device, g.shards, g.tables.clone(),
+                              g.scalars.clone(), self._first, g.lo,
+                              self._row_of)
+                       for g in self._groups]
         return out
 
     def rows_in_use(self) -> int:
