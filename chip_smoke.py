@@ -142,7 +142,8 @@ log and lease coordination (``g++``), all at once, then:
    80,000, its text equal to a host string, the 1,000 ops after promotion
    replayed through ``kernel="plain"`` from a clone shard for shard, one
    apply and one compaction under sync-debug "error", one op's launches
-   by name (X1, X2 and K1 on one device group) and its ATen ops, and on
+   by name (``shard_exchange``, X1 and X2 in one launch, and K1 on one
+   device group) and its ATen ops, and on
    the list of
    every visible card (one card: 524,288 rows a shard, the split tier) a
    document of 65,000 rows promoted at the first scan and carried past
@@ -151,9 +152,10 @@ log and lease coordination (``g++``), all at once, then:
    tests/test_multinode.py's failover and fencing at 3
    nodes x 1,024 documents over ``NativeCoordination``. K1/K2 held
    against their plain versions at the mesh shard's and the sharded
-   document's shapes, and X1/X2 (the sharded document's per-op
-   exchange) at 9c's 8 x 65,536 rows and the one card's 1 x 524,288, into
-   outputs filled with a sentinel (:func:`hold_exchange`);
+   document's shapes, and X1, X2 and ``shard_exchange`` (the sharded
+   document's per-op exchange) at 9c's 8 x 65,536 rows and the one card's
+   1 x 524,288, into outputs filled with a sentinel
+   (:func:`hold_exchange`);
 10. the oracle, the load harness and the other DDS models — 10a
    bench.py's ``device_state_parity`` at 4,096 docs x 256 rows and 256
    docs x 4,096 rows (the shared and the cluster tier), 96 ops a document
@@ -202,12 +204,13 @@ run, then each of 8a-8e, then each run of 9a-9c, then each of 10a-10c,
 then 11a)
 and read after it; T1's and T2's counts (in all, shared, global) the
 same way around 7a, 7b, 7b-moves, 7c, 10b and 11d's tree scans, and 7a
-must launch T1, 7b T2; X1's and X2's around 9c and the one card's run
-after promotion and 11d's sharded functions, each of which must launch
-both. The DocFleet path must launch K1 and K2 on the
-cluster tier. Prints the ptxas report of every kernel entry, each phase's
+must launch T1, 7b T2; the exchange kernels' around 9c and the one
+card's run after promotion and 11d's sharded functions, each of which
+must launch ``shard_exchange`` and neither X1 nor X2 (one device group:
+those two launch only on several groups, so here only in the holds). The
+DocFleet path must launch K1 and K2 on the cluster tier. Prints the ptxas report of every kernel entry, each phase's
 wall time, the card's name and power limit, a ``{"kernels": [...]}`` line
-(K1, K2, K3, T1, T2, X1, X2), and last ``{"ok":
+(K1, K2, K3, T1, T2, X1, X2, ``shard_exchange``), and last ``{"ok":
 true, "device": {...}}``. Any failure exits non-zero. A longer record goes to
 ``chip_smoke.json`` in the output directory (``OUT_DIR``).
 
@@ -222,7 +225,10 @@ With ``--split``, it times instead K1/K2/K3 on the split tier at
 at 32,768 x 16 and 65,536 x 8, each held bit for bit, for this tree and
 for a variant with its kernel constants changed (by default
 ``SPLIT_MAX_CTAS=8``), in turns (see :func:`split_ab`), and writes
-``split.json``.
+``split.json``. With ``--exchange [NAME=VALUE,...]``, it holds and times
+X1, X2 and ``shard_exchange`` at the sharded paths' shapes the same way,
+for this tree and each variant (see :func:`exchange_ab`), and writes
+``exchange.json``.
 
 With ``--server N``, it builds the kernels and native libraries and runs
 only phase 6, ``N`` times in one process (the socket path's repeat check;
@@ -392,17 +398,26 @@ TREE_KERNELS = {
 }
 # The sharded document's per-op exchange (csrc/merge_kernels.cu, beside
 # K1): the exchange half of the reference's jitted shard_map body (two
-# all_gathers, no pl.pallas_call).
+# all_gathers, no pl.pallas_call). One device group (every layout of one
+# card) runs X1 and X2 as one launch, shard_exchange; several groups run
+# them apart.
 SHARD_KERNELS = {
     "X1_shard_stats": dict(
-        wrapper=SX.shard_stats,
+        wrapper=SX.shard_stats, kernel="shard_stats_kernel",
         replaces="fluidframework_tpu/parallel/sharded_doc.py:71",
     ),
     "X2_shard_resolve": dict(
-        wrapper=SX.shard_resolve,
+        wrapper=SX.shard_resolve, kernel="shard_resolve_kernel",
+        replaces="fluidframework_tpu/parallel/sharded_doc.py:71",
+    ),
+    "X12_shard_exchange": dict(
+        wrapper=SX.shard_exchange, kernel="shard_exchange_kernel",
         replaces="fluidframework_tpu/parallel/sharded_doc.py:71",
     ),
 }
+# The exchange kernel of one device group, the path every layout of one
+# card runs; the others launch only on several groups.
+ONE_GROUP_EXCHANGE = "X12_shard_exchange"
 # Every (tier, ring) a tree kernel may run on: the warp tier with its ring
 # in the document's shared-memory slice or in the workspace, the CTA tiers.
 TREE_TIER_OPTIONS = tuple(("warp", r) for r in TSK.RINGS) + tuple(
@@ -782,7 +797,8 @@ def reset_counts() -> None:
 
 
 def read_shard_counts() -> dict:
-    """X1's and X2's launches since the last :func:`reset_counts`."""
+    """The exchange kernels' launches since the last
+    :func:`reset_counts`."""
     return {name: spec["wrapper"].launches
             for name, spec in SHARD_KERNELS.items()}
 
@@ -4663,10 +4679,12 @@ def mesh_9b(device, mesh_devs, n_ch=4096, k=16, rounds=12, cap=1024,
     return out
 
 
-def exchange_case(dev, n: int, s: int, seed: int = 0, k: int = 8):
+def exchange_case(dev, n: int, s: int, seed: int = 0, k: int = 8,
+                  rows=None):
     """A packed pair of ``n`` shards of ``s`` rows and ``k`` op rows
-    ``[k, OP_WIDTH]`` on ``dev`` for holding X1 and X2: live rows up to
-    each shard's count (random, one shard full), free rows past it,
+    ``[k, OP_WIDTH]`` on ``dev`` for holding the exchange kernels: live
+    rows up to each shard's count (``rows`` each where given, else random
+    with one shard full), free rows past it,
     random stamps, some rows removed or unsequenced, every shard ending
     in zero-length tombstones, and inserts, removes and annotates whose
     seq, ref and writer span the stamps (some unsequenced, some the self
@@ -4678,6 +4696,8 @@ def exchange_case(dev, n: int, s: int, seed: int = 0, k: int = 8):
         ("rseq", RSEQ_NONE), ("rbits", 0))}
     counts = rng.integers(0, s + 1, n)
     counts[0] = s
+    if rows is not None:
+        counts[:] = rows
     top = 64
     for d, c in enumerate(counts):
         c = int(c)
@@ -4722,34 +4742,45 @@ def exchange_case(dev, n: int, s: int, seed: int = 0, k: int = 8):
     return t.to(dev), sc.to(dev), ops.to(dev)
 
 
-def exchange_bound_bytes(tables) -> tuple:
-    """Bytes X1 and X2 must move on a group's packed pair ``tables``
-    (this run's data): X1 reads the kind of every row, the length, seq,
-    writer and removed seq of each live row and one removers lane of each
-    removed one, three scalars a shard and the op row, and writes 3 ints a
-    shard; X2 (the group of every shard) reads 3 stats and a row index a
-    shard, a shard index and the err lane of each shard and the op row,
-    and writes the err lane and a rewritten op row a shard."""
+def exchange_bound_bytes(tables, scalars=None) -> tuple:
+    """Bytes X1, X2 and ``shard_exchange`` must move on a group's packed
+    pair ``tables`` (this run's data): X1 reads the kind of each row below
+    its shard's count (every row at or past it is free, so the function
+    needs no more), the length, seq, writer and removed seq of each live
+    row and one removers lane of each removed one, three scalars a shard
+    and the op row, and writes 3 ints a shard; X2 (the group of every
+    shard) reads 3 stats and a row index a shard, a shard index and the
+    err lane of each shard and the op row, and writes the err lane and a
+    rewritten op row a shard; ``shard_exchange`` is X1 and then, from X1's
+    stats, each shard's err lane read and written and its op row written.
+    Without ``scalars``, the same three with the kind of every row read:
+    the earlier all-rows floor, kept for comparison."""
     n, s = tables.shape[1], tables.shape[2]
     live = tables[SEGMENT_LANES.index("kind")] != 0
     removed = live & (tables[SEGMENT_LANES.index("rseq")] != RSEQ_NONE)
-    x1 = 4 * (n * s + 4 * int(live.sum()) + int(removed.sum()) + 3 * n
+    rows = n * s
+    if scalars is not None:
+        rows = int(scalars[:, K1.SC_COUNT].clamp(0, s).sum())
+    x1 = 4 * (rows + 4 * int(live.sum()) + int(removed.sum()) + 3 * n
               + OP_WIDTH + 3 * n)
     x2 = 4 * (4 * n + OP_WIDTH + n * (1 + 2 + OP_WIDTH))
-    return x1, x2
+    return x1, x2, x1 + 4 * n * (2 + OP_WIDTH)
 
 
 def hold_exchange(dev, tables, scalars, ops, cell: str, reps=10,
                   plain_reps=3) -> list:
-    """X1 and X2 against their plain versions on ``dev`` for every op row
-    of ``ops`` ([K, OP_WIDTH], read in place), their outputs filled with
-    :data:`TREE_SENTINEL` before each launch so an unwritten lane fails;
-    X1's accumulators must come back reset. X2 runs as the group of all
-    shards in order, as a group of every other shard with the stats in
-    reversed row order (``row_of``; from two shards on), and on a copy of
-    each op past the document's end (ERR_RANGE). With ``reps``, times
-    each on op 0 (CUDA events; host wall on the CPU) beside its byte
-    floor. Launch counts stay as they were. Returns the two rows."""
+    """X1, X2 and ``shard_exchange`` against their plain versions on
+    ``dev`` for every op row of ``ops`` ([K, OP_WIDTH], read in place),
+    their outputs filled with :data:`TREE_SENTINEL` before each launch so
+    an unwritten lane fails; the accumulators (the group's ticket among
+    them) must come back reset. X2 runs as the group of all shards in
+    order, as a group of every other shard with the stats in reversed row
+    order (``row_of``; from two shards on), and with ``shard_exchange`` on
+    a copy of each op past the document's end (ERR_RANGE). With ``reps``,
+    times each on op 0 (CUDA events; host wall on the CPU) beside its
+    byte floor (the rows below each shard's count) and the all-rows floor
+    of the first design. Launch
+    counts stay as they were. Returns the three rows."""
     with _Uncounted():
         return _hold_exchange(dev, tables, scalars, ops, cell, reps,
                               plain_reps)
@@ -4759,73 +4790,99 @@ def _hold_exchange(dev, tables, scalars, ops, cell, reps, plain_reps):
     n_g = tables.shape[1]
     i32 = dict(dtype=torch.int32, device=dev)
     acc = SX.new_accumulators(n_g, dev)
+    reset = SX.new_accumulators(n_g, dev)
     ar = torch.arange(n_g, **i32)
     flip = torch.flip(ar, (0,))
     # (the group's shards, the shard each stats row holds)
     groups = ((ar, ar), (ar[1::2].contiguous(), flip))[:1 + (n_g > 1)]
     past = ops.clone()
     past[:, F_POS1] = past[:, F_POS2] = (1 << 31) - 1
-    err1 = err2 = 0
+
+    def sentinel(*shape):
+        return torch.full(shape, TREE_SENTINEL, **i32)
+
+    def accumulators_reset(what):
+        _sync(dev)
+        if not torch.equal(acc, reset):
+            raise AssertionError(f"{what} {cell}: accumulators left set")
+
+    err = dict.fromkeys(SHARD_KERNELS, 0)
     for k in range(ops.shape[0]):
         want = SX.shard_stats_plain(tables, scalars, ops[k])
-        out = torch.full((n_g, SX.N_STATS), TREE_SENTINEL, **i32)
+        out = sentinel(n_g, SX.N_STATS)
         SX.shard_stats(tables, scalars, ops, k, out=out, acc=acc)
-        _sync(dev)
-        err1 = max(err1, _held([out], [want], f"X1 {cell} op {k}"))
-        if not torch.equal(acc, SX.new_accumulators(n_g, dev)):
-            raise AssertionError(f"X1 {cell}: accumulators left set")
-        for at, held in groups:
-            stats = want.index_select(0, held.long())
-            row_of = torch.argsort(held).to(torch.int32)
-            for buf in (ops, past):
+        accumulators_reset("X1")
+        err["X1_shard_stats"] = max(err["X1_shard_stats"], _held(
+            [out], [want], f"X1 {cell} op {k}"))
+        for buf in (ops, past):
+            for at, held in groups:
+                stats = want.index_select(0, held.long())
+                row_of = torch.argsort(held).to(torch.int32)
                 sc = scalars.index_select(0, at.long())
                 rows, sc_want = SX.shard_resolve_plain(stats, buf[k], at,
                                                        row_of, sc)
-                out = torch.full((at.shape[0], 1, OP_WIDTH), TREE_SENTINEL,
-                                 **i32)
+                out = sentinel(at.shape[0], 1, OP_WIDTH)
                 SX.shard_resolve(stats, buf, k, at, row_of, sc, out=out)
                 _sync(dev)
-                err2 = max(err2, _held([out, sc], [rows, sc_want],
-                                       f"X2 {cell} op {k}"))
+                err["X2_shard_resolve"] = max(err["X2_shard_resolve"], _held(
+                    [out, sc], [rows, sc_want], f"X2 {cell} op {k}"))
+            sc = scalars.clone()
+            plain = SX.shard_exchange_plain(tables, scalars, buf[k])
+            stats, out = sentinel(n_g, SX.N_STATS), sentinel(n_g, 1, OP_WIDTH)
+            SX.shard_exchange(tables, sc, buf, k, stats=stats, out=out,
+                              acc=acc)
+            accumulators_reset("shard_exchange")
+            err["X12_shard_exchange"] = max(err["X12_shard_exchange"], _held(
+                [stats, out, sc], list(plain),
+                f"shard_exchange {cell} op {k}"))
     stats = SX.shard_stats_plain(tables, scalars, ops[0])
     sc = scalars.clone()
     rows_out = torch.empty((n_g, 1, OP_WIDTH), **i32)
+    stats_out = torch.empty_like(stats)
     timed = {
         "X1_shard_stats": (
-            "shard_stats_kernel",
-            lambda: SX.shard_stats(tables, scalars, ops, 0, out=stats,
+            lambda: SX.shard_stats(tables, scalars, ops, 0, out=stats_out,
                                    acc=acc),
             lambda: SX.shard_stats_plain(tables, scalars, ops[0])),
         "X2_shard_resolve": (
-            "shard_resolve_kernel",
             lambda: SX.shard_resolve(stats, ops, 0, ar, ar, sc,
                                      out=rows_out),
             lambda: SX.shard_resolve_plain(stats, ops[0], ar, ar, sc)),
+        "X12_shard_exchange": (
+            lambda: SX.shard_exchange(tables, sc, ops, 0, stats=stats_out,
+                                      out=rows_out, acc=acc),
+            lambda: SX.shard_exchange_plain(tables, sc, ops[0])),
     }
-    bounds = dict(zip(timed, exchange_bound_bytes(tables)))
+    bounds = dict(zip(timed, exchange_bound_bytes(tables, scalars)))
+    all_rows = dict(zip(timed, exchange_bound_bytes(tables)))
     rows = []
-    for name, (kernel, fn, plain) in timed.items():
+    for name, (fn, plain) in timed.items():
         row = dict(kernel=name, cell=cell, shards=n_g, cap=tables.shape[2],
-                   ops=ops.shape[0],
-                   max_abs_err=err1 if name.startswith("X1") else err2,
+                   live_rows=int(scalars[:, K1.SC_COUNT].sum()),
+                   ops=ops.shape[0], max_abs_err=err[name],
                    ms=None, profiler_ms=None, event_ms=None, plain_ms=None,
-                   bound_ms=bounds[name] / HBM_BYTES_PER_S * 1e3)
+                   bound_ms=bounds[name] / HBM_BYTES_PER_S * 1e3,
+                   all_rows_bound_ms=all_rows[name] / HBM_BYTES_PER_S * 1e3)
         if reps:
             # ms: a launch's device time, launched back to back (CUDA
             # events); profiler_ms: the profiler's median kernel time
             # (None where it records no device activity); event_ms: one
             # call between CUDA events, the host's launch cost included.
             row.update(ms=_queued_ms(dev, fn),
-                       profiler_ms=_device_ms(dev, fn, reps, kernel),
+                       profiler_ms=_device_ms(dev, fn, reps,
+                                              SHARD_KERNELS[name]["kernel"]),
                        event_ms=_event_ms(dev, fn, reps),
                        plain_ms=_event_ms(dev, plain, plain_reps))
-            print(f"{cell} {name} at {n_g} x {tables.shape[2]:,}: exact "
-                  f"over {ops.shape[0]} ops, {row['ms']:.4f} ms a launch "
-                  f"on the device (profiler {row['profiler_ms']}), "
+            print(f"{cell} {name} at {n_g} x {tables.shape[2]:,} "
+                  f"({row['live_rows']:,} rows below count): exact over "
+                  f"{ops.shape[0]} ops, {row['ms']:.4f} ms a launch on the "
+                  f"device (profiler {row['profiler_ms']}), "
                   f"{row['event_ms']:.4f} ms a call (plain "
                   f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.5f} "
-                  "ms)", flush=True)
+                  f"ms, all rows {row['all_rows_bound_ms']:.5f})",
+                  flush=True)
         rows.append(row)
+    accumulators_reset("timed launches")
     return rows
 
 
@@ -4981,9 +5038,10 @@ def mesh_9c(device, window=1000, frame_ops=SHARDED_FRAME_OPS,
     launches_post = read_counts()
     exchange_post = read_shard_counts()
     ops_post = ops_total - promoted_at
+    # One device group: every op the one-launch exchange, X1 and X2 never.
     for name, c in exchange_post.items():
-        if c <= 0 and device.type == "cuda":
-            raise AssertionError(f"9c: {name} never launched after "
+        if device.type == "cuda" and (c > 0) != (name == ONE_GROUP_EXCHANGE):
+            raise AssertionError(f"9c: {name} launched {c} times after "
                                  "promotion")
     st = be.stats()
     if st["sharded_docs"] != 1 or st["docs_with_errors"]:
@@ -5002,7 +5060,7 @@ def mesh_9c(device, window=1000, frame_ops=SHARDED_FRAME_OPS,
     _no_sync(device, probe.compact)
     # One op's launches by name and device time (torch.profiler), the
     # wrappers' counts over it, and its host wall with a synchronize. On
-    # one device group an op is X1, X2 and K1 and nothing else.
+    # one device group an op is the exchange and K1 and nothing else.
     one = probe_rows[:1].copy()
     one[0, F_SEQ] += 64
     before = dict(read_shard_counts(), K1=K1.apply_ops_packed.launches)
@@ -5010,12 +5068,11 @@ def mesh_9c(device, window=1000, frame_ops=SHARDED_FRAME_OPS,
     after = dict(read_shard_counts(), K1=K1.apply_ops_packed.launches)
     prof["kernel_launches"] = {n: after[n] - before[n] for n in after}
     names = " ".join(prof["kernels"])
-    if device.type == "cuda" and set(prof["kernel_launches"].values()) \
-            != {1} or (
-            prof["kernels"] and (sum(prof["kernels"].values()) != 3 or not
+    one_op = {n: int(n in ("K1", ONE_GROUP_EXCHANGE)) for n in after}
+    if device.type == "cuda" and prof["kernel_launches"] != one_op or (
+            prof["kernels"] and (sum(prof["kernels"].values()) != 2 or not
                                  all(k in names for k in (
-                                     "shard_stats_kernel",
-                                     "shard_resolve_kernel",
+                                     "shard_exchange_kernel",
                                      "merge_kernel<0")))):
         raise AssertionError(f"9c: one op launched {prof['kernels']} "
                              f"({prof['kernel_launches']})")
@@ -5043,8 +5100,8 @@ def mesh_9c(device, window=1000, frame_ops=SHARDED_FRAME_OPS,
             plain_ms=plain_ms,
             bound_ms=bound_bytes(kname, sharded.n_shards, sharded.shard_cap,
                                  1) / HBM_BYTES_PER_S * 1e3))
-    # X1 and X2 against their plain versions at the sharded shape, on the
-    # document's state and eight ops of the probe's frame.
+    # X1, X2 and the exchange against their plain versions at the sharded
+    # shape, on the document's state and eight ops of the probe's frame.
     xholds = hold_exchange(device, g.tables, g.scalars,
                            torch.from_numpy(probe_rows[:8]).to(device), "9c")
     del t0, s0, probe
@@ -5220,9 +5277,10 @@ def mesh_9c_one_entry(device, visible, cap=65536, n0=65_000, first_ops=256,
         if c["all"] <= 0 or c["split"] != c["all"]:
             raise AssertionError(f"9c one card: {kname} after promotion "
                                  f"{c}, not all on the split tier")
+    # One device group: every op the one-launch exchange, X1 and X2 never.
     for name, c in exchange.items():
-        if c <= 0 and device.type == "cuda":
-            raise AssertionError(f"9c one card: {name} never launched "
+        if device.type == "cuda" and (c > 0) != (name == ONE_GROUP_EXCHANGE):
+            raise AssertionError(f"9c one card: {name} launched {c} times "
                                  "after promotion")
     st = be.stats()
     if (st["sharded_docs"] != 1 or st["promotions_refused"] != 0
@@ -6697,8 +6755,8 @@ def framework_11d(device) -> dict:
     tree_launches = read_tree_counts()
     # sharded_apply_ops at 9c's shard shape against ShardedDoc.apply on 9c's
     # frame of ops; against the CPU on the frame's first SHARDED_CPU_OPS ops
-    # (the plain exchange on the host is slow at this shape). X1's and X2's
-    # launches are counted over it.
+    # (the plain exchange on the host is slow at this shape). The exchange
+    # kernels' launches are counted over it.
     t0 = time.perf_counter()
     SX.reset_counts()
     rng = np.random.default_rng(8)
@@ -7078,18 +7136,23 @@ def tree_kernel_rows(tree, load, framework) -> list:
 
 
 def exchange_kernel_rows(exchange, framework_launches) -> list:
-    """The kernels line's X1 and X2 entries: launches by path (9c and 9c
-    on one card after promotion, 11d), the time, plain time and byte
-    floor of the hold at 9c's shape (8 x 65,536 rows on 8 x the card, one
-    device group; the first hold), the largest error of every hold, and
-    the holds' rows. No PyTorch call computes the exchange, so
-    ``library_ms`` is null."""
+    """The kernels line's X1, X2 and ``shard_exchange`` entries: launches
+    by path (9c and 9c on one card after promotion, 11d), the time, plain
+    time, byte floor (rows below count) and all-rows floor of the hold at
+    9c's shape (8 x 65,536 rows on 8 x the card, one device group; the
+    first hold), the largest error of every hold, and the holds' rows. Every
+    path a card runs alone is one device group, so there the exchange is
+    ``shard_exchange`` on every op and X1 and X2 launch only in the holds
+    (and on several groups: two cards). No PyTorch call computes the
+    exchange, so ``library_ms`` is null."""
     rows = []
     for name, spec in SHARD_KERNELS.items():
         by_path = {**{p: c[name] for p, c in exchange["launches"].items()},
                    "11d": framework_launches[name]}
         holds = [r for r in exchange["holds"] if r["kernel"] == name]
-        if any(v <= 0 for p, v in by_path.items() if p != "9c_one_card"):
+        one_group = name == ONE_GROUP_EXCHANGE
+        if any((v > 0) != one_group for p, v in by_path.items()
+               if p != "9c_one_card" or not one_group):
             raise AssertionError(f"{name}: launches by path {by_path}")
         rows.append({
             "name": name, "route": "cuda",
@@ -7100,11 +7163,14 @@ def exchange_kernel_rows(exchange, framework_launches) -> list:
             "ms": holds[0]["ms"], "plain_ms": holds[0]["plain_ms"],
             "bound_ms": holds[0]["bound_ms"], "bound_by": "bytes",
             "library_ms": None,
+            "all_rows_bound_ms": holds[0]["all_rows_bound_ms"],
             "event_ms": holds[0]["event_ms"],
             "profiler_ms": holds[0]["profiler_ms"],
-            "holds": [{k: r[k] for k in ("cell", "shards", "cap", "ops",
-                                         "ms", "profiler_ms", "event_ms",
-                                         "plain_ms", "bound_ms")}
+            "holds": [{k: r[k] for k in ("cell", "shards", "cap",
+                                         "live_rows", "ops", "ms",
+                                         "profiler_ms", "event_ms",
+                                         "plain_ms", "bound_ms",
+                                         "all_rows_bound_ms")}
                       for r in holds],
         })
     return rows
@@ -7209,36 +7275,45 @@ def split_times(device, reps=10) -> dict:
                 rows=rows)
 
 
-def split_ab(variants=("SPLIT_MAX_CTAS=8",)) -> int:
-    """:func:`split_times` of this tree and of each variant (this tree
-    with the kernel constants of one spec changed, as for :func:`ab`),
-    each run in its own process on this card in turns: each variant, this
-    tree twice, each variant again. Prints each row's times and writes
-    every run to ``split.json`` in the output directory."""
+def _runs_in_turn(code: str, tag: str, variants) -> list:
+    """Run ``code`` (a script with a ``{patch}`` slot that prints one line
+    ``<tag>_JSON <json>``) in its own process on this card for this tree
+    and for each variant (this tree with the kernel constants of one spec
+    changed, as for :func:`ab`), in turns: each variant, this tree twice,
+    each variant again. Returns each run's record, with its label and wall
+    seconds."""
     here = os.path.dirname(os.path.abspath(__file__))
     trees = {"change": ""}
     for i, spec in enumerate(variants):
         trees[f"v{i + 1}"] = ("import fluidframework_tpu_torch.ops._cuda "
                               "as cu; cu.SOURCE = "
                               f"{_variant_source(spec, f'v{i + 1}')!r}")
-        print(f"split: v{i + 1} = {spec}", flush=True)
+        print(f"{tag.lower()}: v{i + 1} = {spec}", flush=True)
     labels = [x for x in trees if x != "change"]
     runs = []
     for label in labels + ["change", "change"] + labels:
-        code = _SPLIT_RUN.format(patch=trees[label])
         t = time.perf_counter()
-        res = subprocess.run([sys.executable, "-c", code], cwd=here,
+        res = subprocess.run([sys.executable, "-c",
+                              code.format(patch=trees[label])], cwd=here,
                              env=dict(os.environ, PYTHONPATH=here),
                              capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
-            raise AssertionError(f"split run of {label} failed")
+            raise AssertionError(f"{tag.lower()} run of {label} failed")
         line = next(x for x in res.stdout.splitlines()
-                    if x.startswith("SPLIT_JSON "))
+                    if x.startswith(f"{tag}_JSON "))
         runs.append(dict(label=label, wall_s=time.perf_counter() - t,
-                         **json.loads(line[len("SPLIT_JSON "):])))
-        print(f"split: {label} (max CTAs {runs[-1]['split_max_ctas']}) in "
-              f"{runs[-1]['wall_s']:.1f} s", flush=True)
+                         **json.loads(line[len(tag) + 6:])))
+        print(f"{tag.lower()}: {label} in {runs[-1]['wall_s']:.1f} s",
+              flush=True)
+    return runs
+
+
+def split_ab(variants=("SPLIT_MAX_CTAS=8",)) -> int:
+    """:func:`split_times` of this tree and of each variant
+    (:func:`_runs_in_turn`). Prints each row's times and writes every run
+    to ``split.json`` in the output directory."""
+    runs = _runs_in_turn(_SPLIT_RUN, "SPLIT", variants)
     by = {}
     for run in runs:
         for r in run["rows"]:
@@ -7251,6 +7326,55 @@ def split_ab(variants=("SPLIT_MAX_CTAS=8",)) -> int:
             f"{label} {ms}" for label, ms in v.items()), flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "split.json"), "w") as f:
+        json.dump(runs, f, indent=1)
+    return 0
+
+
+# The exchange's shapes on the sharded paths: 9c's 8 shards of 65,536 rows
+# (~10,000 live rows each after promotion), the one card's shard of 524,288
+# rows (~80,000 live), and 9c's shards at the most they hold before a
+# rebalance (0.8 of the cap), as (shards, rows a shard, rows below count).
+EXCHANGE_SHAPES = ((8, 65_536, 10_000), (1, 524_288, 80_000),
+                   (8, 65_536, 52_428))
+
+_EXCHANGE_RUN = """
+import json, torch
+import chip_smoke as c
+{patch}
+dev = torch.device("cuda", 0)
+rows = []
+for n, s, live in c.EXCHANGE_SHAPES:
+    rows += c.hold_exchange(dev, *c.exchange_case(dev, n, s, seed=s,
+                                                  rows=live),
+                            f"{{n}} x {{s}}, {{live}} live")
+# The floor of a launch queued behind others: a one-thread kernel that
+# returns at once.
+launch_ms = c._queued_ms(dev, lambda: torch.cuda._sleep(0))
+print("EXCHANGE_JSON " + json.dumps(dict(rows=rows, launch_ms=launch_ms)))
+"""
+
+
+def exchange_ab(variants=()) -> int:
+    """The exchange kernels held and timed (:func:`hold_exchange`) at
+    :data:`EXCHANGE_SHAPES` on :func:`exchange_case` states, and the time
+    of an empty launch queued the same way, for this tree and each
+    variant (:func:`_runs_in_turn`; e.g. ``X1_UNROLL=1``,
+    ``X1_MIN_ROWS=1024``, ``X1_THREADS=128``). Prints each kernel's times by
+    tree and writes every run to ``exchange.json`` in the output
+    directory."""
+    runs = _runs_in_turn(_EXCHANGE_RUN, "EXCHANGE", variants)
+    by = {("empty launch", ""): {}}
+    for run in runs:
+        by["empty launch", ""].setdefault(run["label"], []).append(
+            run["launch_ms"])
+        for r in run["rows"]:
+            by.setdefault((r["kernel"], r["cell"]), {}).setdefault(
+                run["label"], []).append(r["ms"])
+    for (name, cell), v in by.items():
+        print(f"exchange {name} at {cell}: " + ", ".join(
+            f"{label} {ms}" for label, ms in v.items()), flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "exchange.json"), "w") as f:
         json.dump(runs, f, indent=1)
     return 0
 
@@ -7425,6 +7549,11 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device; nothing was run")
         sys.exit(split_ab(*([sys.argv[2:]] if len(sys.argv) > 2 else [])))
+    if len(sys.argv) > 1 and sys.argv[1] == "--exchange":
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device; nothing was run")
+        _cuda.build()
+        sys.exit(exchange_ab(sys.argv[2:]))
     if len(sys.argv) > 2 and sys.argv[1] == "--ab":
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device; nothing was run")

@@ -1,7 +1,7 @@
 // Merge apply (K1), zamboni compact (K2) and fused apply+compact (K3)
 // kernels for Hopper (sm_90a), and the sharded document's per-op exchange
-// beside them (X1, X2; at the end of the file), bound to Python through a
-// plain C interface.
+// beside them (X1, X2 and the two in one launch; at the end of the file),
+// bound to Python through a plain C interface.
 //
 // Replaces the three Pallas TPU kernels of the reference package:
 //   K1  fluidframework_tpu/ops/pallas_kernel.py   _apply_values / apply_ops_packed
@@ -108,6 +108,7 @@
 // Ops with an unknown type (outside 0..6) change nothing but the cur_seq /
 // min_seq bookkeeping and the ERR_CLIENT bit, as in the Pallas K1.
 
+#include <atomic>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -143,6 +144,7 @@ constexpr int SMEM_CTAS_PER_SM = 4;
 constexpr int SMEM_WIDE_CTAS_PER_SM = 3;
 constexpr int CLUSTER_CTAS_PER_SM = 3;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_DEVICES = 64;  // devices whose SM count is cached
 
 // T_SPLIT: the table in global memory, a cluster of CTAs per document.
 // The C entries' tier 3 selects it for every entry; tier 2 selects it for
@@ -341,21 +343,19 @@ struct Op {
   bool is_ins, is_rem, is_ann, is_range, local_op, is_local;
 };
 
-// Visible length of local row lr from the op's perspective (reference
-// mergeTree.ts:916-1004); `part` = the row takes part in the walk.
-template <class Doc>
-__device__ __forceinline__ int perspective(const Doc &d, int lr, const Op &o,
-                                           int min_seq, bool &part) {
-  const int kind = d.at(L_KIND, lr), seq = d.at(L_SEQ, lr);
-  const int client = d.at(L_CLIENT, lr), length = d.at(L_LEN, lr);
-  const int rseq = d.at(L_RSEQ, lr);
+// Visible length of a row from the op's perspective (reference
+// mergeTree.ts:916-1004), from its lanes' values; `by_client` = the op's
+// writer removed it (removed_by_slot); `part` = the row takes part in the
+// walk.
+__device__ __forceinline__ int perspective_of(int kind, int seq, int client,
+                                              int length, int rseq,
+                                              bool by_client, const Op &o,
+                                              int min_seq, bool &part) {
   const bool live = kind != KIND_FREE;
   const bool removed = rseq != RSEQ_NONE;
   const bool r_acked = removed && rseq != UNASSIGNED_SEQ;
   const bool skip = r_acked && rseq <= min_seq;
   const int rseq_eff = rseq == UNASSIGNED_SEQ ? RSEQ_NONE : rseq;
-  const bool by_client = removed_by_slot(
-      d.at(L_RBITS, lr), d.at(L_RBITS2, lr), d.at(L_RBITS3, lr), o.clientn);
   const bool hidden = removed && (rseq_eff <= o.refn || by_client);
   const int seq_eff = seq == UNASSIGNED_SEQ ? NORM_EXISTING_LOCAL : seq;
   const bool ins_vis = client == o.clientn || seq_eff <= o.refn;
@@ -363,6 +363,20 @@ __device__ __forceinline__ int perspective(const Doc &d, int lr, const Op &o,
   const int vis_local = removed ? 0 : length;
   part = live && !skip;
   return part ? (o.is_local ? vis_local : vis_remote) : 0;
+}
+
+// The same for local row lr of the table (K1's perspective; X1 reads its
+// rows' lanes itself and calls perspective_of).
+template <class Doc>
+__device__ __forceinline__ int perspective(const Doc &d, int lr, const Op &o,
+                                           int min_seq, bool &part) {
+  const int kind = d.at(L_KIND, lr), seq = d.at(L_SEQ, lr);
+  const int client = d.at(L_CLIENT, lr), length = d.at(L_LEN, lr);
+  const int rseq = d.at(L_RSEQ, lr);
+  const bool by_client = removed_by_slot(
+      d.at(L_RBITS, lr), d.at(L_RBITS2, lr), d.at(L_RBITS3, lr), o.clientn);
+  return perspective_of(kind, seq, client, length, rseq, by_client, o,
+                        min_seq, part);
 }
 
 // breakTie (mergeTree.ts:1719): an insert whose normalized seq is
@@ -1078,6 +1092,20 @@ int launch_smem(const int *ops, const int *tables_in, const int *scalars_in,
   return 0;
 }
 
+// The current device's SM count, asked of the runtime once a device.
+int sm_count(int &sms) {
+  static std::atomic<int> known[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  sms = known[dev].load(std::memory_order_relaxed);
+  if (sms > 0) return 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) known[dev].store(sms, std::memory_order_relaxed);
+  return (int)e;
+}
+
 // The split tier: each doc over a cluster of C = ceil(SMs / n_docs) CTAs,
 // at most `max_ctas` and at least 1, so a few large documents still
 // cover the card's SMs.
@@ -1085,11 +1113,9 @@ template <int MODE>
 int launch_split(const int *ops, const int *tables_in, const int *scalars_in,
                  int *tables_out, int *scalars_out, int *work, int n_docs,
                  int S, int K, int max_ctas, cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaError_t ce = cudaGetDevice(&dev);
-  if (ce == cudaSuccess)
-    ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (ce != cudaSuccess) return (int)ce;
+  int sms = 0;
+  const int ce = sm_count(sms);
+  if (ce != 0) return ce;
   const int C = max(1, min(max_ctas, (sms + n_docs - 1) / n_docs));
   return launch_cluster<MODE, T_SPLIT>(ops, tables_in, scalars_in, tables_out,
                                        scalars_out, work, n_docs, S, K, C,
@@ -1157,8 +1183,11 @@ int launch(const int *ops, const int *tables_in, const int *scalars_in,
 // all_gathers, then the owner, offsets and ERR_RANGE; no pl.pallas_call).
 // A document's shards sit in one packed pair per device group,
 // [N_LANES, n_g, S] / [n_g, N_SCALARS]; the op row is read in place from
-// the uploaded [K, OP_WIDTH] buffer. One op is X1, X2 and K1 on one stream,
-// with nothing read back to the host.
+// the uploaded [K, OP_WIDTH] buffer. On one device group (every layout one
+// card runs) an op is two launches on one stream, shard_exchange (X1 with
+// X2 run by its last CTA) and K1; on several, X1 on each group, the stats
+// copied between the cards, then X2 and K1 on each. Nothing is read back
+// to the host.
 //
 // X1 (shard_stats) writes [n_g, 3] per shard: its visible length, whether
 // it holds rows (count > 0), and whether an insert at its end may land in
@@ -1171,16 +1200,30 @@ int launch(const int *ops, const int *tables_in, const int *scalars_in,
 // both maxima of row indices (-1 for none), and the length is a sum; all
 // three are free of order, and the int32 sum wraps as the plain version's
 // int64 sum cast to int32 does. (The two forms agree while a shard's
-// visible length stays below 2^32 and no length is negative.) Free rows
-// take no part, so a thread reads only the kind lane of a free row and the
-// perspective's lanes of a live one. The grid is C CTAs a shard, C chosen
-// so that the grid fills the card (X1_CTAS_PER_SM CTAs a SM, at least
-// X1_MIN_ROWS rows a CTA): each CTA reduces its rows, folds them into the
-// shard's accumulators [n_g, 4] with atomics, and the CTA that finishes
-// last writes the shard's stats and resets the accumulators for the next
-// op (no memset launch). Bound: bytes, 4 B of kind for every row plus the
-// perspective's lanes of the live rows (0.8 us for 80,000 live rows of
-// 524,288 at 3.35 TB/s); the launch costs more than that.
+// visible length stays below 2^32 and no length is negative.)
+//
+// X1 reads only rows below the shard's count: count is the high-water
+// mark of used rows, every row at or past it is free (K1 shifts rows up
+// from below it, K2 refills the tail with free rows), and a free row takes
+// no part. The plain version walks every row, as the reference does, so
+// each hold of the kernel against it also checks that bound. The grid is
+// C CTAs a shard, C picked by the host from S alone (X1_CTAS_PER_SM CTAs
+// a SM, at least X1_MIN_ROWS rows of S a CTA), so nothing is read back;
+// each CTA reads the shard's count and takes its share of [0, count), so
+// the work follows the live rows. A thread takes X1_VEC consecutive rows
+// at a time, one 16-byte load a lane where the lanes are aligned (S a
+// multiple of 4), and issues the loads of every lane the perspective needs
+// (kind, length, seq, writer, removed seq, and the one removers lane of
+// the op's writer) for X1_UNROLL such vectors before it reduces any: two
+// memory latencies (the op row and scalars, then the lanes) in place of
+// one or two a row. Each CTA reduces its rows and folds them into its
+// shard's row of the accumulators [n_g + 1, 3] with atomics, then takes a
+// ticket (the last row); the CTA that takes the launch's last one writes
+// every shard's stats and resets the accumulators for the next op (no
+// memset launch). Bound: bytes, the six lanes of each row below count,
+// three scalars a shard and the op row (about 1.9 MB, 0.6 us, for 80,000
+// rows); the latencies of the loads, the fold's atomics and the launch
+// set the time.
 //
 // X2 (shard_resolve) is one CTA a device group. It reads the [n, 3] stats
 // of every shard (row_of[j]: the row holding shard j) and the op row, scans
@@ -1192,16 +1235,30 @@ int launch(const int *ops, const int *tables_in, const int *scalars_in,
 // shard a NOOP; REMOVE/ANNOTATE get the range clamped into the shard, a
 // NOOP where it is empty; every other type passes. The global ERR_RANGE
 // is ORed into each shard's err lane here, before K1: K1 only ever ORs
-// that lane, never reads it as a gate.
+// that lane, never reads it as a gate. Its 3 us on the card are a launch's
+// own latency, so on one device group it is not a launch: shard_exchange
+// is X1 whose CTA that writes the group's stats (the last ticket: every
+// CTA of the group has folded) keeps them in shared memory and runs X2's
+// body, resolve_group, on them.
 
 constexpr int X1_THREADS = 256;
-constexpr int X1_MIN_ROWS = 1024;    // rows a CTA of X1 takes, at least
-constexpr int X1_CTAS_PER_SM = 2;    // X1's grid target
+// X1's grid: X1_CTAS_PER_SM CTAs a SM, at least X1_MIN_ROWS rows of S a
+// CTA (16 CTAs a shard at 8 x 65,536, 128 at 1 x 524,288). On an H100
+// 1,024 and 2,048 rows were 0.5-0.8 us slower a launch at the sharded
+// paths' shapes and 8,192 0.3-0.4 us (fewer CTAs fold fewer atomics into
+// one address, more CTAs load fewer rows each).
+constexpr int X1_MIN_ROWS = 4096;
+constexpr int X1_CTAS_PER_SM = 2;
+constexpr int X1_VEC = 4;            // rows a lane's 16-byte load holds
+constexpr int X1_UNROLL = 2;         // vectors a thread loads, then reduces
+constexpr int X1_LANES = 6;          // lanes X1 reads a row
 constexpr int X2_THREADS = 128;
-constexpr int X2_MAX_SHARDS = 8192;  // X2's offsets in 32 KB of smem
+constexpr int X2_MAX_SHARDS = 8192;        // X2's offsets in 32 KB of smem
+constexpr int EXCHANGE_MAX_SHARDS = 2048;  // its offsets and stats in 32 KB
 constexpr int ST_VIS = 0, ST_LIVE = 1, ST_TAIL = 2, N_STATS = 3;
-constexpr int ACC_VIS = 0, ACC_POS = 1, ACC_ZERO = 2, ACC_DONE = 3,
-              N_ACC = 4;
+// X1's accumulators a shard; the row after the shards' holds the launch's
+// ticket in its first column.
+constexpr int ACC_VIS = 0, ACC_POS = 1, ACC_ZERO = 2, N_ACC = 3;
 
 __device__ __forceinline__ int warp_max(int v) {
 #pragma unroll
@@ -1225,21 +1282,63 @@ __device__ __forceinline__ unsigned warp_incl_scan_u(unsigned v) {
   return v;
 }
 
-// CTAs of X1 a shard (R = ceil(S / C) rows each).
+// Take a ticket at p (an acq_rel atomic add): returns the count before
+// this one. This thread's earlier writes and atomics are visible to
+// whoever takes a later ticket, and its later reads see every earlier
+// taker's. (__threadfence before and after a relaxed add was 0.3-0.7 us
+// slower a launch on an H100.)
+__device__ __forceinline__ int take_ticket(int *p) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+               : "=r"(old)
+               : "l"(p)
+               : "memory");
+  return old;
+}
+
+// CTAs of X1 a shard.
 int x1_ctas(int n_g, int S, int sms) {
   const int fill = (X1_CTAS_PER_SM * sms + n_g - 1) / n_g;
   const int most = (S + X1_MIN_ROWS - 1) / X1_MIN_ROWS;
   return max(1, min(fill, most));
 }
 
-__global__ void __launch_bounds__(X1_THREADS)
-shard_stats_kernel(const int *__restrict__ op, const int *tables,
-                   const int *__restrict__ scalars, int *stats, int *acc,
-                   int n_g, int S, int C, int R) {
+static_assert(X1_VEC == 4, "X1 loads a lane's rows as one int4");
+
+// Rows [r, r + X1_VEC) of one lane (p: its row 0) into v, r < hi: one
+// 16-byte load where `vec` (the lanes aligned at every X1_VEC-th row, so
+// the vector lies inside the lane), else one load a row below hi. Rows at
+// or past hi are never used.
+__device__ __forceinline__ void x1_load(int (&v)[X1_VEC], const int *p, int r,
+                                        int hi, bool vec) {
+  if (vec) {
+    const int4 q = __ldg(reinterpret_cast<const int4 *>(p + r));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < X1_VEC; ++i) v[i] = r + i < hi ? __ldg(p + r + i) : 0;
+  }
+}
+
+// One CTA of X1: shard blockIdx.x / C, its (blockIdx.x % C)-th share of
+// the rows below the shard's count. Reduces its rows and folds them into
+// the shard's accumulators; the CTA that takes the launch's last ticket
+// writes every shard's stats (also into `sstats`, shared memory, where
+// not null) and resets the accumulators. Returns, in every thread,
+// whether this CTA wrote them. `scalars` is read with plain loads:
+// shard_exchange writes its err lanes later in the same launch.
+__device__ bool x1_cta(const int *op, const int *tables, const int *scalars,
+                       int *stats, int *acc, int n_g, int S, int C, bool vec,
+                       int *sstats) {
+  __shared__ unsigned s_vis[X1_THREADS / 32];
+  __shared__ int s_pos[X1_THREADS / 32], s_zero[X1_THREADS / 32];
+  __shared__ bool s_wrote;
   const int shard = blockIdx.x / C, c = blockIdx.x % C;
-  DocT<T_GLOBAL> d;
-  d.L = const_cast<int *>(tables) + (size_t)shard * S;
-  d.ls = (size_t)n_g * S;
+  const int *L = tables + (size_t)shard * S;
+  const size_t ls = (size_t)n_g * S;
   const int *sc = scalars + (size_t)shard * N_SCALARS;
   Op o{};
   o.seqn = op[F_SEQ];
@@ -1247,22 +1346,47 @@ shard_stats_kernel(const int *__restrict__ op, const int *tables,
   o.clientn = op[F_CLIENT];
   o.is_local = o.clientn == sc[SC_SELF];
   const int min_seq = sc[SC_MIN_SEQ];
+  const int n = min(max(sc[SC_COUNT], 0), S);
   const int op_norm = o.seqn == UNASSIGNED_SEQ ? NORM_NEW_LOCAL : o.seqn;
+  // removed_by_slot reads only the removers lane of the op's writer.
+  const int l_rb = L_RBITS + (o.clientn >= 0 && o.clientn < MAX_WRITERS
+                                  ? o.clientn / 31 : 0);
+  const int lanes[X1_LANES] = {L_KIND, L_LEN, L_SEQ, L_CLIENT, L_RSEQ, l_rb};
+  // This CTA's rows [lo, hi), R a multiple of X1_VEC (aligned vectors).
+  const int R = ((n + C - 1) / C + X1_VEC - 1) / X1_VEC * X1_VEC;
+  const int lo = (int)min((long long)c * R, (long long)n);
+  const int hi = min(n, lo + R);
   unsigned vis = 0;
-  int last_pos = -1, last_zero = -1;  // rows rise along a thread's walk
-  const int hi = min(S, (c + 1) * R);
-  for (int r = c * R + (int)threadIdx.x; r < hi; r += blockDim.x) {
-    if (d.at(L_KIND, r) == KIND_FREE) continue;
-    bool part;
-    const int v = perspective(d, r, o, min_seq, part);
-    vis += (unsigned)v;
-    if (v > 0)
-      last_pos = r;
-    else if (part && v == 0 && ties_before(op_norm, d.at(L_SEQ, r)))
-      last_zero = r;
+  int last_pos = -1, last_zero = -1;
+  const int step = X1_VEC * (int)blockDim.x;
+  for (int r0 = lo + X1_VEC * (int)threadIdx.x; r0 < hi;
+       r0 += step * X1_UNROLL) {
+    int v[X1_UNROLL][X1_LANES][X1_VEC];
+#pragma unroll
+    for (int u = 0; u < X1_UNROLL; ++u)
+      if (r0 + u * step < hi) {
+#pragma unroll
+        for (int l = 0; l < X1_LANES; ++l)
+          x1_load(v[u][l], L + lanes[l] * ls, r0 + u * step, hi, vec);
+      }
+#pragma unroll
+    for (int u = 0; u < X1_UNROLL; ++u)
+#pragma unroll
+      for (int i = 0; i < X1_VEC; ++i) {
+        const int r = r0 + u * step + i;
+        if (r >= hi) continue;
+        bool part;
+        const int rb = v[u][5][i];
+        const int x = perspective_of(
+            v[u][0][i], v[u][2][i], v[u][3][i], v[u][1][i], v[u][4][i],
+            removed_by_slot(rb, rb, rb, o.clientn), o, min_seq, part);
+        vis += (unsigned)x;
+        if (x > 0)
+          last_pos = max(last_pos, r);
+        else if (part && x == 0 && ties_before(op_norm, v[u][2][i]))
+          last_zero = max(last_zero, r);
+      }
   }
-  __shared__ unsigned s_vis[X1_THREADS / 32];
-  __shared__ int s_pos[X1_THREADS / 32], s_zero[X1_THREADS / 32];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   vis = warp_sum_u(vis);
   last_pos = warp_max(last_pos);
@@ -1273,41 +1397,70 @@ shard_stats_kernel(const int *__restrict__ op, const int *tables,
     s_zero[w] = last_zero;
   }
   __syncthreads();
-  if (threadIdx.x != 0) return;
-  for (int i = 1; i < (int)(blockDim.x >> 5); ++i) {
-    vis += s_vis[i];
-    last_pos = max(last_pos, s_pos[i]);
-    last_zero = max(last_zero, s_zero[i]);
+  if (threadIdx.x == 0) {
+    for (int i = 1; i < (int)(blockDim.x >> 5); ++i) {
+      vis += s_vis[i];
+      last_pos = max(last_pos, s_pos[i]);
+      last_zero = max(last_zero, s_zero[i]);
+    }
   }
-  if (C > 1) {
-    int *a = acc + (size_t)shard * N_ACC;
-    atomicAdd(reinterpret_cast<unsigned *>(a + ACC_VIS), vis);
-    atomicMax(a + ACC_POS, last_pos);
-    atomicMax(a + ACC_ZERO, last_zero);
-    __threadfence();
-    if (atomicAdd(a + ACC_DONE, 1) != C - 1) return;
-    // The last CTA of the shard: every other CTA's atomics are done. Read
-    // the totals and leave the accumulators reset for the next op.
-    __threadfence();
-    vis = atomicExch(reinterpret_cast<unsigned *>(a + ACC_VIS), 0u);
-    last_pos = atomicExch(a + ACC_POS, -1);
-    last_zero = atomicExch(a + ACC_ZERO, -1);
-    atomicExch(a + ACC_DONE, 0);
+  // Every CTA folds into its shard's row; the one that takes the launch's
+  // last ticket writes every shard's stats and resets the rows; the
+  // exchange's tail then reads them from this CTA's shared memory. (A
+  // ticket a shard, then one over the shards, with the stats read back from
+  // L2, was 0.5 us slower a launch at 8 shards on an H100.)
+  int *ticket = acc + (size_t)n_g * N_ACC;
+  if (threadIdx.x == 0) {
+    bool last = true;
+    if (gridDim.x > 1) {
+      int *a = acc + (size_t)shard * N_ACC;
+      atomicAdd(reinterpret_cast<unsigned *>(a + ACC_VIS), vis);
+      atomicMax(a + ACC_POS, last_pos);
+      atomicMax(a + ACC_ZERO, last_zero);
+      last = take_ticket(ticket) == (int)gridDim.x - 1;
+    } else {
+      const int st[N_STATS] = {(int)vis, n > 0, last_zero > last_pos};
+      for (int f = 0; f < N_STATS; ++f) {
+        stats[f] = st[f];
+        if (sstats) sstats[f] = st[f];
+      }
+    }
+    s_wrote = last;
   }
-  int *out = stats + (size_t)shard * N_STATS;
-  out[ST_VIS] = (int)vis;
-  out[ST_LIVE] = sc[SC_COUNT] > 0;
-  out[ST_TAIL] = last_zero > last_pos;
+  __syncthreads();
+  if (!s_wrote) return false;
+  if (gridDim.x > 1) {
+    for (int j = threadIdx.x; j < n_g; j += blockDim.x) {
+      int *a = acc + (size_t)j * N_ACC;
+      const unsigned v =
+          atomicExch(reinterpret_cast<unsigned *>(a + ACC_VIS), 0u);
+      const int p = atomicExch(a + ACC_POS, -1);
+      const int z = atomicExch(a + ACC_ZERO, -1);
+      const int st[N_STATS] = {
+          (int)v, scalars[(size_t)j * N_SCALARS + SC_COUNT] > 0, z > p};
+      for (int f = 0; f < N_STATS; ++f) {
+        stats[(size_t)j * N_STATS + f] = st[f];
+        if (sstats) sstats[j * N_STATS + f] = st[f];
+      }
+    }
+    if (threadIdx.x == 0) atomicExch(ticket, 0);
+    __syncthreads();
+  }
+  return true;
 }
 
-__global__ void __launch_bounds__(X2_THREADS)
-shard_resolve_kernel(const int *__restrict__ op,
-                     const int *__restrict__ stats,
-                     const int *__restrict__ row_of,
-                     const int *__restrict__ at, int *scalars, int *rows,
-                     int n, int n_g) {
-  extern __shared__ int offsets[];  // [n]: each shard's exclusive offset
-  __shared__ unsigned ws[X2_THREADS / 32];
+// X2's body: one CTA resolves op `op` for a device group from the stats
+// [n, 3] of every shard (shard j in row row_of[j], in row j where row_of
+// is null), writes the rows of the group's shards (the i-th is shard at[i],
+// shard i where at is null) into rows [n_g, OP_WIDTH] and ORs the global
+// ERR_RANGE into their err lanes. offsets: [n] ints of dynamic shared
+// memory (each shard's exclusive offset). `stats` is global memory
+// written before the launch (X2) or this CTA's shared memory
+// (shard_exchange).
+__device__ void resolve_group(const int *op, const int *stats,
+                              const int *row_of, const int *at, int *scalars,
+                              int *rows, int n, int n_g, int *offsets) {
+  __shared__ unsigned ws[32];
   __shared__ int s_first, s_last;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
@@ -1320,7 +1473,9 @@ shard_resolve_kernel(const int *__restrict__ op,
   unsigned carry = 0;  // int32 sums wrap as the plain version's
   for (int base = 0; base < n; base += blockDim.x) {
     const int j = base + (int)threadIdx.x;
-    const int *st = j < n ? stats + (size_t)row_of[j] * N_STATS : nullptr;
+    const int *st = j < n ? stats + (size_t)(row_of ? row_of[j] : j) *
+                                        N_STATS
+                          : nullptr;
     const unsigned t = st ? (unsigned)st[ST_VIS] : 0u;
     const unsigned inc = warp_incl_scan_u(t);
     if (lane == 31) ws[w] = inc;
@@ -1351,9 +1506,10 @@ shard_resolve_kernel(const int *__restrict__ op,
   const bool range_err =
       is_ins ? (first >= n && pos1 > total) : (is_rng && pos2 > total);
   for (int i = threadIdx.x; i < n_g; i += blockDim.x) {
-    const int j = at[i];
+    const int j = at ? at[i] : i;
     const unsigned off = (unsigned)offsets[j];
-    const int len = stats[(size_t)row_of[j] * N_STATS + ST_VIS];
+    const int len =
+        stats[(size_t)(row_of ? row_of[j] : j) * N_STATS + ST_VIS];
     const int a = min(max((int)((unsigned)pos1 - off), 0), len);
     const int b = min(max((int)((unsigned)pos2 - off), 0), len);
     int *row = rows + (size_t)i * OP_WIDTH;
@@ -1363,16 +1519,38 @@ shard_resolve_kernel(const int *__restrict__ op,
     row[F_POS2] = is_rng ? b : pos2;
     row[F_TYPE] = is_ins ? (j == owner ? OP_INSERT : OP_NOOP)
                          : (is_rng && a >= b ? OP_NOOP : ty);
-    if (range_err) scalars[(size_t)i * N_SCALARS + SC_ERR] |= ERR_RANGE;
+    if (range_err)
+      atomicOr(scalars + (size_t)i * N_SCALARS + SC_ERR, ERR_RANGE);
   }
 }
 
-int sm_count(int &sms) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return (int)e;
+__global__ void __launch_bounds__(X1_THREADS)
+shard_stats_kernel(const int *__restrict__ op, const int *tables,
+                   const int *scalars, int *stats, int *acc, int n_g, int S,
+                   int C, bool vec) {
+  x1_cta(op, tables, scalars, stats, acc, n_g, S, C, vec, nullptr);
+}
+
+__global__ void __launch_bounds__(X2_THREADS)
+shard_resolve_kernel(const int *__restrict__ op,
+                     const int *__restrict__ stats,
+                     const int *__restrict__ row_of,
+                     const int *__restrict__ at, int *scalars, int *rows,
+                     int n, int n_g) {
+  extern __shared__ int offsets[];  // [n]: each shard's exclusive offset
+  resolve_group(op, stats, row_of, at, scalars, rows, n, n_g, offsets);
+}
+
+// X1 on one device group (its n_g shards in order), then X2 in the CTA
+// that writes the group's stats, from its shared-memory copy of them.
+__global__ void __launch_bounds__(X1_THREADS)
+shard_exchange_kernel(const int *__restrict__ op, const int *tables,
+                      int *scalars, int *stats, int *acc, int *rows, int n_g,
+                      int S, int C, bool vec) {
+  extern __shared__ int smem[];  // [4 n_g]: offsets, then stats
+  if (x1_cta(op, tables, scalars, stats, acc, n_g, S, C, vec, smem + n_g))
+    resolve_group(op, smem + n_g, nullptr, nullptr, scalars, rows, n_g, n_g,
+                  smem);
 }
 
 }  // namespace
@@ -1421,19 +1599,18 @@ long long merge_work_ints(int S) { return (long long)work_ints(S); }
 
 // X1: `op` points at one row of the uploaded [K, OP_WIDTH] buffer;
 // tables/scalars are a device group's packed pair of n_g shards of S rows;
-// writes stats [n_g, 3]. `acc` is [n_g, 4] int32 accumulators, (0, -1, -1,
-// 0) a shard before the first launch and left so after each.
+// writes stats [n_g, 3]. `acc` is [n_g + 1, 3] int32 accumulators, (0, -1,
+// -1) a row before the first launch and left so after each.
 int shard_stats(const int *op, const int *tables, const int *scalars,
                 int *stats, int *acc, int n_g, int S, void *stream) {
-  if (n_g < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  if (n_g < 1 || S < 1 || acc == nullptr) return (int)cudaErrorInvalidValue;
   int sms = 0;
   const int e = sm_count(sms);
   if (e != 0) return e;
   const int C = x1_ctas(n_g, S, sms);
-  if (acc == nullptr) return (int)cudaErrorInvalidValue;
-  const int R = (S + C - 1) / C;
+  const bool vec = ((uintptr_t)tables & 15) == 0 && S % X1_VEC == 0;
   shard_stats_kernel<<<n_g * C, X1_THREADS, 0, (cudaStream_t)stream>>>(
-      op, tables, scalars, stats, acc, n_g, S, C, R);
+      op, tables, scalars, stats, acc, n_g, S, C, vec);
   return (int)cudaGetLastError();
 }
 
@@ -1443,7 +1620,8 @@ int shard_stats(const int *op, const int *tables, const int *scalars,
 int shard_resolve(const int *op, const int *stats, const int *row_of,
                   const int *at, int *scalars, int *rows, int n, int n_g,
                   void *stream) {
-  if (n < 1 || n > X2_MAX_SHARDS || n_g < 1 || n_g > n)
+  if (n < 1 || n > X2_MAX_SHARDS || n_g < 1 || n_g > n ||
+      row_of == nullptr || at == nullptr)
     return (int)cudaErrorInvalidValue;
   shard_resolve_kernel<<<1, X2_THREADS, (size_t)n * sizeof(int),
                          (cudaStream_t)stream>>>(op, stats, row_of, at,
@@ -1451,7 +1629,30 @@ int shard_resolve(const int *op, const int *stats, const int *row_of,
   return (int)cudaGetLastError();
 }
 
+// X1 and X2 in one launch on one device group (all n_g shards, in order):
+// X1's stats [n_g, 3], then the rows [n_g, OP_WIDTH] and ERR_RANGE ORed
+// into scalars[:, SC_ERR], as shard_resolve with row_of and at the
+// identity. `acc` as for shard_stats.
+int shard_exchange(const int *op, const int *tables, int *scalars,
+                   int *stats, int *acc, int *rows, int n_g, int S,
+                   void *stream) {
+  if (n_g < 1 || n_g > EXCHANGE_MAX_SHARDS || S < 1 || acc == nullptr)
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  const int e = sm_count(sms);
+  if (e != 0) return e;
+  const int C = x1_ctas(n_g, S, sms);
+  const bool vec = ((uintptr_t)tables & 15) == 0 && S % X1_VEC == 0;
+  shard_exchange_kernel<<<n_g * C, X1_THREADS,
+                          4 * (size_t)n_g * sizeof(int),
+                          (cudaStream_t)stream>>>(
+      op, tables, scalars, stats, acc, rows, n_g, S, C, vec);
+  return (int)cudaGetLastError();
+}
+
 int shard_max_shards(void) { return X2_MAX_SHARDS; }
+
+int shard_exchange_max_shards(void) { return EXCHANGE_MAX_SHARDS; }
 
 const char *merge_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);

@@ -3,7 +3,8 @@
 Each source compiles with ``nvcc`` into a shared library of its own with a
 plain C interface, at first use, into the package's ``_build/`` directory
 (listed in ``.gitignore``): ``csrc/merge_kernels.cu`` (K1-K3, the merge
-path, and X1/X2, the sharded document's per-op exchange) and
+path, and X1/X2 and the two in one launch, the sharded document's per-op
+exchange) and
 ``csrc/tree_kernels.cu`` (T1/T2, the SharedTree rebase scans).
 Each library is named by its own source's content hash, so an edited
 source never loads a stale build. It is loaded with ``ctypes``: pointers
@@ -55,12 +56,13 @@ ENTRIES = {
     "merge_apply_compact": "merge",
     "shard_stats": "merge",
     "shard_resolve": "merge",
+    "shard_exchange": "merge",
     "tree_trunk_scan": "tree",
     "tree_em_ring_scan": "tree",
 }
 LIBRARIES = ("merge", "tree")
 # The merge library's entries without tiers.
-UNTIERED = ("shard_stats", "shard_resolve")
+UNTIERED = ("shard_stats", "shard_resolve", "shard_exchange")
 
 _libs: dict = {}
 _logs: dict = {}
@@ -158,12 +160,14 @@ def lib(name: str = "merge") -> ctypes.CDLL:
             ("merge_apply_compact", [p, p, p, p, p, p, i, i, i, i, p], i),
             ("shard_stats", [p, p, p, p, p, i, i, p], i),
             ("shard_resolve", [p, p, p, p, p, p, i, i, p], i),
+            ("shard_exchange", [p, p, p, p, p, p, i, i, p], i),
             ("merge_work_ints", [i], ll),
             ("merge_error_string", [i], ctypes.c_char_p),
         ] + [(f, [], i) for f in (
             "merge_smem_max_capacity", "merge_cluster_max_capacity",
             "merge_global_max_capacity", "merge_max_capacity",
-            "merge_split_max_ctas", "shard_max_shards")])
+            "merge_split_max_ctas", "shard_max_shards",
+            "shard_exchange_max_shards")])
         if (cdll.merge_smem_max_capacity() != SMEM_MAX_CAPACITY
                 or cdll.merge_cluster_max_capacity() != CLUSTER_MAX_CAPACITY
                 or cdll.merge_global_max_capacity() != GLOBAL_MAX_CAPACITY

@@ -1,5 +1,5 @@
 """X1 and X2, the sharded document's per-op exchange, as hand-written
-Hopper kernels.
+Hopper kernels, apart and in one launch.
 
 This module holds the exchange half of the reference's
 ``fluidframework_tpu/parallel/sharded_doc.py`` ``_shard_apply_one`` (:71),
@@ -21,9 +21,18 @@ which the reference runs as the body of a jitted ``shard_map`` (two scalar
   ORed into the group's err lanes (K1 only ORs that lane, so the order
   does not matter).
 
-The kernels are ``shard_stats`` and ``shard_resolve`` in
-``csrc/merge_kernels.cu``; X1 shares K1's perspective and tie-break, so
-ownership and the owner's own insert cannot disagree. X1's end-of-shard
+On one device group (every layout one card runs) the two are one launch,
+``shard_exchange``: X1, whose CTA that takes the launch's last ticket
+writes the group's stats and runs X2's body on them, with the group's
+shards in order (``at`` and ``row_of`` the identity). Several groups keep
+X1, the stats copied between the cards, then X2: they need the other
+groups' stats.
+
+The kernels are ``shard_stats``, ``shard_resolve`` and ``shard_exchange``
+in ``csrc/merge_kernels.cu``; X1 shares K1's perspective and tie-break, so
+ownership and the owner's own insert cannot disagree. X1 reads only the
+rows below each shard's count (every row at or past it is free); the
+plain version walks every row, as the reference does. X1's end-of-shard
 test is one pass: a row of positive visible length never fires at ``rem
 = total - prefix``, and a zero-length row fires there iff it takes part,
 breaks the tie and no row after it has positive visible length; so the
@@ -31,13 +40,14 @@ test is "last eligible zero-length row > last positive row". It equals
 ``insert_place_mask`` at ``total - excl_cumsum(vis)`` while a shard's
 visible length stays below 2**32 and no length is negative.
 
-:func:`shard_stats_plain` and :func:`shard_resolve_plain` are the plain
-PyTorch versions of the same functions. The wrappers :func:`shard_stats`
-and :func:`shard_resolve` run them for tensors on the CPU and launch the
-kernels for CUDA tensors (or raise); they never fall back from one to the
-other. The op row is read in place from the uploaded ``[K, OP_WIDTH]``
-buffer (``ops[k]``), so a launch needs no copy and no host
-synchronisation.
+:func:`shard_stats_plain`, :func:`shard_resolve_plain` and
+:func:`shard_exchange_plain` (the second applied to the first's output)
+are the plain PyTorch versions of the same functions. The wrappers
+:func:`shard_stats`, :func:`shard_resolve` and :func:`shard_exchange` run
+them for tensors on the CPU and launch the kernels for CUDA tensors (or
+raise); they never fall back from one to the other. The op row is read
+in place from the uploaded ``[K, OP_WIDTH]`` buffer (``ops[k]``), so a
+launch needs no copy and no host synchronisation.
 """
 
 from __future__ import annotations
@@ -77,17 +87,16 @@ _I32 = torch.int32
 ST_VIS, ST_LIVE, ST_TAIL = range(3)
 N_STATS = 3
 # X1's accumulators a shard (visible length, last positive row, last
-# eligible zero-length row, CTAs done), as each launch leaves them.
-ACC_INIT = (0, -1, -1, 0)
+# eligible zero-length row), as each launch leaves them; one more row's
+# first column is the launch's ticket (CTAs folded).
+ACC_INIT = (0, -1, -1)
 
 
 def new_accumulators(n_g: int, device) -> torch.Tensor:
-    """X1's ``[n_g, 4]`` accumulators for a group of ``n_g`` shards, set
+    """The ``[n_g + 1, 3]`` accumulators of X1 and ``shard_exchange`` for a
+    group of ``n_g`` shards: a row a shard and the ticket's row, each set
     to :data:`ACC_INIT` (each launch leaves them so)."""
-    acc = torch.full((n_g, len(ACC_INIT)), -1, dtype=_I32, device=device)
-    acc[:, 0] = ACC_INIT[0]
-    acc[:, 3] = ACC_INIT[3]
-    return acc
+    return torch.tensor([ACC_INIT] * (n_g + 1), dtype=_I32, device=device)
 
 
 def shard_stats_plain(tables, scalars, op) -> torch.Tensor:
@@ -148,11 +157,29 @@ def shard_resolve_plain(stats, op, at, row_of, scalars):
     return rows.index_select(0, at.long())[:, None], out
 
 
+def shard_exchange_plain(tables, scalars, op):
+    """``shard_exchange``'s plain version on one device group (its shards
+    in order): ``(stats [n_g, 3], rows [n_g, 1, OP_WIDTH], scalars)``,
+    :func:`shard_resolve_plain` applied to :func:`shard_stats_plain`'s
+    output. Inputs untouched."""
+    stats = shard_stats_plain(tables, scalars, op)
+    ar = torch.arange(stats.shape[0], dtype=_I32, device=stats.device)
+    rows, sc = shard_resolve_plain(stats, op, ar, ar, scalars)
+    return stats, rows, sc
+
+
 def _int32_on(dev, what: str, *ts) -> None:
     for t in ts:
         if t.device != dev or t.dtype != _I32 or not t.is_contiguous():
             raise ValueError(f"{what}: every tensor must be a contiguous "
                              f"int32 tensor on {dev}")
+
+
+def _check_outputs(what: str, n_g: int, stats, acc) -> None:
+    if tuple(stats.shape) != (n_g, N_STATS) or \
+            tuple(acc.shape) != (n_g + 1, len(ACC_INIT)):
+        raise ValueError(f"{what}: stats must be [{n_g}, {N_STATS}] and acc "
+                         f"[{n_g + 1}, {len(ACC_INIT)}]")
 
 
 def _row_ptr(ops, k: int) -> int:
@@ -180,8 +207,8 @@ def shard_stats(tables, scalars, ops, k: int, *, out=None, acc=None):
     buffer) on a group's packed pair: writes ``[n_g, 3]`` int32 into
     ``out`` (allocated when None) and returns it. CPU tensors take
     :func:`shard_stats_plain`; CUDA tensors launch ``shard_stats``, which
-    folds its CTAs into ``acc`` (``[n_g, 4]``, :func:`new_accumulators`;
-    fresh ones when None) and leaves it reset, or raise."""
+    folds its CTAs into ``acc`` (:func:`new_accumulators`; fresh ones when
+    None) and leaves it reset, or raise."""
     n_g, s = tables.shape[1], tables.shape[2]
     dev = tables.device
     if out is None:
@@ -193,10 +220,7 @@ def shard_stats(tables, scalars, ops, k: int, *, out=None, acc=None):
     if acc is None:
         acc = new_accumulators(n_g, dev)
     _int32_on(dev, "shard_stats", ops, out, acc)
-    if tuple(out.shape) != (n_g, N_STATS) or \
-            tuple(acc.shape) != (n_g, len(ACC_INIT)):
-        raise ValueError(f"shard_stats: out must be [{n_g}, {N_STATS}] and "
-                         f"acc [{n_g}, {len(ACC_INIT)}]")
+    _check_outputs("shard_stats", n_g, out, acc)
     _launch("shard_stats", dev, _row_ptr(ops, k), tables.data_ptr(),
             scalars.data_ptr(), out.data_ptr(), acc.data_ptr(), n_g, s)
     shard_stats.launches += 1
@@ -236,11 +260,51 @@ def shard_resolve(stats, ops, k: int, at, row_of, scalars, *, out=None):
     return out
 
 
+def shard_exchange(tables, scalars, ops, k: int, *, stats=None, out=None,
+                   acc=None):
+    """X1 and X2 in one launch for op ``ops[k]`` on one device group's
+    packed pair (its ``n_g`` shards in order): writes X1's ``[n_g, 3]``
+    into ``stats`` and the group's rows into ``out`` ``[n_g, 1,
+    OP_WIDTH]`` (each allocated when None), ORs the global ERR_RANGE into
+    ``scalars[:, SC_ERR]`` in place, and returns ``out``. CPU tensors take
+    :func:`shard_exchange_plain`; CUDA tensors launch ``shard_exchange``,
+    whose CTAs fold into ``acc`` (:func:`new_accumulators`; fresh ones
+    when None) and leave it reset, or raise."""
+    n_g, s = tables.shape[1], tables.shape[2]
+    dev = tables.device
+    if stats is None:
+        stats = torch.empty((n_g, N_STATS), dtype=_I32, device=dev)
+    if out is None:
+        out = torch.empty((n_g, 1, OP_WIDTH), dtype=_I32, device=dev)
+    if dev.type == "cpu":
+        st, rows, sc = shard_exchange_plain(tables, scalars, ops[k])
+        stats.copy_(st)
+        out.copy_(rows)
+        scalars.copy_(sc)
+        return out
+    _cuda.check_packed(tables, scalars)
+    if acc is None:
+        acc = new_accumulators(n_g, dev)
+    _int32_on(dev, "shard_exchange", ops, stats, out, acc)
+    _check_outputs("shard_exchange", n_g, stats, acc)
+    if tuple(out.shape) != (n_g, 1, OP_WIDTH):
+        raise ValueError(f"shard_exchange: out must be [{n_g}, 1, "
+                         f"{OP_WIDTH}]")
+    if n_g > _cuda.lib().shard_exchange_max_shards():
+        raise ValueError(f"shard_exchange: {n_g} shards")
+    _launch("shard_exchange", dev, _row_ptr(ops, k), tables.data_ptr(),
+            scalars.data_ptr(), stats.data_ptr(), acc.data_ptr(),
+            out.data_ptr(), n_g, s)
+    shard_exchange.launches += 1
+    return out
+
+
 def reset_counts() -> None:
-    """Zero both wrappers' CUDA launch counts (the CPU path never
+    """Zero the wrappers' CUDA launch counts (the CPU path never
     counts)."""
     shard_stats.launches = 0
     shard_resolve.launches = 0
+    shard_exchange.launches = 0
 
 
 reset_counts()

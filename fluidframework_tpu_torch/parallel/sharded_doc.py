@@ -9,22 +9,25 @@ global document. Per sequenced op:
   shard-local state) and reports three numbers: its visible length, whether
   it holds rows, and whether an insert at its own end may land in it (a
   zero-length row there that the insert's tie-break would go before):
-  X1, one launch a device group (``ops/shard_exchange_kernel.py``);
+  X1 (``ops/shard_exchange_kernel.py``);
 - every group's ``[n_g, 3]`` reaches every group's device (the
-  reference's two scalar ``all_gather``s; with one device group, every
-  layout one card runs, nothing moves), and X2, one launch a group,
-  resolves the exclusive offsets, the insert's owner (the first shard
-  whose placement predicate fires, else the last shard with rows, else
-  shard 0), the global length and the global ERR_RANGE, which it ORs into
-  every shard's err lane, and writes each shard's rewritten copy of the
-  op: the owner gets the INSERT at its local, clipped position and every
-  other shard the same row as a NOOP (bookkeeping only); REMOVE/ANNOTATE
-  reach every shard with the range clamped into its coordinates, as a
-  NOOP where that range is empty; ACKs pass unchanged; the type is first
-  clipped into [NOOP, ACK_ANNOTATE], as the reference's ``lax.switch``
-  does;
-- K1 applies the rows (``ops/apply_kernel.py``), one launch a group. So
-  an op on one device group is three launches on one stream: X1, X2, K1.
+  reference's two scalar ``all_gather``s), and X2 resolves the exclusive
+  offsets, the insert's owner (the first shard whose placement predicate
+  fires, else the last shard with rows, else shard 0), the global length
+  and the global ERR_RANGE, which it ORs into every shard's err lane, and
+  writes each shard's rewritten copy of the op: the owner gets the INSERT
+  at its local, clipped position and every other shard the same row as a
+  NOOP (bookkeeping only); REMOVE/ANNOTATE reach every shard with the
+  range clamped into its coordinates, as a NOOP where that range is
+  empty; ACKs pass unchanged; the type is first clipped into [NOOP,
+  ACK_ANNOTATE], as the reference's ``lax.switch`` does;
+- K1 applies the rows (``ops/apply_kernel.py``), one launch a group.
+
+With one device group (every layout one card runs) nothing moves between
+cards, and X1 and X2 are one launch, ``shard_exchange``, whose last CTA
+to finish resolves the op from the stats: an op is two launches on one
+stream, the exchange and K1. Several groups launch X1 on each, copy the
+stats between the cards, then X2 and K1 on each.
 
 Why three numbers suffice for the placement: the reference evaluates
 ``insert_place_mask`` at the shard-local position ``P = pos1 - offset``,
@@ -106,12 +109,12 @@ _I32 = torch.int32
 
 class _Group:
     """The shards of one device: one packed pair ``[N_LANES, n_g, S]`` /
-    ``[n_g, N_SCALARS]`` (so X1, X2, K1 and K2 launch once for all of
-    them), their shard indices as an index on the mesh's first device
+    ``[n_g, N_SCALARS]`` (so the exchange, K1 and K2 launch once for all
+    of them), their shard indices as an index on the mesh's first device
     (``at``, for gathers), and the exchange's buffers on its own device:
-    its shard indices (``ids``), X1's accumulators, the stats of every
-    shard in per-group concatenation order (``stats``: this group's at
-    rows ``[lo, lo + n_g)``, its view ``own``; shard ``j`` in row
+    its shard indices (``ids``), the exchange's accumulators, the stats of
+    every shard in per-group concatenation order (``stats``: this group's
+    at rows ``[lo, lo + n_g)``, its view ``own``; shard ``j`` in row
     ``row_of[j]``) and K1's rewritten op rows."""
 
     def __init__(self, device, shards: List[int], tables, scalars, first,
@@ -195,6 +198,20 @@ class ShardedDoc:
                 if g is not h:
                     h.stats[g.lo:g.lo + len(g.shards)].copy_(g.own)
 
+    def _exchange(self, g: _Group, ops, k: int) -> None:
+        """X1 and X2 in one launch for op ``ops[k]`` on the only group:
+        its stats into ``g.own``, its rows into ``g.rows``, the global
+        ERR_RANGE into its err lanes."""
+        if self.kernel == "plain":
+            stats, rows, sc = SX.shard_exchange_plain(g.tables, g.scalars,
+                                                      ops[k])
+            g.own.copy_(stats)
+            g.rows.copy_(rows)
+            g.scalars.copy_(sc)
+        else:
+            SX.shard_exchange(g.tables, g.scalars, ops, k, stats=g.own,
+                              out=g.rows, acc=g.acc)
+
     def _resolve(self, g: _Group, ops, k: int) -> None:
         """X2 for op ``ops[k]`` on group ``g``: its rows into ``g.rows``,
         the global ERR_RANGE into its err lanes."""
@@ -221,16 +238,21 @@ class ShardedDoc:
     def apply(self, ops) -> None:
         """ops: ``[K, OP_WIDTH]`` sequenced rows with GLOBAL positions
         (numpy rows go up through a pinned buffer without a host sync).
-        Each op: X1 on every group, the stats shared when there are
-        several groups, then X2 and K1 on every group."""
+        Each op on one device group: the exchange, then K1; on several,
+        X1 on every group, the stats shared, then X2 and K1 on every
+        group."""
         o = _ops_on(ops, self._first, batched=False)[0]
+        if len(self._groups) == 1:
+            g = self._groups[0]
+            for k in range(o.shape[0]):
+                self._exchange(g, o, k)
+                apply_part((g.tables, g.scalars), g.rows, self.kernel)
+            return
         per_group = [o.to(g.device) for g in self._groups]
-        several = len(self._groups) > 1
         for k in range(o.shape[0]):
             for g, og in zip(self._groups, per_group):
                 self._stats(g, og, k)
-            if several:
-                self._share_stats()
+            self._share_stats()
             for g, og in zip(self._groups, per_group):
                 self._resolve(g, og, k)
                 apply_part((g.tables, g.scalars), g.rows, self.kernel)

@@ -1,5 +1,6 @@
 """The sharded document's per-op exchange (X1 ``shard_stats``, X2
-``shard_resolve``; ``ops/shard_exchange_kernel.py``) on the CPU.
+``shard_resolve`` and the two in one launch, ``shard_exchange``;
+``ops/shard_exchange_kernel.py``) on the CPU.
 
 - X1's plain version, one pass (the last eligible zero-length row against
   the last positive row), against the prefix form it replaces
@@ -15,7 +16,12 @@
   client, rows with UNASSIGNED_SEQ, a global length past 2**31; and on
   two device groups with interleaved shards (the all_gather layout).
 - The wrappers take the plain versions for CPU tensors and count no
-  launch; ``ShardedDoc`` goes through them.
+  launch; ``ShardedDoc`` goes through them: one device group through
+  ``shard_exchange``, two through X1 and X2.
+- The bound the kernels' X1 reads by: every row at or past a document's
+  (or shard's) count is free, in the reference's states and the port's,
+  after each op of a fuzz stream, after compactions and grows, and in a
+  sharded document after apply, compact, rebalance and load_single.
 
 Inputs are made with numpy from a seed; the card's holds are in
 tests/test_torch_cuda.py.
@@ -29,11 +35,17 @@ import torch
 from jax.sharding import NamedSharding
 from jax.sharding import PartitionSpec as P
 
+from fluidframework_tpu.ops import merge_kernel as RMK
+from fluidframework_tpu.ops import segment_state as RSS
 from fluidframework_tpu.ops.segment_state import SegmentState as RefState
 from fluidframework_tpu.parallel.sharded_doc import ShardedDoc as RefDoc
+from fluidframework_tpu.testing.fuzz import random_acked_stream
+from fluidframework_tpu.testing.oracle import OracleDoc
 from fluidframework_tpu_torch.ops import _cuda
 from fluidframework_tpu_torch.ops import apply_kernel as K1
 from fluidframework_tpu_torch.ops import encode as E
+from fluidframework_tpu_torch.ops import merge_kernel as MK
+from fluidframework_tpu_torch.ops import segment_state as SS
 from fluidframework_tpu_torch.ops import shard_exchange_kernel as SX
 from fluidframework_tpu_torch.ops.apply_kernel import (
     N_LANES,
@@ -54,6 +66,7 @@ from fluidframework_tpu_torch.protocol.constants import (
     F_REF,
     F_SEQ,
     F_TYPE,
+    KIND_FREE,
     KIND_TEXT,
     NO_CLIENT,
     OP_WIDTH,
@@ -480,17 +493,36 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
     same_rows, _ = SX.shard_resolve_plain(
         stats, ops[1], at, torch.arange(N_DEV, dtype=torch.int32), sc)
     assert torch.equal(same_rows, want_rows)
+    # shard_exchange: X2 applied to X1's stats, the group in shard order.
+    ar = torch.arange(N_DEV, dtype=torch.int32)
+    for k in range(4):
+        st = torch.full((N_DEV, 3), -0x5EED, dtype=torch.int32)
+        out = torch.full((N_DEV, 1, OP_WIDTH), -0x5EED, dtype=torch.int32)
+        sc = scalars.clone()
+        want_st = SX.shard_stats_plain(tables, scalars, ops[k])
+        want_rows, want_sc = SX.shard_resolve_plain(want_st, ops[k], ar, ar,
+                                                    scalars)
+        assert SX.shard_exchange(tables, sc, ops, k, stats=st,
+                                 out=out) is out
+        assert torch.equal(st, want_st) and torch.equal(out, want_rows)
+        assert torch.equal(sc, want_sc)
+        got = SX.shard_exchange_plain(tables, scalars, ops[k])
+        for a, b in zip(got, (want_st, want_rows, want_sc)):
+            assert torch.equal(a, b)
     assert SX.shard_stats.launches == SX.shard_resolve.launches == 0
+    assert SX.shard_exchange.launches == 0
 
 
 def test_sharded_doc_runs_the_exchange_through_the_wrappers(monkeypatch):
-    """``kernel="auto"`` calls X1's and X2's wrappers once per op and group
-    (so a card launches the kernels), ``kernel="plain"`` their plain
-    versions; both leave equal states. A clone gets buffers of its own,
-    so applying to it leaves the original as it was."""
+    """``kernel="auto"`` calls the exchange's wrappers once per op and
+    group (so a card launches the kernels): one device group (8 x ``cpu``)
+    ``shard_exchange`` alone, two groups (``cpu`` and ``cpu:1``) X1 and X2
+    on each; ``kernel="plain"`` calls none of them. Both leave equal
+    states. A clone gets buffers of its own, so applying to it leaves the
+    original as it was."""
     import fluidframework_tpu_torch.parallel.sharded_doc as SDM
 
-    calls = {"stats": 0, "resolve": 0}
+    calls = {"stats": 0, "resolve": 0, "exchange": 0}
 
     def spy(name, fn):
         def wrapped(*a, **kw):
@@ -501,41 +533,54 @@ def test_sharded_doc_runs_the_exchange_through_the_wrappers(monkeypatch):
     monkeypatch.setattr(SDM.SX, "shard_stats", spy("stats", SX.shard_stats))
     monkeypatch.setattr(SDM.SX, "shard_resolve",
                         spy("resolve", SX.shard_resolve))
+    monkeypatch.setattr(SDM.SX, "shard_exchange",
+                        spy("exchange", SX.shard_exchange))
     payloads = {}
     base, s = baseline_doc(16, payloads)
-    doc = ShardedDoc(48)
-    doc.load_single(type(doc.state)(*[np.asarray(x) for x in base]))
-    plain = doc.clone(kernel="plain")
-    for g, h in zip(doc._groups, plain._groups):
-        for name in ("tables", "scalars", "stats", "acc", "rows", "ids"):
-            assert getattr(g, name).data_ptr() != getattr(h, name).data_ptr()
     rows = _fuzz_rows(np.random.default_rng(7), 12, s, 48)
-    before = [np.asarray(x).copy() for x in doc.state]
-    plain.apply(rows)
-    assert calls == {"stats": 0, "resolve": 0}
-    for a, b in zip(before, doc.state):
-        np.testing.assert_array_equal(a, np.asarray(b))
-    doc.apply(rows)
-    assert calls == {"stats": 12, "resolve": 12}
-    for a, b in zip(plain.state, doc.state):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    for devs, want in ((["cpu"] * N_DEV,
+                        {"stats": 0, "resolve": 0, "exchange": 12}),
+                       (["cpu", "cpu:1"] * (N_DEV // 2),
+                        {"stats": 24, "resolve": 24, "exchange": 0})):
+        calls.update(dict.fromkeys(calls, 0))
+        doc = ShardedDoc(48, mesh=M.Mesh(devs, "seg"))
+        doc.load_single(type(doc.state)(*[np.asarray(x) for x in base]))
+        plain = doc.clone(kernel="plain")
+        for g, h in zip(doc._groups, plain._groups):
+            for name in ("tables", "scalars", "stats", "acc", "rows", "ids"):
+                assert getattr(g, name).data_ptr() != \
+                    getattr(h, name).data_ptr()
+        before = [np.asarray(x).copy() for x in doc.state]
+        plain.apply(rows)
+        assert calls == dict.fromkeys(calls, 0)
+        for a, b in zip(before, doc.state):
+            np.testing.assert_array_equal(a, np.asarray(b))
+        doc.apply(rows)
+        assert calls == want, devs
+        for a, b in zip(plain.state, doc.state):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_exchange_entries_are_in_the_merge_library_without_tiers():
-    for entry in ("shard_stats", "shard_resolve"):
+    for entry in ("shard_stats", "shard_resolve", "shard_exchange"):
         assert _cuda.ENTRIES[entry] == "merge"
+        assert entry in _cuda.UNTIERED
         with pytest.raises(ValueError, match="no tier"):
             _cuda.tier(128, entry)
+    # A row a shard and the row of the launch's ticket.
     acc = SX.new_accumulators(3, "cpu")
-    assert acc.tolist() == [list(SX.ACC_INIT)] * 3
+    assert acc.dtype == torch.int32
+    assert acc.tolist() == [list(SX.ACC_INIT)] * 4
 
 
 @pytest.mark.parametrize("n,s", [(1, 64), (3, 128), (17, 32)])
 def test_smoke_exchange_holds_rehearse_on_the_cpu(n, s):
-    """chip_smoke's X1/X2 holds (``exchange_case``, ``hold_exchange``:
-    sentinel outputs, permuted stats rows, a strided group, ops past the
-    end) run end to end on CPU tensors, where the wrappers take the plain
-    versions; the byte floors count this run's live and removed rows."""
+    """chip_smoke's exchange holds (``exchange_case``, ``hold_exchange``:
+    X1, X2 and ``shard_exchange`` into sentinel outputs, permuted stats
+    rows, a strided group, ops past the end) run end to end on CPU
+    tensors, where the wrappers take the plain versions; the byte floors
+    count this run's live and removed rows and the rows below each shard's
+    count, the all-rows floors every row."""
     from chip_smoke import exchange_bound_bytes, exchange_case, hold_exchange
 
     tables, scalars, ops = exchange_case(torch.device("cpu"), n, s, seed=n)
@@ -544,8 +589,120 @@ def test_smoke_exchange_holds_rehearse_on_the_cpu(n, s):
     rows = hold_exchange(torch.device("cpu"), tables, scalars, ops,
                          f"cpu {n} x {s}", reps=1, plain_reps=1)
     assert [r["kernel"] for r in rows] == ["X1_shard_stats",
-                                           "X2_shard_resolve"]
+                                           "X2_shard_resolve",
+                                           "X12_shard_exchange"]
     assert all(r["max_abs_err"] == 0 and r["ms"] >= 0 for r in rows)
-    x1, x2 = exchange_bound_bytes(tables)
-    assert x1 >= 4 * n * s and x2 > 0
+    x1, x2, x12 = exchange_bound_bytes(tables)
+    assert x1 >= 4 * n * s and x2 > 0 and x12 > 0
+    assert all(0 < r["bound_ms"] <= r["all_rows_bound_ms"] for r in rows)
+    assert rows[1]["bound_ms"] == rows[1]["all_rows_bound_ms"]
     assert SX.shard_stats.launches == SX.shard_resolve.launches == 0
+    assert SX.shard_exchange.launches == 0
+
+
+# -- the count bound: no row at or past count is in use -----------------------
+
+
+def assert_free_past_count(kind, count, what):
+    """Every row at or past its table's count is KIND_FREE (``kind``
+    ``[..., S]``, ``count`` ``[...]``)."""
+    kind = np.asarray(kind)
+    kind = kind.reshape(-1, kind.shape[-1])
+    count = np.asarray(count).reshape(-1)
+    past = np.arange(kind.shape[1])[None, :] >= count[:, None]
+    assert (kind[past] == KIND_FREE).all(), what
+
+
+def _single_pair(cap):
+    return (RSS.make_state(cap, NO_CLIENT),
+            SS.make_state(cap, NO_CLIENT, device="cpu"))
+
+
+def _check_single(ref, port, what):
+    assert_free_past_count(ref.kind, ref.count, f"reference {what}")
+    assert_free_past_count(port.kind, port.count, f"port {what}")
+    np.testing.assert_array_equal(np.asarray(ref.kind),
+                                  port.kind.numpy(), err_msg=what)
+
+
+def count_bound_stream(seed):
+    """Each op of ``random_acked_stream`` (the collab window 8 behind, so
+    tombstones become reclaimable) through both packages' single-table
+    apply, in a table of 40 rows the stream overfills (ERR_CAPACITY drops
+    ops)."""
+    rng = np.random.default_rng(seed)
+    ops = np.stack(random_acked_stream(rng, 72, {}, OracleDoc(NO_CLIENT),
+                                       msn_lag=8)).astype(np.int32)
+    ref, port = _single_pair(40)
+    for i, op in enumerate(ops):
+        ref = RMK.jit_apply_ops(ref, op[None])
+        port = MK.jit_apply_ops(port, op[None])
+        _check_single(ref, port, f"op {i}")
+    assert int(port.err) & 1  # the table filled
+
+
+def count_bound_compact_grow(seed):
+    """Chunks of the stream (the collab window 24 behind), each followed
+    by a compaction, and a grow to twice the capacity whenever the table
+    passes three quarters full."""
+    rng = np.random.default_rng(seed + 50)
+    ops = np.stack(random_acked_stream(rng, 96, {}, OracleDoc(NO_CLIENT),
+                                       msn_lag=24)).astype(np.int32)
+    ref, port = _single_pair(16)
+    grown = 0
+    for i in range(0, len(ops), 8):
+        ref = RMK.jit_apply_ops(ref, ops[i:i + 8])
+        port = MK.jit_apply_ops(port, ops[i:i + 8])
+        _check_single(ref, port, f"ops to {i + 8}")
+        ref = RMK.compact(ref)
+        port = MK.compact(port)
+        _check_single(ref, port, f"compaction after op {i + 8}")
+        cap = SS.capacity_of(port)
+        if int(port.count) * 4 > cap * 3:
+            ref = RSS.grow(ref, 2 * cap)
+            port = SS.grow(port, 2 * cap)
+            grown += 1
+            _check_single(ref, port, f"grow to {2 * cap}")
+    assert grown
+
+
+def count_bound_sharded(seed):
+    """A sharded document (the reference's and the port's) after
+    load_single, each op of a fuzz stream, compact, rebalance and another
+    load_single, every shard."""
+    payloads = {}
+    base, s = baseline_doc(20 + 4 * seed, payloads)
+    p = DocPair(48, base=base, self_client=seed)
+
+    def check(what):
+        for name, st in (("reference", p.ref.state),
+                         ("port", p.port.state)):
+            assert_free_past_count(st.kind, st.count, f"{name} {what}")
+
+    check("load_single")
+    for i, row in enumerate(_fuzz_rows(np.random.default_rng(seed + 60), 40,
+                                       s, 48)):
+        p.apply([row])
+        check(f"op {i}")
+    p.call("compact")
+    check("compact")
+    assert p.call("rebalance", 0.1)
+    check("rebalance")
+    single = p.single()
+    p.ref.load_single(RefState(*[jnp.asarray(np.asarray(x))
+                                 for x in single]))
+    p.port.load_single(single)
+    p.check()
+    check("load_single of its own single table")
+
+
+COUNT_BOUND = {f.__name__[12:]: f for f in (
+    count_bound_stream, count_bound_compact_grow, count_bound_sharded)}
+
+
+@pytest.mark.parametrize("case", sorted(COUNT_BOUND))
+@pytest.mark.parametrize("seed", range(3))
+def test_rows_past_count_are_free(case, seed):
+    """The bound X1 reads by on the card: no row at or past a table's
+    count is in use, in the reference's states and the port's."""
+    COUNT_BOUND[case](seed)
