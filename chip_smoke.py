@@ -96,7 +96,11 @@ log and lease coordination (``g++``), all at once, then:
    tier meets the CTA tiers, each shape on every tier that takes it (the
    warp tier with its ring in the slice and in the workspace, the shared
    and global tiers) and timed there on the same inputs, under
-   ``torch.cuda.set_sync_debug_mode("error")``; 7a config 3b,
+   ``torch.cuda.set_sync_debug_mode("error")``, and A1-A4 (the dense
+   changeset algebra's kernels) held against their plain versions on both
+   tiers at 3b's and 3c's widths on commits and raw lanes (rebase in both
+   tie forms; compose's ties and overflowing pools) and at Lc 8,192 on the
+   global tier; 7a config 3b,
    ``batched_trunk_scan`` over 1,024 docs (Lc 128, Pc 32, W 16) staged
    on the card once, a warm-up and 3 timed scans, every distinct script
    held to the host trunk, the whole batch to T1's plain version on the
@@ -104,7 +108,9 @@ log and lease coordination (``g++``), all at once, then:
    ``EditManager(device=cuda)``s, every distinct script held to the host
    EditManager, the first dispatch to T2's plain version on the card; 7c
    config 3 through ``ContainerRuntime`` + ``SharedTree(device=cuda)``,
-   replicas converged (its commits take the host path). The scans run
+   replicas converged (its commits take the host path); 7a also calls the
+   algebra's four entry points on its commits, one launch of A1-A4 each.
+   The scans run
    under sync-debug "error" and are held bit for bit to the same function
    on the CPU for 16 documents, and 7a's and 7b's scans again on every
    tier (held and timed, outside the counts); each sub-path's T1/T2
@@ -235,7 +241,7 @@ only phase 6, ``N`` times in one process (the socket path's repeat check;
 see :func:`server_repeat`), and writes ``server_repeat.json``.
 
 With ``--tree``, it builds the tree kernels and runs only phase 7, the
-holds of T1 and T2 first (``phase_tree``'s keyword arguments as
+holds of T1, T2 and A1-A4 first (``phase_tree``'s keyword arguments as
 ``NAME=VALUE``, e.g. ``b_commits=1000`` or ``holds=0``), and writes
 ``tree.json``.
 
@@ -299,6 +305,7 @@ from fluidframework_tpu_torch.protocol.constants import (
     RSEQ_NONE,
     UNASSIGNED_SEQ,
 )
+from fluidframework_tpu_torch.ops import tree_algebra_kernel as TAK
 from fluidframework_tpu_torch.ops import tree_kernel as TK
 from fluidframework_tpu_torch.ops import tree_scan_kernel as TSK
 from fluidframework_tpu_torch.ops.segment_state import SEGMENT_LANES
@@ -394,6 +401,31 @@ TREE_KERNELS = {
         wrapper=TSK.em_ring_scan_cuda, on=TSK.em_ring_scan_on, entry=TSK.T2,
         plain=DEM.batched_em_trunk_scan_ring_plain,
         replaces="fluidframework_tpu/tree/device_em.py:129",
+    ),
+}
+# The dense changeset algebra's hand kernels (csrc/tree_kernels.cu), each
+# the counterpart of one jitted entry point of the reference (no
+# pl.pallas_call): ``fn`` the batched entry point a user calls, ``wrapper``
+# the kernel's own, ``plain`` its plain version.
+ALGEBRA_KERNELS = {
+    "A1_tree_apply": dict(
+        wrapper=TAK.apply_cuda, plain=TK.apply_change, fn=TK.batched_apply,
+        entry=TAK.A1, replaces="fluidframework_tpu/ops/tree_kernel.py:587",
+    ),
+    "A2_tree_rebase": dict(
+        wrapper=TAK.rebase_cuda, plain=TK.rebase_change,
+        fn=TK.batched_rebase, entry=TAK.A2,
+        replaces="fluidframework_tpu/ops/tree_kernel.py:588",
+    ),
+    "A3_tree_invert": dict(
+        wrapper=TAK.invert_cuda, plain=TK.invert_change,
+        fn=TK.batched_invert, entry=TAK.A3,
+        replaces="fluidframework_tpu/ops/tree_kernel.py:591",
+    ),
+    "A4_tree_compose": dict(
+        wrapper=TAK.compose_cuda, plain=TK.compose_change,
+        fn=TK.batched_compose, entry=TAK.A4,
+        replaces="fluidframework_tpu/ops/tree_kernel.py:592",
     ),
 }
 # The sharded document's per-op exchange (csrc/merge_kernels.cu, beside
@@ -805,15 +837,16 @@ def read_shard_counts() -> dict:
 
 def reset_tree_counts() -> None:
     TSK.reset_counts(*(spec["wrapper"] for spec in TREE_KERNELS.values()))
+    TAK.reset_counts()
 
 
 def read_tree_counts() -> dict:
-    """Each tree kernel's launches since the last reset: in all and by
-    tier."""
+    """Each tree kernel's launches since the last reset (T1, T2 and
+    A1-A4): in all and by tier (A1-A4 run no warp tier)."""
     return {name: {"all": spec["wrapper"].launches,
-                   **{t: getattr(spec["wrapper"], f"launches_{t}")
+                   **{t: getattr(spec["wrapper"], f"launches_{t}", 0)
                       for t in TSK.TIER_CODES}}
-            for name, spec in TREE_KERNELS.items()}
+            for name, spec in {**TREE_KERNELS, **ALGEBRA_KERNELS}.items()}
 
 
 def read_counts() -> dict:
@@ -2873,40 +2906,251 @@ def _nbytes(*ts) -> int:
                if torch.is_tensor(t))
 
 
+def _flat(r) -> list:
+    """A tree algebra result's lanes in the C entry's order: apply's
+    ``(doc_ids, L)``, a change's seven lanes, compose's and its overflow."""
+    if isinstance(r, tuple) and len(r) == 2 and isinstance(r[0],
+                                                           TK.DenseChange):
+        return [*r[0], r[1]]
+    return list(r)
+
+
+def _algebra_lanes(args) -> list:
+    """The tensors among an algebra call's arguments (a change's lanes)."""
+    out = []
+    for x in args:
+        if isinstance(x, TK.DenseChange):
+            out += list(x)
+        elif torch.is_tensor(x):
+            out.append(x)
+    return out
+
+
+def algebra_args(name, docs, L, a, b, c_after=False) -> tuple:
+    """The arguments of algebra kernel ``name`` (and of its plain version
+    and entry point): apply and invert take the documents and ``a``,
+    rebase ``a`` over ``b`` in tie form ``c_after``, compose ``a`` then
+    ``b``."""
+    if name in ("A1_tree_apply", "A3_tree_invert"):
+        return docs, L, a
+    if name == "A2_tree_rebase":
+        return a, b, L, bool(c_after)
+    return a, b, L
+
+
+def _algebra_sentinel(name, args, dev):
+    """Outputs of algebra kernel ``name`` at ``args`` filled with
+    :data:`TREE_SENTINEL`, in the structure its wrapper's ``out`` takes."""
+    entry = ALGEBRA_KERNELS[name]["entry"]
+    c = next(x for x in args if isinstance(x, TK.DenseChange))
+    N, Lc = c.del_mask.shape
+    lanes = [torch.full(s, TREE_SENTINEL, dtype=torch.int32, device=dev)
+             for s in TAK.out_shapes(entry, N, Lc, c.ins_ids.shape[1])]
+    if entry == TAK.A1:
+        return tuple(lanes)
+    if entry == TAK.A4:
+        return TK.DenseChange(*lanes[:7]), lanes[7]
+    return TK.DenseChange(*lanes)
+
+
+def compose_ties(a, b, L) -> tuple:
+    """``(ties, overflows)`` of compose's candidate keys at these inputs:
+    live keys (below Lc + 2 Pc + 2) equal to an earlier live key of their
+    document, and documents with more live keys than Pc."""
+    keys = TK.compose_keys(a, b, L)
+    big = keys.shape[1] + 2
+    srt = torch.sort(keys, dim=1).values
+    live = srt < big
+    ties = int(((srt[:, 1:] == srt[:, :-1]) & live[:, 1:]).sum())
+    over = int((live.sum(1) > a.ins_ids.shape[1]).sum())
+    return ties, over
+
+
+def hold_algebra(dev, name, args, reps=5) -> dict:
+    """Algebra kernel ``name`` on every tier that takes its shape (the one
+    ``tier()`` picks first), each one launch under sync-debug "error" into
+    sentinel-filled outputs, held against its plain version on the same
+    inputs on the card in every lane (:func:`_held`); each tier's device
+    ms a call (``ms``: 50 calls queued behind a spin, :func:`_queued_ms`)
+    and CUDA-event ms a call with the wrapper's host work (``event_ms``,
+    median of ``reps``), one plain call's CUDA-event ms, and the byte
+    floor (inputs read once, outputs written once). Launches made here
+    count nowhere."""
+    spec = ALGEBRA_KERNELS[name]
+    w, entry = spec["wrapper"], spec["entry"]
+    c = next(x for x in args if isinstance(x, TK.DenseChange))
+    N, Lc = c.del_mask.shape
+    Pc = c.ins_ids.shape[1]
+    picked = TAK.tier(entry, Lc, Pc)
+    tiers = [picked] + [t for t in TAK.TIER_CODES if t != picked
+                        and TAK.placement(entry, Lc, Pc, t) is not None]
+    rows = {}
+    with _Uncounted():
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        want = spec["plain"](*args)
+        b.record()
+        torch.cuda.synchronize()
+        plain_ms = a.elapsed_time(b)
+        for t in tiers:
+            before = w.launches
+            got = _no_sync(dev, w, *args, out=_algebra_sentinel(name, args,
+                                                                dev), t=t)
+            if w.launches != before + 1:
+                raise AssertionError(f"{name} on {t}: "
+                                     f"{w.launches - before} launches")
+            err = _held(_flat(got), _flat(want), f"{name} on {t}")
+            del got
+            rows[t] = dict(ms=_queued_ms(dev, lambda: w(*args, t=t)),
+                           event_ms=_event_ms(dev, lambda: w(*args, t=t),
+                                              reps),
+                           max_abs_err=err)
+    nbytes = _nbytes(*_algebra_lanes(args), *_flat(want))
+    return dict(kernel=name, tier=picked, docs=N, Lc=Lc, Pc=Pc,
+                c_after=args[3] if entry == TAK.A2 else None,
+                ms=rows[picked]["ms"], plain_ms=plain_ms, bytes=nbytes,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, tiers=rows,
+                max_abs_err=max(r["max_abs_err"] for r in rows.values()))
+
+
+def _calls(name) -> tuple:
+    """The tie forms a hold or the main path runs algebra kernel ``name``
+    in: both for rebase, one for the others."""
+    return (False, True) if name == "A2_tree_rebase" else (False,)
+
+
 def tree_functions(dev, batch, docs, L) -> list:
     """The dense algebra's batched entry points at config 3b's shape (N =
-    1,024 docs, Lc 128, Pc 32), on real commits of its streams: ms a call
-    (CUDA events), launches a call (profiler), and the byte floor — each
-    input read once, each output written once — at 3.35 TB/s."""
+    1,024 docs, Lc 128, Pc 32) on real commits of 7a's streams: commit 1
+    as the change, commit 2 as the concurrent or following one (lane
+    slices of the commit batch, so every row is strided). Each entry point
+    is called once on the main path (rebase in both tie forms) under
+    sync-debug "error"; its launches a call come from the kernels' own
+    counters and must be one launch of its kernel (A1-A4) on the card.
+    Outside the counts, each kernel held against its plain version into
+    sentinel outputs on every tier that takes the shape
+    (:func:`hold_algebra`), the entry point's ms a call (CUDA events) and
+    the byte floor — each input read once, each output written once — at
+    3.35 TB/s."""
     lanes = (batch.del_mask, batch.ins_cnt, batch.ins_ids, batch.mov_id,
              batch.mov_off, batch.pool_mid, batch.pool_off)
-    c = TK.DenseChange(*[x[:, 1] for x in lanes])
-    over = TK.DenseChange(*[x[:, 2] for x in lanes])
-    calls = {
-        "batched_apply": (lambda: TK.batched_apply(docs, L, c, device=dev),
-                          (docs, L, *c)),
-        "batched_rebase": (lambda: TK.batched_rebase(c, over, L, False,
-                                                     device=dev),
-                           (*c, *over, L)),
-        "batched_invert": (lambda: TK.batched_invert(docs, L, c, device=dev),
-                           (docs, L, *c)),
-        "batched_compose": (lambda: TK.batched_compose(c, over, L,
-                                                       device=dev),
-                            (*c, *over, L)),
-    }
+    a = TK.DenseChange(*[x[:, 1] for x in lanes])
+    b = TK.DenseChange(*[x[:, 2] for x in lanes])
     rows = []
-    for name, (fn, ins) in calls.items():
-        out = fn()
-        if name == "batched_compose":  # (change, overflow)
-            out = (*out[0], out[1])
-        prof = _profile(dev, fn)
-        b = _nbytes(*ins) + _nbytes(*out)
-        rows.append(dict(name=name, ms=_event_ms(dev, fn), **prof,
-                         bytes=b, bound_ms=b / HBM_BYTES_PER_S * 1e3))
-        print(f"tree fn {name}: {rows[-1]['ms']:.4f} ms, "
-              f"{prof['launches']} launches ({prof['aten_ops']} ATen ops), "
-              f"device {prof['device_us']:.1f} us, bound "
-              f"{rows[-1]['bound_ms']:.5f} ms", flush=True)
+    for name, spec in ALGEBRA_KERNELS.items():
+        for c_after in _calls(name):
+            args = algebra_args(name, docs, L, a, b, c_after)
+
+            def fn(args=args, spec=spec):
+                return spec["fn"](*args, device=dev)
+
+            before = {n: s["wrapper"].launches
+                      for n, s in ALGEBRA_KERNELS.items()}
+            out = _no_sync(dev, fn)
+            launches = {n: s["wrapper"].launches - before[n]
+                        for n, s in ALGEBRA_KERNELS.items()}
+            if dev.type == "cuda" and launches != {
+                    n: int(n == name) for n in ALGEBRA_KERNELS}:
+                raise AssertionError(f"7a {spec['fn'].__name__}: launches "
+                                     f"{launches}")
+            b_ = _nbytes(*_algebra_lanes(args), *_flat(out))
+            row = dict(name=spec["fn"].__name__, kernel=name,
+                       c_after=c_after if name == "A2_tree_rebase" else None,
+                       launches=launches[name], bytes=b_,
+                       bound_ms=b_ / HBM_BYTES_PER_S * 1e3)
+            with _Uncounted():
+                row["ms"] = _event_ms(dev, fn)
+                if dev.type == "cuda":
+                    row["hold"] = hold_algebra(dev, name, args)
+            if name == "A4_tree_compose":
+                row["ties"], row["overflows"] = compose_ties(a, b, L)
+            rows.append(row)
+            h = row.get("hold") or {}
+            form = f" c_after={c_after}" if row["c_after"] is not None else ""
+            print(f"tree fn {row['name']}{form}: {row['ms']:.4f} ms a call, "
+                  f"{row['launches']} launch of {name}; kernel "
+                  f"{h.get('ms')} ms on {h.get('tier')} (every tier "
+                  f"{ {k: v['ms'] for k, v in h.get('tiers', {}).items()} }),"
+                  f" plain {h.get('plain_ms')} ms, bound "
+                  f"{row['bound_ms']:.5f} ms", flush=True)
+    return rows
+
+
+# The algebra holds of 7h beside 7a's: (label, documents, Lc, Pc, lanes):
+# 7a's and 7b's widths (config 3b's Lc 128, Pc 32 and 3c's Lc 512, Pc 8)
+# on gen_streams commits with 5% moves and on raw lanes (several writers to
+# a slot, duplicate tags, compose's ties and overflowing pools), and a
+# width past every kernel's shared tier on raw lanes.
+ALGEBRA_HOLDS = (("3b", 1024, TREE_LC, TREE_PC, "commits"),
+                 ("3c", 1024, 512, 8, "commits"),
+                 ("3b-raw", 1024, TREE_LC, TREE_PC, "raw"),
+                 ("3c-raw", 1024, 512, 8, "raw"),
+                 ("global-raw", 64, 8192, 32, "raw"))
+
+
+def algebra_case(dev, n, lc, pc, lanes, seed=0) -> tuple:
+    """``(docs, L, a, b)`` for the algebra holds: documents of random ids
+    and lengths in [0, Lc]; ``a`` and ``b`` commits 1 and 2 of
+    :func:`trunk_case`'s streams (5% moves; lane slices, rows strided) or
+    raw random lanes (the card tests' ``lanes()``)."""
+    rng = np.random.default_rng(seed)
+    docs = torch.from_numpy(rng.integers(1, 1 << 20, (n, lc)).astype(
+        np.int32)).to(dev)
+    L = torch.from_numpy(rng.integers(0, lc + 1, n).astype(np.int32)).to(dev)
+    if lanes == "commits":
+        _d, _l, cb = trunk_case(dev, n, 3, TREE_W, lc, pc, 0.05, seed)
+        ch = (cb.del_mask, cb.ins_cnt, cb.ins_ids, cb.mov_id, cb.mov_off,
+              cb.pool_mid, cb.pool_off)
+        return (docs, L, TK.DenseChange(*[x[:, 1] for x in ch]),
+                TK.DenseChange(*[x[:, 2] for x in ch]))
+
+    def raw():
+        def sparse(shape, hi):
+            return (rng.integers(0, hi, shape)
+                    * (rng.random(shape) < 0.3)).astype(np.int32)
+        return TK.DenseChange(*[torch.from_numpy(x).to(dev) for x in (
+            sparse((n, lc), 2), sparse((n, lc + 1), 3),
+            rng.integers(1, 1 << 20, (n, pc)).astype(np.int32),
+            sparse((n, lc), 4), sparse((n, lc), 4), sparse((n, pc), 4),
+            sparse((n, pc), 4))])
+
+    return docs, L, raw(), raw()
+
+
+def algebra_holds(dev) -> list:
+    """A1-A4 against their plain versions at :data:`ALGEBRA_HOLDS`, rebase
+    in both tie forms, each on every tier that takes the shape
+    (:func:`hold_algebra`); compose's raw holds must hold ties and
+    overflowing pools, and the holds together must reach both tiers of
+    every kernel."""
+    rows = []
+    for label, n, lc, pc, lanes in ALGEBRA_HOLDS:
+        docs, L, a, b = algebra_case(dev, n, lc, pc, lanes)
+        ties, over = compose_ties(a, b, L)
+        if lanes == "raw" and not (ties and over):
+            raise AssertionError(f"algebra hold {label}: {ties} ties, "
+                                 f"{over} overflowing pools")
+        for name in ALGEBRA_KERNELS:
+            for c_after in _calls(name):
+                r = hold_algebra(dev, name, algebra_args(name, docs, L, a, b,
+                                                         c_after))
+                r.update(cell=label, lanes=lanes)
+                if name == "A4_tree_compose":
+                    r.update(ties=ties, overflows=over)
+                rows.append(r)
+                print(f"algebra hold {label} {name}"
+                      f"{' c_after' if c_after else ''} N {n} Lc {lc} Pc "
+                      f"{pc}: {r['ms']:.4f} ms on {r['tier']} (plain "
+                      f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.5f} "
+                      f"ms), every tier " + ", ".join(
+                          f"{k} {v['ms']:.4f}" for k, v in r["tiers"].items())
+                      + f"; max_abs_err {r['max_abs_err']}", flush=True)
+        del docs, L, a, b
+    for name in ALGEBRA_KERNELS:
+        if {t for r in rows if r["kernel"] == name
+                for t in r["tiers"]} != set(TAK.TIER_CODES):
+            raise AssertionError(f"{name}'s holds miss a tier")
     return rows
 
 
@@ -2932,7 +3176,9 @@ def tree_3b(dev, n_docs=1024, n_commits=TREE_7A_COMMITS,
     launches and device time of one scan from ``torch.profiler``; the
     first ``plain_commits`` commits of the whole batch through T1 and its
     plain version on the card (the plain loop takes ~36 ms a step on one
-    H100), equal, and ``cpu_docs`` documents of them equal on the CPU."""
+    H100), equal, and ``cpu_docs`` documents of them equal on the CPU.
+    Then the algebra's entry points on the scan's documents and commits 1
+    and 2 (:func:`tree_functions`)."""
     Lc, Pc, W = TREE_LC, TREE_PC, TREE_W
     scripts = min(scripts, n_docs)
     plain_commits = min(plain_commits, n_commits)
@@ -3617,12 +3863,13 @@ def phase_tree(device, report, b_docs=1024, b_commits=TREE_7A_COMMITS,
                c_docs=1024,
                c_commits=128, m_docs=512, m_commits=128, wave=128,
                c3_budget_s=15.0, c3_min_docs=16, holds=True):
-    """Phase 7: the SharedTree rebase path on the card — 7h T1 and T2 held
-    against their plain versions at edge shapes (``holds``), 7a config 3b
-    (T1), 7b configs 3c and 3c-moves (T2 through ``batch_ingest``), 7c
-    config 3. Each sub-path runs with the tree kernels' launch counts set
-    to 0 just before it and read just after; 7a and 7b must launch their
-    kernel. 7a runs the bench's whole 1,000 commits a document (its plain
+    """Phase 7: the SharedTree rebase path on the card — 7h T1, T2 and
+    A1-A4 held against their plain versions at edge shapes (``holds``), 7a
+    config 3b (T1, then A1-A4 through the algebra's entry points), 7b
+    configs 3c and 3c-moves (T2 through ``batch_ingest``), 7c config 3.
+    Each sub-path runs with the tree kernels' launch counts set to 0 just
+    before it and read just after; 7a must launch T1 and each of A1-A4, 7b
+    T2. 7a runs the bench's whole 1,000 commits a document (its plain
     hold the first 125). Depth is cut elsewhere to keep the phase short on
     one H100: 7b's configs 3c and 3c-moves run 128 of their 512 commits
     (one wave; a wave's host work grows with its index, so later waves are
@@ -3633,6 +3880,7 @@ def phase_tree(device, report, b_docs=1024, b_commits=TREE_7A_COMMITS,
     t = time.perf_counter()
     if holds and device.type == "cuda":
         out["holds"] = tree_holds(device)
+        out["algebra_holds"] = algebra_holds(device)
         out["holds_s"] = time.perf_counter() - t
     for key, fn, kw in (
             ("7a", tree_3b, dict(n_docs=b_docs, n_commits=b_commits)),
@@ -3650,7 +3898,8 @@ def phase_tree(device, report, b_docs=1024, b_commits=TREE_7A_COMMITS,
              "7c": "3"}[key]] = fn(device, **kw)
         launches[key] = read_tree_counts()
     for key, name in (("7a", "T1_trunk_scan"), ("7b", "T2_em_ring_scan"),
-                      ("7b-moves", "T2_em_ring_scan")):
+                      ("7b-moves", "T2_em_ring_scan"),
+                      *(("7a", a) for a in ALGEBRA_KERNELS)):
         if device.type == "cuda" and launches[key][name]["all"] <= 0:
             raise AssertionError(f"{name} never launched on {key}")
     out["launches"] = launches
@@ -3794,6 +4043,7 @@ class _Uncounted:
         self._saved = [(spec["wrapper"], dict(vars(spec["wrapper"])))
                        for spec in (*KERNELS.values(),
                                     *TREE_KERNELS.values(),
+                                    *ALGEBRA_KERNELS.values(),
                                     *SHARD_KERNELS.values())]
 
     def __exit__(self, *exc):
@@ -7063,6 +7313,7 @@ def _main(device, twins) -> int:
                                  if r["kernel"] == name],
         })
     kernels += tree_kernel_rows(tree, load, framework)
+    kernels += algebra_kernel_rows(tree)
     kernels += exchange_kernel_rows(scale["exchange"],
                                     framework["exchange_launches"])
     report["kernels"] = kernels
@@ -7131,6 +7382,50 @@ def tree_kernel_rows(tree, load, framework) -> list:
                        "tiers_ms": {k: v["ms"]
                                     for k, v in r["tiers"].items()}}
                       for r in holds],
+        })
+    return rows
+
+
+def algebra_kernel_rows(tree) -> list:
+    """The kernels line's A1-A4 entries: launches by path (7a's calls of
+    the batched entry points, rebase in both tie forms; no other path calls
+    them), the kernel's ms on the tier it runs, the plain version's ms and
+    the byte floor at 7a's shape (1,024 docs x Lc 128 x Pc 32 on 7a's
+    commits; rebase's default tie form), the largest error of every hold
+    and the holds' rows. No PyTorch call computes these functions, so
+    ``library_ms`` is null."""
+    fns = tree["3b"]["functions"]
+    rows = []
+    for name, spec in ALGEBRA_KERNELS.items():
+        main = [f for f in fns if f["kernel"] == name]
+        by_path = {k: v[name] for k, v in tree["launches"].items()}
+        holds = ([f["hold"] for f in main]
+                 + [r for r in tree.get("algebra_holds", [])
+                    if r["kernel"] == name])
+        m = main[0]["hold"]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "fluidframework_tpu_torch/csrc/tree_kernels.cu",
+            "replaces": spec["replaces"],
+            "launches": sum(p["all"] for p in by_path.values()),
+            **{f"launches_{t}": sum(p[t] for p in by_path.values())
+               for t in TAK.TIER_CODES},
+            "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in holds),
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "main_shape": {"n_docs": m["docs"], "Lc": m["Lc"],
+                           "Pc": m["Pc"], "tier": m["tier"],
+                           "entry_point_ms": [f["ms"] for f in main],
+                           "launches_a_call": [f["launches"] for f in main],
+                           "tiers_ms": {k: v["ms"]
+                                        for k, v in m["tiers"].items()}},
+            "holds": [{**{k: r.get(k) for k in (
+                "cell", "lanes", "docs", "Lc", "Pc", "c_after", "tier", "ms",
+                "plain_ms", "bound_ms", "ties", "overflows")},
+                "tiers_ms": {k: v["ms"] for k, v in r["tiers"].items()}}
+                for r in holds],
         })
     return rows
 

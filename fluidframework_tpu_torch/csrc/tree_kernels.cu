@@ -1,8 +1,10 @@
-// SharedTree rebase scans for Hopper (sm_90a), bound to Python through a
-// plain C interface.
+// SharedTree rebase scans and changeset algebra for Hopper (sm_90a), bound
+// to Python through a plain C interface.
 //
 // Replaces the reference package's two jitted device scans of the
-// SharedTree rebase path (XLA programs, not pl.pallas_call sites):
+// SharedTree rebase path (XLA programs, not pl.pallas_call sites), and the
+// four jitted entry points of its dense changeset algebra, A1-A4 (see their
+// section below):
 //   T1  fluidframework_tpu/tree/device_trunk.py:161 batched_trunk_scan
 //       (jit over vmap of a lax.scan; the W-deep ring fold a fori_loop)
 //   T2  fluidframework_tpu/tree/device_em.py:129    batched_em_trunk_scan_ring
@@ -243,12 +245,16 @@ struct Scratch {
   int *dex, *bcum, *cbcum, *tpos, *kpos, *kb, *klive, *kcum;
 };
 
-// rebase_change(c, o, L) (c_after=False) into `out` (4 Lc + 1 + 3 Pc ints,
-// none aliasing c or o). Phases: the prefix sums of o's detaches (dex, the
+// rebase_change(c, o, L, C_AFTER) into `out` (4 Lc + 1 + 3 Pc ints, none
+// aliasing c or o). Phases: the prefix sums of o's detaches (dex, the
 // exclusive Dex_b), o's attaches (bcum) and c's attaches (cbcum); o's pool
 // positions and c's atom boundaries through o's boundary map; every input
 // slot's landing position in o's output (tpos) and c's dead move atoms;
-// the live atoms' new pool slots; the scatters.
+// the live atoms' new pool slots; the scatters. The scans take C_AFTER =
+// false; true (c sequenced after o) puts c's attaches after o's at a
+// boundary and cancels c's moves of units o moved too (o's move wins): the
+// move-out is dropped and its move-in atoms with it.
+template <bool C_AFTER>
 __device__ void rebase(const Ch c, const Ch o, const int L, const Ch out,
                        const int E, const Scratch s, const int Lc,
                        const int Pc, unsigned *red) {
@@ -270,9 +276,10 @@ __device__ void rebase(const Ch c, const Ch o, const int L, const Ch out,
   for (int k = t; k < Pc; k += T) {
     const int ob = count_leq(s.bcum, Lc + 1, k, o_mono);
     s.kpos[k] = wadd(wsub(ob, s.dex[clampi(ob, 0, Lc)]), k);
-    // b_map at the atom's boundary: b - Dex_b + (bcum - icnt) of o.
+    // b_map at the atom's boundary: b - Dex_b + (bcum - icnt) of o
+    // (C_AFTER: + bcum).
     const int cb = clampi(count_leq(s.cbcum, Lc + 1, k, c_mono), 0, Lc);
-    const int oicnt = o.ins[cb] * (int)(cb <= L);
+    const int oicnt = C_AFTER ? 0 : o.ins[cb] * (int)(cb <= L);
     s.kb[k] = wsub(wadd(wsub(cb, s.dex[cb]), s.bcum[cb]), oicnt);
   }
   __syncthreads();
@@ -294,13 +301,15 @@ __device__ void rebase(const Ch c, const Ch o, const int L, const Ch out,
     s.tpos[i] = tp;
   }
   for (int k = t; k < Pc; k += T) {
-    // A move-in atom of c dies when o deleted its source slot.
+    // A move-in atom of c dies when o deleted its source slot (C_AFTER:
+    // or moved it).
     bool dead = false;
     const int pm = c.pmid[k];
     if (pm > 0) {
       const int po = c.poff[k];
       for (int i = 0; i < L && i < Lc && !dead; ++i)
-        dead = c.mid[i] == pm && c.moff[i] == po && o.del[i] > 0;
+        dead = c.mid[i] == pm && c.moff[i] == po &&
+               ((C_AFTER && o.mid[i] > 0) || o.del[i] > 0);
     }
     const int live = (!dead && k < c_total) ? 1 : 0;
     s.klive[k] = live;
@@ -313,7 +322,7 @@ __device__ void rebase(const Ch c, const Ch o, const int L, const Ch out,
     const int tp = s.tpos[i];
     if (i < L && tp >= 0 && tp < Lc) {
       if (c.del[i] > 0) atomicAdd(&out.del[tp], c.del[i]);
-      if (c.mid[i] > 0) {
+      if (c.mid[i] > 0 && !(C_AFTER && o.mid[i] > 0)) {
         atomicAdd(&out.mid[tp], c.mid[i]);
         atomicAdd(&out.moff[tp], c.moff[i]);
       }
@@ -473,8 +482,9 @@ __global__ void __launch_bounds__(MAX_THREADS)
       const int w = (k + j) % W;
       const int sw = ring_seq[w];
       if (sw > ref && sw > 0) {
-        rebase(change_at(cur, Lc, Pc), change_at(ring + (size_t)w * E, Lc, Pc),
-               ring_L[w], change_at(nxt, Lc, Pc), E, s, Lc, Pc, red);
+        rebase<false>(change_at(cur, Lc, Pc),
+                      change_at(ring + (size_t)w * E, Lc, Pc), ring_L[w],
+                      change_at(nxt, Lc, Pc), E, s, Lc, Pc, red);
         int *const tmp = cur;
         cur = nxt;
         nxt = tmp;
@@ -1439,6 +1449,502 @@ __global__ void __launch_bounds__(32 * WARP_MAX_D)
   }
 }
 
+// -- A1-A4: the changeset algebra -------------------------------------------
+//
+// The reference's four jitted entry points of the dense algebra,
+// fluidframework_tpu/ops/tree_kernel.py:587-592 (jit over vmap of
+// apply_change :238, rebase_change :258, invert_change :339 and
+// compose_change :382; XLA programs, not pl.pallas_call sites), each one
+// launch: one CTA a document loads its input lanes (rows of any stride)
+// into its region, runs the device function and writes every output lane.
+// apply and rebase are the device functions T1 runs (rebase with its tie
+// form as C_AFTER); invert and compose are below, over the same helpers
+// and with the transport semantics of this file's header.
+//
+// What bounds them. A document is O(Lc + Pc) int ops of prefix sums and
+// scatters, the move-effect tables' tag searches (O(Lc * Pc) compares at
+// most, only for move-bearing slots and atoms) and compose's rank (below);
+// the bytes are the lanes read and written once, 1-2 us at the main
+// shapes. A call is a wave of CTAs, each a chain of barrier-separated
+// phases: latency, as for T1.
+//
+// Tiers, as T1's CTA tiers: shared, the region in dynamic shared memory up
+// to SMEM_BYTES; global, the region in the document's slice of a workspace
+// the wrapper allocates. Generic pointers serve both with one body of code.
+//
+// Compose's attach pool is one stable sort of Lc + 2 Pc candidate keys of
+// which the first Pc are kept: each live candidate (key < BIG = Lc + 2 Pc +
+// 2) takes its stable rank #{j : key_j < key_i} + #{j < i : key_j == key_i}
+// and, where that is below Pc, the pool slot of that rank. On the shared
+// tier the rank is a comparison count over every candidate ((Lc + 2 Pc)^2 /
+// T compares a thread: 288 at Lc 128, Pc 32, T 128). On the global tier it
+// is a counting sort over [0, BIG): a histogram and its block scan, each
+// candidate dropped into its key's bucket, and its rank among equal keys
+// the count of bucket members with a smaller index; a negative key (only
+// where a detach lane holds more than 1) takes the comparison count. An
+// atom's anchor, the gap after the last in-place unit before it, is a
+// binary search over the in-place units compacted in input order where
+// their output positions came out non-decreasing (every well-formed
+// change), a full max otherwise.
+
+constexpr int A_APPLY = 0;
+constexpr int A_REBASE = 1;
+constexpr int A_INVERT = 2;
+constexpr int A_COMPOSE = 3;
+// Input and output lanes of an entry at most: two changes and L in, a
+// change and compose's overflow flag out.
+constexpr int ALG_IN = 15;
+constexpr int ALG_OUT = 8;
+
+struct AlgArgs {
+  const int *in[ALG_IN];
+  long long st[ALG_IN];  // each input lane's row stride, in ints
+  int *out[ALG_OUT];     // C-contiguous [N, width] lanes ([N]: L, overflow)
+  int *work;
+  long long work_ints;  // a document's slice of the workspace (global tier)
+  int N, Lc, Pc, global;
+};
+
+// A document's region: the dynamic shared memory, or its workspace slice.
+__device__ __forceinline__ int *alg_region(const AlgArgs &a) {
+  return a.global ? a.work + (size_t)blockIdx.x * a.work_ints : tree_smem;
+}
+
+// This document's row of input lane q (w ints) into dst.
+__device__ __forceinline__ void load_row(int *dst, const AlgArgs &a, int q,
+                                         int w) {
+  const int *const src = a.in[q] + (long long)blockIdx.x * a.st[q];
+  for (int j = threadIdx.x; j < w; j += blockDim.x) dst[j] = src[j];
+}
+
+// A change's seven lanes from input lanes q0 .. q0 + 6.
+__device__ __forceinline__ void load_change(const Ch d, const AlgArgs &a,
+                                            int q0, int Lc, int Pc) {
+  load_row(d.del, a, q0, Lc);
+  load_row(d.ins, a, q0 + 1, Lc + 1);
+  load_row(d.ids, a, q0 + 2, Pc);
+  load_row(d.mid, a, q0 + 3, Lc);
+  load_row(d.moff, a, q0 + 4, Lc);
+  load_row(d.pmid, a, q0 + 5, Pc);
+  load_row(d.poff, a, q0 + 6, Pc);
+}
+
+__device__ __forceinline__ int load_int(const AlgArgs &a, int q) {
+  return a.in[q][(long long)blockIdx.x * a.st[q]];
+}
+
+// w ints of src into this document's row of output lane q.
+__device__ __forceinline__ void store_row(const AlgArgs &a, int q,
+                                          const int *src, int w) {
+  int *const dst = a.out[q] + (size_t)blockIdx.x * w;
+  for (int j = threadIdx.x; j < w; j += blockDim.x) dst[j] = src[j];
+}
+
+__device__ __forceinline__ void store_change(const AlgArgs &a, const Ch s,
+                                             int Lc, int Pc) {
+  store_row(a, 0, s.del, Lc);
+  store_row(a, 1, s.ins, Lc + 1);
+  store_row(a, 2, s.ids, Pc);
+  store_row(a, 3, s.mid, Lc);
+  store_row(a, 4, s.moff, Lc);
+  store_row(a, 5, s.pmid, Pc);
+  store_row(a, 6, s.poff, Pc);
+}
+
+// invert_change(doc, L, c) into `out` (4 Lc + 1 + 3 Pc ints, contiguous):
+// c's insert atoms become deletes and its move-in atoms return move-outs
+// (the same tag) at their output positions; c's detached slots become one
+// attach atom each at the slot's position among the survivors, pooled in
+// input order (dc counts the detached slots): a deleted slot revives its
+// document id, a moved-out one becomes the return move-in.
+__device__ void invert(const int *doc, const int L, const Ch c, const Ch out,
+                       const int E, int *dex, int *bcum, int *dc,
+                       const int Lc, const int Pc, unsigned *red) {
+  const int T = blockDim.x, t = threadIdx.x;
+  for (int b = t; b <= Lc; b += T) {
+    if (b < Lc) {
+      const int d = max(c.del[b], (int)(c.mid[b] > 0)) * (int)(b < L);
+      dex[b + 1] = d;
+      dc[b + 1] = (int)(d != 0);
+    } else {
+      dex[0] = 0;
+      dc[0] = 0;
+    }
+    bcum[b] = c.ins[b] * (int)(b <= L);
+  }
+  for (int j = t; j < E; j += T) out.del[j] = 0;  // the whole output change
+  __syncthreads();
+  int *const arrs[3] = {dex, bcum, dc};
+  const bool mono = !(block_scan<3>(arrs, Lc + 1, red) & 2u);
+  const int total = bcum[Lc];
+  for (int k = t; k < Pc && k < total; k += T) {
+    const int b = count_leq(bcum, Lc + 1, k, mono);
+    const int ip = wadd(wsub(b, dex[clampi(b, 0, Lc)]), k);
+    const int pm = c.pmid[k];
+    if (ip >= 0 && ip < Lc) {
+      if (pm == 0) {
+        atomicAdd(&out.del[ip], 1);
+      } else if (pm > 0) {
+        atomicAdd(&out.mid[ip], pm);
+        atomicAdd(&out.moff[ip], c.poff[k]);
+      }
+    }
+  }
+  for (int i = t; i < Lc; i += T) {
+    if (dc[i + 1] == dc[i]) continue;  // not detached
+    const int sp = wadd(wsub(i, dex[i]), bcum[i]);
+    if (sp >= 0 && sp <= Lc) atomicAdd(&out.ins[sp], 1);
+    const int g = dc[i + 1] - 1;  // the detached slots keep their order
+    if (g < Pc) {
+      if (c.del[i] != 0) out.ids[g] = doc[i];
+      if (c.mid[i] > 0) {
+        out.pmid[g] = c.mid[i];
+        out.poff[g] = c.moff[i];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+struct ComposeScratch {
+  int *adex, *abcum, *bdex, *bbcum, *icnt;         // [Lc + 1]
+  int *apos, *bpos, *slot;                         // [Pc]
+  int *p1, *o2q, *q2, *bkeep, *inpl, *cidx, *cq2;  // [Lc]
+  int *key;                                        // [Lc + 2 Pc]
+  int *hist, *cursor, *bucket;  // counting sort: [BIG] [BIG] [Lc + 2 Pc]
+};
+
+// compose_change(a, b, L) into `out` (4 Lc + 1 + 3 Pc ints, contiguous);
+// returns the overflow flag. `counting` picks the counting sort for the
+// ranks (the global tier); `sc` is three ints of shared memory. Phases:
+// a's prefix sums; a's pool positions and b's prefix sums over a's output
+// (length La); every unit's position in a's output (p1) and every position
+// of a's output in b's (o2q), through the move-effect tables; each unit's
+// fate (q2, its position in b's output) and the candidate keys; the
+// in-place units compacted and the live candidates counted; the ranks; the
+// pool and its anchors.
+__device__ int compose(const Ch a, const Ch b, const int L, const Ch out,
+                       const int E, const ComposeScratch s, const int Lc,
+                       const int Pc, const bool counting, unsigned *red,
+                       int *sc) {
+  const int T = blockDim.x, t = threadIdx.x;
+  const int NC = Lc + 2 * Pc, BIG = NC + 2;
+  for (int q = t; q <= Lc; q += T) {
+    if (q < Lc)
+      s.adex[q + 1] = max(a.del[q], (int)(a.mid[q] > 0)) * (int)(q < L);
+    else
+      s.adex[0] = 0;
+    s.abcum[q] = a.ins[q] * (int)(q <= L);
+  }
+  for (int j = t; j < E; j += T) out.del[j] = 0;  // the whole output change
+  if (counting) {
+    for (int v = t; v < BIG; v += T) {
+      s.hist[v] = 0;
+      s.cursor[v] = 0;
+    }
+  }
+  if (t < 3) sc[t] = 0;  // live candidates, negative keys, "not monotone"
+  __syncthreads();
+  int *const aa[2] = {s.adex, s.abcum};
+  const bool a_mono = !(block_scan<2>(aa, Lc + 1, red) & 2u);
+  const int a_total = s.abcum[Lc];
+  const int La = wadd(wsub(L, s.adex[Lc]), a_total);
+  for (int k = t; k < Pc; k += T) {
+    const int ab = count_leq(s.abcum, Lc + 1, k, a_mono);
+    s.apos[k] = wadd(wsub(ab, s.adex[clampi(ab, 0, Lc)]), k);
+  }
+  for (int q = t; q <= Lc; q += T) {
+    if (q < Lc)
+      s.bdex[q + 1] = max(b.del[q], (int)(b.mid[q] > 0)) * (int)(q < La);
+    else
+      s.bdex[0] = 0;
+    s.bbcum[q] = b.ins[q] * (int)(q <= La);
+  }
+  __syncthreads();
+  int *const ba[2] = {s.bdex, s.bbcum};
+  const bool b_mono = !(block_scan<2>(ba, Lc + 1, red) & 2u);
+  const int b_total = s.bbcum[Lc];
+  for (int m = t; m < Pc; m += T) {
+    const int bq = count_leq(s.bbcum, Lc + 1, m, b_mono);
+    s.bpos[m] = wadd(wsub(bq, s.bdex[clampi(bq, 0, Lc)]), m);
+  }
+  __syncthreads();
+  // A kept slot goes to its survivor position, a moved one to the sum of
+  // its tag's live move-in atoms' positions, any other to -1.
+  for (int i = t; i < Lc; i += T) {
+    int p = -1;
+    if (i < L) {
+      const int m = a.mid[i];
+      if (max(a.del[i], (int)(m > 0)) == 0) {
+        p = wadd(wsub(i, s.adex[i]), s.abcum[i]);
+      } else if (m > 0) {
+        const int mo = a.moff[i];
+        unsigned acc = 0;
+        for (int k = 0; k < Pc && k < a_total; ++k)
+          if (a.pmid[k] == m && a.poff[k] == mo) acc += (unsigned)s.apos[k];
+        p = (int)acc;
+      }
+    }
+    s.p1[i] = p;
+    int o2 = -1, keep = 0;
+    if (i < La) {
+      const int m = b.mid[i];
+      if (max(b.del[i], (int)(m > 0)) == 0) {
+        o2 = wadd(wsub(i, s.bdex[i]), s.bbcum[i]);
+        keep = 1;
+      } else if (m > 0) {
+        const int mo = b.moff[i];
+        unsigned acc = 0;
+        for (int k = 0; k < Pc && k < b_total; ++k)
+          if (b.pmid[k] == m && b.poff[k] == mo) acc += (unsigned)s.bpos[k];
+        o2 = (int)acc;
+      }
+    }
+    s.o2q[i] = o2;
+    s.bkeep[i] = keep;
+  }
+  __syncthreads();
+  // A unit's fate: q2 = its position in b's output (-1 dead, -2 where a put
+  // it past Lc). In place where a and b both kept it; a composed move (key
+  // q2) where it lives elsewhere; a delete where it died. a's insert atoms
+  // land where b put their position, b's at their own.
+  for (int i = t; i < Lc; i += T) {
+    const int p = s.p1[i];
+    const bool in = p >= 0 && p < Lc;
+    const int q2 = p < 0 ? -1 : (in ? s.o2q[p] : -2);
+    const bool valid = i < L, alive = valid && q2 >= 0;
+    const bool inplace = alive && max(a.del[i], (int)(a.mid[i] > 0)) == 0 &&
+                         in && s.bkeep[p];
+    out.del[i] = (int)(valid && !alive);
+    s.key[i] = alive && !inplace ? q2 : BIG;
+    s.q2[i] = q2;
+    s.inpl[i] = (int)inplace;
+    s.icnt[i + 1] = (int)inplace;
+  }
+  if (t == 0) s.icnt[0] = 0;
+  for (int k = t; k < Pc; k += T) {
+    int key = BIG;
+    if (k < a_total && a.pmid[k] == 0) {
+      const int ap = s.apos[k];
+      const int o2 = ap >= 0 && ap < Lc ? s.o2q[ap] : -2;
+      if (o2 >= 0) key = o2;
+    }
+    s.key[Lc + k] = key;
+    s.key[Lc + Pc + k] = k < b_total && b.pmid[k] == 0 ? s.bpos[k] : BIG;
+  }
+  __syncthreads();
+  int *const ia[1] = {s.icnt};
+  block_scan<1>(ia, Lc + 1, red);
+  const int n_in = s.icnt[Lc];
+  // The in-place units in input order (cidx) with their q2 (cq2); the live
+  // candidates and the negative keys among them counted, the others
+  // histogrammed for the counting sort.
+  for (int i = t; i < Lc; i += T) {
+    if (s.inpl[i]) {
+      const int c = s.icnt[i + 1] - 1;
+      s.cidx[c] = i;
+      s.cq2[c] = s.q2[i];
+    }
+  }
+  int live = 0, neg = 0;
+  for (int j = t; j < NC; j += T) {
+    const int kj = s.key[j];
+    if (kj < BIG) {
+      ++live;
+      if (kj < 0)
+        ++neg;
+      else if (counting)
+        atomicAdd(&s.hist[kj], 1);
+    }
+  }
+  if (live) atomicAdd(&sc[0], live);
+  if (neg) atomicAdd(&sc[1], neg);
+  __syncthreads();
+  for (int c = t + 1; c < n_in; c += T)
+    if (s.cq2[c - 1] > s.cq2[c]) sc[2] = 1;
+  const int n_live = sc[0], n_neg = sc[1];
+  if (counting) {
+    int *const ha[1] = {s.hist};
+    block_scan<1>(ha, BIG, red);  // hist[v]: the keys in [0, v]
+    for (int j = t; j < NC; j += T) {
+      const int kj = s.key[j];
+      if (kj >= 0 && kj < BIG) {
+        const int lo = kj > 0 ? s.hist[kj - 1] : 0;
+        if (n_neg + lo < Pc) s.bucket[lo + atomicAdd(&s.cursor[kj], 1)] = j;
+      }
+    }
+    __syncthreads();
+  }
+  for (int j = t; j < NC; j += T) {
+    const int kj = s.key[j];
+    if (kj >= BIG) continue;
+    int r = Pc;
+    if (counting && kj >= 0) {
+      const int lo = kj > 0 ? s.hist[kj - 1] : 0;
+      if (n_neg + lo < Pc) {
+        r = n_neg + lo;
+        for (int u = lo, hi = s.hist[kj]; u < hi; ++u) r += s.bucket[u] < j;
+      }
+    } else {
+      r = 0;
+      for (int l = 0; l < NC; ++l) {
+        const int kl = s.key[l];
+        r += kl < kj || (kl == kj && l < j);
+      }
+    }
+    if (r < Pc) s.slot[r] = j;
+  }
+  __syncthreads();
+  // Pool slot k holds the rank-k candidate: a unit (a composed move with
+  // the fresh tag k + 1, its input slot moved out under it) or an insert
+  // atom (its id). Each atom counts at its anchor boundary.
+  const bool mono = !sc[2];
+  for (int k = t; k < Pc && k < n_live; k += T) {
+    const int j = s.slot[k], pos = s.key[j];
+    if (j < Lc) {
+      out.pmid[k] = k + 1;
+      out.mid[j] = k + 1;
+    } else {
+      out.ids[k] = j < Lc + Pc ? a.ids[j - Lc] : b.ids[j - Lc - Pc];
+    }
+    int bnd = 0;
+    if (mono) {
+      int lo = 0, hi = n_in;
+      while (lo < hi) {
+        const int m = (lo + hi) >> 1;
+        if (s.cq2[m] < pos) lo = m + 1;
+        else hi = m;
+      }
+      bnd = lo > 0 ? s.cidx[lo - 1] + 1 : 0;
+    } else {
+      for (int i = 0; i < Lc; ++i)
+        if (s.inpl[i] && s.q2[i] < pos) bnd = i + 1;
+    }
+    atomicAdd(&out.ins[bnd], 1);
+  }
+  __syncthreads();
+  return (int)(n_live > Pc);
+}
+
+// A1: apply_change. Region: the change, the document and its output [Lc],
+// dex/bcum [Lc + 1]. In: doc, L, the change's seven lanes; out: doc, L.
+__global__ void __launch_bounds__(MAX_THREADS)
+    alg_apply_kernel(const AlgArgs a) {
+  __shared__ unsigned red[RED_WORDS];
+  const int Lc = a.Lc, Pc = a.Pc, E = 4 * Lc + 1 + 3 * Pc;
+  int *p = alg_region(a);
+  const Ch c = change_at(p, Lc, Pc);
+  p += E;
+  int *const doc = p;
+  p += Lc;
+  int *const out = p;
+  p += Lc;
+  Scratch s{};
+  s.dex = p;
+  s.bcum = p + Lc + 1;
+  load_row(doc, a, 0, Lc);
+  load_change(c, a, 2, Lc, Pc);
+  const int L = load_int(a, 1);
+  __syncthreads();
+  const int new_L = apply_change(doc, L, c, out, s, Lc, Pc, red);
+  store_row(a, 0, out, Lc);
+  if (threadIdx.x == 0) a.out[1][blockIdx.x] = new_L;
+}
+
+// A2: rebase_change(c, o, L, C_AFTER). Region: c, o and the output change,
+// dex/bcum/cbcum [Lc + 1], tpos [Lc], kpos/kb/klive/kcum [Pc]. In: c's and
+// o's seven lanes, L; out: the change.
+template <bool C_AFTER>
+__global__ void __launch_bounds__(MAX_THREADS)
+    alg_rebase_kernel(const AlgArgs a) {
+  __shared__ unsigned red[RED_WORDS];
+  const int Lc = a.Lc, Pc = a.Pc, E = 4 * Lc + 1 + 3 * Pc;
+  int *p = alg_region(a);
+  const Ch c = change_at(p, Lc, Pc), o = change_at(p + E, Lc, Pc),
+           out = change_at(p + 2 * E, Lc, Pc);
+  p += 3 * E;
+  Scratch s;
+  s.dex = p;
+  p += Lc + 1;
+  s.bcum = p;
+  p += Lc + 1;
+  s.cbcum = p;
+  p += Lc + 1;
+  s.tpos = p;
+  p += Lc;
+  s.kpos = p;
+  p += Pc;
+  s.kb = p;
+  p += Pc;
+  s.klive = p;
+  p += Pc;
+  s.kcum = p;
+  load_change(c, a, 0, Lc, Pc);
+  load_change(o, a, 7, Lc, Pc);
+  const int L = load_int(a, 14);
+  __syncthreads();
+  rebase<C_AFTER>(c, o, L, out, E, s, Lc, Pc, red);
+  store_change(a, out, Lc, Pc);
+}
+
+// A3: invert_change. Region: the change and the output change, the
+// document [Lc], dex/bcum/dc [Lc + 1]. In: doc, L, the change's seven
+// lanes; out: the change.
+__global__ void __launch_bounds__(MAX_THREADS)
+    alg_invert_kernel(const AlgArgs a) {
+  __shared__ unsigned red[RED_WORDS];
+  const int Lc = a.Lc, Pc = a.Pc, E = 4 * Lc + 1 + 3 * Pc;
+  int *p = alg_region(a);
+  const Ch c = change_at(p, Lc, Pc), out = change_at(p + E, Lc, Pc);
+  p += 2 * E;
+  int *const doc = p;
+  p += Lc;
+  int *const dex = p, *const bcum = p + Lc + 1, *const dc = p + 2 * (Lc + 1);
+  load_row(doc, a, 0, Lc);
+  load_change(c, a, 2, Lc, Pc);
+  const int L = load_int(a, 1);
+  __syncthreads();
+  invert(doc, L, c, out, E, dex, bcum, dc, Lc, Pc, red);
+  store_change(a, out, Lc, Pc);
+}
+
+// A4: compose_change. Region: a, b and the output change, then
+// ComposeScratch in its order (hist, cursor and bucket on the global tier
+// only). In: a's and b's seven lanes, L; out: the change, the overflow.
+__global__ void __launch_bounds__(MAX_THREADS)
+    alg_compose_kernel(const AlgArgs a) {
+  __shared__ unsigned red[RED_WORDS];
+  __shared__ int sc[3];
+  const int Lc = a.Lc, Pc = a.Pc, E = 4 * Lc + 1 + 3 * Pc;
+  const int NC = Lc + 2 * Pc;
+  int *p = alg_region(a);
+  const Ch ca = change_at(p, Lc, Pc), cb = change_at(p + E, Lc, Pc),
+           out = change_at(p + 2 * E, Lc, Pc);
+  p += 3 * E;
+  ComposeScratch s{};
+  int **const rows[15] = {&s.adex, &s.abcum, &s.bdex, &s.bbcum, &s.icnt,
+                          &s.apos, &s.bpos,  &s.slot, &s.p1,    &s.o2q,
+                          &s.q2,   &s.bkeep, &s.inpl, &s.cidx,  &s.cq2};
+  for (int r = 0; r < 15; ++r) {
+    *rows[r] = p;
+    p += r < 5 ? Lc + 1 : (r < 8 ? Pc : Lc);
+  }
+  s.key = p;
+  p += NC;
+  if (a.global) {
+    s.hist = p;
+    s.cursor = p + NC + 2;
+    s.bucket = p + 2 * (NC + 2);
+  }
+  load_change(ca, a, 0, Lc, Pc);
+  load_change(cb, a, 7, Lc, Pc);
+  const int L = load_int(a, 14);
+  __syncthreads();
+  const int ovf = compose(ca, cb, L, out, E, s, Lc, Pc, a.global, red, sc);
+  store_change(a, out, Lc, Pc);
+  if (threadIdx.x == 0) a.out[7][blockIdx.x] = ovf;
+}
+
 // -- host side --------------------------------------------------------------
 
 long long trunk_entry_ints(int Lc, int Pc) { return 4LL * Lc + 1 + 3LL * Pc; }
@@ -1596,6 +2102,85 @@ int launch_tier(void (*cta)(Args), void (*warp)(Args), const Args &a,
   return launch_tree(cta, a, a.N, threads_for(a.Lc), smem, st);
 }
 
+// A1-A4's region on a tier: ints a document takes (the layouts above
+// alg_*_kernel); compose's counting sort only on the global tier.
+long long alg_ints(int op, int Lc, int Pc, int global) {
+  const long long E = trunk_entry_ints(Lc, Pc), l1 = Lc + 1LL;
+  const long long nc = Lc + 2LL * Pc;
+  switch (op) {
+    case A_APPLY:
+      return E + 2LL * Lc + 2 * l1;
+    case A_REBASE:
+      return 3 * E + 3 * l1 + Lc + 4LL * Pc;
+    case A_INVERT:
+      return 2 * E + Lc + 3 * l1;
+    case A_COMPOSE:
+      return 3 * E + 5 * l1 + 3LL * Pc + 7LL * Lc + nc +
+             (global ? 2 * (nc + 2) + nc : 0);
+  }
+  return -1;
+}
+
+// A1-A4's placement on a tier: the region in dynamic shared memory while it
+// fits SMEM_BYTES (shared), or in the workspace (global); false where the
+// tier cannot take it.
+bool place_alg(int op, int Lc, int Pc, int tier, long long *work_ints,
+               long long *smem) {
+  if (op < A_APPLY || op > A_COMPOSE) return false;
+  if (tier == T_SHARED) {
+    *work_ints = 0;
+    *smem = 4 * alg_ints(op, Lc, Pc, 0);
+    return *smem <= SMEM_BYTES;
+  }
+  if (tier != T_GLOBAL) return false;
+  *work_ints = alg_ints(op, Lc, Pc, 1);
+  *smem = 0;
+  return true;
+}
+
+// One launch of A1-A4: N CTAs of threads_for(Lc) threads. Inputs: 9 lanes
+// (apply, invert: doc, L, a change) or 15 (rebase, compose: two changes,
+// L); outputs 2 (apply: doc, L), 7 (a change) or 8 (compose: and the
+// overflow flag).
+int launch_alg(int op, int c_after, const int *const *in,
+               const long long *stride, int *const *out, int *work,
+               int n_docs, int Lc, int Pc, int tier, cudaStream_t st) {
+  if (n_docs < 1 || Lc < 1 || Lc > MAX_LC || Pc < 1 || Pc > MAX_PC)
+    return (int)cudaErrorInvalidValue;
+  long long work_ints, smem;
+  if (!place_alg(op, Lc, Pc, tier, &work_ints, &smem) ||
+      (work_ints > 0 && work == nullptr))
+    return (int)cudaErrorInvalidValue;
+  AlgArgs a{};
+  const int n_in = op == A_APPLY || op == A_INVERT ? 9 : 15;
+  const int n_out = op == A_APPLY ? 2 : (op == A_COMPOSE ? 8 : 7);
+  for (int q = 0; q < n_in; ++q) {
+    a.in[q] = in[q];
+    a.st[q] = stride[q];
+  }
+  for (int q = 0; q < n_out; ++q) a.out[q] = out[q];
+  a.work = work;
+  a.work_ints = work_ints;
+  a.N = n_docs;
+  a.Lc = Lc;
+  a.Pc = Pc;
+  a.global = tier == T_GLOBAL;
+  const int thr = threads_for(Lc);
+  switch (op) {
+    case A_APPLY:
+      return launch_tree(alg_apply_kernel, a, n_docs, thr, smem, st);
+    case A_REBASE:
+      return c_after
+                 ? launch_tree(alg_rebase_kernel<true>, a, n_docs, thr, smem,
+                               st)
+                 : launch_tree(alg_rebase_kernel<false>, a, n_docs, thr,
+                               smem, st);
+    case A_INVERT:
+      return launch_tree(alg_invert_kernel, a, n_docs, thr, smem, st);
+  }
+  return launch_tree(alg_compose_kernel, a, n_docs, thr, smem, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1683,6 +2268,53 @@ long long tree_em_docs(int Lc, int Pc, int W, int R, int U, int tier) {
   Place pl;
   long long smem;
   return place_em(Lc, Pc, W, R, U, tier, &pl, &smem) ? pl.docs : -1;
+}
+
+// A1-A4, the changeset algebra (ops/tree_algebra_kernel.py): `in` and
+// `stride` hold each input lane's pointer and row stride in ints (L's
+// element stride), `out` the output lanes' pointers (C-contiguous). `tier`:
+// 0 shared, 1 global (a device buffer of n_docs *
+// tree_algebra_work_ints(...) int32 at `work`). Inputs are not modified.
+
+int tree_apply(const int *const *in, const long long *stride,
+               int *const *out, int *work, int n_docs, int Lc, int Pc,
+               int tier, void *stream) {
+  return launch_alg(A_APPLY, 0, in, stride, out, work, n_docs, Lc, Pc, tier,
+                    (cudaStream_t)stream);
+}
+
+int tree_rebase(const int *const *in, const long long *stride,
+                int *const *out, int *work, int n_docs, int Lc, int Pc,
+                int c_after, int tier, void *stream) {
+  return launch_alg(A_REBASE, c_after, in, stride, out, work, n_docs, Lc, Pc,
+                    tier, (cudaStream_t)stream);
+}
+
+int tree_invert(const int *const *in, const long long *stride,
+                int *const *out, int *work, int n_docs, int Lc, int Pc,
+                int tier, void *stream) {
+  return launch_alg(A_INVERT, 0, in, stride, out, work, n_docs, Lc, Pc, tier,
+                    (cudaStream_t)stream);
+}
+
+int tree_compose(const int *const *in, const long long *stride,
+                 int *const *out, int *work, int n_docs, int Lc, int Pc,
+                 int tier, void *stream) {
+  return launch_alg(A_COMPOSE, 0, in, stride, out, work, n_docs, Lc, Pc,
+                    tier, (cudaStream_t)stream);
+}
+
+// Per-document workspace ints and dynamic shared memory bytes a CTA of
+// entry `op` (0 apply, 1 rebase, 2 invert, 3 compose) on a tier code (-1
+// where the tier cannot take the shape).
+long long tree_algebra_work_ints(int op, int Lc, int Pc, int tier) {
+  long long w, smem;
+  return place_alg(op, Lc, Pc, tier, &w, &smem) ? w : -1;
+}
+
+long long tree_algebra_smem_bytes(int op, int Lc, int Pc, int tier) {
+  long long w, smem;
+  return place_alg(op, Lc, Pc, tier, &w, &smem) ? smem : -1;
 }
 
 long long tree_smem_budget(void) { return SMEM_BYTES; }

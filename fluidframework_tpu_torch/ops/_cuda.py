@@ -5,7 +5,8 @@ plain C interface, at first use, into the package's ``_build/`` directory
 (listed in ``.gitignore``): ``csrc/merge_kernels.cu`` (K1-K3, the merge
 path, and X1/X2 and the two in one launch, the sharded document's per-op
 exchange) and
-``csrc/tree_kernels.cu`` (T1/T2, the SharedTree rebase scans).
+``csrc/tree_kernels.cu`` (T1/T2, the SharedTree rebase scans, and A1-A4,
+the changeset algebra).
 Each library is named by its own source's content hash, so an edited
 source never loads a stale build. It is loaded with ``ctypes``: pointers
 are ``c_void_p``, the stream is PyTorch's current CUDA stream, and every
@@ -59,6 +60,10 @@ ENTRIES = {
     "shard_exchange": "merge",
     "tree_trunk_scan": "tree",
     "tree_em_ring_scan": "tree",
+    "tree_apply": "tree",
+    "tree_rebase": "tree",
+    "tree_invert": "tree",
+    "tree_compose": "tree",
 }
 LIBRARIES = ("merge", "tree")
 # The merge library's entries without tiers.
@@ -148,7 +153,8 @@ def bind(cdll: ctypes.CDLL, sigs) -> None:
 def lib(name: str = "merge") -> ctypes.CDLL:
     """The loaded kernel library ``name`` (built on first call). The merge
     library's entries are bound and its tier limits checked here; the tree
-    library's are bound by its wrapper module (``tree_scan_kernel.lib``)."""
+    library's are bound by its wrapper modules (``tree_scan_kernel.lib``,
+    ``tree_algebra_kernel.lib``)."""
     if name in _libs:
         return _libs[name]
     cdll = ctypes.CDLL(build(name))
@@ -197,7 +203,7 @@ def tier(s: int, entry: str) -> str:
         )
     if ENTRIES[entry] != "merge":
         raise ValueError(f"{entry} runs on the tiers of its widths: "
-                         "tree_scan_kernel.tier")
+                         "tree_scan_kernel.tier or tree_algebra_kernel.tier")
     if entry in UNTIERED:
         raise ValueError(f"{entry} runs on no tier: shard_exchange_kernel")
     if s <= SMEM_MAX_CAPACITY:

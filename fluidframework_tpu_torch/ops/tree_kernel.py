@@ -297,15 +297,12 @@ def invert_change(doc_ids, L, c: DenseChange) -> DenseChange:
                        inv_pmid, inv_poff)
 
 
-def compose_change(a: DenseChange, b: DenseChange,
-                   L) -> Tuple[DenseChange, torch.Tensor]:
-    """Changesets equivalent to applying ``a`` then ``b``; returns
-    ``(change, overflow)`` with ``overflow[n] = 1`` where the live attach
-    pool exceeded ``Pc`` and the result truncated. Every unit's fate is
-    resolved through both move-effect tables; units that survive out of
-    place become composed moves with fresh singleton tags (pool index + 1);
-    one stable sort over output positions builds the attach pool, each
-    atom anchored after the last in-place unit preceding it."""
+def _compose_candidates(a: DenseChange, b: DenseChange, L):
+    """Phase 1 of :func:`compose_change`: ``(cand_pos, cand_val, cand_unit,
+    inplace, q2, del_out)``, the keys, values and units of the Lc + 2 Pc
+    attach candidates (live below ``Lc + 2 Pc + 2``), which units stay in
+    place, every unit's position in b's output and the composed delete
+    lane."""
     Lc = a.del_mask.shape[-1]
     Pc = a.ins_ids.shape[-1]
     N = a.del_mask.shape[0]
@@ -345,7 +342,6 @@ def compose_change(a: DenseChange, b: DenseChange,
         -1)
     b_is_ins = b_kvalid & (b.pool_mid == 0)
 
-    # Phase 2: one stable sort over O2 positions merges the atom sources.
     BIG = Lc + 2 * Pc + 2
     cand_pos = torch.cat([
         torch.where(moved, q2, BIG),
@@ -357,6 +353,34 @@ def compose_change(a: DenseChange, b: DenseChange,
     cand_unit = torch.cat([idx.expand(N, Lc),
                            torch.full((N, 2 * Pc), -1, dtype=I32,
                                       device=dev)], 1)
+    return cand_pos, cand_val, cand_unit, inplace, q2, del_out
+
+
+def compose_keys(a: DenseChange, b: DenseChange, L) -> torch.Tensor:
+    """The ``[N, Lc + 2 Pc]`` candidate keys :func:`compose_change` sorts
+    (live below ``Lc + 2 Pc + 2``): a hold counts its ties from them."""
+    return _compose_candidates(a, b, L)[0]
+
+
+def compose_change(a: DenseChange, b: DenseChange,
+                   L) -> Tuple[DenseChange, torch.Tensor]:
+    """Changesets equivalent to applying ``a`` then ``b``; returns
+    ``(change, overflow)`` with ``overflow[n] = 1`` where the live attach
+    pool exceeded ``Pc`` and the result truncated. Every unit's fate is
+    resolved through both move-effect tables; units that survive out of
+    place become composed moves with fresh singleton tags (pool index + 1);
+    one stable sort over output positions builds the attach pool, each
+    atom anchored after the last in-place unit preceding it."""
+    Lc = a.del_mask.shape[-1]
+    Pc = a.ins_ids.shape[-1]
+    N = a.del_mask.shape[0]
+    dev = a.del_mask.device
+    idx = _arange(Lc, dev)
+    cand_pos, cand_val, cand_unit, inplace, q2, del_out = \
+        _compose_candidates(a, b, L)
+
+    # Phase 2: one stable sort over O2 positions merges the atom sources.
+    BIG = Lc + 2 * Pc + 2
     order = torch.argsort(cand_pos, dim=1, stable=True)[:, :Pc]
     pool_pos = torch.gather(cand_pos, 1, order)
     n_live = (cand_pos < BIG).sum(1, dtype=I32)
@@ -469,27 +493,51 @@ def _change_on(c, dev) -> DenseChange:
     return DenseChange(*[to_device(x, dev) for x in c])
 
 
+def _kernels():
+    """The hand kernels' wrappers (``ops/tree_algebra_kernel.py``, which
+    imports this module)."""
+    from fluidframework_tpu_torch.ops import tree_algebra_kernel
+
+    return tree_algebra_kernel
+
+
 def batched_apply(doc_ids, L, c, device="cuda"):
     """[N] documents each through its own changeset; runs on ``device``
-    (the card unless asked for the CPU)."""
+    (the card unless asked for the CPU): one launch of A1 on the card, the
+    plain :func:`apply_change` on the CPU."""
     dev = resolve_device(device)
-    return apply_change(to_device(doc_ids, dev), to_device(L, dev),
-                        _change_on(c, dev))
+    args = (to_device(doc_ids, dev), to_device(L, dev), _change_on(c, dev))
+    if dev.type == "cpu":
+        return apply_change(*args)
+    return _kernels().apply_cuda(*args)
 
 
 def batched_rebase(c, over, L, c_after: bool = False, device="cuda"):
+    """Each changeset of ``c`` rebased over its counterpart in ``over``:
+    one launch of A2 on the card, :func:`rebase_change` on the CPU."""
     dev = resolve_device(device)
-    return rebase_change(_change_on(c, dev), _change_on(over, dev),
-                         to_device(L, dev), bool(c_after))
+    args = (_change_on(c, dev), _change_on(over, dev), to_device(L, dev),
+            bool(c_after))
+    if dev.type == "cpu":
+        return rebase_change(*args)
+    return _kernels().rebase_cuda(*args)
 
 
 def batched_invert(doc_ids, L, c, device="cuda"):
+    """Each changeset's inverse: one launch of A3 on the card,
+    :func:`invert_change` on the CPU."""
     dev = resolve_device(device)
-    return invert_change(to_device(doc_ids, dev), to_device(L, dev),
-                         _change_on(c, dev))
+    args = (to_device(doc_ids, dev), to_device(L, dev), _change_on(c, dev))
+    if dev.type == "cpu":
+        return invert_change(*args)
+    return _kernels().invert_cuda(*args)
 
 
 def batched_compose(a, b, L, device="cuda"):
+    """Each pair composed, ``(change, overflow [N])``: one launch of A4 on
+    the card, :func:`compose_change` on the CPU."""
     dev = resolve_device(device)
-    return compose_change(_change_on(a, dev), _change_on(b, dev),
-                          to_device(L, dev))
+    args = (_change_on(a, dev), _change_on(b, dev), to_device(L, dev))
+    if dev.type == "cpu":
+        return compose_change(*args)
+    return _kernels().compose_cuda(*args)

@@ -17,6 +17,8 @@ import pytest
 import torch
 
 from chip_smoke import (
+    ALGEBRA_HOLDS,
+    ALGEBRA_KERNELS,
     KERNELS,
     T1_HOLDS,
     T2_HOLD_COMMITS,
@@ -44,7 +46,10 @@ from chip_smoke import (
     replay_and_compare,
     replay_pipeline,
     replay_serving,
+    algebra_args,
+    algebra_case,
     em_case,
+    hold_algebra,
     hold_tree,
     tree_3b,
     trunk_case,
@@ -56,6 +61,7 @@ from fluidframework_tpu_torch.service.device_backend import (
     DeviceFleetBackend,
 )
 from fluidframework_tpu_torch.service.pipeline import PipelineFluidService
+from fluidframework_tpu_torch.ops import tree_algebra_kernel as TAK
 from fluidframework_tpu_torch.ops import tree_kernel as TK
 from fluidframework_tpu_torch.ops import tree_scan_kernel as TSK
 from fluidframework_tpu_torch.tree import device_em as DEM
@@ -373,7 +379,8 @@ def test_server_on_the_card_matches_the_plain_replay():
 def test_tree_3b_scan_on_the_card_equals_the_cpu():
     """A small 7a: the positional trunk scan under sync-debug "error",
     every distinct script equal to the host trunk, the card equal to the
-    CPU bit for bit, the dense algebra's entry points timed. A scan is one
+    CPU bit for bit, the dense algebra's entry points one launch of A1-A4
+    each, held and timed. A scan is one
     launch of T1 and nothing else on the card (the profiler's device
     activities of one scan)."""
     _need_card()
@@ -387,6 +394,13 @@ def test_tree_3b_scan_on_the_card_equals_the_cpu():
     assert {f["name"] for f in res["functions"]} == {
         "batched_apply", "batched_rebase", "batched_invert",
         "batched_compose"}
+    # One launch of A1-A4 a call (the kernels' own counters), each held
+    # against its plain version.
+    assert [f["kernel"] for f in res["functions"]] == [
+        "A1_tree_apply", "A2_tree_rebase", "A2_tree_rebase",
+        "A3_tree_invert", "A4_tree_compose"]
+    assert all(f["launches"] == 1 for f in res["functions"])
+    assert all(f["hold"]["max_abs_err"] == 0 for f in res["functions"])
 
 
 @pytest.mark.cuda
@@ -559,17 +573,62 @@ def test_tree_algebra_on_the_card_equals_the_cpu():
     ids = rng.integers(1, 1 << 20, (n, lc)).astype(np.int32)
     L = rng.integers(0, lc + 1, n).astype(np.int32)
     a, b = lanes(), lanes()
-    for fn, args in ((TK.batched_apply, (ids, L, a)),
-                     (TK.batched_rebase, (a, b, L, False)),
-                     (TK.batched_rebase, (a, b, L, True)),
-                     (TK.batched_invert, (ids, L, a)),
-                     (TK.batched_compose, (a, b, L))):
+    for fn, args, w in ((TK.batched_apply, (ids, L, a), TAK.apply_cuda),
+                        (TK.batched_rebase, (a, b, L, False),
+                         TAK.rebase_cuda),
+                        (TK.batched_rebase, (a, b, L, True),
+                         TAK.rebase_cuda),
+                        (TK.batched_invert, (ids, L, a), TAK.invert_cuda),
+                        (TK.batched_compose, (a, b, L), TAK.compose_cuda)):
+        TAK.reset_counts()
         got = fn(*args, device="cuda")
+        assert w.launches == w.launches_shared == 1
+        assert sum(x.launches for x in TAK.WRAPPERS) == 1
         want = fn(*args, device="cpu")
         flat = (lambda r: list(r[0]) + [r[1]] if fn is TK.batched_compose
                 else list(r))
         for x, y in zip(flat(got), flat(want)):
             assert torch.equal(x.cpu(), y), fn.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hold", ALGEBRA_HOLDS, ids=lambda h: h[0])
+def test_tree_algebra_kernels_match_plain_on_the_card(hold):
+    """A1-A4 at the smoke's algebra holds (3b's and 3c's widths on
+    gen_streams commits and on raw lanes, a width past every shared tier):
+    each kernel, rebase in both tie forms, on every tier that takes the
+    shape, writing into sentinel-filled outputs, equals its plain version
+    on the card in every lane; each batched entry point is one launch of
+    its kernel on the tier ``tier()`` names, without a host sync, equal to
+    the plain version."""
+    _need_card()
+    dev = torch.device("cuda", 0)
+    label, n, lc, pc, lanes = hold
+    docs, L, a, b = algebra_case(dev, n, lc, pc, lanes)
+    for name, spec in ALGEBRA_KERNELS.items():
+        for c_after in ((False, True) if name == "A2_tree_rebase"
+                        else (False,)):
+            args = algebra_args(name, docs, L, a, b, c_after)
+            row = hold_algebra(dev, name, args, reps=1)
+            assert row["max_abs_err"] == 0
+            assert set(row["tiers"]) == {
+                t for t in TAK.TIER_CODES
+                if TAK.placement(spec["entry"], lc, pc, t) is not None}
+            TAK.reset_counts()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = spec["fn"](*args, device=dev)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            t = TAK.tier(spec["entry"], lc, pc)
+            w = spec["wrapper"]
+            assert w.launches == getattr(w, f"launches_{t}") == 1
+            assert sum(x.launches for x in TAK.WRAPPERS) == 1
+            want = spec["plain"](*args)
+            flat = (lambda r: [*r[0], r[1]] if name == "A4_tree_compose"
+                    else list(r))
+            assert all(torch.equal(x, y)
+                       for x, y in zip(flat(got), flat(want))), name
 
 
 @pytest.mark.cuda

@@ -466,3 +466,31 @@ def test_importing_the_port_builds_nothing():
     import fluidframework_tpu_torch.tree.edit_manager  # noqa: F401
 
     assert "tree" not in _cuda._libs
+
+
+def test_profile_stamps_land_in_the_kernel_source():
+    """``tools/tree_scan_profile.py`` stamps ``csrc/tree_kernels.cu`` by
+    text anchors (a stale one raises only when the tool runs on a card):
+    both instrumented sources build their text here, every stamp lands
+    once per anchor, and the CTA kernels' barriers are all stamped."""
+    from tools import tree_scan_profile as P
+
+    def cta_part(src):
+        return src[src.index("__device__ unsigned block_scan"):
+                   src.index("// -- the warp tier")]
+
+    with open(_cuda.TREE_SOURCE) as f:
+        barriers = cta_part(f.read()).count("__syncthreads();")
+    cta = P.instrumented_source()
+    assert cta_part(cta).count("PSYNC();") == barriers > 20
+    for stamp, n in (("MV_BEGIN\n", 3), ("MV_END\n", 3), ("p_load +=", 2),
+                     ("p_mid +=", 2), ("p_tail +=", 2), ("++p_n;", 2),
+                     ("tree_prof[(size_t)blockIdx.x", 2),
+                     ("if (smem > 0) {", 1), ("tree_prof_set", 1)):
+        assert cta.count(stamp) == n, stamp
+    warp = P.instrumented_warp_source()
+    for _anchor, j in P._WARP_STAMPS:
+        assert f"WSTAMP({j});" in warp
+    assert warp.count("  WSTAMP(") == len(P._WARP_STAMPS)
+    assert warp.count("wlast[wid] = clock64();") == 2
+    assert warp.count("tree_prof[(size_t)n * 16 + q]") == 2

@@ -107,8 +107,8 @@ def instrumented_source() -> str:
                "      tp = (int)acc;\n      MV_END\n    }\n    s.tpos[i] = tp;")
     src = _sub(src, "    if (pm > 0) {\n      const int po = c.poff[k];\n",
                "    if (pm > 0) {\n      MV_BEGIN\n      const int po = c.poff[k];\n")
-    src = _sub(src, "o.del[i] > 0;\n    }\n",
-               "o.del[i] > 0;\n      MV_END\n    }\n")
+    src = _sub(src, "o.del[i] > 0);\n    }\n",
+               "o.del[i] > 0);\n      MV_END\n    }\n")
     src = _sub(src, "          const int po = c.poff[k];\n          unsigned acc",
                "          MV_BEGIN\n          const int po = c.poff[k];\n"
                "          unsigned acc")
