@@ -97,10 +97,12 @@ log and lease coordination (``g++``), all at once, then:
    warp tier with its ring in the slice and in the workspace, the shared
    and global tiers) and timed there on the same inputs, under
    ``torch.cuda.set_sync_debug_mode("error")``, and A1-A4 (the dense
-   changeset algebra's kernels) held against their plain versions on both
-   tiers at 3b's and 3c's widths on commits and raw lanes (rebase in both
-   tie forms; compose's ties and overflowing pools) and at Lc 8,192 on the
-   global tier; 7a config 3b,
+   changeset algebra's kernels) held against their plain versions on
+   every tier (A2 and A4 also the warp tier) at 3b's and 3c's widths on
+   commits and raw lanes (rebase in both tie forms; compose's ties and
+   overflowing pools) and at Lc 8,192 on the global tier, then A2 and A4
+   timed on every tier at 1 to 1,024 documents of both widths, the
+   source of their warp tier's document-count rule; 7a config 3b,
    ``batched_trunk_scan`` over 1,024 docs (Lc 128, Pc 32, W 16) staged
    on the card once, a warm-up and 3 timed scans, every distinct script
    held to the host trunk, the whole batch to T1's plain version on the
@@ -842,7 +844,7 @@ def reset_tree_counts() -> None:
 
 def read_tree_counts() -> dict:
     """Each tree kernel's launches since the last reset (T1, T2 and
-    A1-A4): in all and by tier (A1-A4 run no warp tier)."""
+    A1-A4): in all and by tier (A1 and A3 run no warp tier)."""
     return {name: {"all": spec["wrapper"].launches,
                    **{t: getattr(spec["wrapper"], f"launches_{t}", 0)
                       for t in TSK.TIER_CODES}}
@@ -2981,7 +2983,7 @@ def hold_algebra(dev, name, args, reps=5) -> dict:
     c = next(x for x in args if isinstance(x, TK.DenseChange))
     N, Lc = c.del_mask.shape
     Pc = c.ins_ids.shape[1]
-    picked = TAK.tier(entry, Lc, Pc)
+    picked = TAK.tier(entry, Lc, Pc, N)
     tiers = [picked] + [t for t in TAK.TIER_CODES if t != picked
                         and TAK.placement(entry, Lc, Pc, t) is not None]
     rows = {}
@@ -3118,12 +3120,20 @@ def algebra_case(dev, n, lc, pc, lanes, seed=0) -> tuple:
     return docs, L, raw(), raw()
 
 
+def algebra_tiers(name) -> set:
+    """The tiers algebra kernel ``name`` has: every one for A2 and A4, the
+    CTA tiers for A1 and A3."""
+    entry = ALGEBRA_KERNELS[name]["entry"]
+    return {t for t in TAK.TIER_CODES
+            if t != "warp" or entry in TAK.WARP_ENTRIES}
+
+
 def algebra_holds(dev) -> list:
     """A1-A4 against their plain versions at :data:`ALGEBRA_HOLDS`, rebase
     in both tie forms, each on every tier that takes the shape
     (:func:`hold_algebra`); compose's raw holds must hold ties and
-    overflowing pools, and the holds together must reach both tiers of
-    every kernel."""
+    overflowing pools, and the holds together must reach every tier of
+    every kernel (:func:`algebra_tiers`)."""
     rows = []
     for label, n, lc, pc, lanes in ALGEBRA_HOLDS:
         docs, L, a, b = algebra_case(dev, n, lc, pc, lanes)
@@ -3149,8 +3159,76 @@ def algebra_holds(dev) -> list:
         del docs, L, a, b
     for name in ALGEBRA_KERNELS:
         if {t for r in rows if r["kernel"] == name
-                for t in r["tiers"]} != set(TAK.TIER_CODES):
+                for t in r["tiers"]} != algebra_tiers(name):
             raise AssertionError(f"{name}'s holds miss a tier")
+    return rows
+
+
+# 7h's document-count sweep of A2 and A4 across their tiers, the source of
+# tree_algebra_kernel.WARP_MIN_DOCS: 7a's widths (config 3b's Lc 128, Pc
+# 32) and 7b's (3c's Lc 512, Pc 8), the first n documents of one batch of
+# gen_streams commits (5% moves). At ALGEBRA_SWEEP_HELD's counts each call
+# is also held against its plain version (algebra_holds holds 1,024): one
+# document, a lone warp in its CTA, and 528, which leaves a warp-tier CTA
+# partly filled at Lc 512 (7 documents a CTA for rebase, 5 for compose).
+ALGEBRA_SWEEP_WIDTHS = ((TREE_LC, TREE_PC), (512, 8))
+ALGEBRA_SWEEP_DOCS = (1, 8, 64, 256, 528, 1024)
+ALGEBRA_SWEEP_HELD = (1, 528)
+
+
+def algebra_ms(dev, name, args) -> dict:
+    """Algebra kernel ``name``'s device ms a call at ``args`` on every tier
+    that takes the shape (50 calls queued behind a spin,
+    :func:`_queued_ms`); launches made here count nowhere."""
+    spec = ALGEBRA_KERNELS[name]
+    w, entry = spec["wrapper"], spec["entry"]
+    c = next(x for x in args if isinstance(x, TK.DenseChange))
+    Lc, Pc = c.del_mask.shape[1], c.ins_ids.shape[1]
+    with _Uncounted():
+        return {t: _queued_ms(dev, lambda t=t: w(*args, t=t))
+                for t in TAK.TIER_CODES
+                if TAK.placement(entry, Lc, Pc, t) is not None}
+
+
+def algebra_sweep(dev) -> list:
+    """A2 (both tie forms) and A4 at :data:`ALGEBRA_SWEEP_WIDTHS` x
+    :data:`ALGEBRA_SWEEP_DOCS`, each timed on every tier on the same inputs
+    (:func:`algebra_ms`; at :data:`ALGEBRA_SWEEP_HELD` also held,
+    :func:`hold_algebra`); a row per call with each tier's device ms, the
+    fastest and ``tier()``'s pick."""
+    rows = []
+    for lc, pc in ALGEBRA_SWEEP_WIDTHS:
+        docs, L, a, b = algebra_case(dev, max(ALGEBRA_SWEEP_DOCS), lc, pc,
+                                     "commits")
+        for n in ALGEBRA_SWEEP_DOCS:
+            cut = (docs[:n], L[:n], TK.DenseChange(*[x[:n] for x in a]),
+                   TK.DenseChange(*[x[:n] for x in b]))
+            for name in ("A2_tree_rebase", "A4_tree_compose"):
+                for c_after in _calls(name):
+                    args = algebra_args(name, *cut, c_after)
+                    err = None
+                    if n in ALGEBRA_SWEEP_HELD:
+                        r = hold_algebra(dev, name, args)
+                        ms = {t: v["ms"] for t, v in r["tiers"].items()}
+                        err = r["max_abs_err"]
+                    else:
+                        ms = algebra_ms(dev, name, args)
+                    row = dict(kernel=name,
+                               c_after=c_after if name == "A2_tree_rebase"
+                               else None, docs=n, Lc=lc, Pc=pc, tiers_ms=ms,
+                               tier=TAK.tier(ALGEBRA_KERNELS[name]["entry"],
+                                             lc, pc, n),
+                               fastest=min(ms, key=ms.get),
+                               max_abs_err=err)
+                    rows.append(row)
+                    print(f"algebra sweep {name}"
+                          f"{' c_after' if c_after else ''} N {n} Lc {lc} "
+                          f"Pc {pc}: " + ", ".join(
+                              f"{t} {v:.4f}" for t, v in ms.items())
+                          + f" ms (fastest {row['fastest']}, tier() "
+                          f"{row['tier']}{', held' if err is not None else ''}"
+                          ")", flush=True)
+        del docs, L, a, b
     return rows
 
 
@@ -3881,6 +3959,7 @@ def phase_tree(device, report, b_docs=1024, b_commits=TREE_7A_COMMITS,
     if holds and device.type == "cuda":
         out["holds"] = tree_holds(device)
         out["algebra_holds"] = algebra_holds(device)
+        out["algebra_sweep"] = algebra_sweep(device)
         out["holds_s"] = time.perf_counter() - t
     for key, fn, kw in (
             ("7a", tree_3b, dict(n_docs=b_docs, n_commits=b_commits)),

@@ -90,6 +90,16 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+// Phase stamps of the algebra kernels A2 and A4: empty here;
+// tools/tree_scan_profile.py --algebra defines them in its copy of this file
+// (clock64() stamps by thread 0 of a CTA or lane 0 of a warp, each closing
+// phase j).
+#ifndef ALG_PHASE
+#define ALG_PHASE(j)
+#define ALG_PROF_BEGIN
+#define ALG_PROF_END(n, who)
+#endif
+
 namespace {
 
 // Dynamic shared memory a CTA may take: the H100's 227 KB opt-in (232,448
@@ -269,8 +279,10 @@ __device__ void rebase(const Ch c, const Ch o, const int L, const Ch out,
   }
   for (int j = t; j < E; j += T) out.del[j] = 0;  // the whole output change
   __syncthreads();
+  ALG_PHASE(1);
   int *const arrs[3] = {s.dex, s.bcum, s.cbcum};
   const unsigned bad = block_scan<3>(arrs, Lc + 1, red);
+  ALG_PHASE(2);
   const bool o_mono = !(bad & 2u), c_mono = !(bad & 4u);
   const int o_total = s.bcum[Lc], c_total = s.cbcum[Lc];
   for (int k = t; k < Pc; k += T) {
@@ -283,6 +295,7 @@ __device__ void rebase(const Ch c, const Ch o, const int L, const Ch out,
     s.kb[k] = wsub(wadd(wsub(cb, s.dex[cb]), s.bcum[cb]), oicnt);
   }
   __syncthreads();
+  ALG_PHASE(3);
   for (int i = t; i < Lc; i += T) {
     const bool ov = i < L;
     const int dm = max(o.del[i], (int)(o.mid[i] > 0)) * (int)ov;
@@ -300,6 +313,7 @@ __device__ void rebase(const Ch c, const Ch o, const int L, const Ch out,
     }
     s.tpos[i] = tp;
   }
+  ALG_PHASE(4);
   for (int k = t; k < Pc; k += T) {
     // A move-in atom of c dies when o deleted its source slot (C_AFTER:
     // or moved it).
@@ -316,12 +330,15 @@ __device__ void rebase(const Ch c, const Ch o, const int L, const Ch out,
     s.kcum[k] = live;
   }
   __syncthreads();
+  ALG_PHASE(5);
   int *const karr[1] = {s.kcum};
   block_scan<1>(karr, Pc, red);
+  ALG_PHASE(6);
   for (int i = t; i < Lc; i += T) {
     const int tp = s.tpos[i];
     if (i < L && tp >= 0 && tp < Lc) {
       if (c.del[i] > 0) atomicAdd(&out.del[tp], c.del[i]);
+      // C_AFTER: o's move wins, c's move-out of the unit is dropped.
       if (c.mid[i] > 0 && !(C_AFTER && o.mid[i] > 0)) {
         atomicAdd(&out.mid[tp], c.mid[i]);
         atomicAdd(&out.moff[tp], c.moff[i]);
@@ -339,6 +356,7 @@ __device__ void rebase(const Ch c, const Ch o, const int L, const Ch out,
     }
   }
   __syncthreads();
+  ALG_PHASE(7);
 }
 
 // apply_change(doc, L, c) into `out` (Lc ids); returns the new length.
@@ -820,11 +838,13 @@ __device__ unsigned warp_scan(int *const (&a)[K], int n) {
   return __reduce_or_sync(FULL, bad);
 }
 
-// rebase() for one warp: the same phases with __syncwarp between them. The
-// landing position of each of o's slots is scattered as soon as it is
-// known; a slot that o moved takes the sum of its move tag's live atoms,
-// every lane summing its own atoms. A move-in atom of c dies where o
-// deleted its source slot, every lane testing its own slots.
+// rebase() for one warp, in both tie forms: the same phases with __syncwarp
+// between them. The landing position of each of o's slots is scattered as
+// soon as it is known; a slot that o moved takes the sum of its move tag's
+// live atoms, every lane summing its own atoms. A move-in atom of c dies
+// where o deleted its source slot, every lane testing its own slots. T1's
+// warp kernel takes C_AFTER = false, A2's warp tier both.
+template <bool C_AFTER>
 __device__ void rebase_w(const Ch c, const Ch o, const int L, const Ch out,
                          const int E, const Scratch s, const int Lc,
                          const int Pc) {
@@ -839,18 +859,23 @@ __device__ void rebase_w(const Ch c, const Ch o, const int L, const Ch out,
   }
   for (int j = lane; j < E; j += 32) out.del[j] = 0;  // the whole output
   __syncwarp();
+  ALG_PHASE(1);
   int *const arrs[3] = {s.dex, s.bcum, s.cbcum};
   const unsigned bad = warp_scan<3>(arrs, Lc + 1);
+  ALG_PHASE(2);
   const bool o_mono = !(bad & 2u), c_mono = !(bad & 4u);
   const int o_total = s.bcum[Lc], c_total = s.cbcum[Lc];
   for (int k = lane; k < Pc; k += 32) {
     const int ob = count_leq(s.bcum, Lc + 1, k, o_mono);
     s.kpos[k] = wadd(wsub(ob, s.dex[clampi(ob, 0, Lc)]), k);
+    // b_map at the atom's boundary: b - Dex_b + (bcum - icnt) of o
+    // (C_AFTER: + bcum).
     const int cb = clampi(count_leq(s.cbcum, Lc + 1, k, c_mono), 0, Lc);
-    const int oicnt = o.ins[cb] * (int)(cb <= L);
+    const int oicnt = C_AFTER ? 0 : o.ins[cb] * (int)(cb <= L);
     s.kb[k] = wsub(wadd(wsub(cb, s.dex[cb]), s.bcum[cb]), oicnt);
   }
   __syncwarp();
+  ALG_PHASE(3);
   for (int i0 = 0; i0 < Lc; i0 += 32) {
     const int i = i0 + lane;
     const bool ov = i < Lc && i < L;
@@ -875,23 +900,28 @@ __device__ void rebase_w(const Ch c, const Ch o, const int L, const Ch out,
     }
     if (ov && tp >= 0 && tp < Lc) {
       if (c.del[i] > 0) atomicAdd(&out.del[tp], c.del[i]);
-      if (c.mid[i] > 0) {
+      // C_AFTER: o's move wins, c's move-out of the unit is dropped.
+      if (c.mid[i] > 0 && !(C_AFTER && o.mid[i] > 0)) {
         atomicAdd(&out.mid[tp], c.mid[i]);
         atomicAdd(&out.moff[tp], c.moff[i]);
       }
     }
   }
+  ALG_PHASE(4);
   for (int k0 = 0; k0 < Pc; k0 += 32) {
     const int k = k0 + lane;
     const int pm = k < Pc ? c.pmid[k] : 0;
     bool dead = false;
     for (unsigned pend = __ballot_sync(FULL, pm > 0); pend;
          pend &= pend - 1) {
+      // A move-in atom of c dies when o deleted its source slot (C_AFTER:
+      // or moved it).
       const int src = __ffs(pend) - 1;
       const int pms = c.pmid[k0 + src], pos = c.poff[k0 + src];
       bool hit = false;
       for (int i = lane; i < L && i < Lc; i += 32)
-        hit |= c.mid[i] == pms && c.moff[i] == pos && o.del[i] > 0;
+        hit |= c.mid[i] == pms && c.moff[i] == pos &&
+               ((C_AFTER && o.mid[i] > 0) || o.del[i] > 0);
       const bool any = __any_sync(FULL, hit);
       if (lane == src) dead = any;
     }
@@ -902,8 +932,10 @@ __device__ void rebase_w(const Ch c, const Ch o, const int L, const Ch out,
     }
   }
   __syncwarp();
+  ALG_PHASE(5);
   int *const karr[1] = {s.kcum};
   warp_scan<1>(karr, Pc);
+  ALG_PHASE(6);
   for (int k = lane; k < Pc; k += 32) {
     if (s.klive[k]) {
       const int b = s.kb[k];
@@ -915,6 +947,7 @@ __device__ void rebase_w(const Ch c, const Ch o, const int L, const Ch out,
     }
   }
   __syncwarp();
+  ALG_PHASE(7);
 }
 
 // apply_change() for one warp; a move-in atom's value is summed by every
@@ -1093,7 +1126,7 @@ __global__ void __launch_bounds__(32 * WARP_MAX_D)
         const int w = ring_slot(slot, j, W);
         const int sw = ring_seq[w];
         if (sw > ref && sw > 0) {
-          rebase_w(change_at(cur, Lc, Pc),
+          rebase_w<false>(change_at(cur, Lc, Pc),
                    change_at(ring + (size_t)w * E, Lc, Pc), ring_L[w],
                    change_at(nxt, Lc, Pc), E, s, Lc, Pc);
           int *const tmp = cur;
@@ -1130,7 +1163,7 @@ __global__ void __launch_bounds__(32 * WARP_MAX_D)
           const int c = cslot - 1 - (W - 1 - j);  // > -M - 1
           o = cache + (size_t)(c < 0 ? c + M : c) * E;
         }
-        rebase_w(change_at(cur, Lc, Pc), change_at(o, Lc, Pc),
+        rebase_w<false>(change_at(cur, Lc, Pc), change_at(o, Lc, Pc),
                  ring_L[ring_slot(slot, j, W)], change_at(nxt, Lc, Pc), E, s,
                  Lc, Pc);
         int *const tmp = cur;
@@ -1455,37 +1488,59 @@ __global__ void __launch_bounds__(32 * WARP_MAX_D)
 // fluidframework_tpu/ops/tree_kernel.py:587-592 (jit over vmap of
 // apply_change :238, rebase_change :258, invert_change :339 and
 // compose_change :382; XLA programs, not pl.pallas_call sites), each one
-// launch: one CTA a document loads its input lanes (rows of any stride)
-// into its region, runs the device function and writes every output lane.
-// apply and rebase are the device functions T1 runs (rebase with its tie
-// form as C_AFTER); invert and compose are below, over the same helpers
-// and with the transport semantics of this file's header.
+// launch: a group of threads a document (a CTA, or a warp on the warp tier)
+// loads its input lanes (rows of any stride) into its region, runs the
+// device function and writes every output lane. apply and rebase are the
+// device functions T1 runs (rebase with its tie form as C_AFTER, on the warp
+// tier rebase_w); invert and compose are below, over the same helpers and
+// with the transport semantics of this file's header.
 //
 // What bounds them. A document is O(Lc + Pc) int ops of prefix sums and
 // scatters, the move-effect tables' tag searches (O(Lc * Pc) compares at
 // most, only for move-bearing slots and atoms) and compose's rank (below);
 // the bytes are the lanes read and written once, 1-2 us at the main
-// shapes. A call is a wave of CTAs, each a chain of barrier-separated
-// phases: latency, as for T1.
+// shapes. A call is a wave of documents, each a chain of phases: latency,
+// as for T1. The design answers the chain's links:
+//   - the inputs: a document's 9 or 15 rows arrive as one group of 4-byte
+//     cp.async copies into shared memory, waited on once, so the rows'
+//     latencies overlap instead of queueing behind each other's stores (the
+//     global tier, whose region is device memory anyway, reads them where
+//     they lie, but A1 copies them into it: take_row). TMA does not fit:
+//     the rows are Lc + 1 and Pc ints at any row stride (a lane sliced out
+//     of a commit batch), so they are not 16-byte aligned;
+//   - the barriers: on the warp tier a document is one warp, up to
+//     WARP_MAX_D a CTA, each in its own slice of the dynamic shared memory,
+//     its phases closed by __syncwarp;
+//   - the tag searches: a move tag's sum over the pool atoms or slots is
+//     warp-cooperative (each lane its own atoms, __ballot_sync picks the
+//     slots to resolve, __reduce_add_sync / __any_sync combine, in the same
+//     wrap-around int32 sums), in compose on every tier, in rebase_w;
+//   - compose's rank, below.
 //
-// Tiers, as T1's CTA tiers: shared, the region in dynamic shared memory up
-// to SMEM_BYTES; global, the region in the document's slice of a workspace
-// the wrapper allocates. Generic pointers serve both with one body of code.
+// Tiers: warp (A2 and A4) as above; shared, one CTA a document, the region
+// in dynamic shared memory up to SMEM_BYTES; global, the region in the
+// document's slice of a workspace the wrapper allocates. Each CTA kernel is
+// instantiated once a tier, and compose's body serves all three through a
+// thread group (CtaGroup, WarpGroup).
 //
 // Compose's attach pool is one stable sort of Lc + 2 Pc candidate keys of
 // which the first Pc are kept: each live candidate (key < BIG = Lc + 2 Pc +
 // 2) takes its stable rank #{j : key_j < key_i} + #{j < i : key_j == key_i}
-// and, where that is below Pc, the pool slot of that rank. On the shared
-// tier the rank is a comparison count over every candidate ((Lc + 2 Pc)^2 /
-// T compares a thread: 288 at Lc 128, Pc 32, T 128). On the global tier it
-// is a counting sort over [0, BIG): a histogram and its block scan, each
-// candidate dropped into its key's bucket, and its rank among equal keys
-// the count of bucket members with a smaller index; a negative key (only
-// where a detach lane holds more than 1) takes the comparison count. An
-// atom's anchor, the gap after the last in-place unit before it, is a
-// binary search over the in-place units compacted in input order where
-// their output positions came out non-decreasing (every well-formed
-// change), a full max otherwise.
+// and, where that is below Pc, the pool slot of that rank. A negative key
+// (only where a detach lane holds more than 1) takes that comparison count
+// over every candidate. The others are counted: a histogram of the live
+// keys in [0, BIG) and its scan give the keys below each key. One warp
+// then walks the candidates in index order, 32 at a time: __match_any_sync
+// groups a chunk's equal keys, a candidate's rank is n_neg + (keys below
+// its key) + cursor[key] + its peers in lower lanes, and the group's lowest
+// lane advances cursor[key] by the group's size; (Lc + 2 Pc) / 32 steps and
+// no order-dependent atomics, where a comparison count takes (Lc + 2 Pc)^2
+// / T compares a thread (on the global tier cursor[] lives in the
+// workspace, each step a round trip to L2). An atom's anchor, the gap
+// after the last in-place unit before it, is a binary search over the
+// in-place units compacted in input order where their output positions
+// came out non-decreasing (every well-formed change), a max over them
+// otherwise.
 
 constexpr int A_APPLY = 0;
 constexpr int A_REBASE = 1;
@@ -1502,53 +1557,88 @@ struct AlgArgs {
   int *out[ALG_OUT];     // C-contiguous [N, width] lanes ([N]: L, overflow)
   int *work;
   long long work_ints;  // a document's slice of the workspace (global tier)
-  int N, Lc, Pc, global;
+  long long slice;      // a document's shared-memory ints (warp tier)
+  int N, Lc, Pc;
+  int docs;  // documents a CTA: 1 on the CTA tiers
 };
 
-// A document's region: the dynamic shared memory, or its workspace slice.
+// A CTA-tier document's region: the dynamic shared memory, or on the global
+// tier its slice of the workspace. Each CTA kernel is instantiated per tier
+// (GLOBAL), so the shared tier's accesses compile as shared-memory ones.
+template <bool GLOBAL>
 __device__ __forceinline__ int *alg_region(const AlgArgs &a) {
-  return a.global ? a.work + (size_t)blockIdx.x * a.work_ints : tree_smem;
+  return GLOBAL ? a.work + (size_t)blockIdx.x * a.work_ints : tree_smem;
 }
 
-// This document's row of input lane q (w ints) into dst.
-__device__ __forceinline__ void load_row(int *dst, const AlgArgs &a, int q,
-                                         int w) {
-  const int *const src = a.in[q] + (long long)blockIdx.x * a.st[q];
-  for (int j = threadIdx.x; j < w; j += blockDim.x) dst[j] = src[j];
+// How a kernel takes its input rows: staged into shared memory by 4-byte
+// cp.async copies (the caller commits and waits for them), read where they
+// lie (the global tier; the device functions only read their inputs), or
+// copied into the global tier's workspace (A1 there: its serial move-in
+// loop ran slower at Lc 8,192 reading the rows where they lie).
+enum Take { TAKE_ASYNC, TAKE_IN_PLACE, TAKE_COPY };
+
+// Document n's row of input lane q (w ints), taken `how`; a staged or
+// copied row lands in the region at p, p moving past it.
+__device__ __forceinline__ int *take_row(const AlgArgs &a, int q, int w,
+                                         int n, int *&p, Take how, int t,
+                                         int T) {
+  const int *const src = a.in[q] + (long long)n * a.st[q];
+  if (how == TAKE_IN_PLACE) return const_cast<int *>(src);
+  int *const dst = p;
+  for (int j = t; j < w; j += T) {
+    if (how == TAKE_ASYNC)
+      cp_async4(dst + j, src + j);
+    else
+      dst[j] = src[j];
+  }
+  p += w;
+  return dst;
 }
 
-// A change's seven lanes from input lanes q0 .. q0 + 6.
-__device__ __forceinline__ void load_change(const Ch d, const AlgArgs &a,
-                                            int q0, int Lc, int Pc) {
-  load_row(d.del, a, q0, Lc);
-  load_row(d.ins, a, q0 + 1, Lc + 1);
-  load_row(d.ids, a, q0 + 2, Pc);
-  load_row(d.mid, a, q0 + 3, Lc);
-  load_row(d.moff, a, q0 + 4, Lc);
-  load_row(d.pmid, a, q0 + 5, Pc);
-  load_row(d.poff, a, q0 + 6, Pc);
+// A change's seven lanes from input lanes q0 .. q0 + 6 (take_row), staged
+// back to back in change_at's order.
+__device__ __forceinline__ Ch take_change(const AlgArgs &a, int q0, int n,
+                                          int Lc, int Pc, int *&p,
+                                          Take how, int t, int T) {
+  Ch d;
+  d.del = take_row(a, q0, Lc, n, p, how, t, T);
+  d.ins = take_row(a, q0 + 1, Lc + 1, n, p, how, t, T);
+  d.ids = take_row(a, q0 + 2, Pc, n, p, how, t, T);
+  d.mid = take_row(a, q0 + 3, Lc, n, p, how, t, T);
+  d.moff = take_row(a, q0 + 4, Lc, n, p, how, t, T);
+  d.pmid = take_row(a, q0 + 5, Pc, n, p, how, t, T);
+  d.poff = take_row(a, q0 + 6, Pc, n, p, how, t, T);
+  return d;
 }
 
-__device__ __forceinline__ int load_int(const AlgArgs &a, int q) {
-  return a.in[q][(long long)blockIdx.x * a.st[q]];
+__device__ __forceinline__ int load_int(const AlgArgs &a, int q, int n) {
+  return a.in[q][(long long)n * a.st[q]];
 }
 
-// w ints of src into this document's row of output lane q.
+// Wait for this thread's copies; the caller's barrier then publishes them.
+__device__ __forceinline__ void loads_landed() {
+  cp_async_commit();
+  cp_async_wait(0);
+}
+
+// w ints of src into document n's row of output lane q.
 __device__ __forceinline__ void store_row(const AlgArgs &a, int q,
-                                          const int *src, int w) {
-  int *const dst = a.out[q] + (size_t)blockIdx.x * w;
-  for (int j = threadIdx.x; j < w; j += blockDim.x) dst[j] = src[j];
+                                          const int *src, int w, int n,
+                                          int t, int T) {
+  int *const dst = a.out[q] + (size_t)n * w;
+  for (int j = t; j < w; j += T) dst[j] = src[j];
 }
 
 __device__ __forceinline__ void store_change(const AlgArgs &a, const Ch s,
-                                             int Lc, int Pc) {
-  store_row(a, 0, s.del, Lc);
-  store_row(a, 1, s.ins, Lc + 1);
-  store_row(a, 2, s.ids, Pc);
-  store_row(a, 3, s.mid, Lc);
-  store_row(a, 4, s.moff, Lc);
-  store_row(a, 5, s.pmid, Pc);
-  store_row(a, 6, s.poff, Pc);
+                                             int Lc, int Pc, int n, int t,
+                                             int T) {
+  store_row(a, 0, s.del, Lc, n, t, T);
+  store_row(a, 1, s.ins, Lc + 1, n, t, T);
+  store_row(a, 2, s.ids, Pc, n, t, T);
+  store_row(a, 3, s.mid, Lc, n, t, T);
+  store_row(a, 4, s.moff, Lc, n, t, T);
+  store_row(a, 5, s.pmid, Pc, n, t, T);
+  store_row(a, 6, s.poff, Pc, n, t, T);
 }
 
 // invert_change(doc, L, c) into `out` (4 Lc + 1 + 3 Pc ints, contiguous):
@@ -1606,28 +1696,73 @@ __device__ void invert(const int *doc, const int L, const Ch c, const Ch out,
   __syncthreads();
 }
 
-struct ComposeScratch {
-  int *adex, *abcum, *bdex, *bbcum, *icnt;         // [Lc + 1]
-  int *apos, *bpos, *slot;                         // [Pc]
-  int *p1, *o2q, *q2, *bkeep, *inpl, *cidx, *cq2;  // [Lc]
-  int *key;                                        // [Lc + 2 Pc]
-  int *hist, *cursor, *bucket;  // counting sort: [BIG] [BIG] [Lc + 2 Pc]
+// The threads that compute one document: a CTA (block barriers,
+// block_scan) or one warp of a warp-tier CTA (__syncwarp, warp_scan). t and
+// T: the thread's index in the group and the group's size; wid: the warp's
+// index in the group.
+struct CtaGroup {
+  int t, T, wid;
+  unsigned *red;
+  __device__ void sync() const { __syncthreads(); }
+  template <int K>
+  __device__ unsigned scan(int *const (&x)[K], int n) const {
+    return block_scan<K>(x, n, red);
+  }
 };
 
-// compose_change(a, b, L) into `out` (4 Lc + 1 + 3 Pc ints, contiguous);
-// returns the overflow flag. `counting` picks the counting sort for the
-// ranks (the global tier); `sc` is three ints of shared memory. Phases:
-// a's prefix sums; a's pool positions and b's prefix sums over a's output
-// (length La); every unit's position in a's output (p1) and every position
-// of a's output in b's (o2q), through the move-effect tables; each unit's
-// fate (q2, its position in b's output) and the candidate keys; the
-// in-place units compacted and the live candidates counted; the ranks; the
-// pool and its anchors.
-__device__ int compose(const Ch a, const Ch b, const int L, const Ch out,
-                       const int E, const ComposeScratch s, const int Lc,
-                       const int Pc, const bool counting, unsigned *red,
-                       int *sc) {
-  const int T = blockDim.x, t = threadIdx.x;
+struct WarpGroup {
+  int t, T, wid;
+  __device__ void sync() const { __syncwarp(); }
+  template <int K>
+  __device__ unsigned scan(int *const (&x)[K], int n) const {
+    return warp_scan<K>(x, n);
+  }
+};
+
+// The move tags of the warp's slots i0 + lane whose bit is set in `pend`
+// resolved warp-cooperatively: for each, the wrap-around sum of vals[k]
+// over the pool atoms k < n_atoms with that tag, every lane summing its own
+// atoms; the slot's own lane takes the sum in place of r.
+__device__ __forceinline__ int tag_sums(unsigned pend, const int *mid,
+                                        const int *moff, int i0,
+                                        const int *pmid, const int *poff,
+                                        const int *vals, int n_atoms, int r) {
+  const int lane = threadIdx.x & 31;
+  for (; pend; pend &= pend - 1) {
+    const int src = __ffs(pend) - 1;
+    const int mi = mid[i0 + src], mo = moff[i0 + src];
+    unsigned acc = 0;
+    for (int k = lane; k < n_atoms; k += 32)
+      if (pmid[k] == mi && poff[k] == mo) acc += (unsigned)vals[k];
+    const unsigned tot = __reduce_add_sync(FULL, acc);
+    if (lane == src) r = (int)tot;
+  }
+  return r;
+}
+
+struct ComposeScratch {
+  int *adex, *abcum, *bdex, *bbcum;  // [Lc + 1]; adex later icnt
+  int *apos, *bpos, *slot;           // [Pc]
+  int *iq, *o2q, *cidx, *cq2;        // [Lc]; iq first p1
+  int *key;                          // [Lc + 2 Pc]
+  int *pos;                          // [BIG + 1]
+  int *sc;                           // [3]
+};
+
+// compose_change(a, b, L) into `out` (4 Lc + 1 + 3 Pc ints, contiguous) by
+// the group g; returns the overflow flag. Phases: a's prefix
+// sums; a's pool positions and b's prefix sums over a's output (length La);
+// b's pool positions; every unit's position in a's output (p1) and every
+// position of a's output in b's (o2q), through the move-effect tables; each
+// unit's fate (q2, its position in b's output), the in-place ones' q2 (iq,
+// -1 for the others) and the candidate keys; the in-place units compacted,
+// the live and negative keys counted and histogrammed; the histogram's
+// scan; the ranks; the pool and its anchors.
+template <class G>
+__device__ int compose(const G g, const Ch a, const Ch b, const int L,
+                       const Ch out, const int E, const ComposeScratch s,
+                       const int Lc, const int Pc) {
+  const int t = g.t, T = g.T, lane = threadIdx.x & 31;
   const int NC = Lc + 2 * Pc, BIG = NC + 2;
   for (int q = t; q <= Lc; q += T) {
     if (q < Lc)
@@ -1637,16 +1772,13 @@ __device__ int compose(const Ch a, const Ch b, const int L, const Ch out,
     s.abcum[q] = a.ins[q] * (int)(q <= L);
   }
   for (int j = t; j < E; j += T) out.del[j] = 0;  // the whole output change
-  if (counting) {
-    for (int v = t; v < BIG; v += T) {
-      s.hist[v] = 0;
-      s.cursor[v] = 0;
-    }
-  }
-  if (t < 3) sc[t] = 0;  // live candidates, negative keys, "not monotone"
-  __syncthreads();
+  for (int v = t; v <= BIG; v += T) s.pos[v] = 0;
+  if (t < 3) s.sc[t] = 0;  // live candidates, negative keys, "not monotone"
+  g.sync();
+  ALG_PHASE(1);
   int *const aa[2] = {s.adex, s.abcum};
-  const bool a_mono = !(block_scan<2>(aa, Lc + 1, red) & 2u);
+  const bool a_mono = !(g.template scan<2>(aa, Lc + 1) & 2u);
+  ALG_PHASE(2);
   const int a_total = s.abcum[Lc];
   const int La = wadd(wsub(L, s.adex[Lc]), a_total);
   for (int k = t; k < Pc; k += T) {
@@ -1660,68 +1792,69 @@ __device__ int compose(const Ch a, const Ch b, const int L, const Ch out,
       s.bdex[0] = 0;
     s.bbcum[q] = b.ins[q] * (int)(q <= La);
   }
-  __syncthreads();
+  g.sync();
+  ALG_PHASE(3);
   int *const ba[2] = {s.bdex, s.bbcum};
-  const bool b_mono = !(block_scan<2>(ba, Lc + 1, red) & 2u);
+  const bool b_mono = !(g.template scan<2>(ba, Lc + 1) & 2u);
+  ALG_PHASE(4);
   const int b_total = s.bbcum[Lc];
   for (int m = t; m < Pc; m += T) {
     const int bq = count_leq(s.bbcum, Lc + 1, m, b_mono);
     s.bpos[m] = wadd(wsub(bq, s.bdex[clampi(bq, 0, Lc)]), m);
   }
-  __syncthreads();
+  g.sync();
+  ALG_PHASE(5);
   // A kept slot goes to its survivor position, a moved one to the sum of
-  // its tag's live move-in atoms' positions, any other to -1.
-  for (int i = t; i < Lc; i += T) {
-    int p = -1;
-    if (i < L) {
+  // its tag's live move-in atoms' positions, any other to -1; each warp
+  // takes 32 slots at a time.
+  const int a_atoms = min(Pc, a_total), b_atoms = min(Pc, b_total);
+  for (int i0 = g.wid * 32; i0 < Lc; i0 += T) {
+    const int i = i0 + lane;
+    int p = -1, o2 = -1;
+    bool am = false, bm = false;
+    if (i < Lc && i < L) {
       const int m = a.mid[i];
-      if (max(a.del[i], (int)(m > 0)) == 0) {
+      if (max(a.del[i], (int)(m > 0)) == 0)
         p = wadd(wsub(i, s.adex[i]), s.abcum[i]);
-      } else if (m > 0) {
-        const int mo = a.moff[i];
-        unsigned acc = 0;
-        for (int k = 0; k < Pc && k < a_total; ++k)
-          if (a.pmid[k] == m && a.poff[k] == mo) acc += (unsigned)s.apos[k];
-        p = (int)acc;
-      }
+      else
+        am = m > 0;
     }
-    s.p1[i] = p;
-    int o2 = -1, keep = 0;
-    if (i < La) {
+    if (i < Lc && i < La) {
       const int m = b.mid[i];
-      if (max(b.del[i], (int)(m > 0)) == 0) {
+      if (max(b.del[i], (int)(m > 0)) == 0)
         o2 = wadd(wsub(i, s.bdex[i]), s.bbcum[i]);
-        keep = 1;
-      } else if (m > 0) {
-        const int mo = b.moff[i];
-        unsigned acc = 0;
-        for (int k = 0; k < Pc && k < b_total; ++k)
-          if (b.pmid[k] == m && b.poff[k] == mo) acc += (unsigned)s.bpos[k];
-        o2 = (int)acc;
-      }
+      else
+        bm = m > 0;
     }
-    s.o2q[i] = o2;
-    s.bkeep[i] = keep;
+    p = tag_sums(__ballot_sync(FULL, am), a.mid, a.moff, i0, a.pmid, a.poff,
+                 s.apos, a_atoms, p);
+    o2 = tag_sums(__ballot_sync(FULL, bm), b.mid, b.moff, i0, b.pmid, b.poff,
+                  s.bpos, b_atoms, o2);
+    if (i < Lc) {
+      s.iq[i] = p;
+      s.o2q[i] = o2;
+    }
   }
-  __syncthreads();
+  g.sync();
+  ALG_PHASE(6);
   // A unit's fate: q2 = its position in b's output (-1 dead, -2 where a put
   // it past Lc). In place where a and b both kept it; a composed move (key
   // q2) where it lives elsewhere; a delete where it died. a's insert atoms
   // land where b put their position, b's at their own.
   for (int i = t; i < Lc; i += T) {
-    const int p = s.p1[i];
+    const int p = s.iq[i];
     const bool in = p >= 0 && p < Lc;
     const int q2 = p < 0 ? -1 : (in ? s.o2q[p] : -2);
     const bool valid = i < L, alive = valid && q2 >= 0;
     const bool inplace = alive && max(a.del[i], (int)(a.mid[i] > 0)) == 0 &&
-                         in && s.bkeep[p];
+                         in && p < La &&
+                         max(b.del[p], (int)(b.mid[p] > 0)) == 0;
     out.del[i] = (int)(valid && !alive);
     s.key[i] = alive && !inplace ? q2 : BIG;
-    s.q2[i] = q2;
-    s.inpl[i] = (int)inplace;
-    s.icnt[i + 1] = (int)inplace;
+    s.iq[i] = inplace ? q2 : -1;
+    s.adex[i + 1] = (int)inplace;  // icnt
   }
-  if (t == 0) s.icnt[0] = 0;
+  if (t == 0) s.adex[0] = 0;
   for (int k = t; k < Pc; k += T) {
     int key = BIG;
     if (k < a_total && a.pmid[k] == 0) {
@@ -1732,18 +1865,21 @@ __device__ int compose(const Ch a, const Ch b, const int L, const Ch out,
     s.key[Lc + k] = key;
     s.key[Lc + Pc + k] = k < b_total && b.pmid[k] == 0 ? s.bpos[k] : BIG;
   }
-  __syncthreads();
-  int *const ia[1] = {s.icnt};
-  block_scan<1>(ia, Lc + 1, red);
-  const int n_in = s.icnt[Lc];
+  g.sync();
+  ALG_PHASE(7);
+  int *const ia[1] = {s.adex};
+  g.template scan<1>(ia, Lc + 1);
+  ALG_PHASE(8);
+  const int n_in = s.adex[Lc];
   // The in-place units in input order (cidx) with their q2 (cq2); the live
   // candidates and the negative keys among them counted, the others
-  // histogrammed for the counting sort.
+  // histogrammed one slot up (pos[v + 1]: the keys equal to v).
   for (int i = t; i < Lc; i += T) {
-    if (s.inpl[i]) {
-      const int c = s.icnt[i + 1] - 1;
+    const int q2 = s.iq[i];
+    if (q2 >= 0) {
+      const int c = s.adex[i + 1] - 1;
       s.cidx[c] = i;
-      s.cq2[c] = s.q2[i];
+      s.cq2[c] = q2;
     }
   }
   int live = 0, neg = 0;
@@ -1753,116 +1889,149 @@ __device__ int compose(const Ch a, const Ch b, const int L, const Ch out,
       ++live;
       if (kj < 0)
         ++neg;
-      else if (counting)
-        atomicAdd(&s.hist[kj], 1);
+      else
+        atomicAdd(&s.pos[kj + 1], 1);
     }
   }
-  if (live) atomicAdd(&sc[0], live);
-  if (neg) atomicAdd(&sc[1], neg);
-  __syncthreads();
-  for (int c = t + 1; c < n_in; c += T)
-    if (s.cq2[c - 1] > s.cq2[c]) sc[2] = 1;
-  const int n_live = sc[0], n_neg = sc[1];
-  if (counting) {
-    int *const ha[1] = {s.hist};
-    block_scan<1>(ha, BIG, red);  // hist[v]: the keys in [0, v]
+  live = __reduce_add_sync(FULL, live);
+  neg = __reduce_add_sync(FULL, neg);
+  if (lane == 0) {
+    if (live) atomicAdd(&s.sc[0], live);
+    if (neg) atomicAdd(&s.sc[1], neg);
+  }
+  g.sync();
+  ALG_PHASE(9);
+  bool unsorted = false;
+  for (int c = t + 1; c < n_in; c += T) unsorted |= s.cq2[c - 1] > s.cq2[c];
+  if (__any_sync(FULL, unsorted) && lane == 0) s.sc[2] = 1;
+  const int n_live = s.sc[0], n_neg = s.sc[1];
+  int *const ha[1] = {s.pos};
+  g.template scan<1>(ha, BIG + 1);  // pos[v]: the live keys in [0, v)
+  ALG_PHASE(10);
+  if (n_neg > 0) {
     for (int j = t; j < NC; j += T) {
       const int kj = s.key[j];
-      if (kj >= 0 && kj < BIG) {
-        const int lo = kj > 0 ? s.hist[kj - 1] : 0;
-        if (n_neg + lo < Pc) s.bucket[lo + atomicAdd(&s.cursor[kj], 1)] = j;
-      }
-    }
-    __syncthreads();
-  }
-  for (int j = t; j < NC; j += T) {
-    const int kj = s.key[j];
-    if (kj >= BIG) continue;
-    int r = Pc;
-    if (counting && kj >= 0) {
-      const int lo = kj > 0 ? s.hist[kj - 1] : 0;
-      if (n_neg + lo < Pc) {
-        r = n_neg + lo;
-        for (int u = lo, hi = s.hist[kj]; u < hi; ++u) r += s.bucket[u] < j;
-      }
-    } else {
-      r = 0;
+      if (kj >= 0) continue;
+      int r = 0;
       for (int l = 0; l < NC; ++l) {
         const int kl = s.key[l];
         r += kl < kj || (kl == kj && l < j);
       }
+      if (r < Pc) s.slot[r] = j;
     }
-    if (r < Pc) s.slot[r] = j;
   }
-  __syncthreads();
+  if (g.wid == 0 && n_neg < Pc) {
+    // One warp walks the candidates in index order; pos[v] counts on as
+    // the cursor of key v.
+    const unsigned below = (1u << lane) - 1;
+    for (int j0 = 0; j0 < NC; j0 += 32) {
+      const int j = j0 + lane;
+      const int kj = j < NC ? s.key[j] : BIG;
+      const bool ranked = kj >= 0 && kj < BIG;
+      const unsigned peers = __match_any_sync(FULL, ranked ? kj : -1);
+      const int lead = __ffs(peers) - 1;
+      int base = 0;
+      if (ranked && lane == lead) {
+        base = s.pos[kj];
+        s.pos[kj] = base + __popc(peers);
+      }
+      base = __shfl_sync(FULL, base, lead);
+      if (ranked) {
+        const int r = n_neg + base + __popc(peers & below);
+        if (r < Pc) s.slot[r] = j;
+      }
+      __syncwarp();
+    }
+  }
+  g.sync();
+  ALG_PHASE(11);
   // Pool slot k holds the rank-k candidate: a unit (a composed move with
   // the fresh tag k + 1, its input slot moved out under it) or an insert
-  // atom (its id). Each atom counts at its anchor boundary.
-  const bool mono = !sc[2];
-  for (int k = t; k < Pc && k < n_live; k += T) {
-    const int j = s.slot[k], pos = s.key[j];
+  // atom (its id). Each atom counts at its anchor boundary: a binary search
+  // where the in-place units' q2 came out non-decreasing, else the max
+  // over the in-place units, each warp taking its atoms and every lane its
+  // own units.
+  const bool mono = !s.sc[2];
+  const int n_pool = min(Pc, n_live);
+  for (int k = t; k < n_pool; k += T) {
+    const int j = s.slot[k];
     if (j < Lc) {
       out.pmid[k] = k + 1;
       out.mid[j] = k + 1;
     } else {
       out.ids[k] = j < Lc + Pc ? a.ids[j - Lc] : b.ids[j - Lc - Pc];
     }
-    int bnd = 0;
     if (mono) {
+      const int pos = s.key[j];
       int lo = 0, hi = n_in;
       while (lo < hi) {
         const int m = (lo + hi) >> 1;
         if (s.cq2[m] < pos) lo = m + 1;
         else hi = m;
       }
-      bnd = lo > 0 ? s.cidx[lo - 1] + 1 : 0;
-    } else {
-      for (int i = 0; i < Lc; ++i)
-        if (s.inpl[i] && s.q2[i] < pos) bnd = i + 1;
+      atomicAdd(&out.ins[lo > 0 ? s.cidx[lo - 1] + 1 : 0], 1);
     }
-    atomicAdd(&out.ins[bnd], 1);
   }
-  __syncthreads();
+  if (!mono) {
+    for (int k = g.wid; k < n_pool; k += T >> 5) {
+      const int pos = s.key[s.slot[k]];
+      int bnd = 0;
+      for (int i = lane; i < Lc; i += 32) {
+        const int q2 = s.iq[i];
+        if (q2 >= 0 && q2 < pos) bnd = i + 1;
+      }
+      bnd = __reduce_max_sync(FULL, bnd);
+      if (lane == 0) atomicAdd(&out.ins[bnd], 1);
+    }
+  }
+  g.sync();
+  ALG_PHASE(12);
   return (int)(n_live > Pc);
 }
 
-// A1: apply_change. Region: the change, the document and its output [Lc],
-// dex/bcum [Lc + 1]. In: doc, L, the change's seven lanes; out: doc, L.
+// A1: apply_change. Region: the change and the document (staged, or on
+// the global tier copied), the output [Lc], dex/bcum [Lc + 1]. In: doc, L,
+// the change's seven lanes; out: doc, L.
+template <bool GLOBAL>
 __global__ void __launch_bounds__(MAX_THREADS)
     alg_apply_kernel(const AlgArgs a) {
   __shared__ unsigned red[RED_WORDS];
-  const int Lc = a.Lc, Pc = a.Pc, E = 4 * Lc + 1 + 3 * Pc;
-  int *p = alg_region(a);
-  const Ch c = change_at(p, Lc, Pc);
-  p += E;
-  int *const doc = p;
-  p += Lc;
+  const int n = blockIdx.x, t = threadIdx.x, T = blockDim.x;
+  const int Lc = a.Lc, Pc = a.Pc;
+  constexpr Take st = GLOBAL ? TAKE_COPY : TAKE_ASYNC;
+  int *p = alg_region<GLOBAL>(a);
+  const Ch c = take_change(a, 2, n, Lc, Pc, p, st, t, T);
+  const int *const doc = take_row(a, 0, Lc, n, p, st, t, T);
   int *const out = p;
   p += Lc;
   Scratch s{};
   s.dex = p;
   s.bcum = p + Lc + 1;
-  load_row(doc, a, 0, Lc);
-  load_change(c, a, 2, Lc, Pc);
-  const int L = load_int(a, 1);
+  const int L = load_int(a, 1, n);
+  loads_landed();
   __syncthreads();
   const int new_L = apply_change(doc, L, c, out, s, Lc, Pc, red);
-  store_row(a, 0, out, Lc);
-  if (threadIdx.x == 0) a.out[1][blockIdx.x] = new_L;
+  store_row(a, 0, out, Lc, n, t, T);
+  if (t == 0) a.out[1][n] = new_L;
 }
 
-// A2: rebase_change(c, o, L, C_AFTER). Region: c, o and the output change,
-// dex/bcum/cbcum [Lc + 1], tpos [Lc], kpos/kb/klive/kcum [Pc]. In: c's and
-// o's seven lanes, L; out: the change.
-template <bool C_AFTER>
+// A2: rebase_change(c, o, L, C_AFTER). Region: [c and o, staged except on
+// the global tier], the output change, dex/bcum/cbcum [Lc + 1], tpos [Lc],
+// kpos/kb/klive/kcum [Pc]. In: c's and o's seven lanes, L; out: the
+// change.
+template <bool C_AFTER, bool GLOBAL>
 __global__ void __launch_bounds__(MAX_THREADS)
     alg_rebase_kernel(const AlgArgs a) {
   __shared__ unsigned red[RED_WORDS];
+  ALG_PROF_BEGIN;
+  const int n = blockIdx.x, t = threadIdx.x, T = blockDim.x;
   const int Lc = a.Lc, Pc = a.Pc, E = 4 * Lc + 1 + 3 * Pc;
-  int *p = alg_region(a);
-  const Ch c = change_at(p, Lc, Pc), o = change_at(p + E, Lc, Pc),
-           out = change_at(p + 2 * E, Lc, Pc);
-  p += 3 * E;
+  constexpr Take st = GLOBAL ? TAKE_IN_PLACE : TAKE_ASYNC;
+  int *p = alg_region<GLOBAL>(a);
+  const Ch c = take_change(a, 0, n, Lc, Pc, p, st, t, T),
+           o = take_change(a, 7, n, Lc, Pc, p, st, t, T),
+           out = change_at(p, Lc, Pc);
+  p += E;
   Scratch s;
   s.dex = p;
   p += Lc + 1;
@@ -1879,70 +2048,152 @@ __global__ void __launch_bounds__(MAX_THREADS)
   s.klive = p;
   p += Pc;
   s.kcum = p;
-  load_change(c, a, 0, Lc, Pc);
-  load_change(o, a, 7, Lc, Pc);
-  const int L = load_int(a, 14);
+  const int L = load_int(a, 14, n);
+  loads_landed();
   __syncthreads();
+  ALG_PHASE(0);
   rebase<C_AFTER>(c, o, L, out, E, s, Lc, Pc, red);
-  store_change(a, out, Lc, Pc);
+  store_change(a, out, Lc, Pc, n, t, T);
+  ALG_PHASE(8);
+  ALG_PROF_END(n, t == 0);
 }
 
-// A3: invert_change. Region: the change and the output change, the
-// document [Lc], dex/bcum/dc [Lc + 1]. In: doc, L, the change's seven
-// lanes; out: the change.
+// A2 on the warp tier: one warp a document. Its slice: c, o and the output
+// change, dex/bcum/cbcum [Lc + 1], kpos/kb/klive/kcum [Pc] (rebase_w
+// scatters each landing position as it finds it).
+template <bool C_AFTER>
+__global__ void __launch_bounds__(32 * WARP_MAX_D)
+    alg_rebase_warp_kernel(const AlgArgs a) {
+  ALG_PROF_BEGIN;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int n = blockIdx.x * a.docs + wid;
+  if (n >= a.N) return;
+  const int Lc = a.Lc, Pc = a.Pc, E = 4 * Lc + 1 + 3 * Pc;
+  int *p = tree_smem + (size_t)wid * a.slice;
+  const Ch c = take_change(a, 0, n, Lc, Pc, p, TAKE_ASYNC, lane, 32),
+           o = take_change(a, 7, n, Lc, Pc, p, TAKE_ASYNC, lane, 32),
+           out = change_at(p, Lc, Pc);
+  p += E;
+  Scratch s;
+  s.tpos = nullptr;
+  s.dex = p;
+  p += Lc + 1;
+  s.bcum = p;
+  p += Lc + 1;
+  s.cbcum = p;
+  p += Lc + 1;
+  s.kpos = p;
+  p += Pc;
+  s.kb = p;
+  p += Pc;
+  s.klive = p;
+  p += Pc;
+  s.kcum = p;
+  const int L = load_int(a, 14, n);
+  loads_landed();
+  __syncwarp();
+  ALG_PHASE(0);
+  rebase_w<C_AFTER>(c, o, L, out, E, s, Lc, Pc);
+  store_change(a, out, Lc, Pc, n, lane, 32);
+  ALG_PHASE(8);
+  ALG_PROF_END(n, lane == 0);
+}
+
+// A3: invert_change. Region: [the change and the document, staged except
+// on the global tier], the output change, dex/bcum/dc [Lc + 1]. In: doc,
+// L, the change's seven lanes; out: the change.
+template <bool GLOBAL>
 __global__ void __launch_bounds__(MAX_THREADS)
     alg_invert_kernel(const AlgArgs a) {
   __shared__ unsigned red[RED_WORDS];
+  const int n = blockIdx.x, t = threadIdx.x, T = blockDim.x;
   const int Lc = a.Lc, Pc = a.Pc, E = 4 * Lc + 1 + 3 * Pc;
-  int *p = alg_region(a);
-  const Ch c = change_at(p, Lc, Pc), out = change_at(p + E, Lc, Pc);
-  p += 2 * E;
-  int *const doc = p;
-  p += Lc;
+  constexpr Take st = GLOBAL ? TAKE_IN_PLACE : TAKE_ASYNC;
+  int *p = alg_region<GLOBAL>(a);
+  const Ch c = take_change(a, 2, n, Lc, Pc, p, st, t, T);
+  const int *const doc = take_row(a, 0, Lc, n, p, st, t, T);
+  const Ch out = change_at(p, Lc, Pc);
+  p += E;
   int *const dex = p, *const bcum = p + Lc + 1, *const dc = p + 2 * (Lc + 1);
-  load_row(doc, a, 0, Lc);
-  load_change(c, a, 2, Lc, Pc);
-  const int L = load_int(a, 1);
+  const int L = load_int(a, 1, n);
+  loads_landed();
   __syncthreads();
   invert(doc, L, c, out, E, dex, bcum, dc, Lc, Pc, red);
-  store_change(a, out, Lc, Pc);
+  store_change(a, out, Lc, Pc, n, t, T);
 }
 
-// A4: compose_change. Region: a, b and the output change, then
-// ComposeScratch in its order (hist, cursor and bucket on the global tier
-// only). In: a's and b's seven lanes, L; out: the change, the overflow.
+// A4's region after its inputs ([a and b, staged except on the global
+// tier]): the output change, then ComposeScratch in its order.
+__device__ __forceinline__ void compose_region(int *p, int Lc, int Pc,
+                                               Ch *out, ComposeScratch *s) {
+  const int E = 4 * Lc + 1 + 3 * Pc, NC = Lc + 2 * Pc;
+  *out = change_at(p, Lc, Pc);
+  p += E;
+  int **const rows[11] = {&s->adex, &s->abcum, &s->bdex, &s->bbcum,
+                          &s->apos, &s->bpos,  &s->slot, &s->iq,
+                          &s->o2q,  &s->cidx,  &s->cq2};
+  for (int r = 0; r < 11; ++r) {
+    *rows[r] = p;
+    p += r < 4 ? Lc + 1 : (r < 7 ? Pc : Lc);
+  }
+  s->key = p;
+  p += NC;
+  s->pos = p;
+  s->sc = p + NC + 3;
+}
+
+// A4: compose_change, one CTA a document. In: a's and b's seven lanes, L;
+// out: the change, the overflow.
+template <bool GLOBAL>
 __global__ void __launch_bounds__(MAX_THREADS)
     alg_compose_kernel(const AlgArgs a) {
   __shared__ unsigned red[RED_WORDS];
-  __shared__ int sc[3];
+  ALG_PROF_BEGIN;
+  const int n = blockIdx.x, t = threadIdx.x, T = blockDim.x;
   const int Lc = a.Lc, Pc = a.Pc, E = 4 * Lc + 1 + 3 * Pc;
-  const int NC = Lc + 2 * Pc;
-  int *p = alg_region(a);
-  const Ch ca = change_at(p, Lc, Pc), cb = change_at(p + E, Lc, Pc),
-           out = change_at(p + 2 * E, Lc, Pc);
-  p += 3 * E;
-  ComposeScratch s{};
-  int **const rows[15] = {&s.adex, &s.abcum, &s.bdex, &s.bbcum, &s.icnt,
-                          &s.apos, &s.bpos,  &s.slot, &s.p1,    &s.o2q,
-                          &s.q2,   &s.bkeep, &s.inpl, &s.cidx,  &s.cq2};
-  for (int r = 0; r < 15; ++r) {
-    *rows[r] = p;
-    p += r < 5 ? Lc + 1 : (r < 8 ? Pc : Lc);
-  }
-  s.key = p;
-  p += NC;
-  if (a.global) {
-    s.hist = p;
-    s.cursor = p + NC + 2;
-    s.bucket = p + 2 * (NC + 2);
-  }
-  load_change(ca, a, 0, Lc, Pc);
-  load_change(cb, a, 7, Lc, Pc);
-  const int L = load_int(a, 14);
+  constexpr Take st = GLOBAL ? TAKE_IN_PLACE : TAKE_ASYNC;
+  int *p = alg_region<GLOBAL>(a);
+  const Ch ca = take_change(a, 0, n, Lc, Pc, p, st, t, T),
+           cb = take_change(a, 7, n, Lc, Pc, p, st, t, T);
+  Ch out;
+  ComposeScratch s;
+  compose_region(p, Lc, Pc, &out, &s);
+  const int L = load_int(a, 14, n);
+  loads_landed();
   __syncthreads();
-  const int ovf = compose(ca, cb, L, out, E, s, Lc, Pc, a.global, red, sc);
-  store_change(a, out, Lc, Pc);
-  if (threadIdx.x == 0) a.out[7][blockIdx.x] = ovf;
+  ALG_PHASE(0);
+  const int ovf =
+      compose(CtaGroup{t, T, t >> 5, red}, ca, cb, L, out, E, s, Lc, Pc);
+  store_change(a, out, Lc, Pc, n, t, T);
+  if (t == 0) a.out[7][n] = ovf;
+  ALG_PHASE(13);
+  ALG_PROF_END(n, t == 0);
+}
+
+// A4 on the warp tier: one warp a document, its slice A4's region.
+__global__ void __launch_bounds__(32 * WARP_MAX_D)
+    alg_compose_warp_kernel(const AlgArgs a) {
+  ALG_PROF_BEGIN;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int n = blockIdx.x * a.docs + wid;
+  if (n >= a.N) return;
+  const int Lc = a.Lc, Pc = a.Pc, E = 4 * Lc + 1 + 3 * Pc;
+  int *p = tree_smem + (size_t)wid * a.slice;
+  const Ch ca = take_change(a, 0, n, Lc, Pc, p, TAKE_ASYNC, lane, 32),
+           cb = take_change(a, 7, n, Lc, Pc, p, TAKE_ASYNC, lane, 32);
+  Ch out;
+  ComposeScratch s;
+  compose_region(p, Lc, Pc, &out, &s);
+  const int L = load_int(a, 14, n);
+  loads_landed();
+  __syncwarp();
+  ALG_PHASE(0);
+  const int ovf =
+      compose(WarpGroup{lane, 32, 0}, ca, cb, L, out, E, s, Lc, Pc);
+  store_change(a, out, Lc, Pc, n, lane, 32);
+  if (lane == 0) a.out[7][n] = ovf;
+  ALG_PHASE(13);
+  ALG_PROF_END(n, lane == 0);
 }
 
 // -- host side --------------------------------------------------------------
@@ -2103,52 +2354,88 @@ int launch_tier(void (*cta)(Args), void (*warp)(Args), const Args &a,
 }
 
 // A1-A4's region on a tier: ints a document takes (the layouts above
-// alg_*_kernel); compose's counting sort only on the global tier.
-long long alg_ints(int op, int Lc, int Pc, int global) {
+// alg_*_kernel): its staged inputs (on the global tier none, but A1's
+// copies) and the rest; rebase's tpos only on the CTA tiers.
+long long alg_ints(int op, int Lc, int Pc, int tier) {
   const long long E = trunk_entry_ints(Lc, Pc), l1 = Lc + 1LL;
   const long long nc = Lc + 2LL * Pc;
+  const bool staged = tier != T_GLOBAL || op == A_APPLY;
   switch (op) {
     case A_APPLY:
-      return E + 2LL * Lc + 2 * l1;
+      return (staged ? E + Lc : 0) + Lc + 2 * l1;
     case A_REBASE:
-      return 3 * E + 3 * l1 + Lc + 4LL * Pc;
+      return (staged ? 2 * E : 0) + E + 3 * l1 + 4LL * Pc +
+             (tier == T_WARP ? 0 : Lc);
     case A_INVERT:
-      return 2 * E + Lc + 3 * l1;
+      return (staged ? E + Lc : 0) + E + 3 * l1;
     case A_COMPOSE:
-      return 3 * E + 5 * l1 + 3LL * Pc + 7LL * Lc + nc +
-             (global ? 2 * (nc + 2) + nc : 0);
+      return (staged ? 2 * E : 0) + E + 4 * l1 + 3LL * Pc + 4LL * Lc +
+             2 * nc + 6;
   }
   return -1;
 }
 
 // A1-A4's placement on a tier: the region in dynamic shared memory while it
-// fits SMEM_BYTES (shared), or in the workspace (global); false where the
-// tier cannot take it.
+// fits SMEM_BYTES (shared), in the workspace (global), or one warp's slice
+// of a CTA's dynamic shared memory, `docs` of them (warp: A2 and A4); false
+// where the tier cannot take it.
 bool place_alg(int op, int Lc, int Pc, int tier, long long *work_ints,
-               long long *smem) {
+               long long *smem, int *docs) {
   if (op < A_APPLY || op > A_COMPOSE) return false;
+  *work_ints = 0;
+  *docs = 1;
   if (tier == T_SHARED) {
-    *work_ints = 0;
-    *smem = 4 * alg_ints(op, Lc, Pc, 0);
+    *smem = 4 * alg_ints(op, Lc, Pc, tier);
     return *smem <= SMEM_BYTES;
   }
+  if (tier == T_WARP) {
+    if (op != A_REBASE && op != A_COMPOSE) return false;
+    const long long slice = alg_ints(op, Lc, Pc, tier);
+    const long long d = warp_docs(slice);
+    if (d < 1) return false;
+    *docs = (int)d;
+    *smem = 4 * slice * d;
+    return true;
+  }
   if (tier != T_GLOBAL) return false;
-  *work_ints = alg_ints(op, Lc, Pc, 1);
+  *work_ints = alg_ints(op, Lc, Pc, tier);
   *smem = 0;
   return true;
 }
 
-// One launch of A1-A4: N CTAs of threads_for(Lc) threads. Inputs: 9 lanes
-// (apply, invert: doc, L, a change) or 15 (rebase, compose: two changes,
-// L); outputs 2 (apply: doc, L), 7 (a change) or 8 (compose: and the
-// overflow flag).
+// One launch of A1-A4's CTA kernels on the shared tier or (GLOBAL) the
+// global tier: N CTAs of threads_for(Lc) threads.
+template <bool GLOBAL>
+int launch_alg_cta(int op, int c_after, const AlgArgs &a, long long smem,
+                   cudaStream_t st) {
+  const int n = a.N, thr = threads_for(a.Lc);
+  switch (op) {
+    case A_APPLY:
+      return launch_tree(alg_apply_kernel<GLOBAL>, a, n, thr, smem, st);
+    case A_REBASE:
+      return c_after ? launch_tree(alg_rebase_kernel<true, GLOBAL>, a, n,
+                                   thr, smem, st)
+                     : launch_tree(alg_rebase_kernel<false, GLOBAL>, a, n,
+                                   thr, smem, st);
+    case A_INVERT:
+      return launch_tree(alg_invert_kernel<GLOBAL>, a, n, thr, smem, st);
+  }
+  return launch_tree(alg_compose_kernel<GLOBAL>, a, n, thr, smem, st);
+}
+
+// One launch of A1-A4: N CTAs of threads_for(Lc) threads, or on the warp
+// tier ceil(N / docs) CTAs of `docs` warps. Inputs: 9 lanes (apply,
+// invert: doc, L, a change) or 15 (rebase, compose: two changes, L);
+// outputs 2 (apply: doc, L), 7 (a change) or 8 (compose: and the overflow
+// flag).
 int launch_alg(int op, int c_after, const int *const *in,
                const long long *stride, int *const *out, int *work,
                int n_docs, int Lc, int Pc, int tier, cudaStream_t st) {
   if (n_docs < 1 || Lc < 1 || Lc > MAX_LC || Pc < 1 || Pc > MAX_PC)
     return (int)cudaErrorInvalidValue;
   long long work_ints, smem;
-  if (!place_alg(op, Lc, Pc, tier, &work_ints, &smem) ||
+  int docs;
+  if (!place_alg(op, Lc, Pc, tier, &work_ints, &smem, &docs) ||
       (work_ints > 0 && work == nullptr))
     return (int)cudaErrorInvalidValue;
   AlgArgs a{};
@@ -2164,21 +2451,19 @@ int launch_alg(int op, int c_after, const int *const *in,
   a.N = n_docs;
   a.Lc = Lc;
   a.Pc = Pc;
-  a.global = tier == T_GLOBAL;
-  const int thr = threads_for(Lc);
-  switch (op) {
-    case A_APPLY:
-      return launch_tree(alg_apply_kernel, a, n_docs, thr, smem, st);
-    case A_REBASE:
-      return c_after
-                 ? launch_tree(alg_rebase_kernel<true>, a, n_docs, thr, smem,
-                               st)
-                 : launch_tree(alg_rebase_kernel<false>, a, n_docs, thr,
-                               smem, st);
-    case A_INVERT:
-      return launch_tree(alg_invert_kernel, a, n_docs, thr, smem, st);
+  a.docs = docs;
+  if (tier == T_WARP) {
+    a.slice = alg_ints(op, Lc, Pc, tier);
+    const int blocks = (n_docs + docs - 1) / docs, thr = 32 * docs;
+    if (op == A_COMPOSE)
+      return launch_tree(alg_compose_warp_kernel, a, blocks, thr, smem, st);
+    return c_after ? launch_tree(alg_rebase_warp_kernel<true>, a, blocks, thr,
+                                 smem, st)
+                   : launch_tree(alg_rebase_warp_kernel<false>, a, blocks,
+                                 thr, smem, st);
   }
-  return launch_tree(alg_compose_kernel, a, n_docs, thr, smem, st);
+  return tier == T_GLOBAL ? launch_alg_cta<true>(op, c_after, a, smem, st)
+                          : launch_alg_cta<false>(op, c_after, a, smem, st);
 }
 
 }  // namespace
@@ -2274,7 +2559,8 @@ long long tree_em_docs(int Lc, int Pc, int W, int R, int U, int tier) {
 // `stride` hold each input lane's pointer and row stride in ints (L's
 // element stride), `out` the output lanes' pointers (C-contiguous). `tier`:
 // 0 shared, 1 global (a device buffer of n_docs *
-// tree_algebra_work_ints(...) int32 at `work`). Inputs are not modified.
+// tree_algebra_work_ints(...) int32 at `work`), 2 warp (rebase and
+// compose). Inputs are not modified.
 
 int tree_apply(const int *const *in, const long long *stride,
                int *const *out, int *work, int n_docs, int Lc, int Pc,
@@ -2309,12 +2595,14 @@ int tree_compose(const int *const *in, const long long *stride,
 // where the tier cannot take the shape).
 long long tree_algebra_work_ints(int op, int Lc, int Pc, int tier) {
   long long w, smem;
-  return place_alg(op, Lc, Pc, tier, &w, &smem) ? w : -1;
+  int d;
+  return place_alg(op, Lc, Pc, tier, &w, &smem, &d) ? w : -1;
 }
 
 long long tree_algebra_smem_bytes(int op, int Lc, int Pc, int tier) {
   long long w, smem;
-  return place_alg(op, Lc, Pc, tier, &w, &smem) ? smem : -1;
+  int d;
+  return place_alg(op, Lc, Pc, tier, &w, &smem, &d) ? smem : -1;
 }
 
 long long tree_smem_budget(void) { return SMEM_BYTES; }

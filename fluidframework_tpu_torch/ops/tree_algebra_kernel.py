@@ -7,8 +7,8 @@ dense algebra, ``fluidframework_tpu/ops/tree_kernel.py:587-592``
 ``batched_compose``: jit over vmap of ``apply_change`` :238,
 ``rebase_change`` :258, ``invert_change`` :339 and ``compose_change`` :382;
 XLA programs, no ``pl.pallas_call``). Each call is one launch of
-``csrc/tree_kernels.cu``, one CTA a document; the source says what bounds
-the kernels and how compose ranks its attach pool.
+``csrc/tree_kernels.cu``; the source says what bounds the kernels and how
+compose ranks its attach pool.
 
 ``ops/tree_kernel.py``'s ``batched_*`` take these wrappers for CUDA tensors
 and the plain functions beside them (``apply_change``, ``rebase_change``,
@@ -21,11 +21,13 @@ copy; a row's elements must be contiguous), writes every output lane, and
 raises on a shape past the kernels' limits, lanes of mismatched widths or a
 CUDA error.
 
-Tiers (:func:`tier`): ``"shared"`` holds a document's whole region (its
-input and output changes and the scratch) in one CTA's dynamic shared
-memory, up to :data:`SMEM_BYTES`; ``"global"`` holds it in the document's
-slice of a workspace. Compose ranks its attach pool by a comparison count on
-the shared tier and by a counting sort on the global tier.
+Tiers (:func:`tier`): ``"warp"`` (A2 and A4) gives each document one warp
+and its region a slice of a CTA's dynamic shared memory, up to
+:data:`WARP_MAX_D` documents a CTA, where :data:`WARP_MIN_DOCS` lets it;
+``"shared"`` holds a document's whole region (its input and output changes
+and the scratch) in one CTA's dynamic shared memory, up to
+:data:`SMEM_BYTES`; ``"global"`` holds it in the document's slice of a
+workspace.
 """
 
 from __future__ import annotations
@@ -40,11 +42,24 @@ from fluidframework_tpu_torch.ops.tree_scan_kernel import (
     MAX_LC,
     MAX_PC,
     SMEM_BYTES,
+    WARP_MAX_D,
 )
 
 ENTRIES = ("tree_apply", "tree_rebase", "tree_invert", "tree_compose")
 A1, A2, A3, A4 = ENTRIES
-TIER_CODES = {"shared": 0, "global": 1}
+TIER_CODES = {"shared": 0, "global": 1, "warp": 2}
+# The entries with a warp tier.
+WARP_ENTRIES = (A2, A4)
+# When the warp tier runs a launch of A2 or A4: the fewest documents, at
+# the widths (Lc, Pc) where the sweep timed it faster; at any other widths
+# it does not. From chip_smoke 7h's document-count sweep, which times every
+# tier on the same inputs at 1, 8, 64, 256, 528 and 1,024 documents of (128,
+# 32) and (512, 8) (PERF.md §6): a warp a document wins only once the
+# CTA tiers need more than a wave, rebase from 1,024 documents at (128, 32)
+# (and at (512, 8) never: a tie in one tie form, a loss in the other),
+# compose from 528 at (512, 8) and from 1,024 at (128, 32), where the sweep
+# is a tie (1%) and 7a's commits run 6% faster on the warp tier.
+WARP_MIN_DOCS = {A2: {(128, 32): 1024}, A4: {(128, 32): 1024, (512, 8): 528}}
 # The seven lanes of a change: (field, width) with Lc and Pc as 0 and 1.
 _LANES = tuple(zip(TK.DenseChange._fields, ((0, 0), (0, 1), (1, 0), (0, 0),
                                             (0, 0), (1, 0), (1, 0))))
@@ -53,36 +68,46 @@ _lib = None  # the bound and checked library (:func:`lib`)
 
 def region_ints(entry: str, lc: int, pc: int, t: str) -> int:
     """Ints a document's region takes on tier ``t`` (the layouts above
-    ``alg_*_kernel`` in tree_kernels.cu): the changes (4 Lc + 1 + 3 Pc
-    ints each) and the scratch; compose's counting sort only on the global
-    tier."""
+    ``alg_*_kernel`` in tree_kernels.cu): the staged inputs (changes of 4
+    Lc + 1 + 3 Pc ints, apply's and invert's document; on the global tier,
+    which reads them where they lie, only apply's copies), the output and
+    the scratch; rebase's landing positions only on the CTA tiers."""
     e, l1, nc = 4 * lc + 1 + 3 * pc, lc + 1, lc + 2 * pc
     if entry == A1:
-        return e + 2 * lc + 2 * l1
-    if entry == A2:
-        return 3 * e + 3 * l1 + lc + 4 * pc
-    if entry == A3:
-        return 2 * e + lc + 3 * l1
-    return (3 * e + 5 * l1 + 3 * pc + 7 * lc + nc
-            + (2 * (nc + 2) + nc if t == "global" else 0))
+        staged, rest = e + lc, lc + 2 * l1
+    elif entry == A3:
+        staged, rest = e + lc, e + 3 * l1
+    elif entry == A2:
+        staged = 2 * e
+        rest = e + 3 * l1 + 4 * pc + (0 if t == "warp" else lc)
+    else:
+        staged = 2 * e
+        rest = e + 4 * l1 + 3 * pc + 4 * lc + 2 * nc + 6
+    return rest + (0 if t == "global" and entry != A1 else staged)
 
 
 def placement(entry: str, lc: int, pc: int, t: str):
     """``(smem_bytes, work_ints)`` of tier ``t``: the dynamic shared memory
     a CTA takes and the workspace ints a document takes (``None`` where the
-    tier cannot take the shape)."""
+    tier cannot take the shape). A warp-tier CTA holds as many documents'
+    slices as fit :data:`SMEM_BYTES`, at most :data:`WARP_MAX_D`."""
     if t not in TIER_CODES:
         raise ValueError(f"unknown tier {t!r}")
     if t == "global":
         return 0, region_ints(entry, lc, pc, t)
     smem = 4 * region_ints(entry, lc, pc, t)
+    if t == "warp":
+        d = min(WARP_MAX_D, SMEM_BYTES // smem)
+        return (smem * d, 0) if entry in WARP_ENTRIES and d >= 1 else None
     return (smem, 0) if smem <= SMEM_BYTES else None
 
 
-def tier(entry: str, lc: int, pc: int) -> str:
-    """The tier ``entry`` runs widths ``lc`` and ``pc`` on: ``"shared"``
-    where a document's region fits :data:`SMEM_BYTES` (config 3b's compose,
-    the largest, takes 14,624 bytes at Lc 128, Pc 32), ``"global"`` above.
+def tier(entry: str, lc: int, pc: int, n: int = None) -> str:
+    """The tier ``entry`` runs a launch of ``n`` documents (a large batch
+    where ``None``) of widths ``lc`` and ``pc`` on: ``"warp"`` where
+    :data:`WARP_MIN_DOCS` lets it and a slice fits, else ``"shared"`` where
+    a document's region fits :data:`SMEM_BYTES` (config 3b's compose, the
+    largest, takes 13,364 bytes at Lc 128, Pc 32), ``"global"`` above.
     Widths outside ``[1, MAX_LC]`` / ``[1, MAX_PC]`` raise
     ``ValueError``."""
     if entry not in ENTRIES:
@@ -91,6 +116,10 @@ def tier(entry: str, lc: int, pc: int) -> str:
         if not 1 <= v <= hi:
             raise ValueError(f"{entry}: {what} {v} is outside the kernel's "
                              f"[1, {hi}]")
+    fewest = WARP_MIN_DOCS.get(entry, {}).get((lc, pc))
+    if (fewest is not None and (n is None or n >= fewest)
+            and placement(entry, lc, pc, "warp") is not None):
+        return "warp"
     return "shared" if placement(entry, lc, pc, "shared") else "global"
 
 
@@ -116,7 +145,8 @@ _CHECK_SHAPES = ((16, 8), (128, 32), (512, 8), (2048, 8), (4096, 32),
 
 def check_library(cdll) -> None:
     """Raise unless the built library's budget and every placement at
-    :data:`_CHECK_SHAPES` are this module's."""
+    :data:`_CHECK_SHAPES` (the warp tier's slices included) are this
+    module's."""
     if cdll.tree_smem_budget() != SMEM_BYTES:
         raise RuntimeError("tree_kernels.cu SMEM_BYTES != "
                            "tree_algebra_kernel's")
@@ -210,20 +240,21 @@ def _outputs(entry: str, out, N: int, Lc: int, Pc: int, dev) -> list:
 
 def _stream(dev):
     """PyTorch's current CUDA stream of ``dev``, as a pointer."""
-    with torch.cuda.device(dev):
-        return torch.cuda.current_stream(dev).cuda_stream
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _launch(entry, t, ins, outs, dev, shape, extra=()) -> None:
-    """Call C entry ``entry`` on tier ``t``: the input lanes' pointers and
-    row strides, the output lanes' pointers, a fresh workspace where the
-    tier takes one, ``N, Lc, Pc``, ``extra`` ints and the stream; raise on
-    a CUDA error."""
+def launch(cdll, entry, t, ins, outs, dev, shape, extra=(),
+           work_ints=None) -> None:
+    """Call C entry ``entry`` of library ``cdll`` on tier ``t``: the input
+    lanes' pointers and row strides, the output lanes' pointers, a fresh
+    workspace of ``work_ints`` a document (``placement``'s by default)
+    where the tier takes one, ``N, Lc, Pc``, ``extra`` ints and the stream;
+    raise on a CUDA error."""
     N, Lc, Pc = shape
-    work_ints = placement(entry, Lc, Pc, t)[1]
+    if work_ints is None:
+        work_ints = placement(entry, Lc, Pc, t)[1]
     work = (torch.empty(N * work_ints, dtype=torch.int32, device=dev)
             if work_ints else None)
-    cdll = lib()
     vp = ctypes.c_void_p
     err = getattr(cdll, entry)(
         (vp * len(ins))(*[x.data_ptr() for x in ins]),
@@ -246,14 +277,14 @@ def _run(wrapper, entry, t, changes, docs, L, out, extra=()):
     ins = [docs, L, *ins] if docs is not None else [*ins, L]
     _check(ins, entry)
     dev = ins[0].device
-    picked = tier(entry, Lc, Pc)
+    picked = tier(entry, Lc, Pc, N)
     if t is None:
         t = picked
     elif placement(entry, Lc, Pc, t) is None:
         raise ValueError(f"{entry}: tier {t} cannot take Lc {Lc}, Pc {Pc}")
     outs = _outputs(entry, out, N, Lc, Pc, dev)
     if N:
-        _launch(entry, t, ins, outs, dev, (N, Lc, Pc), extra)
+        launch(lib(), entry, t, ins, outs, dev, (N, Lc, Pc), extra)
         wrapper.launches += 1
         key = f"launches_{t}"
         setattr(wrapper, key, getattr(wrapper, key) + 1)

@@ -555,7 +555,8 @@ def test_tree_scans_take_the_warp_tier_at_the_main_shapes(name):
 def test_tree_algebra_on_the_card_equals_the_cpu():
     """Raw random lanes (several writers to a slot, duplicate tags,
     overflowing pools) through apply / rebase (both ties) / invert /
-    compose: the card equals the CPU on every lane."""
+    compose: one launch on the tier ``tier()`` names, and the card equals
+    the CPU on every lane."""
     _need_card()
     rng = np.random.default_rng(5)
     n, lc, pc = 64, 128, 32
@@ -582,7 +583,8 @@ def test_tree_algebra_on_the_card_equals_the_cpu():
                         (TK.batched_compose, (a, b, L), TAK.compose_cuda)):
         TAK.reset_counts()
         got = fn(*args, device="cuda")
-        assert w.launches == w.launches_shared == 1
+        t = TAK.tier(TAK.ENTRIES[TAK.WRAPPERS.index(w)], lc, pc, n)
+        assert w.launches == getattr(w, f"launches_{t}") == 1
         assert sum(x.launches for x in TAK.WRAPPERS) == 1
         want = fn(*args, device="cpu")
         flat = (lambda r: list(r[0]) + [r[1]] if fn is TK.batched_compose
@@ -620,7 +622,7 @@ def test_tree_algebra_kernels_match_plain_on_the_card(hold):
                 got = spec["fn"](*args, device=dev)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-            t = TAK.tier(spec["entry"], lc, pc)
+            t = TAK.tier(spec["entry"], lc, pc, n)
             w = spec["wrapper"]
             assert w.launches == getattr(w, f"launches_{t}") == 1
             assert sum(x.launches for x in TAK.WRAPPERS) == 1

@@ -163,7 +163,10 @@ def test_cuda_route_without_the_library_raises(monkeypatch):
                 TAK.A4: "global"}),
     (8192, 32, "global"), (MAX_LC, MAX_PC, "global"),
 ])
-def test_tier_picks_shared_or_global_by_widths(lc, pc, want):
+def test_tier_picks_shared_or_global_by_widths(monkeypatch, lc, pc, want):
+    """Where the warp tier does not run (no threshold table), the region's
+    size picks the CTA tier."""
+    monkeypatch.setattr(TAK, "WARP_MIN_DOCS", {})
     for entry in TAK.ENTRIES:
         t = TAK.tier(entry, lc, pc)
         assert t == (want[entry] if isinstance(want, dict) else want)
@@ -171,7 +174,81 @@ def test_tier_picks_shared_or_global_by_widths(lc, pc, want):
         assert smem <= TAK.SMEM_BYTES
         assert (work > 0) == (t == "global")
         assert work == 0 or work == TAK.region_ints(entry, lc, pc, "global")
-    assert TAK.placement(TAK.A4, 128, 32, "shared") == (14_624, 0)
+    assert TAK.placement(TAK.A4, 128, 32, "shared") == (13_364, 0)
+
+
+def test_tier_takes_the_warp_tier_by_document_count(monkeypatch):
+    """``tier()`` gives A2 and A4 the warp tier from the fewest documents
+    :data:`WARP_MIN_DOCS` names for the widths, one document below it the
+    CTA tier; at widths the table does not name (the sweep's neighbours
+    included), where a slice does not fit, and for A1 and A3 never. The
+    table itself, on both sides of each of its thresholds, and a stand-in
+    table."""
+    for entry in TAK.WARP_ENTRIES:
+        table = TAK.WARP_MIN_DOCS.get(entry, {})
+        for (lc, pc), fewest in table.items():
+            assert TAK.tier(entry, lc, pc, fewest) == "warp"
+            assert TAK.tier(entry, lc, pc, 10 ** 6) == "warp"
+            assert TAK.tier(entry, lc, pc) == "warp"
+            if fewest > 1:
+                assert TAK.tier(entry, lc, pc, fewest - 1) == "shared"
+            for other in ((lc - 1, pc), (lc + 1, pc), (lc, pc - 1),
+                          (lc, pc + 1)):
+                if other not in table:
+                    assert TAK.tier(entry, *other, 10 ** 6) != "warp"
+    table = {(64, 8): 1, (512, 8): 300}
+    monkeypatch.setattr(TAK, "WARP_MIN_DOCS", {TAK.A2: table, TAK.A4: table})
+    for entry in TAK.ENTRIES:
+        has = entry in TAK.WARP_ENTRIES
+        for lc, pc, n, warp in ((64, 8, 1, True), (63, 8, 1024, False),
+                                (64, 16, 10 ** 6, False),
+                                (128, 8, 10 ** 6, False),
+                                (512, 8, 299, False), (512, 8, 300, True),
+                                (512, 8, None, True),
+                                (513, 8, 10 ** 6, False)):
+            got = TAK.tier(entry, lc, pc, n)
+            assert got == ("warp" if warp and has else "shared"), (entry,
+                                                                   lc, n)
+    # Past the slice's limit the warp tier cannot take the width at all.
+    table = {(8192, 32): 1, (2048, 8): 1, (4096, 8): 1}
+    monkeypatch.setattr(TAK, "WARP_MIN_DOCS", {TAK.A2: table, TAK.A4: table})
+    assert TAK.tier(TAK.A4, 8192, 32, 1024) == "global"
+    assert TAK.tier(TAK.A2, 2048, 8, 1024) == "warp"
+    assert TAK.tier(TAK.A4, 4096, 8, 1024) == "global"
+    assert TAK.tier(TAK.A1, 2048, 8, 1024) == "shared"
+
+
+def test_warp_tier_placement():
+    """A warp-tier CTA holds as many documents' slices as fit
+    :data:`SMEM_BYTES`, at most :data:`WARP_MAX_D`, no workspace; a
+    slice is rebase's region without its landing positions and compose's
+    whole region; A1 and A3 have no warp tier."""
+    for lc, pc, docs in ((128, 32, {TAK.A2: 8, TAK.A4: 8}),
+                         (512, 8, {TAK.A2: 7, TAK.A4: 5}),
+                         (2048, 8, {TAK.A2: 1, TAK.A4: 1}),
+                         (4096, 8, {TAK.A2: None, TAK.A4: None})):
+        for entry in TAK.ENTRIES:
+            pl = TAK.placement(entry, lc, pc, "warp")
+            if entry not in TAK.WARP_ENTRIES or docs[entry] is None:
+                assert pl is None
+                continue
+            ints = TAK.region_ints(entry, lc, pc, "warp")
+            assert pl == (4 * ints * docs[entry], 0)
+            assert min(TAK.WARP_MAX_D, TAK.SMEM_BYTES // (4 * ints)) == (
+                docs[entry])
+    e = 4 * 128 + 1 + 3 * 32
+    assert TAK.region_ints(TAK.A2, 128, 32, "warp") == (
+        TAK.region_ints(TAK.A2, 128, 32, "shared") - 128) == (
+        3 * e + 3 * 129 + 128)
+    assert TAK.region_ints(TAK.A4, 128, 32, "warp") == (
+        TAK.region_ints(TAK.A4, 128, 32, "shared")) == 3341
+    # The global tier reads its inputs where they lie: no staged changes,
+    # but apply copies its change and document.
+    assert TAK.region_ints(TAK.A4, 128, 32, "global") == 3341 - 2 * e
+    assert TAK.region_ints(TAK.A1, 128, 32, "global") == (
+        TAK.region_ints(TAK.A1, 128, 32, "shared")) == e + 2 * 128 + 2 * 129
+    assert TAK.placement(TAK.A4, 128, 32, "warp") == (8 * 13_364, 0)
+    assert TAK.placement(TAK.A4, 512, 8, "warp") == (5 * 45_620, 0)
 
 
 @pytest.mark.parametrize("entry,lc,pc", [
@@ -232,7 +309,7 @@ class _FakeAlgebraLib:
     shifted by ``skew`` ints). ``calls`` records (entry, N, Lc, Pc, the
     extra ints, tier code, a workspace given, the strides)."""
 
-    def __init__(self, skew=0):
+    def __init__(self, skew=0, warp_skew=0):
         self.calls = []
         self.tree_smem_budget = lambda: TAK.SMEM_BYTES
         self.tree_error_string = lambda e: b"error"
@@ -241,7 +318,10 @@ class _FakeAlgebraLib:
             def f(op, lc, pc, code):
                 t = next(k for k, v in TAK.TIER_CODES.items() if v == code)
                 pl = TAK.placement(TAK.ENTRIES[op], lc, pc, t)
-                return -1 if pl is None else pl[what] + skew * what
+                if pl is None:
+                    return -1
+                return (pl[what] + skew * what
+                        + warp_skew * (t == "warp" and what == 0))
             return f
 
         self.tree_algebra_smem_bytes = layout(0)
@@ -293,28 +373,29 @@ def fake_lib(monkeypatch):
 
 def test_library_is_bound_and_checked_by_its_wrapper(monkeypatch):
     """``tree_algebra_kernel.lib`` binds A1-A4 and checks the library's
-    layout once, and refuses a library whose workspace differs from
-    ``placement``."""
+    layout once, and refuses a library whose workspace or warp slice
+    differs from ``placement``."""
     monkeypatch.setattr(TAK, "_lib", None)
     fake = _FakeAlgebraLib()
     monkeypatch.setattr(_cuda, "lib", lambda name: fake)
     assert TAK.lib() is fake and TAK.lib() is fake
     assert len(fake.tree_rebase.argtypes) == 10
     assert len(fake.tree_compose.argtypes) == 9
-    monkeypatch.setattr(TAK, "_lib", None)
-    monkeypatch.setattr(_cuda, "lib", lambda name: _FakeAlgebraLib(skew=1))
-    with pytest.raises(RuntimeError, match="layout"):
-        TAK.lib()
-    assert TAK._lib is None
+    for bad in (_FakeAlgebraLib(skew=1), _FakeAlgebraLib(warp_skew=4)):
+        monkeypatch.setattr(TAK, "_lib", None)
+        monkeypatch.setattr(_cuda, "lib", lambda name, bad=bad: bad)
+        with pytest.raises(RuntimeError, match="layout"):
+            TAK.lib()
+        assert TAK._lib is None
 
 
-@pytest.mark.parametrize("t", ["shared", "global"])
+@pytest.mark.parametrize("t", ["shared", "global", "warp"])
 def test_strided_lane_slices_equal_contiguous_lanes(fake_lib, t):
     """Lane slices ``x[:, k]`` of a ``[N, C, w]`` commit batch (and an L
     slice) reach the library as row strides, with no copy, and give the
     plain version's result on contiguous lanes, into sentinel-filled
     ``out`` lanes too; each call is one launch on the tier asked for, the
-    global tier with a workspace."""
+    global tier with a workspace (the warp tier for A2 and A4 only)."""
     n, C, lc, pc = 5, 3, 24, 8
     rng = np.random.default_rng(11)
     commits = [raw_lanes(rng, n, lc, pc) for _ in range(C)]
@@ -326,6 +407,10 @@ def test_strided_lane_slices_equal_contiguous_lanes(fake_lib, t):
     L = Lb[:, 1]
     ac, bc = (TK.DenseChange(*[x.contiguous() for x in c]) for c in (a, b))
     for entry, args in calls(ids, L, a, b, b):
+        if TAK.placement(entry, lc, pc, t) is None:
+            with pytest.raises(ValueError, match="cannot take"):
+                WRAPPERS[entry](*args, t=t)
+            continue
         cont = tuple(ac if x is a else bc if x is b else
                      x.contiguous() if torch.is_tensor(x) else x
                      for x in args)
@@ -344,8 +429,10 @@ def test_strided_lane_slices_equal_contiguous_lanes(fake_lib, t):
         assert (w.launches, getattr(w, f"launches_{t}")) == (
             before[0] + 2, before[1] + 2)
     strides = {e: s for e, _N, _lc, _pc, _x, _c, _w, s in fake_lib.calls}
-    assert strides[TAK.A1] == [lc, 2] + [C * w for w in
-                                         (lc, lc + 1, pc, lc, lc, pc, pc)]
+    if t != "warp":
+        assert strides[TAK.A1] == [lc, 2] + [C * w for w in
+                                             (lc, lc + 1, pc, lc, lc, pc,
+                                              pc)]
     assert strides[TAK.A4][14] == 2
     assert {(c[5], c[6]) for c in fake_lib.calls} == {
         (TAK.TIER_CODES[t], t == "global")}
@@ -394,8 +481,8 @@ SHAPES = [(4, 16, 8), (12, 48, 16), (16, 64, 32)]
 def test_algebra_equals_the_reference(fake_lib, kind, n, lc, pc):
     """Every entry point and tie form equals the reference in every lane,
     through the plain route and through the wrappers over the stand-in
-    library on both tiers; the ``ties`` lanes hold tied candidate keys
-    and overflowing pools in compose."""
+    library on every tier of the entry; the ``ties`` lanes hold tied
+    candidate keys and overflowing pools in compose."""
     ids, L, a, b, b2 = algebra_case(n * 7 + lc, kind, n, lc, pc)
     if kind == "ties":
         keys = TK.compose_keys(_change(a), _change(b2), _t(L))
@@ -411,4 +498,110 @@ def test_algebra_equals_the_reference(fake_lib, kind, n, lc, pc):
         what = f"{entry} c_after={c_after}"
         same(want, _port(entry, ids, L, a, b, b2, c_after), what)
         for t in TAK.TIER_CODES:
-            same(want, WRAPPERS[entry](*args, t=t), f"{what} on {t}")
+            if TAK.placement(entry, lc, pc, t) is not None:
+                same(want, WRAPPERS[entry](*args, t=t), f"{what} on {t}")
+
+
+# -- compose's rank and the two copies of the rebase device code ------------
+
+
+def chunked_counting_rank(keys, pc):
+    """A numpy model of compose's rank on the warp and shared tiers
+    (``csrc/tree_kernels.cu``, ``compose``): ``slot [Pc]``, the candidate
+    index of each rank below ``pc``, for one document's candidate keys
+    (live below ``len(keys) + 2``). Negative keys take the comparison
+    count; the others a histogram's exclusive scan and one warp's walk in
+    index order, 32 candidates a step: equal keys of a step (the
+    ``__match_any_sync`` peers) rank by lane after the cursor of their key,
+    which the group's lowest lane then advances by the group's size."""
+    keys = np.asarray(keys, np.int64)
+    nc = len(keys)
+    big = nc + 2
+    slot = np.full(pc, -1, np.int64)
+    live = keys < big
+    neg = live & (keys < 0)
+    n_neg = int(neg.sum())
+    for j in np.flatnonzero(neg):
+        r = int((keys < keys[j]).sum() + (keys[:j] == keys[j]).sum())
+        if r < pc:
+            slot[r] = j
+    pos = np.zeros(big + 1, np.int64)
+    np.add.at(pos, keys[live & ~neg] + 1, 1)
+    pos = np.cumsum(pos)  # pos[v]: the live keys in [0, v)
+    for j0 in range(0, nc, 32):
+        chunk = keys[j0:j0 + 32]
+        ranked = (chunk >= 0) & (chunk < big)
+        for lane in np.flatnonzero(ranked):
+            peers = np.flatnonzero(ranked & (chunk == chunk[lane]))
+            r = n_neg + pos[chunk[lane]] + int((peers < lane).sum())
+            if r < pc:
+                slot[r] = j0 + lane
+        for v in np.unique(chunk[ranked]):
+            pos[v] += int((chunk[ranked] == v).sum())
+    return slot
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_chunked_counting_rank_is_the_stable_argsort(seed):
+    """The chunked stable counting rank equals ``torch.argsort(stable=
+    True)`` kept to Pc: on keys with many ties across and inside 32-wide
+    steps, negative keys, dead keys (at and past BIG) and more live keys
+    than Pc, and on compose's own candidate keys of raw lanes."""
+    rng = np.random.default_rng(seed)
+    nc = int(rng.integers(40, 300))
+    big = nc + 2
+    keys = rng.integers(0, max(2, nc // 8), nc)
+    keys[rng.random(nc) < 0.3] = big + rng.integers(0, 3)
+    if seed % 2:
+        keys[rng.random(nc) < 0.1] = -rng.integers(1, 4)
+    for pc in (1, 7, nc // 3, nc):
+        order = torch.argsort(torch.as_tensor(keys), stable=True)[:pc]
+        n_live = int((keys < big).sum())
+        want = np.where(np.arange(pc) < n_live, order.numpy(), -1)
+        assert (chunked_counting_rank(keys, pc) == want).all()
+        assert n_live > pc or pc == nc
+    ids, L, a, b, b2 = algebra_case(seed, "ties", 4, 48, 16)
+    ck = TK.compose_keys(_change(a), _change(b2), _t(L)).numpy()
+    for row in ck:
+        order = torch.argsort(torch.as_tensor(row), stable=True)[:16]
+        live = int((row < len(row) + 2).sum())
+        want = np.where(np.arange(16) < live, order.numpy(), -1)
+        assert (chunked_counting_rank(row, 16) == want).all()
+
+
+def _device_fn(src, head):
+    """The body of device function ``head`` (its signature's opening) in
+    the kernel source."""
+    i = src.index(head)
+    j = src.index("\n}\n", i)
+    return src[i:j]
+
+
+def test_rebase_w_serves_both_tie_forms_in_rebase_words():
+    """``csrc/tree_kernels.cu`` holds two copies of the rebase device code,
+    ``rebase`` (CTA tiers) and ``rebase_w`` (warp tiers), both templates on
+    ``C_AFTER``; each C_AFTER branch is described in both in the same words
+    and is the same test: the atom's boundary without o's attaches, a
+    move-in atom also dead where o moved its source, c's move-out dropped
+    where o moved the unit."""
+    with open(_cuda.TREE_SOURCE) as f:
+        src = f.read()
+    assert src.count("__device__ void rebase") == 2
+    cta = _device_fn(src, "template <bool C_AFTER>\n__device__ void rebase(")
+    warp = _device_fn(src,
+                      "template <bool C_AFTER>\n__device__ void rebase_w(")
+    for words in ("// b_map at the atom's boundary: b - Dex_b + (bcum - icnt)"
+                  " of o\n    // (C_AFTER: + bcum).",
+                  "A move-in atom of c dies when o deleted its source slot "
+                  "(C_AFTER:",
+                  "// C_AFTER: o's move wins, c's move-out of the unit is "
+                  "dropped.",
+                  "const int oicnt = C_AFTER ? 0 : o.ins[cb] * (int)(cb <= "
+                  "L);",
+                  "((C_AFTER && o.mid[i] > 0) || o.del[i] > 0);",
+                  "if (c.mid[i] > 0 && !(C_AFTER && o.mid[i] > 0)) {"):
+        assert words in cta and words in warp, words
+    # T1's warp kernel keeps the false instance; A2's warp kernel takes both.
+    assert src.count("rebase_w<false>(") == 2
+    assert "rebase_w<C_AFTER>(" in src
+    assert "alg_rebase_warp_kernel<true>" in src

@@ -472,7 +472,8 @@ def test_profile_stamps_land_in_the_kernel_source():
     """``tools/tree_scan_profile.py`` stamps ``csrc/tree_kernels.cu`` by
     text anchors (a stale one raises only when the tool runs on a card):
     both instrumented sources build their text here, every stamp lands
-    once per anchor, and the CTA kernels' barriers are all stamped."""
+    once per anchor, and the CTA kernels' barriers are all stamped; the
+    algebra's stamps land through the source's markers."""
     from tools import tree_scan_profile as P
 
     def cta_part(src):
@@ -494,3 +495,34 @@ def test_profile_stamps_land_in_the_kernel_source():
     assert warp.count("  WSTAMP(") == len(P._WARP_STAMPS)
     assert warp.count("wlast[wid] = clock64();") == 2
     assert warp.count("tree_prof[(size_t)n * 16 + q]") == 2
+    # The algebra stamps (--algebra): the source's ALG_PHASE markers,
+    # empty in a normal build, defined as stamps; each kernel of A2 and A4
+    # opens and closes its record, and each phase index of a kernel's
+    # device function is stamped once, as P.ALG_PHASES names them.
+    with open(_cuda.TREE_SOURCE) as f:
+        src = f.read()
+    assert "#ifndef ALG_PHASE\n#define ALG_PHASE(j)\n" in src
+    alg = P.instrumented_algebra_source()
+    assert (alg.index("#define ALG_PHASE(j) do")
+            < alg.index("#ifndef ALG_PHASE"))
+    assert alg.count("if (smem > 0) {") == 1 and "tree_prof_set" in alg
+
+    def body(head):
+        i = src.index(head)
+        return src[i:src.index("\n}\n", i)]
+
+    for entry, kernels, fn, last in (
+            (P.TAK.A2, ("alg_rebase_kernel(", "alg_rebase_warp_kernel("),
+             ("__device__ void rebase(", "__device__ void rebase_w("), 8),
+            (P.TAK.A4, ("alg_compose_kernel(", "alg_compose_warp_kernel("),
+             ("__device__ int compose(",), 13)):
+        assert len(P.ALG_PHASES[entry]) == last + 1
+        for k in kernels:
+            b = body(k)
+            for mark in ("ALG_PROF_BEGIN;", "ALG_PHASE(0);",
+                         f"ALG_PHASE({last});", "ALG_PROF_END(n, "):
+                assert b.count(mark) == 1, (k, mark)
+        for f in fn:
+            b = body(f)
+            assert [b.count(f"ALG_PHASE({j});")
+                    for j in range(1, last)] == [1] * (last - 1), f

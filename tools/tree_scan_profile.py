@@ -18,8 +18,21 @@ rebases a commit, and the CUDA-event time of the unstamped kernel at N =
 memory) as the second wave's cost. With ``--warp`` it stamps the warp
 kernels instead (lane 0 of each warp sums the cycles of each phase of its
 document's commit loop) and prints each phase's share at the same shapes.
-The result also goes to ``tree_profile.json`` in the smoke's output
-directory (``chip_smoke.OUT_DIR``).
+With ``--algebra [--source PATH]`` it stamps the algebra kernels A2
+(``alg_rebase_kernel``, both tie forms) and A4 (``alg_compose_kernel``)
+and their warp-tier kernels instead, through the source's ``ALG_PHASE``
+markers: thread 0 of each CTA, or lane 0 of each warp on the warp tier,
+sums the cycles of each phase of its document, and each phase's share of
+a document's cycles is printed, beside the device ms a call of A1-A4
+(A1 and A3 unstamped), on every tier the library takes at config 3b's
+widths (1,024 documents, Lc 128, Pc 32) and 3c's (1,024, Lc 512, Pc 8),
+on ``chip_smoke.algebra_case``'s commits, and at the global tier's hold
+(64 documents, Lc 8,192, Pc 32, raw lanes). ``--source`` builds another
+copy of ``tree_kernels.cu`` (a variant, or an earlier design: where it
+lacks the markers only the times are printed); the tiers and workspaces
+are then the library's own. The
+result also goes to ``tree_profile.json`` in the smoke's output directory
+(``chip_smoke.OUT_DIR``).
 """
 
 from __future__ import annotations
@@ -33,6 +46,7 @@ import sys
 import torch
 
 from fluidframework_tpu_torch.ops import _cuda
+from fluidframework_tpu_torch.ops import tree_algebra_kernel as TAK
 from fluidframework_tpu_torch.ops import tree_scan_kernel as TSK
 
 PROF_WORDS = 8
@@ -187,11 +201,11 @@ _WARP_STAMPS = (
     # T1, in rebase_w / apply_w / trunk_warp_kernel
     ("out.del[j] = 0;  // the whole output\n  __syncwarp();\n|", 0),
     ("  const unsigned bad = warp_scan<3>(arrs, Lc + 1);\n|", 1),
-    ("  __syncwarp();\n|  for (int i0 = 0; i0 < Lc; i0 += 32) {\n", 2),
+    ("  ALG_PHASE(3);\n|  for (int i0 = 0; i0 < Lc; i0 += 32) {\n", 2),
     ("|  for (int k0 = 0; k0 < Pc; k0 += 32) {\n    const int k = k0 + lane;"
      "\n    const int pm", 3),
-    ("  __syncwarp();\n|  int *const karr[1] = {s.kcum};\n", 4),
-    ("  __syncwarp();\n|}\n\n// apply_change() for one warp", 5),
+    ("|  int *const karr[1] = {s.kcum};\n  warp_scan<1>(karr, Pc);\n", 4),
+    ("  ALG_PHASE(7);\n|}\n\n// apply_change() for one warp", 5),
     ("  const int new_L = wadd(wsub(L, s.dex[Lc]), total);\n|"
      "  for (int i = lane; i < Lc; i += 32) {\n", 6),
     ("  __syncwarp();\n|  return new_L;\n", 7),
@@ -240,14 +254,58 @@ def instrumented_warp_source() -> str:
     return src + _SETTER
 
 
-def build(warp: bool = False) -> ctypes.CDLL:
+_ADEFS = r'''
+__device__ unsigned long long *tree_prof;
+__shared__ unsigned aprof[8][16];
+__shared__ long long alast[8];
+#define ALG_STAMPER ((threadIdx.x & 31) == 0 && threadIdx.x < 256)
+#define ALG_PHASE(j) do { if (ALG_STAMPER) { \
+  const long long _n = clock64(); \
+  aprof[threadIdx.x >> 5][j] += (unsigned)(_n - alast[threadIdx.x >> 5]); \
+  alast[threadIdx.x >> 5] = _n; } } while (0)
+#define ALG_PROF_BEGIN do { if (ALG_STAMPER) { \
+  for (int _j = 0; _j < 16; ++_j) aprof[threadIdx.x >> 5][_j] = 0; \
+  alast[threadIdx.x >> 5] = clock64(); } } while (0)
+#define ALG_PROF_END(n, who) do { if ((who) && ALG_STAMPER) \
+  for (int _j = 0; _j < 16; ++_j) \
+    tree_prof[(size_t)(n) * 16 + _j] = aprof[threadIdx.x >> 5][_j]; \
+  } while (0)
+'''
+# The algebra kernels' phases, in the order of their ALG_PHASE markers: each
+# stamp closes phase j, the cycles since the previous stamp.
+ALG_PHASES = {
+    TAK.A2: ("load", "fill+zero", "scan", "pool positions",
+             "slot landing and moved-slot search", "dead move-in atoms",
+             "kcum scan", "scatters", "store"),
+    TAK.A4: ("load", "fill a+zero", "scan a", "a pool+fill b", "scan b",
+             "b pool", "p1/o2q tag searches", "fate+keys", "icnt scan",
+             "compaction+counts+histogram", "rank prep", "rank",
+             "pool+anchors", "store"),
+}
+
+
+def instrumented_algebra_source(path: str = None) -> str:
+    """``path`` (the package's kernel source by default) with its
+    ``ALG_PHASE`` markers defined as clock64() stamps."""
+    with open(path or _cuda.TREE_SOURCE) as f:
+        src = f.read()
+    src = _sub(src, "#include <stddef.h>\n", "#include <stddef.h>\n" + _ADEFS)
+    src = _sub(src, "  if (smem > 48 * 1024) {", "  if (smem > 0) {")
+    return src + _SETTER
+
+
+def build(warp: bool = False, algebra: str = None) -> ctypes.CDLL:
+    """Build an instrumented copy of the kernel source: the CTA stamps,
+    the warp stamps, or (``algebra``: a source path or "") the algebra
+    stamps."""
     out_dir = os.path.join(_cuda.BUILD_DIR, "profile")
     os.makedirs(out_dir, exist_ok=True)
-    tag = "warp" if warp else "cta"
+    tag = ("algebra" if algebra is not None else "warp" if warp else "cta")
     src = os.path.join(out_dir, f"tree_kernels_profile_{tag}.cu")
     with open(src, "w") as f:
-        f.write(instrumented_warp_source() if warp else
-                instrumented_source())
+        f.write(instrumented_algebra_source(algebra or None)
+                if algebra is not None else instrumented_warp_source()
+                if warp else instrumented_source())
     so = os.path.join(out_dir, f"libtree_profile_{tag}.so")
     res = subprocess.run(
         [_cuda._nvcc(), "-gencode", _cuda.ARCH, "-std=c++17", "-O3",
@@ -257,6 +315,10 @@ def build(warp: bool = False) -> ctypes.CDLL:
         raise RuntimeError(f"nvcc failed:\n{res.stderr[-4000:]}")
     cdll = ctypes.CDLL(so)
     p, i = ctypes.c_void_p, ctypes.c_int
+    if algebra is not None:
+        TAK._bind(cdll)
+        _cuda.bind(cdll, [("tree_prof_set", [p], i)])
+        return cdll
     _cuda.bind(cdll, [
         ("tree_trunk_scan", [p] * 15 + [i] * 6 + [p], i),
         ("tree_em_ring_scan", [p] * 17 + [i] * 8 + [p], i),
@@ -377,6 +439,61 @@ def profile_warp(dev) -> dict:
     return res
 
 
+# The algebra's profile shapes: (label, documents, Lc, Pc, lanes), 7a's and
+# 7b's widths on commits and the global tier's hold on raw lanes.
+ALG_SHAPES = (("3b", 1024, 128, 32, "commits"),
+              ("3c", 1024, 512, 8, "commits"),
+              ("global-raw", 64, 8192, 32, "raw"))
+
+
+def profile_algebra(dev, source: str = None) -> dict:
+    """A1-A4 (rebase in both tie forms) on every tier the library takes at
+    :data:`ALG_SHAPES`: the kernel's device ms a call
+    (``chip_smoke._queued_ms``) and, for the stamped A2 and A4, each phase's
+    share of a document's cycles (thread 0 of a CTA, lane 0 of a warp) and
+    a document's mean cycles."""
+    from chip_smoke import _queued_ms, algebra_case
+
+    cdll = build(algebra=source or "")
+    res = {}
+    for label, n, lc, pc, lanes in ALG_SHAPES:
+        docs, L, a, b = algebra_case(dev, n, lc, pc, lanes)
+        for entry, extra in ((TAK.A1, ()), (TAK.A2, (0,)), (TAK.A2, (1,)),
+                             (TAK.A3, ()), (TAK.A4, ())):
+            op = TAK.ENTRIES.index(entry)
+            ins = ([docs, L, *a] if entry in (TAK.A1, TAK.A3)
+                   else [*a, *b, L])
+            for t, c in TAK.TIER_CODES.items():
+                if cdll.tree_algebra_smem_bytes(op, lc, pc, c) < 0:
+                    continue
+                outs = TAK._outputs(entry, None, n, lc, pc, dev)
+                prof = torch.zeros(n * 16, dtype=torch.int64, device=dev)
+                if cdll.tree_prof_set(prof.data_ptr()) != 0:
+                    raise RuntimeError("tree_prof_set failed")
+                work = cdll.tree_algebra_work_ints(op, lc, pc, c)
+
+                def run():
+                    TAK.launch(cdll, entry, t, ins, outs, dev, (n, lc, pc),
+                               extra, work)
+
+                run()
+                torch.cuda.synchronize()
+                names = ALG_PHASES.get(entry, ())
+                w = prof.view(n, 16).double().sum(0).tolist()[:len(names)]
+                total = sum(w)
+                key = (f"{label} {entry}{' c_after' if extra == (1,) else ''}"
+                       f" {t}")
+                res[key] = {"ms": _queued_ms(dev, run)}
+                if total:
+                    res[key].update(doc_cycles_mean=total / n, **{
+                        f"share {p}": w[j] / total
+                        for j, p in enumerate(names)})
+                print(f"{key}: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in res[key].items()), flush=True)
+        del docs, L, a, b
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("tree_scan_profile needs a CUDA device", file=sys.stderr)
@@ -386,8 +503,12 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    res = dict(card=smi, **(profile_warp(dev) if "--warp" in sys.argv
-                            else profile(dev)))
+    if "--algebra" in sys.argv:
+        i = sys.argv.index("--source") + 1 if "--source" in sys.argv else 0
+        rows = profile_algebra(dev, sys.argv[i] if i else None)
+    else:
+        rows = profile_warp(dev) if "--warp" in sys.argv else profile(dev)
+    res = dict(card=smi, **rows)
     from chip_smoke import OUT_DIR
 
     os.makedirs(OUT_DIR, exist_ok=True)
