@@ -98,11 +98,11 @@ log and lease coordination (``g++``), all at once, then:
    and global tiers) and timed there on the same inputs, under
    ``torch.cuda.set_sync_debug_mode("error")``, and A1-A4 (the dense
    changeset algebra's kernels) held against their plain versions on
-   every tier (A2 and A4 also the warp tier) at 3b's and 3c's widths on
-   commits and raw lanes (rebase in both tie forms; compose's ties and
-   overflowing pools) and at Lc 8,192 on the global tier, then A2 and A4
-   timed on every tier at 1 to 1,024 documents of both widths, the
-   source of their warp tier's document-count rule; 7a config 3b,
+   every tier (the warp, shared and global tiers) at 3b's and 3c's widths
+   on commits and raw lanes (rebase in both tie forms; compose's ties and
+   overflowing pools) and at Lc 8,192, then each timed on every tier at 1
+   to 1,024 documents of both widths, the source of the warp tier's
+   document-count rule; 7a config 3b,
    ``batched_trunk_scan`` over 1,024 docs (Lc 128, Pc 32, W 16) staged
    on the card once, a warm-up and 3 timed scans, every distinct script
    held to the host trunk, the whole batch to T1's plain version on the
@@ -844,7 +844,7 @@ def reset_tree_counts() -> None:
 
 def read_tree_counts() -> dict:
     """Each tree kernel's launches since the last reset (T1, T2 and
-    A1-A4): in all and by tier (A1 and A3 run no warp tier)."""
+    A1-A4): in all and by tier."""
     return {name: {"all": spec["wrapper"].launches,
                    **{t: getattr(spec["wrapper"], f"launches_{t}", 0)
                       for t in TSK.TIER_CODES}}
@@ -2804,26 +2804,29 @@ def _queued_ms(dev, fn, reps: int = 50, spin_cycles: int = 50_000_000):
     back behind a spin kernel (``torch.cuda._sleep``, ~25 ms at the H100's
     clock), so the host has queued every launch before the first runs and
     the CUDA events between them see the device's own time, not the
-    host's launch cost. Raises if queueing took longer than the spin. Host
-    wall a call on the CPU."""
+    host's launch cost. Where queueing took longer than the spin (a host
+    slowed by its neighbours) it measures once more behind a spin four
+    times as long, and raises if that too is outrun. Host wall a call on
+    the CPU."""
     if dev.type != "cuda":
         return _event_ms(dev, fn, reps)
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    spin = torch.cuda.Event(enable_timing=True)
-    spin.record()
-    torch.cuda._sleep(spin_cycles)
-    t = time.perf_counter()
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    queued_ms = (time.perf_counter() - t) * 1e3
-    torch.cuda.synchronize()
-    if queued_ms >= spin.elapsed_time(a):
-        raise AssertionError(f"_queued_ms: queueing took {queued_ms:.2f} ms,"
-                             f" the spin {spin.elapsed_time(a):.2f} ms")
-    return a.elapsed_time(b) / reps
+    for cycles in (spin_cycles, 4 * spin_cycles):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        spin = torch.cuda.Event(enable_timing=True)
+        spin.record()
+        torch.cuda._sleep(cycles)
+        t = time.perf_counter()
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        queued_ms = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        if queued_ms < spin.elapsed_time(a):
+            return a.elapsed_time(b) / reps
+    raise AssertionError(f"_queued_ms: queueing took {queued_ms:.2f} ms, the"
+                         f" spin {spin.elapsed_time(a):.2f} ms")
 
 
 def _device_ms(dev, fn, reps: int, kernel: str):
@@ -3120,20 +3123,12 @@ def algebra_case(dev, n, lc, pc, lanes, seed=0) -> tuple:
     return docs, L, raw(), raw()
 
 
-def algebra_tiers(name) -> set:
-    """The tiers algebra kernel ``name`` has: every one for A2 and A4, the
-    CTA tiers for A1 and A3."""
-    entry = ALGEBRA_KERNELS[name]["entry"]
-    return {t for t in TAK.TIER_CODES
-            if t != "warp" or entry in TAK.WARP_ENTRIES}
-
-
 def algebra_holds(dev) -> list:
     """A1-A4 against their plain versions at :data:`ALGEBRA_HOLDS`, rebase
     in both tie forms, each on every tier that takes the shape
     (:func:`hold_algebra`); compose's raw holds must hold ties and
     overflowing pools, and the holds together must reach every tier of
-    every kernel (:func:`algebra_tiers`)."""
+    every kernel."""
     rows = []
     for label, n, lc, pc, lanes in ALGEBRA_HOLDS:
         docs, L, a, b = algebra_case(dev, n, lc, pc, lanes)
@@ -3159,18 +3154,19 @@ def algebra_holds(dev) -> list:
         del docs, L, a, b
     for name in ALGEBRA_KERNELS:
         if {t for r in rows if r["kernel"] == name
-                for t in r["tiers"]} != algebra_tiers(name):
+                for t in r["tiers"]} != set(TAK.TIER_CODES):
             raise AssertionError(f"{name}'s holds miss a tier")
     return rows
 
 
-# 7h's document-count sweep of A2 and A4 across their tiers, the source of
+# 7h's document-count sweep of A1-A4 across their tiers, the source of
 # tree_algebra_kernel.WARP_MIN_DOCS: 7a's widths (config 3b's Lc 128, Pc
 # 32) and 7b's (3c's Lc 512, Pc 8), the first n documents of one batch of
 # gen_streams commits (5% moves). At ALGEBRA_SWEEP_HELD's counts each call
 # is also held against its plain version (algebra_holds holds 1,024): one
 # document, a lone warp in its CTA, and 528, which leaves a warp-tier CTA
-# partly filled at Lc 512 (7 documents a CTA for rebase, 5 for compose).
+# partly filled at Lc 512 for rebase and compose (7 and 5 documents a CTA;
+# apply and invert take 8).
 ALGEBRA_SWEEP_WIDTHS = ((TREE_LC, TREE_PC), (512, 8))
 ALGEBRA_SWEEP_DOCS = (1, 8, 64, 256, 528, 1024)
 ALGEBRA_SWEEP_HELD = (1, 528)
@@ -3191,7 +3187,7 @@ def algebra_ms(dev, name, args) -> dict:
 
 
 def algebra_sweep(dev) -> list:
-    """A2 (both tie forms) and A4 at :data:`ALGEBRA_SWEEP_WIDTHS` x
+    """A1-A4 (rebase in both tie forms) at :data:`ALGEBRA_SWEEP_WIDTHS` x
     :data:`ALGEBRA_SWEEP_DOCS`, each timed on every tier on the same inputs
     (:func:`algebra_ms`; at :data:`ALGEBRA_SWEEP_HELD` also held,
     :func:`hold_algebra`); a row per call with each tier's device ms, the
@@ -3203,7 +3199,7 @@ def algebra_sweep(dev) -> list:
         for n in ALGEBRA_SWEEP_DOCS:
             cut = (docs[:n], L[:n], TK.DenseChange(*[x[:n] for x in a]),
                    TK.DenseChange(*[x[:n] for x in b]))
-            for name in ("A2_tree_rebase", "A4_tree_compose"):
+            for name in ALGEBRA_KERNELS:
                 for c_after in _calls(name):
                     args = algebra_args(name, *cut, c_after)
                     err = None

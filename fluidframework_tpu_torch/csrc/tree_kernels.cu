@@ -130,6 +130,9 @@ constexpr unsigned FULL = 0xffffffffu;
 // the flag word at a fixed slot, so scans of different widths never race.
 constexpr int SCAN_ARRAYS = 3;
 constexpr int RED_WORDS = 32 * SCAN_ARRAYS + 1;
+// CtaGroup::offsets' scratch in red: each warp's K totals at SCAN_ARRAYS
+// words a warp, then each warp's flags from GROUP_FLAGS.
+constexpr int GROUP_FLAGS = SCAN_ARRAYS * (MAX_THREADS / 32);
 
 __device__ __forceinline__ int wadd(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);
@@ -1489,11 +1492,12 @@ __global__ void __launch_bounds__(32 * WARP_MAX_D)
 // apply_change :238, rebase_change :258, invert_change :339 and
 // compose_change :382; XLA programs, not pl.pallas_call sites), each one
 // launch: a group of threads a document (a CTA, or a warp on the warp tier)
-// loads its input lanes (rows of any stride) into its region, runs the
-// device function and writes every output lane. apply and rebase are the
-// device functions T1 runs (rebase with its tie form as C_AFTER, on the warp
-// tier rebase_w); invert and compose are below, over the same helpers and
-// with the transport semantics of this file's header.
+// reads its input lanes (rows of any stride), runs the device function and
+// writes every output lane. rebase is the device function T1 runs (its tie
+// form as C_AFTER, on the warp tier rebase_w); apply, invert and compose
+// are below, each one body for every tier over a thread group (CtaGroup,
+// WarpGroup), with the transport semantics of this file's header (T1 keeps
+// its own apply_change and apply_w).
 //
 // What bounds them. A document is O(Lc + Pc) int ops of prefix sums and
 // scatters, the move-effect tables' tag searches (O(Lc * Pc) compares at
@@ -1501,13 +1505,16 @@ __global__ void __launch_bounds__(32 * WARP_MAX_D)
 // the bytes are the lanes read and written once, 1-2 us at the main
 // shapes. A call is a wave of documents, each a chain of phases: latency,
 // as for T1. The design answers the chain's links:
-//   - the inputs: a document's 9 or 15 rows arrive as one group of 4-byte
-//     cp.async copies into shared memory, waited on once, so the rows'
-//     latencies overlap instead of queueing behind each other's stores (the
-//     global tier, whose region is device memory anyway, reads them where
-//     they lie, but A1 copies them into it: take_row). TMA does not fit:
-//     the rows are Lc + 1 and Pc ints at any row stride (a lane sliced out
-//     of a commit batch), so they are not 16-byte aligned;
+//   - the inputs: rebase's and compose's 15 rows arrive as one group of
+//     4-byte cp.async copies into shared memory, waited on once, so the
+//     rows' latencies overlap instead of queueing behind each other's
+//     stores (the global tier reads them where they lie: take_row). TMA
+//     does not fit: the rows are Lc + 1 and Pc ints at any row stride (a
+//     lane sliced out of a commit batch), so they are not 16-byte aligned.
+//     apply and invert stage nothing: each thread loads its own chunk of
+//     the slots and boundaries into registers, a batch of loads in flight
+//     at once, and two passes over the chunk replace the staged copy, the
+//     fill, the block scan and the store (apply_alg, invert_alg);
 //   - the barriers: on the warp tier a document is one warp, up to
 //     WARP_MAX_D a CTA, each in its own slice of the dynamic shared memory,
 //     its phases closed by __syncwarp;
@@ -1515,13 +1522,14 @@ __global__ void __launch_bounds__(32 * WARP_MAX_D)
 //     warp-cooperative (each lane its own atoms, __ballot_sync picks the
 //     slots to resolve, __reduce_add_sync / __any_sync combine, in the same
 //     wrap-around int32 sums), in compose on every tier, in rebase_w;
+//     apply's live move-in atoms record their positions and every warp
+//     sums its slots' values by tag into them, one add a warp (apply_alg);
 //   - compose's rank, below.
 //
-// Tiers: warp (A2 and A4) as above; shared, one CTA a document, the region
-// in dynamic shared memory up to SMEM_BYTES; global, the region in the
-// document's slice of a workspace the wrapper allocates. Each CTA kernel is
-// instantiated once a tier, and compose's body serves all three through a
-// thread group (CtaGroup, WarpGroup).
+// Tiers: warp as above; shared, one CTA a document, the region in dynamic
+// shared memory up to SMEM_BYTES; global, the region in the document's
+// slice of a workspace the wrapper allocates. Each CTA kernel is
+// instantiated once a tier.
 //
 // Compose's attach pool is one stable sort of Lc + 2 Pc candidate keys of
 // which the first Pc are kept: each live candidate (key < BIG = Lc + 2 Pc +
@@ -1570,27 +1578,20 @@ __device__ __forceinline__ int *alg_region(const AlgArgs &a) {
   return GLOBAL ? a.work + (size_t)blockIdx.x * a.work_ints : tree_smem;
 }
 
-// How a kernel takes its input rows: staged into shared memory by 4-byte
-// cp.async copies (the caller commits and waits for them), read where they
-// lie (the global tier; the device functions only read their inputs), or
-// copied into the global tier's workspace (A1 there: its serial move-in
-// loop ran slower at Lc 8,192 reading the rows where they lie).
-enum Take { TAKE_ASYNC, TAKE_IN_PLACE, TAKE_COPY };
+// How A2 and A4 take their input rows: staged into shared memory by 4-byte
+// cp.async copies (the caller commits and waits for them), or read where
+// they lie (the global tier; the device functions only read their inputs).
+enum Take { TAKE_ASYNC, TAKE_IN_PLACE };
 
-// Document n's row of input lane q (w ints), taken `how`; a staged or
-// copied row lands in the region at p, p moving past it.
+// Document n's row of input lane q (w ints), taken `how`; a staged row
+// lands in the region at p, p moving past it.
 __device__ __forceinline__ int *take_row(const AlgArgs &a, int q, int w,
                                          int n, int *&p, Take how, int t,
                                          int T) {
   const int *const src = a.in[q] + (long long)n * a.st[q];
   if (how == TAKE_IN_PLACE) return const_cast<int *>(src);
   int *const dst = p;
-  for (int j = t; j < w; j += T) {
-    if (how == TAKE_ASYNC)
-      cp_async4(dst + j, src + j);
-    else
-      dst[j] = src[j];
-  }
+  for (int j = t; j < w; j += T) cp_async4(dst + j, src + j);
   p += w;
   return dst;
 }
@@ -1641,81 +1642,88 @@ __device__ __forceinline__ void store_change(const AlgArgs &a, const Ch s,
   store_row(a, 6, s.poff, Pc, n, t, T);
 }
 
-// invert_change(doc, L, c) into `out` (4 Lc + 1 + 3 Pc ints, contiguous):
-// c's insert atoms become deletes and its move-in atoms return move-outs
-// (the same tag) at their output positions; c's detached slots become one
-// attach atom each at the slot's position among the survivors, pooled in
-// input order (dc counts the detached slots): a deleted slot revives its
-// document id, a moved-out one becomes the return move-in.
-__device__ void invert(const int *doc, const int L, const Ch c, const Ch out,
-                       const int E, int *dex, int *bcum, int *dc,
-                       const int Lc, const int Pc, unsigned *red) {
-  const int T = blockDim.x, t = threadIdx.x;
-  for (int b = t; b <= Lc; b += T) {
-    if (b < Lc) {
-      const int d = max(c.del[b], (int)(c.mid[b] > 0)) * (int)(b < L);
-      dex[b + 1] = d;
-      dc[b + 1] = (int)(d != 0);
-    } else {
-      dex[0] = 0;
-      dc[0] = 0;
-    }
-    bcum[b] = c.ins[b] * (int)(b <= L);
-  }
-  for (int j = t; j < E; j += T) out.del[j] = 0;  // the whole output change
-  __syncthreads();
-  int *const arrs[3] = {dex, bcum, dc};
-  const bool mono = !(block_scan<3>(arrs, Lc + 1, red) & 2u);
-  const int total = bcum[Lc];
-  for (int k = t; k < Pc && k < total; k += T) {
-    const int b = count_leq(bcum, Lc + 1, k, mono);
-    const int ip = wadd(wsub(b, dex[clampi(b, 0, Lc)]), k);
-    const int pm = c.pmid[k];
-    if (ip >= 0 && ip < Lc) {
-      if (pm == 0) {
-        atomicAdd(&out.del[ip], 1);
-      } else if (pm > 0) {
-        atomicAdd(&out.mid[ip], pm);
-        atomicAdd(&out.moff[ip], c.poff[k]);
-      }
-    }
-  }
-  for (int i = t; i < Lc; i += T) {
-    if (dc[i + 1] == dc[i]) continue;  // not detached
-    const int sp = wadd(wsub(i, dex[i]), bcum[i]);
-    if (sp >= 0 && sp <= Lc) atomicAdd(&out.ins[sp], 1);
-    const int g = dc[i + 1] - 1;  // the detached slots keep their order
-    if (g < Pc) {
-      if (c.del[i] != 0) out.ids[g] = doc[i];
-      if (c.mid[i] > 0) {
-        out.pmid[g] = c.mid[i];
-        out.poff[g] = c.moff[i];
-      }
-    }
-  }
-  __syncthreads();
-}
-
 // The threads that compute one document: a CTA (block barriers,
 // block_scan) or one warp of a warp-tier CTA (__syncwarp, warp_scan). t and
 // T: the thread's index in the group and the group's size; wid: the warp's
-// index in the group.
+// index in the group. sync_or: a barrier that also returns the OR of p
+// over the group. offsets: the exclusive prefix sums of K per-thread
+// chunk sums over the group in thread order and their totals, with int32
+// wrap-around (warp shuffles; on a CTA the warps' totals cross one block
+// barrier, and every warp scans them itself), returning the OR of `flags`
+// over the group; it orders every memory access the group made before it.
+// Called once a kernel (a CTA reuses red's words).
 struct CtaGroup {
   int t, T, wid;
   unsigned *red;
   __device__ void sync() const { __syncthreads(); }
+  __device__ bool sync_or(bool p) const { return __syncthreads_or(p); }
   template <int K>
   __device__ unsigned scan(int *const (&x)[K], int n) const {
     return block_scan<K>(x, n, red);
+  }
+  template <int K>
+  __device__ unsigned offsets(const unsigned (&s)[K], unsigned (&off)[K],
+                              unsigned (&tot)[K], unsigned flags) const {
+    const int lane = t & 31, nw = (T + 31) >> 5;
+    unsigned incl[K];
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      unsigned v = s[q];
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const unsigned y = __shfl_up_sync(FULL, v, d);
+        if (lane >= d) v += y;
+      }
+      incl[q] = v;
+      if (lane == 31) red[wid * SCAN_ARRAYS + q] = v;
+    }
+    flags = __reduce_or_sync(FULL, flags);
+    if (lane == 0) red[GROUP_FLAGS + wid] = flags;
+    __syncthreads();
+    flags = __reduce_or_sync(FULL, lane < nw ? red[GROUP_FLAGS + lane] : 0u);
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      unsigned w = lane < nw ? red[lane * SCAN_ARRAYS + q] : 0u;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const unsigned y = __shfl_up_sync(FULL, w, d);
+        if (lane >= d) w += y;
+      }
+      const unsigned below = __shfl_sync(FULL, w, (wid + 31) & 31);
+      tot[q] = __shfl_sync(FULL, w, 31);
+      off[q] = (wid > 0 ? below : 0u) + incl[q] - s[q];
+    }
+    return flags;
   }
 };
 
 struct WarpGroup {
   int t, T, wid;
   __device__ void sync() const { __syncwarp(); }
+  __device__ bool sync_or(bool p) const {
+    __syncwarp();
+    return __any_sync(FULL, p);
+  }
   template <int K>
   __device__ unsigned scan(int *const (&x)[K], int n) const {
     return warp_scan<K>(x, n);
+  }
+  template <int K>
+  __device__ unsigned offsets(const unsigned (&s)[K], unsigned (&off)[K],
+                              unsigned (&tot)[K], unsigned flags) const {
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      unsigned v = s[q];
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const unsigned y = __shfl_up_sync(FULL, v, d);
+        if (t >= d) v += y;
+      }
+      tot[q] = __shfl_sync(FULL, v, 31);
+      off[q] = v - s[q];
+    }
+    return __reduce_or_sync(FULL, flags);
   }
 };
 
@@ -1989,30 +1997,300 @@ __device__ int compose(const G g, const Ch a, const Ch b, const int L,
   return (int)(n_live > Pc);
 }
 
-// A1: apply_change. Region: the change and the document (staged, or on
-// the global tier copied), the output [Lc], dex/bcum [Lc + 1]. In: doc, L,
-// the change's seven lanes; out: doc, L.
+// The largest attach count a boundary may carry for A1 and A3 to take the
+// fast path: at most 65,537 boundaries of at most this many atoms sum below
+// 2^31, so where the first boundary's count is at most ICNT_FAST and every
+// later one's in [0, ICNT_FAST] the prefix sum is non-decreasing without a
+// check.
+constexpr int ICNT_FAST = 32767;
+// Elements of a thread's chunk A1 and A3 load at once: the first batch is
+// kept in registers from pass 1 to pass 2, later batches are loaded again.
+constexpr int BATCH = 4;
+
+// A1's and A3's view of one document: the input rows where they lie, the
+// thread's chunk of the slots [lo, hi) and of the boundaries [lo, hib) (the
+// thread with the last slots also takes boundary Lc).
+struct DocRows {
+  const int *doc, *del, *ins, *ids, *mid, *moff, *pmid, *poff;
+  int L, lo, hi, hib, Lc;
+};
+
+template <class G>
+__device__ __forceinline__ DocRows doc_rows(const G g, const AlgArgs &a,
+                                            int n) {
+  DocRows r;
+  const int *in[9];
+#pragma unroll
+  for (int q = 0; q < 9; ++q) in[q] = a.in[q] + (long long)n * a.st[q];
+  r.doc = in[0];
+  r.del = in[2];
+  r.ins = in[3];
+  r.ids = in[4];
+  r.mid = in[5];
+  r.moff = in[6];
+  r.pmid = in[7];
+  r.poff = in[8];
+  r.L = in[1][0];
+  r.Lc = a.Lc;
+  const int per = (r.Lc + g.T - 1) / g.T;
+  r.lo = min(r.Lc, g.t * per);
+  r.hi = min(r.Lc, r.lo + per);
+  r.hib = r.hi + (int)(r.hi == r.Lc && r.lo < r.hi);
+  return r;
+}
+
+// One element of a chunk: boundary j's attach count and, where j < Lc,
+// slot j's lanes and document value (zeros past the document's Lc slots).
+struct Elem {
+  int ins, del, mid, moff, doc;
+};
+
+// Elements j0 .. j0 + BATCH - 1 of the chunk (those below hib), every load
+// issued before any is used.
+__device__ __forceinline__ void load_batch(const DocRows &r, int j0,
+                                           Elem (&e)[BATCH]) {
+#pragma unroll
+  for (int q = 0; q < BATCH; ++q) {
+    const int j = j0 + q;
+    const bool b = j < r.hib, s = b && j < r.Lc;
+    e[q].ins = b ? __ldg(r.ins + j) : 0;
+    e[q].del = s ? __ldg(r.del + j) : 0;
+    e[q].mid = s ? __ldg(r.mid + j) : 0;
+    e[q].moff = s ? __ldg(r.moff + j) : 0;
+    e[q].doc = s ? __ldg(r.doc + j) : 0;
+  }
+}
+
+// fn(j, e) for every element of the chunk in order: the first batch from
+// `held`, the others a batch at a time.
+template <class F>
+__device__ __forceinline__ void each_elem(const DocRows &r,
+                                          const Elem (&held)[BATCH], F fn) {
+#pragma unroll
+  for (int q = 0; q < BATCH; ++q)
+    if (r.lo + q < r.hib) fn(r.lo + q, held[q]);
+  for (int j0 = r.lo + BATCH; j0 < r.hib; j0 += BATCH) {
+    Elem e[BATCH];
+    load_batch(r, j0, e);
+#pragma unroll
+    for (int q = 0; q < BATCH; ++q)
+      if (j0 + q < r.hib) fn(j0 + q, e[q]);
+  }
+}
+
+// Slot j's detach count (max(del, moved out) inside the document, else 0)
+// and boundary j's attach count (inside the document, else 0).
+__device__ __forceinline__ int detach_of(const DocRows &r, int j,
+                                         const Elem &e) {
+  return j < r.Lc ? max(e.del, (int)(e.mid > 0)) * (int)(j < r.L) : 0;
+}
+
+__device__ __forceinline__ int attach_of(const DocRows &r, int j,
+                                         const Elem &e) {
+  return e.ins * (int)(j <= r.L);
+}
+
+// Pass 1 of A1 and A3 over the held batch and the rest of the chunk: the
+// sums of the detach counts (s[0]), the attach counts (s[1]) and, for K =
+// 3, the detached slots (s[2]); returns 1 where an attach count past the
+// first boundary lies outside [0, ICNT_FAST] (the searching path).
+template <int K>
+__device__ __forceinline__ unsigned chunk_sums(const DocRows &r,
+                                               const Elem (&held)[BATCH],
+                                               unsigned (&s)[K]) {
+  unsigned risky = 0;
+#pragma unroll
+  for (int q = 0; q < K; ++q) s[q] = 0;
+  each_elem(r, held, [&](int j, const Elem &e) {
+    const int d = detach_of(r, j, e), ic = attach_of(r, j, e);
+    s[0] += (unsigned)d;
+    s[1] += (unsigned)ic;
+    if constexpr (K == 3) s[2] += (unsigned)(d != 0);
+    risky |= (unsigned)(ic > ICNT_FAST || (j > 0 && ic < 0));
+  });
+  return risky;
+}
+
+// Pass 2's walk of the boundaries: bc runs from the chunk's offset to
+// bcum[j] at element j; where `slow` is false fn(k, ip) takes each
+// pool atom k < n_atoms with bcum[j - 1] <= k < bcum[j] at ip = j - dex[j]
+// + k (its boundary is j), else bcum and dex are recorded for the search
+// and `bad` notes a fall.
+template <class F>
+__device__ __forceinline__ void boundary_atoms(int j, int ic, int dx,
+                                               int &bc, bool slow,
+                                               int n_atoms, int *bcum,
+                                               int *dex, bool &bad, F fn) {
+  const int bprev = bc;
+  bc = wadd(bc, ic);
+  if (!slow) {
+    for (int k = max(0, bprev); k < min(bc, n_atoms); ++k)
+      fn(k, wadd(wsub(j, dx), k));
+  } else {
+    bcum[j] = bc;
+    dex[j] = dx;
+    bad |= j > 0 && bc < bprev;
+  }
+}
+
+// The searching path: after a group barrier every thread's atoms k < n_atoms
+// find their boundary in the recorded bcum (a binary search where it came
+// out non-decreasing, a count otherwise).
+template <class G, class F>
+__device__ __forceinline__ void searched_atoms(const G g, bool bad,
+                                               int n_atoms, const int *bcum,
+                                               const int *dex, int Lc, F fn) {
+  const bool mono = !g.sync_or(bad);
+  for (int k = g.t; k < n_atoms; k += g.T) {
+    const int b = count_leq(bcum, Lc + 1, k, mono);
+    fn(k, wadd(wsub(b, dex[clampi(b, 0, Lc)]), k));
+  }
+}
+
+// A1: apply_change(doc, L, c) for document n by the group g, its inputs
+// read where they lie and its output scattered into doc_out (zeroed first,
+// int atomicAdd). Region (ints): bcum and dex [Lc + 1] (the searching
+// path's), the pool's ids, pmid and poff [Pc] staged, each atom's output
+// position where it is a live move-in atom (else -1) and its sum [2 Pc].
+// Each thread takes
+// a chunk of the slots and boundaries, loaded a batch at a time: pass 1
+// sums it (chunk_sums), offsets gives each chunk its prefix, pass 2 walks
+// it again, scattering its survivors and, at each boundary b, the pool
+// atoms with bcum[b - 1] <= k < bcum[b] where the attach counts are in
+// range (else each thread's atoms search the recorded bcum). A move-in
+// atom adds, at its position, the sum of the document's values at every
+// slot j < L whose move tag is its own: each live move-in atom records its
+// position and, after a barrier, every warp sums the values of its slots
+// with the tag of each recorded atom, a batch of a thread's slots at a
+// time, and adds the sum into the atom's (one add a warp: duplicate tags
+// do not pile onto one word); after another, each atom adds its sum. No
+// thread walks more than its chunk and its atoms, and per batch the pool.
+template <class G>
+__device__ void apply_alg(const G g, const AlgArgs &a, int n, int *p) {
+  const int t = g.t, T = g.T, Lc = a.Lc, Pc = a.Pc;
+  const DocRows r = doc_rows(g, a, n);
+  int *const out = a.out[0] + (size_t)n * Lc;
+  int *const bcum = p, *const dex = p + Lc + 1;
+  int *const sids = dex + Lc + 1, *const spm = sids + Pc,
+             *const spo = spm + Pc;
+  int *const mip = spo + Pc, *const msum = mip + Pc;
+  const bool own = t < Pc;  // pool atom k = t, loaded with the chunk
+  const int k_ids = own ? __ldg(r.ids + t) : 0;
+  const int k_pm = own ? __ldg(r.pmid + t) : 0;
+  const int k_po = own ? __ldg(r.poff + t) : 0;
+  Elem held[BATCH];
+  load_batch(r, r.lo, held);
+  for (int j = t; j < Lc; j += T) out[j] = 0;
+  unsigned sum[2], off[2], tot[2];
+  const unsigned risky = chunk_sums(r, held, sum);
+  unsigned has_min = (unsigned)(k_pm > 0);
+  if (own) {
+    sids[t] = k_ids;
+    spm[t] = k_pm;
+    spo[t] = k_po;
+  }
+  for (int k = t + T; k < Pc; k += T) {
+    const int pm = __ldg(r.pmid + k);
+    sids[k] = __ldg(r.ids + k);
+    spm[k] = pm;
+    spo[k] = __ldg(r.poff + k);
+    has_min |= (unsigned)(pm > 0);
+  }
+  for (int k = t; k < Pc; k += T) {
+    mip[k] = -1;
+    msum[k] = 0;
+  }
+  const unsigned f =
+      g.template offsets<2>(sum, off, tot, risky | has_min << 1);
+  ALG_PHASE(0);
+  const bool slow = f & 1u, moves = f & 2u;
+  const int total = (int)tot[1], n_atoms = min(Pc, total);
+  // Atom k at output position ip: an insert adds its id, a move-in atom
+  // records its position.
+  auto atom = [&](int k, int ip) {
+    if (ip < 0 || ip >= Lc) return;
+    if (spm[k] > 0)
+      mip[k] = ip;
+    else
+      atomicAdd(&out[ip], sids[k]);
+  };
+  int dx = (int)off[0], bc = (int)off[1];
+  bool bad = false;
+  each_elem(r, held, [&](int j, const Elem &e) {
+    boundary_atoms(j, attach_of(r, j, e), dx, bc, slow, n_atoms, bcum, dex,
+                   bad, atom);
+    const int d = detach_of(r, j, e);
+    if (j < Lc && j < r.L && d == 0) {
+      const int sp = wadd(wsub(j, dx), bc);
+      if (sp >= 0 && sp < Lc) atomicAdd(&out[sp], e.doc);
+    }
+    dx = wadd(dx, d);
+  });
+  if (t == 0) a.out[1][n] = wadd(wsub(r.L, (int)tot[0]), total);
+  ALG_PHASE(1);
+  if (slow) searched_atoms(g, bad, n_atoms, bcum, dex, Lc, atom);
+  ALG_PHASE(2);
+  if (moves) g.sync();
+  ALG_PHASE(3);
+  if (moves) {
+    // A batch of the chunk's slots at a time, each recorded atom's tag
+    // matched against every thread's batch, summed over the warp and added
+    // to the atom's sum by one lane (the loops are uniform over the group).
+    const int per = (Lc + T - 1) / T;
+    for (int b = 0; b * BATCH < per; ++b) {
+      Elem e[BATCH];
+      if (b == 0) {
+#pragma unroll
+        for (int q = 0; q < BATCH; ++q) e[q] = held[q];
+      } else {
+        load_batch(r, r.lo + b * BATCH, e);
+      }
+      for (int k = 0; k < n_atoms; ++k) {
+        if (mip[k] < 0) continue;
+        const int pm = spm[k], po = spo[k];
+        unsigned v = 0;
+#pragma unroll
+        for (int q = 0; q < BATCH; ++q) {
+          const int j = r.lo + b * BATCH + q;
+          if (j < r.hi && j < r.L && e[q].mid == pm && e[q].moff == po)
+            v += (unsigned)e[q].doc;
+        }
+        v = __reduce_add_sync(FULL, v);
+        if ((t & 31) == 0 && v) atomicAdd(&msum[k], (int)v);
+      }
+    }
+    g.sync();
+    for (int k = t; k < n_atoms; k += T)
+      if (mip[k] >= 0) atomicAdd(&out[mip[k]], msum[k]);
+  }
+  ALG_PHASE(4);
+}
+
+// A1, one CTA a document (the region in shared memory, or on the global
+// tier in the document's slice of the workspace). In: doc, L, the change's
+// seven lanes; out: doc, L. A1's and A3's CTA kernels are held to 64
+// registers, so 8 CTAs of 128 threads share an SM (without the cap 96-112
+// registers: a second wave at 1,024 documents).
 template <bool GLOBAL>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(MAX_THREADS, 2)
     alg_apply_kernel(const AlgArgs a) {
   __shared__ unsigned red[RED_WORDS];
-  const int n = blockIdx.x, t = threadIdx.x, T = blockDim.x;
-  const int Lc = a.Lc, Pc = a.Pc;
-  constexpr Take st = GLOBAL ? TAKE_COPY : TAKE_ASYNC;
-  int *p = alg_region<GLOBAL>(a);
-  const Ch c = take_change(a, 2, n, Lc, Pc, p, st, t, T);
-  const int *const doc = take_row(a, 0, Lc, n, p, st, t, T);
-  int *const out = p;
-  p += Lc;
-  Scratch s{};
-  s.dex = p;
-  s.bcum = p + Lc + 1;
-  const int L = load_int(a, 1, n);
-  loads_landed();
-  __syncthreads();
-  const int new_L = apply_change(doc, L, c, out, s, Lc, Pc, red);
-  store_row(a, 0, out, Lc, n, t, T);
-  if (t == 0) a.out[1][n] = new_L;
+  ALG_PROF_BEGIN;
+  const int n = blockIdx.x, t = threadIdx.x;
+  apply_alg(CtaGroup{t, (int)blockDim.x, t >> 5, red}, a, n,
+            alg_region<GLOBAL>(a));
+  ALG_PROF_END(n, t == 0);
+}
+
+// A1 on the warp tier: one warp a document, its slice A1's region.
+__global__ void __launch_bounds__(32 * WARP_MAX_D)
+    alg_apply_warp_kernel(const AlgArgs a) {
+  ALG_PROF_BEGIN;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int n = blockIdx.x * a.docs + wid;
+  if (n >= a.N) return;
+  apply_alg(WarpGroup{lane, 32, 0}, a, n, tree_smem + (size_t)wid * a.slice);
+  ALG_PROF_END(n, lane == 0);
 }
 
 // A2: rebase_change(c, o, L, C_AFTER). Region: [c and o, staged except on
@@ -2099,27 +2377,114 @@ __global__ void __launch_bounds__(32 * WARP_MAX_D)
   ALG_PROF_END(n, lane == 0);
 }
 
-// A3: invert_change. Region: [the change and the document, staged except
-// on the global tier], the output change, dex/bcum/dc [Lc + 1]. In: doc,
-// L, the change's seven lanes; out: the change.
+// A3: invert_change(doc, L, c) for document n by the group g, its inputs
+// read where they lie: c's insert atoms become deletes and its move-in
+// atoms return move-outs (the same tag) at their output positions; c's
+// detached slots become one attach atom each at the slot's position among
+// the survivors, pooled in input order: a deleted slot revives its
+// document id, a moved-out one becomes the return move-in. The detach,
+// move and attach lanes are zeroed, then scattered by int atomicAdd; the
+// pool lanes are written once each, the detached slots' in their order
+// (each chunk's offset in the detached count) and the rest 0. Region
+// (ints): bcum and dex [Lc + 1] (as A1's), pmid and poff [Pc] staged. The
+// passes are A1's.
+template <class G>
+__device__ void invert_alg(const G g, const AlgArgs &a, int n, int *p) {
+  const int t = g.t, T = g.T, Lc = a.Lc, Pc = a.Pc;
+  const DocRows r = doc_rows(g, a, n);
+  const size_t nl = (size_t)n * Lc, np = (size_t)n * Pc;
+  int *const o_del = a.out[0] + nl, *const o_ins = a.out[1] + n * (Lc + 1LL);
+  int *const o_ids = a.out[2] + np, *const o_mid = a.out[3] + nl;
+  int *const o_moff = a.out[4] + nl, *const o_pmid = a.out[5] + np;
+  int *const o_poff = a.out[6] + np;
+  int *const bcum = p, *const dex = p + Lc + 1;
+  int *const spm = dex + Lc + 1, *const spo = spm + Pc;
+  const bool own = t < Pc;  // pool atom k = t, loaded with the chunk
+  const int k_pm = own ? __ldg(r.pmid + t) : 0;
+  const int k_po = own ? __ldg(r.poff + t) : 0;
+  Elem held[BATCH];
+  load_batch(r, r.lo, held);
+  for (int j = t; j < Lc; j += T) {
+    o_del[j] = 0;
+    o_mid[j] = 0;
+    o_moff[j] = 0;
+  }
+  for (int j = t; j <= Lc; j += T) o_ins[j] = 0;
+  unsigned sum[3], off[3], tot[3];
+  const unsigned risky = chunk_sums(r, held, sum);
+  if (own) {
+    spm[t] = k_pm;
+    spo[t] = k_po;
+  }
+  for (int k = t + T; k < Pc; k += T) {
+    spm[k] = __ldg(r.pmid + k);
+    spo[k] = __ldg(r.poff + k);
+  }
+  const bool slow = g.template offsets<3>(sum, off, tot, risky) != 0;
+  ALG_PHASE(0);
+  const int n_atoms = min(Pc, (int)tot[1]);
+  // Atom k at output position ip: an insert becomes a delete, a move-in
+  // atom the return move-out.
+  auto atom = [&](int k, int ip) {
+    if (ip < 0 || ip >= Lc) return;
+    const int pm = spm[k];
+    if (pm == 0) {
+      atomicAdd(&o_del[ip], 1);
+    } else if (pm > 0) {
+      atomicAdd(&o_mid[ip], pm);
+      atomicAdd(&o_moff[ip], spo[k]);
+    }
+  };
+  int dx = (int)off[0], bc = (int)off[1], dc = (int)off[2];
+  bool bad = false;
+  each_elem(r, held, [&](int j, const Elem &e) {
+    boundary_atoms(j, attach_of(r, j, e), dx, bc, slow, n_atoms, bcum, dex,
+                   bad, atom);
+    const int d = detach_of(r, j, e);
+    if (d != 0) {
+      const int sp = wadd(wsub(j, dx), bc);
+      if (sp >= 0 && sp <= Lc) atomicAdd(&o_ins[sp], 1);
+      if (dc < Pc) {  // the detached slots keep their order
+        o_ids[dc] = e.del != 0 ? e.doc : 0;
+        o_pmid[dc] = e.mid > 0 ? e.mid : 0;
+        o_poff[dc] = e.mid > 0 ? e.moff : 0;
+      }
+      ++dc;
+    }
+    dx = wadd(dx, d);
+  });
+  for (int k = (int)tot[2] + t; k < Pc; k += T) {
+    o_ids[k] = 0;
+    o_pmid[k] = 0;
+    o_poff[k] = 0;
+  }
+  ALG_PHASE(1);
+  if (slow) searched_atoms(g, bad, n_atoms, bcum, dex, Lc, atom);
+  ALG_PHASE(2);
+}
+
+// A3, one CTA a document. In: doc, L, the change's seven lanes; out: the
+// change.
 template <bool GLOBAL>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(MAX_THREADS, 2)
     alg_invert_kernel(const AlgArgs a) {
   __shared__ unsigned red[RED_WORDS];
-  const int n = blockIdx.x, t = threadIdx.x, T = blockDim.x;
-  const int Lc = a.Lc, Pc = a.Pc, E = 4 * Lc + 1 + 3 * Pc;
-  constexpr Take st = GLOBAL ? TAKE_IN_PLACE : TAKE_ASYNC;
-  int *p = alg_region<GLOBAL>(a);
-  const Ch c = take_change(a, 2, n, Lc, Pc, p, st, t, T);
-  const int *const doc = take_row(a, 0, Lc, n, p, st, t, T);
-  const Ch out = change_at(p, Lc, Pc);
-  p += E;
-  int *const dex = p, *const bcum = p + Lc + 1, *const dc = p + 2 * (Lc + 1);
-  const int L = load_int(a, 1, n);
-  loads_landed();
-  __syncthreads();
-  invert(doc, L, c, out, E, dex, bcum, dc, Lc, Pc, red);
-  store_change(a, out, Lc, Pc, n, t, T);
+  ALG_PROF_BEGIN;
+  const int n = blockIdx.x, t = threadIdx.x;
+  invert_alg(CtaGroup{t, (int)blockDim.x, t >> 5, red}, a, n,
+             alg_region<GLOBAL>(a));
+  ALG_PROF_END(n, t == 0);
+}
+
+// A3 on the warp tier: one warp a document, its slice A3's region.
+__global__ void __launch_bounds__(32 * WARP_MAX_D)
+    alg_invert_warp_kernel(const AlgArgs a) {
+  ALG_PROF_BEGIN;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int n = blockIdx.x * a.docs + wid;
+  if (n >= a.N) return;
+  invert_alg(WarpGroup{lane, 32, 0}, a, n, tree_smem + (size_t)wid * a.slice);
+  ALG_PROF_END(n, lane == 0);
 }
 
 // A4's region after its inputs ([a and b, staged except on the global
@@ -2359,15 +2724,15 @@ int launch_tier(void (*cta)(Args), void (*warp)(Args), const Args &a,
 long long alg_ints(int op, int Lc, int Pc, int tier) {
   const long long E = trunk_entry_ints(Lc, Pc), l1 = Lc + 1LL;
   const long long nc = Lc + 2LL * Pc;
-  const bool staged = tier != T_GLOBAL || op == A_APPLY;
+  const bool staged = tier != T_GLOBAL;
   switch (op) {
     case A_APPLY:
-      return (staged ? E + Lc : 0) + Lc + 2 * l1;
+      return 2 * l1 + 5LL * Pc;
     case A_REBASE:
       return (staged ? 2 * E : 0) + E + 3 * l1 + 4LL * Pc +
              (tier == T_WARP ? 0 : Lc);
     case A_INVERT:
-      return (staged ? E + Lc : 0) + E + 3 * l1;
+      return 2 * l1 + 2LL * Pc;
     case A_COMPOSE:
       return (staged ? 2 * E : 0) + E + 4 * l1 + 3LL * Pc + 4LL * Lc +
              2 * nc + 6;
@@ -2389,7 +2754,6 @@ bool place_alg(int op, int Lc, int Pc, int tier, long long *work_ints,
     return *smem <= SMEM_BYTES;
   }
   if (tier == T_WARP) {
-    if (op != A_REBASE && op != A_COMPOSE) return false;
     const long long slice = alg_ints(op, Lc, Pc, tier);
     const long long d = warp_docs(slice);
     if (d < 1) return false;
@@ -2404,11 +2768,15 @@ bool place_alg(int op, int Lc, int Pc, int tier, long long *work_ints,
 }
 
 // One launch of A1-A4's CTA kernels on the shared tier or (GLOBAL) the
-// global tier: N CTAs of threads_for(Lc) threads.
+// global tier: N CTAs of threads_for(Lc) threads, for A1 and A3 of
+// threads_for(Lc / BATCH) (a batch of slots a thread: at 3c's Lc 512 a
+// CTA of 128, so 1,024 documents run in one wave).
 template <bool GLOBAL>
 int launch_alg_cta(int op, int c_after, const AlgArgs &a, long long smem,
                    cudaStream_t st) {
-  const int n = a.N, thr = threads_for(a.Lc);
+  const int n = a.N, thr = threads_for(op == A_APPLY || op == A_INVERT
+                                           ? (a.Lc + BATCH - 1) / BATCH
+                                           : a.Lc);
   switch (op) {
     case A_APPLY:
       return launch_tree(alg_apply_kernel<GLOBAL>, a, n, thr, smem, st);
@@ -2455,8 +2823,14 @@ int launch_alg(int op, int c_after, const int *const *in,
   if (tier == T_WARP) {
     a.slice = alg_ints(op, Lc, Pc, tier);
     const int blocks = (n_docs + docs - 1) / docs, thr = 32 * docs;
-    if (op == A_COMPOSE)
-      return launch_tree(alg_compose_warp_kernel, a, blocks, thr, smem, st);
+    switch (op) {
+      case A_APPLY:
+        return launch_tree(alg_apply_warp_kernel, a, blocks, thr, smem, st);
+      case A_INVERT:
+        return launch_tree(alg_invert_warp_kernel, a, blocks, thr, smem, st);
+      case A_COMPOSE:
+        return launch_tree(alg_compose_warp_kernel, a, blocks, thr, smem, st);
+    }
     return c_after ? launch_tree(alg_rebase_warp_kernel<true>, a, blocks, thr,
                                  smem, st)
                    : launch_tree(alg_rebase_warp_kernel<false>, a, blocks,

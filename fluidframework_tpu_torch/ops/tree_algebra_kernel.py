@@ -21,13 +21,14 @@ copy; a row's elements must be contiguous), writes every output lane, and
 raises on a shape past the kernels' limits, lanes of mismatched widths or a
 CUDA error.
 
-Tiers (:func:`tier`): ``"warp"`` (A2 and A4) gives each document one warp
-and its region a slice of a CTA's dynamic shared memory, up to
-:data:`WARP_MAX_D` documents a CTA, where :data:`WARP_MIN_DOCS` lets it;
-``"shared"`` holds a document's whole region (its input and output changes
-and the scratch) in one CTA's dynamic shared memory, up to
-:data:`SMEM_BYTES`; ``"global"`` holds it in the document's slice of a
-workspace.
+Tiers (:func:`tier`): ``"warp"`` gives each document one warp and its
+region a slice of a CTA's dynamic shared memory, up to :data:`WARP_MAX_D`
+documents a CTA, where :data:`WARP_MIN_DOCS` lets it; ``"shared"`` holds a
+document's whole region (rebase's and compose's staged input changes, their
+output change and the scratch; apply's and invert's scratch alone, since
+they read their inputs in place and scatter into their outputs) in one
+CTA's dynamic shared memory, up to :data:`SMEM_BYTES`; ``"global"`` holds it
+in the document's slice of a workspace.
 """
 
 from __future__ import annotations
@@ -48,18 +49,21 @@ from fluidframework_tpu_torch.ops.tree_scan_kernel import (
 ENTRIES = ("tree_apply", "tree_rebase", "tree_invert", "tree_compose")
 A1, A2, A3, A4 = ENTRIES
 TIER_CODES = {"shared": 0, "global": 1, "warp": 2}
-# The entries with a warp tier.
-WARP_ENTRIES = (A2, A4)
-# When the warp tier runs a launch of A2 or A4: the fewest documents, at
-# the widths (Lc, Pc) where the sweep timed it faster; at any other widths
-# it does not. From chip_smoke 7h's document-count sweep, which times every
-# tier on the same inputs at 1, 8, 64, 256, 528 and 1,024 documents of (128,
-# 32) and (512, 8) (PERF.md §6): a warp a document wins only once the
-# CTA tiers need more than a wave, rebase from 1,024 documents at (128, 32)
-# (and at (512, 8) never: a tie in one tie form, a loss in the other),
-# compose from 528 at (512, 8) and from 1,024 at (128, 32), where the sweep
-# is a tie (1%) and 7a's commits run 6% faster on the warp tier.
-WARP_MIN_DOCS = {A2: {(128, 32): 1024}, A4: {(128, 32): 1024, (512, 8): 528}}
+# When the warp tier (every entry has one) runs a launch: the fewest documents, at the widths
+# (Lc, Pc) where the sweep timed it faster; at any other widths it does
+# not. From chip_smoke 7h's document-count sweep, which times every tier on
+# the same inputs at 1, 8, 64, 256, 528 and 1,024 documents of (128, 32)
+# and (512, 8) (PERF.md §6): a warp a document wins only once the CTA tiers
+# need more than a wave, rebase from 1,024 documents at (128, 32) (and at
+# (512, 8) never: a tie in one tie form, a loss in the other), compose from
+# 528 at (512, 8) and from 1,024 at (128, 32), where the sweep is a tie
+# (1%) and 7a's commits run 6% faster on the warp tier; apply and invert
+# from 1,024 at (128, 32) (about 0.005 ms against the shared tier's 0.006)
+# and at (512, 8) never (a lane's 16 slots against a CTA of 128 threads'
+# four, one wave: about 0.013 ms against 0.008).
+WARP_MIN_DOCS = {A1: {(128, 32): 1024}, A2: {(128, 32): 1024},
+                 A3: {(128, 32): 1024},
+                 A4: {(128, 32): 1024, (512, 8): 528}}
 # The seven lanes of a change: (field, width) with Lc and Pc as 0 and 1.
 _LANES = tuple(zip(TK.DenseChange._fields, ((0, 0), (0, 1), (1, 0), (0, 0),
                                             (0, 0), (1, 0), (1, 0))))
@@ -68,22 +72,24 @@ _lib = None  # the bound and checked library (:func:`lib`)
 
 def region_ints(entry: str, lc: int, pc: int, t: str) -> int:
     """Ints a document's region takes on tier ``t`` (the layouts above
-    ``alg_*_kernel`` in tree_kernels.cu): the staged inputs (changes of 4
-    Lc + 1 + 3 Pc ints, apply's and invert's document; on the global tier,
-    which reads them where they lie, only apply's copies), the output and
-    the scratch; rebase's landing positions only on the CTA tiers."""
+    ``apply_alg``, ``invert_alg`` and ``alg_*_kernel`` in tree_kernels.cu):
+    apply's and invert's scratch on every tier (bcum and dex [Lc + 1], the
+    staged pool lanes, apply's move-in positions and sums); rebase's and
+    compose's staged input changes of 4 Lc + 1 + 3 Pc ints (none on the
+    global tier, which reads them where they lie), output change and
+    scratch, rebase's landing positions only on the CTA tiers."""
     e, l1, nc = 4 * lc + 1 + 3 * pc, lc + 1, lc + 2 * pc
     if entry == A1:
-        staged, rest = e + lc, lc + 2 * l1
-    elif entry == A3:
-        staged, rest = e + lc, e + 3 * l1
-    elif entry == A2:
+        return 2 * l1 + 5 * pc
+    if entry == A3:
+        return 2 * l1 + 2 * pc
+    if entry == A2:
         staged = 2 * e
         rest = e + 3 * l1 + 4 * pc + (0 if t == "warp" else lc)
     else:
         staged = 2 * e
         rest = e + 4 * l1 + 3 * pc + 4 * lc + 2 * nc + 6
-    return rest + (0 if t == "global" and entry != A1 else staged)
+    return rest + (0 if t == "global" else staged)
 
 
 def placement(entry: str, lc: int, pc: int, t: str):
@@ -98,7 +104,7 @@ def placement(entry: str, lc: int, pc: int, t: str):
     smem = 4 * region_ints(entry, lc, pc, t)
     if t == "warp":
         d = min(WARP_MAX_D, SMEM_BYTES // smem)
-        return (smem * d, 0) if entry in WARP_ENTRIES and d >= 1 else None
+        return (smem * d, 0) if d >= 1 else None
     return (smem, 0) if smem <= SMEM_BYTES else None
 
 
@@ -107,7 +113,8 @@ def tier(entry: str, lc: int, pc: int, n: int = None) -> str:
     where ``None``) of widths ``lc`` and ``pc`` on: ``"warp"`` where
     :data:`WARP_MIN_DOCS` lets it and a slice fits, else ``"shared"`` where
     a document's region fits :data:`SMEM_BYTES` (config 3b's compose, the
-    largest, takes 13,364 bytes at Lc 128, Pc 32), ``"global"`` above.
+    largest, takes 13,364 bytes at Lc 128, Pc 32; apply and invert stay
+    there to Lc 28,000 and more), ``"global"`` above.
     Widths outside ``[1, MAX_LC]`` / ``[1, MAX_PC]`` raise
     ``ValueError``."""
     if entry not in ENTRIES:

@@ -634,6 +634,26 @@ def test_tree_algebra_kernels_match_plain_on_the_card(hold):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["A1_tree_apply", "A3_tree_invert"])
+def test_apply_and_invert_stay_exact_over_repeated_launches(name):
+    """A1 and A3 on raw lanes at 3b's widths (duplicate move tags in most
+    documents), 100 launches on every tier, each equal to the plain version
+    in every lane: an ordering fault in shared memory shows only over
+    repeated launches (a design that appended A1's move-in atoms through a
+    shared-memory counter held once and failed over repeated calls)."""
+    _need_card()
+    dev = torch.device("cuda", 0)
+    docs, L, a, _b = algebra_case(dev, 1024, 128, 32, "raw")
+    spec = ALGEBRA_KERNELS[name]
+    args = algebra_args(name, docs, L, a, a)
+    want = spec["plain"](*args)
+    for t in TAK.TIER_CODES:
+        for _ in range(100):
+            got = spec["wrapper"](*args, t=t)
+            assert all(torch.equal(x, y) for x, y in zip(got, want)), t
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("cap", [256, 2048, 4096, 16384, 65536, 131072])
 def test_kernels_at_one_document_match_plain(cap):
     """K1 (one op a launch) and K2 at one document on every tier: random

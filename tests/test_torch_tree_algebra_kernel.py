@@ -161,7 +161,12 @@ def test_cuda_route_without_the_library_raises(monkeypatch):
     # Rebase and compose carry three changes: past shared memory at 4,096.
     (4096, 32, {TAK.A1: "shared", TAK.A2: "global", TAK.A3: "shared",
                 TAK.A4: "global"}),
-    (8192, 32, "global"), (MAX_LC, MAX_PC, "global"),
+    # Apply and invert stage no change: their scratch fits one CTA to Lc
+    # 28,000 and more.
+    pytest.param(8192, 32, {TAK.A1: "shared", TAK.A2: "global",
+                            TAK.A3: "shared", TAK.A4: "global"},
+                 id="8192-32-global"),
+    (MAX_LC, MAX_PC, "global"),
 ])
 def test_tier_picks_shared_or_global_by_widths(monkeypatch, lc, pc, want):
     """Where the warp tier does not run (no threshold table), the region's
@@ -178,13 +183,13 @@ def test_tier_picks_shared_or_global_by_widths(monkeypatch, lc, pc, want):
 
 
 def test_tier_takes_the_warp_tier_by_document_count(monkeypatch):
-    """``tier()`` gives A2 and A4 the warp tier from the fewest documents
+    """``tier()`` gives an entry the warp tier from the fewest documents
     :data:`WARP_MIN_DOCS` names for the widths, one document below it the
     CTA tier; at widths the table does not name (the sweep's neighbours
-    included), where a slice does not fit, and for A1 and A3 never. The
-    table itself, on both sides of each of its thresholds, and a stand-in
-    table."""
-    for entry in TAK.WARP_ENTRIES:
+    included), where a slice does not fit, and for an entry it does not
+    name, never. The table itself, on both sides of each of its thresholds,
+    and a stand-in table for rebase and compose."""
+    for entry in TAK.ENTRIES:
         table = TAK.WARP_MIN_DOCS.get(entry, {})
         for (lc, pc), fewest in table.items():
             assert TAK.tier(entry, lc, pc, fewest) == "warp"
@@ -199,7 +204,7 @@ def test_tier_takes_the_warp_tier_by_document_count(monkeypatch):
     table = {(64, 8): 1, (512, 8): 300}
     monkeypatch.setattr(TAK, "WARP_MIN_DOCS", {TAK.A2: table, TAK.A4: table})
     for entry in TAK.ENTRIES:
-        has = entry in TAK.WARP_ENTRIES
+        has = entry in (TAK.A2, TAK.A4)
         for lc, pc, n, warp in ((64, 8, 1, True), (63, 8, 1024, False),
                                 (64, 16, 10 ** 6, False),
                                 (128, 8, 10 ** 6, False),
@@ -221,15 +226,20 @@ def test_tier_takes_the_warp_tier_by_document_count(monkeypatch):
 def test_warp_tier_placement():
     """A warp-tier CTA holds as many documents' slices as fit
     :data:`SMEM_BYTES`, at most :data:`WARP_MAX_D`, no workspace; a
-    slice is rebase's region without its landing positions and compose's
-    whole region; A1 and A3 have no warp tier."""
-    for lc, pc, docs in ((128, 32, {TAK.A2: 8, TAK.A4: 8}),
-                         (512, 8, {TAK.A2: 7, TAK.A4: 5}),
-                         (2048, 8, {TAK.A2: 1, TAK.A4: 1}),
-                         (4096, 8, {TAK.A2: None, TAK.A4: None})):
+    slice is rebase's region without its landing positions, and compose's,
+    apply's and invert's whole region (apply's and invert's stage no
+    change, so their regions are the same on every tier)."""
+    for lc, pc, docs in ((128, 32, {TAK.A1: 8, TAK.A2: 8, TAK.A3: 8,
+                                    TAK.A4: 8}),
+                         (512, 8, {TAK.A1: 8, TAK.A2: 7, TAK.A3: 8,
+                                   TAK.A4: 5}),
+                         (2048, 8, {TAK.A1: 8, TAK.A2: 1, TAK.A3: 8,
+                                    TAK.A4: 1}),
+                         (4096, 8, {TAK.A1: 7, TAK.A2: None, TAK.A3: 7,
+                                    TAK.A4: None})):
         for entry in TAK.ENTRIES:
             pl = TAK.placement(entry, lc, pc, "warp")
-            if entry not in TAK.WARP_ENTRIES or docs[entry] is None:
+            if docs[entry] is None:
                 assert pl is None
                 continue
             ints = TAK.region_ints(entry, lc, pc, "warp")
@@ -242,11 +252,13 @@ def test_warp_tier_placement():
         3 * e + 3 * 129 + 128)
     assert TAK.region_ints(TAK.A4, 128, 32, "warp") == (
         TAK.region_ints(TAK.A4, 128, 32, "shared")) == 3341
-    # The global tier reads its inputs where they lie: no staged changes,
-    # but apply copies its change and document.
+    # The global tier reads its inputs where they lie: no staged changes.
+    # Apply and invert read theirs in place on every tier: bcum and dex,
+    # the staged pool lanes and apply's move-in positions and sums.
     assert TAK.region_ints(TAK.A4, 128, 32, "global") == 3341 - 2 * e
-    assert TAK.region_ints(TAK.A1, 128, 32, "global") == (
-        TAK.region_ints(TAK.A1, 128, 32, "shared")) == e + 2 * 128 + 2 * 129
+    for t in TAK.TIER_CODES:
+        assert TAK.region_ints(TAK.A1, 128, 32, t) == 2 * 129 + 5 * 32
+        assert TAK.region_ints(TAK.A3, 128, 32, t) == 2 * 129 + 2 * 32
     assert TAK.placement(TAK.A4, 128, 32, "warp") == (8 * 13_364, 0)
     assert TAK.placement(TAK.A4, 512, 8, "warp") == (5 * 45_620, 0)
 
@@ -395,7 +407,7 @@ def test_strided_lane_slices_equal_contiguous_lanes(fake_lib, t):
     slice) reach the library as row strides, with no copy, and give the
     plain version's result on contiguous lanes, into sentinel-filled
     ``out`` lanes too; each call is one launch on the tier asked for, the
-    global tier with a workspace (the warp tier for A2 and A4 only)."""
+    global tier with a workspace."""
     n, C, lc, pc = 5, 3, 24, 8
     rng = np.random.default_rng(11)
     commits = [raw_lanes(rng, n, lc, pc) for _ in range(C)]
@@ -429,10 +441,8 @@ def test_strided_lane_slices_equal_contiguous_lanes(fake_lib, t):
         assert (w.launches, getattr(w, f"launches_{t}")) == (
             before[0] + 2, before[1] + 2)
     strides = {e: s for e, _N, _lc, _pc, _x, _c, _w, s in fake_lib.calls}
-    if t != "warp":
-        assert strides[TAK.A1] == [lc, 2] + [C * w for w in
-                                             (lc, lc + 1, pc, lc, lc, pc,
-                                              pc)]
+    assert strides[TAK.A1] == [lc, 2] + [C * w for w in
+                                         (lc, lc + 1, pc, lc, lc, pc, pc)]
     assert strides[TAK.A4][14] == 2
     assert {(c[5], c[6]) for c in fake_lib.calls} == {
         (TAK.TIER_CODES[t], t == "global")}
@@ -567,6 +577,188 @@ def test_chunked_counting_rank_is_the_stable_argsort(seed):
         live = int((row < len(row) + 2).sum())
         want = np.where(np.arange(16) < live, order.numpy(), -1)
         assert (chunked_counting_rank(row, 16) == want).all()
+
+
+# -- A1's and A3's chunked passes and A1's move-in resolution -------------
+
+
+def _w32(x) -> int:
+    """``x`` wrapped to int32, as the kernels' int arithmetic wraps."""
+    return (int(x) + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def _icnt_fast() -> int:
+    with open(_cuda.TREE_SOURCE) as f:
+        src = f.read()
+    i = src.index("constexpr int ICNT_FAST = ")
+    return int(src[i:src.index(";", i)].split("=")[1])
+
+
+def chunked_apply_invert(doc, L, c, T):
+    """A numpy model of A1 and A3 (``apply_alg`` and ``invert_alg`` in
+    ``csrc/tree_kernels.cu``) for one document on a group of ``T``
+    threads: ``(new_ids, new_L, inverse lanes, slow)``. Each thread takes
+    a chunk of the slots and boundaries (the thread with the last slots
+    also boundary Lc). Pass 1 sums its detach counts, attach counts and
+    detached slots; the chunks' exclusive offsets follow in thread order.
+    Pass 2 walks each chunk again: survivors scatter (apply), detached
+    slots take their attach and pool entry (invert), and where every
+    attach count past the first boundary lies in [0, ICNT_FAST] (so the
+    prefix sum cannot fall) each boundary b takes the atoms with bcum[b -
+    1] <= k < bcum[b]; otherwise every atom searches the whole prefix sum
+    (``slow``). Apply's live move-in atoms record their positions; then
+    every slot below L with a move tag adds its value at each recorded
+    atom with that tag."""
+    del_, ins, ids, mid, moff, pmid, poff = (np.asarray(x, np.int64)
+                                             for x in c)
+    doc = np.asarray(doc, np.int64)
+    L = int(L)
+    lc, pc = len(del_), len(ids)
+    fast_max = _icnt_fast()
+    per = -(-lc // T)
+    chunks = []
+    for t in range(T):
+        lo = min(lc, t * per)
+        hi = min(lc, lo + per)
+        chunks.append((lo, hi, hi + int(hi == lc and lo < hi)))
+
+    def d_at(j):
+        return max(int(del_[j]), int(mid[j] > 0)) * int(j < L)
+
+    def ic_at(b):
+        return int(ins[b]) * int(b <= L)
+
+    sums, risky = [], False
+    for lo, hi, hib in chunks:
+        s = [0, 0, 0]
+        for j in range(lo, hib):
+            if j < lc:
+                s[0] += d_at(j)
+                s[2] += d_at(j) != 0
+            ic = ic_at(j)
+            s[1] += ic
+            risky |= ic > fast_max or (j > 0 and ic < 0)
+        sums.append(s)
+    offs = np.cumsum([[0, 0, 0]] + sums[:-1], 0)
+    tot = [_w32(x) for x in np.sum(sums, 0)]
+    n_atoms = min(pc, tot[1])
+    out = np.zeros(lc, np.int64)
+    inv = [np.zeros(n, np.int64) for n in (lc, lc + 1, pc, lc, lc, pc, pc)]
+    listed = []  # apply's recorded move-in atoms: (pmid, poff, ip)
+    bcum = np.zeros(lc + 1, np.int64)
+    dex = np.zeros(lc + 1, np.int64)
+    bad = False
+
+    def atom(k, ip):
+        if not 0 <= ip < lc:
+            return
+        if pmid[k] > 0:
+            listed.append((pmid[k], poff[k], ip))
+            inv[3][ip] += pmid[k]
+            inv[4][ip] += poff[k]
+        else:
+            out[ip] += ids[k]
+            inv[0][ip] += pmid[k] == 0
+
+    for (lo, hi, hib), off in zip(chunks, offs):
+        dx, bc, dc = (_w32(x) for x in off)
+        for j in range(lo, hib):
+            bprev, bc = bc, _w32(bc + ic_at(j))
+            if not risky:
+                for k in range(max(0, bprev), min(bc, n_atoms)):
+                    atom(k, _w32(j - dx + k))
+            else:
+                bcum[j], dex[j] = bc, dx
+                bad |= j > 0 and bc < bprev
+            if j < lc:
+                d = d_at(j)
+                if j < L and d == 0:
+                    sp = _w32(j - dx + bc)
+                    if 0 <= sp < lc:
+                        out[sp] += doc[j]
+                if d != 0:
+                    sp = _w32(j - dx + bc)
+                    if 0 <= sp <= lc:
+                        inv[1][sp] += 1
+                    if dc < pc:
+                        inv[2][dc] = doc[j] if del_[j] != 0 else 0
+                        inv[5][dc] = mid[j] if mid[j] > 0 else 0
+                        inv[6][dc] = moff[j] if mid[j] > 0 else 0
+                    dc += 1
+                dx = _w32(dx + d)
+    if risky:
+        for k in range(max(0, n_atoms)):
+            b = (int(np.searchsorted(bcum, k, "right")) if not bad
+                 else int((bcum <= k).sum()))
+            atom(k, _w32(b - dex[min(max(b, 0), lc)] + k))
+    for lo, hi, _hib in chunks:
+        for j in range(lo, hi):
+            if j < L and mid[j] > 0:
+                for pm, po, ip in listed:
+                    if (pm, po) == (mid[j], moff[j]):
+                        out[ip] += doc[j]
+    new_L = _w32(L - tot[0] + tot[1])
+    w = np.vectorize(_w32)
+    return w(out), new_L, [w(x) for x in inv], risky
+
+
+@pytest.mark.parametrize("T", [32, 128])
+@pytest.mark.parametrize("kind", ["moves", "raw", "ties", "wrap"])
+def test_chunked_apply_and_invert_are_the_plain_versions(kind, T):
+    """The numpy model of A1's and A3's kernels equals ``apply_change`` and
+    ``invert_change`` on well-formed changes with moves and on raw lanes:
+    duplicate move tags, tags no slot holds and slots no atom takes, pools
+    past the live count, several writers to a position, and (``wrap``)
+    attach counts that are negative or wrap the prefix sum past 2^31,
+    which take the searching path; chunks of one and of several slots a
+    thread (a warp, a CTA)."""
+    seen = set()
+    for n, lc, pc in ((8, 48, 16), (3, 200, 9)):
+        rng = np.random.default_rng(lc + T)
+        if kind == "wrap":
+            ids = rng.integers(1, 1 << 20, (n, lc)).astype(np.int32)
+            L = rng.integers(lc // 2, lc + 1, n).astype(np.int32)
+            a = list(raw_lanes(rng, n, lc, pc))
+            a[1] = a[1].copy()
+            a[1][1::4, 1::7] = -1
+            a[1][2::4, rng.integers(1, lc, 3)] = 1 << 30
+        else:
+            ids, L, a, _b, _b2 = algebra_case(lc * 3 + T, kind, n, lc, pc)
+        ca = _change(a)
+        want_ids, want_L = TK.apply_change(_t(ids), _t(L), ca)
+        want_inv = TK.invert_change(_t(ids), _t(L), ca)
+        for r in range(n):
+            got_ids, got_L, inv, slow = chunked_apply_invert(
+                ids[r], L[r], [x[r] for x in a], T)
+            seen.add(slow)
+            assert (got_ids == want_ids[r].numpy()).all(), (kind, r)
+            assert got_L == int(want_L[r])
+            for x, y in zip(inv, want_inv):
+                assert (x == y[r].numpy()).all(), (kind, r)
+    assert seen == ({True, False} if kind == "wrap" else {False})
+
+
+def test_apply_resolves_move_ins_from_the_slots():
+    """A1's and A3's bodies walk only each thread's own chunk (``each_elem``)
+    and never the whole slot range from a fixed start; A1's move-in atoms
+    are resolved from the slots: each live move-in atom records its
+    position, and every warp sums its slots' values with each recorded
+    atom's tag, a batch of a thread's slots at a time, one add a warp."""
+    with open(_cuda.TREE_SOURCE) as f:
+        src = f.read()
+    for head in ("template <class G>\n__device__ void apply_alg(",
+                 "template <class G>\n__device__ void invert_alg("):
+        body = _device_fn(src, head)
+        assert "j < L && j < Lc" not in body and "for (int j = 0;" not in body
+        assert "each_elem(r, held, [&](int j, const Elem &e) {" in body
+    body = _device_fn(src, "template <class G>\n__device__ void apply_alg(")
+    assert "for (int b = 0; b * BATCH < per; ++b) {" in body
+    assert "for (int k = 0; k < n_atoms; ++k) {" in body
+    assert "e[q].mid == pm && e[q].moff == po" in body
+    assert "v = __reduce_add_sync(FULL, v);" in body
+    walk = _device_fn(src, "template <class F>\n"
+                      "__device__ __forceinline__ void each_elem(")
+    assert "for (int j0 = r.lo + BATCH; j0 < r.hib; j0 += BATCH)" in walk
 
 
 def _device_fn(src, head):

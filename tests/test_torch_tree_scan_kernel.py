@@ -473,7 +473,7 @@ def test_profile_stamps_land_in_the_kernel_source():
     text anchors (a stale one raises only when the tool runs on a card):
     both instrumented sources build their text here, every stamp lands
     once per anchor, and the CTA kernels' barriers are all stamped; the
-    algebra's stamps land through the source's markers."""
+    algebra's stamps land through the source's markers, for A1-A4."""
     from tools import tree_scan_profile as P
 
     def cta_part(src):
@@ -526,3 +526,19 @@ def test_profile_stamps_land_in_the_kernel_source():
             b = body(f)
             assert [b.count(f"ALG_PHASE({j});")
                     for j in range(1, last)] == [1] * (last - 1), f
+    # A1 and A3: each kernel opens and closes its record, and the group's
+    # device function, which every tier runs, stamps each phase once.
+    for entry, kernels, fn in (
+            (P.TAK.A1, ("alg_apply_kernel(", "alg_apply_warp_kernel("),
+             "__device__ void apply_alg("),
+            (P.TAK.A3, ("alg_invert_kernel(", "alg_invert_warp_kernel("),
+             "__device__ void invert_alg(")):
+        n = len(P.ALG_PHASES[entry])
+        for k in kernels:
+            b = body(k)
+            assert b.count("ALG_PROF_BEGIN;") == 1, k
+            assert b.count("ALG_PROF_END(n, ") == 1, k
+            assert "ALG_PHASE(" not in b, k
+        b = body(fn)
+        assert [b.count(f"ALG_PHASE({j});") for j in range(n + 1)] == (
+            [1] * n + [0]), fn

@@ -18,13 +18,12 @@ rebases a commit, and the CUDA-event time of the unstamped kernel at N =
 memory) as the second wave's cost. With ``--warp`` it stamps the warp
 kernels instead (lane 0 of each warp sums the cycles of each phase of its
 document's commit loop) and prints each phase's share at the same shapes.
-With ``--algebra [--source PATH]`` it stamps the algebra kernels A2
-(``alg_rebase_kernel``, both tie forms) and A4 (``alg_compose_kernel``)
-and their warp-tier kernels instead, through the source's ``ALG_PHASE``
-markers: thread 0 of each CTA, or lane 0 of each warp on the warp tier,
-sums the cycles of each phase of its document, and each phase's share of
-a document's cycles is printed, beside the device ms a call of A1-A4
-(A1 and A3 unstamped), on every tier the library takes at config 3b's
+With ``--algebra [--source PATH]`` it stamps the algebra kernels A1-A4
+(``alg_*_kernel``, rebase in both tie forms) and their warp-tier kernels
+instead, through the source's ``ALG_PHASE`` markers: thread 0 of each CTA,
+or lane 0 of each warp on the warp tier, sums the cycles of each phase of
+its document, and each phase's share of a document's cycles is printed,
+beside the device ms a call, on every tier the library takes at config 3b's
 widths (1,024 documents, Lc 128, Pc 32) and 3c's (1,024, Lc 512, Pc 8),
 on ``chip_smoke.algebra_case``'s commits, and at the global tier's hold
 (64 documents, Lc 8,192, Pc 32, raw lanes). ``--source`` builds another
@@ -274,6 +273,9 @@ __shared__ long long alast[8];
 # The algebra kernels' phases, in the order of their ALG_PHASE markers: each
 # stamp closes phase j, the cycles since the previous stamp.
 ALG_PHASES = {
+    TAK.A1: ("load+offsets", "scatters", "non-monotone atoms",
+             "move-in barrier", "move-in resolve"),
+    TAK.A3: ("load+offsets", "scatters and pool", "non-monotone atoms"),
     TAK.A2: ("load", "fill+zero", "scan", "pool positions",
              "slot landing and moved-slot search", "dead move-in atoms",
              "kcum scan", "scatters", "store"),
@@ -449,7 +451,7 @@ ALG_SHAPES = (("3b", 1024, 128, 32, "commits"),
 def profile_algebra(dev, source: str = None) -> dict:
     """A1-A4 (rebase in both tie forms) on every tier the library takes at
     :data:`ALG_SHAPES`: the kernel's device ms a call
-    (``chip_smoke._queued_ms``) and, for the stamped A2 and A4, each phase's
+    (``chip_smoke._queued_ms``) and, where the source stamps it, each phase's
     share of a document's cycles (thread 0 of a CTA, lane 0 of a warp) and
     a document's mean cycles."""
     from chip_smoke import _queued_ms, algebra_case
