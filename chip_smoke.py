@@ -31,6 +31,14 @@ log and lease coordination (``g++``), all at once, then:
    :func:`compact_edge_case` (merge runs across tile and slice edges, all
    rows reclaimed, none reclaimed), past 65,536 rows in launches of up to
    8 documents cut at the split tier's slices (:func:`edge_batches`);
+1c. repeated launches — every kernel entry (K1-K3, X1, X2,
+   ``shard_exchange``, T1, T2, A1-A4, rebase in both tie forms) on every
+   tier it has, at the shape its path launches it (:data:`REPEAT_MERGE`,
+   :func:`repeat_cases`; T1 and T2 cut in depth), launched at least
+   :data:`REPEAT_LAUNCHES` times round robin, each into fresh outputs
+   filled with the sentinel, each held bit for bit against one plain run
+   (``tools/kernel_sanitize.py``'s runners); one line each with its
+   launches and mismatches, any mismatch fails;
 2. fleet service — drives ``TpuFleetService`` at 100,000 docs x capacity
    128 x 16 ops/doc/round: a warm-up round plus 3 timed rounds at
    compact_every=1 (a scribe sweep of n_docs/3 docs in each), then 2 rounds
@@ -218,7 +226,8 @@ must launch ``shard_exchange`` and neither X1 nor X2 (one device group:
 those two launch only on several groups, so here only in the holds). The
 DocFleet path must launch K1 and K2 on the cluster tier. Prints the ptxas report of every kernel entry, each phase's
 wall time, the card's name and power limit, a ``{"kernels": [...]}`` line
-(K1, K2, K3, T1, T2, X1, X2, ``shard_exchange``), and last ``{"ok":
+(K1, K2, K3, T1, T2, A1, A2, A3, A4, X1, X2, ``shard_exchange``: every
+kernel entry), and last ``{"ok":
 true, "device": {...}}``. Any failure exits non-zero. A longer record goes to
 ``chip_smoke.json`` in the output directory (``OUT_DIR``).
 
@@ -290,9 +299,7 @@ from fluidframework_tpu_torch.protocol.constants import (
     ERR_CLIENT,
     ERR_RANGE,
     F_ARG,
-    F_CLIENT,
     F_LEN,
-    F_LSEQ,
     F_MSN,
     F_POS1,
     F_POS2,
@@ -344,6 +351,15 @@ from fluidframework_tpu_torch.utils.native import (
     native_coordination_available,
     native_plog_available,
     native_store_available,
+)
+from tools import kernel_sanitize as KS
+from tools.kernel_sanitize import (
+    algebra_case,
+    compose_ties,
+    em_case,
+    exchange_case,
+    random_case,
+    trunk_case,
 )
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
@@ -564,72 +580,6 @@ class Config6Gen:
                     msn=max(0, seqs[d] - 64),
                 )
         return per[np.asarray(docs) % self.scripts]
-
-
-def random_case(rng, n_docs: int, cap: int, k: int, device):
-    """A random packed state and op batch that reach every kernel branch:
-    tables up to full (capacity overflow), positions past the visible
-    length (ERR_RANGE), writer slots past the cap (ERR_CLIENT), pending
-    local rows with acks of them, tombstones below and above min_seq."""
-    d, s = n_docs, cap
-    count = rng.integers(0, s + 1, d)
-    near_full = rng.random(d) < 0.25
-    count[near_full] = s - rng.integers(0, 3, near_full.sum())
-    live = np.arange(s)[None, :] < count[:, None]
-    shape = (d, s)
-    lanes = {}
-    lanes["kind"] = np.ones(shape, np.int64)
-    lanes["orig"] = rng.integers(1, 40, shape)
-    lanes["off"] = rng.integers(0, 6, shape)
-    lanes["length"] = rng.integers(1, 6, shape)
-    local_ins = rng.random(shape) < 0.1
-    lanes["seq"] = np.where(local_ins, UNASSIGNED_SEQ,
-                            rng.integers(1, 200, shape))
-    lanes["client"] = rng.integers(0, 8, shape)
-    lanes["lseq"] = np.where(local_ins, rng.integers(1, 20, shape), 0)
-    rsel = rng.random(shape)
-    lanes["rseq"] = np.where(rsel < 0.7, RSEQ_NONE, np.where(
-        rsel < 0.8, UNASSIGNED_SEQ, rng.integers(1, 200, shape)))
-    lanes["rlseq"] = np.where((rsel >= 0.7) & (rsel < 0.8),
-                              rng.integers(1, 20, shape), 0)
-    removed = lanes["rseq"] != RSEQ_NONE
-    lanes["rbits"] = np.where(removed, 1 << rng.integers(0, 8, shape), 0)
-    lanes["rbits2"] = np.zeros(shape, np.int64)
-    lanes["rbits3"] = np.zeros(shape, np.int64)
-    ann = rng.random(shape) < 0.2
-    lanes["aseq"] = np.where(ann, rng.integers(1, 200, shape), 0)
-    lanes["alseq"] = np.where(ann & (rng.random(shape) < 0.3),
-                              rng.integers(1, 20, shape), 0)
-    lanes["aval"] = np.where(ann, rng.integers(1, 9, shape), 0)
-    fills = {"kind": 0, "rseq": RSEQ_NONE}
-    tables = np.stack([
-        np.where(live, lanes[n], fills.get(n, 0)) for n in SEGMENT_LANES
-    ]).astype(np.int32)
-    scalars = np.zeros((d, K1.N_SCALARS), np.int32)
-    scalars[:, K1.SC_COUNT] = count
-    scalars[:, K1.SC_MIN_SEQ] = rng.integers(0, 120, d)
-    scalars[:, K1.SC_CUR_SEQ] = 200
-    scalars[:, K1.SC_SELF] = np.where(rng.random(d) < 0.5, NO_CLIENT, 2)
-
-    ops = np.zeros((d, k, OP_WIDTH), np.int32)
-    ty = rng.choice(8, size=(d, k), p=[.04, .4, .2, .15, .07, .07, .05, .02])
-    pos1 = rng.integers(0, 3 * s + 20, (d, k))
-    local = rng.random((d, k)) < 0.2
-    ops[:, :, F_TYPE] = ty
-    ops[:, :, F_POS1] = pos1
-    ops[:, :, F_POS2] = pos1 + rng.integers(1, 40, (d, k))
-    ops[:, :, F_SEQ] = np.where(local, UNASSIGNED_SEQ,
-                                201 + np.arange(k)[None, :])
-    ops[:, :, F_REF] = rng.integers(100, 201, (d, k))
-    ops[:, :, F_CLIENT] = np.where(rng.random((d, k)) < 0.03,
-                                   rng.integers(93, 100, (d, k)),
-                                   rng.integers(0, 8, (d, k)))
-    ops[:, :, F_LSEQ] = rng.integers(1, 20, (d, k))
-    ops[:, :, F_ARG] = rng.integers(1, 40, (d, k))
-    ops[:, :, F_LEN] = rng.integers(1, 6, (d, k))
-    ops[:, :, F_MSN] = 100 + np.cumsum(rng.integers(0, 4, (d, k)), axis=1)
-    as_t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
-    return as_t(tables), as_t(scalars), as_t(ops)
 
 
 def _slice_rows(cap: int, sl) -> int:
@@ -942,6 +892,127 @@ def phase_kernels(device, report, key, shapes, seed_offset=0):
         del t0, s0, ops, t, s
         torch.cuda.empty_cache()
     report[key] = rows
+    return rows
+
+
+# Phase 1c: every kernel entry on every tier it has, at the shape its path
+# launches it, REPEAT_LAUNCHES launches against one plain run (an ordering
+# fault in shared memory shows only over repeated launches). Merge entries:
+# (entry, tier, rows S, docs D, ops K, the path), K3's shared tier cut from
+# the fleet service's 100,000 documents to 16,384, and its tiers no path
+# runs at phase 1b's shapes. The exchange at 9c's 8 shards of 65,536 rows
+# (X1 and X2 as two device groups of 4) and the one card's shard; T1 at
+# 7a's widths cut to 40 of its 125 commits, T2 at 7b's cut to 32 of 128;
+# A1-A4 at 7a's widths on raw lanes (duplicate move tags, compose's ties
+# and overflowing pools).
+REPEAT_LAUNCHES = 200
+REPEAT_MERGE = (
+    ("merge_apply", "smem", 128, 16_384, 8, "serving"),
+    ("merge_apply", "smem", 2048, 256, 16, "deep"),
+    ("merge_apply", "cluster", 4096, 256, 16, "deep"),
+    ("merge_apply", "global", 65_536, 8, 1, "9c"),
+    ("merge_apply", "split", 524_288, 1, 1, "9c one card"),
+    ("merge_compact", "smem", 128, 16_384, 0, "serving"),
+    ("merge_compact", "cluster", 4096, 256, 0, "deep"),
+    ("merge_compact", "global", 65_536, 8, 0, "9c"),
+    ("merge_compact", "split", 524_288, 1, 0, "9c one card"),
+    ("merge_apply_compact", "smem", 128, 16_384, 16, "fleet service"),
+    ("merge_apply_compact", "smem", 2048, 256, 16, "1b"),
+    ("merge_apply_compact", "cluster", 4096, 256, 16, "1b"),
+    ("merge_apply_compact", "global", 65_536, 16, 16, "1b"),
+    ("merge_apply_compact", "split", 131_072, 2, 16, "1b"),
+)
+# (docs, commits, W, Lc, Pc, move share, lag window): 7a's widths.
+REPEAT_T1 = (1024, 40, 16, 128, 32, 0.0, 16)
+REPEAT_T2 = (1024, 32, 512)
+
+
+def _sharing_plain(runs) -> list:
+    """``runs`` (one entry's tiers on the same inputs) with one plain run
+    between them."""
+    want = runs[0].plain()
+    for r in runs:
+        r.plain = lambda want=want: want
+    return runs
+
+
+def repeat_cases(dev) -> list:
+    """Phase 1c's ``(case, run)`` pairs on ``dev``: every C entry on every
+    tier it has, at its path's shape (above)."""
+    out = []
+    for entry, tier, cap, n, k, path in REPEAT_MERGE:
+        t, s, ops = KS.merge_inputs(dev, cap, n, max(k, 1))
+        case = KS.Case(entry, tier, f"{n:,} docs x {cap:,} rows, K {k} "
+                       f"({path})", None)
+        out.append((case, KS.merge_run(entry, t, s, ops, tier)))
+    i32 = dict(dtype=torch.int32, device=dev)
+    t, s, ops = exchange_case(dev, 8, 65_536, k=1)
+    ops2 = KS.with_past_op(ops, 0)
+    ar = torch.arange(8, **i32)
+    for case, run in (
+            (KS.Case("shard_stats", "-", "9c: 2 groups x 4 shards x 65,536 "
+                     "rows, 1 op", None),
+             KS.stats_run(t, s, ops, [[0, 1, 2, 3], [4, 5, 6, 7]])),
+            (KS.Case("shard_resolve", "-", "9c: group of shards 4-7 of 8, "
+                     "an op and one past the end", None),
+             KS.resolve_run(t, s, ops2, ar[4:].contiguous(), ar)),
+            (KS.Case("shard_exchange", "-", "9c: 1 group x 8 shards x "
+                     "65,536 rows, 1 op", None),
+             KS.exchange_run(t, s, ops))):
+        out.append((case, run))
+    t1, s1, op1 = exchange_case(dev, 1, 524_288, k=1)
+    out.append((KS.Case("shard_exchange", "-", "9c one card: 1 shard x "
+                        "524,288 rows, 1 op", None),
+                 KS.exchange_run(t1, s1, op1)))
+    for entry, args, words in (
+            (TSK.T1, KS.trunk_args(dev, *REPEAT_T1),
+             "7a: 1,024 docs x 40 commits, Lc 128, Pc 32, W 16"),
+            (TSK.T2, KS.em_args(dev, *REPEAT_T2),
+             "7b: 1,024 docs x 32 commits, Lc 512, W 16, R 16")):
+        tiers = [t for t in KS.SCAN_TIERS
+                 if KS.scan_placement(entry, t, args) is not None]
+        runs = _sharing_plain([KS.scan_run(entry, args, t) for t in tiers])
+        out += [(KS.Case(entry, t, words, None), r)
+                for t, r in zip(tiers, runs)]
+    docs, L, a, b = algebra_case(dev, 1024, TREE_LC, TREE_PC, "raw")
+    for entry in KS.ALGEBRA:
+        for c_after in ((False, True) if entry == TAK.A2 else (False,)):
+            args = KS.algebra_args(entry, docs, L, a, b, c_after)
+            runs = _sharing_plain([KS.algebra_run(entry, args, t)
+                                   for t in TAK.TIER_CODES])
+            out += [(KS.Case(entry, t, "7a: 1,024 docs, Lc 128, Pc 32, raw"
+                             " lanes" + (", c_after" if c_after else ""),
+                             None), r)
+                    for t, r in zip(TAK.TIER_CODES, runs)]
+    return out
+
+
+def phase_repeat(device, report) -> list:
+    """Phase 1c: each of :func:`repeat_cases` launched at least
+    :data:`REPEAT_LAUNCHES` times round robin, each call into fresh
+    outputs filled with the sentinel and held bit for bit against one
+    plain run on the same inputs (``tools.kernel_sanitize.hold_all``);
+    one line each with its launches and mismatches. Launches here count
+    nowhere. Any mismatch fails the phase once every case has run."""
+    with _Uncounted():
+        pairs = repeat_cases(device)
+        results = KS.hold_all([r for _c, r in pairs], REPEAT_LAUNCHES)
+        torch.cuda.synchronize()
+    rows = []
+    for (case, _r), res in zip(pairs, results):
+        print("repeat " + KS.report_line(case, res), flush=True)
+        rows.append(dict(kernel=case.label, entry=case.entry,
+                         tier=case.tier, shape=case.shape, **res))
+    del pairs
+    report["repeat"] = rows
+    covered = {(r["entry"], r["tier"]) for r in rows}
+    missing = [(e, t) for e in KS.LABELS for t in KS.entry_tiers(e)
+               if (e, t) not in covered]
+    bad = [r for r in rows if r["mismatches"] or r["launches"]
+           < REPEAT_LAUNCHES]
+    if missing or bad:
+        raise AssertionError(f"phase 1c: tiers not held {missing}; "
+                             f"failing cases {bad}")
     return rows
 
 
@@ -2958,19 +3029,6 @@ def _algebra_sentinel(name, args, dev):
     return TK.DenseChange(*lanes)
 
 
-def compose_ties(a, b, L) -> tuple:
-    """``(ties, overflows)`` of compose's candidate keys at these inputs:
-    live keys (below Lc + 2 Pc + 2) equal to an earlier live key of their
-    document, and documents with more live keys than Pc."""
-    keys = TK.compose_keys(a, b, L)
-    big = keys.shape[1] + 2
-    srt = torch.sort(keys, dim=1).values
-    live = srt < big
-    ties = int(((srt[:, 1:] == srt[:, :-1]) & live[:, 1:]).sum())
-    over = int((live.sum(1) > a.ins_ids.shape[1]).sum())
-    return ties, over
-
-
 def hold_algebra(dev, name, args, reps=5) -> dict:
     """Algebra kernel ``name`` on every tier that takes its shape (the one
     ``tier()`` picks first), each one launch under sync-debug "error" into
@@ -3092,35 +3150,6 @@ ALGEBRA_HOLDS = (("3b", 1024, TREE_LC, TREE_PC, "commits"),
                  ("3b-raw", 1024, TREE_LC, TREE_PC, "raw"),
                  ("3c-raw", 1024, 512, 8, "raw"),
                  ("global-raw", 64, 8192, 32, "raw"))
-
-
-def algebra_case(dev, n, lc, pc, lanes, seed=0) -> tuple:
-    """``(docs, L, a, b)`` for the algebra holds: documents of random ids
-    and lengths in [0, Lc]; ``a`` and ``b`` commits 1 and 2 of
-    :func:`trunk_case`'s streams (5% moves; lane slices, rows strided) or
-    raw random lanes (the card tests' ``lanes()``)."""
-    rng = np.random.default_rng(seed)
-    docs = torch.from_numpy(rng.integers(1, 1 << 20, (n, lc)).astype(
-        np.int32)).to(dev)
-    L = torch.from_numpy(rng.integers(0, lc + 1, n).astype(np.int32)).to(dev)
-    if lanes == "commits":
-        _d, _l, cb = trunk_case(dev, n, 3, TREE_W, lc, pc, 0.05, seed)
-        ch = (cb.del_mask, cb.ins_cnt, cb.ins_ids, cb.mov_id, cb.mov_off,
-              cb.pool_mid, cb.pool_off)
-        return (docs, L, TK.DenseChange(*[x[:, 1] for x in ch]),
-                TK.DenseChange(*[x[:, 2] for x in ch]))
-
-    def raw():
-        def sparse(shape, hi):
-            return (rng.integers(0, hi, shape)
-                    * (rng.random(shape) < 0.3)).astype(np.int32)
-        return TK.DenseChange(*[torch.from_numpy(x).to(dev) for x in (
-            sparse((n, lc), 2), sparse((n, lc + 1), 3),
-            rng.integers(1, 1 << 20, (n, pc)).astype(np.int32),
-            sparse((n, lc), 4), sparse((n, lc), 4), sparse((n, pc), 4),
-            sparse((n, pc), 4))])
-
-    return docs, L, raw(), raw()
 
 
 def algebra_holds(dev) -> list:
@@ -3697,88 +3726,6 @@ T1_HOLDS = (
 # x 16 commits of em_case's lanes; Lc 4,096 runs on the global tier.
 T2_HOLD_LCS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
 T2_HOLD_DOCS, T2_HOLD_COMMITS = 7, 16
-
-
-def trunk_case(dev, n_docs, n_commits, lag_w, Lc, Pc, move_prob, seed=0):
-    """T1's inputs: ``gen_streams`` streams (3 sessions lagging within
-    ``lag_w``, up to 8 ids a commit, ``move_prob`` of moves), at most 64
-    distinct scripts tiled over ``n_docs`` documents, empty documents."""
-    scripts = min(n_docs, 64)
-    streams = TS.gen_streams(np.random.default_rng(seed), scripts,
-                             n_commits, n_sessions=3, W=lag_w, Lc=Lc,
-                             max_ins=min(8, Pc), move_prob=move_prob)
-    reps = -(-n_docs // scripts)
-    cb = DT.CommitBatch(*[
-        torch.from_numpy(np.ascontiguousarray(
-            np.concatenate([x] * reps)[:n_docs])).to(dev)
-        for x in TS.to_device_batch(streams, Lc, Pc)])
-    docs = torch.zeros((n_docs, Lc), dtype=torch.int32, device=dev)
-    return docs, torch.zeros(n_docs, dtype=torch.int32, device=dev), cb
-
-
-def em_case(dev, n_docs, n_commits, lc, W=16, R=16, seed=0, U=None):
-    """T2's inputs at one bucket, sized as ``batch_ingest`` sizes them (Pc
-    a power of two >= 8, U a power of two over the ids): rings of W trunk
-    states of distinct ids, 1/2 to 3/4 of Lc long, seqs rising to the
-    newest at slot W-1 (every third ring starts with empty slots, seq -1);
-    commits whose refs lag the head by 1-6 states; 4% deletes and 1%
-    move-outs over the author view; 0-4 attach runs of 1-2 fresh ids (all R
-    on commit 1). Document 1 misses the ring halfway with a move watermark
-    above its ref, document 4 without one (no move-outs); the last
-    document's runs carry the whole pool each, so it passes Lc. Ring ids
-    lie below 2 Lc, inserted ids in [2 Lc, U) (``U`` a power of two over
-    4 Lc by default)."""
-    rng = np.random.default_rng(seed)
-    N, C = n_docs, n_commits
-    pc = pow2_at_least(max(8, lc // 8))
-    U = U or pow2_at_least(4 * lc + 2)
-    base = 100
-    ring_ids = np.zeros((N, W, lc), np.int32)
-    ring_L = np.zeros((N, W), np.int32)
-    ring_seq = np.full((N, W), -1, np.int32)
-    for d in range(N):
-        n_empty = int(rng.integers(1, W // 2)) if d % 3 == 0 else 0
-        for w in range(n_empty, W):
-            n = int(rng.integers(lc // 2, 3 * lc // 4 + 1))
-            ring_ids[d, w, :n] = rng.choice(np.arange(1, 2 * lc), n,
-                                            replace=False)
-            ring_L[d, w] = n
-            ring_seq[d, w] = base - 2 * (W - 1 - w)
-    seqs = np.tile(base + 3 * np.arange(1, C + 1), (N, 1)).astype(np.int32)
-    lag = rng.integers(1, 7, (N, C))
-    k_ago = np.arange(C)[None, :] - lag
-    refs = np.where(k_ago >= 0, base + 3 * (k_ago + 1), base - 2 * lag)
-    mov0 = np.full(N, -1, np.int32)
-    for d in (1, 4):
-        if d < N:
-            refs[d, C // 2] = base - 2 * W - 5
-    if N > 1:
-        mov0[1] = base + 10 * C
-    dm = (rng.random((N, C, lc)) < 0.04).astype(np.int32)
-    mv = (rng.random((N, C, lc)) < 0.01).astype(np.int32)
-    if N > 4:
-        mv[4] = 0
-    ic = np.zeros((N, C, lc + 1), np.int32)
-    ii = rng.integers(2 * lc, U, (N, C, pc)).astype(np.int32)
-    rs = np.full((N, C, R), -1, np.int32)
-    rl = np.zeros((N, C, R), np.int32)
-    ro = np.zeros((N, C, R), np.int32)
-    for d in range(N):
-        for k in range(C):
-            n_runs = R if k == 1 else int(rng.integers(0, 5))
-            off = 0
-            for r in range(n_runs):
-                n = pc if d == N - 1 else int(rng.integers(1, 3))
-                at = int(rng.integers(0, 3 * lc // 4 + 1))
-                rs[d, k, r], rl[d, k, r], ro[d, k, r] = at, n, off % pc
-                ic[d, k, at] += n
-                off += n
-    lanes = (dm, ic, ii, rs, rl, ro, refs.astype(np.int32), seqs, mv)
-    cb = DEM.EmCommitBatch(*[torch.from_numpy(np.ascontiguousarray(x)).to(
-        dev) for x in lanes])
-    rings = [torch.from_numpy(x).to(dev) for x in (ring_ids, ring_L,
-                                                   ring_seq, mov0)]
-    return rings, cb, U
 
 
 def _tree_shape(name, args):
@@ -5002,69 +4949,6 @@ def mesh_9b(device, mesh_devs, n_ch=4096, k=16, rounds=12, cap=1024,
     del fleets, plain
     torch.cuda.empty_cache()
     return out
-
-
-def exchange_case(dev, n: int, s: int, seed: int = 0, k: int = 8,
-                  rows=None):
-    """A packed pair of ``n`` shards of ``s`` rows and ``k`` op rows
-    ``[k, OP_WIDTH]`` on ``dev`` for holding the exchange kernels: live
-    rows up to each shard's count (``rows`` each where given, else random
-    with one shard full), free rows past it,
-    random stamps, some rows removed or unsequenced, every shard ending
-    in zero-length tombstones, and inserts, removes and annotates whose
-    seq, ref and writer span the stamps (some unsequenced, some the self
-    client's), at positions on the shards' ends and past the document's
-    end."""
-    rng = np.random.default_rng(seed)
-    lanes = {name: np.full((n, s), fill, np.int32) for name, fill in (
-        ("kind", 0), ("length", 0), ("seq", 0), ("client", 0),
-        ("rseq", RSEQ_NONE), ("rbits", 0))}
-    counts = rng.integers(0, s + 1, n)
-    counts[0] = s
-    if rows is not None:
-        counts[:] = rows
-    top = 64
-    for d, c in enumerate(counts):
-        c = int(c)
-        lanes["kind"][d, :c] = KIND_TEXT
-        lanes["length"][d, :c] = rng.integers(0, 5, c)
-        seq = rng.integers(1, top, c).astype(np.int32)
-        seq[rng.random(c) < 0.05] = UNASSIGNED_SEQ
-        lanes["seq"][d, :c] = seq
-        lanes["client"][d, :c] = rng.integers(0, 4, c)
-        rseq = np.where(rng.random(c) < 0.3, rng.integers(1, top, c),
-                        RSEQ_NONE).astype(np.int32)
-        if c:
-            tail = int(rng.integers(1, min(c, 3) + 1))
-            rseq[c - tail:] = rng.integers(1, 4, tail)
-        lanes["rseq"][d, :c] = rseq
-        lanes["rbits"][d, :c] = np.where(rseq != RSEQ_NONE,
-                                         rng.integers(0, 16, c), 0)
-    t = torch.zeros((K1.N_LANES, n, s), dtype=torch.int32)
-    t[SEGMENT_LANES.index("rseq")] = RSEQ_NONE
-    for name, arr in lanes.items():
-        t[SEGMENT_LANES.index(name)] = torch.from_numpy(arr)
-    sc = torch.zeros((n, K1.N_SCALARS), dtype=torch.int32)
-    sc[:, K1.SC_COUNT] = torch.from_numpy(counts.astype(np.int32))
-    sc[:, K1.SC_MIN_SEQ] = torch.from_numpy(rng.integers(0, 3, n).astype(
-        np.int32))
-    sc[:, K1.SC_SELF] = torch.from_numpy(rng.choice([NO_CLIENT, 1], n)
-                                         .astype(np.int32))
-    ends = np.cumsum(lanes["length"].sum(1))
-    rows = []
-    for i in range(k):
-        seq = UNASSIGNED_SEQ if i % 4 == 3 else int(rng.integers(1, top))
-        pos = int(ends[i % n]) if i % 3 != 2 else int(ends[-1]) + 1 + i
-        kw = dict(seq=seq, ref=int(rng.integers(0, top + 8)),
-                  client=int(rng.integers(0, 3)), lseq=i + 1)
-        if i % 4 == 1:
-            rows.append(E.remove(max(pos - 3, 0), pos + 5, **kw))
-        elif i % 4 == 2:
-            rows.append(E.annotate(max(pos - 2, 0), pos + 2, 3, **kw))
-        else:
-            rows.append(E.insert(pos, 1, 1, **kw))
-    ops = torch.from_numpy(np.stack(rows).astype(np.int32))
-    return t.to(dev), sc.to(dev), ops.to(dev)
 
 
 def exchange_bound_bytes(tables, scalars=None) -> tuple:
@@ -7274,6 +7158,9 @@ def _main(device, twins) -> int:
     glob = timed("1b_global_kernels", phase_kernels, device, report,
                  "phase_global_kernels", PHASE1B_SHAPES, 1)
     print_tier_step(glob)
+    # Phase 1c: every entry on every tier, repeated at its path's shape.
+    timed("1c_repeat", phase_repeat, device, report)
+    torch.cuda.empty_cache()
     # Each main path runs with every launch count set to 0 just before it
     # and read just after.
     (t0, s0), ops, launches2 = timed("2_fleet_service", phase_main_path,

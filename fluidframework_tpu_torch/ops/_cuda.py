@@ -31,6 +31,11 @@ SOURCE = os.path.join(_PKG, "csrc", "merge_kernels.cu")
 TREE_SOURCE = os.path.join(_PKG, "csrc", "tree_kernels.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 ARCH = "arch=compute_90a,code=sm_90a"
+# nvcc's flags for every library. ``-lineinfo`` adds line tables only (the
+# code and each kernel's registers, spills and shared memory are the same
+# without it), so a memory or race checker names a file and a line.
+NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-lineinfo", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Largest table (rows per document) whose lanes fit one CTA's shared
 # memory (the shared tier); must equal SMEM_MAX_CAP in merge_kernels.cu.
 SMEM_MAX_CAPACITY = 2048
@@ -125,10 +130,7 @@ def build(name: str = "merge") -> str:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [
-        _nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, source(name),
-    ]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, source(name)]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if res.returncode != 0:
         raise RuntimeError(

@@ -344,21 +344,22 @@ def _destination(tables, scalars, out):
     return ot, os_
 
 
-def apply_ops_packed(tables, scalars, ops, *, out=None):
+def apply_ops_packed(tables, scalars, ops, *, out=None, t=None):
     """Apply ops [D, K, OP_WIDTH] to a packed state. Writes into ``out``
     (a (tables, scalars) pair) or, by default, into the inputs in place;
     returns the written pair. CPU tensors take :func:`apply_plain`; CUDA
     tensors launch ``merge_apply`` on the tier S calls for (shared memory up
     to 2,048 rows, a cluster up to 16,384, global memory with one CTA a
     document up to 65,536, global memory with a cluster a document above
-    it) or raise."""
+    it) or raise; ``t`` names another tier that takes S (a hold's
+    choice)."""
     ot, os_ = _destination(tables, scalars, out)
     if tables.device.type == "cpu":
         nt, ns = apply_plain(tables, scalars, ops)
         ot.copy_(nt)
         os_.copy_(ns)
         return ot, os_
-    tier = _cuda.launch("merge_apply", tables, scalars, ops, (ot, os_))
+    tier = _cuda.launch("merge_apply", tables, scalars, ops, (ot, os_), t)
     _cuda.count_launch(apply_ops_packed, tier)
     return ot, os_
 

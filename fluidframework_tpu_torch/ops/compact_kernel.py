@@ -153,24 +153,27 @@ def apply_compact_plain(tables, scalars, ops):
                           1)
 
 
-def compact_packed(tables, scalars, *, out=None):
+def compact_packed(tables, scalars, *, out=None, t=None):
     """Compact a packed state, in place unless ``out`` is given; returns
     the written pair. CPU: :func:`compact_plain`; CUDA: ``merge_compact`` on
-    the tier S calls for (every S up to 2**30 rows)."""
+    the tier S calls for (every S up to 2**30 rows), or on tier ``t`` where
+    given (a hold's choice)."""
     ot, os_ = _destination(tables, scalars, out)
     if tables.device.type == "cpu":
         nt, ns = compact_plain(tables, scalars)
         ot.copy_(nt)
         os_.copy_(ns)
         return ot, os_
-    tier = _cuda.launch("merge_compact", tables, scalars, None, (ot, os_))
+    tier = _cuda.launch("merge_compact", tables, scalars, None, (ot, os_),
+                        t)
     _cuda.count_launch(compact_packed, tier)
     return ot, os_
 
 
-def apply_compact_packed(tables, scalars, ops, *, out=None):
+def apply_compact_packed(tables, scalars, ops, *, out=None, t=None):
     """Apply ops [D, K, OP_WIDTH] then compact, in one launch on CUDA; in
-    place unless ``out`` is given. CPU: :func:`apply_compact_plain`."""
+    place unless ``out`` is given, on tier ``t`` where given. CPU:
+    :func:`apply_compact_plain`."""
     ot, os_ = _destination(tables, scalars, out)
     if tables.device.type == "cpu":
         nt, ns = apply_compact_plain(tables, scalars, ops)
@@ -178,7 +181,7 @@ def apply_compact_packed(tables, scalars, ops, *, out=None):
         os_.copy_(ns)
         return ot, os_
     tier = _cuda.launch("merge_apply_compact", tables, scalars, ops,
-                        (ot, os_))
+                        (ot, os_), t)
     _cuda.count_launch(apply_compact_packed, tier)
     return ot, os_
 

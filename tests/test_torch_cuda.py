@@ -55,6 +55,7 @@ from chip_smoke import (
     trunk_case,
 )
 from fluidframework_tpu_torch.ops import _cuda
+from tools import kernel_sanitize as KS
 from fluidframework_tpu_torch.ops import apply_kernel as K1
 from fluidframework_tpu_torch.parallel.fleet import DocFleet
 from fluidframework_tpu_torch.service.device_backend import (
@@ -633,16 +634,37 @@ def test_tree_algebra_kernels_match_plain_on_the_card(hold):
                        for x, y in zip(flat(got), flat(want))), name
 
 
+# Every kernel entry by the smoke's name, for the repeated-launch holds.
+REPEATED = {**{n: s["entry"] for n, s in {**KERNELS, **ALGEBRA_KERNELS}
+               .items()},
+            "T1_trunk_scan": "tree_trunk_scan",
+            "T2_em_ring_scan": "tree_em_ring_scan",
+            "X1_shard_stats": "shard_stats",
+            "X2_shard_resolve": "shard_resolve",
+            "X12_shard_exchange": "shard_exchange"}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["A1_tree_apply", "A3_tree_invert"])
+@pytest.mark.parametrize("name", ["A1_tree_apply", "A3_tree_invert"] + sorted(
+    set(REPEATED) - {"A1_tree_apply", "A3_tree_invert"}))
 def test_apply_and_invert_stay_exact_over_repeated_launches(name):
-    """A1 and A3 on raw lanes at 3b's widths (duplicate move tags in most
-    documents), 100 launches on every tier, each equal to the plain version
-    in every lane: an ordering fault in shared memory shows only over
-    repeated launches (a design that appended A1's move-in atoms through a
-    shared-memory counter held once and failed over repeated calls)."""
+    """Every kernel entry, 100 launches on every tier it has, each into
+    fresh sentinel outputs (the allocator's free blocks poisoned before
+    each) and equal to the plain version in every lane: an
+    ordering fault in shared memory shows only over repeated launches (a
+    design that appended A1's move-in atoms through a shared-memory counter
+    held once and failed over repeated calls). Each entry runs
+    ``tools.kernel_sanitize``'s cases of it, round robin; A1 and A3 also on
+    raw lanes at 3b's widths (duplicate move tags in most documents)."""
     _need_card()
     dev = torch.device("cuda", 0)
+    cases = [c for c in KS.cases() if c.entry == REPEATED[name]]
+    assert {c.tier for c in cases} == set(KS.entry_tiers(REPEATED[name]))
+    for c, r in zip(cases, KS.hold_all([c.make(dev) for c in cases], 100,
+                                       poison_dev=dev)):
+        assert r["mismatches"] == 0, KS.report_line(c, r)
+    if name not in ("A1_tree_apply", "A3_tree_invert"):
+        return
     docs, L, a, _b = algebra_case(dev, 1024, 128, 32, "raw")
     spec = ALGEBRA_KERNELS[name]
     args = algebra_args(name, docs, L, a, a)

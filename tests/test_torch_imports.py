@@ -1,7 +1,8 @@
 """The port's import boundary and device defaults.
 
-The port (``fluidframework_tpu_torch``) and ``chip_smoke.py`` must never
-load ``jax`` or anything of the reference package ``fluidframework_tpu`` —
+The port (``fluidframework_tpu_torch``), ``chip_smoke.py`` and the kernel
+sweep ``tools/kernel_sanitize.py`` must never load ``jax`` or anything of
+the reference package ``fluidframework_tpu`` —
 not even its jax-free modules. The check runs in a subprocess because this
 test process has jax loaded already (tests/conftest.py imports it).
 """
@@ -38,7 +39,7 @@ def _forbidden(name: str) -> bool:
 
 
 def test_port_modules_and_chip_smoke_load_no_jax():
-    mods = _port_modules() + ["chip_smoke"]
+    mods = _port_modules() + ["chip_smoke", "tools.kernel_sanitize"]
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -86,7 +87,8 @@ def test_port_modules_and_chip_smoke_load_no_jax():
 @pytest.mark.parametrize("path", sorted(
     [os.path.join(root, f) for root, _d, files in os.walk(PKG)
      for f in files if f.endswith(".py")]
-    + [os.path.join(REPO, "chip_smoke.py")]
+    + [os.path.join(REPO, "chip_smoke.py"),
+       os.path.join(REPO, "tools", "kernel_sanitize.py")]
 ))
 def test_no_forbidden_import_in_source(path):
     tree = ast.parse(open(path).read(), filename=path)

@@ -12,6 +12,9 @@ MAX_WRITERS, local (unsequenced) inserts and removes with their acks,
 and positions past the document's end.
 """
 
+import itertools
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +26,7 @@ from fluidframework_tpu.ops.merge_kernel import jit_apply_ops as ref_apply
 from fluidframework_tpu.ops.segment_state import make_state as ref_make_state
 from fluidframework_tpu.ops.segment_state import materialize as ref_mat
 from fluidframework_tpu.parallel.sharded_doc import ShardedDoc as RefDoc
+from fluidframework_tpu.service import device_backend as RefDeviceBackend
 from fluidframework_tpu.runtime.container import ContainerRuntime as RefRT
 from fluidframework_tpu.service.pipeline import (
     PipelineFluidService as RefPipe,
@@ -57,6 +61,9 @@ from fluidframework_tpu_torch.runtime.container import (
 )
 from fluidframework_tpu_torch.service.pipeline import (
     PipelineFluidService as PortPipe,
+)
+from fluidframework_tpu_torch.service import (
+    device_backend as PortDeviceBackend,
 )
 from fluidframework_tpu_torch.service.server_main import (
     build_server,
@@ -453,15 +460,39 @@ def _same_service(svc, rts):
     return st["port"]
 
 
-@pytest.mark.parametrize("burst", [False, True], ids=["per_op", "burst"])
-def test_pipeline_overflow_under_a_shared_string(burst):
+def _pin_feed_clock(monkeypatch, kind: str) -> None:
+    """The feed's clock in both packages' ``service/device_backend.py``
+    (its only reads are ``time.perf_counter``), each its own copy of one
+    kind: ``"still"`` never moves, so the feed's deadline trigger never
+    fires; ``"jump"`` moves past the 3 ms ``feed_deadline_ms`` at every
+    read, so it fires at every check with rows buffered. On the wall
+    clock the trigger fires wherever a loaded machine takes 3 ms between
+    a row's arrival and a check, in one package and not the other."""
+    for module in (RefDeviceBackend, PortDeviceBackend):
+        ticks = itertools.count()
+        clock = ((lambda: 0.0) if kind == "still" else
+                 (lambda ticks=ticks: next(ticks) * 0.004))
+        monkeypatch.setattr(module, "time",
+                            types.SimpleNamespace(perf_counter=clock))
+
+
+@pytest.mark.parametrize("burst,clock", [(False, "still"), (True, "still"),
+                                         (False, "jump"), (True, "jump")],
+                         ids=["per_op", "burst", "per_op-jump",
+                              "burst-jump"])
+def test_pipeline_overflow_under_a_shared_string(burst, clock, monkeypatch):
     """tests/test_sharded_doc.py's reachability cases: per-op writes far
     past the top tier, and one burst flush, promote into a ShardedDoc
-    without a nack and keep serving."""
+    without a nack and keep serving; every stats field of the two
+    packages equal under a feed clock that never moves (ids ``per_op``,
+    ``burst``) and one that passes the feed's deadline at every read
+    (``-jump``), pinned alike in both."""
+    _pin_feed_clock(monkeypatch, clock)
     svc, rts, nacks = _runtime_pair(14 if burst else 30, burst)
     assert nacks == {"ref": [], "port": []}
     st = _same_service(svc, rts)
     assert st["sharded_docs"] == 1 and st["docs_with_errors"] == 0
+    assert (st["feed_deadline_triggers"] > 0) == (clock == "jump")
     for rt in rts.values():
         rt.get_channel("s").insert_text(5, "MORE")
         rt.flush()
