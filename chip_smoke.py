@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ab PARENT_DIR [NAME=VALUE,... ...]
-    python3 chip_smoke.py --split [NAME=VALUE,... ...]
+    python3 chip_smoke.py --split [--parent DIR] [NAME=VALUE,... ...]
     python3 chip_smoke.py --tree [NAME=VALUE ...]
     python3 chip_smoke.py --client
     python3 chip_smoke.py --mesh
@@ -23,22 +23,27 @@ log and lease coordination (``g++``), all at once, then:
 1b. the tiers above — the same at S = 4,096 and 8,192 (D=256), 16,384
    (D=64), 65,536 (D=16), 131,072 (D=2) and 524,288 (D=1) rows: all
    three kernels split tables of up to 16,384 rows across a thread-block
-   cluster, keep larger ones in global memory, and past 65,536 rows split
-   each document over a cluster of up to 16 CTAs there (the split tier);
+   cluster, keep larger ones in global memory, and past 65,536 rows (K1
+   and K3 also past 16,384 in launches of fewer documents than the card
+   has SMs) split each document over a
+   cluster of up to 16 CTAs there (the split tier);
    the shared tier at S = 2,048 (D=256) beside it. At every shape of 1
    and 1b all three are also held, untimed, on :func:`edge_case` (moves
    on the tile and slice edges) and K2 and K3 on
    :func:`compact_edge_case` (merge runs across tile and slice edges, all
-   rows reclaimed, none reclaimed), past 65,536 rows in launches of up to
-   8 documents cut at the split tier's slices (:func:`edge_batches`);
+   rows reclaimed, none reclaimed), on the split tier in launches of up
+   to 8 documents cut at its slices (:func:`edge_batches`);
 1c. repeated launches — every kernel entry (K1-K3, X1, X2,
    ``shard_exchange``, T1, T2, A1-A4, rebase in both tie forms) on every
    tier it has, at the shape its path launches it (:data:`REPEAT_MERGE`,
    :func:`repeat_cases`; T1 and T2 cut in depth), launched at least
    :data:`REPEAT_LAUNCHES` times round robin, each into fresh outputs
-   filled with the sentinel, each held bit for bit against one plain run
-   (``tools/kernel_sanitize.py``'s runners); one line each with its
-   launches and mismatches, any mismatch fails;
+   filled with the sentinel, the allocator's free blocks poisoned before
+   each, each held bit for bit against one plain run
+   (``tools/kernel_sanitize.py``'s runners; 9c's K1 and K2 at its rows
+   below count, one live op beside NOOPs, on the tiers they are routed
+   to); one line each with its launches and mismatches, any mismatch
+   fails;
 2. fleet service — drives ``TpuFleetService`` at 100,000 docs x capacity
    128 x 16 ops/doc/round: a warm-up round plus 3 timed rounds at
    compact_every=1 (a scribe sweep of n_docs/3 docs in each), then 2 rounds
@@ -237,11 +242,13 @@ main shape and phases 3a and 3b's per-tier medians, for the tree unpacked
 at PARENT_DIR and for this one, in turns on one card (parent, change,
 change, parent; see :func:`ab`), and writes ``ab.json``.
 
-With ``--split``, it times instead K1/K2/K3 on the split tier at
-524,288 x 1 and 131,072 x 2, and K1/K3 on the global and the split tier
-at 32,768 x 16 and 65,536 x 8, each held bit for bit, for this tree and
-for a variant with its kernel constants changed (by default
-``SPLIT_MAX_CTAS=8``), in turns (see :func:`split_ab`), and writes
+With ``--split [--parent DIR]``, it times instead K1/K2/K3 on the split
+tier at 524,288 x 1 and 131,072 x 2, K1/K3 on the global and the split
+tier at 32,768 x 16 and 65,536 x 8, and K1 and K2 at 9c's rows below
+count, each held bit for bit, for this tree, for each variant with its
+kernel constants changed and for the merge kernel source of the tree
+unpacked at DIR, in turns, then the document-count sweep behind
+``_cuda.tier``'s rule (see :func:`split_ab`), and writes
 ``split.json``. With ``--exchange [NAME=VALUE,...]``, it holds and times
 X1, X2 and ``shard_exchange`` at the sharded paths' shapes the same way,
 for this tree and each variant (see :func:`exchange_ab`), and writes
@@ -309,6 +316,7 @@ from fluidframework_tpu_torch.protocol.constants import (
     KIND_TEXT,
     NO_CLIENT,
     OP_INSERT,
+    OP_NOOP,
     OP_REMOVE,
     OP_WIDTH,
     RSEQ_NONE,
@@ -738,20 +746,27 @@ def compact_edge_case(cap: int, device, sl=None, picks=None):
 
 def edge_batches(cap: int, device, k: int = 4, launch_docs=None):
     """:func:`edge_case` and :func:`compact_edge_case` as the holds take
-    them: whole, up to the global tier; past it, in batches of
-    :data:`SPLIT_EDGE_DOCS` documents, each cut at the split tier's slices
-    for a launch of ``launch_docs`` documents (default: a whole batch; C =
-    16 CTAs a document on an H100 for up to 8 documents, so a shorter last
-    batch is cut alike), so the slice edges the cases name are the
-    kernel's. Yields ("apply" or "compact", (tables, scalars, ops))."""
-    if cap <= _cuda.GLOBAL_MAX_CAPACITY:
-        yield "apply", edge_case(cap, device, k)
-        yield "compact", compact_edge_case(cap, device)
-        return
+    them: whole where a launch of the whole case runs on the shared,
+    cluster or global tier; where it runs on the split tier (past 65,536
+    rows, or fewer documents than the card has SMs past 16,384),
+    in batches of :data:`SPLIT_EDGE_DOCS` documents, each cut at the split
+    tier's slices of its rows below count + 2K for a launch of
+    ``launch_docs`` documents (default: a whole batch; C = 16 CTAs a
+    document on an H100 for up to 8 documents, so a shorter last batch is
+    cut alike), so the slice edges the cases name are the kernel's.
+    Yields ("apply" or "compact", (tables, scalars, ops))."""
     per = SPLIT_EDGE_DOCS
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    sl = _cuda.split_slice_rows(cap, launch_docs or per, sms)
-    for kind, n in (("apply", len(_edge_firsts(cap, sl))), ("compact", 9)):
+    n_apply = len(_edge_firsts(cap, _slice_rows(cap, None)))
+    for kind, n, live in (("apply", n_apply, cap - 10 + 2 * k),
+                          ("compact", 9, cap - 3)):
+        if _cuda.tier(cap, "merge_apply", n) != "split":
+            yield kind, (edge_case(cap, device, k) if kind == "apply"
+                         else compact_edge_case(cap, device))
+            continue
+        sl = _cuda.split_slice_rows(live, launch_docs or per,
+                                    _cuda.sm_count(device))
+        if kind == "apply":
+            n = len(_edge_firsts(cap, sl))
         for i in range(0, n, per):
             picks = slice(i, i + per)
             yield kind, (edge_case(cap, device, k, sl, picks)
@@ -821,15 +836,17 @@ def bound_bytes(name: str, d: int, s: int, k: int) -> int:
     return nbytes
 
 
-def hold_kernel(name: str, t0, s0, ops, kernel_reps=10, plain_reps=3):
-    """Run one kernel wrapper and its plain version on the same input on
-    the card; assert bit equality; return (max_abs_err, ms, plain_ms), the
-    times None with ``kernel_reps=0``."""
+def hold_kernel(name: str, t0, s0, ops, kernel_reps=10, plain_reps=3,
+                t=None):
+    """Run one kernel wrapper (on tier ``t`` where given) and its plain
+    version on the same input on the card; assert bit equality; return
+    (max_abs_err, ms, plain_ms), the times None with ``kernel_reps=0``."""
     spec = KERNELS[name]
     args = (ops,) if spec["takes_ops"] else ()
     want = spec["plain"](t0, s0, *args)
+    tier = t
     t, s = t0.clone(), s0.clone()
-    spec["wrapper"](t, s, *args)
+    spec["wrapper"](t, s, *args, t=tier)
     torch.cuda.synchronize()
     err = max(int((t.long() - want[0].long()).abs().max()),
               int((s.long() - want[1].long()).abs().max()))
@@ -845,7 +862,8 @@ def hold_kernel(name: str, t0, s0, ops, kernel_reps=10, plain_reps=3):
 
     if kernel_reps == 0:
         return err, None, None
-    ms = _median_ms(lambda: spec["wrapper"](t, s, *args), reset, kernel_reps)
+    ms = _median_ms(lambda: spec["wrapper"](t, s, *args, t=tier), reset,
+                    kernel_reps)
     plain_ms = _median_ms(lambda: spec["plain"](t0, s0, *args), lambda: None,
                           plain_reps)
     return err, ms, plain_ms
@@ -863,7 +881,7 @@ def phase_kernels(device, report, key, shapes, seed_offset=0):
         for name in KERNELS:
             err, ms, plain_ms = hold_kernel(name, t0, s0, ops)
             b = bound_bytes(name, d, cap, 16)
-            tier = _cuda.tier(cap, KERNELS[name]["entry"])
+            tier = _cuda.tier(cap, KERNELS[name]["entry"], d)
             rows.append(dict(kernel=name, tier=tier, docs=d,
                              cap=cap, k=16, max_abs_err=err, ms=ms,
                              plain_ms=plain_ms,
@@ -879,6 +897,15 @@ def phase_kernels(device, report, key, shapes, seed_offset=0):
             for name in KERNELS:
                 if kind == "apply" or name != "K1_merge_apply":
                     hold_kernel(name, *edges, kernel_reps=0, plain_reps=0)
+        if _cuda.CLUSTER_MAX_CAPACITY < cap <= _cuda.GLOBAL_MAX_CAPACITY:
+            # K1 and K3 on the global tier too, which launches of fewer
+            # documents of this width than the card has SMs do not take.
+            for kind, edges in (("apply", edge_case(cap, device)),
+                                ("compact", compact_edge_case(cap, device))):
+                for name in ("K1_merge_apply", "K3_fused_apply_compact"):
+                    if kind == "apply" or name != "K1_merge_apply":
+                        hold_kernel(name, *edges, kernel_reps=0,
+                                    plain_reps=0, t="global")
         del edges
         t, s = t0.clone(), s0.clone()
         K1.apply_ops_packed(t, s, ops)
@@ -906,11 +933,16 @@ def phase_kernels(device, report, key, shapes, seed_offset=0):
 # A1-A4 at 7a's widths on raw lanes (duplicate move tags, compose's ties
 # and overflowing pools).
 REPEAT_LAUNCHES = 200
+# Rows below count a shard of 9c holds after promotion (about 80,400 live
+# rows over 8 shards) and the one card's shard (65,681).
+ROWS_9C = 10_050
+ROWS_9C_ONE_CARD = 65_681
 REPEAT_MERGE = (
     ("merge_apply", "smem", 128, 16_384, 8, "serving"),
     ("merge_apply", "smem", 2048, 256, 16, "deep"),
     ("merge_apply", "cluster", 4096, 256, 16, "deep"),
-    ("merge_apply", "global", 65_536, 8, 1, "9c"),
+    ("merge_apply", "global", 65_536, 8, 1, "9c on the global tier"),
+    ("merge_apply", "split", 65_536, 8, 1, "9c"),
     ("merge_apply", "split", 524_288, 1, 1, "9c one card"),
     ("merge_compact", "smem", 128, 16_384, 0, "serving"),
     ("merge_compact", "cluster", 4096, 256, 0, "deep"),
@@ -922,6 +954,10 @@ REPEAT_MERGE = (
     ("merge_apply_compact", "global", 65_536, 16, 16, "1b"),
     ("merge_apply_compact", "split", 131_072, 2, 16, "1b"),
 )
+# The rows below count of the sharded paths' cases above (one live op, the
+# other shards' NOOPs), the rest random.
+REPEAT_ROWS = {"9c": ROWS_9C, "9c on the global tier": ROWS_9C,
+               "9c one card": ROWS_9C_ONE_CARD}
 # (docs, commits, W, Lc, Pc, move share, lag window): 7a's widths.
 REPEAT_T1 = (1024, 40, 16, 128, 32, 0.0, 16)
 REPEAT_T2 = (1024, 32, 512)
@@ -941,7 +977,11 @@ def repeat_cases(dev) -> list:
     tier it has, at its path's shape (above)."""
     out = []
     for entry, tier, cap, n, k, path in REPEAT_MERGE:
-        t, s, ops = KS.merge_inputs(dev, cap, n, max(k, 1))
+        if path in REPEAT_ROWS:
+            t, s, ops = KS.live_inputs(dev, cap, [REPEAT_ROWS[path]] * n,
+                                       max(k, 1), live_doc=n // 2)
+        else:
+            t, s, ops = KS.merge_inputs(dev, cap, n, max(k, 1))
         case = KS.Case(entry, tier, f"{n:,} docs x {cap:,} rows, K {k} "
                        f"({path})", None)
         out.append((case, KS.merge_run(entry, t, s, ops, tier)))
@@ -991,12 +1031,15 @@ def phase_repeat(device, report) -> list:
     """Phase 1c: each of :func:`repeat_cases` launched at least
     :data:`REPEAT_LAUNCHES` times round robin, each call into fresh
     outputs filled with the sentinel and held bit for bit against one
-    plain run on the same inputs (``tools.kernel_sanitize.hold_all``);
-    one line each with its launches and mismatches. Launches here count
-    nowhere. Any mismatch fails the phase once every case has run."""
+    plain run on the same inputs (``tools.kernel_sanitize.hold_all``),
+    the allocator's free blocks poisoned before each call (two byte
+    patterns in turns, as ``--poison``); one line each with its launches
+    and mismatches. Launches here count nowhere. Any mismatch fails the
+    phase once every case has run."""
     with _Uncounted():
         pairs = repeat_cases(device)
-        results = KS.hold_all([r for _c, r in pairs], REPEAT_LAUNCHES)
+        results = KS.hold_all([r for _c, r in pairs], REPEAT_LAUNCHES,
+                              device)
         torch.cuda.synchronize()
     rows = []
     for (case, _r), res in zip(pairs, results):
@@ -2870,15 +2913,26 @@ def _kernel_name(name: str) -> str:
     return head.rsplit("::", 1)[-1] + sep + tail
 
 
-def _queued_ms(dev, fn, reps: int = 50, spin_cycles: int = 50_000_000):
+def _queued_ms(dev, fn, reps: int = 50, spin_cycles: int = 50_000_000,
+               reset=None):
     """Device ms a call of ``fn`` over ``reps`` calls launched back to
     back behind a spin kernel (``torch.cuda._sleep``, ~25 ms at the H100's
     clock), so the host has queued every launch before the first runs and
     the CUDA events between them see the device's own time, not the
     host's launch cost. Where queueing took longer than the spin (a host
     slowed by its neighbours) it measures once more behind a spin four
-    times as long, and raises if that too is outrun. Host wall a call on
-    the CPU."""
+    times as long, and raises if that too is outrun. With ``reset`` (a
+    call that restores the state ``fn`` works on in place), every call of
+    ``fn`` is queued behind a reset, so each works on a fresh input and
+    not on the state the last one left, and the time is that of reset
+    and call less that of the reset alone, queued the same way. Host wall
+    a call on the CPU."""
+    if reset is not None:
+        def both():
+            reset()
+            fn()
+        return (_queued_ms(dev, both, reps, spin_cycles)
+                - _queued_ms(dev, reset, reps, spin_cycles))
     if dev.type != "cuda":
         return _event_ms(dev, fn, reps)
     for cycles in (spin_cycles, 4 * spin_cycles):
@@ -4663,7 +4717,7 @@ def _client_holds(device, reader_state, b_mid, b_ops, c_mid, c_ops):
         err, ms, plain_ms = hold_kernel(name, t, s, ops, reps, plain_reps)
         b = bound_bytes(name, d, cap, k)
         rows.append(dict(kernel=name, cell=cell, docs=d, cap=cap, k=k,
-                         tier=_cuda.tier(cap, KERNELS[name]["entry"]),
+                         tier=_cuda.tier(cap, KERNELS[name]["entry"], d),
                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=b / HBM_BYTES_PER_S * 1e3, bound_bytes=b,
                          library_ms=None))
@@ -5247,6 +5301,16 @@ def mesh_9c(device, window=1000, frame_ops=SHARDED_FRAME_OPS,
     launches_post = read_counts()
     exchange_post = read_shard_counts()
     ops_post = ops_total - promoted_at
+    # K1 and K2 ran on the tiers the routing names for one launch of the
+    # device's shards (K1 on the split tier below one shard an SM).
+    routed = {k: _cuda.tier(sharded.shard_cap, KERNELS[k]["entry"],
+                            sharded.n_shards)
+              for k in ("K1_merge_apply", "K2_zamboni_compact")}
+    for kname, tier in routed.items():
+        c = launches_post[kname]
+        if device.type == "cuda" and (c["all"] <= 0 or c[tier] != c["all"]):
+            raise AssertionError(f"9c: {kname} after promotion {c}, not "
+                                 f"all on the {tier} tier")
     # One device group: every op the one-launch exchange, X1 and X2 never.
     for name, c in exchange_post.items():
         if device.type == "cuda" and (c > 0) != (name == ONE_GROUP_EXCHANGE):
@@ -5305,10 +5369,14 @@ def mesh_9c(device, window=1000, frame_ops=SHARDED_FRAME_OPS,
         err, ms, plain_ms = hold_kernel(kname, t0, s0, o1)
         holds.append(dict(
             kernel=kname, cell="9c", docs=sharded.n_shards,
-            cap=sharded.shard_cap, k=1, max_abs_err=err, ms=ms,
+            cap=sharded.shard_cap, k=1, tier=routed[kname], max_abs_err=err,
+            ms=ms,
             plain_ms=plain_ms,
-            bound_ms=bound_bytes(kname, sharded.n_shards, sharded.shard_cap,
-                                 1) / HBM_BYTES_PER_S * 1e3))
+            bound_ms=live_bound_bytes(kname, s0, sharded.shard_cap, o1)
+            / HBM_BYTES_PER_S * 1e3,
+            all_rows_bound_ms=bound_bytes(kname, sharded.n_shards,
+                                          sharded.shard_cap, 1)
+            / HBM_BYTES_PER_S * 1e3))
     # X1, X2 and the exchange against their plain versions at the sharded
     # shape, on the document's state and eight ops of the probe's frame.
     xholds = hold_exchange(device, g.tables, g.scalars,
@@ -5509,9 +5577,11 @@ def mesh_9c_one_entry(device, visible, cap=65536, n0=65_000, first_ops=256,
         err, ms, plain_ms = hold_kernel(kname, t0, s0, o1)
         holds.append(dict(
             kernel=kname, cell="9c one card", docs=1, cap=shard_cap, k=1,
-            tier=_cuda.tier(shard_cap, KERNELS[kname]["entry"]),
+            tier=_cuda.tier(shard_cap, KERNELS[kname]["entry"], 1),
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_bytes(kname, 1, shard_cap, 1)
+            bound_ms=live_bound_bytes(kname, s0, shard_cap, o1)
+            / HBM_BYTES_PER_S * 1e3,
+            all_rows_bound_ms=bound_bytes(kname, 1, shard_cap, 1)
             / HBM_BYTES_PER_S * 1e3))
     xops = torch.from_numpy(one_card_frame(rng, 8, seq + 2, length)[0])
     xholds = hold_exchange(device, g.tables, g.scalars, xops.to(device),
@@ -5781,7 +5851,8 @@ def load_10a(device, cap: int, n_docs: int, seed0: int, n_ops=ORACLE_OPS):
         err, ms, plain_ms = hold_kernel(name, tt, ss, oo)
         b = bound_bytes(name, n_docs, cap, half)
         holds.append(dict(kernel=name, cell=f"10a S={cap}",
-                          tier=_cuda.tier(cap, KERNELS[name]["entry"]),
+                          tier=_cuda.tier(cap, KERNELS[name]["entry"],
+                                          n_docs),
                           docs=n_docs, cap=cap, k=half, max_abs_err=err,
                           ms=ms, plain_ms=plain_ms,
                           bound_ms=b / HBM_BYTES_PER_S * 1e3,
@@ -7065,7 +7136,8 @@ def phase_framework(device, report, twin=None, n_ops=FRAMEWORK_OPS,
             b = bound_bytes(name, d, cap, 1 if ops is not None else 0)
             holds.append(dict(kernel=name, cell="11a end state", docs=d,
                               cap=cap, k=1 if ops is not None else 0,
-                              tier=_cuda.tier(cap, KERNELS[name]["entry"]),
+                              tier=_cuda.tier(cap, KERNELS[name]["entry"],
+                                              d),
                               max_abs_err=err, ms=ms, plain_ms=plain_ms,
                               bound_ms=b / HBM_BYTES_PER_S * 1e3,
                               library_ms=None))
@@ -7462,22 +7534,36 @@ def tree_alone(**kw) -> int:
 
 # The split tier's widths (--split): phase 1b's shapes past the global
 # tier, then the global tier's shapes K1 and K3 could also take it at
-# (config 6's deep tier at 16 docs, 9c's 8 shards of 65,536 rows).
+# (config 6's deep tier at 16 docs, 9c's 8 shards of 65,536 rows), then the
+# sharded paths' launches at their rows below count (9c's 8 shards, one
+# live op beside 7 NOOPs; the live shard alone, what its 7 NOOP neighbours
+# cost; the one card's shard), as (rows S, docs D, rows below count).
 SPLIT_SHAPES = ((524_288, 1), (131_072, 2))
 SPLIT_VS_GLOBAL_SHAPES = ((32_768, 16), (65_536, 8))
+SPLIT_9C_SHAPES = ((65_536, 8, ROWS_9C), (65_536, 1, ROWS_9C),
+                  (524_288, 1, ROWS_9C_ONE_CARD))
+# The document-count sweep behind _cuda.tier's rule (the split tier while
+# it gives each document 2 CTAs or more): K1 (K 1 and 16) and K2 on the
+# global and the split tier at these widths and counts.
+SWEEP_CAPS = (32_768, 65_536)
+SWEEP_DOCS = (1, 2, 4, 8, 16, 24, 33, 48, 66, 100, 132, 200, 264)
 
 _SPLIT_RUN = """
-import json, torch
+import json, os, torch
 import chip_smoke as c
 {patch}
-print("SPLIT_JSON " + json.dumps(c.split_times(torch.device("cuda", 0))))
+print("SPLIT_JSON " + json.dumps(c.split_times(
+    torch.device("cuda", 0), sweep=os.environ.get("SPLIT_SWEEP") == "1")))
 """
 
 
-def _entry_ms(name: str, t0, s0, ops, tier: str, reps: int) -> float:
+def _entry_ms(name: str, t0, s0, ops, tier: str, reps: int) -> tuple:
     """A kernel's C entry forced onto ``tier``, held bit for bit against
-    its plain version on the same input; its median CUDA-event time.
-    Nothing is counted."""
+    its plain version on the same input; its median CUDA-event time a
+    launch on a fresh input (the host's launch cost included), and its
+    device time a launch over 50 launches queued behind a spin, each on
+    a fresh copy of the input (:func:`_queued_ms` with a reset, the
+    copy's own time taken off). Nothing is counted."""
     spec = KERNELS[name]
     args = (ops,) if spec["takes_ops"] else ()
     want = spec["plain"](t0, s0, *args)
@@ -7491,21 +7577,66 @@ def _entry_ms(name: str, t0, s0, ops, tier: str, reps: int) -> float:
     torch.cuda.synchronize()
     if not (torch.equal(t, want[0]) and torch.equal(s, want[1])):
         raise AssertionError(f"{name} on the {tier} tier != plain")
+    del want
 
     def reset():
         t.copy_(t0)
         s.copy_(s0)
 
-    return _median_ms(run, reset, reps)
+    ms = _median_ms(run, reset, reps)
+    reset()
+    return ms, _queued_ms(t.device, run, reset=reset)
 
 
-def split_times(device, reps=10) -> dict:
+def live_bound_bytes(name: str, scalars, s: int, ops) -> int:
+    """:func:`bound_bytes` over the rows the function needs: each
+    document's 15 lanes of its rows below min(S, count + 2K) (K2: below
+    count) read once and written once, the scalars, and the ops (``ops``
+    [D, K, OP_WIDTH]; K2 reads none). K1 needs no row of a document whose
+    ops are all NOOPs (9c's shards but the owner); K3 still compacts such
+    a document's rows below count."""
+    takes_ops = KERNELS[name]["takes_ops"]
+    k = ops.shape[1] if takes_ops else 0
+    noop = ((ops[:, :, F_TYPE] == OP_NOOP).all(dim=1).tolist() if takes_ops
+            else [False] * scalars.shape[0])
+    rows = 0
+    for c, idle in zip(scalars[:, K1.SC_COUNT].tolist(), noop):
+        if not idle:
+            rows += _cuda.live_rows(s, int(c), k)
+        elif name == "K3_fused_apply_compact":
+            rows += _cuda.live_rows(s, int(c), 0)
+    d = scalars.shape[0]
+    return (2 * (K1.N_LANES * rows * 4 + d * K1.N_SCALARS * 4)
+            + d * k * OP_WIDTH * 4)
+
+
+def _split_row(name, t0, s0, ops, tier, reps, **key) -> dict:
+    d, cap = t0.shape[1], t0.shape[2]
+    k = ops.shape[1] if KERNELS[name]["takes_ops"] else 0
+    ms, device_ms = _entry_ms(name, t0, s0, ops, tier, reps)
+    row = dict(kernel=name, cap=cap, docs=d, k=k, tier=tier, ms=ms,
+               device_ms=device_ms,
+               bound_ms=live_bound_bytes(name, s0, cap, ops)
+               / HBM_BYTES_PER_S * 1e3,
+               all_rows_bound_ms=bound_bytes(name, d, cap, k)
+               / HBM_BYTES_PER_S * 1e3, **key)
+    print(f"split S={cap} D={d} K={k} {name} {tier}"
+          f"{' ' + key['cell'] if 'cell' in key else ''}: {ms:.4f} ms, "
+          f"device {device_ms:.4f} (bound {row['bound_ms']:.5f}, all rows "
+          f"{row['all_rows_bound_ms']:.5f})", flush=True)
+    return row
+
+
+def split_times(device, reps=10, sweep=False) -> dict:
     """K1, K2 and K3 at :data:`SPLIT_SHAPES` (random cases, K 16, and K1
-    with one op, the sharded document's launch), and K1 and K3 at
+    with one op, the sharded document's launch), K1 and K3 at
     :data:`SPLIT_VS_GLOBAL_SHAPES` on the global tier and on the split
-    tier, each held bit for bit against its plain version; median
-    CUDA-event ms of each."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tier, and K1 (one op) and K2 at :data:`SPLIT_9C_SHAPES` on the tiers
+    that take them, each held bit for bit against its plain version;
+    median CUDA-event ms of each beside its bound on the rows below count
+    and the all-rows floor. With ``sweep``, also the document-count sweep
+    (:data:`SWEEP_CAPS` x :data:`SWEEP_DOCS`: K1 at K 1 and 16 and K2 on
+    both tiers, 5 launches each)."""
     rows = []
     for cap, d in SPLIT_SHAPES + SPLIT_VS_GLOBAL_SHAPES:
         t0, s0, ops = random_case(np.random.default_rng(cap + 1), d, cap,
@@ -7518,29 +7649,57 @@ def split_times(device, reps=10) -> dict:
                         name == "K2_zamboni_compact":
                     continue  # K2's global tier is already split
                 for k in ((16, 1) if name == "K1_merge_apply" else (16,)):
-                    ms = _entry_ms(name, t0, s0, ops[:, :k].contiguous(),
-                                   tier, reps)
-                    rows.append(dict(
-                        kernel=name, cap=cap, docs=d, k=k, tier=tier,
-                        ms=ms, slice_rows=_cuda.split_slice_rows(cap, d,
-                                                                 sms)))
-                    print(f"split S={cap} D={d} K={k} {name} {tier}: "
-                          f"{ms:.4f} ms", flush=True)
+                    rows.append(_split_row(name, t0, s0,
+                                           ops[:, :k].contiguous(), tier,
+                                           reps))
         del t0, s0, ops
         torch.cuda.empty_cache()
-    return dict(split_max_ctas=_cuda.lib().merge_split_max_ctas(),
-                rows=rows)
+    for cap, d, live in SPLIT_9C_SHAPES:
+        t0, s0, ops = KS.live_inputs(device, cap, [live] * d, 1,
+                                     live_doc=d // 2)
+        tiers = (("split",) if cap > _cuda.GLOBAL_MAX_CAPACITY
+                 else ("global", "split"))
+        for name in ("K1_merge_apply", "K2_zamboni_compact"):
+            for tier in tiers:
+                rows.append(_split_row(name, t0, s0, ops, tier, reps,
+                                       cell=f"9c counts ({live:,} rows)"))
+        del t0, s0, ops
+        torch.cuda.empty_cache()
+    out = dict(split_max_ctas=_cuda.lib().merge_split_max_ctas(),
+               rows=rows)
+    if sweep:
+        out["sweep"] = []
+        for cap in SWEEP_CAPS:
+            for d in SWEEP_DOCS:
+                t0, s0, ops = random_case(np.random.default_rng(cap + d), d,
+                                          cap, 16, device)
+                for name, k in (("K1_merge_apply", 1), ("K1_merge_apply", 16),
+                                ("K2_zamboni_compact", 0)):
+                    for tier in ("global", "split"):
+                        out["sweep"].append(_split_row(
+                            name, t0, s0, ops[:, :max(k, 1)].contiguous(),
+                            tier, 5, cell="sweep"))
+                del t0, s0, ops
+                torch.cuda.empty_cache()
+    return out
 
 
-def _runs_in_turn(code: str, tag: str, variants) -> list:
+def _runs_in_turn(code: str, tag: str, variants, parent=None) -> list:
     """Run ``code`` (a script with a ``{patch}`` slot that prints one line
-    ``<tag>_JSON <json>``) in its own process on this card for this tree
-    and for each variant (this tree with the kernel constants of one spec
-    changed, as for :func:`ab`), in turns: each variant, this tree twice,
-    each variant again. Returns each run's record, with its label and wall
-    seconds."""
+    ``<tag>_JSON <json>``) in its own process on this card for this tree,
+    for each variant (this tree with the kernel constants of one spec
+    changed, as for :func:`ab`) and, where ``parent`` (an unpacked earlier
+    commit) is given, for this tree's Python with the parent's merge
+    kernel source, in turns: the parent and each variant, this tree
+    twice, each variant and the parent again. Returns each run's record,
+    with its label and wall seconds."""
     here = os.path.dirname(os.path.abspath(__file__))
     trees = {"change": ""}
+    if parent:
+        src = os.path.join(os.path.abspath(parent), "fluidframework_tpu_torch",
+                           "csrc", "merge_kernels.cu")
+        trees["parent"] = ("import fluidframework_tpu_torch.ops._cuda "
+                           f"as cu; cu.SOURCE = {src!r}")
     for i, spec in enumerate(variants):
         trees[f"v{i + 1}"] = ("import fluidframework_tpu_torch.ops._cuda "
                               "as cu; cu.SOURCE = "
@@ -7548,7 +7707,7 @@ def _runs_in_turn(code: str, tag: str, variants) -> list:
         print(f"{tag.lower()}: v{i + 1} = {spec}", flush=True)
     labels = [x for x in trees if x != "change"]
     runs = []
-    for label in labels + ["change", "change"] + labels:
+    for label in labels + ["change", "change"] + labels[::-1]:
         t = time.perf_counter()
         res = subprocess.run([sys.executable, "-c",
                               code.format(patch=trees[label])], cwd=here,
@@ -7566,21 +7725,45 @@ def _runs_in_turn(code: str, tag: str, variants) -> list:
     return runs
 
 
-def split_ab(variants=("SPLIT_MAX_CTAS=8",)) -> int:
-    """:func:`split_times` of this tree and of each variant
-    (:func:`_runs_in_turn`). Prints each row's times and writes every run
-    to ``split.json`` in the output directory."""
-    runs = _runs_in_turn(_SPLIT_RUN, "SPLIT", variants)
+def split_ab(variants=(), parent=None) -> int:
+    """:func:`split_times` of this tree, of each variant and of the
+    parent's kernel source (:func:`_runs_in_turn`), then the
+    document-count sweep of this tree alone (``SPLIT_SWEEP=1``). Prints
+    each row's times by tree and the sweep's, and writes every run to
+    ``split.json`` in the output directory."""
+    runs = _runs_in_turn(_SPLIT_RUN, "SPLIT", variants, parent)
+    here = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run([sys.executable, "-c", _SPLIT_RUN.format(patch="")],
+                         cwd=here, env=dict(os.environ, PYTHONPATH=here,
+                                            SPLIT_SWEEP="1"),
+                         capture_output=True, text=True, timeout=1800)
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
+        raise AssertionError("split: the sweep failed")
+    line = next(x for x in res.stdout.splitlines()
+                if x.startswith("SPLIT_JSON "))
+    runs.append(dict(label="sweep", **json.loads(line[11:])))
     by = {}
-    for run in runs:
+    for run in runs[:-1]:
         for r in run["rows"]:
-            key = (r["kernel"], r["cap"], r["docs"], r["k"], r["tier"])
-            by.setdefault(key, {}).setdefault(
-                f"{run['label']}({run['split_max_ctas']})", []).append(
-                    r["ms"])
-    for (name, cap, d, k, tier), v in by.items():
-        print(f"split {name} S={cap} D={d} K={k} {tier}: " + ", ".join(
-            f"{label} {ms}" for label, ms in v.items()), flush=True)
+            key = (r["kernel"], r["cap"], r["docs"], r["k"], r["tier"],
+                   r.get("cell", ""))
+            by.setdefault(key, {}).setdefault(run["label"], []).append(
+                (round(r["ms"], 4), round(r["device_ms"], 4)))
+    for (name, cap, d, k, tier, cell), v in by.items():
+        print(f"split {name} S={cap} D={d} K={k} {tier} {cell} "
+              "(ms, device ms): " + ", ".join(f"{label} {ms}"
+                                              for label, ms in v.items()),
+              flush=True)
+    sweep = {}
+    for r in runs[-1]["sweep"]:
+        sweep.setdefault((r["kernel"], r["cap"], r["k"], r["docs"]), {})[
+            r["tier"]] = (r["ms"], r["device_ms"])
+    for (name, cap, k, d), v in sweep.items():
+        (g, gd), (sp, sd) = v["global"], v["split"]
+        print(f"sweep {name} S={cap} K={k} D={d}: global {g:.4f} split "
+              f"{sp:.4f} ms ({g / sp:.2f}x); device {gd:.4f} / {sd:.4f} "
+              f"({gd / sd:.2f}x)", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "split.json"), "w") as f:
         json.dump(runs, f, indent=1)
@@ -7805,7 +7988,11 @@ if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--split":
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device; nothing was run")
-        sys.exit(split_ab(*([sys.argv[2:]] if len(sys.argv) > 2 else [])))
+        rest = sys.argv[2:]
+        parent = None
+        if rest[:1] == ["--parent"]:
+            parent, rest = rest[1], rest[2:]
+        sys.exit(split_ab(rest, parent))
     if len(sys.argv) > 1 and sys.argv[1] == "--exchange":
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device; nothing was run")

@@ -29,25 +29,43 @@
 //     Slices of 2,048 rows (512 threads, 1 CTA per SM, C <= 8) ran 13-46%
 //     slower at 4,096-16,384 rows on an H100, so the slices are 1,024 rows.
 //     A cluster that cannot be scheduled fails the launch.
-//   - global (16,384 < S <= 65,536): K1 and K3 run one CTA of 512 threads
-//     per document; the lanes stay in tables_out (lane stride D*S) and the
-//     scratch arrays in a per-doc slice of a device workspace the wrapper
-//     allocates. Barriers order the global writes. K2 runs there on the
-//     split tier's code with at most 8 CTAs per document (a portable
-//     cluster).
-//   - split (65,536 < S <= 2^30; K1, K2, K3): the global tier's layout (the
-//     table in tables_out, the scratch in the workspace), each document
-//     split over a thread-block cluster of C = min(16, ceil(SMs / D)) CTAs
-//     of 512 threads (above 8 a non-portable size), slices of SL rows as on
-//     the cluster tier, so one large document still covers 16 SMs. The warp
-//     totals meet through DSMEM after a cluster barrier, and cluster
-//     barriers (release/acquire at cluster scope) order the global writes:
-//     a row another CTA wrote is read only after one, never through the
+//   - global (16,384 < S <= 65,536, launches of at least as many documents
+//     as the card has SMs; ops/_cuda.py routes fewer, where the split tier
+//     gives each document 2 CTAs or more, to the split tier): K1 and K3 run
+//     one CTA of 512 threads per document; the lanes stay in tables_out
+//     (lane stride D*S) and the scratch arrays in a per-doc slice of a
+//     device workspace the wrapper allocates. Barriers order the global
+//     writes. K2 runs there on the split tier's code with at most 8 CTAs
+//     per document (a portable cluster).
+//   - split (S <= 2^30; K1, K2, K3): the global tier's layout (the table
+//     in tables_out, the scratch in the workspace), each document split
+//     over a thread-block cluster of C = min(16, ceil(SMs / D)) CTAs of
+//     512 threads (above 8 a non-portable size), so one large document
+//     still covers 16 SMs. The warp totals meet
+//     through DSMEM after a cluster barrier, and cluster barriers
+//     (release/acquire at cluster scope) order the global writes: a row
+//     another CTA wrote is read only after one, never through the
 //     non-coherent load path. The only such reads are K1's row move (the
 //     two rows below a slice, read before the barrier that lets their
-//     owner overwrite them), the prefix at a hit row, and K2's gather.
-//     2^30 is the largest table the kernels' int row indices address; a
-//     table the card cannot hold fails at allocation, in the wrapper.
+//     owner overwrite them), the prefix at a hit row, and K2's gather and
+//     store. 2^30 is the largest table the kernels' int row indices
+//     address; a table the card cannot hold fails at allocation, in the
+//     wrapper.
+//   The global and split tiers walk only the rows below live = min(S,
+//   count + 2K) (K2: count), count read at the launch's start
+//   (live_rows): every row at or past count is free (K1 moves rows up
+//   from below count, K2 refills the rows past its heads with free rows;
+//   every port path that writes a table keeps this), and an op adds at
+//   most 2 rows, so no row at or past live changes. The host sizes the
+//   grid from S alone (nothing is read back); each CTA cuts [0, live)
+//   into C slices of SL = ceil(live / C) rows (a multiple of 32), fixed
+//   for the launch, so every row stays with the thread that reads it in
+//   the op loop's passes and the row move needs no barrier after it. A
+//   sharded document's shard (9c: about 10,000 of 65,536 rows; one card:
+//   65,681 of 524,288) is walked over its rows in use, not its capacity.
+//   C stays at most 16, one cluster: a document spread over more CTAs
+//   would meet its warp totals through global memory behind a grid-wide
+//   barrier on every reduction of every op (not built; PERF.md §6).
 //
 // K1's op loop (apply_ops_doc) gives each warp a contiguous block of rows
 // and walks it in 32-row tiles, lane i on row tile + i, so one lane access
@@ -78,13 +96,20 @@
 // squeeze-then-merge bit for bit. Per document: one pass over the rows, one
 // block (or cluster) step that combines the warps' head counts, length
 // sums and first/last kept rows (a warp's first kept row may merge into an
-// earlier warp's last one), one pass that writes each head's source row and
+// earlier warp's last one) and, on the global memory tiers, the first row
+// that is not a head, one pass that writes each head's source row and
 // prefix length at its output index, one barrier, and the store: on the
 // shared and cluster tiers it goes straight from shared memory to
 // tables_out by warp tiles (the table crosses memory once in, once out);
-// on the global and split tiers each lane is gathered into the workspace,
-// one barrier, and written back in place. K3 runs K1's loop, one barrier,
-// and K2 in one CTA (or cluster).
+// on the global and split tiers it runs in place over the output rows
+// from the one below the first row that is not a head (every row below it
+// is its own head) up to live, in rounds of STORE_ROWS rows a thread (K3:
+// K3_STORE_ROWS): all 15 lanes of a round's rows are loaded into
+// registers, one barrier, then stored. Output row h takes row C[h] >= h,
+// so a round reads only rows at or above its first and writes only rows
+// below the next round's first: one barrier a round, where the
+// lane-by-lane store took 15 and two passes over every row of the slice.
+// K3 runs K1's loop, one barrier, and K2 in one CTA (or cluster).
 // The TPU-side workarounds (Hillis-Steele shift ladders, the f32
 // permutation matmul, the 256-row compact cap) are not carried over.
 //
@@ -92,24 +117,28 @@
 // so all three kernels are latency-bound, not bandwidth-bound: their byte
 // floor is 2 x 15 x S x 4 B x D of table traffic plus D x K x 40 B of ops
 // (1.55 GB per round at 100,000 docs x 128 rows x 16 ops, 0.46 ms at
-// 3.35 TB/s). Shared tier: K x (3-4 barriers + 2-4 passes of S/threads
-// rows). Cluster tier: the same with cluster barriers (each a round trip
-// over the SMs of the cluster) and passes over 1,024-row slices; 256 docs
-// at 8,192 rows are 2,048 CTAs, about 5 waves at 3 CTAs per SM. Global
-// tier: the passes go to L2/HBM (coalesced), with one CTA per doc, so
-// D < 132 leaves SMs idle (K2 splits the doc instead). Split tier: the
-// same passes over S/C-row slices, each op a few cluster barriers over up
-// to 16 SMs; once table and workspace (73 B a row) pass the 50 MB L2,
-// each pass pays HBM. K2 itself is one
-// pass over the rows and one store per document, with 3 barriers (14 more
-// on the global tier), so it is bound by its bytes once enough CTAs are in
-// flight: each thread loads all 15 lanes of a row before it stores any.
+// 3.35 TB/s); on the global and split tiers the work needs only the rows
+// below live, 2 x 15 x live x 4 B a document. Shared tier: K x (3-4
+// barriers + 2-4 passes of S/threads rows). Cluster tier: the same with
+// cluster barriers (each a round trip over the SMs of the cluster) and
+// passes over 1,024-row slices; 256 docs at 8,192 rows are 2,048 CTAs,
+// about 5 waves at 3 CTAs per SM. Global tier: the passes go to L2/HBM
+// (coalesced), with one CTA per doc, so D < 132 leaves SMs idle; below
+// one document an SM the split tier takes the launch. Split tier:
+// the same passes over live/C-row slices, each op a few cluster barriers
+// over up to 16 SMs; once the live rows and their workspace (73 B a row)
+// pass the 50 MB L2, each pass pays HBM. K2 itself is one pass over the
+// rows and one store per document, with 3 barriers (and one a store round
+// on the global memory tiers), so it is bound by its bytes once enough
+// CTAs are in flight: each thread loads all 15 lanes of a row before it
+// stores any.
 //
 // Ops with an unknown type (outside 0..6) change nothing but the cur_seq /
 // min_seq bookkeeping and the ERR_CLIENT bit, as in the Pallas K1.
 
 #include <atomic>
 #include <cooperative_groups.h>
+#include <mutex>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -130,7 +159,16 @@ constexpr int CLUSTER_ROWS = 1024;      // rows per CTA of a cluster, at most
 constexpr int CLUSTER_THREADS = 256;    // cluster tier
 constexpr int GLOBAL_THREADS = 512;     // global and split tiers
 constexpr int SPLIT_MAX_CTAS = 16;      // CTAs per doc on the split tier
-constexpr int K2_GLOBAL_CTAS = 8;       // K2's CTAs per doc, global tier
+// K2's CTAs per doc at most on the global tier (the split tier gives it
+// SPLIT_MAX_CTAS, as K1 and K3). On an H100, each launch on a fresh table:
+// at 16,385-65,536 rows 8 beat 16 1.7-2.4x (9c's 8 x 65,536, 32,768 x 16),
+// on the split tier 16 beat 8 1.1-1.45x where many rows lie below count
+// and tied (within 4%) at the one card's 65,681 of 524,288 (PERF.md §6).
+constexpr int K2_MAX_CTAS = 8;
+// Rows a thread holds a round of K2's store on the global and split tiers
+// (K3: 2, so that its op loop and the store fit 128 registers unspilled).
+constexpr int STORE_ROWS = 4;
+constexpr int K3_STORE_ROWS = 2;
 // CTAs per SM that each entry's register budget aims at (the second
 // argument of __launch_bounds__; see ctas_per_sm). The shared tier: 4 (64
 // registers a thread) up to SMEM_NARROW_CAP rows, where more CTAs fit an
@@ -145,6 +183,7 @@ constexpr int SMEM_WIDE_CTAS_PER_SM = 3;
 constexpr int CLUSTER_CTAS_PER_SM = 3;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_DEVICES = 64;  // devices whose SM count is cached
+constexpr int MAX_CLUSTER = 16;  // the most CTAs of a (non-portable) cluster
 
 // T_SPLIT: the table in global memory, a cluster of CTAs per document.
 // The C entries' tier 3 selects it for every entry; tier 2 selects it for
@@ -175,7 +214,8 @@ constexpr int ERR_CAPACITY = 1, ERR_RANGE = 2, ERR_CLIENT = 4;
 // so a site never overwrites totals another thread (or CTA) may still be
 // reading.
 constexpr int WS_SCAN1 = 0, WS_MIN = 32, WS_SCAN2 = 128, WS_CMP = 160,
-              WS_SIZE = 288;
+              WS_SIZE = 320;
+
 
 // One document's table (or, on the cluster and split tiers, this CTA's
 // slice of it) as the block sees it. Rows are addressed by their local
@@ -186,6 +226,14 @@ struct DocT {
   // Cluster barriers and DSMEM warp totals; the table in global memory.
   static constexpr bool kCluster = TIER == T_CLUSTER || TIER == T_SPLIT;
   static constexpr bool kGlobal = TIER == T_GLOBAL || TIER == T_SPLIT;
+  // Warp totals a lane reads at most in a block- or cluster-wide
+  // reduction (the tier's most warps, 32 a lane).
+  static constexpr int kPerLane =
+      ((TIER == T_SMEM      ? MAX_THREADS / 32
+        : TIER == T_CLUSTER ? MAX_CLUSTER * CLUSTER_THREADS / 32
+        : TIER == T_GLOBAL  ? GLOBAL_THREADS / 32
+                            : MAX_CLUSTER * GLOBAL_THREADS / 32) +
+       31) / 32;
   int *L;            // lane 0, local row 0
   size_t ls;         // lane stride: D*S (global), S (shared), SL (cluster)
   int *A, *B, *C;    // [n] scratch (global and split: slices of [S])
@@ -193,6 +241,8 @@ struct DocT {
   int S;             // rows of the whole table
   int base, n;       // this CTA's rows [base, base + n)
   int SL;            // rows per slice (cluster, split; S otherwise)
+  int live;          // rows the op loop and K2 walk: [0, live) (S on the
+                     // shared and cluster tiers; see live_rows)
   int rank, nranks;  // this CTA in the cluster (0 and 1 otherwise)
   int wlo, whi;      // this warp's local rows [wlo, whi)
   int *ws;           // [WS_SIZE] warp totals
@@ -259,27 +309,38 @@ __device__ __forceinline__ int warp_sum(int v) {
 
 // Exclusive scan of warp totals (`wtot`, uniform in the warp) over the
 // block or cluster, in warp order (CTA rank, then warp): returns this
-// warp's offset and writes the total. One barrier.
+// warp's offset and writes the total. One barrier. A lane loads all its
+// totals (up to 8 on the split tier: 16 CTAs of 16 warps) before it adds
+// any, so the DSMEM round trips overlap rather than follow one another.
 template <class Doc>
 __device__ int doc_excl_scan(const Doc &d, int wtot, int *ws, int &total) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   if (lane == 0) ws[w] = wtot;
   d.sync();
-  const int g = d.rank * nw + w;
+  const int g = d.rank * nw + w, nt = d.nranks * nw;
+  int v[Doc::kPerLane];
+#pragma unroll
+  for (int j = 0; j < Doc::kPerLane; ++j) {
+    const int i = lane + 32 * j;
+    v[j] = 0;
+    if (i < nt) {
+      const int rk = Doc::kCluster ? i / nw : 0;
+      v[j] = d.remote(ws, rk)[i - rk * nw];
+    }
+  }
   int off = 0, tot = 0;
-  for (int i = lane; i < d.nranks * nw; i += 32) {
-    const int rk = Doc::kCluster ? i / nw : 0;
-    const int v = d.remote(ws, rk)[i - rk * nw];
-    tot += v;
-    if (i < g) off += v;
+#pragma unroll
+  for (int j = 0; j < Doc::kPerLane; ++j) {
+    tot += v[j];
+    if (lane + 32 * j < g) off += v[j];
   }
   total = warp_sum(tot);
   return warp_sum(off);
 }
 
 // Min of three warp-uniform values over the block or cluster (ws holds 96
-// ints). One barrier.
+// ints). One barrier; the loads overlap as in doc_excl_scan.
 template <class Doc>
 __device__ void doc_min3(const Doc &d, int &a, int &b, int &c, int *ws) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
@@ -290,13 +351,26 @@ __device__ void doc_min3(const Doc &d, int &a, int &b, int &c, int *ws) {
     ws[64 + w] = c;
   }
   d.sync();
-  for (int i = lane; i < d.nranks * nw; i += 32) {
-    const int rk = Doc::kCluster ? i / nw : 0;
-    const int *p = d.remote(ws, rk);
-    const int j = i - rk * nw;
-    a = min(a, p[j]);
-    b = min(b, p[32 + j]);
-    c = min(c, p[64 + j]);
+  const int nt = d.nranks * nw;
+  int va[Doc::kPerLane], vb[Doc::kPerLane], vc[Doc::kPerLane];
+#pragma unroll
+  for (int j = 0; j < Doc::kPerLane; ++j) {
+    const int i = lane + 32 * j;
+    va[j] = vb[j] = vc[j] = INT_MAX;
+    if (i < nt) {
+      const int rk = Doc::kCluster ? i / nw : 0;
+      const int *p = d.remote(ws, rk);
+      const int k = i - rk * nw;
+      va[j] = p[k];
+      vb[j] = p[32 + k];
+      vc[j] = p[64 + k];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < Doc::kPerLane; ++j) {
+    a = min(a, va[j]);
+    b = min(b, vb[j]);
+    c = min(c, vc[j]);
   }
   a = warp_min(a);
   b = warp_min(b);
@@ -728,17 +802,21 @@ struct CompactSums {
   int off_h, n_heads;  // heads in earlier warps; in the table
   int off_len, total;  // LEN over kept rows of earlier warps; of the table
   bool merged;         // this warp's first kept row joins an earlier row
+  int first_move;      // the first row that is not a head (global memory
+                       // tiers; INT_MAX for none): rows below it stay put
 };
 
 // The block (or cluster) step of the compaction. Each warp gives its
 // count of heads (its first kept row counted as one), its kept rows' LEN
-// sum and its first and last kept rows; after one barrier every warp reads
-// all of them (through DSMEM on the cluster tier), finds for each warp the
+// sum, its first and last kept rows and (global memory tiers) its first
+// row that is no tentative head; after one barrier every warp reads all
+// of them (through DSMEM on the cluster tier), finds for each warp the
 // last kept row before it (an exclusive max scan) and whether that warp's
-// first kept row merges into it, and takes its own offsets and the totals.
+// first kept row merges into it, and takes its own offsets, the totals and
+// the table's first row that is not a head.
 template <class Doc>
 __device__ CompactSums compact_sums(const Doc &d, int tent, int lsum, int fk,
-                                    int lk, int *ws) {
+                                    int lk, int fnh, int *ws) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   if (lane == 0) {
@@ -746,14 +824,15 @@ __device__ CompactSums compact_sums(const Doc &d, int tent, int lsum, int fk,
     ws[32 + w] = lsum;
     ws[64 + w] = fk;
     ws[96 + w] = lk;
+    if constexpr (Doc::kGlobal) ws[128 + w] = fnh;
   }
   d.sync();
   const int g = d.rank * nw + w, nt = d.nranks * nw;
-  CompactSums t{0, 0, 0, 0, false};
+  CompactSums t{0, 0, 0, 0, false, INT_MAX};
   int carry = -1;  // last kept row of the warps before this chunk
   for (int i0 = 0; i0 < nt; i0 += 32) {
     const int i = i0 + lane;
-    int th = 0, tl = 0, f = -1, k = -1;
+    int th = 0, tl = 0, f = -1, k = -1, nh = INT_MAX;
     if (i < nt) {
       const int rk = Doc::kCluster ? i / nw : 0;
       const int *p = d.remote(ws, rk);
@@ -762,6 +841,7 @@ __device__ CompactSums compact_sums(const Doc &d, int tent, int lsum, int fk,
       tl = p[32 + j];
       f = p[64 + j];
       k = p[96 + j];
+      if constexpr (Doc::kGlobal) nh = p[128 + j];
     }
     int inc = k;
 #pragma unroll
@@ -777,6 +857,8 @@ __device__ CompactSums compact_sums(const Doc &d, int tent, int lsum, int fk,
       m = merges(merge_row([&](int l) { return lane_at(d, l, prev); }),
                  merge_row([&](int l) { return lane_at(d, l, f); }));
     th -= m;
+    if constexpr (Doc::kGlobal)
+      t.first_move = min(t.first_move, m ? min(f, nh) : nh);
     if (i < g) {
       t.off_h += th;
       t.off_len += tl;
@@ -790,6 +872,7 @@ __device__ CompactSums compact_sums(const Doc &d, int tent, int lsum, int fk,
   t.off_len = warp_sum(t.off_len);
   t.total = warp_sum(t.total);
   t.merged = __any_sync(FULL, t.merged);
+  if constexpr (Doc::kGlobal) t.first_move = warp_min(t.first_move);
   return t;
 }
 
@@ -799,7 +882,7 @@ __device__ CompactSums compact_sums(const Doc &d, int tent, int lsum, int fk,
 // the file). Shared and cluster tiers: the result goes to `out` (this
 // CTA's rows of lane 0 of tables_out, lane stride `plane`). Global tier:
 // in place. Returns n_heads. The caller synchronizes before the call.
-template <class Doc>
+template <int STORE, class Doc>
 __device__ int compact_doc(const Doc &d, int min_seq, int *out,
                            size_t plane) {
   const int lane = threadIdx.x & 31;
@@ -807,7 +890,7 @@ __device__ int compact_doc(const Doc &d, int min_seq, int *out,
   // -- keep, p(r), tentative heads; A = warp-local prefix of kept LEN ----
   MRow cq{};          // the last kept row of this warp's earlier tiles
   bool has_q = false;
-  int tent = 0, lsum = 0, fk = -1, lk = -1;
+  int tent = 0, lsum = 0, fk = -1, lk = -1, fnh = INT_MAX;
   for (int t0 = d.wlo; t0 < d.whi; t0 += 32) {
     const int lr = t0 + lane;
     const bool valid = lr < d.whi;
@@ -832,6 +915,10 @@ __device__ int compact_doc(const Doc &d, int min_seq, int *out,
     const bool head = keep && !((below || has_q) && merges(q, m));
     if (valid) d.F[lr] = head;
     tent += __popc(__ballot_sync(FULL, head));
+    if constexpr (Doc::kGlobal) {
+      const unsigned nb = __ballot_sync(FULL, valid && !head);
+      if (fnh == INT_MAX && nb) fnh = d.base + t0 + __ffs(nb) - 1;
+    }
     const int inc = warp_incl_scan(len);
     if (valid) d.A[lr] = lsum + inc - len;
     lsum += __shfl_sync(FULL, inc, 31);
@@ -843,7 +930,8 @@ __device__ int compact_doc(const Doc &d, int min_seq, int *out,
       if (fk < 0) fk = d.base + t0 + __ffs(km) - 1;
     }
   }
-  const CompactSums t = compact_sums(d, tent, lsum, fk, lk, d.ws + WS_CMP);
+  const CompactSums t =
+      compact_sums(d, tent, lsum, fk, lk, fnh, d.ws + WS_CMP);
   // -- each head's source row (C) and prefix length (B), at its output
   //    index, in the CTA that owns that output row --------------------------
   int run = t.off_h;
@@ -864,25 +952,44 @@ __device__ int compact_doc(const Doc &d, int min_seq, int *out,
   // -- the store ------------------------------------------------------------
   const int nh = t.n_heads;
   if constexpr (Doc::kGlobal) {
-    // In place: each lane is gathered into A, one barrier over the table,
-    // then written back; a thread reads and writes only A[hl] of its own
-    // output rows, so the next lane needs no second barrier.
-    for (int l = 0; l < N_LANES; ++l) {
-      if (l == L_LEN) {
-        for (int hl = threadIdx.x; hl < d.n; hl += blockDim.x) {
-          const int h = d.base + hl;
-          d.at(l, hl) =
-              h < nh ? (h + 1 < nh ? row_value(d, d.B, h + 1) : t.total) -
-                           d.B[hl]
-                     : 0;
+    // In place, over output rows [lo, live): every row below the first row
+    // that is not a head is its own head, so rows below lo keep all their
+    // lanes (row lo = first_move - 1 may take a longer LEN). Output row h
+    // takes row C[h] >= h, so the store walks the rows in rounds of
+    // STORE rows a thread, upward: a round loads all 15 lanes of its
+    // rows into registers, one barrier, then stores them. A round reads
+    // rows at or above its own first row, which no earlier round wrote,
+    // and writes rows no later round reads, so it needs no second barrier.
+    const int lo = max(min(t.first_move, d.live) - 1, 0);
+    const int T = d.nranks * (int)blockDim.x;
+    const int g = d.rank * (int)blockDim.x + (int)threadIdx.x;
+    for (int h0 = lo; h0 < d.live; h0 += T * STORE) {
+      int v[STORE][N_LANES];
+#pragma unroll
+      for (int i = 0; i < STORE; ++i) {
+        const int h = h0 + i * T + g;
+        if (h >= d.live) continue;
+        if (h < nh) {
+          const int src = row_value(d, d.C, h);
+          const int b = row_value(d, d.B, h);
+#pragma unroll
+          for (int l = 0; l < N_LANES; ++l)
+            v[i][l] = l == L_LEN ? (h + 1 < nh ? row_value(d, d.B, h + 1)
+                                               : t.total) - b
+                                 : lane_at(d, l, src);
+        } else {
+#pragma unroll
+          for (int l = 0; l < N_LANES; ++l) v[i][l] = lane_fill(l);
         }
-        continue;
       }
-      for (int hl = threadIdx.x; hl < d.n; hl += blockDim.x)
-        d.A[hl] = d.base + hl < nh ? lane_at(d, l, d.C[hl]) : lane_fill(l);
       d.sync();
-      for (int hl = threadIdx.x; hl < d.n; hl += blockDim.x)
-        d.at(l, hl) = d.A[hl];
+#pragma unroll
+      for (int i = 0; i < STORE; ++i) {
+        const int h = h0 + i * T + g;
+        if (h >= d.live) continue;
+#pragma unroll
+        for (int l = 0; l < N_LANES; ++l) d.at(l, h - d.base) = v[i][l];
+      }
     }
   } else {
     for (int hl = threadIdx.x; hl < d.n; hl += blockDim.x) {
@@ -904,6 +1011,16 @@ __device__ int compact_doc(const Doc &d, int min_seq, int *out,
 }
 
 extern __shared__ int smem_raw[];
+
+// Rows [0, live) of a table of S rows whose count is `count` at a
+// launch's start that a launch of K ops walks on the global and split
+// tiers: every row at or past count is free (K1 moves rows up from below
+// count, K2 fills rows past its heads with free rows) and an op raises
+// count by at most 2, so no row at or past count + 2K changes.
+__device__ __forceinline__ int live_rows(int S, int count, int K) {
+  return (int)min((long long)S,
+                  (long long)clampi(count, 0, S) + 2LL * (long long)K);
+}
 
 // Ints of global-tier workspace per document: scratch A, B, C and the flag
 // bytes F (each S rows long, in that order).
@@ -943,10 +1060,20 @@ merge_kernel(const int *__restrict__ ops, const int *tables_in,
   }
   const size_t plane = (size_t)n_docs * S;
   const size_t base = (size_t)doc * S;
+  int sc_in[N_SCALARS];
+#pragma unroll
+  for (int i = 0; i < N_SCALARS; ++i)
+    sc_in[i] = scalars_in[(size_t)doc * N_SCALARS + i];
   d.S = S;
+  d.live = S;
+  if constexpr (DocT<TIER>::kGlobal) {
+    // The rows the op loop and K2 walk, cut into this launch's slices.
+    d.live = live_rows(S, sc_in[SC_COUNT], MODE == 1 ? 0 : K);
+    SL = ((d.live + d.nranks - 1) / d.nranks + 31) / 32 * 32;
+  }
   d.SL = SL;
   d.base = d.rank * SL;
-  d.n = max(0, min(SL, S - d.base));
+  d.n = max(0, min(SL, d.live - d.base));
   d.ws = ws;
   const size_t row0 = base + d.base;
   if constexpr (DocT<TIER>::kGlobal) {
@@ -974,27 +1101,32 @@ merge_kernel(const int *__restrict__ ops, const int *tables_in,
 
   // Shared and cluster tiers: load this CTA's rows. Global and split
   // tiers: the table is updated where it lies in tables_out, so copy
-  // tables_in there when they differ.
+  // tables_in there, every row, when they differ.
   // All 15 lanes of a row are loaded before any is stored, so a thread
   // has 15 loads in flight rather than one.
-  if (!DocT<TIER>::kGlobal || tables_in != tables_out) {
+  if constexpr (DocT<TIER>::kGlobal) {
+    if (tables_in != tables_out) {
+      const int T = d.nranks * (int)blockDim.x;
+      for (int r = d.rank * (int)blockDim.x + (int)threadIdx.x; r < S;
+           r += T) {
+        int v[N_LANES];
+#pragma unroll
+        for (int l = 0; l < N_LANES; ++l)
+          v[l] = tables_in[l * plane + base + r];
+#pragma unroll
+        for (int l = 0; l < N_LANES; ++l)
+          tables_out[l * plane + base + r] = v[l];
+      }
+    }
+  } else {
     for (int r = threadIdx.x; r < d.n; r += blockDim.x) {
       int v[N_LANES];
 #pragma unroll
       for (int l = 0; l < N_LANES; ++l) v[l] = tables_in[l * plane + row0 + r];
 #pragma unroll
-      for (int l = 0; l < N_LANES; ++l) {
-        if constexpr (DocT<TIER>::kGlobal)
-          tables_out[l * plane + row0 + r] = v[l];
-        else
-          d.at(l, r) = v[l];
-      }
+      for (int l = 0; l < N_LANES; ++l) d.at(l, r) = v[l];
     }
   }
-  int sc_in[N_SCALARS];
-#pragma unroll
-  for (int i = 0; i < N_SCALARS; ++i)
-    sc_in[i] = scalars_in[(size_t)doc * N_SCALARS + i];
   Scalars sc{sc_in[SC_COUNT], sc_in[SC_MIN_SEQ], sc_in[SC_CUR_SEQ],
              sc_in[SC_SELF], sc_in[SC_ERR]};
   // Every CTA of a cluster has started (and loaded) before any DSMEM read.
@@ -1005,7 +1137,8 @@ merge_kernel(const int *__restrict__ ops, const int *tables_in,
   int n_heads = 0;
   if constexpr (MODE != 0) {
     if constexpr (MODE == 2) d.sync();  // the op loop's rows, table-wide
-    n_heads = compact_doc(d, sc.min_seq, tables_out + row0, plane);
+    n_heads = compact_doc<MODE == 2 ? K3_STORE_ROWS : STORE_ROWS>(
+        d, sc.min_seq, tables_out + row0, plane);
   }
   // No CTA exits (or stores) while another may still read its rows.
   d.sync();
@@ -1041,20 +1174,43 @@ cudaError_t allow_smem(Kern kern, size_t smem) {
 // shared memory, SL rows) per doc: the cluster tier (C = ceil(S /
 // CLUSTER_ROWS), the slices in shared memory) and the split tier (the
 // table in global memory). Returns an error when such a cluster cannot be
-// scheduled; it never falls back to another tier.
+// scheduled; it never falls back to another tier. The cluster's
+// occupancy is asked once a device, C and smem size (`checked`: smem + 1
+// where done) and the kernel's attributes set only where they grow (its
+// dynamic shared memory cap, `smem_cap`, only rises), not on every launch:
+// they are host calls in front of each launch, which a CUDA-event time and
+// a sharded document's op both wait behind.
 template <int MODE, int TIER>
 int launch_cluster(const int *ops, const int *tables_in, const int *scalars_in,
                    int *tables_out, int *scalars_out, int *work, int n_docs,
                    int S, int K, int C, int threads, size_t smem,
                    cudaStream_t stream) {
+  static std::atomic<unsigned long long>
+      checked[MAX_DEVICES][MAX_CLUSTER + 1];
+  static size_t smem_cap[MAX_DEVICES];  // under `setup`
+  static std::mutex setup;
+  if (C < 1 || C > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   const int SL = ((S + C - 1) / C + 31) / 32 * 32;
   auto kern = merge_kernel<MODE, TIER>;
-  cudaError_t e = allow_smem(kern, smem);
-  if (e != cudaSuccess) return (int)e;
-  if (C > 8) {
-    e = cudaFuncSetAttribute(kern,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return (int)e;
+  const bool known =
+      checked[dev][C].load(std::memory_order_relaxed) == smem + 1;
+  std::unique_lock<std::mutex> lock(setup, std::defer_lock);
+  if (!known) {
+    lock.lock();
+    if (smem > smem_cap[dev]) {
+      e = allow_smem(kern, smem);
+      if (e != cudaSuccess) return (int)e;
+      smem_cap[dev] = smem;
+    }
+    if (C > 8) {
+      e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e != cudaSuccess) return (int)e;
+    }
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)n_docs * C, 1, 1);
@@ -1068,10 +1224,13 @@ int launch_cluster(const int *ops, const int *tables_in, const int *scalars_in,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  int clusters = 0;
-  e = cudaOccupancyMaxActiveClusters(&clusters, (void *)kern, &cfg);
-  if (e != cudaSuccess) return (int)e;
-  if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+  if (!known) {
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, (void *)kern, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+    checked[dev][C].store(smem + 1, std::memory_order_relaxed);
+  }
   return (int)cudaLaunchKernelEx(&cfg, kern, ops, tables_in, scalars_in,
                                  tables_out, scalars_out, work, n_docs, S, K,
                                  SL);
@@ -1123,8 +1282,9 @@ int launch_split(const int *ops, const int *tables_in, const int *scalars_in,
 }
 
 // tier T_SMEM: S <= SMEM_MAX_CAP. T_CLUSTER: S <= CLUSTER_MAX_CAP.
-// T_GLOBAL: S <= GLOBAL_MAX_CAP (K2 there runs on T_SPLIT, at most
-// K2_GLOBAL_CTAS CTAs a doc). T_SPLIT: S <= MAX_CAP. The last two take
+// T_GLOBAL: S <= GLOBAL_MAX_CAP (K2 there runs on T_SPLIT). T_SPLIT: S <=
+// MAX_CAP. K2 on the global tier on at most K2_MAX_CTAS CTAs a doc, on the
+// split tier on SPLIT_MAX_CTAS as K1 and K3. The last two take
 // n_docs * work_ints(S) ints at `work`.
 template <int MODE>
 int launch(const int *ops, const int *tables_in, const int *scalars_in,
@@ -1156,7 +1316,7 @@ int launch(const int *ops, const int *tables_in, const int *scalars_in,
     if constexpr (MODE == 1) {
       const int e = launch_split<MODE>(ops, tables_in, scalars_in, tables_out,
                                        scalars_out, work, n_docs, S, K,
-                                       K2_GLOBAL_CTAS, st);
+                                       K2_MAX_CTAS, st);
       if (e != 0) return e;
     } else {
       merge_kernel<MODE, T_GLOBAL><<<n_docs, GLOBAL_THREADS, 0, st>>>(
@@ -1165,9 +1325,9 @@ int launch(const int *ops, const int *tables_in, const int *scalars_in,
     }
   } else if (tier == T_SPLIT) {
     if (S > MAX_CAP || work == nullptr) return (int)cudaErrorInvalidValue;
-    const int e = launch_split<MODE>(ops, tables_in, scalars_in, tables_out,
-                                     scalars_out, work, n_docs, S, K,
-                                     SPLIT_MAX_CTAS, st);
+    const int e = launch_split<MODE>(
+        ops, tables_in, scalars_in, tables_out, scalars_out, work, n_docs, S,
+        K, SPLIT_MAX_CTAS, st);
     if (e != 0) return e;
   } else {
     return (int)cudaErrorInvalidValue;

@@ -185,17 +185,42 @@ def lib(name: str = "merge") -> ctypes.CDLL:
     return cdll
 
 
-def tier(s: int, entry: str) -> str:
-    """The tier merge entry ``entry`` runs tables of ``s`` rows per
-    document on (the same for every merge entry): ``"smem"`` (the table
-    in one CTA's shared memory) up to :data:`SMEM_MAX_CAPACITY`;
-    ``"cluster"`` (the table split across a thread-block cluster's shared
-    memory) up to :data:`CLUSTER_MAX_CAPACITY`; ``"global"`` (the table
-    in global memory, one CTA a document for K1 and K3) up to
-    :data:`GLOBAL_MAX_CAPACITY`; ``"split"`` (the table in global memory,
-    a cluster of CTAs a document) up to :data:`MAX_CAPACITY`. Larger
-    tables raise ``ValueError``, and so does a tree or an exchange
-    entry."""
+# Each card's SM count, by device index (:func:`sm_count`).
+_SMS: dict = {}
+
+
+def sm_count(device=None) -> int:
+    """The SMs of CUDA card ``device`` (default: the current one), asked
+    of the card once and kept."""
+    idx = None if device is None else torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def tier(s: int, entry: str, n_docs: int, sms: Optional[int] = None) -> str:
+    """The tier merge entry ``entry`` runs a launch of ``n_docs`` tables
+    of ``s`` rows on, on a card of ``sms`` SMs (default: the current
+    card's, :func:`sm_count`, asked only where it decides): ``"smem"``
+    (the table in one CTA's shared memory) up to
+    :data:`SMEM_MAX_CAPACITY`; ``"cluster"`` (the table split across a
+    thread-block cluster's shared memory) up to
+    :data:`CLUSTER_MAX_CAPACITY`; up to :data:`GLOBAL_MAX_CAPACITY`,
+    ``"global"`` (the table in global memory, one CTA a document for K1
+    and K3, a cluster of up to 8 for K2), for K1 and K3 only where the
+    split tier would give each document one CTA, and ``"split"`` where it
+    gives each at least 2; ``"split"`` (the table in global memory, a
+    cluster of up to 16 CTAs a document) up to :data:`MAX_CAPACITY`.
+    Larger tables raise ``ValueError``, and so does a tree or an exchange
+    entry.
+
+    The split tier spreads each document over C = min(16, ceil(sms / D))
+    CTAs. chip_smoke.py --split's document-count sweep on an H100 (132
+    SMs) found it faster than the one-CTA global tier while C >= 2 (up
+    to 131 documents) and slower at C = 1, so K1 and K3 take the global
+    tier from ``sms`` documents. K2's global tier already runs the split
+    tier's code."""
     if entry not in ENTRIES:
         raise ValueError(f"unknown kernel entry {entry!r}")
     if s > MAX_CAPACITY:
@@ -213,16 +238,30 @@ def tier(s: int, entry: str) -> str:
     if s <= CLUSTER_MAX_CAPACITY:
         return "cluster"
     if s <= GLOBAL_MAX_CAPACITY:
-        return "global"
+        if entry == "merge_compact":
+            return "global"
+        sms = sm_count() if sms is None else sms
+        if -(-sms // max(n_docs, 1)) < 2:
+            return "global"
     return "split"
 
 
-def split_slice_rows(s: int, d: int, sms: int) -> int:
-    """Rows a CTA holds when the split tier runs ``d`` tables of ``s``
-    rows on a card of ``sms`` SMs: the kernel's C = min(split CTAs,
-    ceil(sms / d)), at least 1, and ceil(s / C) rounded up to 32 rows."""
+def live_rows(s: int, count: int, k: int) -> int:
+    """The rows ``[0, live)`` the global and split tiers walk in a
+    launch of ``k`` ops on a table of ``s`` rows whose count is ``count``
+    (the kernels' ``live_rows``): every row at or past count is free and
+    an op adds at most 2 rows, so min(s, count + 2k), count clamped into
+    [0, s]. K2 alone walks min(s, count)."""
+    return min(s, min(max(count, 0), s) + 2 * k)
+
+
+def split_slice_rows(live: int, d: int, sms: int) -> int:
+    """Rows a CTA holds when the split tier runs ``d`` tables of
+    ``live`` rows below :func:`live_rows` each on a card of ``sms`` SMs:
+    the kernel's C = min(split CTAs, ceil(sms / d)), at least 1, and
+    ceil(live / C) rounded up to 32 rows."""
     c = max(1, min(lib().merge_split_max_ctas(), -(-sms // d)))
-    return (-(-s // c) + 31) // 32 * 32
+    return (-(-live // c) + 31) // 32 * 32
 
 
 def check_packed(tables, scalars, ops=None) -> None:
@@ -264,7 +303,7 @@ def launch(name: str, tables, scalars, ops, out, t: Optional[str] = None
     ot, os_ = out
     check_packed(ot, os_)
     d, s = tables.shape[1], tables.shape[2]
-    t = t or tier(s, name)
+    t = t or tier(s, name, d, sm_count(tables.device))
     work = None
     if t in ("global", "split"):
         work = torch.empty((d, lib().merge_work_ints(s)), dtype=torch.int32,

@@ -140,10 +140,13 @@ def check_shard_cap(shard_cap: int, kernel: str, devs) -> str:
     """Check that shards of ``shard_cap`` rows fit the kernels that would
     run them on ``devs``: on a card, a cap past the kernels' largest tier
     (2**30 rows) raises ``ValueError`` (the plain versions have no cap).
-    Pure Python: it asks no card. Returns the resolved ``kernel``."""
+    It asks a card nothing but, for a cap of 16,385-65,536 rows, its SM
+    count (``_cuda.tier``). Returns the resolved ``kernel``."""
     kernel = resolve_kernel(kernel, devs)
-    if kernel != "plain" and any(d.type == "cuda" for d in devs):
-        _cuda.tier(shard_cap, "merge_apply")
+    for dev in set(devs):
+        if kernel != "plain" and dev.type == "cuda":
+            # A device's shards launch together: one table each.
+            _cuda.tier(shard_cap, "merge_apply", list(devs).count(dev))
     return kernel
 
 

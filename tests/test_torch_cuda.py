@@ -98,10 +98,12 @@ def _tier_counts(w):
 def test_global_tier_matches_plain_on_the_card(cap, n_docs):
     """Tables wider than one CTA's shared memory run, bit for bit with the
     plain versions, on the cluster tier up to 16,384 rows (ragged slices
-    at 2,050 and 12,000) and on the global-memory tier above it, for K1, K2
-    and K3; each launch counts on its tier. Random states, moves that land
-    on the 32-row tile and the cluster slice edges, and compactions that
-    meet them (K2 and K3)."""
+    at 2,050 and 12,000) and on the global-memory tier above it, for K1,
+    K2 and K3; each launch counts on its tier. K1 and K3 route to the
+    split tier in launches of fewer documents than the card has SMs, so
+    above 16,384 rows they are held on the global tier forced as well.
+    Random states, moves that land on the 32-row tile and the cluster
+    slice edges, and compactions that meet them (K2 and K3)."""
     _need_card()
     dev = torch.device("cuda", 0)
     cases = [random_case(np.random.default_rng(cap), n_docs, cap, 16, dev),
@@ -111,14 +113,19 @@ def test_global_tier_matches_plain_on_the_card(cap, n_docs):
             if i == 2 and name == "K1_merge_apply":
                 continue
             w = spec["wrapper"]
-            tier = _cuda.tier(cap, spec["entry"])
-            assert tier == ("cluster" if cap <= 16384 else "global")
-            before = _tier_counts(w)
-            err, _ms, _plain_ms = hold_kernel(name, t0, s0, ops, 1, 1)
-            assert err == 0
-            want = dict(before)
-            want[tier] += 2  # check + one timing
-            assert _tier_counts(w) == want
+            n = t0.shape[1]
+            tier = _cuda.tier(cap, spec["entry"], n)
+            assert tier == ("cluster" if cap <= 16384 else "global"
+                            if n >= _cuda.sm_count(dev)
+                            or name == "K2_zamboni_compact" else "split")
+            for t in (None, "global") if tier == "split" else (None,):
+                before = _tier_counts(w)
+                err, _ms, _plain_ms = hold_kernel(name, t0, s0, ops, 1, 1,
+                                                  t=t)
+                assert err == 0
+                want = dict(before)
+                want[t or tier] += 2  # check + one timing
+                assert _tier_counts(w) == want
 
 
 @pytest.mark.cuda
@@ -139,7 +146,7 @@ def test_split_tier_matches_plain_on_the_card():
             if kind == "compact" and name == "K1_merge_apply":
                 continue
             w = spec["wrapper"]
-            assert _cuda.tier(cap, spec["entry"]) == "split"
+            assert _cuda.tier(cap, spec["entry"], t0.shape[1]) == "split"
             before = _tier_counts(w)
             err, _ms, _plain_ms = hold_kernel(name, t0, s0, ops, 1, 1)
             assert err == 0
@@ -265,7 +272,8 @@ def test_serving_launch_error_is_not_swallowed(monkeypatch):
         run.handle(doc, {"t": "seqframe", "frame": frame})
     before = K1.apply_ops_packed.launches
     with monkeypatch.context() as m:
-        m.setattr(_cuda, "tier", lambda s, entry: "global")
+        m.setattr(_cuda, "tier", lambda s, entry, n_docs, sms=None:
+                  "global")
         with pytest.raises(RuntimeError, match="CUDA error"):
             be.flush()
     assert K1.apply_ops_packed.launches == before

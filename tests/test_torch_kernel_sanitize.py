@@ -88,11 +88,13 @@ def test_a_case_builds_and_runs_plain_on_the_cpu(i):
 @pytest.mark.parametrize("tier,cap", [(t, cap) for t, cap, _n, _k
                                       in KS.MERGE_SHAPES])
 def test_merge_shapes_sit_at_their_tiers_lower_edge(tier, cap):
-    """Each merge case's width is the tier's own (``_cuda.tier``), the
-    smallest power of two past the tier below; the split tier's documents
-    get at least 2 CTAs each; every document's first ops are an insert, a
-    remove and an annotate."""
-    assert _cuda.tier(cap, "merge_apply") == tier
+    """Each merge case's width is the tier's own (``_cuda.tier`` for a
+    launch of as many documents as an H100 has SMs, which takes the
+    global tier where the document count decides), the smallest power of
+    two past the tier below; the split tier's documents get at least 2
+    CTAs each; every document's first ops are an insert, a remove and an
+    annotate."""
+    assert _cuda.tier(cap, "merge_apply", 132, 132) == tier
     below = {"cluster": _cuda.SMEM_MAX_CAPACITY,
              "global": _cuda.CLUSTER_MAX_CAPACITY,
              "split": _cuda.GLOBAL_MAX_CAPACITY}

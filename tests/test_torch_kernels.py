@@ -37,6 +37,7 @@ from fluidframework_tpu.protocol.constants import (
     KIND_FREE,
     KIND_TEXT,
     NO_CLIENT,
+    OP_WIDTH,
     RSEQ_NONE,
     UNASSIGNED_SEQ,
 )
@@ -303,10 +304,14 @@ def test_plain_apply_matches_xla_at_4096_rows():
     _assert_packed_equal(want, (tt, ts))
 
 
+# Each width's tier: one for every document count, or (below the card's
+# SM count of documents, from it) where the count decides K1's and K3's
+# (K2 keeps the second).
 _TIERS = {8: "smem", 2048: "smem", 2049: "cluster", 2050: "cluster",
              4096: "cluster", 8192: "cluster", 16384: "cluster",
-             16385: "global", 65536: "global", 65537: "split",
-             131072: "split", 524288: "split", 1 << 30: "split"}
+             16385: ("split", "global"), 65536: ("split", "global"),
+             65537: "split", 131072: "split", 524288: "split",
+             1 << 30: "split"}
 
 
 @pytest.mark.parametrize("entry", ["merge_apply", "merge_compact",
@@ -315,12 +320,24 @@ _TIERS = {8: "smem", 2048: "smem", 2049: "cluster", 2050: "cluster",
 def test_wrappers_route_by_tier(entry, cap):
     """S up to 2,048 takes the shared-memory tier. Above it every entry
     (K1, K2 and K3) splits the table across a thread-block cluster up to
-    16,384 rows, keeps it in global memory up to 65,536, and above that
-    keeps it in global memory split over a cluster of CTAs (the split
-    tier), up to 2**30 rows. The choice launches nothing."""
+    16,384 rows; up to 65,536 a K1 or K3 launch of as many documents as
+    the card has SMs or more (and every K2 launch) keeps each in global
+    memory (the global tier), and a K1 or K3 launch of fewer, like every
+    table past 65,536 rows up to 2**30, spreads each document over a
+    cluster of up to 16 CTAs there (the split tier: each document gets
+    ceil(SMs / D) >= 2 CTAs). Held at document counts on both sides of the
+    threshold, on the H100's 132 SMs and on other SM counts. The choice
+    launches nothing and asks no card."""
     from fluidframework_tpu_torch.ops import _cuda
 
-    assert _cuda.tier(cap, entry) == _TIERS[cap]
+    few, many = (_TIERS[cap] if isinstance(_TIERS[cap], tuple)
+                 else (_TIERS[cap],) * 2)
+    if entry == "merge_compact":
+        few = many
+    for sms in (132, 114, 8):
+        for n in (1, 2, sms // 2, sms - 1, sms, sms + 1, 100_000):
+            assert _cuda.tier(cap, entry, n, sms) == (
+                few if n < sms else many), (sms, n)
 
 
 def test_wrappers_refuse_past_the_largest_tier():
@@ -329,7 +346,7 @@ def test_wrappers_refuse_past_the_largest_tier():
     assert _cuda.MAX_CAPACITY == 1 << 30
     for entry in _cuda.ENTRIES:
         with pytest.raises(ValueError, match="1073741824"):
-            _cuda.tier(_cuda.MAX_CAPACITY + 1, entry)
+            _cuda.tier(_cuda.MAX_CAPACITY + 1, entry, 1)
     t = torch.zeros((15, 1, 2 * _cuda.MAX_CAPACITY), dtype=torch.int32,
                     device="meta")
     s = torch.zeros((1, 8), dtype=torch.int32, device="meta")
@@ -452,6 +469,426 @@ def test_plain_apply_matches_xla_on_edge_moves(cap):
     want = _xla_packed(batched_apply_ops(state, ops.numpy()))
     _assert_packed_equal(want, K1.apply_plain(t0, s0, ops))
     assert (want[1][:, K1.SC_COUNT] != s0[:, K1.SC_COUNT].numpy()).all()
+
+
+# -- the global and split tiers walk the rows below count + 2K --------------
+
+
+def _warp_blocks(live, c, nw):
+    """The rows each warp walks on the global and split tiers, as
+    merge_kernel cuts them: ``c`` slices of SL = ceil(live / c) rows
+    rounded up to 32, warp w of a slice the w-th block of RW rows (a whole
+    number of 32-row tiles); [lo, hi) as rows of the whole table, in
+    (CTA, warp) order."""
+    sl = (-(-live // c) + 31) // 32 * 32
+    rw = ((sl + 31) // 32 + nw - 1) // nw * 32
+    out = []
+    for rank in range(c):
+        base = rank * sl
+        n = max(0, min(sl, live - base))
+        for w in range(nw):
+            lo = min(w * rw, n)
+            out.append((base + lo, base + min(lo + rw, n)))
+    return out
+
+
+def _move_in_blocks(L, mv, new_row, blocks, rng):
+    """move_rows over the warp ``blocks`` of L [N_LANES, S] (int32, in
+    place): each warp whose bottom tile moves saves the two rows below its
+    block (zeros below row 0); one barrier; then the warps walk their
+    tiles top down, in a random order (any order of the warps is one the
+    card may run), each tile taking row r's source y = r - d(r) from the
+    tile or from the two rows below it, then the split edits."""
+    e1, q1, l1, e2, q2, l2, ei, qi = mv
+    low = min([q for e, q in ((e1, q1), (e2, q2), (ei, qi)) if e],
+              default=None)
+    if low is None:
+        return
+
+    def below(t0):
+        return [L[:, r].copy() if r >= 0 else np.zeros(K1.N_LANES, np.int32)
+                for r in (t0 - 1, t0 - 2)]
+
+    walks = []
+    for lo, hi in blocks:
+        t_bot = lo if low <= lo else lo + (low - lo) // 32 * 32
+        if t_bot < hi:
+            walks.append((lo, hi, t_bot, below(lo) if t_bot == lo else None))
+    for i in rng.permutation(len(walks)):
+        lo, hi, t_bot, bnd = walks[i]
+        for t0 in range(lo + (hi - 1 - lo) // 32 * 32, t_bot - 1, -32):
+            top = min(t0 + 32, hi)
+            cur = L[:, t0:top].copy()
+            under = bnd if t0 == lo else below(t0)
+            for r in range(max(t0, low), top):
+                x = r - 1 if ei and r > qi else r
+                x = r - 1 if e2 and r > q2 else x
+                y = x - 1 if e1 and x > q1 else x
+                v = (cur[:, y - t0] if y >= t0 else under[t0 - 1 - y]).copy()
+                if ei and r == qi:
+                    v = new_row.copy()
+                else:
+                    if e1 and x == q1:
+                        v[K1.L_LEN] = l1
+                    if e1 and x == q1 + 1:
+                        v[K1.L_OFF] += l1
+                        v[K1.L_LEN] -= l1
+                    if e2 and r == q2:
+                        v[K1.L_LEN] = l2
+                    if e2 and r == q2 + 1:
+                        v[K1.L_OFF] += l2
+                        v[K1.L_LEN] -= l2
+                L[:, r] = v
+
+
+def _first(mask, none):
+    hits = np.flatnonzero(mask)
+    return int(hits[0]) if len(hits) else none
+
+
+def _i32(v):
+    return torch.tensor([[v]], dtype=torch.int32)
+
+
+def _marks(w, cov, ty, op, local_op):
+    """An op's covered-row marks and acks on rows w [N_LANES, n] (in
+    place), as K1's last pass writes them."""
+    (_ty, _p1, _p2, seqn, _ref, clientn, lseqn, arg, _len, _msn) = op
+    rseq, rlseq = w[K1.L_RSEQ].copy(), w[K1.L_RLSEQ].copy()
+    aseq, alseq = w[K1.L_ASEQ].copy(), w[K1.L_ALSEQ].copy()
+    if ty == 2:
+        unrem = rseq == RSEQ_NONE
+        rlseq = np.where(cov & unrem & local_op, lseqn, rlseq)
+        rseq = np.where(cov & (unrem | (rseq == UNASSIGNED_SEQ)), seqn, rseq)
+        for lane, bit in zip((K1.L_RBITS, K1.L_RBITS2, K1.L_RBITS3),
+                             K1.writer_bits(_i32(clientn))):
+            w[lane] = np.where(cov, w[lane] | int(bit), w[lane])
+    if ty == 3:
+        m = cov & (local_op | (alseq == 0))
+        w[K1.L_AVAL] = np.where(m, arg, w[K1.L_AVAL])
+        aseq = np.where(m, seqn, aseq)
+        alseq = np.where(m, lseqn if local_op else 0, alseq)
+    liv = w[K1.L_KIND] != KIND_FREE
+    if ty == 4:
+        m = liv & (w[K1.L_SEQ] == UNASSIGNED_SEQ) & (w[K1.L_LSEQ] == lseqn)
+        w[K1.L_SEQ] = np.where(m, seqn, w[K1.L_SEQ])
+        w[K1.L_LSEQ] = np.where(m, 0, w[K1.L_LSEQ])
+    if ty == 5:
+        m = liv & (rlseq == lseqn)
+        rseq = np.where(m & (rseq == UNASSIGNED_SEQ), seqn, rseq)
+        rlseq = np.where(m, 0, rlseq)
+    if ty == 6:
+        m = liv & (alseq == lseqn)
+        aseq = np.where(m, seqn, aseq)
+        alseq = np.where(m, 0, alseq)
+    w[K1.L_RSEQ], w[K1.L_RLSEQ] = rseq, rlseq
+    w[K1.L_ASEQ], w[K1.L_ALSEQ] = aseq, alseq
+
+
+def _model_apply(t, sc, ops, c, nw, rng):
+    """K1 on the global and split tiers for one document (t [N_LANES, S],
+    sc [N_SCALARS], ops [K, OP_WIDTH]), as the kernel walks it: the live
+    rows min(S, count + 2K) (``_cuda.live_rows``) cut into ``c`` slices of
+    ``nw`` warp blocks, fixed for the launch; each op's perspective,
+    prefix and first hits over those rows alone (S where none), the
+    capacity checks against S, one row move in the blocks
+    (:func:`_move_in_blocks`), the covered rows' marks over the live rows.
+    Rows past them are never read or written. Returns (t, sc)."""
+    from fluidframework_tpu_torch.ops import _cuda
+
+    L = t.astype(np.int32).copy()
+    s = L.shape[1]
+    count, min_seq, cur_seq, me, err = (int(v) for v in sc[:5])
+    live = _cuda.live_rows(s, count, len(ops))
+    blocks = _warp_blocks(live, c, nw)
+    for op in ops:
+        op = [int(v) for v in op]
+        ty, pos1, pos2, seqn, refn, clientn, lseqn, arg, ilen, msn = op
+        is_ins, is_range = ty == 1, ty in (2, 3)
+        local_op = seqn == UNASSIGNED_SEQ
+        if clientn >= 93:
+            err |= ERR_CLIENT
+
+        def perspective():
+            Lt = torch.from_numpy(L[:, None, :live].copy())
+            part, vis = K1._perspective(Lt, _i32(clientn), _i32(refn),
+                                        _i32(clientn) == _i32(me),
+                                        _i32(min_seq))
+            return Lt, part, vis, K1.excl_cumsum(vis)
+
+        if is_ins or is_range:
+            Lt, part, vis, prefix = perspective()
+            total = int(vis.sum().to(torch.int32))
+            rem1 = (pos1 - prefix).to(torch.int32)
+            rem2 = (pos2 - prefix).to(torch.int32)
+            h1 = (part & (vis > 0) & (rem1 > 0) & (rem1 < vis))[0].numpy()
+            h2 = (part & (vis > 0) & (rem2 > 0) & (rem2 < vis))[0].numpy()
+            hp = K1.insert_place_mask(Lt, _i32(seqn), part, vis,
+                                      rem1)[0].numpy()
+            idx1, idx2, mp = _first(h1, s), _first(h2, s), _first(hp, s)
+            has1, has2, hasp = idx1 < s, idx2 < s, mp < s
+            split1 = int(rem1[0, idx1]) if has1 else 0
+            split2 = int(rem2[0, idx2]) if has2 else 0
+            idxp = mp if hasp else count
+            sh = 2 if has1 else 1
+            do_ins = is_ins and count + sh <= s
+            do_a = is_range and has1 and count + 1 <= s
+            count_a = count + do_a
+            do_b = is_range and has2 and count_a + 1 <= s
+            if (is_ins and not do_ins) or (is_range and has1 and not do_a) \
+                    or (is_range and has2 and not do_b):
+                err |= ERR_CAPACITY
+            if (is_ins and not hasp and pos1 > total) or (
+                    is_range and pos2 > total):
+                err |= ERR_RANGE
+            new_row = np.zeros(K1.N_LANES, np.int32)
+            new_row[[K1.L_KIND, K1.L_ORIG, K1.L_LEN, K1.L_SEQ, K1.L_CLIENT,
+                     K1.L_LSEQ, K1.L_RSEQ]] = [
+                KIND_TEXT, arg, ilen, seqn, clientn,
+                lseqn if local_op else 0, RSEQ_NONE]
+            mv = (do_a or (do_ins and has1), idx1, split1, do_b,
+                  idx2 + int(do_a),
+                  split2 - split1 if do_a and idx1 == idx2 else split2,
+                  do_ins, idx1 + 1 if has1 else idxp)
+            _move_in_blocks(L, mv, new_row, blocks, rng)
+            count = (count_a + do_b if is_range
+                     else count + sh if do_ins else count)
+        if is_range or ty in (4, 5, 6):
+            _Lt, part, vis, prefix = perspective()
+            cov = (part & (vis > 0) & (prefix >= pos1)
+                   & (prefix + vis <= pos2))[0].numpy() & is_range
+            _marks(L[:, :live], cov, ty, op, local_op)
+        cur_seq, min_seq = max(cur_seq, seqn), max(min_seq, msn)
+    out = np.zeros_like(sc)
+    out[:5] = count, min_seq, cur_seq, me, err
+    return L, out
+
+
+def _live_case(s, counts, ops):
+    """Documents of ``s`` rows holding ``counts[d]`` live 4-character rows
+    each (row r at visible position 4r; distinct orig and seq, so nothing
+    merges), free rows past count, and the op rows ``ops`` [D, K, 10]."""
+    d = len(counts)
+    r = np.arange(s)
+    t = np.zeros((K1.N_LANES, d, s), np.int32)
+    t[K1.L_RSEQ] = RSEQ_NONE
+    for i, c in enumerate(counts):
+        live = r < c
+        t[K1.L_KIND, i] = np.where(live, KIND_TEXT, KIND_FREE)
+        t[K1.L_ORIG, i] = np.where(live, 1 + r, 0)
+        t[K1.L_LEN, i] = np.where(live, 4, 0)
+        t[K1.L_SEQ, i] = np.where(live, 1 + r % 50, 0)
+    sc = np.zeros((d, K1.N_SCALARS), np.int32)
+    sc[:, K1.SC_COUNT] = counts
+    sc[:, K1.SC_CUR_SEQ] = 100
+    sc[:, K1.SC_SELF] = NO_CLIENT
+    return t, sc, np.asarray(ops, np.int32)
+
+
+def _edge_ops(s, c, k=4):
+    """(counts, ops) of one document each at the live range's seams, for
+    ``c`` slices: count 0 (inserts into the empty table), count = S
+    (every insert and split refused, an annotate across the table), count
+    on a slice edge (inserts that split the row below it), the insert at
+    count (the new rows at the live range's end), and a remove across
+    three slices."""
+    from fluidframework_tpu_torch.ops import _cuda
+
+    def sl(count):
+        return (-(-_cuda.live_rows(s, count, k) // c) + 31) // 32 * 32
+
+    def ins(p, j):
+        return E.insert(p, 7 + j, 3, seq=101 + j, ref=100 + j, client=1)
+
+    on_edge = next((n for n in range(s - 2 * k, 0, -1) if n % sl(n) == 0),
+                   (s - 2 * k) // 32 * 32)  # one slice: a tile's edge
+    n, m = s // 2, s - 2 * k
+    docs = [(0, [ins(0, j) for j in range(k)]),
+            (s, [ins(2, 0), E.remove(3, 9, seq=102, ref=101, client=2),
+                 E.annotate(1, 4 * s - 1, 5, seq=103, ref=102, client=1),
+                 ins(4 * s, 3)]),
+            (on_edge, [ins(4 * on_edge - 2, j) for j in range(k)]),
+            (n, [ins(4 * n + 3 * j, j) for j in range(k)]),
+            (m, [E.remove(2, 4 * min(3 * sl(m), m) - 2, seq=101, ref=100,
+                          client=2)] + [ins(1 + j, j) for j in range(1, k)])]
+    return [d[0] for d in docs], np.stack([np.stack(o[:k]) for _c, o in docs])
+
+
+def _model_all(t, sc, ops, c, nw, seed):
+    rng = np.random.default_rng(seed)
+    got_t, got_s = t.copy(), sc.copy()
+    for d in range(t.shape[1]):
+        got_t[:, d], got_s[d] = _model_apply(t[:, d], sc[d], ops[d], c, nw,
+                                             rng)
+    return got_t, got_s
+
+
+@pytest.mark.parametrize("c,nw", [(1, 1), (1, 16), (2, 2), (3, 1), (5, 2),
+                                  (16, 16)])
+def test_live_row_loop_equals_the_plain_apply(c, nw):
+    """K1's global and split tiers walk the rows below min(S, count + 2K)
+    only, cut into C slices of warp blocks fixed for the launch, and each
+    op moves them once across the blocks' edges (warps in any order).
+    Held against apply_plain (which walks every row) and the reference
+    XLA kernel at count 0, count = S, count on a slice edge, the insert at
+    count and a remove across three slices, and on random states."""
+    from tools.kernel_sanitize import random_case
+
+    s = 200
+    counts, ops = _edge_ops(s, c)
+    t, sc, ops = _live_case(s, counts, ops)
+    got = _model_all(t, sc, ops, c, nw, c * 100 + nw)
+    want = K1.apply_plain(torch.from_numpy(t), torch.from_numpy(sc),
+                          torch.from_numpy(ops))
+    _assert_packed_equal((want[0].numpy(), want[1].numpy()), got)
+    state = ref_make_batched_state(len(counts), s, NO_CLIENT)._make(
+        [jnp.asarray(x) for x in _unpack_np(t, sc)])
+    _assert_packed_equal(_xla_packed(batched_apply_ops(state, ops)), got)
+    errs, got_counts = got[1][:, K1.SC_ERR], got[1][:, K1.SC_COUNT]
+    assert errs[1] & ERR_CAPACITY and not errs[[0, 2, 3, 4]].any()
+    assert got_counts[0] == 4 and got_counts[3] == s // 2 + 4
+    assert got_counts[4] >= s - 2 * 4 + 2 + 3  # 2 splits, 3 inserts
+    for seed in range(3):
+        rt, rs, rops = random_case(np.random.default_rng(seed), 6, 96, 5,
+                                   "cpu")
+        want = K1.apply_plain(rt, rs, rops)
+        got = _model_all(rt.numpy(), rs.numpy(), rops.numpy(), c, nw, seed)
+        _assert_packed_equal((want[0].numpy(), want[1].numpy()), got)
+
+
+def _assert_rows_past_count_free(tables, scalars, what):
+    """Every row at or past a table's count holds its lane's fill."""
+    from fluidframework_tpu_torch.ops.segment_state import (
+        LANE_FILLS,
+        SEGMENT_LANES,
+    )
+
+    tables, scalars = torch.as_tensor(tables), torch.as_tensor(scalars)
+    fills = torch.tensor([LANE_FILLS.get(n, 0) for n in SEGMENT_LANES],
+                         dtype=tables.dtype)
+    for d in range(tables.shape[1]):
+        c = int(scalars[d, K1.SC_COUNT])
+        assert 0 <= c <= tables.shape[2], (what, d, c)
+        assert bool((tables[:, d, c:] == fills[:, None]).all()), (what, d, c)
+
+
+def _fleet_ops(rng, streams, seqs, k, n_docs):
+    """The next ``k`` ops of each document's fuzz stream (NOOPs past its
+    end), as one [n_docs, k, OP_WIDTH] round."""
+    ops = np.zeros((n_docs, k, OP_WIDTH), np.int32)
+    for d in range(n_docs):
+        take = streams[d][seqs[d]:seqs[d] + k]
+        ops[d, :len(take)] = take
+        seqs[d] += len(take)
+    return ops
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_every_table_writer_leaves_rows_past_count_free(seed):
+    """The invariant the global and split tiers rest on: every row at or
+    past a table's count holds its lane's fill. Held after every port path
+    that writes a table, on fuzz streams (``testing/fuzz.py``): K1, K2 and
+    K3's plain versions (also on random states with every err branch),
+    ``grow``, a DocFleet through promotion, compaction, demotion,
+    ``evict_doc`` and ``restore_doc``, and a ShardedDoc through its ops,
+    ``compact``, ``rebalance``, ``load_single`` and ``load_state``."""
+    from fluidframework_tpu_torch.ops.segment_state import (
+        SEGMENT_LANES,
+        grow,
+        to_packed,
+    )
+    from fluidframework_tpu_torch.parallel.fleet import DocFleet
+    from fluidframework_tpu_torch.parallel.mesh import Mesh
+    from fluidframework_tpu_torch.parallel.sharded_doc import ShardedDoc
+    from fluidframework_tpu_torch.testing.fuzz import (
+        random_acked_stream as port_stream,
+    )
+    from fluidframework_tpu_torch.testing.oracle import OracleDoc as PortDoc
+    from tools.kernel_sanitize import random_case
+
+    rng = np.random.default_rng(seed)
+    t, s, ops = random_case(rng, 16, 64, 12, "cpu")
+    _assert_rows_past_count_free(t, s, "random_case")
+    for name, out in (("K1", K1.apply_plain(t, s, ops)),
+                      ("K2", K2.compact_plain(t, s)),
+                      ("K3", K2.apply_compact_plain(t, s, ops))):
+        _assert_rows_past_count_free(*out, name)
+    batch, _ = _random_docs(seed + 20, 4, 48, msn_lag=6, advance=True)
+    tt, ts = _port_state(4, 96, NO_CLIENT)
+    K1.apply_ops_packed(tt, ts, torch.from_numpy(batch))
+    _assert_rows_past_count_free(tt, ts, "K1 on a fuzz stream")
+    g = grow(K1.unpack_state(tt, ts), 192)
+    _assert_rows_past_count_free(*to_packed(g)[:2], "grow")
+
+    n_docs, k, n_ops = 4, 8, 400
+    texts = [(PortDoc(NO_CLIENT), {}) for _ in range(n_docs)]
+    streams = [np.stack(port_stream(np.random.default_rng(seed * 10 + d),
+                                    n_ops, pay, doc, msn_lag=8,
+                                    caught_up=True))
+               for d, (doc, pay) in enumerate(texts)]
+    seqs = [0] * n_docs
+    fleet = DocFleet(n_docs, 16, high_water=0.75, max_capacity=256,
+                     low_water=0.45, kernel="plain", device="cpu")
+
+    def pools(what):
+        for cap, pool in fleet.pools.items():
+            live = pool.live_slots()
+            if live.size:
+                _assert_rows_past_count_free(pool.tables[:, live],
+                                             pool.scalars[live],
+                                             f"{what} ({cap})")
+
+    for r in range(50):
+        fleet.apply(_fleet_ops(rng, streams, seqs, k, n_docs))
+        pools("apply")
+        fleet.check_and_migrate()
+        pools("check_and_migrate")
+        if r % 4 == 3:
+            fleet.compact()
+            pools("compact")
+            fleet.check_and_demote()
+            pools("check_and_demote")
+    # Every document's text removed and the window moved past it: the
+    # compaction empties the tables and the demotion steps them down.
+    fleet.apply(np.stack([np.stack([
+        E.remove(0, len(doc.text(pay)), seq=n_ops + 1, ref=n_ops, client=0,
+                 msn=n_ops),
+        E.noop(seq=n_ops + 2, msn=n_ops + 1)]) for doc, pay in texts]))
+    pools("apply")
+    for _ in range(2):
+        fleet.compact()
+        pools("compact")
+        fleet.check_and_demote()
+        pools("check_and_demote")
+    assert fleet.migrations > 0 and fleet.demotions > 0
+    for d in (0, 2):
+        st = fleet.evict_doc(d)
+        _assert_rows_past_count_free(
+            np.stack([np.asarray(getattr(st, n)) for n in SEGMENT_LANES])[
+                :, None], [[int(st.count)]], "evict_doc")
+        fleet.restore_doc(d, st)
+    pools("restore_doc")
+
+    doc = ShardedDoc(64, mesh=Mesh(["cpu"] * 4, "seg"), kernel="plain")
+
+    def shards(what):
+        for grp in doc._groups:
+            _assert_rows_past_count_free(grp.tables, grp.scalars, what)
+
+    stream = np.stack(port_stream(np.random.default_rng(seed + 5), 240, {},
+                                  PortDoc(NO_CLIENT), msn_lag=8))
+    for i in range(0, len(stream), 24):
+        doc.apply(stream[i:i + 24])
+        shards("sharded apply")
+        if i % 48 == 24:
+            doc.compact()
+            shards("sharded compact")
+    assert doc.rebalance(trigger=0.1)
+    shards("rebalance")
+    doc.load_single(doc.to_single())
+    shards("load_single")
+    doc.load_state(doc.state)
+    shards("load_state")
 
 
 # -- K2's one gather (compact_doc in csrc/merge_kernels.cu) -------------------
@@ -605,6 +1042,88 @@ def test_one_gather_equals_squeeze_then_merge(seed):
             got, nh = _one_gather(L, 10, block)
             assert nh == int(n_heads), block
             assert torch.equal(got, want[:, 0]), block
+
+
+def _model_store(L, count, min_seq, c, threads, rows, k=0):
+    """K2 on the global and split tiers for one document (L [N_LANES, S]),
+    as its store runs: the heads of the rows below live = min(S, count +
+    2k) (``_cuda.live_rows``; k the ops K3 applies first), the first row
+    that is not a head, then the output rows from the one below it up to
+    live in rounds of ``rows`` rows a thread over ``c`` CTAs of
+    ``threads`` threads: a round loads its rows' sources, one barrier,
+    stores them. Asserts that a round reads no row an earlier round wrote
+    and writes no row a later round reads. Returns (lanes, n_heads)."""
+    from fluidframework_tpu_torch.ops import _cuda
+
+    s = L.shape[1]
+    live = _cuda.live_rows(s, count, k)
+    w = L[:, :live]
+    pending = (w[K1.L_LSEQ] != 0) | (w[K1.L_RLSEQ] != 0) | (
+        w[K1.L_ALSEQ] != 0)
+    rseq = w[K1.L_RSEQ]
+    keep = (w[K1.L_KIND] != KIND_FREE) & ~(
+        ~pending & (rseq != RSEQ_NONE) & (rseq != UNASSIGNED_SEQ)
+        & (rseq <= min_seq))
+    head = keep.clone()
+    kept = torch.arange(live)[keep]
+    head[kept[1:]] = ~_mergeable(w[:, kept[:-1]], w[:, kept[1:]])
+    src = torch.arange(live)[head]
+    nh = len(src)
+    plen = K1.excl_cumsum(torch.where(keep, w[K1.L_LEN], 0))
+    total = int(torch.where(keep, w[K1.L_LEN], 0).sum().to(torch.int32))
+    moved = (~head).nonzero()
+    first_move = int(moved[0]) if len(moved) else live
+    lo = max(first_move - 1, 0)
+    out = L.clone()
+    n_threads = c * threads
+    written = -1
+    for h0 in range(lo, live, n_threads * rows):
+        hs = [h for h in range(h0, min(h0 + n_threads * rows, live))]
+        vals = {}
+        for h in hs:
+            if h < nh:
+                assert int(src[h]) >= h0 > written
+                v = out[:, int(src[h])].clone()
+                nxt = int(plen[src[h + 1]]) if h + 1 < nh else total
+                v[K1.L_LEN] = nxt - int(plen[src[h]])
+            else:
+                v = torch.zeros(K1.N_LANES, dtype=torch.int32)
+                v[K1.L_RSEQ] = RSEQ_NONE
+            vals[h] = v
+        for h, v in vals.items():  # after the round's barrier
+            out[:, h] = v
+        written = max(hs)
+    return out, nh
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_store_in_rounds_equals_the_plain_compact(seed):
+    """K2's store on the global and split tiers: the rows below count
+    alone, rows below the first row that is not a head left in place,
+    and the rest stored upward in rounds of a few rows a thread with one
+    barrier each (no round reads a row an earlier one wrote). Held bit for
+    bit against compact_plain (every row) on random run tables of 1-200
+    rows (free rows past count) and the edge tables, at 1 and 3 CTAs of
+    32 threads, 1 and 4 rows a thread (STORE_ROWS in the kernel), and
+    with K3's live range (count + 2K)."""
+    rng = np.random.default_rng(seed)
+    tables = [_run_table(rng, int(rng.integers(1, 201))) for _ in range(30)]
+    if seed == 0:
+        tables += _edge_tables()
+    for L in tables:
+        s = L.shape[1]
+        count = int(rng.integers(0, s + 1))
+        L = L.clone()
+        L[:, count:] = 0
+        L[K1.L_RSEQ, count:] = RSEQ_NONE
+        sc = torch.zeros((1, K1.N_SCALARS), dtype=torch.int32)
+        sc[0, K1.SC_COUNT] = count
+        sc[0, K1.SC_MIN_SEQ] = 10
+        want_t, want_s = K2.compact_plain(L[:, None], sc)
+        for c, rows, k in ((1, 1, 0), (1, 4, 0), (3, 4, 0), (3, 1, 2)):
+            got, nh = _model_store(L, count, 10, c, 32, rows, k)
+            assert nh == int(want_s[0, K1.SC_COUNT])
+            assert torch.equal(got, want_t[:, 0]), (c, rows, k)
 
 
 @pytest.mark.parametrize("cap", [72, 130])

@@ -566,7 +566,7 @@ def test_exchange_entries_are_in_the_merge_library_without_tiers():
         assert _cuda.ENTRIES[entry] == "merge"
         assert entry in _cuda.UNTIERED
         with pytest.raises(ValueError, match="no tier"):
-            _cuda.tier(128, entry)
+            _cuda.tier(128, entry, 1)
     # A row a shard and the row of the launch's ticket.
     acc = SX.new_accumulators(3, "cpu")
     assert acc.dtype == torch.int32

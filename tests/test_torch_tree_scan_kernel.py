@@ -387,7 +387,7 @@ def test_merge_tier_refuses_tree_entries():
     for entry in TSK.ENTRIES:
         assert _cuda.ENTRIES[entry] == "tree"
         with pytest.raises(ValueError, match="tree_scan_kernel.tier"):
-            _cuda.tier(128, entry)
+            _cuda.tier(128, entry, 1)
 
 
 def test_plain_ring_scan_equals_the_reference_at_the_largest_bucket():

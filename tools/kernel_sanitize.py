@@ -23,7 +23,10 @@ has, at shapes small enough for the sanitizer: K1-K3 (``merge_apply``,
 ``merge_compact``, ``merge_apply_compact``) on the shared tier (both of
 its kernels: up to 512 rows and past them), the cluster, global and split
 tiers at each one's lower edge, with several documents, inserts, removes
-and annotates and tombstones on both sides of the collab window; X1
+and annotates and tombstones on both sides of the collab window, and on
+the global and split tiers where the rows below count + 2K meet their
+seams (:func:`live_cases`: one live op beside NOOPs, count 0 and count =
+S, live rows that end on a slice edge); X1
 (``shard_stats``) over two device groups of C > 1 CTAs a shard, two ops
 in a row so the second launch finds the accumulators the first reset; X2
 (``shard_resolve``) for a group of two of four shards, an op past the
@@ -440,6 +443,21 @@ def merge_inputs(dev, cap: int, n_docs: int, k: int, seed: int = 0):
     return t.to(dev), s.to(dev), ops.to(dev)
 
 
+def live_inputs(dev, cap: int, counts, k: int, live_doc=None,
+                seed: int = 0):
+    """:func:`merge_inputs` with document d's count set to ``counts[d]``
+    (its rows from there on free), and, where ``live_doc`` is given, every
+    other document's ops NOOPs (a sharded document's launch: one owner)."""
+    t, s, ops = merge_inputs("cpu", cap, len(counts), k, seed)
+    for d, c in enumerate(counts):
+        t[:, d, c:] = 0
+        t[SEGMENT_LANES.index("rseq"), d, c:] = RSEQ_NONE
+        s[d, K1.SC_COUNT] = c
+        if live_doc is not None and d != live_doc:
+            ops[d, :, F_TYPE] = 0
+    return t.to(dev), s.to(dev), ops.to(dev)
+
+
 def with_past_op(ops, i: int = 1):
     """``ops`` and one more row: a copy of op ``i`` at positions past any
     document (ERR_RANGE)."""
@@ -452,6 +470,35 @@ def _merge_case(entry, tier, cap, n, k):
     def make(dev):
         return merge_run(entry, *merge_inputs(dev, cap, n, k), tier)
     return Case(entry, tier, f"{n} docs x {cap:,} rows, K {k}", make)
+
+
+def _live_case(entry, tier, what, cap, counts, k, live_doc=None):
+    def make(dev):
+        return merge_run(entry, *live_inputs(dev, cap, counts, k, live_doc),
+                         tier)
+    return Case(entry, tier, f"{len(counts)} docs x {cap:,} rows, K {k}, "
+                f"{what}", make)
+
+
+def live_cases() -> list:
+    """K1-K3 on the global and split tiers where the rows they walk
+    (below min(S, count + 2K)) meet their seams: 8 documents, NOOPs in 7
+    beside one live op (a sharded document's launch); count 0 and count =
+    S; and live ranges that end on the last slice's edge at 2 documents
+    on a 132-SM card: K1's and K3's in the first document (count + 2K =
+    16,384, 16 CTAs of 1,024 rows), K2's in the second (count = 16,384: 16
+    CTAs of 1,024 on the split tier, 8 of 2,048 on the global)."""
+    cap, k = 32_768, 4
+    edge = 16 * 1024 - 2 * k
+    out = []
+    for e in MERGE:
+        for t in ("global", "split"):
+            out += [_live_case(e, t, "one live op", cap, [cap // 8] * 8, 1,
+                               live_doc=3),
+                    _live_case(e, t, "count 0 and S", cap, [0, cap], k),
+                    _live_case(e, t, "live rows end on a slice edge", cap,
+                               [edge, edge + 2 * k], k)]
+    return out
 
 
 def _stats_case():
@@ -538,7 +585,7 @@ def cases() -> list:
         for t in TAK.TIER_CODES:
             for c_after in ((False, True) if entry == TAK.A2 else (False,)):
                 out.append(_algebra_case(entry, t, c_after))
-    return out
+    return out + live_cases()
 
 
 def scan_placement(entry: str, tier: str, args):
