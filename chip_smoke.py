@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --ab PARENT_DIR [NAME=VALUE,... ...]
     python3 chip_smoke.py --split [--parent DIR] [NAME=VALUE,... ...]
+    python3 chip_smoke.py --narrow [--parent DIR] [NAME=VALUE,... ...]
     python3 chip_smoke.py --tree [NAME=VALUE ...]
     python3 chip_smoke.py --client
     python3 chip_smoke.py --mesh
@@ -19,7 +20,9 @@ log and lease coordination (``g++``), all at once, then:
    D=4096 docs x K=16 ops and S in {128, 512, 2048} rows, on random states
    and op streams that include capacity overflow, out-of-range positions,
    unknown writers, and local ops with acks; times each (median of
-   CUDA-event timings) beside its byte-floor bound;
+   CUDA-event timings) beside its byte-floor bound; K1 and K3 at 128 and
+   512 rows on the warp tier and the shared tier both (the one not routed
+   forced), on random states and on the edge cases below;
 1b. the tiers above — the same at S = 4,096 and 8,192 (D=256), 16,384
    (D=64), 65,536 (D=16), 131,072 (D=2) and 524,288 (D=1) rows: all
    three kernels split tables of up to 16,384 rows across a thread-block
@@ -241,6 +244,14 @@ kernels at the DocFleet cells' other widths), the kernels at phase 2's
 main shape and phases 3a and 3b's per-tier medians, for the tree unpacked
 at PARENT_DIR and for this one, in turns on one card (parent, change,
 change, parent; see :func:`ab`), and writes ``ab.json``.
+
+With ``--narrow [--parent DIR]``, it holds and times instead K1 and K3
+on the warp tier and the shared tier at the paths' narrow launches
+(:data:`NARROW_PATHS`) for this tree, each variant of its kernel
+constants and the merge kernel source of the tree unpacked at DIR (the
+shared tier alone), in turns, then the width x document-count sweep
+behind ``_cuda.WARP_MIN_DOCS`` for this tree alone (see
+:func:`narrow_ab`), and writes ``narrow.json``.
 
 With ``--split [--parent DIR]``, it times instead K1/K2/K3 on the split
 tier at 524,288 x 1 and 131,072 x 2, K1/K3 on the global and the split
@@ -869,34 +880,53 @@ def hold_kernel(name: str, t0, s0, ops, kernel_reps=10, plain_reps=3,
     return err, ms, plain_ms
 
 
+def narrow_tiers(name: str, cap: int) -> tuple:
+    """The tiers phase 1 holds and times ``name`` on, forced, beside the
+    one it is routed to: K1 and K3 at the warp tier's widths on the warp
+    and the shared tier; none elsewhere."""
+    if name == "K2_zamboni_compact" or cap > _cuda.WARP_MAX_CAPACITY:
+        return ()
+    return ("smem", "warp")
+
+
 def phase_kernels(device, report, key, shapes, seed_offset=0):
     """Hold K1/K2/K3 bit for bit against their plain versions at each
     (S rows, D docs) of ``shapes`` with K = 16, on :func:`random_case`
-    states; time each beside its byte-floor bound. Returns the rows."""
+    states; time each beside its byte-floor bound (K1 and K3 at the warp
+    tier's widths on the warp and the shared tier both, the one not
+    routed forced; :func:`narrow_tiers`). Returns the rows."""
     rows = []
     for cap, d in shapes:
         t_shape = time.perf_counter()
         rng = np.random.default_rng(cap + seed_offset)
         t0, s0, ops = random_case(rng, d, cap, 16, device)
         for name in KERNELS:
-            err, ms, plain_ms = hold_kernel(name, t0, s0, ops)
             b = bound_bytes(name, d, cap, 16)
-            tier = _cuda.tier(cap, KERNELS[name]["entry"], d)
-            rows.append(dict(kernel=name, tier=tier, docs=d,
-                             cap=cap, k=16, max_abs_err=err, ms=ms,
-                             plain_ms=plain_ms,
-                             bound_ms=b / HBM_BYTES_PER_S * 1e3,
-                             bound_bytes=b, library_ms=None))
-            print(f"kernels S={cap} D={d} ({rows[-1]['tier']}) {name}: "
-                  f"exact, {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
-                  f"{rows[-1]['bound_ms']:.4f} ms, library_ms null)",
-                  flush=True)
+            routed = _cuda.tier(cap, KERNELS[name]["entry"], d)
+            for tier in (routed,) + tuple(
+                    t for t in narrow_tiers(name, cap) if t != routed):
+                err, ms, plain_ms = hold_kernel(
+                    name, t0, s0, ops, t=None if tier == routed else tier)
+                rows.append(dict(kernel=name, tier=tier, docs=d,
+                                 cap=cap, k=16, max_abs_err=err, ms=ms,
+                                 plain_ms=plain_ms,
+                                 bound_ms=b / HBM_BYTES_PER_S * 1e3,
+                                 bound_bytes=b, library_ms=None,
+                                 routed=tier == routed))
+                print(f"kernels S={cap} D={d} ({tier}"
+                      f"{'' if tier == routed else ', forced'}) {name}: "
+                      f"exact, {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+                      f"{rows[-1]['bound_ms']:.4f} ms, library_ms null)",
+                      flush=True)
         # The same kernels on moves at the tile and slice edges, and K2 and
-        # K3 on compactions that meet them, untimed.
+        # K3 on compactions that meet them, untimed (K1 and K3 at the
+        # narrow widths on both narrow tiers).
         for kind, edges in edge_batches(cap, device):
             for name in KERNELS:
                 if kind == "apply" or name != "K1_merge_apply":
-                    hold_kernel(name, *edges, kernel_reps=0, plain_reps=0)
+                    for tier in narrow_tiers(name, cap) or (None,):
+                        hold_kernel(name, *edges, kernel_reps=0,
+                                    plain_reps=0, t=tier)
         if _cuda.CLUSTER_MAX_CAPACITY < cap <= _cuda.GLOBAL_MAX_CAPACITY:
             # K1 and K3 on the global tier too, which launches of fewer
             # documents of this width than the card has SMs do not take.
@@ -938,6 +968,10 @@ REPEAT_LAUNCHES = 200
 ROWS_9C = 10_050
 ROWS_9C_ONE_CARD = 65_681
 REPEAT_MERGE = (
+    ("merge_apply", "warp", 128, 16_384, 8, "serving"),
+    ("merge_apply", "warp", 128, 100_000, 16, "fleet service"),
+    ("merge_apply", "warp", 256, 20_000, 64, "8c"),
+    ("merge_apply_compact", "warp", 128, 100_000, 16, "fleet service"),
     ("merge_apply", "smem", 128, 16_384, 8, "serving"),
     ("merge_apply", "smem", 2048, 256, 16, "deep"),
     ("merge_apply", "cluster", 4096, 256, 16, "deep"),
@@ -4074,21 +4108,21 @@ def ab(parent: str, variants=()) -> int:
     means, calls = {}, {}
     for run in runs:
         for r in run["rows"]:
-            key = (r["kernel"], r["cap"], r["docs"])
+            key = (r["kernel"], r["cap"], r["docs"], r.get("tier", ""))
             means.setdefault(key, {}).setdefault(run["label"], []).append(
                 r["ms"])
         for cell in ("config6", "deep"):
             for key, v in run[cell].items():
-                means.setdefault((f"{cell} {key}", 0, 0), {}).setdefault(
+                means.setdefault((f"{cell} {key}", 0, 0, ""), {}).setdefault(
                     run["label"], []).append(v["median_ms"])
                 calls.setdefault(f"{cell} {key}", {}).setdefault(
                     run["label"], []).append(v["calls"])
-    for (name, cap, docs), by in means.items():
+    for (name, cap, docs, tier), by in means.items():
         m = {label: float(np.mean(v)) for label, v in by.items()}
         ratios = ", ".join(f"{label} {m[label] / m['parent']:.3f}"
                            for label in m if label != "parent"
                            and "parent" in m)
-        print(f"ab {name} S={cap} D={docs}: " + ", ".join(
+        print(f"ab {name} S={cap} D={docs} {tier}: " + ", ".join(
             f"{label} {v}" for label, v in by.items())
             + f" (/parent: {ratios})", flush=True)
     for key, by in calls.items():
@@ -7243,12 +7277,24 @@ def _main(device, twins) -> int:
     d, cap = t0.shape[1], t0.shape[2]
     k = ops.shape[1]
     main_shape = {}
+    report["main_shape_tiers"] = []
     for name in KERNELS:
         err, ms, plain_ms = hold_kernel(name, t0, s0, ops)
         main_shape[name] = (err, ms, plain_ms, bound_bytes(name, d, cap, k))
-        print(f"main-path shape {name}: {ms:.4f} ms (plain {plain_ms:.2f} "
-              f"ms, bound {main_shape[name][3] / HBM_BYTES_PER_S * 1e3:.4f} "
-              "ms)", flush=True)
+        routed = _cuda.tier(cap, KERNELS[name]["entry"], d)
+        print(f"main-path shape {name} ({routed}): {ms:.4f} ms (plain "
+              f"{plain_ms:.2f} ms, bound "
+              f"{main_shape[name][3] / HBM_BYTES_PER_S * 1e3:.4f} ms)",
+              flush=True)
+        # The other narrow tier on the same states, forced.
+        for tier in narrow_tiers(name, cap):
+            if tier != routed:
+                _e, t_ms, _p = hold_kernel(name, t0, s0, ops, plain_reps=1,
+                                           t=tier)
+                report["main_shape_tiers"].append(
+                    dict(kernel=name, tier=tier, ms=t_ms))
+                print(f"main-path shape {name} ({tier}, forced): "
+                      f"{t_ms:.4f} ms", flush=True)
     del t0, s0, ops
     torch.cuda.empty_cache()
 
@@ -7310,10 +7356,8 @@ def _main(device, twins) -> int:
             "source": "fluidframework_tpu_torch/csrc/merge_kernels.cu",
             "replaces": spec["replaces"],
             "launches": sum(p["all"] for p in by_path.values()),
-            "launches_smem": sum(p["smem"] for p in by_path.values()),
-            "launches_cluster": sum(p["cluster"] for p in by_path.values()),
-            "launches_global": sum(p["global"] for p in by_path.values()),
-            "launches_split": sum(p["split"] for p in by_path.values()),
+            **{f"launches_{t}": sum(p[t] for p in by_path.values())
+               for t in _cuda.TIER_CODES},
             "launches_by_path": by_path,
             "max_abs_err": max([err] + [r["max_abs_err"]
                                         for r in glob + scale["holds"]
@@ -7684,6 +7728,26 @@ def split_times(device, reps=10, sweep=False) -> dict:
     return out
 
 
+# The parent's merge kernel source under this tree's wrappers: built as
+# this tree builds it and bound by hand to the entries every version has,
+# so an entry or tier limit this tree added does not stop it loading.
+_PARENT_PATCH = """
+import ctypes
+import fluidframework_tpu_torch.ops._cuda as cu
+cu.SOURCE = {src!r}
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_lib = ctypes.CDLL(cu.build())
+cu.bind(_lib, [
+    ("merge_apply", [_p] * 6 + [_i] * 4 + [_p], _i),
+    ("merge_compact", [_p] * 5 + [_i] * 3 + [_p], _i),
+    ("merge_apply_compact", [_p] * 6 + [_i] * 4 + [_p], _i),
+    ("merge_work_ints", [_i], ctypes.c_longlong),
+    ("merge_error_string", [_i], ctypes.c_char_p),
+    ("merge_split_max_ctas", [], _i)])
+cu._libs["merge"] = _lib
+"""
+
+
 def _runs_in_turn(code: str, tag: str, variants, parent=None) -> list:
     """Run ``code`` (a script with a ``{patch}`` slot that prints one line
     ``<tag>_JSON <json>``) in its own process on this card for this tree,
@@ -7698,8 +7762,7 @@ def _runs_in_turn(code: str, tag: str, variants, parent=None) -> list:
     if parent:
         src = os.path.join(os.path.abspath(parent), "fluidframework_tpu_torch",
                            "csrc", "merge_kernels.cu")
-        trees["parent"] = ("import fluidframework_tpu_torch.ops._cuda "
-                           f"as cu; cu.SOURCE = {src!r}")
+        trees["parent"] = _PARENT_PATCH.format(src=src)
     for i, spec in enumerate(variants):
         trees[f"v{i + 1}"] = ("import fluidframework_tpu_torch.ops._cuda "
                               "as cu; cu.SOURCE = "
@@ -7767,6 +7830,176 @@ def split_ab(variants=(), parent=None) -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "split.json"), "w") as f:
         json.dump(runs, f, indent=1)
+    return 0
+
+
+# --narrow: K1 and K3 on the warp tier and the shared tier at the narrow
+# widths. The paths' launches (kernel, rows S, docs D, ops K, path), timed
+# for this tree, each variant and the parent in turns on random states
+# (:func:`random_case`): config 5's fleet service, the serving, pipeline
+# and server pools (and the serving pool promoted to 256 rows), 8c, 9a's
+# shards, 8b.
+NARROW_PATHS = (
+    ("K1_merge_apply", 128, 100_000, 16, "fleet service"),
+    ("K3_fused_apply_compact", 128, 100_000, 16, "fleet service"),
+    ("K1_merge_apply", 128, 16_384, 8, "serving, pipeline, server"),
+    ("K1_merge_apply", 256, 16_384, 8, "serving at 256 rows"),
+    ("K1_merge_apply", 256, 20_000, 64, "8c"),
+    ("K1_merge_apply", 128, 2_048, 8, "9a, a shard"),
+    ("K1_merge_apply", 256, 2_048, 16, "8b"),
+    ("K3_fused_apply_compact", 256, 2_048, 16, "8b"),
+)
+# The sweep behind _cuda.WARP_MIN_DOCS: widths x document counts x ops
+# (K 16 and the paths' own: serving's 8, 8c's 64, the client's 1), K1 and
+# K3 on both tiers; a width's counts stop where one table set passes
+# NARROW_MAX_BYTES. Held against the plain versions up to
+# NARROW_PLAIN_DOCS documents, past them tier against tier.
+NARROW_CAPS = (64, 128, 256, 512)
+NARROW_DOCS = (1, 8, 66, 132, 528, 2048, 16_384, 100_000)
+NARROW_KS = (16, 8, 64, 1)
+NARROW_MAX_BYTES = 8 << 30
+NARROW_PLAIN_DOCS = 16_384
+NARROW_KERNELS = ("K1_merge_apply", "K3_fused_apply_compact")
+
+_NARROW_RUN = """
+import json, os, torch
+import chip_smoke as c
+{patch}
+print("NARROW_JSON " + json.dumps(c.narrow_times(
+    torch.device("cuda", 0), sweep=os.environ.get("NARROW_SWEEP") == "1")))
+"""
+
+
+def _narrow_rows(name, t0, s0, ops, tiers, want, **key) -> list:
+    """``name`` on each of ``tiers`` (forced) on the same input, held bit
+    for bit against ``want`` (a (tables, scalars) pair; None: against the
+    first tier's output); each tier's device ms a launch (:func:`_queued_ms`
+    with a fresh copy of the input before each launch, the copy's time
+    taken off) beside the all-rows byte floor and the floor of the rows
+    below count + 2K (:func:`live_bound_bytes`). Nothing is counted."""
+    spec = KERNELS[name]
+    dev = t0.device
+    d, cap, k = t0.shape[1], t0.shape[2], ops.shape[1]
+    t, s = t0.clone(), s0.clone()
+    rows = []
+    for tier in tiers:
+        def run():
+            _cuda.launch(spec["entry"], t, s, ops, (t, s), t=tier)
+
+        def reset():
+            t.copy_(t0)
+            s.copy_(s0)
+
+        reset()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        torch.cuda.synchronize()
+        if want is None:
+            want = (t.clone(), s.clone())
+        elif not (torch.equal(t, want[0]) and torch.equal(s, want[1])):
+            bad = (t != want[0]).nonzero()[:5].tolist()
+            raise AssertionError(f"narrow {name} S={cap} D={d} K={k} on "
+                                 f"{tier}: first [lane, doc, row] {bad}")
+        reps = int(min(50, max(3, 100.0 / max(a.elapsed_time(b), 1e-3))))
+        ms = _queued_ms(dev, run, reps, reset=reset)
+        rows.append(dict(
+            kernel=name, tier=tier, cap=cap, docs=d, k=k, device_ms=ms,
+            reps=reps, bound_ms=bound_bytes(name, d, cap, k)
+            / HBM_BYTES_PER_S * 1e3,
+            live_bound_ms=live_bound_bytes(name, s0, cap, ops)
+            / HBM_BYTES_PER_S * 1e3, **key))
+        print(f"narrow {name} S={cap} D={d} K={k} {tier}"
+              f"{' ' + key['path'] if 'path' in key else ''}: device "
+              f"{ms:.4f} ms (bound {rows[-1]['bound_ms']:.5f})", flush=True)
+    del t, s
+    return rows
+
+
+def narrow_times(device, sweep=False) -> dict:
+    """K1 and K3 at :data:`NARROW_PATHS` on the shared tier and, where this
+    library has it, the warp tier, each held bit for bit against its plain
+    version; with ``sweep``, the sweep instead (:data:`NARROW_CAPS` x
+    :data:`NARROW_DOCS` x :data:`NARROW_KS`, both kernels on both tiers).
+    Returns the rows and the ptxas report."""
+    tiers = ("smem", "warp") if hasattr(_cuda.lib(),
+                                        "merge_warp_max_capacity") \
+        else ("smem",)
+    rows = []
+    if not sweep:
+        for name, cap, d, k, path in NARROW_PATHS:
+            t0, s0, ops = random_case(np.random.default_rng(cap + d + k), d,
+                                      cap, k, device)
+            want = KERNELS[name]["plain"](t0, s0, ops)
+            rows += _narrow_rows(name, t0, s0, ops, tiers, want, path=path)
+            del t0, s0, ops, want
+            torch.cuda.empty_cache()
+    else:
+        for cap in NARROW_CAPS:
+            for d in NARROW_DOCS:
+                if K1.N_LANES * d * cap * 4 > NARROW_MAX_BYTES:
+                    break
+                t0, s0, ops = random_case(np.random.default_rng(cap + d), d,
+                                          cap, max(NARROW_KS), device)
+                for k in NARROW_KS:
+                    ok = ops[:, :k].contiguous()
+                    for name in NARROW_KERNELS:
+                        want = (KERNELS[name]["plain"](t0, s0, ok)
+                                if d <= NARROW_PLAIN_DOCS else None)
+                        rows += _narrow_rows(name, t0, s0, ok, tiers, want,
+                                             cell="sweep")
+                        del want
+                del t0, s0, ops
+                torch.cuda.empty_cache()
+    ptxas = [x.strip() for x in _cuda.build_log.splitlines()
+             if "registers" in x or "spill" in x or "Compiling" in x]
+    return dict(tiers=tiers, rows=rows, ptxas=ptxas)
+
+
+def narrow_ab(variants=(), parent=None) -> int:
+    """:func:`narrow_times` at the paths' shapes for this tree, each
+    variant and the parent's kernel source (the shared tier alone) in
+    turns (:func:`_runs_in_turn`), then the sweep of this tree alone
+    (``NARROW_SWEEP=1``). Prints each path's device ms by tree and tier
+    and each sweep cell's warp / shared ratio, and writes every run to
+    ``narrow.json`` in the output directory."""
+    runs = _runs_in_turn(_NARROW_RUN, "NARROW", variants, parent)
+    here = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run([sys.executable, "-c",
+                          _NARROW_RUN.format(patch="")], cwd=here,
+                         env=dict(os.environ, PYTHONPATH=here,
+                                  NARROW_SWEEP="1"),
+                         capture_output=True, text=True, timeout=2400)
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
+        raise AssertionError("narrow: the sweep failed")
+    line = next(x for x in res.stdout.splitlines()
+                if x.startswith("NARROW_JSON "))
+    runs.append(dict(label="sweep", **json.loads(line[12:])))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "narrow.json"), "w") as f:
+        json.dump(runs, f, indent=1)
+    by = {}
+    for run in runs[:-1]:
+        for r in run["rows"]:
+            key = (r["kernel"], r["cap"], r["docs"], r["k"], r["path"])
+            by.setdefault(key, {}).setdefault(
+                f"{run['label']} {r['tier']}", []).append(
+                    round(r["device_ms"], 4))
+    for (name, cap, d, k, path), v in by.items():
+        print(f"narrow {name} S={cap} D={d} K={k} ({path}) device ms: "
+              + ", ".join(f"{label} {ms}" for label, ms in v.items()),
+              flush=True)
+    cells = {}
+    for r in runs[-1]["rows"]:
+        cells.setdefault((r["kernel"], r["cap"], r["k"], r["docs"]), {})[
+            r["tier"]] = r["device_ms"]
+    for (name, cap, k, d), v in cells.items():
+        print(f"sweep {name} S={cap} K={k} D={d}: smem {v['smem']:.4f} "
+              f"warp {v['warp']:.4f} ms ({v['smem'] / v['warp']:.2f}x)",
+              flush=True)
     return 0
 
 
@@ -7993,6 +8226,14 @@ if __name__ == "__main__":
         if rest[:1] == ["--parent"]:
             parent, rest = rest[1], rest[2:]
         sys.exit(split_ab(rest, parent))
+    if len(sys.argv) > 1 and sys.argv[1] == "--narrow":
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device; nothing was run")
+        rest = sys.argv[2:]
+        parent = None
+        if rest[:1] == ["--parent"]:
+            parent, rest = rest[1], rest[2:]
+        sys.exit(narrow_ab(rest, parent))
     if len(sys.argv) > 1 and sys.argv[1] == "--exchange":
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device; nothing was run")

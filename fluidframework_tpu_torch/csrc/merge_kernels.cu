@@ -12,7 +12,29 @@
 // layout): tables [N_LANES, D, S], scalars [D, N_SCALARS], ops [D, K, 10].
 //
 // Tiers. Every device function is templated over the table accessor DocT,
-// so the three tiers run one body of code; the caller names the tier.
+// so every tier runs one body of code; the caller names the tier.
+//   - warp (S <= 512; K1 and K3, K2 refuses it): one warp per document, as
+//     many documents a CTA as keep the most resident on an SM
+//     (warp_docs_per_cta: 1 on an H100 at these widths, where 32 CTAs an
+//     SM and the register budget bind first; 4 a CTA forced ran 4% slower
+//     at 128 x 100,000). The doc's 15 lanes live in the warp's slice of
+//     the CTA's dynamic shared memory (15 ints a row: 7.7 KB at 128
+//     rows), moved coalesced (16 bytes a lane where aligned); the op
+//     loop's scratch (A, C, F; B = C) stays
+//     in registers, lane i holding row 32 j + i of tile j (DocT<T_WARP,
+//     NT>, NT = warp_tiles(S) tiles, the tile loops unrolled by
+//     for_tiles), so the prefix is a warp scan with a carry, first hits
+//     ballots, the prefix at a hit a shuffle, the row move the shared
+//     move_rows with no block barrier (__syncwarp orders shared memory);
+//     an op's row is loaded one op ahead. Each op walks only the tiles
+//     below min(S, count + 2), count the op's own (every row at or past
+//     count is free; an op adds at most 2 rows). K3's compaction places
+//     each head row in shared memory as its one pass goes (tiles bottom
+//     up; a head moves to a row at most its own), then turns each LEN
+//     into the merged length. Only the rows below the input's count are
+//     loaded (cp.async, 16 bytes a copy, none through registers; the rest
+//     filled), and in place only the rows below the larger count are
+//     stored back: every other row is free before and after.
 //   - shared (S <= 2,048; K1, K2, K3): one CTA per document, up to 256
 //     threads. The doc's 15 lanes x S rows, three S-row scratch arrays and
 //     an S-byte flag array live in dynamic shared memory for the whole op
@@ -113,12 +135,15 @@
 // The TPU-side workarounds (Hillis-Steele shift ladders, the f32
 // permutation matmul, the 256-row compact cap) are not carried over.
 //
-// Bounds on this card. Each op is a chain of barriers over a small table,
+// Bounds on this card. Each op is a chain of barriers over a small table
+// (on the warp tier, of shuffles over the live tiles),
 // so all three kernels are latency-bound, not bandwidth-bound: their byte
 // floor is 2 x 15 x S x 4 B x D of table traffic plus D x K x 40 B of ops
 // (1.55 GB per round at 100,000 docs x 128 rows x 16 ops, 0.46 ms at
 // 3.35 TB/s); on the global and split tiers the work needs only the rows
-// below live, 2 x 15 x live x 4 B a document. Shared tier: K x (3-4
+// below live, 2 x 15 x live x 4 B a document. Warp tier: K x (2-4
+// passes of the live tiles, each tile a warp scan or ballots, no barrier)
+// a warp, about 24-32 warps an SM. Shared tier: K x (3-4
 // barriers + 2-4 passes of S/threads rows). Cluster tier: the same with
 // cluster barriers (each a round trip over the SMs of the cluster) and
 // passes over 1,024-row slices; 256 docs at 8,192 rows are 2,048 CTAs,
@@ -184,11 +209,25 @@ constexpr int CLUSTER_CTAS_PER_SM = 3;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_DEVICES = 64;  // devices whose SM count is cached
 constexpr int MAX_CLUSTER = 16;  // the most CTAs of a (non-portable) cluster
+// The warp tier: tables of up to WARP_MAX_CAP rows, up to WARP_MAX_DOCS
+// documents (one a warp) a CTA. Register budget (warp_ctas_per_sm): 85 a
+// thread up to 128 rows (4 tiles of scratch a lane), 128 above.
+constexpr int WARP_MAX_CAP = 512;
+constexpr int WARP_MAX_DOCS = 8;
+constexpr int WARP_NARROW_CTAS_PER_SM = 3;
+constexpr int WARP_WIDE_CTAS_PER_SM = 2;
+// Documents a warp-tier CTA holds in every launch where not 0 (a
+// measurement's variant; 0: warp_docs_per_cta's rule).
+constexpr int WARP_DOCS_FORCED = 0;
+// An SM's shared memory and what the runtime reserves of it a CTA (H100).
+constexpr int SM_SMEM_BYTES = 233472;
+constexpr int CTA_SMEM_RESERVED = 1024;
+constexpr int MAX_CTAS_PER_SM = 32;
 
 // T_SPLIT: the table in global memory, a cluster of CTAs per document.
 // The C entries' tier 3 selects it for every entry; tier 2 selects it for
-// K2 alone.
-enum Tier { T_SMEM = 0, T_CLUSTER = 1, T_GLOBAL = 2, T_SPLIT = 3 };
+// K2 alone. T_WARP (tier 4): one warp a document, K1 and K3 only.
+enum Tier { T_SMEM = 0, T_CLUSTER = 1, T_GLOBAL = 2, T_SPLIT = 3, T_WARP = 4 };
 
 enum Lane {
   L_KIND, L_ORIG, L_OFF, L_LEN, L_SEQ, L_CLIENT, L_LSEQ, L_RSEQ, L_RLSEQ,
@@ -218,14 +257,22 @@ constexpr int WS_SCAN1 = 0, WS_MIN = 32, WS_SCAN2 = 128, WS_CMP = 160,
 
 
 // One document's table (or, on the cluster and split tiers, this CTA's
-// slice of it) as the block sees it. Rows are addressed by their local
-// index lr; the row's index in the whole table is base + lr.
-template <int TIER>
+// slice of it) as the block (on the warp tier: the warp) sees it. Rows are
+// addressed by their local index lr; the row's index in the whole table is
+// base + lr. The op loop and K2 walk this warp's rows [wlo, whi) in 32-row
+// tiles, tile j at row wlo + 32 j, and keep each row's scratch (A, B, C, F)
+// through the accessors a/b/c/f: in the arrays below on every tier but the
+// warp tier, in registers there (NT tiles a lane, lane i holding row
+// 32 j + i of tile j), where the tile loops are unrolled.
+template <int TIER, int NT = 1>
 struct DocT {
   static constexpr int kTier = TIER;
   // Cluster barriers and DSMEM warp totals; the table in global memory.
   static constexpr bool kCluster = TIER == T_CLUSTER || TIER == T_SPLIT;
   static constexpr bool kGlobal = TIER == T_GLOBAL || TIER == T_SPLIT;
+  // One warp a document: no block barrier, scratch in registers.
+  static constexpr bool kWarp = TIER == T_WARP;
+  static constexpr int kTiles = NT;
   // Warp totals a lane reads at most in a block- or cluster-wide
   // reduction (the tier's most warps, 32 a lane).
   static constexpr int kPerLane =
@@ -244,8 +291,31 @@ struct DocT {
   int live;          // rows the op loop and K2 walk: [0, live) (S on the
                      // shared and cluster tiers; see live_rows)
   int rank, nranks;  // this CTA in the cluster (0 and 1 otherwise)
-  int wlo, whi;      // this warp's local rows [wlo, whi)
+  int wlo, whi;      // this warp's local rows [wlo, whi) (warp tier: the
+                     // rows below min(S, count + 2), set for each op)
   int *ws;           // [WS_SIZE] warp totals
+  // Warp tier: A and C of tile j's row (B = C there: a warp's prefix is
+  // the document's), and F of tile j's row as bit j.
+  mutable int rA[NT], rC[NT];
+  mutable unsigned rF;
+  __device__ int &a(int j, int lr) const {
+    if constexpr (kWarp) return rA[j]; else return A[lr];
+  }
+  __device__ int &b(int j, int lr) const {
+    if constexpr (kWarp) return rC[j]; else return B[lr];
+  }
+  __device__ int &c(int j, int lr) const {
+    if constexpr (kWarp) return rC[j]; else return C[lr];
+  }
+  __device__ bool f(int j, int lr) const {
+    if constexpr (kWarp) return (rF >> j) & 1u; else return F[lr];
+  }
+  __device__ void set_f(int j, int lr, bool v) const {
+    if constexpr (kWarp)
+      rF = (rF & ~(1u << j)) | ((unsigned)v << j);
+    else
+      F[lr] = v;
+  }
   __device__ int &at(int lane, int lr) const {
     if constexpr (kGlobal)  // lr < 0 reaches an earlier slice (split)
       return L[(ptrdiff_t)lane * (ptrdiff_t)ls + lr];
@@ -264,10 +334,28 @@ struct DocT {
   __device__ void sync() const {
     if constexpr (kCluster)
       cg::this_cluster().sync();
+    else if constexpr (kWarp)
+      __syncwarp();
     else
       __syncthreads();
   }
 };
+
+// Call fn(j, t0) for each 32-row tile j of this warp's rows [wlo, whi),
+// t0 its first row. The warp tier runs the loop unrolled over its NT
+// tiles, skipping those past whi (uniform in the warp): its scratch is
+// indexed by constants alone and stays in registers. Every other tier,
+// and a loop that keeps no scratch (SCRATCH false), runs a plain loop.
+template <bool SCRATCH = true, class Doc, class Fn>
+__device__ __forceinline__ void for_tiles(const Doc &d, Fn &&fn) {
+  if constexpr (Doc::kWarp && SCRATCH) {
+#pragma unroll
+    for (int j = 0; j < Doc::kTiles; ++j)
+      if (32 * j < d.whi) fn(j, 32 * j);
+  } else {
+    for (int t0 = d.wlo, j = 0; t0 < d.whi; t0 += 32, ++j) fn(j, t0);
+  }
+}
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
@@ -313,7 +401,11 @@ __device__ __forceinline__ int warp_sum(int v) {
 // totals (up to 8 on the split tier: 16 CTAs of 16 warps) before it adds
 // any, so the DSMEM round trips overlap rather than follow one another.
 template <class Doc>
-__device__ int doc_excl_scan(const Doc &d, int wtot, int *ws, int &total) {
+__device__ __forceinline__ int doc_excl_scan(const Doc &d, int wtot, int *ws, int &total) {
+  if constexpr (Doc::kWarp) {  // the warp is the document
+    total = wtot;
+    return 0;
+  }
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   if (lane == 0) ws[w] = wtot;
@@ -342,7 +434,8 @@ __device__ int doc_excl_scan(const Doc &d, int wtot, int *ws, int &total) {
 // Min of three warp-uniform values over the block or cluster (ws holds 96
 // ints). One barrier; the loads overlap as in doc_excl_scan.
 template <class Doc>
-__device__ void doc_min3(const Doc &d, int &a, int &b, int &c, int *ws) {
+__device__ __forceinline__ void doc_min3(const Doc &d, int &a, int &b, int &c, int *ws) {
+  if constexpr (Doc::kWarp) return;  // already the document's
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   if (lane == 0) {
@@ -380,7 +473,7 @@ __device__ void doc_min3(const Doc &d, int &a, int &b, int &c, int *ws) {
 // Scratch row r (an index into the whole table) of array p, wherever in
 // the cluster it lies.
 template <class Doc>
-__device__ int row_value(const Doc &d, int *p, int r) {
+__device__ __forceinline__ int row_value(const Doc &d, int *p, int r) {
   if constexpr (Doc::kTier == T_CLUSTER) {
     const int rk = r / d.SL;
     return d.remote(p, rk)[r - rk * d.SL];
@@ -389,9 +482,28 @@ __device__ int row_value(const Doc &d, int *p, int r) {
   }
 }
 
+// The run prefix B of row r (an index into the whole table; uniform in
+// the warp). Warp tier: a shuffle from the lane that holds it, one a tile
+// with the row's tile kept (the scratch is indexed by constants alone, or
+// it leaves the registers).
+template <class Doc>
+__device__ __forceinline__ int prefix_at(const Doc &d, int r) {
+  if constexpr (Doc::kWarp) {
+    int v = 0;
+#pragma unroll
+    for (int j = 0; j < Doc::kTiles; ++j) {
+      const int x = __shfl_sync(FULL, d.rC[j], r & 31);
+      if (j == r >> 5) v = x;
+    }
+    return v;
+  } else {
+    return row_value(d, d.B, r);
+  }
+}
+
 // Write scratch row r (an index into the whole table) of array p.
 template <class Doc>
-__device__ void put_row(const Doc &d, int *p, int r, int v) {
+__device__ __forceinline__ void put_row(const Doc &d, int *p, int r, int v) {
   if constexpr (Doc::kTier == T_CLUSTER) {
     const int rk = r / d.SL;
     d.remote(p, rk)[r - rk * d.SL] = v;
@@ -403,7 +515,7 @@ __device__ void put_row(const Doc &d, int *p, int r, int v) {
 // Lane l of table row r (an index into the whole table), wherever in the
 // cluster it lies.
 template <class Doc>
-__device__ int lane_at(const Doc &d, int l, int r) {
+__device__ __forceinline__ int lane_at(const Doc &d, int l, int r) {
   if constexpr (Doc::kTier == T_CLUSTER) {
     const int rk = r / d.SL;
     return d.remote(d.L, rk)[l * d.SL + r - rk * d.SL];
@@ -465,22 +577,22 @@ __device__ __forceinline__ bool ties_before(int op_norm, int seq) {
 // part, C = the warp-local exclusive prefix. Returns the warp's total.
 // Only the row's own thread reads A, F and C.
 template <class Doc>
-__device__ int perspective_pass(const Doc &d, const Op &o, int min_seq) {
+__device__ __forceinline__ int perspective_pass(const Doc &d, const Op &o, int min_seq) {
   const int lane = threadIdx.x & 31;
   int carry = 0;
-  for (int t0 = d.wlo; t0 < d.whi; t0 += 32) {
+  for_tiles(d, [&](int j, int t0) {
     const int lr = t0 + lane;
     int v = 0;
     if (lr < d.whi) {
       bool part;
       v = perspective(d, lr, o, min_seq, part);
-      d.A[lr] = v;
-      d.F[lr] = part;
+      d.a(j, lr) = v;
+      d.set_f(j, lr, part);
     }
     const int inc = warp_incl_scan(v);
-    if (lr < d.whi) d.C[lr] = carry + inc - v;
+    if (lr < d.whi) d.c(j, lr) = carry + inc - v;
     carry += __shfl_sync(FULL, inc, 31);
-  }
+  });
   return carry;
 }
 
@@ -524,7 +636,7 @@ __device__ __forceinline__ int rows_below(const Doc &d, int t0) {
 // Every row is written by the thread that reads it in the op loop's
 // passes, so no barrier is needed after the pass.
 template <class Doc>
-__device__ void move_rows(const Doc &d, const Move &mv, const Op &o) {
+__device__ __forceinline__ void move_rows(const Doc &d, const Move &mv, const Op &o) {
   const int lane = threadIdx.x & 31;
   int low = INT_MAX;
   if (mv.e1) low = min(low, mv.q1);
@@ -589,23 +701,42 @@ struct Scalars {
 // scalar uniform across the block or cluster. The caller synchronizes
 // before anyone reads rows another thread wrote here.
 template <class Doc>
-__device__ void apply_ops_doc(const Doc &d, const int *ops_doc, int K,
-                              Scalars &sc) {
+__device__ __forceinline__ void apply_ops_doc(Doc &d, const int *ops_doc,
+                                              int K, Scalars &sc) {
   const int S = d.S;
   const int lane = threadIdx.x & 31;
+  // Warp tier: lane f < OP_WIDTH holds field f of the next op, loaded one
+  // op ahead, so an op's row is not a memory latency on the chain.
+  int ahead = 0;
+  if constexpr (Doc::kWarp)
+    if (lane < OP_WIDTH && K > 0) ahead = ops_doc[lane];
   for (int k = 0; k < K; ++k) {
     const int *p = ops_doc + (size_t)k * OP_WIDTH;
+    int now = 0;
+    if constexpr (Doc::kWarp) {
+      // The op walks the rows below min(S, count + 2) alone (every row at
+      // or past count is free, and an op adds at most 2).
+      d.whi = min(S, clampi(sc.count, 0, S) + 2);
+      now = ahead;
+      if (lane < OP_WIDTH && k + 1 < K) ahead = p[OP_WIDTH + lane];
+    }
+    auto field = [&](int f) {
+      if constexpr (Doc::kWarp)
+        return __shfl_sync(FULL, now, f);
+      else
+        return p[f];
+    };
     Op o;
-    o.ty = p[F_TYPE];
-    o.pos1 = p[F_POS1];
-    o.pos2 = p[F_POS2];
-    o.seqn = p[F_SEQ];
-    o.refn = p[F_REF];
-    o.clientn = p[F_CLIENT];
-    o.lseqn = p[F_LSEQ];
-    o.arg = p[F_ARG];
-    o.ilen = p[F_LEN];
-    o.msn = p[F_MSN];
+    o.ty = field(F_TYPE);
+    o.pos1 = field(F_POS1);
+    o.pos2 = field(F_POS2);
+    o.seqn = field(F_SEQ);
+    o.refn = field(F_REF);
+    o.clientn = field(F_CLIENT);
+    o.lseqn = field(F_LSEQ);
+    o.arg = field(F_ARG);
+    o.ilen = field(F_LEN);
+    o.msn = field(F_MSN);
     o.is_ins = o.ty == OP_INSERT;
     o.is_rem = o.ty == OP_REMOVE;
     o.is_ann = o.ty == OP_ANNOTATE;
@@ -624,14 +755,14 @@ __device__ void apply_ops_doc(const Doc &d, const int *ops_doc, int K,
       //    after the scan's barrier ---------------------------------------
       const int op_norm = o.local_op ? NORM_NEW_LOCAL : o.seqn;
       int m1 = S, m2 = S, mp = S;
-      for (int t0 = d.wlo; t0 < d.whi; t0 += 32) {
+      for_tiles(d, [&](int j, int t0) {
         const int lr = t0 + lane;
         bool h1 = false, h2 = false, hp = false;
         if (lr < d.whi) {
-          const int v = d.A[lr];
-          const bool part = d.F[lr];
-          const int run = d.C[lr] + off;
-          d.B[lr] = run;
+          const int v = d.a(j, lr);
+          const bool part = d.f(j, lr);
+          const int run = d.c(j, lr) + off;
+          d.b(j, lr) = run;
           const int rem1 = o.pos1 - run, rem2 = o.pos2 - run;
           h1 = part && v > 0 && rem1 > 0 && rem1 < v;
           h2 = part && v > 0 && rem2 > 0 && rem2 < v;
@@ -646,12 +777,12 @@ __device__ void apply_ops_doc(const Doc &d, const int *ops_doc, int K,
         if (m1 == S && b1) m1 = r0 + __ffs(b1);
         if (m2 == S && b2) m2 = r0 + __ffs(b2);
         if (mp == S && bp) mp = r0 + __ffs(bp);
-      }
+      });
       doc_min3(d, m1, m2, mp, d.ws + WS_MIN);
       const bool has1 = m1 < S, has2 = m2 < S, hasp = mp < S;
       const int idx1 = m1, idx2 = m2;
-      const int split1 = has1 ? o.pos1 - row_value(d, d.B, idx1) : 0;
-      const int split2 = has2 ? o.pos2 - row_value(d, d.B, idx2) : 0;
+      const int split1 = has1 ? o.pos1 - prefix_at(d, idx1) : 0;
+      const int split2 = has2 ? o.pos2 - prefix_at(d, idx2) : 0;
       const int idxp = hasp ? mp : sc.count;
 
       // -- capacity / do flags (sequential checks) ---------------------
@@ -699,12 +830,14 @@ __device__ void apply_ops_doc(const Doc &d, const int *ops_doc, int K,
                           ? (1 << clampi(o.clientn - 31, 0, 30)) : 0;
       const int hi = o.clientn >= 62 ? (1 << clampi(o.clientn - 62, 0, 30))
                                      : 0;
-      for (int lr = d.wlo + lane; lr < d.whi; lr += 32) {
+      for_tiles(d, [&](int j, int t0) {
+        const int lr = t0 + lane;
+        if (lr >= d.whi) return;
         bool cov = false;
         if (o.is_range) {
-          const int v = d.A[lr];
-          const int run = d.C[lr] + off2;
-          cov = d.F[lr] && v > 0 && run >= o.pos1 && run + v <= o.pos2;
+          const int v = d.a(j, lr);
+          const int run = d.c(j, lr) + off2;
+          cov = d.f(j, lr) && v > 0 && run >= o.pos1 && run + v <= o.pos2;
         }
         int rseq = d.at(L_RSEQ, lr), rlseq = d.at(L_RLSEQ, lr);
         int aseq = d.at(L_ASEQ, lr), alseq = d.at(L_ALSEQ, lr);
@@ -743,7 +876,7 @@ __device__ void apply_ops_doc(const Doc &d, const int *ops_doc, int K,
         d.at(L_RLSEQ, lr) = rlseq;
         d.at(L_ASEQ, lr) = aseq;
         d.at(L_ALSEQ, lr) = alseq;
-      }
+      });
     }
     // -- bookkeeping (collab window floor / current seq) ----------------
     sc.cur_seq = max(sc.cur_seq, o.seqn);
@@ -815,8 +948,10 @@ struct CompactSums {
 // first kept row merges into it, and takes its own offsets, the totals and
 // the table's first row that is not a head.
 template <class Doc>
-__device__ CompactSums compact_sums(const Doc &d, int tent, int lsum, int fk,
+__device__ __forceinline__ CompactSums compact_sums(const Doc &d, int tent, int lsum, int fk,
                                     int lk, int fnh, int *ws) {
+  if constexpr (Doc::kWarp)  // one warp: its sums are the document's
+    return CompactSums{0, tent, 0, lsum, false, INT_MAX};
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   if (lane == 0) {
@@ -881,17 +1016,20 @@ __device__ CompactSums compact_sums(const Doc &d, int tent, int lsum, int fk,
 // re-merge adjacent splits of one insert, as one gather (see the top of
 // the file). Shared and cluster tiers: the result goes to `out` (this
 // CTA's rows of lane 0 of tables_out, lane stride `plane`). Global tier:
-// in place. Returns n_heads. The caller synchronizes before the call.
+// in place. Warp tier: in place in the warp's shared memory (`out` unused).
+// Returns n_heads. The caller synchronizes before the call.
 template <int STORE, class Doc>
-__device__ int compact_doc(const Doc &d, int min_seq, int *out,
+__device__ __forceinline__ int compact_doc(const Doc &d, int min_seq, int *out,
                            size_t plane) {
   const int lane = threadIdx.x & 31;
   const unsigned lt = (1u << lane) - 1u;
   // -- keep, p(r), tentative heads; A = warp-local prefix of kept LEN ----
+  // (the warp tier keeps no scratch: it places each tile's heads as the
+  // pass goes, below)
   MRow cq{};          // the last kept row of this warp's earlier tiles
   bool has_q = false;
   int tent = 0, lsum = 0, fk = -1, lk = -1, fnh = INT_MAX;
-  for (int t0 = d.wlo; t0 < d.whi; t0 += 32) {
+  for_tiles<!Doc::kWarp>(d, [&](int j, int t0) {
     const int lr = t0 + lane;
     const bool valid = lr < d.whi;
     bool keep = false;
@@ -913,14 +1051,33 @@ __device__ int compact_doc(const Doc &d, int min_seq, int *out,
     MRow q = shfl_row(m, below ? 31 - __clz(below) : lane);
     if (!below) q = cq;
     const bool head = keep && !((below || has_q) && merges(q, m));
-    if (valid) d.F[lr] = head;
-    tent += __popc(__ballot_sync(FULL, head));
+    const unsigned hb = __ballot_sync(FULL, head);
+    if constexpr (!Doc::kWarp)
+      if (valid) d.set_f(j, lr, head);
     if constexpr (Doc::kGlobal) {
       const unsigned nb = __ballot_sync(FULL, valid && !head);
       if (fnh == INT_MAX && nb) fnh = d.base + t0 + __ffs(nb) - 1;
     }
     const int inc = warp_incl_scan(len);
-    if (valid) d.A[lr] = lsum + inc - len;
+    if constexpr (Doc::kWarp) {
+      // The warp tier compacts as the pass goes, tiles bottom up: each
+      // head row is read into registers, one __syncwarp, then written to
+      // its output row h, at most its own (so no row a later tile reads is
+      // overwritten), its LEN lane holding for now its kept-LEN prefix.
+      int v[N_LANES];
+#pragma unroll
+      for (int l = 0; l < N_LANES; ++l) v[l] = head ? d.at(l, lr) : 0;
+      v[L_LEN] = lsum + inc - len;
+      __syncwarp();
+      if (head) {
+#pragma unroll
+        for (int l = 0; l < N_LANES; ++l)
+          d.at(l, tent + __popc(hb & lt)) = v[l];
+      }
+    } else {
+      if (valid) d.a(j, lr) = lsum + inc - len;
+    }
+    tent += __popc(hb);
     lsum += __shfl_sync(FULL, inc, 31);
     if (km) {
       const int last = 31 - __clz(km);
@@ -929,9 +1086,32 @@ __device__ int compact_doc(const Doc &d, int min_seq, int *out,
       lk = d.base + t0 + last;
       if (fk < 0) fk = d.base + t0 + __ffs(km) - 1;
     }
-  }
+  });
   const CompactSums t =
       compact_sums(d, tent, lsum, fk, lk, fnh, d.ws + WS_CMP);
+  if constexpr (Doc::kWarp) {
+    // The heads sit at rows [0, n_heads), each LEN lane holding its kept-LEN
+    // prefix: the merged length is the next head's prefix (the total for
+    // the last) less its own. Each lane reads both before any writes.
+    // Then rows [n_heads, whi) take their lane's fill (rows past whi are
+    // free already). The caller stores the table.
+    const int nh = t.n_heads;
+    for (int h0 = 0; h0 < nh; h0 += 32) {
+      const int h = h0 + lane;
+      int p = 0, q = 0;
+      if (h < nh) {
+        p = d.at(L_LEN, h);
+        q = h + 1 < nh ? d.at(L_LEN, h + 1) : t.total;
+      }
+      __syncwarp();
+      if (h < nh) d.at(L_LEN, h) = q - p;
+    }
+    for (int r = nh + lane; r < d.whi; r += 32) {
+#pragma unroll
+      for (int l = 0; l < N_LANES; ++l) d.at(l, r) = lane_fill(l);
+    }
+    return nh;
+  }
   // -- each head's source row (C) and prefix length (B), at its output
   //    index, in the CTA that owns that output row --------------------------
   int run = t.off_h;
@@ -939,12 +1119,12 @@ __device__ int compact_doc(const Doc &d, int min_seq, int *out,
     const int lr = t0 + lane;
     bool head = false;
     if (lr < d.whi)
-      head = d.F[lr] && !(t.merged && d.base + lr == fk);
+      head = d.f(0, lr) && !(t.merged && d.base + lr == fk);
     const unsigned hb = __ballot_sync(FULL, head);
     if (head) {
       const int h = run + __popc(hb & lt);
       put_row(d, d.C, h, d.base + lr);
-      put_row(d, d.B, h, t.off_len + d.A[lr]);
+      put_row(d, d.B, h, t.off_len + d.a(0, lr));
     }
     run += __popc(hb);
   }
@@ -1164,6 +1344,190 @@ size_t smem_bytes(int rows) {
   return (size_t)(N_LANES + 3) * rows * sizeof(int) + ((rows + 15) / 16) * 16;
 }
 
+// -- the warp tier ------------------------------------------------------------
+
+// Tiles of scratch a lane keeps on the warp tier for tables of S rows.
+__host__ __device__ constexpr int warp_tiles(int S) {
+  return S <= 64 ? 2 : S <= 128 ? 4 : S <= 256 ? 8 : 16;
+}
+
+// The warp tier's CTAs per SM the register budget aims at (CTAs of
+// WARP_MAX_DOCS warps): up to 4 tiles WARP_NARROW_CTAS_PER_SM, above
+// WARP_WIDE_CTAS_PER_SM.
+__host__ __device__ constexpr int warp_ctas_per_sm(int NT) {
+  return NT <= 4 ? WARP_NARROW_CTAS_PER_SM : WARP_WIDE_CTAS_PER_SM;
+}
+
+// Copy one document's N_LANES lanes of S rows from `src` (lane stride
+// `sls`) to `dst` (lane stride `dls`), one warp: 16 bytes a lane where
+// `vec` (both sides' lanes aligned to 16 bytes, S a multiple of 4), else 4,
+// a lane's next row 32 rows on; each lane issues the loads of 5 lanes
+// before it stores any.
+__device__ __forceinline__ void warp_copy(int *dst, size_t dls,
+                                          const int *src, size_t sls, int S,
+                                          bool vec) {
+  const int lane = threadIdx.x & 31;
+  constexpr int G = 5;
+  static_assert(N_LANES % G == 0, "whole groups of lanes");
+  if (vec) {
+    for (int i = lane; i < S / 4; i += 32) {
+#pragma unroll
+      for (int l0 = 0; l0 < N_LANES; l0 += G) {
+        int4 v[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          v[g] = reinterpret_cast<const int4 *>(src + (l0 + g) * sls)[i];
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          reinterpret_cast<int4 *>(dst + (l0 + g) * dls)[i] = v[g];
+      }
+    }
+  } else {
+    for (int r = lane; r < S; r += 32) {
+#pragma unroll
+      for (int l0 = 0; l0 < N_LANES; l0 += G) {
+        int v[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) v[g] = src[(l0 + g) * sls + r];
+#pragma unroll
+        for (int g = 0; g < G; ++g) dst[(l0 + g) * dls + r] = v[g];
+      }
+    }
+  }
+}
+
+// Rows [lo, hi) of the warp's table take their lanes' fills.
+template <class Doc>
+__device__ __forceinline__ void warp_fill(const Doc &d, int lo, int hi) {
+  const int lane = threadIdx.x & 31;
+  for (int r = lo + lane; r < hi; r += 32) {
+#pragma unroll
+    for (int l = 0; l < N_LANES; ++l) d.at(l, r) = lane_fill(l);
+  }
+}
+
+// Load one document's N_LANES lanes of S rows (S a multiple of 4, both
+// sides 16-byte aligned) from global memory (lane stride `sls`) into
+// shared memory (lane stride `dls`), one warp, by cp.async: 16 bytes a
+// copy, every copy of the table in flight at once and none through
+// registers; returns when all have landed (the caller's __syncwarp then
+// shows them to the warp).
+__device__ __forceinline__ void warp_load_async(int *dst, size_t dls,
+                                                const int *src, size_t sls,
+                                                int S) {
+  const int lane = threadIdx.x & 31;
+  for (int i = 4 * lane; i < S; i += 4 * 32) {
+#pragma unroll
+    for (int l = 0; l < N_LANES; ++l) {
+      const unsigned to =
+          (unsigned)__cvta_generic_to_shared(dst + l * dls + i);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to),
+                   "l"(src + l * sls + i)
+                   : "memory");
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// K1 (MODE 0) and K3 (MODE 2) on the warp tier: warp w of CTA b runs
+// document b * (warps a CTA) + w, its N_LANES x S table in its own slice of
+// the CTA's dynamic shared memory, the op loop's scratch in registers
+// (DocT<T_WARP, NT>, NT = warp_tiles(S)), each op over the rows below
+// min(S, count + 2). Nothing crosses warps: __syncwarp orders shared
+// memory, and a warp past the last document exits at once.
+template <int MODE, int NT>
+__global__ void __launch_bounds__(WARP_MAX_DOCS * 32, warp_ctas_per_sm(NT))
+merge_warp_kernel(const int *__restrict__ ops, const int *tables_in,
+                  const int *scalars_in, int *tables_out, int *scalars_out,
+                  int n_docs, int S, int K, bool vec) {
+  static_assert(MODE != 1, "K2 has no warp tier");
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int doc = blockIdx.x * (blockDim.x >> 5) + w;
+  if (doc >= n_docs) return;
+  DocT<T_WARP, NT> d;
+  d.L = smem_raw + (size_t)w * N_LANES * S;
+  d.ls = S;
+  d.A = d.B = d.C = nullptr;
+  d.F = nullptr;
+  d.S = S;
+  d.base = 0;
+  d.n = S;
+  d.SL = S;
+  d.live = S;
+  d.rank = 0;
+  d.nranks = 1;
+  d.wlo = 0;
+  d.whi = S;
+  d.ws = nullptr;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) d.rA[j] = d.rC[j] = 0;
+  d.rF = 0;
+  const size_t plane = (size_t)n_docs * S;
+  const size_t base = (size_t)doc * S;
+  int sc_in[N_SCALARS];
+#pragma unroll
+  for (int i = 0; i < N_SCALARS; ++i)
+    sc_in[i] = scalars_in[(size_t)doc * N_SCALARS + i];
+  // Every row at or past count is free: only the rows below it are
+  // loaded (to a multiple of 4 on the vector path), the rest filled.
+  const int count_in = clampi(sc_in[SC_COUNT], 0, S);
+  const int loaded = vec ? min(S, (count_in + 3) & ~3) : count_in;
+  if (vec)
+    warp_load_async(d.L, S, tables_in + base, plane, loaded);
+  else
+    warp_copy(d.L, S, tables_in + base, plane, loaded, false);
+  warp_fill(d, loaded, S);
+  Scalars sc{sc_in[SC_COUNT], sc_in[SC_MIN_SEQ], sc_in[SC_CUR_SEQ],
+             sc_in[SC_SELF], sc_in[SC_ERR]};
+  __syncwarp();
+  apply_ops_doc(d, ops + (size_t)doc * K * OP_WIDTH, K, sc);
+  __syncwarp();
+  int count = sc.count;
+  if constexpr (MODE == 2) {
+    d.whi = clampi(sc.count, 0, S);  // every row past count is free
+    count = compact_doc<K3_STORE_ROWS>(d, sc.min_seq, nullptr, plane);
+    __syncwarp();
+  }
+  // In place, the rows at or past both counts are free before and after:
+  // only the rows below the larger are stored. Out of place, every row.
+  int stored = S;
+  if (tables_in == tables_out) {
+    stored = max(clampi(count, 0, S), count_in);
+    if (vec) stored = min(S, (stored + 3) & ~3);
+  }
+  warp_copy(tables_out + base, plane, d.L, S, stored, vec);
+  if (lane == 0) {
+    const int out[N_SCALARS] = {count, sc.min_seq, sc.cur_seq,
+                                sc.self_client, sc.err, 0, 0, 0};
+#pragma unroll
+    for (int i = 0; i < N_SCALARS; ++i)
+      scalars_out[(size_t)doc * N_SCALARS + i] = out[i];
+  }
+}
+
+// Documents a warp-tier CTA holds: of 1, 2, 4 and 8 the count that keeps
+// the most documents resident on an SM (its shared memory less a CTA's
+// reserve, at most MAX_CTAS_PER_SM CTAs, the warps the register budget
+// allows), the smaller on a tie; and no more than a launch of n_docs needs
+// to give every SM a CTA.
+int warp_docs_per_cta(int S, int n_docs, int sms) {
+  const int doc_bytes = N_LANES * S * (int)sizeof(int);
+  if (WARP_DOCS_FORCED > 0)
+    return max(1, min(WARP_DOCS_FORCED,
+                      (SM_SMEM_BYTES - CTA_SMEM_RESERVED) / doc_bytes));
+  const int warps = warp_ctas_per_sm(warp_tiles(S)) * WARP_MAX_DOCS;
+  int best = 1, most = 0;
+  for (int dpc = 1; dpc <= WARP_MAX_DOCS; dpc *= 2) {
+    const int ctas = min(min(MAX_CTAS_PER_SM, warps / dpc),
+                         SM_SMEM_BYTES / (dpc * doc_bytes + CTA_SMEM_RESERVED));
+    if (ctas * dpc > most) {
+      most = ctas * dpc;
+      best = dpc;
+    }
+  }
+  return max(1, min(best, (n_docs + sms - 1) / sms));
+}
+
 template <class Kern>
 cudaError_t allow_smem(Kern kern, size_t smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1281,11 +1645,54 @@ int launch_split(const int *ops, const int *tables_in, const int *scalars_in,
                                        GLOBAL_THREADS, 0, stream);
 }
 
+// The warp tier: K1 or K3 (MODE 0 or 2), one warp a document,
+// warp_docs_per_cta documents a CTA, the kernel of warp_tiles(S) tiles.
+template <int MODE, int NT>
+int launch_warp_nt(const int *ops, const int *tables_in,
+                   const int *scalars_in, int *tables_out, int *scalars_out,
+                   int n_docs, int S, int K, int dpc, cudaStream_t stream) {
+  auto kern = merge_warp_kernel<MODE, NT>;
+  const size_t smem = (size_t)dpc * N_LANES * S * sizeof(int);
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  const bool vec = S % 4 == 0 && ((uintptr_t)tables_in & 15) == 0 &&
+                   ((uintptr_t)tables_out & 15) == 0;
+  kern<<<(n_docs + dpc - 1) / dpc, dpc * 32, smem, stream>>>(
+      ops, tables_in, scalars_in, tables_out, scalars_out, n_docs, S, K, vec);
+  return 0;
+}
+
+template <int MODE>
+int launch_warp(const int *ops, const int *tables_in, const int *scalars_in,
+                int *tables_out, int *scalars_out, int n_docs, int S, int K,
+                cudaStream_t stream) {
+  int sms = 0;
+  const int ce = sm_count(sms);
+  if (ce != 0) return ce;
+  const int dpc = warp_docs_per_cta(S, n_docs, sms);
+  switch (warp_tiles(S)) {
+    case 2:
+      return launch_warp_nt<MODE, 2>(ops, tables_in, scalars_in, tables_out,
+                                     scalars_out, n_docs, S, K, dpc, stream);
+    case 4:
+      return launch_warp_nt<MODE, 4>(ops, tables_in, scalars_in, tables_out,
+                                     scalars_out, n_docs, S, K, dpc, stream);
+    case 8:
+      return launch_warp_nt<MODE, 8>(ops, tables_in, scalars_in, tables_out,
+                                     scalars_out, n_docs, S, K, dpc, stream);
+    default:
+      return launch_warp_nt<MODE, 16>(ops, tables_in, scalars_in,
+                                      tables_out, scalars_out, n_docs, S, K,
+                                      dpc, stream);
+  }
+}
+
 // tier T_SMEM: S <= SMEM_MAX_CAP. T_CLUSTER: S <= CLUSTER_MAX_CAP.
 // T_GLOBAL: S <= GLOBAL_MAX_CAP (K2 there runs on T_SPLIT). T_SPLIT: S <=
 // MAX_CAP. K2 on the global tier on at most K2_MAX_CTAS CTAs a doc, on the
 // split tier on SPLIT_MAX_CTAS as K1 and K3. The last two take
-// n_docs * work_ints(S) ints at `work`.
+// n_docs * work_ints(S) ints at `work`. T_WARP: S <= WARP_MAX_CAP, K1 and
+// K3 only (K2 is refused).
 template <int MODE>
 int launch(const int *ops, const int *tables_in, const int *scalars_in,
            int *tables_out, int *scalars_out, int *work, int n_docs, int S,
@@ -1329,6 +1736,15 @@ int launch(const int *ops, const int *tables_in, const int *scalars_in,
         ops, tables_in, scalars_in, tables_out, scalars_out, work, n_docs, S,
         K, SPLIT_MAX_CTAS, st);
     if (e != 0) return e;
+  } else if (tier == T_WARP) {
+    if constexpr (MODE == 1) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      if (S > WARP_MAX_CAP) return (int)cudaErrorInvalidValue;
+      const int e = launch_warp<MODE>(ops, tables_in, scalars_in, tables_out,
+                                      scalars_out, n_docs, S, K, st);
+      if (e != 0) return e;
+    }
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -1719,9 +2135,9 @@ extern "C" {
 
 // Each entry launches on `stream` and returns cudaGetLastError() (0 = ok).
 // tables_out/scalars_out may alias tables_in/scalars_in (in-place update).
-// `tier`: 0 shared, 1 cluster, 2 global, 3 split; the global and split
-// tiers take a device buffer of n_docs * merge_work_ints(S) int32 at
-// `work` (NULL otherwise).
+// `tier`: 0 shared, 1 cluster, 2 global, 3 split, 4 warp (K1 and K3 only;
+// merge_compact refuses it); the global and split tiers take a device
+// buffer of n_docs * merge_work_ints(S) int32 at `work` (NULL otherwise).
 
 int merge_apply(const int *ops, const int *tables_in, const int *scalars_in,
                 int *tables_out, int *scalars_out, int *work, int n_docs,
@@ -1752,6 +2168,8 @@ int merge_cluster_max_capacity(void) { return CLUSTER_MAX_CAP; }
 int merge_global_max_capacity(void) { return GLOBAL_MAX_CAP; }
 
 int merge_max_capacity(void) { return MAX_CAP; }
+
+int merge_warp_max_capacity(void) { return WARP_MAX_CAP; }
 
 int merge_split_max_ctas(void) { return SPLIT_MAX_CTAS; }
 

@@ -50,8 +50,25 @@ GLOBAL_MAX_CAPACITY = 65536
 # cluster of CTAs a document, the table in global memory), the most the
 # kernels' int row indices address; must equal MAX_CAP there.
 MAX_CAPACITY = 1 << 30
+# Largest table of the warp tier (K1 and K3 only: one warp a document,
+# as many a CTA as keep the most resident on an SM); WARP_MAX_CAP there.
+WARP_MAX_CAPACITY = 512
+# When K1 and K3 take the warp tier: for tables of up to each width's
+# rows (and more than the width before), the fewest documents a launch
+# takes it from; None: never. From chip_smoke.py --narrow's sweep on an
+# H100 (132 SMs; PERF.md §6), K1 and K3 on both tiers on the same random
+# states at 64, 128, 256 and 512 rows x 1, 8, 66, 132, 528, 2,048,
+# 16,384 and 100,000 documents x K 1, 8, 16 and 64 (shared / warp device
+# ms): at 64 and 128 rows the warp tier wins every K from 2,048 documents
+# (K1 1.27-2.13x, K3 1.16-2.07x) and loses at 8-528 (0.51-1.02x: one warp
+# a document against a CTA of 2-4; at one document of 64 rows K1 wins
+# 1.08-1.29x, which the rule leaves to the shared tier); at 256 rows K1
+# wins from 16,384 documents at K 1, 16 and 64 (1.03-1.42x) but not at
+# K 8 (0.98-1.00x) and K3 only at K 1 (1.18-1.20x, 0.79-1.00x at K 8-64);
+# at 512 rows both lose (0.23-0.77x: an SM holds 7 documents' tables).
+WARP_MIN_DOCS = {64: 2048, 128: 2048, 256: None, 512: None}
 # The C entries' tier argument.
-TIER_CODES = {"smem": 0, "cluster": 1, "global": 2, "split": 3}
+TIER_CODES = {"smem": 0, "cluster": 1, "global": 2, "split": 3, "warp": 4}
 # Every C entry of the kernel libraries and the library it lives in. The
 # merge entries run on the tiers of :func:`tier`; the exchange entries have
 # no tiers (``shard_exchange_kernel``); the tree entries' tiers depend on
@@ -174,12 +191,14 @@ def lib(name: str = "merge") -> ctypes.CDLL:
         ] + [(f, [], i) for f in (
             "merge_smem_max_capacity", "merge_cluster_max_capacity",
             "merge_global_max_capacity", "merge_max_capacity",
+            "merge_warp_max_capacity",
             "merge_split_max_ctas", "shard_max_shards",
             "shard_exchange_max_shards")])
         if (cdll.merge_smem_max_capacity() != SMEM_MAX_CAPACITY
                 or cdll.merge_cluster_max_capacity() != CLUSTER_MAX_CAPACITY
                 or cdll.merge_global_max_capacity() != GLOBAL_MAX_CAPACITY
-                or cdll.merge_max_capacity() != MAX_CAPACITY):
+                or cdll.merge_max_capacity() != MAX_CAPACITY
+                or cdll.merge_warp_max_capacity() != WARP_MAX_CAPACITY):
             raise RuntimeError("merge_kernels.cu tier limits != _cuda.py's")
     _libs[name] = cdll
     return cdll
@@ -202,7 +221,10 @@ def sm_count(device=None) -> int:
 def tier(s: int, entry: str, n_docs: int, sms: Optional[int] = None) -> str:
     """The tier merge entry ``entry`` runs a launch of ``n_docs`` tables
     of ``s`` rows on, on a card of ``sms`` SMs (default: the current
-    card's, :func:`sm_count`, asked only where it decides): ``"smem"``
+    card's, :func:`sm_count`, asked only where it decides): for K1 and K3,
+    ``"warp"`` (one warp a document, its table in its slice of a CTA's
+    shared memory) where :data:`WARP_MIN_DOCS` lets it, up to
+    :data:`WARP_MAX_CAPACITY`; ``"smem"``
     (the table in one CTA's shared memory) up to
     :data:`SMEM_MAX_CAPACITY`; ``"cluster"`` (the table split across a
     thread-block cluster's shared memory) up to
@@ -234,6 +256,10 @@ def tier(s: int, entry: str, n_docs: int, sms: Optional[int] = None) -> str:
     if entry in UNTIERED:
         raise ValueError(f"{entry} runs on no tier: shard_exchange_kernel")
     if s <= SMEM_MAX_CAPACITY:
+        if entry != "merge_compact" and s <= WARP_MAX_CAPACITY:
+            fewest = WARP_MIN_DOCS[min(w for w in WARP_MIN_DOCS if s <= w)]
+            if fewest is not None and n_docs >= fewest:
+                return "warp"
         return "smem"
     if s <= CLUSTER_MAX_CAPACITY:
         return "cluster"
@@ -244,6 +270,14 @@ def tier(s: int, entry: str, n_docs: int, sms: Optional[int] = None) -> str:
         if -(-sms // max(n_docs, 1)) < 2:
             return "global"
     return "split"
+
+
+def entry_tiers(entry: str) -> tuple:
+    """The tiers merge entry ``entry`` runs on: every tier of
+    :data:`TIER_CODES`, but K2 (``merge_compact``) has no warp tier (its
+    C entry refuses it)."""
+    return tuple(t for t in TIER_CODES
+                 if not (entry == "merge_compact" and t == "warp"))
 
 
 def live_rows(s: int, count: int, k: int) -> int:
@@ -325,8 +359,8 @@ def launch(name: str, tables, scalars, ops, out, t: Optional[str] = None
 
 def count_launch(wrapper, t: str) -> None:
     """Add one launch to a wrapper's counters: ``launches`` (every tier)
-    and ``launches_smem``, ``launches_cluster``, ``launches_global`` or
-    ``launches_split``."""
+    and ``launches_smem``, ``launches_cluster``, ``launches_global``,
+    ``launches_split`` or ``launches_warp``."""
     wrapper.launches += 1
     key = f"launches_{t}"
     setattr(wrapper, key, getattr(wrapper, key) + 1)

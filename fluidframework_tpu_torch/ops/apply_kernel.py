@@ -2,7 +2,11 @@
 
 Replaces the Pallas TPU kernel ``fluidframework_tpu/ops/pallas_kernel.py``
 (``_apply_values``, reached through ``apply_ops_packed``). The CUDA kernel
-is ``csrc/merge_kernels.cu`` (``merge_apply``), in four tiers: one CTA per
+is ``csrc/merge_kernels.cu`` (``merge_apply``), in five tiers: one warp
+per document (several a CTA), its table in the warp's slice of shared
+memory and the op loop's scratch in registers, each op over the rows below
+count + 2 alone, up to 512 rows where ``_cuda.tier``'s sweep-set rule
+takes it; one CTA per
 document with its table resident in shared memory up to 2,048 rows; a
 thread-block cluster of 3-16 CTAs per document, the table split across
 their shared memory, up to 16,384 rows; one CTA per document reading and
@@ -348,11 +352,12 @@ def apply_ops_packed(tables, scalars, ops, *, out=None, t=None):
     """Apply ops [D, K, OP_WIDTH] to a packed state. Writes into ``out``
     (a (tables, scalars) pair) or, by default, into the inputs in place;
     returns the written pair. CPU tensors take :func:`apply_plain`; CUDA
-    tensors launch ``merge_apply`` on the tier S calls for (shared memory up
-    to 2,048 rows, a cluster up to 16,384, global memory with one CTA a
-    document up to 65,536, global memory with a cluster a document above
-    it) or raise; ``t`` names another tier that takes S (a hold's
-    choice)."""
+    tensors launch ``merge_apply`` on the tier S and the document count
+    call for (``_cuda.tier``: a warp a document up to 512 rows where its
+    rule takes it, shared memory up to 2,048 rows, a cluster up to 16,384,
+    global memory with one CTA a document up to 65,536, global memory with
+    a cluster a document above it) or raise; ``t`` names another tier that
+    takes S (a hold's choice)."""
     ot, os_ = _destination(tables, scalars, out)
     if tables.device.type == "cpu":
         nt, ns = apply_plain(tables, scalars, ops)

@@ -8,7 +8,9 @@ compaction, computed on the original rows (each kept row's previous kept
 row decides whether it heads a merge run; output row h takes the h-th
 head, its length a difference of prefix lengths), with K3 running K1's op
 loop and K2 back to back so the table never leaves the CTA between them.
-They keep the table in one CTA's shared memory up to 2,048 rows, split
+K3 also runs on K1's warp tier (one warp a document, each head stored
+straight from its lane); K2 has no warp tier. They keep the table in one
+CTA's shared memory up to 2,048 rows, split
 across a thread-block cluster's shared memory up to 16,384 and in global
 memory above that, split over a cluster of CTAs a document (K3 past 65,536
 rows, K2 at every such width), up to 2**30 rows (the tiers of K1); so

@@ -162,6 +162,49 @@ def test_split_tier_matches_plain_on_the_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cap", [8, 64, 128, 256, 512])
+def test_warp_tier_matches_plain_on_the_card(cap):
+    """K1 and K3 on the warp tier (one warp a document, forced), bit for
+    bit with the plain versions: random states at 301 documents, moves on
+    the 32-row tile edges (``edge_case``) and compactions that meet them
+    (``compact_edge_case``); each launch counts on the warp tier. K2
+    refuses the warp tier, and so does K1 past its widest table: each
+    raises and counts nothing (no fallback)."""
+    _need_card()
+    dev = torch.device("cuda", 0)
+    cases = [("apply", random_case(np.random.default_rng(cap), 301, cap, 16,
+                                   dev)),
+             ("apply", edge_case(cap, dev)),
+             ("compact", compact_edge_case(cap, dev))]
+    for kind, (t0, s0, ops) in cases:
+        if t0.shape[1] == 0:
+            continue
+        for name in ("K1_merge_apply", "K3_fused_apply_compact"):
+            if kind == "compact" and name == "K1_merge_apply":
+                continue
+            w = KERNELS[name]["wrapper"]
+            before = _tier_counts(w)
+            err, _ms, _plain_ms = hold_kernel(name, t0, s0, ops, 1, 1,
+                                              t="warp")
+            assert err == 0
+            want = dict(before)
+            want["warp"] += 2  # check + one timing
+            assert _tier_counts(w) == want
+    t0, s0, ops = cases[0][1]
+    for entry, args, w in (
+            ("merge_compact", None, KERNELS["K2_zamboni_compact"]["wrapper"]),
+            ("merge_apply", ops, K1.apply_ops_packed)):
+        if entry == "merge_apply":  # past the warp tier's widest table
+            t0, s0, args = random_case(np.random.default_rng(1), 3,
+                                       _cuda.WARP_MAX_CAPACITY + 1, 2, dev)
+        before = _tier_counts(w)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _cuda.launch(entry, t0, s0, args, (t0.clone(), s0.clone()),
+                         t="warp")
+        assert _tier_counts(w) == before
+
+
+@pytest.mark.cuda
 def test_docfleet_lifecycle_crosses_into_the_global_tier():
     """Four docs grow from the 1,024-row tier through 2,048 into 4,096 on
     the kernels; a kernel="plain" replay on the card matches bit for
@@ -288,6 +331,36 @@ def test_serving_launch_error_is_not_swallowed(monkeypatch):
         ok("flush")
         assert ok("text", "e0", "s") == traffic.expected(0)
     assert K1.apply_ops_packed.launches > before
+
+
+@pytest.mark.cuda
+def test_serving_warp_launch_error_is_not_swallowed(monkeypatch):
+    """The tier choice forced to the warp tier for a 1,024-row pool, wider
+    than the warp tier takes: K1's wrapper raises at the first dispatch,
+    flush re-raises it and no kernel launched (no fallback to the shared
+    tier); the same backend with the tier chosen as usual applies the
+    rows."""
+    _need_card()
+    cap = 1024
+    traffic = ServingTraffic(2, k=8, prefix="w")
+    be = DeviceFleetBackend(capacity=cap, max_capacity=cap, device="cuda")
+    run = ServingRun(be)
+    frames = traffic.frames()
+    for doc, frame in frames:
+        run.handle(doc, {"t": "seqframe", "frame": frame})
+    before = _tier_counts(K1.apply_ops_packed)
+    with monkeypatch.context() as m:
+        m.setattr(_cuda, "tier", lambda s, entry, n_docs, sms=None: "warp")
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            be.flush()
+    assert _tier_counts(K1.apply_ops_packed) == before
+    assert len(be._ring) == 0 and be.pump_dispatches == 0
+    ok = ServingRun(DeviceFleetBackend(capacity=cap, max_capacity=cap,
+                                       device="cuda"))
+    for doc, frame in frames:
+        ok.handle(doc, {"t": "seqframe", "frame": frame})
+    ok("flush")
+    assert ok("text", "w0", "s") == traffic.expected(0)
 
 
 def _pipeline_states(kernel, n_docs=256, rounds=9, k=8):

@@ -307,37 +307,51 @@ def test_plain_apply_matches_xla_at_4096_rows():
 # Each width's tier: one for every document count, or (below the card's
 # SM count of documents, from it) where the count decides K1's and K3's
 # (K2 keeps the second).
-_TIERS = {8: "smem", 2048: "smem", 2049: "cluster", 2050: "cluster",
-             4096: "cluster", 8192: "cluster", 16384: "cluster",
-             16385: ("split", "global"), 65536: ("split", "global"),
-             65537: "split", 131072: "split", 524288: "split",
-             1 << 30: "split"}
+_TIERS = {8: "smem", 64: "smem", 128: "smem", 256: "smem", 512: "smem",
+          2048: "smem", 2049: "cluster", 2050: "cluster",
+          4096: "cluster", 8192: "cluster", 16384: "cluster",
+          16385: ("split", "global"), 65536: ("split", "global"),
+          65537: "split", 131072: "split", 524288: "split",
+          1 << 30: "split"}
+# K1's and K3's warp tier: for tables of up to each width's rows, the
+# fewest documents a launch takes it from (None: never), whatever the
+# card's SM count (chip_smoke.py --narrow's sweep on an H100).
+_WARP_FROM = {64: 2048, 128: 2048, 256: None, 512: None}
 
 
 @pytest.mark.parametrize("entry", ["merge_apply", "merge_compact",
                                    "merge_apply_compact"])
 @pytest.mark.parametrize("cap", sorted(_TIERS))
 def test_wrappers_route_by_tier(entry, cap):
-    """S up to 2,048 takes the shared-memory tier. Above it every entry
+    """S up to 2,048 takes the shared-memory tier, but a K1 or K3 launch
+    of tables of up to 128 rows takes the warp tier from 2,048 documents
+    (K2 never). Above 2,048 rows every entry
     (K1, K2 and K3) splits the table across a thread-block cluster up to
     16,384 rows; up to 65,536 a K1 or K3 launch of as many documents as
     the card has SMs or more (and every K2 launch) keeps each in global
     memory (the global tier), and a K1 or K3 launch of fewer, like every
     table past 65,536 rows up to 2**30, spreads each document over a
     cluster of up to 16 CTAs there (the split tier: each document gets
-    ceil(SMs / D) >= 2 CTAs). Held at document counts on both sides of the
-    threshold, on the H100's 132 SMs and on other SM counts. The choice
-    launches nothing and asks no card."""
+    ceil(SMs / D) >= 2 CTAs). Held at document counts on both sides of
+    each threshold, on the H100's 132 SMs and on other SM counts. The
+    choice launches nothing and asks no card."""
     from fluidframework_tpu_torch.ops import _cuda
 
     few, many = (_TIERS[cap] if isinstance(_TIERS[cap], tuple)
                  else (_TIERS[cap],) * 2)
     if entry == "merge_compact":
         few = many
+    warp_from = None
+    if entry != "merge_compact" and cap <= 512:
+        warp_from = _WARP_FROM[min(w for w in _WARP_FROM if cap <= w)]
+    assert _cuda.WARP_MIN_DOCS == _WARP_FROM
     for sms in (132, 114, 8):
-        for n in (1, 2, sms // 2, sms - 1, sms, sms + 1, 100_000):
-            assert _cuda.tier(cap, entry, n, sms) == (
-                few if n < sms else many), (sms, n)
+        for n in (1, 2, sms // 2, sms - 1, sms, sms + 1, 2047, 2048, 2049,
+                  100_000):
+            want = few if n < sms else many
+            if warp_from is not None and n >= warp_from:
+                want = "warp"
+            assert _cuda.tier(cap, entry, n, sms) == want, (sms, n)
 
 
 def test_wrappers_refuse_past_the_largest_tier():
@@ -1193,3 +1207,297 @@ def test_grow_past_65536_rows_matches_the_reference():
     for f, a, b in zip(RefState._fields, ref, got):
         np.testing.assert_array_equal(np.asarray(a), b, err_msg=f)
     assert int(got[15]) > n  # count: rows past the old ceiling
+
+
+# -- the warp tier: one warp a document, scratch in registers ---------------
+
+
+def _warp_regs(L, whi, o):
+    """The perspective pass over the tiles below ``whi`` as the warp
+    holds it: lane i of tile j keeps row 32 j + i's visible length A,
+    part flag F and in-warp exclusive prefix C (a warp scan with a carry
+    across tiles). ``o`` = (clientn, refn, self_client, min_seq). Returns
+    (A, C, F [tiles, 32], the total)."""
+    nt = -(-whi // 32)
+    A = np.zeros((nt, 32), np.int64)
+    C = np.zeros((nt, 32), np.int64)
+    F = np.zeros((nt, 32), bool)
+    carry = 0
+    for j in range(nt):
+        rows = 32 * j + np.arange(32)
+        valid = rows < whi
+        Lt = torch.from_numpy(L[:, None, rows[valid]].copy())
+        clientn, refn, me, min_seq = (_i32(v) for v in o)
+        part, vis = K1._perspective(Lt, clientn, refn, clientn == me,
+                                    min_seq)
+        A[j, valid] = vis[0].numpy()
+        F[j, valid] = part[0].numpy()
+        inc = np.cumsum(A[j])
+        C[j] = carry + inc - A[j]
+        carry += int(inc[31])
+    return A, C, F, carry
+
+
+def _model_warp_doc(t, sc, ops, fuse):
+    """K1 (K3 with ``fuse``) on the warp tier for one document (t
+    [N_LANES, S], sc [N_SCALARS], ops [K, OP_WIDTH]), as its warp runs
+    it: each op over the tiles below whi = min(S, count + 2) alone, count
+    the op's own (rows at or past whi are never read or written); its
+    prefix, first hits (a ballot a tile, the first set lane) and the
+    prefix at a hit (a shuffle from the lane that holds it) from the
+    lanes' registers; the row move top down over the tiles, each row
+    taking its source from its own tile or the two rows below it
+    (:func:`_move_in_blocks` over the one block [0, whi)); the covered
+    rows' marks from the second pass's registers. K3 then compacts the
+    rows below count in place (:func:`_model_warp_compact`). The warp
+    loads the rows below the input's count alone and fills the rest;
+    in place it stores back only the rows below the larger of the two
+    counts (every other row is free before and after). Returns (t, sc)
+    as the in-place launch leaves them."""
+    s = t.shape[1]
+    count, min_seq, cur_seq, me, err = (int(v) for v in sc[:5])
+    count_in = min(max(count, 0), s)
+    L = np.zeros_like(t, dtype=np.int32)
+    L[K1.L_RSEQ] = RSEQ_NONE
+    L[:, :count_in] = t[:, :count_in]
+    for op in ops:
+        op = [int(v) for v in op]
+        ty, pos1, pos2, seqn, refn, clientn, lseqn, arg, ilen, msn = op
+        whi = min(s, min(max(count, 0), s) + 2)
+        is_ins, is_range = ty == 1, ty in (2, 3)
+        local_op = seqn == UNASSIGNED_SEQ
+        o = (clientn, refn, me, min_seq)
+        if clientn >= 93:
+            err |= ERR_CLIENT
+        if is_ins or is_range:
+            A, C, F, total = _warp_regs(L, whi, o)
+            total = int(np.int32(total))
+            norm = NORM_NEW_LOCAL_ if local_op else seqn
+            m1 = m2 = mp = s
+            for j in range(A.shape[0]):
+                rows = 32 * j + np.arange(32)
+                valid = rows < whi
+                v, part, run = A[j], F[j], C[j]
+                rem1, rem2 = pos1 - run, pos2 - run
+                h1 = valid & part & (v > 0) & (rem1 > 0) & (rem1 < v)
+                h2 = valid & part & (v > 0) & (rem2 > 0) & (rem2 < v)
+                seq = np.where(valid, L[K1.L_SEQ, np.minimum(rows, s - 1)],
+                               0)
+                seq_n = np.where(seq == UNASSIGNED_SEQ, NORM_EXISTING_LOCAL_,
+                                 seq)
+                hp = valid & part & (((v > 0) & (rem1 >= 0) & (rem1 < v))
+                                     | ((v == 0) & (rem1 == 0)
+                                        & (norm > seq_n)))
+                for m, hit in ((0, h1), (1, h2), (2, hp)):
+                    first = 32 * j + _first(hit, 32)
+                    if hit.any() and [m1, m2, mp][m] == s:
+                        if m == 0:
+                            m1 = first
+                        elif m == 1:
+                            m2 = first
+                        else:
+                            mp = first
+            has1, has2, hasp = m1 < s, m2 < s, mp < s
+            split1 = pos1 - int(C[m1 >> 5, m1 & 31]) if has1 else 0
+            split2 = pos2 - int(C[m2 >> 5, m2 & 31]) if has2 else 0
+            idxp = mp if hasp else count
+            sh = 2 if has1 else 1
+            do_ins = is_ins and count + sh <= s
+            do_a = is_range and has1 and count + 1 <= s
+            count_a = count + do_a
+            do_b = is_range and has2 and count_a + 1 <= s
+            if (is_ins and not do_ins) or (is_range and has1 and not do_a) \
+                    or (is_range and has2 and not do_b):
+                err |= ERR_CAPACITY
+            if (is_ins and not hasp and pos1 > total) or (
+                    is_range and pos2 > total):
+                err |= ERR_RANGE
+            new_row = np.zeros(K1.N_LANES, np.int32)
+            new_row[[K1.L_KIND, K1.L_ORIG, K1.L_LEN, K1.L_SEQ, K1.L_CLIENT,
+                     K1.L_LSEQ, K1.L_RSEQ]] = [
+                KIND_TEXT, arg, ilen, seqn, clientn,
+                lseqn if local_op else 0, RSEQ_NONE]
+            mv = (do_a or (do_ins and has1), m1, split1, do_b,
+                  m2 + int(do_a),
+                  split2 - split1 if do_a and m1 == m2 else split2,
+                  do_ins, m1 + 1 if has1 else idxp)
+            _move_in_blocks(L, mv, new_row, [(0, whi)],
+                            np.random.default_rng(0))
+            count = (count_a + do_b if is_range
+                     else count + sh if do_ins else count)
+        if is_range or ty in (4, 5, 6):
+            A, C, F, _total = _warp_regs(L, whi, o)
+            cov = (F & (A > 0) & (C >= pos1) & (C + A <= pos2)).reshape(-1)
+            cov = cov[:whi] & is_range
+            _marks(L[:, :whi], cov, ty, op, local_op)
+        cur_seq, min_seq = max(cur_seq, seqn), max(min_seq, msn)
+    out = np.zeros_like(sc)
+    out[:5] = count, min_seq, cur_seq, me, err
+    if fuse:
+        out[0] = _model_warp_compact(L, min(max(count, 0), s), min_seq)
+    stored = max(min(max(int(out[0]), 0), s), count_in)
+    # Out of place the warp stores every row: the rows it skips in place
+    # hold the same in its shared memory as in the input.
+    np.testing.assert_array_equal(L[:, stored:], t[:, stored:])
+    g = t.astype(np.int32).copy()
+    g[:, :stored] = L[:, :stored]
+    return g, out
+
+
+NORM_NEW_LOCAL_ = (1 << 30) + 2
+NORM_EXISTING_LOCAL_ = (1 << 30) + 1
+
+
+def _model_warp_compact(L, whi, min_seq):
+    """compact_doc on the warp tier over rows [0, whi) of L [N_LANES, S],
+    in place as the warp runs it in shared memory: one pass over the
+    tiles bottom up finds each tile's heads (a kept row that does not
+    merge into the previous kept row: in its tile, else the last kept row
+    of the tiles below, carried) and writes each head's row, read before
+    any write of its tile, to its output row h (at most its own, so no row
+    a later tile reads is overwritten), LEN holding its kept-LEN prefix;
+    then each output row's LEN becomes the next head's prefix (the total
+    for the last) less its own, and rows [n_heads, whi) are filled.
+    Returns n_heads."""
+    Lt = torch.from_numpy(L.copy())  # the rows as the pass reads them
+    run, lsum, cq = 0, 0, None
+    for t0 in range(0, whi, 32):
+        heads, prefix = [], []
+        for r in range(t0, min(t0 + 32, whi)):
+            rseq = int(L[K1.L_RSEQ, r])
+            pending = (Lt[K1.L_LSEQ, r] != 0 or Lt[K1.L_RLSEQ, r] != 0
+                       or Lt[K1.L_ALSEQ, r] != 0)
+            reclaim = (not pending and rseq not in (RSEQ_NONE,
+                                                    UNASSIGNED_SEQ)
+                       and rseq <= min_seq)
+            if Lt[K1.L_KIND, r] == KIND_FREE or reclaim:
+                continue
+            if cq is None or not bool(_mergeable(Lt[:, cq:cq + 1],
+                                                 Lt[:, r:r + 1])[0]):
+                heads.append(r)
+                prefix.append(lsum)
+            lsum += int(Lt[K1.L_LEN, r])
+            cq = r
+        rows = L[:, heads].copy()  # read, then one __syncwarp
+        for n, (r, p) in enumerate(zip(heads, prefix)):
+            assert run + n <= r
+            L[:, run + n] = rows[:, n]
+            L[K1.L_LEN, run + n] = p
+        run += len(heads)
+    nh = run
+    plen = L[K1.L_LEN, :nh].astype(np.int64)
+    L[K1.L_LEN, :nh] = (np.append(plen[1:], lsum) - plen).astype(np.int32)
+    L[:, nh:whi] = 0
+    L[K1.L_RSEQ, nh:whi] = RSEQ_NONE
+    return nh
+
+
+def _model_warp(t, sc, ops, fuse, dpc):
+    """The warp tier's launch: ceil(D / dpc) CTAs of dpc warps, warp w of
+    CTA b on document b dpc + w, a warp past the last document idle.
+    Returns (t, sc)."""
+    d = t.shape[1]
+    got_t, got_s = t.copy(), sc.copy()
+    seen = []
+    for b in range(-(-d // dpc)):
+        for w in range(dpc):
+            doc = b * dpc + w
+            if doc >= d:
+                continue
+            seen.append(doc)
+            got_t[:, doc], got_s[doc] = _model_warp_doc(
+                t[:, doc], sc[doc], ops[doc], fuse)
+    assert seen == list(range(d))
+    return got_t, got_s
+
+
+def _warp_edge_docs(s, k=4):
+    """(counts, ops) of one document each where the warp tier's walk meets
+    its seams: an empty table; counts on and beside the 32-row tile edge
+    with inserts and splits that move rows across it; count S - 2, S - 1
+    and S (each insert or split past S refused: ERR_CAPACITY); an insert
+    past the end and a remove past it (ERR_RANGE); an unknown writer
+    (ERR_CLIENT); local ops of the document's own writer and their acks;
+    a remove across every tile."""
+    me = 2
+
+    def ins(p, j, **kw):
+        kw = {"seq": 101 + j, "ref": 100 + j, "client": 1, **kw}
+        return E.insert(p, 7 + j, 3, **kw)
+
+    e = 32 if s >= 64 else s // 2  # the tile edge, or a row mid-tile
+    docs = [(0, [ins(0, j) for j in range(k)]),
+            (e - 1, [ins(4 * (e - 1) - 2, j) for j in range(k)]),
+            (e, [ins(4 * e - 1, 0), ins(2, 1), ins(4 * e + 5, 2),
+                 E.remove(4 * e - 6, 4 * e + 2, seq=104, ref=103, client=3)]),
+            (s - 2, [ins(4 * s - 10, 0), ins(3, 1), ins(1, 2), ins(0, 3)]),
+            (s - 1, [ins(6, 0), E.annotate(1, 4 * s - 5, 9, seq=102,
+                                           ref=101, client=1),
+                     ins(2, 2), ins(4 * s, 3)]),
+            (s, [ins(2, 0), E.remove(3, 9, seq=102, ref=101, client=2),
+                 E.annotate(1, 4 * s - 1, 5, seq=103, ref=102, client=1),
+                 ins(4 * s, 3)]),
+            (s // 2, [ins(4 * s, 0), E.remove(1, 4 * s, seq=102, ref=101,
+                                              client=1),
+                      ins(5, 2, client=120), ins(1, 3)]),
+            (s // 2, [E.insert(3, 9, 2, client=me, lseq=1),
+                      E.remove(1, 6, client=me, lseq=2),
+                      E.ack("insert", lseq=1, seq=101),
+                      E.ack("remove", lseq=2, seq=102)]),
+            (s - 3, [E.remove(1, 4 * (s - 3) - 1, seq=101, ref=100,
+                              client=2, msn=101)] + [ins(2 + j, j)
+                                                     for j in range(1, k)])]
+    counts = [c for c, _o in docs]
+    return counts, np.stack([np.stack(o[:k]) for _c, o in docs]), me
+
+
+@pytest.mark.parametrize("s", [32, 64, 128, 256])
+def test_warp_tier_loop_equals_the_plain_versions(s):
+    """K1 and K3 on the warp tier (one warp a document, several a CTA)
+    walk each op over the tiles below min(S, count + 2) alone, keep the
+    scratch in the lanes' registers and move the rows across the 32-row
+    tile edges from the two rows below each tile; K3 then compacts in
+    place as its one pass goes, and each stores back only the rows below
+    the larger count. The model of that loop is held bit for
+    bit against apply_plain and apply_compact_plain (which walk every
+    row) and the reference XLA kernels on the seams of
+    :func:`_warp_edge_docs` (9 documents, 2 a CTA: the last CTA half
+    empty), and against the plain versions on
+    random states with every err branch and on chip_smoke's edge moves
+    and compactions."""
+    from chip_smoke import compact_edge_case, edge_case
+    from tools.kernel_sanitize import random_case
+
+    counts, ops, me = _warp_edge_docs(s)
+    t, sc, ops = _live_case(s, counts, ops)
+    sc[:, K1.SC_SELF] = me
+    state = ref_make_batched_state(len(counts), s, me)._make(
+        [jnp.asarray(x) for x in _unpack_np(t, sc)])
+    ref1 = batched_apply_ops(state, ops)
+    for fuse, plain, ref in (
+            (False, K1.apply_plain, _xla_packed(ref1)),
+            (True, K2.apply_compact_plain,
+             _xla_packed(batched_compact(ref1)))):
+        got = _model_warp(t, sc, ops, fuse, 2)
+        want = plain(torch.from_numpy(t), torch.from_numpy(sc),
+                     torch.from_numpy(ops))
+        _assert_packed_equal((want[0].numpy(), want[1].numpy()), got)
+        if fuse:  # the XLA compact keeps scalar columns 5-7; K3 zeroes them
+            ref = (ref[0], np.concatenate([ref[1][:, :5], got[1][:, 5:]], 1))
+        _assert_packed_equal(ref, got)
+    errs = got[1][:, K1.SC_ERR]
+    assert errs[3] & ERR_CAPACITY and errs[5] & ERR_CAPACITY
+    assert errs[6] & ERR_RANGE and errs[6] & ERR_CLIENT
+    assert not errs[[0, 1, 2, 7]].any()
+    rng = np.random.default_rng(s)
+    cases = [random_case(rng, 6, s, 5, "cpu") for _ in range(2)]
+    cases += [edge_case(s, "cpu"), compact_edge_case(s, "cpu")]
+    for rt, rs, rops in cases:
+        if rt.shape[1] == 0:
+            continue
+        for fuse, plain in ((False, K1.apply_plain),
+                            (True, K2.apply_compact_plain)):
+            want = plain(rt, rs, rops)
+            got = _model_warp(rt.numpy(), rs.numpy(), rops.numpy(), fuse,
+                              1)
+            _assert_packed_equal((want[0].numpy(), want[1].numpy()), got)

@@ -22,7 +22,9 @@ one is not hidden inside another.)
 has, at shapes small enough for the sanitizer: K1-K3 (``merge_apply``,
 ``merge_compact``, ``merge_apply_compact``) on the shared tier (both of
 its kernels: up to 512 rows and past them), the cluster, global and split
-tiers at each one's lower edge, with several documents, inserts, removes
+tiers at each one's lower edge, K1 and K3 on the warp tier (one warp a
+document: a table of one partial tile, 301 documents of 128 rows, 512
+rows), with several documents, inserts, removes
 and annotates and tombstones on both sides of the collab window, and on
 the global and split tiers where the rows below count + 2K meet their
 seams (:func:`live_cases`: one live op beside NOOPs, count 0 and count =
@@ -133,7 +135,7 @@ def entry_tiers(entry: str) -> tuple:
     """The tiers C entry ``entry`` has: the merge tiers, none for the
     exchange, the scans' four, the algebra's three."""
     if entry in MERGE:
-        return tuple(_cuda.TIER_CODES)
+        return _cuda.entry_tiers(entry)
     if entry in EXCHANGE:
         return ("-",)
     if entry in TREE_SCAN:
@@ -420,6 +422,10 @@ def hold_all(runs, launches: int = 1, poison_dev=None) -> list:
 MERGE_SHAPES = (("smem", 8, 3, 4), ("smem", 1024, 3, 4),
                 ("cluster", 4096, 3, 4), ("global", 32_768, 3, 4),
                 ("split", 131_072, 2, 4))
+# K1's and K3's warp-tier shapes: (rows S, documents, ops K). One partial
+# tile; more documents of 128 rows than an H100 has SMs; the widest
+# table.
+WARP_SHAPES = ((8, 9, 4), (128, 301, 4), (512, 9, 4))
 # X1's groups: 4 shards of 8,192 rows in two device groups (2 CTAs a shard
 # on a 132-SM card), counts past one CTA's share in every shard.
 X1_ROWS = (8192, 5000, 8192, 6000)
@@ -576,6 +582,8 @@ def cases() -> list:
     out = [_merge_case(e, t, cap, n, k) for e in MERGE
            for t, cap, n, k in MERGE_SHAPES
            if not (e == "merge_compact" and t == "smem" and cap > 512)]
+    out += [_merge_case(e, "warp", cap, n, k) for e in MERGE
+            if "warp" in _cuda.entry_tiers(e) for cap, n, k in WARP_SHAPES]
     out += [_stats_case(), _resolve_case((2, 3), (3, 2, 1, 0)),
             _resolve_case((0, 1, 2, 3), (0, 1, 2, 3)),
             _exchange_case(2, (8192, 5000)), _exchange_case(1, (8192,))]
