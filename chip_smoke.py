@@ -848,10 +848,12 @@ def bound_bytes(name: str, d: int, s: int, k: int) -> int:
 
 
 def hold_kernel(name: str, t0, s0, ops, kernel_reps=10, plain_reps=3,
-                t=None):
+                t=None, scalars_out=None):
     """Run one kernel wrapper (on tier ``t`` where given) and its plain
     version on the same input on the card; assert bit equality; return
-    (max_abs_err, ms, plain_ms), the times None with ``kernel_reps=0``."""
+    (max_abs_err, ms, plain_ms), the times None with ``kernel_reps=0``.
+    The output scalars are appended to the list ``scalars_out`` where
+    given (for :func:`live_bound_bytes`)."""
     spec = KERNELS[name]
     args = (ops,) if spec["takes_ops"] else ()
     want = spec["plain"](t0, s0, *args)
@@ -865,6 +867,8 @@ def hold_kernel(name: str, t0, s0, ops, kernel_reps=10, plain_reps=3,
         bad = (t != want[0]).nonzero()[:5].tolist()
         raise AssertionError(f"{name}: kernel != plain, max_abs_err {err}, "
                              f"first [lane, doc, row] {bad}")
+    if scalars_out is not None:
+        scalars_out.append(want[1])
     del want
 
     def reset():
@@ -905,19 +909,24 @@ def phase_kernels(device, report, key, shapes, seed_offset=0):
             routed = _cuda.tier(cap, KERNELS[name]["entry"], d)
             for tier in (routed,) + tuple(
                     t for t in narrow_tiers(name, cap) if t != routed):
+                outs = []
                 err, ms, plain_ms = hold_kernel(
-                    name, t0, s0, ops, t=None if tier == routed else tier)
+                    name, t0, s0, ops, t=None if tier == routed else tier,
+                    scalars_out=outs)
+                live = live_bound_bytes(name, s0, cap, ops, outs[0])
                 rows.append(dict(kernel=name, tier=tier, docs=d,
                                  cap=cap, k=16, max_abs_err=err, ms=ms,
                                  plain_ms=plain_ms,
-                                 bound_ms=b / HBM_BYTES_PER_S * 1e3,
-                                 bound_bytes=b, library_ms=None,
+                                 bound_ms=live / HBM_BYTES_PER_S * 1e3,
+                                 all_rows_bound_ms=b / HBM_BYTES_PER_S * 1e3,
+                                 bound_bytes=live, library_ms=None,
                                  routed=tier == routed))
                 print(f"kernels S={cap} D={d} ({tier}"
                       f"{'' if tier == routed else ', forced'}) {name}: "
                       f"exact, {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
-                      f"{rows[-1]['bound_ms']:.4f} ms, library_ms null)",
-                      flush=True)
+                      f"{rows[-1]['bound_ms']:.4f} ms, all rows "
+                      f"{rows[-1]['all_rows_bound_ms']:.4f}, library_ms "
+                      "null)", flush=True)
         # The same kernels on moves at the tile and slice edges, and K2 and
         # K3 on compactions that meet them, untimed (K1 and K3 at the
         # narrow widths on both narrow tiers).
@@ -5400,13 +5409,15 @@ def mesh_9c(device, window=1000, frame_ops=SHARDED_FRAME_OPS,
                                          ref=0, client=0))
     holds = []
     for kname in ("K1_merge_apply", "K2_zamboni_compact"):
-        err, ms, plain_ms = hold_kernel(kname, t0, s0, o1)
+        outs = []
+        err, ms, plain_ms = hold_kernel(kname, t0, s0, o1, scalars_out=outs)
         holds.append(dict(
             kernel=kname, cell="9c", docs=sharded.n_shards,
             cap=sharded.shard_cap, k=1, tier=routed[kname], max_abs_err=err,
             ms=ms,
             plain_ms=plain_ms,
-            bound_ms=live_bound_bytes(kname, s0, sharded.shard_cap, o1)
+            bound_ms=live_bound_bytes(kname, s0, sharded.shard_cap, o1,
+                                      outs[0])
             / HBM_BYTES_PER_S * 1e3,
             all_rows_bound_ms=bound_bytes(kname, sharded.n_shards,
                                           sharded.shard_cap, 1)
@@ -5608,12 +5619,13 @@ def mesh_9c_one_entry(device, visible, cap=65536, n0=65_000, first_ops=256,
     o1 = o1.to(device)
     holds = []
     for kname in ("K1_merge_apply", "K2_zamboni_compact"):
-        err, ms, plain_ms = hold_kernel(kname, t0, s0, o1)
+        outs = []
+        err, ms, plain_ms = hold_kernel(kname, t0, s0, o1, scalars_out=outs)
         holds.append(dict(
             kernel=kname, cell="9c one card", docs=1, cap=shard_cap, k=1,
             tier=_cuda.tier(shard_cap, KERNELS[kname]["entry"], 1),
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=live_bound_bytes(kname, s0, shard_cap, o1)
+            bound_ms=live_bound_bytes(kname, s0, shard_cap, o1, outs[0])
             / HBM_BYTES_PER_S * 1e3,
             all_rows_bound_ms=bound_bytes(kname, 1, shard_cap, 1)
             / HBM_BYTES_PER_S * 1e3))
@@ -7279,12 +7291,16 @@ def _main(device, twins) -> int:
     main_shape = {}
     report["main_shape_tiers"] = []
     for name in KERNELS:
-        err, ms, plain_ms = hold_kernel(name, t0, s0, ops)
-        main_shape[name] = (err, ms, plain_ms, bound_bytes(name, d, cap, k))
+        outs = []
+        err, ms, plain_ms = hold_kernel(name, t0, s0, ops, scalars_out=outs)
+        main_shape[name] = (err, ms, plain_ms,
+                            live_bound_bytes(name, s0, cap, ops, outs[0]),
+                            bound_bytes(name, d, cap, k))
         routed = _cuda.tier(cap, KERNELS[name]["entry"], d)
         print(f"main-path shape {name} ({routed}): {ms:.4f} ms (plain "
               f"{plain_ms:.2f} ms, bound "
-              f"{main_shape[name][3] / HBM_BYTES_PER_S * 1e3:.4f} ms)",
+              f"{main_shape[name][3] / HBM_BYTES_PER_S * 1e3:.4f} ms, all "
+              f"rows {main_shape[name][4] / HBM_BYTES_PER_S * 1e3:.4f})",
               flush=True)
         # The other narrow tier on the same states, forced.
         for tier in narrow_tiers(name, cap):
@@ -7342,7 +7358,7 @@ def _main(device, twins) -> int:
 
     kernels = []
     for name, spec in KERNELS.items():
-        err, ms, plain_ms, b = main_shape[name]
+        err, ms, plain_ms, b, b_all = main_shape[name]
         by_path = {"fleet_service": launches2[name],
                    "docfleet": launches3[name], "serving": launches4[name],
                    "pipeline": launches5[name], "server": launches6[name],
@@ -7366,10 +7382,11 @@ def _main(device, twins) -> int:
                                         if r["kernel"] == name]),
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "all_rows_bound_ms": b_all / HBM_BYTES_PER_S * 1e3,
             "library_ms": None,
             "by_tier": [{key: r[key] for key in
                          ("tier", "docs", "cap", "k", "ms", "plain_ms",
-                          "bound_ms")}
+                          "bound_ms", "all_rows_bound_ms")}
                         for r in glob if r["kernel"] == name],
             "client_shapes": [{key: r[key] for key in
                                ("cell", "tier", "docs", "cap", "k", "ms",
@@ -7621,6 +7638,7 @@ def _entry_ms(name: str, t0, s0, ops, tier: str, reps: int) -> tuple:
     torch.cuda.synchronize()
     if not (torch.equal(t, want[0]) and torch.equal(s, want[1])):
         raise AssertionError(f"{name} on the {tier} tier != plain")
+    s_out = want[1]
     del want
 
     def reset():
@@ -7629,38 +7647,40 @@ def _entry_ms(name: str, t0, s0, ops, tier: str, reps: int) -> tuple:
 
     ms = _median_ms(run, reset, reps)
     reset()
-    return ms, _queued_ms(t.device, run, reset=reset)
+    return ms, _queued_ms(t.device, run, reset=reset), s_out
 
 
-def live_bound_bytes(name: str, scalars, s: int, ops) -> int:
-    """:func:`bound_bytes` over the rows the function needs: each
-    document's 15 lanes of its rows below min(S, count + 2K) (K2: below
-    count) read once and written once, the scalars, and the ops (``ops``
-    [D, K, OP_WIDTH]; K2 reads none). K1 needs no row of a document whose
-    ops are all NOOPs (9c's shards but the owner); K3 still compacts such
-    a document's rows below count."""
+def live_bound_bytes(name: str, scalars, s: int, ops, scalars_out) -> int:
+    """:func:`bound_bytes` over the rows this run's data needs, given the
+    launch's input and output scalars: each document's 15 lanes of its
+    rows below its input count read once and, in place, of its rows below
+    the larger of its input and output counts written once (every row at
+    or past count is free before and after), the scalars, and the ops
+    (``ops`` [D, K, OP_WIDTH]; K2 reads none). K1 needs no row of a
+    document whose ops are all NOOPs (9c's shards but the owner); K3
+    still compacts such a document's rows below count."""
     takes_ops = KERNELS[name]["takes_ops"]
     k = ops.shape[1] if takes_ops else 0
-    noop = ((ops[:, :, F_TYPE] == OP_NOOP).all(dim=1).tolist() if takes_ops
-            else [False] * scalars.shape[0])
-    rows = 0
-    for c, idle in zip(scalars[:, K1.SC_COUNT].tolist(), noop):
-        if not idle:
-            rows += _cuda.live_rows(s, int(c), k)
-        elif name == "K3_fused_apply_compact":
-            rows += _cuda.live_rows(s, int(c), 0)
     d = scalars.shape[0]
-    return (2 * (K1.N_LANES * rows * 4 + d * K1.N_SCALARS * 4)
+    noop = ((ops[:, :, F_TYPE] == OP_NOOP).all(dim=1).tolist() if takes_ops
+            else [False] * d)
+    c_in = scalars[:, K1.SC_COUNT].clamp(0, s).tolist()
+    c_out = scalars_out[:, K1.SC_COUNT].clamp(0, s).tolist()
+    rows = 0  # rows read plus rows written
+    for c, c2, idle in zip(c_in, c_out, noop):
+        if not (idle and name == "K1_merge_apply"):
+            rows += c + max(c, c2)
+    return (K1.N_LANES * rows * 4 + 2 * d * K1.N_SCALARS * 4
             + d * k * OP_WIDTH * 4)
 
 
 def _split_row(name, t0, s0, ops, tier, reps, **key) -> dict:
     d, cap = t0.shape[1], t0.shape[2]
     k = ops.shape[1] if KERNELS[name]["takes_ops"] else 0
-    ms, device_ms = _entry_ms(name, t0, s0, ops, tier, reps)
+    ms, device_ms, s_out = _entry_ms(name, t0, s0, ops, tier, reps)
     row = dict(kernel=name, cap=cap, docs=d, k=k, tier=tier, ms=ms,
                device_ms=device_ms,
-               bound_ms=live_bound_bytes(name, s0, cap, ops)
+               bound_ms=live_bound_bytes(name, s0, cap, ops, s_out)
                / HBM_BYTES_PER_S * 1e3,
                all_rows_bound_ms=bound_bytes(name, d, cap, k)
                / HBM_BYTES_PER_S * 1e3, **key)
@@ -7748,6 +7768,23 @@ cu._libs["merge"] = _lib
 """
 
 
+def _sweep_run(code: str, tag: str, timeout: int) -> dict:
+    """Run ``code`` (as for :func:`_runs_in_turn`, no patch) once for this
+    tree with ``<tag>_SWEEP=1`` set; returns its record labelled
+    ``sweep``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run([sys.executable, "-c", code.format(patch="")],
+                         cwd=here, env=dict(os.environ, PYTHONPATH=here,
+                                            **{f"{tag}_SWEEP": "1"}),
+                         capture_output=True, text=True, timeout=timeout)
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"{tag.lower()}: the sweep failed")
+    line = next(x for x in res.stdout.splitlines()
+                if x.startswith(f"{tag}_JSON "))
+    return dict(label="sweep", **json.loads(line[len(tag) + 6:]))
+
+
 def _runs_in_turn(code: str, tag: str, variants, parent=None) -> list:
     """Run ``code`` (a script with a ``{patch}`` slot that prints one line
     ``<tag>_JSON <json>``) in its own process on this card for this tree,
@@ -7788,26 +7825,19 @@ def _runs_in_turn(code: str, tag: str, variants, parent=None) -> list:
     return runs
 
 
-def split_ab(variants=(), parent=None) -> int:
+def split_ab(variants=(), parent=None, sweep=True) -> int:
     """:func:`split_times` of this tree, of each variant and of the
-    parent's kernel source (:func:`_runs_in_turn`), then the
-    document-count sweep of this tree alone (``SPLIT_SWEEP=1``). Prints
-    each row's times by tree and the sweep's, and writes every run to
-    ``split.json`` in the output directory."""
+    parent's kernel source (:func:`_runs_in_turn`), then, with ``sweep``,
+    the document-count sweep of this tree alone (``SPLIT_SWEEP=1``).
+    Prints each row's times by tree and the sweep's, and writes every run
+    to ``split.json`` in the output directory."""
     runs = _runs_in_turn(_SPLIT_RUN, "SPLIT", variants, parent)
-    here = os.path.dirname(os.path.abspath(__file__))
-    res = subprocess.run([sys.executable, "-c", _SPLIT_RUN.format(patch="")],
-                         cwd=here, env=dict(os.environ, PYTHONPATH=here,
-                                            SPLIT_SWEEP="1"),
-                         capture_output=True, text=True, timeout=1800)
-    if res.returncode != 0:
-        print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
-        raise AssertionError("split: the sweep failed")
-    line = next(x for x in res.stdout.splitlines()
-                if x.startswith("SPLIT_JSON "))
-    runs.append(dict(label="sweep", **json.loads(line[11:])))
+    if sweep:
+        runs.append(_sweep_run(_SPLIT_RUN, "SPLIT", 1800))
     by = {}
-    for run in runs[:-1]:
+    for run in runs:
+        if run["label"] == "sweep":
+            continue
         for r in run["rows"]:
             key = (r["kernel"], r["cap"], r["docs"], r["k"], r["tier"],
                    r.get("cell", ""))
@@ -7818,11 +7848,11 @@ def split_ab(variants=(), parent=None) -> int:
               "(ms, device ms): " + ", ".join(f"{label} {ms}"
                                               for label, ms in v.items()),
               flush=True)
-    sweep = {}
-    for r in runs[-1]["sweep"]:
-        sweep.setdefault((r["kernel"], r["cap"], r["k"], r["docs"]), {})[
+    cells = {}
+    for r in runs[-1]["sweep"] if sweep else ():
+        cells.setdefault((r["kernel"], r["cap"], r["k"], r["docs"]), {})[
             r["tier"]] = (r["ms"], r["device_ms"])
-    for (name, cap, k, d), v in sweep.items():
+    for (name, cap, k, d), v in cells.items():
         (g, gd), (sp, sd) = v["global"], v["split"]
         print(f"sweep {name} S={cap} K={k} D={d}: global {g:.4f} split "
               f"{sp:.4f} ms ({g / sp:.2f}x); device {gd:.4f} / {sd:.4f} "
@@ -7876,7 +7906,7 @@ def _narrow_rows(name, t0, s0, ops, tiers, want, **key) -> list:
     first tier's output); each tier's device ms a launch (:func:`_queued_ms`
     with a fresh copy of the input before each launch, the copy's time
     taken off) beside the all-rows byte floor and the floor of the rows
-    below count + 2K (:func:`live_bound_bytes`). Nothing is counted."""
+    the data needs (:func:`live_bound_bytes`). Nothing is counted."""
     spec = KERNELS[name]
     dev = t0.device
     d, cap, k = t0.shape[1], t0.shape[2], ops.shape[1]
@@ -7909,11 +7939,12 @@ def _narrow_rows(name, t0, s0, ops, tiers, want, **key) -> list:
             kernel=name, tier=tier, cap=cap, docs=d, k=k, device_ms=ms,
             reps=reps, bound_ms=bound_bytes(name, d, cap, k)
             / HBM_BYTES_PER_S * 1e3,
-            live_bound_ms=live_bound_bytes(name, s0, cap, ops)
+            live_bound_ms=live_bound_bytes(name, s0, cap, ops, want[1])
             / HBM_BYTES_PER_S * 1e3, **key))
         print(f"narrow {name} S={cap} D={d} K={k} {tier}"
               f"{' ' + key['path'] if 'path' in key else ''}: device "
-              f"{ms:.4f} ms (bound {rows[-1]['bound_ms']:.5f})", flush=True)
+              f"{ms:.4f} ms (bound {rows[-1]['live_bound_ms']:.5f}, all "
+              f"rows {rows[-1]['bound_ms']:.5f})", flush=True)
     del t, s
     return rows
 
@@ -7958,42 +7989,38 @@ def narrow_times(device, sweep=False) -> dict:
     return dict(tiers=tiers, rows=rows, ptxas=ptxas)
 
 
-def narrow_ab(variants=(), parent=None) -> int:
+def narrow_ab(variants=(), parent=None, sweep=True) -> int:
     """:func:`narrow_times` at the paths' shapes for this tree, each
     variant and the parent's kernel source (the shared tier alone) in
-    turns (:func:`_runs_in_turn`), then the sweep of this tree alone
-    (``NARROW_SWEEP=1``). Prints each path's device ms by tree and tier
+    turns (:func:`_runs_in_turn`), then, with ``sweep``, the sweep of this
+    tree alone (``NARROW_SWEEP=1``). Prints each path's device ms by tree
+    and tier beside its floors (the rows the data needs, and all rows)
     and each sweep cell's warp / shared ratio, and writes every run to
     ``narrow.json`` in the output directory."""
     runs = _runs_in_turn(_NARROW_RUN, "NARROW", variants, parent)
-    here = os.path.dirname(os.path.abspath(__file__))
-    res = subprocess.run([sys.executable, "-c",
-                          _NARROW_RUN.format(patch="")], cwd=here,
-                         env=dict(os.environ, PYTHONPATH=here,
-                                  NARROW_SWEEP="1"),
-                         capture_output=True, text=True, timeout=2400)
-    if res.returncode != 0:
-        print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
-        raise AssertionError("narrow: the sweep failed")
-    line = next(x for x in res.stdout.splitlines()
-                if x.startswith("NARROW_JSON "))
-    runs.append(dict(label="sweep", **json.loads(line[12:])))
+    if sweep:
+        runs.append(_sweep_run(_NARROW_RUN, "NARROW", 2400))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "narrow.json"), "w") as f:
         json.dump(runs, f, indent=1)
-    by = {}
-    for run in runs[:-1]:
+    by, floors = {}, {}
+    for run in runs:
+        if run["label"] == "sweep":
+            continue
         for r in run["rows"]:
             key = (r["kernel"], r["cap"], r["docs"], r["k"], r["path"])
             by.setdefault(key, {}).setdefault(
                 f"{run['label']} {r['tier']}", []).append(
                     round(r["device_ms"], 4))
-    for (name, cap, d, k, path), v in by.items():
+            floors[key] = (r["live_bound_ms"], r["bound_ms"])
+    for key, v in by.items():
+        name, cap, d, k, path = key
         print(f"narrow {name} S={cap} D={d} K={k} ({path}) device ms: "
-              + ", ".join(f"{label} {ms}" for label, ms in v.items()),
-              flush=True)
+              + ", ".join(f"{label} {ms}" for label, ms in v.items())
+              + f" (bound {floors[key][0]:.5f}, all rows "
+              f"{floors[key][1]:.5f})", flush=True)
     cells = {}
-    for r in runs[-1]["rows"]:
+    for r in runs[-1]["rows"] if sweep else ():
         cells.setdefault((r["kernel"], r["cap"], r["k"], r["docs"]), {})[
             r["tier"]] = r["device_ms"]
     for (name, cap, k, d), v in cells.items():
@@ -8221,19 +8248,19 @@ if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--split":
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device; nothing was run")
-        rest = sys.argv[2:]
+        rest = [a for a in sys.argv[2:] if a != "--no-sweep"]
         parent = None
         if rest[:1] == ["--parent"]:
             parent, rest = rest[1], rest[2:]
-        sys.exit(split_ab(rest, parent))
+        sys.exit(split_ab(rest, parent, "--no-sweep" not in sys.argv))
     if len(sys.argv) > 1 and sys.argv[1] == "--narrow":
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device; nothing was run")
-        rest = sys.argv[2:]
+        rest = [a for a in sys.argv[2:] if a != "--no-sweep"]
         parent = None
         if rest[:1] == ["--parent"]:
             parent, rest = rest[1], rest[2:]
-        sys.exit(narrow_ab(rest, parent))
+        sys.exit(narrow_ab(rest, parent, "--no-sweep" not in sys.argv))
     if len(sys.argv) > 1 and sys.argv[1] == "--exchange":
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device; nothing was run")

@@ -13,13 +13,13 @@
 //
 // Tiers. Every device function is templated over the table accessor DocT,
 // so every tier runs one body of code; the caller names the tier.
-//   - warp (S <= 512; K1 and K3, K2 refuses it): one warp per document, as
-//     many documents a CTA as keep the most resident on an SM
-//     (warp_docs_per_cta: 1 on an H100 at these widths, where 32 CTAs an
-//     SM and the register budget bind first; 4 a CTA forced ran 4% slower
-//     at 128 x 100,000). The doc's 15 lanes live in the warp's slice of
-//     the CTA's dynamic shared memory (15 ints a row: 7.7 KB at 128
-//     rows), moved coalesced (16 bytes a lane where aligned); the op
+//   - warp (S <= 512; K1 and K3, K2 refuses it): one warp per document,
+//     a CTA of one warp (the register budget holds an SM to 24 such warps
+//     up to 128 rows and 16 above, under its 32 CTAs, so more documents a
+//     CTA add none resident; 4 a CTA ran 4% slower at 128 x 100,000 on an
+//     H100). The doc's 15 lanes live in the CTA's dynamic shared memory
+//     (15 ints a row: 7.7 KB at 128 rows), moved coalesced (16 bytes a
+//     lane where aligned); the op
 //     loop's scratch (A, C, F; B = C) stays
 //     in registers, lane i holding row 32 j + i of tile j (DocT<T_WARP,
 //     NT>, NT = warp_tiles(S) tiles, the tile loops unrolled by
@@ -140,10 +140,11 @@
 // so all three kernels are latency-bound, not bandwidth-bound: their byte
 // floor is 2 x 15 x S x 4 B x D of table traffic plus D x K x 40 B of ops
 // (1.55 GB per round at 100,000 docs x 128 rows x 16 ops, 0.46 ms at
-// 3.35 TB/s); on the global and split tiers the work needs only the rows
-// below live, 2 x 15 x live x 4 B a document. Warp tier: K x (2-4
-// passes of the live tiles, each tile a warp scan or ballots, no barrier)
-// a warp, about 24-32 warps an SM. Shared tier: K x (3-4
+// 3.35 TB/s); the work needs only the rows below live = min(S, count +
+// 2K), 2 x 15 x live x 4 B a document, which the global, split and warp
+// tiers keep to (the warp tier loads the rows below count). Warp tier:
+// K x (2-4 passes of the live tiles, each tile a warp scan or ballots,
+// no barrier) a warp, 16-24 warps an SM. Shared tier: K x (3-4
 // barriers + 2-4 passes of S/threads rows). Cluster tier: the same with
 // cluster barriers (each a round trip over the SMs of the cluster) and
 // passes over 1,024-row slices; 256 docs at 8,192 rows are 2,048 CTAs,
@@ -209,20 +210,12 @@ constexpr int CLUSTER_CTAS_PER_SM = 3;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_DEVICES = 64;  // devices whose SM count is cached
 constexpr int MAX_CLUSTER = 16;  // the most CTAs of a (non-portable) cluster
-// The warp tier: tables of up to WARP_MAX_CAP rows, up to WARP_MAX_DOCS
-// documents (one a warp) a CTA. Register budget (warp_ctas_per_sm): 85 a
-// thread up to 128 rows (4 tiles of scratch a lane), 128 above.
+// The warp tier: tables of up to WARP_MAX_CAP rows, one document (one
+// warp) a CTA. Register budget (warp_ctas_per_sm, CTAs of one warp an
+// SM): 85 a thread up to 128 rows (4 tiles of scratch a lane), 128 above.
 constexpr int WARP_MAX_CAP = 512;
-constexpr int WARP_MAX_DOCS = 8;
-constexpr int WARP_NARROW_CTAS_PER_SM = 3;
-constexpr int WARP_WIDE_CTAS_PER_SM = 2;
-// Documents a warp-tier CTA holds in every launch where not 0 (a
-// measurement's variant; 0: warp_docs_per_cta's rule).
-constexpr int WARP_DOCS_FORCED = 0;
-// An SM's shared memory and what the runtime reserves of it a CTA (H100).
-constexpr int SM_SMEM_BYTES = 233472;
-constexpr int CTA_SMEM_RESERVED = 1024;
-constexpr int MAX_CTAS_PER_SM = 32;
+constexpr int WARP_NARROW_CTAS_PER_SM = 24;
+constexpr int WARP_WIDE_CTAS_PER_SM = 16;
 
 // T_SPLIT: the table in global memory, a cluster of CTAs per document.
 // The C entries' tier 3 selects it for every entry; tier 2 selects it for
@@ -1094,7 +1087,10 @@ __device__ __forceinline__ int compact_doc(const Doc &d, int min_seq, int *out,
     // prefix: the merged length is the next head's prefix (the total for
     // the last) less its own. Each lane reads both before any writes.
     // Then rows [n_heads, whi) take their lane's fill (rows past whi are
-    // free already). The caller stores the table.
+    // free already). The caller stores the table. The pass wrote head
+    // rows that other lanes read here: only __syncwarp orders one lane's
+    // shared-memory writes before another's reads.
+    __syncwarp();
     const int nh = t.n_heads;
     for (int h0 = 0; h0 < nh; h0 += 32) {
       const int h = h0 + lane;
@@ -1351,9 +1347,8 @@ __host__ __device__ constexpr int warp_tiles(int S) {
   return S <= 64 ? 2 : S <= 128 ? 4 : S <= 256 ? 8 : 16;
 }
 
-// The warp tier's CTAs per SM the register budget aims at (CTAs of
-// WARP_MAX_DOCS warps): up to 4 tiles WARP_NARROW_CTAS_PER_SM, above
-// WARP_WIDE_CTAS_PER_SM.
+// The warp tier's CTAs (one warp each) per SM the register budget aims
+// at: up to 4 tiles WARP_NARROW_CTAS_PER_SM, above WARP_WIDE_CTAS_PER_SM.
 __host__ __device__ constexpr int warp_ctas_per_sm(int NT) {
   return NT <= 4 ? WARP_NARROW_CTAS_PER_SM : WARP_WIDE_CTAS_PER_SM;
 }
@@ -1429,23 +1424,21 @@ __device__ __forceinline__ void warp_load_async(int *dst, size_t dls,
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// K1 (MODE 0) and K3 (MODE 2) on the warp tier: warp w of CTA b runs
-// document b * (warps a CTA) + w, its N_LANES x S table in its own slice of
-// the CTA's dynamic shared memory, the op loop's scratch in registers
-// (DocT<T_WARP, NT>, NT = warp_tiles(S)), each op over the rows below
-// min(S, count + 2). Nothing crosses warps: __syncwarp orders shared
-// memory, and a warp past the last document exits at once.
+// K1 (MODE 0) and K3 (MODE 2) on the warp tier: the one warp of CTA b
+// runs document b, its N_LANES x S table in the CTA's dynamic shared
+// memory, the op loop's scratch in registers (DocT<T_WARP, NT>, NT =
+// warp_tiles(S)), each op over the rows below min(S, count + 2);
+// __syncwarp orders shared memory.
 template <int MODE, int NT>
-__global__ void __launch_bounds__(WARP_MAX_DOCS * 32, warp_ctas_per_sm(NT))
+__global__ void __launch_bounds__(32, warp_ctas_per_sm(NT))
 merge_warp_kernel(const int *__restrict__ ops, const int *tables_in,
                   const int *scalars_in, int *tables_out, int *scalars_out,
                   int n_docs, int S, int K, bool vec) {
   static_assert(MODE != 1, "K2 has no warp tier");
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int doc = blockIdx.x * (blockDim.x >> 5) + w;
-  if (doc >= n_docs) return;
+  const int lane = threadIdx.x & 31;
+  const int doc = blockIdx.x;
   DocT<T_WARP, NT> d;
-  d.L = smem_raw + (size_t)w * N_LANES * S;
+  d.L = smem_raw;
   d.ls = S;
   d.A = d.B = d.C = nullptr;
   d.F = nullptr;
@@ -1503,29 +1496,6 @@ merge_warp_kernel(const int *__restrict__ ops, const int *tables_in,
     for (int i = 0; i < N_SCALARS; ++i)
       scalars_out[(size_t)doc * N_SCALARS + i] = out[i];
   }
-}
-
-// Documents a warp-tier CTA holds: of 1, 2, 4 and 8 the count that keeps
-// the most documents resident on an SM (its shared memory less a CTA's
-// reserve, at most MAX_CTAS_PER_SM CTAs, the warps the register budget
-// allows), the smaller on a tie; and no more than a launch of n_docs needs
-// to give every SM a CTA.
-int warp_docs_per_cta(int S, int n_docs, int sms) {
-  const int doc_bytes = N_LANES * S * (int)sizeof(int);
-  if (WARP_DOCS_FORCED > 0)
-    return max(1, min(WARP_DOCS_FORCED,
-                      (SM_SMEM_BYTES - CTA_SMEM_RESERVED) / doc_bytes));
-  const int warps = warp_ctas_per_sm(warp_tiles(S)) * WARP_MAX_DOCS;
-  int best = 1, most = 0;
-  for (int dpc = 1; dpc <= WARP_MAX_DOCS; dpc *= 2) {
-    const int ctas = min(min(MAX_CTAS_PER_SM, warps / dpc),
-                         SM_SMEM_BYTES / (dpc * doc_bytes + CTA_SMEM_RESERVED));
-    if (ctas * dpc > most) {
-      most = ctas * dpc;
-      best = dpc;
-    }
-  }
-  return max(1, min(best, (n_docs + sms - 1) / sms));
 }
 
 template <class Kern>
@@ -1645,20 +1615,20 @@ int launch_split(const int *ops, const int *tables_in, const int *scalars_in,
                                        GLOBAL_THREADS, 0, stream);
 }
 
-// The warp tier: K1 or K3 (MODE 0 or 2), one warp a document,
-// warp_docs_per_cta documents a CTA, the kernel of warp_tiles(S) tiles.
+// The warp tier: K1 or K3 (MODE 0 or 2), one CTA of one warp a document,
+// the kernel of warp_tiles(S) tiles.
 template <int MODE, int NT>
 int launch_warp_nt(const int *ops, const int *tables_in,
                    const int *scalars_in, int *tables_out, int *scalars_out,
-                   int n_docs, int S, int K, int dpc, cudaStream_t stream) {
+                   int n_docs, int S, int K, cudaStream_t stream) {
   auto kern = merge_warp_kernel<MODE, NT>;
-  const size_t smem = (size_t)dpc * N_LANES * S * sizeof(int);
+  const size_t smem = (size_t)N_LANES * S * sizeof(int);
   const cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   const bool vec = S % 4 == 0 && ((uintptr_t)tables_in & 15) == 0 &&
                    ((uintptr_t)tables_out & 15) == 0;
-  kern<<<(n_docs + dpc - 1) / dpc, dpc * 32, smem, stream>>>(
-      ops, tables_in, scalars_in, tables_out, scalars_out, n_docs, S, K, vec);
+  kern<<<n_docs, 32, smem, stream>>>(ops, tables_in, scalars_in, tables_out,
+                                     scalars_out, n_docs, S, K, vec);
   return 0;
 }
 
@@ -1666,24 +1636,20 @@ template <int MODE>
 int launch_warp(const int *ops, const int *tables_in, const int *scalars_in,
                 int *tables_out, int *scalars_out, int n_docs, int S, int K,
                 cudaStream_t stream) {
-  int sms = 0;
-  const int ce = sm_count(sms);
-  if (ce != 0) return ce;
-  const int dpc = warp_docs_per_cta(S, n_docs, sms);
   switch (warp_tiles(S)) {
     case 2:
       return launch_warp_nt<MODE, 2>(ops, tables_in, scalars_in, tables_out,
-                                     scalars_out, n_docs, S, K, dpc, stream);
+                                     scalars_out, n_docs, S, K, stream);
     case 4:
       return launch_warp_nt<MODE, 4>(ops, tables_in, scalars_in, tables_out,
-                                     scalars_out, n_docs, S, K, dpc, stream);
+                                     scalars_out, n_docs, S, K, stream);
     case 8:
       return launch_warp_nt<MODE, 8>(ops, tables_in, scalars_in, tables_out,
-                                     scalars_out, n_docs, S, K, dpc, stream);
+                                     scalars_out, n_docs, S, K, stream);
     default:
       return launch_warp_nt<MODE, 16>(ops, tables_in, scalars_in,
                                       tables_out, scalars_out, n_docs, S, K,
-                                      dpc, stream);
+                                      stream);
   }
 }
 

@@ -51,7 +51,7 @@ GLOBAL_MAX_CAPACITY = 65536
 # kernels' int row indices address; must equal MAX_CAP there.
 MAX_CAPACITY = 1 << 30
 # Largest table of the warp tier (K1 and K3 only: one warp a document,
-# as many a CTA as keep the most resident on an SM); WARP_MAX_CAP there.
+# a CTA of one warp); WARP_MAX_CAP there.
 WARP_MAX_CAPACITY = 512
 # When K1 and K3 take the warp tier: for tables of up to each width's
 # rows (and more than the width before), the fewest documents a launch
@@ -222,8 +222,8 @@ def tier(s: int, entry: str, n_docs: int, sms: Optional[int] = None) -> str:
     """The tier merge entry ``entry`` runs a launch of ``n_docs`` tables
     of ``s`` rows on, on a card of ``sms`` SMs (default: the current
     card's, :func:`sm_count`, asked only where it decides): for K1 and K3,
-    ``"warp"`` (one warp a document, its table in its slice of a CTA's
-    shared memory) where :data:`WARP_MIN_DOCS` lets it, up to
+    ``"warp"`` (one warp a document, its table in its CTA's shared
+    memory) where :data:`WARP_MIN_DOCS` lets it, up to
     :data:`WARP_MAX_CAPACITY`; ``"smem"``
     (the table in one CTA's shared memory) up to
     :data:`SMEM_MAX_CAPACITY`; ``"cluster"`` (the table split across a

@@ -3,8 +3,7 @@
 Replaces the Pallas TPU kernel ``fluidframework_tpu/ops/pallas_kernel.py``
 (``_apply_values``, reached through ``apply_ops_packed``). The CUDA kernel
 is ``csrc/merge_kernels.cu`` (``merge_apply``), in five tiers: one warp
-per document (several a CTA), its table in the warp's slice of shared
-memory and the op loop's scratch in registers, each op over the rows below
+per document (a CTA of one warp), its table in shared memory and the op loop's scratch in registers, each op over the rows below
 count + 2 alone, up to 512 rows where ``_cuda.tier``'s sweep-set rule
 takes it; one CTA per
 document with its table resident in shared memory up to 2,048 rows; a

@@ -1392,22 +1392,13 @@ def _model_warp_compact(L, whi, min_seq):
     return nh
 
 
-def _model_warp(t, sc, ops, fuse, dpc):
-    """The warp tier's launch: ceil(D / dpc) CTAs of dpc warps, warp w of
-    CTA b on document b dpc + w, a warp past the last document idle.
-    Returns (t, sc)."""
-    d = t.shape[1]
+def _model_warp(t, sc, ops, fuse):
+    """The warp tier's launch: one CTA of one warp a document. Returns
+    (t, sc)."""
     got_t, got_s = t.copy(), sc.copy()
-    seen = []
-    for b in range(-(-d // dpc)):
-        for w in range(dpc):
-            doc = b * dpc + w
-            if doc >= d:
-                continue
-            seen.append(doc)
-            got_t[:, doc], got_s[doc] = _model_warp_doc(
-                t[:, doc], sc[doc], ops[doc], fuse)
-    assert seen == list(range(d))
+    for doc in range(t.shape[1]):
+        got_t[:, doc], got_s[doc] = _model_warp_doc(
+            t[:, doc], sc[doc], ops[doc], fuse)
     return got_t, got_s
 
 
@@ -1453,16 +1444,15 @@ def _warp_edge_docs(s, k=4):
 
 @pytest.mark.parametrize("s", [32, 64, 128, 256])
 def test_warp_tier_loop_equals_the_plain_versions(s):
-    """K1 and K3 on the warp tier (one warp a document, several a CTA)
-    walk each op over the tiles below min(S, count + 2) alone, keep the
+    """K1 and K3 on the warp tier (one warp a document, a CTA of one
+    warp) walk each op over the tiles below min(S, count + 2) alone, keep the
     scratch in the lanes' registers and move the rows across the 32-row
     tile edges from the two rows below each tile; K3 then compacts in
     place as its one pass goes, and each stores back only the rows below
     the larger count. The model of that loop is held bit for
     bit against apply_plain and apply_compact_plain (which walk every
     row) and the reference XLA kernels on the seams of
-    :func:`_warp_edge_docs` (9 documents, 2 a CTA: the last CTA half
-    empty), and against the plain versions on
+    :func:`_warp_edge_docs` (9 documents), and against the plain versions on
     random states with every err branch and on chip_smoke's edge moves
     and compactions."""
     from chip_smoke import compact_edge_case, edge_case
@@ -1478,7 +1468,7 @@ def test_warp_tier_loop_equals_the_plain_versions(s):
             (False, K1.apply_plain, _xla_packed(ref1)),
             (True, K2.apply_compact_plain,
              _xla_packed(batched_compact(ref1)))):
-        got = _model_warp(t, sc, ops, fuse, 2)
+        got = _model_warp(t, sc, ops, fuse)
         want = plain(torch.from_numpy(t), torch.from_numpy(sc),
                      torch.from_numpy(ops))
         _assert_packed_equal((want[0].numpy(), want[1].numpy()), got)
@@ -1498,6 +1488,37 @@ def test_warp_tier_loop_equals_the_plain_versions(s):
         for fuse, plain in ((False, K1.apply_plain),
                             (True, K2.apply_compact_plain)):
             want = plain(rt, rs, rops)
-            got = _model_warp(rt.numpy(), rs.numpy(), rops.numpy(), fuse,
-                              1)
+            got = _model_warp(rt.numpy(), rs.numpy(), rops.numpy(), fuse)
             _assert_packed_equal((want[0].numpy(), want[1].numpy()), got)
+
+
+@pytest.mark.parametrize("name", ["K1_merge_apply", "K2_zamboni_compact",
+                                  "K3_fused_apply_compact"])
+def test_live_floor_counts_the_rows_this_run_needs(name):
+    """chip_smoke's byte floor with the launch's output scalars counts,
+    for each document, its 15 lanes of the rows below its input count
+    read and of the rows below the larger of its input and output counts
+    written (none of an all-NOOP document for K1), plus the scalars and
+    ops, and lies at or under the all-rows floor."""
+    from chip_smoke import (F_TYPE, KERNELS, OP_NOOP, OP_WIDTH, bound_bytes,
+                            live_bound_bytes)
+    from tools.kernel_sanitize import random_case
+
+    s, k = 64, 5
+    t0, s0, ops = random_case(np.random.default_rng(7), 6, s, k, "cpu")
+    ops[2, :, F_TYPE] = OP_NOOP  # one document of NOOPs
+    spec = KERNELS[name]
+    args = (ops,) if spec["takes_ops"] else ()
+    s_out = spec["plain"](t0, s0, *args)[1]
+    got = live_bound_bytes(name, s0, s, ops, s_out)
+    kk = k if spec["takes_ops"] else 0
+    rows = 0
+    for doc in range(6):
+        if name == "K1_merge_apply" and doc == 2:
+            continue
+        c = min(max(int(s0[doc, K1.SC_COUNT]), 0), s)
+        c2 = min(max(int(s_out[doc, K1.SC_COUNT]), 0), s)
+        rows += c + max(c, c2)
+    assert got == (K1.N_LANES * rows * 4 + 2 * 6 * K1.N_SCALARS * 4
+                   + 6 * kk * OP_WIDTH * 4)
+    assert got <= bound_bytes(name, 6, s, kk)
