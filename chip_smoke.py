@@ -966,7 +966,9 @@ def phase_kernels(device, report, key, shapes, seed_offset=0):
 # fault in shared memory shows only over repeated launches). Merge entries:
 # (entry, tier, rows S, docs D, ops K, the path), K3's shared tier cut from
 # the fleet service's 100,000 documents to 16,384, and its tiers no path
-# runs at phase 1b's shapes. The exchange at 9c's 8 shards of 65,536 rows
+# runs at phase 1b's shapes; then the shared and cluster tiers' seams of
+# the rows below count (``tools.kernel_sanitize.shared_live_cases``). The
+# exchange at 9c's 8 shards of 65,536 rows
 # (X1 and X2 as two device groups of 4) and the one card's shard; T1 at
 # 7a's widths cut to 40 of its 125 commits, T2 at 7b's cut to 32 of 128;
 # A1-A4 at 7a's widths on raw lanes (duplicate move tags, compose's ties
@@ -1028,6 +1030,10 @@ def repeat_cases(dev) -> list:
         case = KS.Case(entry, tier, f"{n:,} docs x {cap:,} rows, K {k} "
                        f"({path})", None)
         out.append((case, KS.merge_run(entry, t, s, ops, tier)))
+    # The shared and cluster tiers where the rows below count meet their
+    # seams (count 0, 1 and S, a live range ending on a slice's edge, one
+    # live op beside NOOPs).
+    out += [(case, case.make(dev)) for case in KS.shared_live_cases()]
     i32 = dict(dtype=torch.int32, device=dev)
     t, s, ops = exchange_case(dev, 8, 65_536, k=1)
     ops2 = KS.with_past_op(ops, 0)
@@ -4757,17 +4763,22 @@ def _client_holds(device, reader_state, b_mid, b_ops, c_mid, c_ops):
     def hold(name, t, s, ops, cell, reps=10, plain_reps=3):
         d, cap = t.shape[1], t.shape[2]
         k = ops.shape[1] if ops is not None else 0
-        err, ms, plain_ms = hold_kernel(name, t, s, ops, reps, plain_reps)
-        b = bound_bytes(name, d, cap, k)
+        outs = []
+        err, ms, plain_ms = hold_kernel(name, t, s, ops, reps, plain_reps,
+                                        scalars_out=outs)
+        b = live_bound_bytes(name, s, cap, ops, outs[0])
+        b_all = bound_bytes(name, d, cap, k)
         rows.append(dict(kernel=name, cell=cell, docs=d, cap=cap, k=k,
                          tier=_cuda.tier(cap, KERNELS[name]["entry"], d),
                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=b / HBM_BYTES_PER_S * 1e3, bound_bytes=b,
+                         all_rows_bound_ms=b_all / HBM_BYTES_PER_S * 1e3,
                          library_ms=None))
         if ms is not None:
             print(f"client kernels {cell} S={cap} D={d} K={k} "
                   f"({rows[-1]['tier']}) {name}: exact, {ms:.4f} ms (plain "
-                  f"{plain_ms:.3f} ms, bound {rows[-1]['bound_ms']:.5f} ms)",
+                  f"{plain_ms:.3f} ms, bound {rows[-1]['bound_ms']:.6f} ms, "
+                  f"all rows {rows[-1]['all_rows_bound_ms']:.5f})",
                   flush=True)
 
     with _Uncounted():
@@ -4950,11 +4961,15 @@ def mesh_9a(device, lists, n_docs=12_288, cap=128, k=8, rounds=3):
         _same_pools(base, fleet, f"9a mesh {name}")
         if name == "8x":
             for kname in ("K1_merge_apply", "K2_zamboni_compact"):
-                err, ms, plain_ms = hold_kernel(kname, t0, s0, o0)
+                outs = []
+                err, ms, plain_ms = hold_kernel(kname, t0, s0, o0,
+                                                scalars_out=outs)
                 holds.append(dict(
                     kernel=kname, cell="9a", docs=per, cap=cap, k=k,
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound_bytes(kname, per, cap, k)
+                    bound_ms=live_bound_bytes(kname, s0, cap, o0, outs[0])
+                    / HBM_BYTES_PER_S * 1e3,
+                    all_rows_bound_ms=bound_bytes(kname, per, cap, k)
                     / HBM_BYTES_PER_S * 1e3))
             del t0, s0, o0
         del fleet
@@ -5894,14 +5909,17 @@ def load_10a(device, cap: int, n_docs: int, seed0: int, n_ops=ORACLE_OPS):
     holds = []
     for name, (tt, ss, oo) in (("K1_merge_apply", (t0, s0, first)),
                                ("K2_zamboni_compact", (t_mid, s_mid, None))):
-        err, ms, plain_ms = hold_kernel(name, tt, ss, oo)
-        b = bound_bytes(name, n_docs, cap, half)
+        outs = []
+        err, ms, plain_ms = hold_kernel(name, tt, ss, oo, scalars_out=outs)
+        b = live_bound_bytes(name, ss, cap, oo, outs[0])
+        b_all = bound_bytes(name, n_docs, cap, half)
         holds.append(dict(kernel=name, cell=f"10a S={cap}",
                           tier=_cuda.tier(cap, KERNELS[name]["entry"],
                                           n_docs),
                           docs=n_docs, cap=cap, k=half, max_abs_err=err,
                           ms=ms, plain_ms=plain_ms,
                           bound_ms=b / HBM_BYTES_PER_S * 1e3,
+                          all_rows_bound_ms=b_all / HBM_BYTES_PER_S * 1e3,
                           bound_bytes=b, library_ms=None))
     rows = int(host.count.max())
     out = dict(docs=n_docs, cap=cap, ops=n_ops, gen_s=gen_s,
@@ -7177,19 +7195,24 @@ def phase_framework(device, report, twin=None, n_ops=FRAMEWORK_OPS,
     with _Uncounted():
         for name, ops in (("K1_merge_apply", nxt),
                           ("K2_zamboni_compact", None)):
-            err, ms, plain_ms = hold_kernel(name, tt, ss, ops)
+            outs = []
+            err, ms, plain_ms = hold_kernel(name, tt, ss, ops,
+                                            scalars_out=outs)
             d, cap = tt.shape[1], tt.shape[2]
-            b = bound_bytes(name, d, cap, 1 if ops is not None else 0)
+            b = live_bound_bytes(name, ss, cap, ops, outs[0])
+            b_all = bound_bytes(name, d, cap, 1 if ops is not None else 0)
             holds.append(dict(kernel=name, cell="11a end state", docs=d,
                               cap=cap, k=1 if ops is not None else 0,
                               tier=_cuda.tier(cap, KERNELS[name]["entry"],
                                               d),
                               max_abs_err=err, ms=ms, plain_ms=plain_ms,
                               bound_ms=b / HBM_BYTES_PER_S * 1e3,
+                              all_rows_bound_ms=b_all / HBM_BYTES_PER_S * 1e3,
                               library_ms=None))
             print(f"framework kernels 11a end state S={cap} {name}: exact, "
                   f"{ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
-                  f"{holds[-1]['bound_ms']:.6f} ms)", flush=True)
+                  f"{holds[-1]['bound_ms']:.6f} ms, all rows "
+                  f"{holds[-1]['all_rows_bound_ms']:.6f})", flush=True)
     ops_s = card["msgs"] / keep["wall_11a"]
     print(f"11a framework: {n_ops} string ops by 3 clients + "
           f"{-(-n_ops // FRAMEWORK_EDIT_EVERY)} other edits, "
@@ -7390,20 +7413,22 @@ def _main(device, twins) -> int:
                         for r in glob if r["kernel"] == name],
             "client_shapes": [{key: r[key] for key in
                                ("cell", "tier", "docs", "cap", "k", "ms",
-                                "plain_ms", "bound_ms")}
+                                "plain_ms", "bound_ms",
+                                "all_rows_bound_ms")}
                               for r in client["holds"]
                               if r["kernel"] == name],
-            "mesh_shapes": [{key: r[key] for key in
+            "mesh_shapes": [{key: r.get(key) for key in
                              ("cell", "docs", "cap", "k", "ms", "plain_ms",
-                              "bound_ms")}
+                              "bound_ms", "all_rows_bound_ms")}
                             for r in scale["holds"] if r["kernel"] == name],
             "load_shapes": [{key: r[key] for key in
                              ("cell", "tier", "docs", "cap", "k", "ms",
-                              "plain_ms", "bound_ms")}
+                              "plain_ms", "bound_ms", "all_rows_bound_ms")}
                             for r in load["holds"] if r["kernel"] == name],
             "framework_shapes": [{key: r[key] for key in
                                   ("cell", "tier", "docs", "cap", "k", "ms",
-                                   "plain_ms", "bound_ms")}
+                                   "plain_ms", "bound_ms",
+                                   "all_rows_bound_ms")}
                                  for r in framework["holds"]
                                  if r["kernel"] == name],
         })
@@ -7909,7 +7934,9 @@ def _narrow_rows(name, t0, s0, ops, tiers, want, **key) -> list:
     the data needs (:func:`live_bound_bytes`). Nothing is counted."""
     spec = KERNELS[name]
     dev = t0.device
-    d, cap, k = t0.shape[1], t0.shape[2], ops.shape[1]
+    ops = ops if spec["takes_ops"] else None
+    d, cap = t0.shape[1], t0.shape[2]
+    k = ops.shape[1] if ops is not None else 0
     t, s = t0.clone(), s0.clone()
     rows = []
     for tier in tiers:
@@ -7949,22 +7976,89 @@ def _narrow_rows(name, t0, s0, ops, tiers, want, **key) -> list:
     return rows
 
 
+# The client path's one-document launches (K1 at 256 rows, K 1) whose
+# host cost host_launch_ms takes: launches a run, runs.
+HOST_LAUNCHES = (200, 5)
+
+
+def host_launch_ms(device, tiers) -> dict:
+    """Host ms a launch of K1 at one document of 256 rows, K 1 (the client
+    path's launches), on each of ``tiers``: the median over
+    :data:`HOST_LAUNCHES` runs of the host wall time of its launches, each
+    a call of the library's C entry (its host calls and the launch; the
+    arguments made once, outside the runs), queued behind a spin so that
+    no launch waits for the card. Nothing is counted."""
+    n, runs = HOST_LAUNCHES
+    t, s, ops = random_case(np.random.default_rng(7), 1, 256, 1, device)
+    entry = _cuda.lib().merge_apply
+    stream = torch.cuda.current_stream(device).cuda_stream
+    out = {}
+    for tier in tiers:
+        args = (ops.data_ptr(), t.data_ptr(), s.data_ptr(), t.data_ptr(),
+                s.data_ptr(), None, 1, 256, 1, _cuda.TIER_CODES[tier],
+                stream)
+        if entry(*args) != 0:  # the warm-up; a refused launch fails here
+            raise AssertionError(f"host_launch_ms: {tier} launch refused")
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(runs):
+            torch.cuda._sleep(200_000_000)
+            a = time.perf_counter()
+            for _ in range(n):
+                entry(*args)
+            times.append((time.perf_counter() - a) * 1e3 / n)
+            torch.cuda.synchronize()
+        out[tier] = float(np.median(times))
+        print(f"narrow host ms a launch, K1 256 x 1 x K 1 {tier}: "
+              f"{out[tier]:.5f} (runs {[round(x, 5) for x in times]})",
+              flush=True)
+    return out
+
+
+# The shared and cluster tiers' other launches on the main path, timed by
+# --narrow on their own tier beside the narrow paths (kernel, rows S, docs
+# D, ops K, path, tier; random states): K2 at config 5's, the serving
+# pools', config 6's and the deep cell's widths, K1 at the deep cell's
+# (shared and cluster) and K3 at phase 1b's cluster width.
+WIDE_PATHS = (
+    ("K2_zamboni_compact", 128, 100_000, 0, "fleet service", "smem"),
+    ("K2_zamboni_compact", 128, 16_384, 0, "serving, pipeline, server",
+     "smem"),
+    ("K2_zamboni_compact", 256, 16_384, 0, "serving, cfg 6", "smem"),
+    ("K2_zamboni_compact", 512, 16_384, 0, "cfg 6", "smem"),
+    ("K2_zamboni_compact", 1024, 16_384, 0, "cfg 6", "smem"),
+    ("K2_zamboni_compact", 2048, 256, 0, "deep", "smem"),
+    ("K1_merge_apply", 2048, 256, 16, "deep", "smem"),
+    ("K1_merge_apply", 4096, 256, 16, "deep", "cluster"),
+    ("K1_merge_apply", 8192, 256, 16, "deep", "cluster"),
+    ("K2_zamboni_compact", 4096, 256, 0, "deep", "cluster"),
+    ("K2_zamboni_compact", 8192, 256, 0, "deep", "cluster"),
+    ("K3_fused_apply_compact", 4096, 256, 16, "1b", "cluster"),
+)
+
+
 def narrow_times(device, sweep=False) -> dict:
     """K1 and K3 at :data:`NARROW_PATHS` on the shared tier and, where this
-    library has it, the warp tier, each held bit for bit against its plain
-    version; with ``sweep``, the sweep instead (:data:`NARROW_CAPS` x
+    library has it, the warp tier, and each launch of :data:`WIDE_PATHS` on
+    its tier, each held bit for bit against its plain version, and the
+    host ms a one-document launch (:func:`host_launch_ms`); with
+    ``sweep``, the sweep instead (:data:`NARROW_CAPS` x
     :data:`NARROW_DOCS` x :data:`NARROW_KS`, both kernels on both tiers).
-    Returns the rows and the ptxas report."""
+    Returns the rows, the host ms and the ptxas report."""
     tiers = ("smem", "warp") if hasattr(_cuda.lib(),
                                         "merge_warp_max_capacity") \
         else ("smem",)
-    rows = []
+    rows, host_ms = [], {}
     if not sweep:
-        for name, cap, d, k, path in NARROW_PATHS:
+        host_ms = host_launch_ms(device, tiers)
+        for name, cap, d, k, path, *tier in (
+                NARROW_PATHS + WIDE_PATHS):
             t0, s0, ops = random_case(np.random.default_rng(cap + d + k), d,
-                                      cap, k, device)
-            want = KERNELS[name]["plain"](t0, s0, ops)
-            rows += _narrow_rows(name, t0, s0, ops, tiers, want, path=path)
+                                      cap, max(k, 1), device)
+            args = (ops,) if KERNELS[name]["takes_ops"] else ()
+            want = KERNELS[name]["plain"](t0, s0, *args)
+            rows += _narrow_rows(name, t0, s0, ops, tuple(tier) or tiers,
+                                 want, path=path)
             del t0, s0, ops, want
             torch.cuda.empty_cache()
     else:
@@ -7986,7 +8080,7 @@ def narrow_times(device, sweep=False) -> dict:
                 torch.cuda.empty_cache()
     ptxas = [x.strip() for x in _cuda.build_log.splitlines()
              if "registers" in x or "spill" in x or "Compiling" in x]
-    return dict(tiers=tiers, rows=rows, ptxas=ptxas)
+    return dict(tiers=tiers, rows=rows, host_launch_ms=host_ms, ptxas=ptxas)
 
 
 def narrow_ab(variants=(), parent=None, sweep=True) -> int:
@@ -8013,6 +8107,10 @@ def narrow_ab(variants=(), parent=None, sweep=True) -> int:
                 f"{run['label']} {r['tier']}", []).append(
                     round(r["device_ms"], 4))
             floors[key] = (r["live_bound_ms"], r["bound_ms"])
+    for run in runs:
+        if run["label"] != "sweep":
+            print(f"narrow host ms a launch ({run['label']}): "
+                  f"{run['host_launch_ms']}", flush=True)
     for key, v in by.items():
         name, cap, d, k, path = key
         print(f"narrow {name} S={cap} D={d} K={k} ({path}) device ms: "

@@ -36,21 +36,28 @@
 //     filled), and in place only the rows below the larger count are
 //     stored back: every other row is free before and after.
 //   - shared (S <= 2,048; K1, K2, K3): one CTA per document, up to 256
-//     threads. The doc's 15 lanes x S rows, three S-row scratch arrays and
-//     an S-byte flag array live in dynamic shared memory for the whole op
-//     loop (146 KB at S = 2,048, so one CTA per SM there; 9.3 KB at 128).
+//     threads. The doc's rows below live (below), three scratch arrays of
+//     as many rows and a flag byte a row live in dynamic shared memory for
+//     the whole op loop (sized for S rows: 146 KB at S = 2,048, so one CTA
+//     per SM there; 9.3 KB at 128). Each op of K1 walks only the rows
+//     below min(S, count + 2), count the op's own.
 //   - cluster (2,048 < S <= 16,384; K1, K2, K3): one thread-block cluster of
 //     C = ceil(S / 1,024) CTAs per document (3-16; above 8 a non-portable
-//     size), 256 threads each. CTA c holds rows [c*SL, c*SL + n) of all
-//     15 lanes plus its scratch in its own shared memory, in the shared
-//     tier's layout (SL = S/C rounded up to 32 rows, at most 1,024: 74 KB,
-//     3 CTAs per SM; the last slice may be shorter). Every reduction of the
-//     op loop reads the other CTAs' warp totals through distributed shared
-//     memory after a cluster barrier, so every scalar stays uniform across
-//     the cluster. The table is loaded once and stored once, coalesced.
-//     Slices of 2,048 rows (512 threads, 1 CTA per SM, C <= 8) ran 13-46%
-//     slower at 4,096-16,384 rows on an H100, so the slices are 1,024 rows.
-//     A cluster that cannot be scheduled fails the launch.
+//     size), 256 threads each, sized from S. CTA c holds rows [c*SL,
+//     c*SL + n) of all 15 lanes plus its scratch in its own shared memory,
+//     in the shared tier's layout (SL = live/C rounded up to 32 rows, at
+//     most S/C so rounded, at most 1,024: 74 KB, 3 CTAs per SM; the last
+//     slices may be shorter or empty; K2 keeps SL = S/C so rounded).
+//     Every reduction of the op loop
+//     reads the other CTAs' warp totals through distributed shared memory
+//     after a cluster barrier, so every scalar stays uniform across the
+//     cluster. Slices of 2,048 rows (512 threads, 1 CTA per SM, C <= 8)
+//     ran 13-46% slower at 4,096-16,384 rows on an H100, so the slices are
+//     1,024 rows. A cluster that cannot be scheduled fails the launch.
+//     On both tiers only the rows below the input's count are loaded (the
+//     rest of [0, live) filled); in place only the rows below the larger
+//     of the input and output counts are stored (every other row is free
+//     before and after), out of place the rows past them as fill.
 //   - global (16,384 < S <= 65,536, launches of at least as many documents
 //     as the card has SMs; ops/_cuda.py routes fewer, where the split tier
 //     gives each document 2 CTAs or more, to the split tier): K1 and K3 run
@@ -73,18 +80,20 @@
 //     store. 2^30 is the largest table the kernels' int row indices
 //     address; a table the card cannot hold fails at allocation, in the
 //     wrapper.
-//   The global and split tiers walk only the rows below live = min(S,
-//   count + 2K) (K2: count), count read at the launch's start
-//   (live_rows): every row at or past count is free (K1 moves rows up
-//   from below count, K2 refills the rows past its heads with free rows;
-//   every port path that writes a table keeps this), and an op adds at
-//   most 2 rows, so no row at or past live changes. The host sizes the
-//   grid from S alone (nothing is read back); each CTA cuts [0, live)
-//   into C slices of SL = ceil(live / C) rows (a multiple of 32), fixed
-//   for the launch, so every row stays with the thread that reads it in
-//   the op loop's passes and the row move needs no barrier after it. A
-//   sharded document's shard (9c: about 10,000 of 65,536 rows; one card:
-//   65,681 of 524,288) is walked over its rows in use, not its capacity.
+//   Every tier walks only the rows below live = min(S, count + 2K) (K2:
+//   count), count read at the launch's start (live_rows): every row at
+//   or past count is free (K1 moves rows up from below count, K2 refills
+//   the rows past its heads with free rows; every port path that writes a
+//   table keeps this), and an op adds at most 2 rows, so no row at or
+//   past live changes. The host sizes the grid from S alone (nothing is
+//   read back); each CTA cuts [0, live) into C slices of SL = ceil(live /
+//   C) rows (a multiple of 32, at most S) and each slice into the warps'
+//   blocks, fixed for the launch, so every row stays with the thread that
+//   reads it in the op loop's passes and the row move needs no barrier
+//   after it (the warp and shared tiers narrow each op further to the
+//   rows below min(S, count + 2)). A sharded document's shard (9c: about 10,000 of
+//   65,536 rows; one card: 65,681 of 524,288) is walked over its rows in
+//   use, not its capacity.
 //   C stays at most 16, one cluster: a document spread over more CTAs
 //   would meet its warp totals through global memory behind a grid-wide
 //   barrier on every reduction of every op (not built; PERF.md §6).
@@ -122,7 +131,8 @@
 // that is not a head, one pass that writes each head's source row and
 // prefix length at its output index, one barrier, and the store: on the
 // shared and cluster tiers it goes straight from shared memory to
-// tables_out by warp tiles (the table crosses memory once in, once out);
+// tables_out, the output rows below the larger of count and n_heads (the
+// rows below count cross memory once in, once out);
 // on the global and split tiers it runs in place over the output rows
 // from the one below the first row that is not a head (every row below it
 // is its own head) up to live, in rounds of STORE_ROWS rows a thread (K3:
@@ -141,13 +151,14 @@
 // floor is 2 x 15 x S x 4 B x D of table traffic plus D x K x 40 B of ops
 // (1.55 GB per round at 100,000 docs x 128 rows x 16 ops, 0.46 ms at
 // 3.35 TB/s); the work needs only the rows below live = min(S, count +
-// 2K), 2 x 15 x live x 4 B a document, which the global, split and warp
-// tiers keep to (the warp tier loads the rows below count). Warp tier:
-// K x (2-4 passes of the live tiles, each tile a warp scan or ballots,
-// no barrier) a warp, 16-24 warps an SM. Shared tier: K x (3-4
-// barriers + 2-4 passes of S/threads rows). Cluster tier: the same with
-// cluster barriers (each a round trip over the SMs of the cluster) and
-// passes over 1,024-row slices; 256 docs at 8,192 rows are 2,048 CTAs,
+// 2K), 2 x 15 x live x 4 B a document, which every tier keeps to (the
+// shared, cluster and warp tiers load only the rows below count). Warp
+// tier: K x (2-4 passes of the live tiles, each tile a warp scan or
+// ballots, no barrier) a warp, 16-24 warps an SM. Shared tier: K x (3-4
+// barriers + 2-4 passes of live/threads rows). Cluster tier: the same
+// with cluster barriers (each a round trip over the SMs of the cluster)
+// and passes over slices of up to 1,024 rows; 256 docs at 8,192 rows are
+// 2,048 CTAs,
 // about 5 waves at 3 CTAs per SM. Global tier: the passes go to L2/HBM
 // (coalesced), with one CTA per doc, so D < 132 leaves SMs idle; below
 // one document an SM the split tier takes the launch. Split tier:
@@ -275,17 +286,18 @@ struct DocT {
                             : MAX_CLUSTER * GLOBAL_THREADS / 32) +
        31) / 32;
   int *L;            // lane 0, local row 0
-  size_t ls;         // lane stride: D*S (global), S (shared), SL (cluster)
+  size_t ls;         // lane stride: D*S (global), SL (shared, cluster)
   int *A, *B, *C;    // [n] scratch (global and split: slices of [S])
   unsigned char *F;  // [n] flags
   int S;             // rows of the whole table
   int base, n;       // this CTA's rows [base, base + n)
-  int SL;            // rows per slice (cluster, split; S otherwise)
-  int live;          // rows the op loop and K2 walk: [0, live) (S on the
-                     // shared and cluster tiers; see live_rows)
+  int SL;            // rows per slice (a multiple of 32 or S; S on the
+                     // warp tier)
+  int live;          // rows the op loop and K2 walk: [0, live) (live_rows)
   int rank, nranks;  // this CTA in the cluster (0 and 1 otherwise)
   int wlo, whi;      // this warp's local rows [wlo, whi) (warp tier: the
-                     // rows below min(S, count + 2), set for each op)
+                     // rows below min(S, count + 2), set for each op;
+                     // shared tier: clipped there for each op)
   int *ws;           // [WS_SIZE] warp totals
   // Warp tier: A and C of tile j's row (B = C there: a warp's prefix is
   // the document's), and F of tile j's row as bit j.
@@ -703,6 +715,15 @@ __device__ __forceinline__ void apply_ops_doc(Doc &d, const int *ops_doc,
   int ahead = 0;
   if constexpr (Doc::kWarp)
     if (lane < OP_WIDTH && K > 0) ahead = ops_doc[lane];
+  // The shared tier clips this warp's block of the launch's cut of [0,
+  // live) to the rows below each op's min(S, count + 2), with no barrier
+  // (the block's end restored after the loop). On an H100 the clip ran
+  // 0-7% faster than the launch's cut at every narrow path (K 8, 16, 64),
+  // never slower; cutting those rows anew into the warps' blocks (a
+  // barrier where they change) ran 2-9% slower than no narrowing (PERF.md
+  // §6, PR 24).
+  constexpr bool kOpCut = Doc::kTier == T_SMEM;
+  const int whi0 = d.whi;
   for (int k = 0; k < K; ++k) {
     const int *p = ops_doc + (size_t)k * OP_WIDTH;
     int now = 0;
@@ -713,6 +734,8 @@ __device__ __forceinline__ void apply_ops_doc(Doc &d, const int *ops_doc,
       now = ahead;
       if (lane < OP_WIDTH && k + 1 < K) ahead = p[OP_WIDTH + lane];
     }
+    if constexpr (kOpCut)  // the same rows on the shared tier (base 0)
+      d.whi = clampi(clampi(sc.count, 0, S) + 2, d.wlo, whi0);
     auto field = [&](int f) {
       if constexpr (Doc::kWarp)
         return __shfl_sync(FULL, now, f);
@@ -875,6 +898,7 @@ __device__ __forceinline__ void apply_ops_doc(Doc &d, const int *ops_doc,
     sc.cur_seq = max(sc.cur_seq, o.seqn);
     sc.min_seq = max(sc.min_seq, o.msn);
   }
+  if constexpr (kOpCut) d.whi = whi0;
 }
 
 // A row as the sibling re-merge (reference packParent subset) sees it:
@@ -1007,13 +1031,15 @@ __device__ __forceinline__ CompactSums compact_sums(const Doc &d, int tent, int 
 // K2 (every tier; reference compact_values): reclaim acked tombstones at
 // or below min_seq with no pending stamp, squeeze the kept rows down and
 // re-merge adjacent splits of one insert, as one gather (see the top of
-// the file). Shared and cluster tiers: the result goes to `out` (this
-// CTA's rows of lane 0 of tables_out, lane stride `plane`). Global tier:
-// in place. Warp tier: in place in the warp's shared memory (`out` unused).
-// Returns n_heads. The caller synchronizes before the call.
+// the file). Shared and cluster tiers: the output rows below the larger of
+// `count_in` (the launch's input count) and n_heads go to `out` (this
+// CTA's rows of lane 0 of tables_out, lane stride `plane`); every row past
+// them is free in the input and the output. Global tier: in place. Warp
+// tier: in place in the warp's shared memory (`out` unused). Returns
+// n_heads. The caller synchronizes before the call.
 template <int STORE, class Doc>
 __device__ __forceinline__ int compact_doc(const Doc &d, int min_seq, int *out,
-                           size_t plane) {
+                           size_t plane, int count_in) {
   const int lane = threadIdx.x & 31;
   const unsigned lt = (1u << lane) - 1u;
   // -- keep, p(r), tentative heads; A = warp-local prefix of kept LEN ----
@@ -1168,19 +1194,27 @@ __device__ __forceinline__ int compact_doc(const Doc &d, int min_seq, int *out,
       }
     }
   } else {
-    for (int hl = threadIdx.x; hl < d.n; hl += blockDim.x) {
+    const int n = min(d.n, max(count_in, nh) - d.base);
+    // All 15 lanes of a row are read (from the CTA that holds its source
+    // row, through DSMEM on the cluster tier) before any is stored, so
+    // the reads are in flight together.
+    for (int hl = threadIdx.x; hl < n; hl += blockDim.x) {
       const int h = d.base + hl;
       const bool is_head = h < nh;
-      int s = 0, len = 0;
+      int v[N_LANES];
       if (is_head) {
-        s = d.C[hl];
-        len = (h + 1 < nh ? row_value(d, d.B, h + 1) : t.total) - d.B[hl];
+        const int s = d.C[hl];
+        const int len =
+            (h + 1 < nh ? row_value(d, d.B, h + 1) : t.total) - d.B[hl];
+#pragma unroll
+        for (int l = 0; l < N_LANES; ++l)
+          v[l] = l == L_LEN ? len : lane_at(d, l, s);
+      } else {
+#pragma unroll
+        for (int l = 0; l < N_LANES; ++l) v[l] = lane_fill(l);
       }
 #pragma unroll
-      for (int l = 0; l < N_LANES; ++l)
-        out[l * plane + hl] = !is_head       ? lane_fill(l)
-                              : l == L_LEN ? len
-                                           : lane_at(d, l, s);
+      for (int l = 0; l < N_LANES; ++l) out[l * plane + hl] = v[l];
     }
   }
   return nh;
@@ -1224,6 +1258,7 @@ merge_kernel(const int *__restrict__ ops, const int *tables_in,
              const int *scalars_in, int *tables_out, int *scalars_out,
              int *work, int n_docs, int S, int K, int SL) {
   __shared__ int ws[WS_SIZE];
+  __shared__ int count_sh;  // the input's count, read again after the loop
   DocT<TIER> d;
   int doc = blockIdx.x;
   d.rank = 0;
@@ -1241,12 +1276,20 @@ merge_kernel(const int *__restrict__ ops, const int *tables_in,
   for (int i = 0; i < N_SCALARS; ++i)
     sc_in[i] = scalars_in[(size_t)doc * N_SCALARS + i];
   d.S = S;
-  d.live = S;
-  if constexpr (DocT<TIER>::kGlobal) {
-    // The rows the op loop and K2 walk, cut into this launch's slices.
-    d.live = live_rows(S, sc_in[SC_COUNT], MODE == 1 ? 0 : K);
-    SL = ((d.live + d.nranks - 1) / d.nranks + 31) / 32 * 32;
-  }
+  // The rows the op loop and K2 walk, cut into this launch's slices: at
+  // most S rows (a shared-tier table may be narrower than a tile, and its
+  // shared memory holds S rows) and on the cluster tier at most the host's
+  // SL rows, which its shared memory holds. K2 keeps the host's slices on
+  // the cluster tier, its rows below count in the first CTAs: on an H100
+  // they ran it 13-17% faster than slices of ceil(count / C) rows at 8,192
+  // and 16,384 rows on random states (2% slower at 4,096) and 9-21% at
+  // 4,096-8,192 on the deep cell's, where they ran K1 6-32% slower
+  // (PERF.md §6, PR 24).
+  const int count_in = clampi(sc_in[SC_COUNT], 0, S);
+  if (threadIdx.x == 0) count_sh = count_in;
+  d.live = live_rows(S, count_in, MODE == 1 ? 0 : K);
+  if (TIER != T_CLUSTER || MODE != 1)
+    SL = min(S, ((d.live + d.nranks - 1) / d.nranks + 31) / 32 * 32);
   d.SL = SL;
   d.base = d.rank * SL;
   d.n = max(0, min(SL, d.live - d.base));
@@ -1275,7 +1318,8 @@ merge_kernel(const int *__restrict__ ops, const int *tables_in,
   d.wlo = min(w * RW, d.n);
   d.whi = min(d.wlo + RW, d.n);
 
-  // Shared and cluster tiers: load this CTA's rows. Global and split
+  // Shared and cluster tiers: load this CTA's rows below the input's
+  // count (the rest of its slice takes its lanes' fills). Global and split
   // tiers: the table is updated where it lies in tables_out, so copy
   // tables_in there, every row, when they differ.
   // All 15 lanes of a row are loaded before any is stored, so a thread
@@ -1295,10 +1339,17 @@ merge_kernel(const int *__restrict__ ops, const int *tables_in,
       }
     }
   } else {
+    const int loaded = min(d.n, count_in - d.base);
     for (int r = threadIdx.x; r < d.n; r += blockDim.x) {
       int v[N_LANES];
+      if (r < loaded) {
 #pragma unroll
-      for (int l = 0; l < N_LANES; ++l) v[l] = tables_in[l * plane + row0 + r];
+        for (int l = 0; l < N_LANES; ++l)
+          v[l] = tables_in[l * plane + row0 + r];
+      } else {
+#pragma unroll
+        for (int l = 0; l < N_LANES; ++l) v[l] = lane_fill(l);
+      }
 #pragma unroll
       for (int l = 0; l < N_LANES; ++l) d.at(l, r) = v[l];
     }
@@ -1314,15 +1365,30 @@ merge_kernel(const int *__restrict__ ops, const int *tables_in,
   if constexpr (MODE != 0) {
     if constexpr (MODE == 2) d.sync();  // the op loop's rows, table-wide
     n_heads = compact_doc<MODE == 2 ? K3_STORE_ROWS : STORE_ROWS>(
-        d, sc.min_seq, tables_out + row0, plane);
+        d, sc.min_seq, tables_out + row0, plane, count_sh);
   }
   // No CTA exits (or stores) while another may still read its rows.
   d.sync();
 
-  if constexpr (MODE == 0 && !DocT<TIER>::kGlobal) {
-    for (int l = 0; l < N_LANES; ++l)
-      for (int r = threadIdx.x; r < d.n; r += blockDim.x)
-        tables_out[l * plane + row0 + r] = d.at(l, r);
+  if constexpr (!DocT<TIER>::kGlobal) {
+    // Every row at or past both counts is free before and after: in place
+    // it is not stored, out of place it takes its lanes' fills (K2 and K3
+    // stored their rows below it in compact_doc).
+    const int stored =
+        max(count_sh, clampi(MODE == 0 ? sc.count : n_heads, 0, S));
+    if constexpr (MODE == 0) {
+      const int n = min(d.n, stored - d.base);
+      for (int l = 0; l < N_LANES; ++l)
+        for (int r = threadIdx.x; r < n; r += blockDim.x)
+          tables_out[l * plane + row0 + r] = d.at(l, r);
+    }
+    if (tables_in != tables_out) {
+      const int T = d.nranks * (int)blockDim.x;
+      for (int l = 0; l < N_LANES; ++l)
+        for (int r = stored + d.rank * (int)blockDim.x + (int)threadIdx.x;
+             r < S; r += T)
+          tables_out[l * plane + base + r] = lane_fill(l);
+    }
   }
   if (threadIdx.x == 0 && d.rank == 0) {
     int out[N_SCALARS] = {MODE == 0 ? sc.count : n_heads, sc.min_seq,
@@ -1446,7 +1512,6 @@ merge_warp_kernel(const int *__restrict__ ops, const int *tables_in,
   d.base = 0;
   d.n = S;
   d.SL = S;
-  d.live = S;
   d.rank = 0;
   d.nranks = 1;
   d.wlo = 0;
@@ -1464,6 +1529,7 @@ merge_warp_kernel(const int *__restrict__ ops, const int *tables_in,
   // Every row at or past count is free: only the rows below it are
   // loaded (to a multiple of 4 on the vector path), the rest filled.
   const int count_in = clampi(sc_in[SC_COUNT], 0, S);
+  d.live = live_rows(S, count_in, K);  // each op narrows it (whi)
   const int loaded = vec ? min(S, (count_in + 3) & ~3) : count_in;
   if (vec)
     warp_load_async(d.L, S, tables_in + base, plane, loaded);
@@ -1478,7 +1544,8 @@ merge_warp_kernel(const int *__restrict__ ops, const int *tables_in,
   int count = sc.count;
   if constexpr (MODE == 2) {
     d.whi = clampi(sc.count, 0, S);  // every row past count is free
-    count = compact_doc<K3_STORE_ROWS>(d, sc.min_seq, nullptr, plane);
+    count = compact_doc<K3_STORE_ROWS>(d, sc.min_seq, nullptr, plane,
+                                       count_in);
     __syncwarp();
   }
   // In place, the rows at or past both counts are free before and after:
@@ -1498,10 +1565,25 @@ merge_warp_kernel(const int *__restrict__ ops, const int *tables_in,
   }
 }
 
+// Raise kernel `kern`'s dynamic shared memory cap on the current device to
+// `smem` bytes where its cap there (`cap`, one entry a device, only
+// rising) lies below: once a device and size, not a host call in front of
+// every launch.
 template <class Kern>
-cudaError_t allow_smem(Kern kern, size_t smem) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+int smem_cap(Kern kern, size_t smem, std::atomic<size_t> (&cap)[MAX_DEVICES]) {
+  static std::mutex setup;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (smem <= cap[dev].load(std::memory_order_acquire)) return 0;
+  std::lock_guard<std::mutex> lock(setup);
+  if (smem <= cap[dev].load(std::memory_order_relaxed)) return 0;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cap[dev].store(smem, std::memory_order_release);
+  return 0;
 }
 
 // A launch of clusters of C CTAs (`threads` each, `smem` bytes of dynamic
@@ -1521,7 +1603,7 @@ int launch_cluster(const int *ops, const int *tables_in, const int *scalars_in,
                    cudaStream_t stream) {
   static std::atomic<unsigned long long>
       checked[MAX_DEVICES][MAX_CLUSTER + 1];
-  static size_t smem_cap[MAX_DEVICES];  // under `setup`
+  static std::atomic<size_t> cap[MAX_DEVICES];
   static std::mutex setup;
   if (C < 1 || C > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
   int dev = 0;
@@ -1535,11 +1617,8 @@ int launch_cluster(const int *ops, const int *tables_in, const int *scalars_in,
   std::unique_lock<std::mutex> lock(setup, std::defer_lock);
   if (!known) {
     lock.lock();
-    if (smem > smem_cap[dev]) {
-      e = allow_smem(kern, smem);
-      if (e != cudaSuccess) return (int)e;
-      smem_cap[dev] = smem;
-    }
+    const int ce = smem_cap(kern, smem, cap);
+    if (ce != 0) return ce;
     if (C > 8) {
       e = cudaFuncSetAttribute(
           kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -1575,10 +1654,11 @@ template <int MODE, bool WIDE>
 int launch_smem(const int *ops, const int *tables_in, const int *scalars_in,
                 int *tables_out, int *scalars_out, int n_docs, int S, int K,
                 cudaStream_t stream) {
+  static std::atomic<size_t> cap[MAX_DEVICES];
   const int threads = min((S + 31) / 32 * 32, MAX_THREADS);
   const size_t smem = smem_bytes(S);
-  const cudaError_t e = allow_smem(merge_kernel<MODE, T_SMEM, WIDE>, smem);
-  if (e != cudaSuccess) return (int)e;
+  const int e = smem_cap(merge_kernel<MODE, T_SMEM, WIDE>, smem, cap);
+  if (e != 0) return e;
   merge_kernel<MODE, T_SMEM, WIDE><<<n_docs, threads, smem, stream>>>(
       ops, tables_in, scalars_in, tables_out, scalars_out, nullptr, n_docs, S,
       K, S);
@@ -1621,10 +1701,11 @@ template <int MODE, int NT>
 int launch_warp_nt(const int *ops, const int *tables_in,
                    const int *scalars_in, int *tables_out, int *scalars_out,
                    int n_docs, int S, int K, cudaStream_t stream) {
+  static std::atomic<size_t> cap[MAX_DEVICES];
   auto kern = merge_warp_kernel<MODE, NT>;
   const size_t smem = (size_t)N_LANES * S * sizeof(int);
-  const cudaError_t e = allow_smem(kern, smem);
-  if (e != cudaSuccess) return (int)e;
+  const int e = smem_cap(kern, smem, cap);
+  if (e != 0) return e;
   const bool vec = S % 4 == 0 && ((uintptr_t)tables_in & 15) == 0 &&
                    ((uintptr_t)tables_out & 15) == 0;
   kern<<<n_docs, 32, smem, stream>>>(ops, tables_in, scalars_in, tables_out,

@@ -59,13 +59,15 @@ WARP_MAX_CAPACITY = 512
 # H100 (132 SMs; PERF.md §6), K1 and K3 on both tiers on the same random
 # states at 64, 128, 256 and 512 rows x 1, 8, 66, 132, 528, 2,048,
 # 16,384 and 100,000 documents x K 1, 8, 16 and 64 (shared / warp device
-# ms): at 64 and 128 rows the warp tier wins every K from 2,048 documents
-# (K1 1.27-2.13x, K3 1.16-2.07x) and loses at 8-528 (0.51-1.02x: one warp
-# a document against a CTA of 2-4; at one document of 64 rows K1 wins
-# 1.08-1.29x, which the rule leaves to the shared tier); at 256 rows K1
-# wins from 16,384 documents at K 1, 16 and 64 (1.03-1.42x) but not at
-# K 8 (0.98-1.00x) and K3 only at K 1 (1.18-1.20x, 0.79-1.00x at K 8-64);
-# at 512 rows both lose (0.23-0.77x: an SM holds 7 documents' tables).
+# ms), re-run in PR 24 once the shared tier walked, loaded and stored
+# only the rows below count: at 64 and 128 rows the warp tier wins every
+# K from 2,048 documents (K1 1.18-2.00x, K3 1.10-1.97x; PR 23 1.16-2.13x)
+# and loses at 8-528 (0.56-1.00x: one warp a document against a CTA of
+# 2-4; at one document of 64 rows it wins 1.14-1.25x, which the rule
+# leaves to the shared tier); at 256 rows K1 wins from 2,048 documents at
+# K 1 (1.25-1.32x) and from 16,384 at K 64 (1.07-1.10x) but not at K 8-16
+# (0.87-1.01x), K3 only at K 1 (1.18-1.25x, 0.78-0.97x at K 8-64); at 512
+# rows both lose (0.23-0.62x: an SM holds 7 documents' tables).
 WARP_MIN_DOCS = {64: 2048, 128: 2048, 256: None, 512: None}
 # The C entries' tier argument.
 TIER_CODES = {"smem": 0, "cluster": 1, "global": 2, "split": 3, "warp": 4}
@@ -281,11 +283,13 @@ def entry_tiers(entry: str) -> tuple:
 
 
 def live_rows(s: int, count: int, k: int) -> int:
-    """The rows ``[0, live)`` the global and split tiers walk in a
-    launch of ``k`` ops on a table of ``s`` rows whose count is ``count``
-    (the kernels' ``live_rows``): every row at or past count is free and
-    an op adds at most 2 rows, so min(s, count + 2k), count clamped into
-    [0, s]. K2 alone walks min(s, count)."""
+    """The rows ``[0, live)`` every tier walks in a launch of ``k`` ops
+    on a table of ``s`` rows whose count is ``count`` (the kernels'
+    ``live_rows``): every row at or past count is free and an op adds at
+    most 2 rows, so min(s, count + 2k), count clamped into [0, s]. K2
+    alone walks min(s, count). The shared, cluster and warp tiers load
+    only the rows below count and, in place, store only the rows below
+    the larger of the input and output counts."""
     return min(s, min(max(count, 0), s) + 2 * k)
 
 

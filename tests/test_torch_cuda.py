@@ -129,6 +129,46 @@ def test_global_tier_matches_plain_on_the_card(cap, n_docs):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tier,cap", [("smem", 256), ("smem", 1024),
+                                      ("smem", 2048), ("cluster", 4096),
+                                      ("cluster", 12000)])
+def test_shared_and_cluster_tiers_walk_the_rows_below_count(tier, cap):
+    """K1, K2 and K3 on the shared and cluster tiers (forced) where the
+    rows below count (+ 2K) meet their seams: count 0 (every warp and CTA
+    without rows), 1, 31, 33 and S, count + 2K past S, live ranges that
+    end on the last warp's or slice's edge (half the table: 8 warps of
+    cap / 16 rows, or C slices of 512), one live op beside NOOPs, and
+    the edge moves and compactions. Each held bit for bit against the
+    plain versions in place (each launch counts on its tier) and out of
+    place into sentinel outputs (the rows past the larger count must be
+    written as fills)."""
+    _need_card()
+    dev = torch.device("cuda", 0)
+    k, half = 4, cap // 2
+    cases = [("apply", KS.live_inputs(dev, cap, [0, 1, 31, 33, cap, cap - 3,
+                                                 half - 2 * k, half], k)),
+             ("apply", KS.live_inputs(dev, cap, [cap // 8] * 8, 1,
+                                      live_doc=3)),
+             ("apply", edge_case(cap, dev, k)),
+             ("compact", compact_edge_case(cap, dev))]
+    for kind, (t0, s0, ops) in cases:
+        for name, spec in KERNELS.items():
+            if kind == "compact" and name == "K1_merge_apply":
+                continue
+            w = spec["wrapper"]
+            before = _tier_counts(w)
+            err, _ms, _plain_ms = hold_kernel(name, t0, s0, ops, 1, 1,
+                                              t=tier)
+            assert err == 0
+            want = dict(before)
+            want[tier] += 2  # check + one timing
+            assert _tier_counts(w) == want
+            run = KS.merge_run(spec["entry"], t0, s0, ops, tier)
+            assert KS.first_difference(run.kernel(), run.plain()) is None, (
+                name, kind)
+
+
+@pytest.mark.cuda
 def test_split_tier_matches_plain_on_the_card():
     """Tables past 65,536 rows (2 x 131,072, and the edge cases in
     launches of up to 8) run on the split tier, bit for bit with the plain

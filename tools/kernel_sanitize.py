@@ -26,7 +26,7 @@ tiers at each one's lower edge, K1 and K3 on the warp tier (one warp a
 document: a table of one partial tile, 301 documents of 128 rows, 512
 rows), with several documents, inserts, removes
 and annotates and tombstones on both sides of the collab window, and on
-the global and split tiers where the rows below count + 2K meet their
+every tier but the warp tier where the rows below count + 2K meet their
 seams (:func:`live_cases`: one live op beside NOOPs, count 0 and count =
 S, live rows that end on a slice edge); X1
 (``shard_stats``) over two device groups of C > 1 CTAs a shard, two ops
@@ -486,6 +486,15 @@ def _live_case(entry, tier, what, cap, counts, k, live_doc=None):
                 f"{what}", make)
 
 
+# Where live_cases meets the seams of the tiers that hold the table in
+# shared memory: (tier, rows S, the row the live range ends at). The
+# shared tier's kernel past 512 rows (8 warps of 64 rows at 512) and up to
+# them (4 of its 8 warps of 32 rows at 128, 4 empty); the cluster tier's 4
+# CTAs (4 slices of 512 rows at 2,048).
+SHARED_LIVE_SHAPES = (("smem", 1024, 512), ("smem", 256, 128),
+                      ("cluster", 4096, 2048))
+
+
 def live_cases() -> list:
     """K1-K3 on the global and split tiers where the rows they walk
     (below min(S, count + 2K)) meet their seams: 8 documents, NOOPs in 7
@@ -493,7 +502,9 @@ def live_cases() -> list:
     S; and live ranges that end on the last slice's edge at 2 documents
     on a 132-SM card: K1's and K3's in the first document (count + 2K =
     16,384, 16 CTAs of 1,024 rows), K2's in the second (count = 16,384: 16
-    CTAs of 1,024 on the split tier, 8 of 2,048 on the global)."""
+    CTAs of 1,024 on the split tier, 8 of 2,048 on the global). Then the
+    same on the shared and cluster tiers at :data:`SHARED_LIVE_SHAPES`
+    (count 0, where every warp and CTA holds no row)."""
     cap, k = 32_768, 4
     edge = 16 * 1024 - 2 * k
     out = []
@@ -504,6 +515,24 @@ def live_cases() -> list:
                     _live_case(e, t, "count 0 and S", cap, [0, cap], k),
                     _live_case(e, t, "live rows end on a slice edge", cap,
                                [edge, edge + 2 * k], k)]
+    return out + shared_live_cases()
+
+
+def shared_live_cases() -> list:
+    """K1-K3 on the shared and cluster tiers at
+    :data:`SHARED_LIVE_SHAPES`: 8 documents, NOOPs in 7 beside one live
+    op; count 0, 1 and S; and live ranges that end on the last warp's or
+    slice's edge (K1's and K3's count + 2K in the first document, K2's
+    count in the second)."""
+    k = 4
+    out = []
+    for e in MERGE:
+        for t, cap, end in SHARED_LIVE_SHAPES:
+            out += [_live_case(e, t, "one live op", cap, [cap // 8] * 8, 1,
+                               live_doc=3),
+                    _live_case(e, t, "count 0, 1 and S", cap, [0, 1, cap], k),
+                    _live_case(e, t, "live rows end on a slice edge", cap,
+                               [end - 2 * k, end], k)]
     return out
 
 
